@@ -1,0 +1,3 @@
+#
+# Models of the port; module names follow spark_rapids_ml_tpu/models.
+#
