@@ -9,5 +9,21 @@ from .version import __version__
 from .core import load
 from .dataframe import DataFrame
 from .models.kmeans import KMeans, KMeansModel
+from .models.random_forest import (
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
 
-__all__ = ["__version__", "DataFrame", "KMeans", "KMeansModel", "load"]
+__all__ = [
+    "__version__",
+    "DataFrame",
+    "KMeans",
+    "KMeansModel",
+    "RandomForestClassificationModel",
+    "RandomForestClassifier",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
+    "load",
+]

@@ -5,7 +5,10 @@
 # Counterpart of spark_rapids_ml_tpu/core.py on one device.  Ingest copies
 # each partition's feature block straight into its rows of one (N, D) tensor
 # on the device that device.resolve() picks — no host concat, no row padding.
-# Fit functions receive FitInputs and return a model-attribute dict.
+# Supervised estimators also get the labels and the weights (user weight
+# times the valid-row mask), both at least float32, with host copies for
+# label discovery.  Fit functions receive FitInputs and return a
+# model-attribute dict.
 # transform runs partition by partition.  Persistence keeps the JAX package's
 # three-file layout (metadata.json, model_arrays.npz, model_attrs.json), and
 # the reader maps the class prefix spark_rapids_ml_tpu. to
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import device as _device
 from .dataframe import DataFrame, as_dataframe
@@ -40,13 +44,17 @@ from .utils import get_logger, materialize_feature_block
 class FitInputs:
     """Training inputs on one device, handed to fit functions."""
 
-    X: torch.Tensor          # (N_pad, D)
-    weight: torch.Tensor     # (N_pad,) valid-row mask: pad rows carry weight 0
+    X: Optional[torch.Tensor]  # (N_pad, D); a fit may drop it once it is done with it
+    weight: torch.Tensor     # (N_pad,) user weight * valid-row mask: pad rows carry 0
     n_rows: int              # valid rows (N_pad >= n_rows)
     n_cols: int
     device: torch.device
     pdesc: PartitionDescriptor
     dtype: np.dtype
+    y: Optional[torch.Tensor] = None       # (N_pad,) labels (supervised only)
+    # host copies of the (unpadded) labels / user weights, for label discovery
+    host_y: Optional[np.ndarray] = None
+    host_w: Optional[np.ndarray] = None
 
 
 # fit function: (inputs, params-dict) -> model attribute dict
@@ -116,7 +124,7 @@ class _TpuCaller(_TpuParams):
         for f in feats:
             X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
             offset += f.shape[0]
-        return FitInputs(
+        inputs = FitInputs(
             X=X,
             weight=torch.ones(n_rows, dtype=X.dtype, device=dev),
             n_rows=n_rows,
@@ -125,6 +133,53 @@ class _TpuCaller(_TpuParams):
             pdesc=PartitionDescriptor.build([len(p) for p in df.partitions], n_cols),
             dtype=dtype,
         )
+        self._add_labels_and_weights(inputs, df)
+        return inputs
+
+    def _fit_label_col(self) -> Optional[str]:
+        """Column to extract as FitInputs.y, or None: supervised estimators
+        consume their labelCol."""
+        if isinstance(self, _TpuEstimatorSupervised) and self.hasParam("labelCol"):
+            return self.getOrDefault("labelCol")
+        return None
+
+    def _add_labels_and_weights(self, inputs: FitInputs, df: DataFrame) -> None:
+        """Labels and weights of the valid rows into `inputs`, at least
+        float32 whatever the feature dtype (integer class labels above the
+        half-precision mantissa are not exact), padded with zeros to the
+        feature tensor's rows: pad rows carry weight 0."""
+        label_col = self._fit_label_col()
+        weight_col = (
+            self.getOrDefault("weightCol")
+            if self.hasParam("weightCol") and self.isSet("weightCol")
+            else None
+        )
+        if label_col is None and weight_col is None:
+            return
+        ldtype = np.dtype(np.float32) if np.dtype(inputs.dtype).itemsize < 4 else np.dtype(inputs.dtype)
+        n_pad, n = inputs.weight.shape[0], inputs.n_rows
+
+        def column(name: str) -> np.ndarray:
+            if name not in df.columns:
+                raise ValueError(f"Column '{name}' not found in dataset {df.columns}")
+            values = np.concatenate([np.asarray(p[name], dtype=ldtype) for p in df.partitions])
+            if values.shape != (n,):
+                raise ValueError(f"column '{name}' holds {values.shape} values for {n} rows")
+            return values
+
+        def padded(values: np.ndarray) -> torch.Tensor:
+            out = torch.zeros(n_pad, dtype=torch_dtype(ldtype), device=inputs.device)
+            out[:n].copy_(torch.from_numpy(values))
+            return out
+
+        if weight_col is not None:
+            inputs.host_w = column(weight_col)
+            inputs.weight = padded(inputs.host_w)
+        else:
+            inputs.weight = inputs.weight.to(torch_dtype(ldtype))
+        if label_col is not None:
+            inputs.host_y = column(label_col)
+            inputs.y = padded(inputs.host_y)
 
     def _build_fit_inputs_device(self, df: DataFrame, dev_features: tuple) -> FitInputs:
         """FitInputs straight from a DataFrame.from_device tensor: no
@@ -136,7 +191,7 @@ class _TpuCaller(_TpuParams):
         X = X.to(dev)
         weight = torch.zeros(X.shape[0], dtype=X.dtype, device=dev)
         weight[:n_rows] = 1.0
-        return FitInputs(
+        inputs = FitInputs(
             X=X,
             weight=weight,
             n_rows=n_rows,
@@ -145,11 +200,14 @@ class _TpuCaller(_TpuParams):
             pdesc=PartitionDescriptor.build([n_rows], n_cols),
             dtype=numpy_dtype(X.dtype),
         )
+        self._add_labels_and_weights(inputs, df)
+        return inputs
 
     def _call_tpu_fit_func(self, dataset: Any) -> Dict[str, Any]:
         df = as_dataframe(dataset)
         _validate_input_columns(self, df)
-        inputs = self._build_fit_inputs(df)
+        with record_function("core.ingest"):
+            inputs = self._build_fit_inputs(df)
         fit_func = self._get_tpu_fit_func(df)
         get_logger(type(self)).info(
             "Invoking fit: %d rows x %d cols on %s",
@@ -208,6 +266,22 @@ class _TpuEstimator(_TpuCaller):
         est = _resolve_class(meta["class"])()
         _apply_params_metadata(meta, est)
         return est
+
+
+class _TpuEstimatorSupervised(_TpuEstimator):
+    """Estimator consuming (features, label[, weight])."""
+
+
+def discover_label_classes(inputs: FitInputs, cast: Optional[Any] = None) -> np.ndarray:
+    """Sorted unique label values of the rows with weight > 0, from the
+    ingest's host copy of the labels (one device, one process)."""
+    if inputs.host_y is None:
+        raise ValueError("label discovery needs the labels of a supervised fit")
+    target = np.dtype(cast) if cast is not None else inputs.host_y.dtype
+    vals = inputs.host_y
+    if inputs.host_w is not None:
+        vals = vals[inputs.host_w > 0]
+    return np.unique(vals.astype(target)).astype(target, copy=False)
 
 
 class _TpuModel(_TpuParams):

@@ -90,6 +90,12 @@ class TypeConverters:
         raise TypeError(f"Could not convert {value} to string")
 
     @staticmethod
+    def toBoolean(value: Any) -> bool:
+        if isinstance(value, bool):
+            return value
+        raise TypeError(f"Could not convert {value} to boolean")
+
+    @staticmethod
     def toList(value: Any) -> list:
         if isinstance(value, (list, tuple)):
             return list(value)
@@ -223,7 +229,7 @@ def _dummy() -> Any:
 
 
 # ---------------------------------------------------------------------------
-# Shared param mixins (the subset KMeans uses)
+# Shared param mixins (the subset KMeans and RandomForest use)
 # ---------------------------------------------------------------------------
 
 
@@ -265,6 +271,49 @@ class HasPredictionCol(Params):
 
     def getPredictionCol(self) -> str:
         return self.getOrDefault(self.predictionCol)
+
+
+class HasLabelCol(Params):
+    labelCol = Param(_dummy(), "labelCol", "label column name", TypeConverters.toString)
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self._setDefault(labelCol="label")
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault(self.labelCol)
+
+
+class HasProbabilityCol(Params):
+    probabilityCol = Param(
+        _dummy(),
+        "probabilityCol",
+        "column name for predicted class conditional probabilities",
+        TypeConverters.toString,
+    )
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self._setDefault(probabilityCol="probability")
+
+    def getProbabilityCol(self) -> str:
+        return self.getOrDefault(self.probabilityCol)
+
+
+class HasRawPredictionCol(Params):
+    rawPredictionCol = Param(
+        _dummy(),
+        "rawPredictionCol",
+        "raw prediction (confidence) column name",
+        TypeConverters.toString,
+    )
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self._setDefault(rawPredictionCol="rawPrediction")
+
+    def getRawPredictionCol(self) -> str:
+        return self.getOrDefault(self.rawPredictionCol)
 
 
 class HasWeightCol(Params):

@@ -62,8 +62,17 @@ model = port.KMeans(k=3, maxIter=5, seed=1).fit(df)
 with tempfile.TemporaryDirectory() as d:
     model.save(d)
     labels = port.load(d).transform(df).partitions[0]["prediction"]
+y = (X[:, 0] > 0).astype(np.float32)
+df_y = port.DataFrame.from_numpy(X, y, num_partitions=2)
+forest = port.RandomForestClassifier(numTrees=2, maxDepth=8, maxBins=16, seed=1).fit(df_y)
+with tempfile.TemporaryDirectory() as d:
+    forest.save(d)
+    probs = port.load(d).transform(df_y).partitions[1]["probability"]
+reg = port.RandomForestRegressor(numTrees=2, maxDepth=3, seed=1).fit(df_y)
+preds = reg.transform(df_y).partitions[0]["prediction"]
 print(json.dumps({
     "n_labels": int(len(labels)),
+    "forest": [list(probs.shape), int(len(preds))],
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_ml_tpu")),
 }))
@@ -82,7 +91,7 @@ def test_main_path_runs_without_jax_and_pandas():
     )
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"n_labels": 100, "loaded": []}
+    assert result == {"n_labels": 100, "forest": [[100, 2], 100], "loaded": []}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -97,6 +106,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         model.transform(df)
     with pytest.raises(RuntimeError, match="use_device"):
         model.predict(X[0])
+    y = (X[:, 0] > 0).astype(np.float32)
+    df_y = port.DataFrame.from_numpy(X, y)
+    for est in (port.RandomForestClassifier(numTrees=2, maxDepth=3), port.RandomForestRegressor(numTrees=2, maxDepth=3)):
+        with pytest.raises(RuntimeError, match="use_device"):
+            est.fit(df_y)
+        with port.device.use_device("cpu"):
+            forest = est.fit(df_y)
+        with pytest.raises(RuntimeError, match="use_device"):
+            forest.transform(df_y)
+        with pytest.raises(RuntimeError, match="use_device"):
+            forest.predict(X[0])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
