@@ -41,10 +41,38 @@
 #   forest_card_vs_cpu
 #            one reduced fit (65,536 x 256, 4 trees, depth 13, no bootstrap)
 #            on the card and under use_device("cpu"): identical trees
+#   kernels_knn
+#            the exact-kNN kernels against their plain versions: candidate
+#            pool (B5, and B6, the same kernel on the audit route), fused
+#            merge (B7), audit count (B8).  On integer-valued data (ragged
+#            shapes and one flagship block) pools, merges and counts are
+#            exact, a pool wider than 16,384 and 65,537 groups included;
+#            given one pool, B7 is bit-exact on Gaussian data too, and on
+#            tied pools with k past one 4,096-rank window and past the pool;
+#            the flagship block's merged distances agree with the plain
+#            route within KNN_DIST_RTOL; timings as above (library_ms:
+#            matmul + a per-group topk, topk over the pool, matmul + a
+#            compare-sum)
+#   path_knn the JAX package's kNN arm: NearestNeighbors(k=200).fit on
+#            400,000 x 3000 float32 items (standard normal, seed 0, 8
+#            partitions), kneighbors of 16,384 queries (seed 7, 2
+#            partitions) twice (staging + search, then the cached call), one
+#            profiled call, 1,024 sampled queries against float64 brute force
+#            on the card, exactNearestNeighborsJoin of 1,000 queries
+#   knn_audit
+#            one 8,192-query block through the audit route (B6 + B7 + B8):
+#            every row the count check fails is flagged too, and the results
+#            equal the main path's
+#   knn_streamed
+#            the same items under an item budget of KNN_STREAM_BUDGET bytes:
+#            kneighbors of 2,048 queries streams them through in 3 blocks;
+#            the device never holds two blocks (peak memory of the call under
+#            two blocks' bytes), and the results pass the float64 check
 # Every path runs with all kernel launch counters reset just before it and
 # read just after.  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
-# `--phases a,b` runs a subset (the summary then lists only what ran).
+# `--phases a,b` runs a subset (the summary then lists only what ran;
+# knn_audit and knn_streamed need path_knn).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -314,6 +342,8 @@ RF_F_PAD = 64                           # sqrt(3000) = 54 subset features, padde
 # float stats (regression w*y): the kernel and the plain version add the
 # same bf16-rounded terms in fp32, in other orders
 HIST_FLOAT_RTOL, HIST_FLOAT_ATOL = 1e-4, 1e-3
+# rows per chunk of the chunked index_add_ yardstick (B3 at level 0)
+HIST_LIBRARY_CHUNK = 32768
 
 
 def classification_data(rows, cols, seed, workers=8):
@@ -438,6 +468,32 @@ def hist_terms(torch, node, stats, t_pack, nodes, s_dim, f_pad):
     return int((valid & (stats != 0)).sum()) * f_pad
 
 
+def hist_flat_index(torch, dev, bins, node, stats, rows, nodes, s_dim, n_bins, f_pad, out_shape, bucketed, sl):
+    """The index_add_ yardstick's (flat output index, bf16-rounded value) of
+    every non-zero term of the rows in `sl`."""
+    n = bins.shape[1]
+    feat = torch.arange(f_pad, device=dev)[:, None]
+    b = bins[:, sl].long()
+    width = b.shape[1]
+    if bucketed:
+        bucket = (torch.arange(n, device=dev) // (n // out_shape[0]))[sl]
+    idx_parts, val_parts = [], []
+    for t in range(rows):
+        c = node[t, sl].long()
+        ok = (c >= 0) & (c < nodes)
+        for s in range(s_dim):
+            slot = (t * nodes + c.clamp(0, nodes - 1)) * s_dim + s
+            if bucketed:
+                flat = ((bucket[None, :] * f_pad + feat) * out_shape[2] + slot[None, :]) * n_bins + b
+            else:
+                flat = (feat * 128 + slot[None, :]) * n_bins + b
+            v = stats[t * s_dim + s, sl].to(torch.bfloat16).float()
+            keep = (ok & (v != 0))[None, :].expand(f_pad, width)
+            idx_parts.append(flat[keep])
+            val_parts.append(v[None, :].expand(f_pad, width)[keep])
+    return torch.cat(idx_parts), torch.cat(val_parts)
+
+
 def check_hist(torch, fh, dev, gen, name, f_pad, n, t_pack, nodes, s_dim, n_bins, reps, bucketed=False,
                library=True):
     """B3 (node_histograms) or B4 (node_histograms_bucketed) at one shape:
@@ -467,34 +523,39 @@ def check_hist(torch, fh, dev, gen, name, f_pad, n, t_pack, nodes, s_dim, n_bins
         del got, want
     lib = None
     if library:
-        # the library yardstick: one index_add_ of the bf16-rounded stats
-        # over the flat output index, built beforehand
+        # the library yardstick: index_add_ of the bf16-rounded stats over
+        # the flat output index, built beforehand
         out_shape = tuple(kernel(bins, node, stats).shape)
-        if bucketed:
-            cap = n // n_buckets
-            bucket = torch.arange(n, device=dev) // cap
-            slots_pad = out_shape[2]
-        feat = torch.arange(f_pad, device=dev)[:, None]
-        idx_parts, val_parts = [], []
-        for t in range(rows):
-            c = node[t].long()
-            ok = (c >= 0) & (c < nodes)
-            for s in range(s_dim):
-                slot = (t * nodes + c.clamp(0, nodes - 1)) * s_dim + s
-                if bucketed:
-                    flat = ((bucket[None, :] * f_pad + feat) * slots_pad + slot[None, :]) * n_bins + bins.long()
-                else:
-                    flat = (feat * 128 + slot[None, :]) * n_bins + bins.long()
-                v = stats[t * s_dim + s].to(torch.bfloat16).float()
-                keep = (ok & (v != 0))[None, :].expand(f_pad, n)
-                idx_parts.append(flat[keep])
-                val_parts.append(v[None, :].expand(f_pad, n)[keep])
-        idx, vals = torch.cat(idx_parts), torch.cat(val_parts)
-        del idx_parts, val_parts
         numel = math.prod(out_shape)
-        lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
-        check(bool((lib().reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
+        index = lambda sl: hist_flat_index(torch, dev, bins, node, stats, rows, nodes, s_dim, n_bins, f_pad,  # noqa: E731
+                                           out_shape, bucketed, sl)
+        if library == "chunked":
+            # an index of every term would not fit the card: build and apply
+            # it in row chunks, timing only the index_add_ calls
+            lib_ms, out = [], torch.zeros(numel, device=dev)
+            for rep in range(2):
+                out.zero_()
+                total = 0.0
+                for lo in range(0, n, HIST_LIBRARY_CHUNK):
+                    idx, vals = index(slice(lo, min(lo + HIST_LIBRARY_CHUNK, n)))
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out.index_add_(0, idx, vals)
+                    end.record()
+                    torch.cuda.synchronize()
+                    total += start.elapsed_time(end)
+                    del idx, vals
+                lib_ms.append(total)
+            check(bool((out.reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
+            del out
+        else:
+            idx, vals = index(slice(0, n))
+            lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
+            check(bool((lib().reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
     row = timings(torch, lambda: kernel(bins, node, stats), lambda: plain(bins, node, stats), lib, reps)
+    if library == "chunked":
+        row["library_ms"] = statistics.median(lib_ms)
+        row["library_chunk_rows"] = HIST_LIBRARY_CHUNK
     out_bytes = 4 * math.prod(kernel(bins, node, stats).shape)
     b, by = bound(bins.numel() + 4 * node.numel() + 4 * stats.numel() + out_bytes,
                   hist_terms(torch, node, stats, rows, nodes, s_dim, f_pad))
@@ -533,7 +594,7 @@ def check_forest_kernels(torch, port, binning, fh, X_host, dev):
     out["node_histograms"] = [
         check_hist(torch, fh, dev, gen, "node_histograms", RF_F_PAD, RF_N_PAD, 1, 64, 2, 128, reps=10),
         check_hist(torch, fh, dev, gen, "node_histograms", RF_F_PAD, RF_N_PAD, 50, 1, 2, 128, reps=5,
-                   library=False),
+                   library="chunked"),
     ]
     out["node_histograms_bucketed"] = [
         check_hist(torch, fh, dev, gen, "node_histograms_bucketed", RF_F_PAD, 128 * 8192, 128, 32, 2, 128,
@@ -574,7 +635,7 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
         rec["reloaded_identical"] = True
     launches = read_launches(wrappers)
     peak_bytes = torch.cuda.max_memory_allocated()
-    rec["profile"] = profile_fit(torch, est, df)
+    rec["profile"] = profile_run(torch, lambda: est.fit(df), PROFILE_RANGES, wrappers)
     hold_pred = np.concatenate([p["prediction"] for p in model.transform(hold).partitions])
     y_hold = y[RF_ROWS:]
     check(np.isfinite(pred).all() and np.isfinite(hold_pred).all(), "non-finite predictions")
@@ -599,27 +660,48 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
 
 
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
+# the port's kernels as the trace names them (all in anonymous namespaces)
+PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "knn_topm_kernel",
+                       "knn_count_kernel", "knn_fused_merge_kernel")
 
 
-def profile_fit(torch, est, df):
-    """One more fit of `est` under torch.profiler: the host milliseconds
-    inside each of the port's ranges, the device's busy milliseconds (the
+def is_port_kernel(name):
+    return "at::" not in name and any(f"(anonymous namespace)::{s}" in name for s in PORT_KERNEL_SYMBOLS)
+
+
+def profile_run(torch, run, ranges, wrappers):
+    """One more call of `run` under torch.profiler: the host milliseconds
+    inside each of the port's `ranges`, the device's busy milliseconds (the
     union of the intervals of every kernel and copy on the card), the
-    device's idle share of the fit's wall time, and the device time of the
-    kernels that took the most.  The profiler slows the fit; fit_s comes
-    from the fit before it."""
+    device's idle share of the call's wall time, and the device time of the
+    kernels that took the most.  The trace is complete when it holds one
+    event for each launch the port's wrappers counted during the call (a
+    trace of the kNN path once lost one of two 0.7-s kernels, halving the
+    busy time); the busy time and idle share of an incomplete trace are
+    null, not measured.  The profiler slows the call; the path's own timings
+    come from the calls before it."""
+    before = sum(read_launches(wrappers).values())
+    rec = profile_once(torch, run, ranges)
+    rec["launches"] = sum(read_launches(wrappers).values()) - before
+    rec["trace_complete"] = rec["traced_launches"] == rec["launches"]
+    if not rec["trace_complete"]:
+        rec["device_busy_ms"] = rec["device_idle_share"] = None
+    return rec
+
+
+def profile_once(torch, run, ranges):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        est.fit(df)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)  # not the profiler's own start and stop
     events = prof.events()
-    host = {k: 0.0 for k in PROFILE_RANGES}
-    spans, per_kernel = [], {}
+    host = {k: 0.0 for k in ranges}
+    spans, per_kernel, traced = [], {}, 0
     for e in events:
         if e.device_type == DeviceType.CPU:
             if e.name in host:
@@ -628,6 +710,7 @@ def profile_fit(torch, est, df):
             # a kernel or a copy on the card (not a range's device-side
             # annotation, nor the profiler's own buffer requests)
             spans.append((e.time_range.start, e.time_range.end))
+            traced += is_port_kernel(e.name)
             ms, count = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
     busy_us, reach = 0.0, float("-inf")
@@ -637,11 +720,12 @@ def profile_fit(torch, est, df):
             reach = end
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     return {
-        "profiled_fit_ms": wall_ms,
+        "profiled_ms": wall_ms,
         "range_host_ms": host,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "top_device_ms": [[name[:90], ms, count] for name, (ms, count) in top],
+        "traced_launches": traced,
     }
 
 
@@ -668,6 +752,355 @@ def forest_card_vs_cpu(torch, port):
             "card_fit_s": card_s, "cpu_fit_s": cpu_s}
 
 
+# ---------------------------------------------------------------------------
+# Exact kNN: kernels B5-B8 and the JAX package's kNN arm
+# ---------------------------------------------------------------------------
+
+# The JAX package's kNN arm (bench.py:303-339, k from
+# benchmark/bench_nearest_neighbors.py:21): 400,000 x 3000 float32 items,
+# standard normal from seed 0; 16,384 queries from seed 7; k = 200; 8 item
+# and 2 query partitions.  Not cut.
+KNN_ITEMS, KNN_QUERIES, KNN_K = 400_000, 16_384, 200
+KNN_ITEM_PARTS, KNN_QUERY_PARTS, KNN_ITEM_SEED, KNN_QUERY_SEED = 8, 2, 0, 7
+KNN_BLOCK = 8192       # queries per block (knn_search_prepared's default)
+KNN_SAMPLE = 1024      # queries held against float64 brute force
+KNN_JOIN_QUERIES = 1000
+# distances against float64 (fp32 sums of 3000 products; ~1e-7 relative
+# expected); index sets may differ only in items within KNN_TIE_RTOL of the
+# k-th distance
+KNN_DIST_RTOL, KNN_TIE_RTOL = 1e-4, 1e-5
+# ragged kernel shapes (n, d, Q, m, k, invalid trailing items): n not a
+# multiple of 1024, d not a multiple of the 16-feature slice, Q not a
+# multiple of the 32-query tile, k past the valid items or past the pool; the
+# last two a pool of 3,418 groups x 5 = 17,090 candidates a query, and 65,537
+# groups (past one launch's 65,535)
+KNN_RAGGED = [
+    (2100, 300, 250, 5, 10, 30),
+    (700, 37, 33, 32, 40, 0),
+    (20, 5, 7, 32, 25, 0),
+    (3000, 515, 384, 20, 33, 0),
+    (1076, 37, 33, 32, 40, 36),
+    (3_500_000, 32, 64, 5, 200, 0),
+    (67_109_000, 3, 33, 2, 5, 0),
+]
+# B7 alone on wide tied pools: (Q, ng, m) and the k of each merge, one
+# 4,096-rank window, several, all of the pool and past it
+KNN_WIDE_POOL, KNN_WIDE_KS = (256, 4000, 5), (200, 9000, 20000, 25000)
+# knn_streamed: the item budget (bytes), so 400,000 x 3000 items make 3
+# blocks, and its queries
+KNN_STREAM_BUDGET, KNN_STREAM_QUERIES = 2_000_000_000, 2048
+KNN_PROFILE_RANGES = ("knn.dispatch", "knn.collect", "knn.fallback")
+
+
+def normal_data(rows, cols, seed, workers=8):
+    """Standard normal float32 (rows, cols), filled by `workers` threads
+    with independent streams spawned from `seed`."""
+    X = np.empty((rows, cols), np.float32)
+    streams = np.random.SeedSequence(seed).spawn(workers)
+    bounds = np.linspace(0, rows, workers + 1, dtype=int)
+
+    def fill(i):
+        rng_i = np.random.default_rng(streams[i])
+        for lo in range(bounds[i], bounds[i + 1], 16384):
+            rng_i.standard_normal(out=X[lo : min(lo + 16384, bounds[i + 1])], dtype=np.float32)
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(fill, range(workers)))
+    return X
+
+
+def knn_exact_case(torch, kk, dev, gen, n, d, q, m, k, invalid):
+    """B5, B7 and B8 against their plain versions on integer-valued data
+    (every sum exact in fp32): equal pools (values and positions, -inf
+    slots included), equal merges, equal counts."""
+    X = torch.randint(-3, 4, (n, d), generator=gen, device=dev).float()
+    Q = torch.randint(-3, 4, (q, d), generator=gen, device=dev).float()
+    norm = (X * X).sum(dim=1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    if invalid:
+        valid[n - invalid :] = False
+    inorm, qn = kk._masked_norms(norm, valid), (Q * Q).sum(dim=1)
+    v, p = kk.knn_candidates(X, norm, valid, Q, m)
+    pv, pp = kk.knn_candidates_plain(X, inorm, Q, qn, m)
+    out = kk.knn_fused_merge(v, p, k)
+    ref = kk.knn_fused_merge_plain(v, p, k)
+    cnt = kk.knn_count(X, norm, valid, Q, out[3])
+    pcnt = kk.knn_count_plain(X, inorm, Q, qn, out[3])
+    torch.cuda.synchronize()
+    rec = {
+        "n": n, "d": d, "q": q, "m": m, "k": k, "invalid": invalid,
+        "pool_value_mismatches": int((v != pv).sum()), "pool_position_mismatches": int((p != pp).sum()),
+        "merge_mismatches": [int((a != b).sum()) for a, b in zip(out, ref)],
+        "count_mismatches": int((cnt != pcnt).sum()), "count_max_abs_err": int((cnt - pcnt).abs().max()),
+        "invalid_in_pool": int(((p >= n - invalid) & torch.isfinite(v)).sum()) if invalid else 0,
+    }
+    check(rec["pool_value_mismatches"] == 0 and rec["pool_position_mismatches"] == 0,
+          f"knn_candidates ({n},{d},{q},m={m}) integer data: pool differs from the plain version: {rec}")
+    check(sum(rec["merge_mismatches"]) == 0, f"knn_fused_merge ({n},{d},{q},k={k}) differs: {rec}")
+    check(rec["count_mismatches"] == 0, f"knn_count ({n},{d},{q}) differs: {rec}")
+    check(rec["invalid_in_pool"] == 0, f"an invalid item entered the pool: {rec}")
+    del X, Q
+    return rec
+
+
+def knn_wide_merge(torch, kk, dev, gen):
+    """B7 against its plain version on one wide pool of tied values (a
+    quarter of each row's values -inf), at every k of KNN_WIDE_KS: bit for
+    bit."""
+    q, ng, m = KNN_WIDE_POOL
+    v = torch.randint(-40, 0, (q, ng, m), generator=gen, device=dev).float()
+    v[torch.rand(q, ng, m, generator=gen, device=dev) < 0.25] = float("-inf")
+    p = torch.randint(0, 2**31 - 1, (q, ng, m), generator=gen, device=dev, dtype=torch.int32)
+    mismatches = {}
+    for k in KNN_WIDE_KS:
+        out, ref = kk.knn_fused_merge(v, p, k), kk.knn_fused_merge_plain(v, p, k)
+        mismatches[k] = [int((a != b).sum()) for a, b in zip(out, ref)]
+        check(sum(mismatches[k]) == 0, f"knn_fused_merge on a ({q}, {ng}, {m}) pool, k={k}, differs: {mismatches[k]}")
+    ms = median_ms(torch, lambda: kk.knn_fused_merge(v, p, KNN_K), 5)
+    return {"q": q, "ng": ng, "m": m, "pool": ng * m, "ks": list(KNN_WIDE_KS), "mismatches": mismatches,
+            "kernel_ms_k200": ms}
+
+
+def check_knn_kernels(torch, kk, knn_ops, dev):
+    """Phase kernels_knn: B5-B8 against their plain versions at ragged shapes
+    (one with a pool wider than 16,384), B7 on wide tied pools, and all at
+    one flagship block, with timings at the flagship block."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m = knn_ops._scan_geometry(KNN_K, KNN_ITEMS)[1]
+    ragged = [knn_exact_case(torch, kk, dev, gen, *shape) for shape in KNN_RAGGED]
+    torch.cuda.empty_cache()
+    wide_merge = knn_wide_merge(torch, kk, dev, gen)
+    flagship_int = knn_exact_case(torch, kk, dev, gen, KNN_ITEMS, COLS, KNN_BLOCK, m, KNN_K, 0)
+    torch.cuda.empty_cache()
+
+    X = torch.randn(KNN_ITEMS, COLS, generator=gen, device=dev)
+    Q = torch.randn(KNN_BLOCK, COLS, generator=gen, device=dev)
+    norm = (X * X).sum(dim=1)
+    valid = torch.ones(KNN_ITEMS, dtype=torch.bool, device=dev)
+    inorm, qn = kk._masked_norms(norm, valid), (Q * Q).sum(dim=1)
+    v, p = kk.knn_candidates(X, norm, valid, Q, m)
+    pv, pp = kk.knn_candidates_plain(X, inorm, Q, qn, m)
+    out = kk.knn_fused_merge(v, p, KNN_K)
+    ref = kk.knn_fused_merge_plain(v, p, KNN_K)
+    plain_route = kk.knn_fused_merge_plain(pv, pp, KNN_K)
+    torch.cuda.synchronize()
+    merge_mismatches = [int((a != b).sum()) for a, b in zip(out, ref)]
+    check(sum(merge_mismatches) == 0, f"knn_fused_merge differs from its plain version on one pool: {merge_mismatches}")
+    merge_err = float((out[0] - ref[0]).abs().max())
+    pool_err = float((v - pv).abs().max())
+    dist_err = float((out[0] - plain_route[0]).abs().max())
+    check(bool(torch.allclose(out[0], plain_route[0], rtol=KNN_DIST_RTOL, atol=0.0)),
+          f"kernel route distances off the plain route's by up to {dist_err}")
+    rows_differ = int((out[1] != plain_route[1]).any(dim=1).sum())
+    thresh, unflagged = out[3], out[2] == 0
+    cnt = kk.knn_count(X, norm, valid, Q, thresh)
+    torch.cuda.synchronize()
+    # an unflagged row is complete: every item above its threshold is in
+    # its list, and the count (bitwise the pool's d2) must say so
+    check(bool((cnt == out[4])[unflagged].all()), "count kernel disagrees with the merged lists on unflagged rows")
+    del pv, pp, plain_route, ref
+
+    q_n, n, d, P = KNN_BLOCK, KNN_ITEMS, COLS, v.shape[1] * v.shape[2]
+    ng = v.shape[1]
+
+    def library_pool():
+        neg = -((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :])
+        neg = torch.nn.functional.pad(neg, (0, ng * kk.GROUP - n), value=float("-inf"))
+        return torch.topk(neg.view(q_n, ng, kk.GROUP), m, dim=2)
+
+    def library_count():
+        return (-((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :]) > thresh[:, None]).sum(dim=1)
+
+    dot_ops = 2.0 * q_n * n * d
+    in_bytes = 4.0 * (q_n * d + n * d + q_n + n)
+    b5 = timings(torch, lambda: kk.knn_candidates(X, norm, valid, Q, m),
+                 lambda: kk.knn_candidates_plain(X, inorm, Q, qn, m), library_pool, 3)
+    b5["bound_ms"], b5["bound_by"] = bound(in_bytes + 8.0 * q_n * P, dot_ops)
+    b6 = {"kernel_ms": median_ms(torch, lambda: kk.knn_candidates_audit(X, norm, valid, Q, m), 2),
+          "plain_ms": b5["plain_ms"], "library_ms": b5["library_ms"],
+          "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"]}
+    b7 = timings(torch, lambda: kk.knn_fused_merge(v, p, KNN_K), lambda: kk.knn_fused_merge_plain(v, p, KNN_K),
+                 lambda: torch.topk(v.view(q_n, P), KNN_K, dim=1), 20)
+    b7["bound_ms"], b7["bound_by"] = bound(8.0 * q_n * P + 8.0 * q_n * KNN_K + 12.0 * q_n, float(q_n * P))
+    b8 = timings(torch, lambda: kk.knn_count(X, norm, valid, Q, thresh),
+                 lambda: kk.knn_count_plain(X, inorm, Q, qn, thresh), library_count, 3)
+    b8["bound_ms"], b8["bound_by"] = bound(in_bytes + 8.0 * q_n, dot_ops + q_n * n)
+    del X, Q, v, p
+    torch.cuda.empty_cache()
+    shape = {"n": n, "d": d, "q": q_n, "m": m, "k": KNN_K, "ng": ng, "pool": P}
+    return {
+        "phase": "kernels_knn", "ragged": ragged, "wide_merge": wide_merge, "flagship_integer": flagship_int,
+        "flagship": {**shape, "pool_max_abs_err": pool_err, "dist_max_abs_err_vs_plain_route": dist_err,
+                     "flagged_rows": int((~unflagged).sum()),
+                     "rows_with_other_positions_vs_plain_route": rows_differ, "dist_rtol": KNN_DIST_RTOL},
+        "knn_candidates": {**shape, **b5, "max_abs_err": pool_err},
+        "knn_candidates_audit": {**shape, **b6, "max_abs_err": pool_err},
+        "knn_fused_merge": {**shape, **b7, "max_abs_err": merge_err},
+        # the count is held against its plain version where both are exact:
+        # the flagship block on integer data
+        "knn_count": {**shape, **b8, "max_abs_err": float(flagship_int["count_max_abs_err"])},
+    }
+
+
+def check_against_float64(torch, prepared, Qh, idx, dist, dev):
+    """KNN_SAMPLE queries against float64 brute force over the staged items:
+    distances within KNN_DIST_RTOL, and the returned set differs from the
+    true top k only in items within KNN_TIE_RTOL of the k-th distance."""
+    rng = np.random.default_rng(SEED)
+    sample = np.sort(rng.choice(len(Qh), KNN_SAMPLE, replace=False))
+    q64 = torch.from_numpy(Qh[sample]).to(dev, torch.float64)
+    items, n = prepared.items, prepared.items.shape[0]
+    d2 = torch.empty((KNN_SAMPLE, n), dtype=torch.float64, device=dev)
+    qn = (q64 * q64).sum(dim=1)
+    for lo in range(0, n, 50_000):
+        x = items[lo : lo + 50_000].double()
+        d2[:, lo : lo + 50_000] = (qn[:, None] - 2.0 * (q64 @ x.T)) + (x * x).sum(dim=1)[None, :]
+    d64 = d2.clamp_(min=0.0).sqrt_()
+    true_d = torch.topk(d64, KNN_K, dim=1, largest=False, sorted=True).values
+    kth = true_d[:, -1:]
+    pos_of_id = np.empty(n, np.int64)
+    pos_of_id[prepared.ids] = np.arange(n)
+    got_pos = torch.from_numpy(pos_of_id[idx[sample]]).to(dev)
+    got_d = torch.from_numpy(dist[sample]).to(dev, torch.float64)
+    got_d64 = d64.gather(1, got_pos)
+    dist_err = float(((got_d - true_d).abs() / true_d).max())
+    below = (d64 < kth * (1 - KNN_TIE_RTOL)).sum(dim=1)
+    got_below = (got_d64 < kth * (1 - KNN_TIE_RTOL)).sum(dim=1)
+    unique = bool((torch.sort(got_pos, dim=1).values.diff(dim=1) > 0).all())
+    worst_out = float((got_d64 / kth - 1).max())
+    check(dist_err <= KNN_DIST_RTOL, f"distances off float64 by up to {dist_err} relative")
+    check(unique, "a query got the same item twice")
+    check(worst_out <= KNN_TIE_RTOL, f"a returned item lies {worst_out} relative beyond the k-th distance")
+    check(bool((below == got_below).all()), f"{int((below != got_below).sum())} rows miss an item off the tie band")
+    swapped = int((got_d64 > kth * (1 - KNN_TIE_RTOL)).sum())
+    del d2, d64
+    torch.cuda.empty_cache()
+    return {"sample": KNN_SAMPLE, "dist_max_rel_err": dist_err, "returned_in_tie_band": swapped,
+            "dist_rtol": KNN_DIST_RTOL, "tie_rtol": KNN_TIE_RTOL}
+
+
+def run_knn_path(torch, port, knn_ops, wrappers, X, Qh, dev):
+    """The kNN arm through the public API.  Returns (record, model, indices,
+    distances)."""
+    item_df = port.DataFrame.from_numpy(X, num_partitions=KNN_ITEM_PARTS)
+    query_df = port.DataFrame.from_numpy(Qh, num_partitions=KNN_QUERY_PARTS)
+    search = knn_ops.knn_search_prepared
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    search.flagged_rows = search.rerun_rows = 0
+    model = port.NearestNeighbors(k=KNN_K).fit(item_df)
+    t0 = time.perf_counter()
+    _, qdf, knn_df = model.kneighbors(query_df)
+    first_s = time.perf_counter() - t0
+    launches_first = read_launches(wrappers)
+    t0 = time.perf_counter()
+    knn_df2 = model.kneighbors(query_df)[2]
+    kneighbors_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    flagged, rerun = search.flagged_rows, search.rerun_rows
+    peak_bytes = torch.cuda.max_memory_allocated()
+    for name in ("knn_candidates", "knn_fused_merge"):
+        check(launches_first[name] > 0 and launches[name] > launches_first[name],
+              f"kneighbors launched {name} no time in a call")
+    idx = np.concatenate([p["indices"] for p in knn_df.partitions])
+    dist = np.concatenate([p["distances"] for p in knn_df.partitions])
+    check(idx.shape == (KNN_QUERIES, KNN_K) and idx.dtype == np.int64 and dist.dtype == np.float32,
+          f"kneighbors gave {idx.shape} {idx.dtype} / {dist.dtype}")
+    check(bool(np.isfinite(dist).all()) and bool((np.diff(dist, axis=1) >= 0).all()), "distances not finite ascending")
+    check(np.array_equal(idx, np.concatenate([p["indices"] for p in knn_df2.partitions]))
+          and np.array_equal(dist, np.concatenate([p["distances"] for p in knn_df2.partitions])),
+          "the cached kneighbors call gave other results")
+    prepared = model._staged_items[1]
+    f64 = check_against_float64(torch, prepared, Qh, idx, dist, dev)
+    profile = profile_run(torch, lambda: model.kneighbors(query_df), KNN_PROFILE_RANGES, wrappers)
+    t0 = time.perf_counter()
+    join = model.exactNearestNeighborsJoin(port.DataFrame.from_numpy(Qh[:KNN_JOIN_QUERIES]))
+    join_s = time.perf_counter() - t0
+    join_rows = join.count()
+    check(join_rows == KNN_JOIN_QUERIES * KNN_K, f"the join has {join_rows} rows")
+    rec = {
+        "phase": "path_knn", "items": KNN_ITEMS, "cols": X.shape[1], "queries": KNN_QUERIES, "k": KNN_K,
+        "item_partitions": KNN_ITEM_PARTS, "query_partitions": KNN_QUERY_PARTS, "rows_cut": False,
+        "m": knn_ops._scan_geometry(KNN_K, KNN_ITEMS)[1], "kernel_route": knn_ops._kernel_route(KNN_K, KNN_ITEMS)[0],
+        "first_kneighbors_s": first_s, "kneighbors_s": kneighbors_s,
+        "stage_s": first_s - kneighbors_s,  # staging: the first call less the cached one
+        "kneighbors_rows_per_s": KNN_QUERIES / kneighbors_s,
+        "launches_first_call": launches_first, "launches": launches,
+        "flagged_rows": flagged, "rerun_rows": rerun,
+        "max_memory_allocated_bytes": peak_bytes, "float64_check": f64, "profile": profile,
+        "join_queries": KNN_JOIN_QUERIES, "join_rows": join_rows, "join_s": join_s,
+    }
+    return rec, model, idx, dist
+
+
+def knn_audit(torch, knn_ops, wrappers, model, Qh, idx, dist, dev):
+    """Phase knn_audit: one block through the audit route on the staged
+    items."""
+    search = knn_ops.knn_search_prepared
+    qb = torch.from_numpy(Qh[:KNN_BLOCK]).to(dev)
+    reset_launches(wrappers)
+    search.flagged_rows = search.rerun_rows = 0
+    search.count_failed_rows = search.count_failed_unflagged_rows = 0
+    t0 = time.perf_counter()
+    d_a, i_a = search(model._staged_items[1], qb, KNN_K, audit=True)
+    audit_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    for name in ("knn_candidates_audit", "knn_fused_merge", "knn_count"):
+        check(launches[name] > 0, f"the audit route launched {name} no time")
+    check(launches["knn_candidates"] == 0, "the audit route launched the main path's pool wrapper")
+    check(search.count_failed_unflagged_rows == 0,
+          f"{search.count_failed_unflagged_rows} rows failed the count check without a flag")
+    check(np.array_equal(i_a, idx[:KNN_BLOCK]) and np.array_equal(d_a, dist[:KNN_BLOCK]),
+          "the audit route's results differ from the main path's")
+    return {"phase": "knn_audit", "queries": KNN_BLOCK, "audit_s": audit_s, "launches": launches,
+            "flagged_rows": search.flagged_rows, "count_failed_rows": search.count_failed_rows,
+            "count_failed_unflagged_rows": search.count_failed_unflagged_rows, "rerun_rows": search.rerun_rows,
+            "equal_to_main_path": True}
+
+
+
+
+def knn_streamed(torch, port, knn_ops, wrappers, X, Qh, main_prepared, main_dist, dev):
+    """Phase knn_streamed: the kNN items under an item budget of
+    KNN_STREAM_BUDGET bytes, so kneighbors streams them in blocks.  The
+    device must hold one block at a time, and the results must pass the
+    float64 check."""
+    real_budget = knn_ops._item_budget_bytes
+    knn_ops._item_budget_bytes = lambda d: KNN_STREAM_BUDGET
+    try:
+        block_rows = knn_ops._item_block_rows(X.shape[1], dev)
+        n_blocks = -(-len(X) // block_rows)
+        Qs = Qh[:KNN_STREAM_QUERIES]
+        model = port.NearestNeighbors(k=KNN_K).fit(port.DataFrame.from_numpy(X, num_partitions=KNN_ITEM_PARTS))
+        query_df = port.DataFrame.from_numpy(Qs, num_partitions=KNN_QUERY_PARTS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        knn_df = model.kneighbors(query_df)[2]
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = read_launches(wrappers)
+    finally:
+        knn_ops._item_budget_bytes = real_budget
+    block_bytes = block_rows * X.shape[1] * 4
+    check(model._staged_items is None and n_blocks >= 2, f"the items were not streamed ({n_blocks} blocks)")
+    for name in ("knn_candidates", "knn_fused_merge"):
+        check(launches[name] == n_blocks * KNN_QUERY_PARTS, f"streamed kneighbors launched {name} {launches[name]} times")
+    check(peak < 2 * block_bytes, f"streaming peaked at {peak} bytes: two {block_bytes}-byte blocks were resident")
+    idx = np.concatenate([p["indices"] for p in knn_df.partitions])
+    dist = np.concatenate([p["distances"] for p in knn_df.partitions])
+    check(idx.shape == (len(Qs), KNN_K), f"streamed kneighbors gave {idx.shape}")
+    f64 = check_against_float64(torch, main_prepared, Qs, idx, dist, dev)
+    dist_err = float(np.abs(dist - main_dist[: len(Qs)]).max())
+    check(bool(np.allclose(dist, main_dist[: len(Qs)], rtol=KNN_DIST_RTOL, atol=0.0)),
+          f"streamed distances off the in-core ones by up to {dist_err}")
+    return {"phase": "knn_streamed", "items": len(X), "queries": len(Qs), "k": KNN_K,
+            "item_budget_bytes": KNN_STREAM_BUDGET, "block_rows": block_rows, "blocks": n_blocks,
+            "block_bytes": block_bytes, "peak_bytes_over_base": peak, "kneighbors_s": seconds,
+            "launches": launches, "dist_max_abs_err_vs_in_core": dist_err, "float64_check": f64}
 
 
 def main():
@@ -682,6 +1115,9 @@ def main():
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         parser.error(f"unknown phases {unknown}; choose from {PHASES}")
+    for later in ("knn_audit", "knn_streamed"):
+        if later in phases and "path_knn" not in phases:
+            parser.error(f"{later} runs on path_knn's items and results: add path_knn")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -693,6 +1129,8 @@ def main():
     import spark_rapids_ml_tpu_torch.ops.forest  # noqa: F401  (port.ops.forest)
     from spark_rapids_ml_tpu_torch.ops import _build, binning
     from spark_rapids_ml_tpu_torch.ops import forest_hist as fh
+    from spark_rapids_ml_tpu_torch.ops import knn as knn_ops
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kk
     from spark_rapids_ml_tpu_torch.ops import nearest_center as nc
 
     wrappers = {
@@ -700,6 +1138,10 @@ def main():
         "bin_features_fm": binning.bin_features_fm,
         "node_histograms": fh.node_histograms,
         "node_histograms_bucketed": fh.node_histograms_bucketed,
+        "knn_candidates": kk.knn_candidates,
+        "knn_candidates_audit": kk.knn_candidates_audit,
+        "knn_fused_merge": kk.knn_fused_merge,
+        "knn_count": kk.knn_count,
     }
     t_start = time.perf_counter()
     smi = smi_line()
@@ -762,6 +1204,26 @@ def main():
     if "forest_card_vs_cpu" in phases:
         emit(forest_card_vs_cpu(torch, port))
 
+    if "kernels_knn" in phases:
+        results["kernels_knn"] = check_knn_kernels(torch, kk, knn_ops, dev)
+        emit(results["kernels_knn"])
+    if "path_knn" in phases:
+        t0 = time.perf_counter()
+        X_knn = normal_data(KNN_ITEMS, COLS, KNN_ITEM_SEED)
+        Q_knn = normal_data(KNN_QUERIES, COLS, KNN_QUERY_SEED)
+        emit({"phase": "knn_data", "items": KNN_ITEMS, "queries": KNN_QUERIES, "cols": COLS,
+              "seconds": time.perf_counter() - t0})
+        results["path_knn"], knn_model, knn_idx, knn_dist = run_knn_path(
+            torch, port, knn_ops, wrappers, X_knn, Q_knn, dev)
+        emit(results["path_knn"])
+        if "knn_audit" in phases:
+            results["knn_audit"] = knn_audit(torch, knn_ops, wrappers, knn_model, Q_knn, knn_idx, knn_dist, dev)
+            emit(results["knn_audit"])
+        if "knn_streamed" in phases:
+            emit(knn_streamed(torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1],
+                              knn_dist, dev))
+        del X_knn, knn_model
+
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -801,15 +1263,38 @@ def summary(results, seconds):
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": [r[k] for k in keys],
             })
+    kn = results.get("kernels_knn")
+    if kn is not None:
+        path = results.get("path_knn", {}).get("launches", {})
+        audit = results.get("knn_audit", {}).get("launches", {})
+        picks = (
+            ("knn_candidates", "spark_rapids_ml_tpu/ops/pallas_knn.py:212", path),
+            ("knn_candidates_audit", "spark_rapids_ml_tpu/ops/pallas_knn.py:191", audit),
+            ("knn_fused_merge", "spark_rapids_ml_tpu/ops/pallas_knn.py:544", path),
+            ("knn_count", "spark_rapids_ml_tpu/ops/pallas_knn.py:308", audit),
+        )
+        for name, replaces, launches in picks:
+            r = kn[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": KERNEL_SOURCES[name], "replaces": replaces,
+                "launches": launches.get(name), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": [r["n"], r["d"], r["q"], r["m"], r["k"]],
+            })
     return {"kernels": rows, "seconds": seconds}
 
 
-PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu"]
+PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
+          "kernels_knn", "path_knn", "knn_audit", "knn_streamed"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",
     "node_histograms": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
     "node_histograms_bucketed": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
+    "knn_candidates": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
+    "knn_candidates_audit": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
+    "knn_fused_merge": "spark_rapids_ml_tpu_torch/csrc/knn_merge.cu",
+    "knn_count": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
 }
 
 

@@ -9,6 +9,7 @@ from .version import __version__
 from .core import load
 from .dataframe import DataFrame
 from .models.kmeans import KMeans, KMeansModel
+from .models.knn import NearestNeighbors, NearestNeighborsModel
 from .models.random_forest import (
     RandomForestClassificationModel,
     RandomForestClassifier,
@@ -21,6 +22,8 @@ __all__ = [
     "DataFrame",
     "KMeans",
     "KMeansModel",
+    "NearestNeighbors",
+    "NearestNeighborsModel",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
     "RandomForestRegressionModel",

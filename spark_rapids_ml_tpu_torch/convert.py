@@ -12,7 +12,9 @@ from typing import Any, Dict
 
 import numpy as np
 
+from .dataframe import DataFrame
 from .models.kmeans import KMeansModel
+from .models.knn import NearestNeighbors, NearestNeighborsModel
 from .models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
 
 
@@ -48,3 +50,17 @@ def random_forest_model_from_reference(attrs: Dict[str, Any]):
             classes_=np.asarray(attrs["classes_"]), num_classes=int(attrs["num_classes"]), **common
         )
     return RandomForestRegressionModel(**common)
+
+
+def nearest_neighbors_model_from_reference(
+    items: np.ndarray, ids: np.ndarray, params: Dict[str, Any]
+) -> NearestNeighborsModel:
+    """A fitted NearestNeighborsModel from what a JAX NearestNeighborsModel
+    holds: kNN learns no weights, its state is the item set (items (n, D))
+    with its int64 ids, and its Spark params (k, idCol, featuresCol, ...).
+    The ids go in the id column as they are, generated or not."""
+    est = NearestNeighbors(**params)
+    item_df = DataFrame(
+        [{est.getOrDefault("featuresCol"): np.asarray(items), est.getIdCol(): np.asarray(ids, np.int64)}]
+    )
+    return est._model_for(item_df)

@@ -180,6 +180,15 @@ class DataFrame:
     def count(self) -> int:
         return sum(len(p) for p in self._partitions)
 
+    def with_row_id(self, col: str = "unique_id") -> "DataFrame":
+        """New partitions with an int64 column of globally unique,
+        increasing row ids (0, 1, ... in partition order)."""
+        out, offset = [], 0
+        for p in self._partitions:
+            out.append(p.with_columns({col: np.arange(offset, offset + len(p), dtype=np.int64)}))
+            offset += len(p)
+        return DataFrame(out)
+
     # -- execution ---------------------------------------------------------
     def toPandas(self) -> Any:
         """One pandas DataFrame; a 2-D vector column becomes an object column

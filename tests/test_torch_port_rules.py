@@ -70,9 +70,13 @@ with tempfile.TemporaryDirectory() as d:
     probs = port.load(d).transform(df_y).partitions[1]["probability"]
 reg = port.RandomForestRegressor(numTrees=2, maxDepth=3, seed=1).fit(df_y)
 preds = reg.transform(df_y).partitions[0]["prediction"]
+items = np.random.default_rng(1).standard_normal((1500, 4)).astype(np.float32)
+nn = port.NearestNeighbors(k=3).fit(port.DataFrame.from_numpy(items, num_partitions=2))
+knn = nn.kneighbors(df)[2]
 print(json.dumps({
     "n_labels": int(len(labels)),
     "forest": [list(probs.shape), int(len(preds))],
+    "knn": [list(knn.partitions[1]["indices"].shape), str(knn.partitions[1]["distances"].dtype)],
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_ml_tpu")),
 }))
@@ -91,7 +95,7 @@ def test_main_path_runs_without_jax_and_pandas():
     )
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"n_labels": 100, "forest": [[100, 2], 100], "loaded": []}
+    assert result == {"n_labels": 100, "forest": [[100, 2], 100], "knn": [[100, 3], "float32"], "loaded": []}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -117,6 +121,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             forest.transform(df_y)
         with pytest.raises(RuntimeError, match="use_device"):
             forest.predict(X[0])
+    nn = port.NearestNeighbors(k=2).fit(df)  # fit only captures the frame
+    with pytest.raises(RuntimeError, match="use_device"):
+        nn.kneighbors(df)
+    with port.device.use_device("cpu"):
+        assert nn.kneighbors(df)[2].partitions[0]["indices"].shape == (20, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
