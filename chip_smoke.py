@@ -68,11 +68,34 @@
 #            kneighbors of 2,048 queries streams them through in 3 blocks;
 #            the device never holds two blocks (peak memory of the call under
 #            two blocks' bytes), and the results pass the float64 check
+#   kernels_ann
+#            the IVF-PQ lookup-table kernels against their plain versions,
+#            bit for bit: B9 (one-byte codes) and B10 (fast-scan) at the JAX
+#            package's test shapes, ragged R, ksub < 256 / < 16 with codes
+#            past it, tables of two stages, misaligned codes, 65,537 queries,
+#            and one path-sized call each (32 queries x 158 x 2048 rows,
+#            m_sub 32), timed there (library_ms: gather + sum over j); B10's
+#            typed rejections; B1 at the ANN fit's shapes (400,000 x 256 vs
+#            632 centroids, 400,000 x 8 vs 256 codewords)
+#   path_ann / path_ann_pq / path_ann_pq4
+#            the JAX package's ANN arms (bench.py:379-442): 400,000 x 256
+#            clustered float32 items (8 partitions), 16,384 queries (their
+#            first rows, 2 partitions), k = 200, nlist 632, nprobe 158;
+#            IVF-Flat, IVF-PQ (M 32, 8 bits, refine_ratio 4) and IVF-PQ
+#            fast-scan (M 32, 4 bits, opq, refine_ratio 8): fit, kneighbors
+#            twice (staging, then the cached call), one profiled call;
+#            B1 in every fit, B7 in every search, B9 only in the 8-bit and
+#            B10 only in the 4-bit search; then, on 2,048 queries, recall@10
+#            and @200 against exactSearch=True (gates 0.95 flat, 0.9
+#            refined PQ), the ADC-only recall of the PQ arms, save -> load
+#            identical, B7 against lex_topk on one probed block, and (4-bit)
+#            hot_fraction 0.5 bitwise the resident search
 # Every path runs with all kernel launch counters reset just before it and
 # read just after.  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
-# knn_audit and knn_streamed need path_knn).
+# knn_audit and knn_streamed need path_knn; the ANN phases need nothing
+# else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -662,7 +685,7 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "knn_topm_kernel",
-                       "knn_count_kernel", "knn_fused_merge_kernel")
+                       "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel")
 
 
 def is_port_kernel(name):
@@ -1103,6 +1126,256 @@ def knn_streamed(torch, port, knn_ops, wrappers, X, Qh, main_prepared, main_dist
             "launches": launches, "dist_max_abs_err_vs_in_core": dist_err, "float64_check": f64}
 
 
+# ---------------------------------------------------------------------------
+# ANN: kernels B9-B10 (B1 and B7 at the ANN shapes) and the JAX package's
+# three ANN operating points
+# ---------------------------------------------------------------------------
+
+# The JAX package's ANN arms (bench.py:379-442, its generator bench.py:150):
+# 400,000 x 256 float32 items around 632 blob centres drawn as 10 * N(0, 1),
+# labels uniform over the blobs, N(0, 1) noise, all from
+# np.random.default_rng(42); the queries are the first 16,384 rows; k = 200,
+# nlist = default_nlist(400,000) = 632, nprobe = default_nprobe(632) = 158,
+# M = default_m_sub(256) = 32.  The 4-bit arm is the fast-scan operating
+# point of ci/test.sh:711-714 (n_bits 4, opq, refine_ratio 8).  Not cut.
+ANN_ITEMS, ANN_COLS, ANN_QUERIES, ANN_K, ANN_SEED = 400_000, 256, 16_384, 200, 42
+ANN_NLIST, ANN_NPROBE, ANN_M = 632, 158, 32
+ANN_ITEM_PARTS, ANN_QUERY_PARTS = 8, 2
+ANN_CHECK_QUERIES = 2048   # the recall, reload and tiered checks
+_ANN_BASE = {"nlist": ANN_NLIST, "nprobe": ANN_NPROBE}
+# phase: (algorithm, algoParams, recall@10 gate of the JAX package's tests)
+ANN_ARMS = {
+    "path_ann": ("ivfflat", dict(_ANN_BASE), 0.95),                    # tests/test_ann_engine.py:107
+    "path_ann_pq": ("ivfpq", dict(_ANN_BASE, M=ANN_M, n_bits=8, refine_ratio=4), 0.9),  # test_pq_engine.py:176
+    "path_ann_pq4": ("ivfpq", dict(_ANN_BASE, M=ANN_M, n_bits=4, opq=True, refine_ratio=8), 0.9),  # :468
+}
+ANN_HOT_FRACTION = 0.5
+ANN_PROFILE_RANGES = ("ann.select", "ann.scan", "ann.merge")
+# B9 / B10 checks, (B, R, m_sub, ksub, codes drawn below): the JAX test
+# shapes, a ragged R with ksub < 256 and codes past it, tables of two
+# stages, misaligned codes (byte loads), more than 65,535 queries
+LUT_CASES = [
+    (3, 700, 4, 16, 16), (1, 512, 2, 256, 256), (2, 33, 8, 5, 5), (2, 1001, 32, 200, 256),
+    (2, 1000, 48, 256, 256), (3, 517, 64, 256, 256), (65537, 3, 2, 16, 16),
+]
+FASTSCAN_CASES = [
+    (3, 700, 4, 16, 16), (1, 512, 2, 16, 16), (2, 33, 8, 5, 16), (2, 1001, 32, 16, 16),
+    (3, 517, 64, 9, 16), (65537, 3, 2, 16, 16),
+]
+# the path-sized call: 32 queries x nprobe lists of L_pad slots, the padded
+# list length the port's fit gives on these items (each path records its own)
+ANN_LUT_QUERIES, ANN_L_PAD = 32, 2048
+
+
+def ann_data():
+    """The ANN arms' items, made as bench.py makes them, and the queries."""
+    rng = np.random.default_rng(ANN_SEED)
+    centers = 10.0 * rng.standard_normal((max(32, ANN_NLIST), ANN_COLS), dtype=np.float32)
+    lab = rng.integers(0, centers.shape[0], size=ANN_ITEMS)
+    X = centers[lab] + rng.standard_normal((ANN_ITEMS, ANN_COLS), dtype=np.float32)
+    return X, X[:ANN_QUERIES].copy()
+
+
+def lut_case(torch, pk, dev, gen, b, r, m_sub, ksub, hi, packed, misaligned=False):
+    """B9 (or B10 when packed) against its plain version at one shape: bit
+    for bit.  Returns (tables, codes, record)."""
+    T = torch.randn((b, m_sub, ksub), generator=gen, device=dev)
+    C = torch.randint(0, hi, (b, r, m_sub), generator=gen, device=dev, dtype=torch.uint8)
+    if packed:
+        C = (C[:, :, 0::2] | (C[:, :, 1::2] << 4)).contiguous()
+    if misaligned:  # the same bytes one byte past a 16-byte boundary
+        buf = torch.empty(C.numel() + 1, dtype=torch.uint8, device=dev)
+        buf[1:].copy_(C.view(-1))
+        C = buf[1:].view(C.shape)
+    kernel, plain = ((pk.fastscan_lut_accumulate, pk.fastscan_lut_accumulate_plain) if packed
+                     else (pk.lut_accumulate, pk.lut_accumulate_plain))
+    got, want = kernel(T, C), plain(T, C)
+    torch.cuda.synchronize()
+    mismatches = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(mismatches == 0, f"{'fastscan' if packed else 'lut'} ({b}, {r}, {m_sub}, {ksub}) differs from its plain "
+                           f"version at {mismatches} values")
+    return T, C, {"b": b, "r": r, "m_sub": m_sub, "ksub": ksub, "code_range": hi, "misaligned": misaligned,
+                  "bit_mismatches": mismatches}
+
+
+def lut_timing(torch, pk, T, C, packed):
+    """B9 / B10 at one shape: kernel, plain and library times (gather + sum
+    over j, a yardstick only), and the least time (codes, tables and
+    output moved once)."""
+    b, r = C.shape[0], C.shape[1]
+    kernel, plain = ((pk.fastscan_lut_accumulate, pk.fastscan_lut_accumulate_plain) if packed
+                     else (pk.lut_accumulate, pk.lut_accumulate_plain))
+
+    def library():
+        codes = pk.unpack_codes4(C) if packed else C
+        return T.gather(2, codes.long().transpose(1, 2)).sum(dim=1)
+
+    lib = library()
+    check(bool(torch.allclose(lib, kernel(T, C), rtol=1e-5, atol=1e-4)), "the gather + sum yardstick disagrees")
+    del lib
+    row = timings(torch, lambda: kernel(T, C), lambda: plain(T, C), library, 20)
+    row["bound_ms"], row["bound_by"] = bound(C.numel() + 4.0 * b * r + 4.0 * T.numel(), float(b * r * T.shape[1]))
+    return {"b": b, "r": r, "m_sub": T.shape[1], "ksub": T.shape[2], "max_abs_err": 0.0, **row}
+
+
+def check_ann_kernels(torch, pk, nc, dev):
+    """Phase kernels_ann: B9 and B10 against their plain versions on the
+    card, bit for bit, at the cases above and one path-sized call each
+    (timed there); B10's typed rejections; B1 at the ANN fit's two shapes
+    (list assignment, PQ encoding)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lut = [lut_case(torch, pk, dev, gen, *c, packed=False)[2] for c in LUT_CASES]
+    lut.append(lut_case(torch, pk, dev, gen, 2, 999, 32, 256, 256, packed=False, misaligned=True)[2])
+    fast = [lut_case(torch, pk, dev, gen, *c, packed=True)[2] for c in FASTSCAN_CASES]
+    fast.append(lut_case(torch, pk, dev, gen, 2, 999, 64, 16, 16, packed=True, misaligned=True)[2])
+    rejections = {}
+    for name, t_shape, p_shape, match in (
+        ("odd_m_sub", (1, 3, 16), (1, 5, 1), "even"),
+        ("ksub_over_16", (1, 4, 17), (1, 5, 2), "16"),
+        ("packed_width", (1, 4, 16), (1, 5, 3), "bytes/item"),
+    ):
+        try:
+            pk.fastscan_lut_accumulate(torch.zeros(t_shape, device=dev),
+                                       torch.zeros(p_shape, dtype=torch.uint8, device=dev))
+        except ValueError as e:
+            check(match in str(e), f"fast-scan {name}: {e}")
+            rejections[name] = str(e)
+        else:
+            raise RuntimeError(f"fast-scan accepted {name}")
+    r_path = ANN_NPROBE * ANN_L_PAD
+    T, C, lut_path = lut_case(torch, pk, dev, gen, ANN_LUT_QUERIES, r_path, ANN_M, 256, 256, packed=False)
+    lut_row = {**lut_path, **lut_timing(torch, pk, T, C, False)}
+    T, C, fast_path = lut_case(torch, pk, dev, gen, ANN_LUT_QUERIES, r_path, ANN_M, 16, 16, packed=True)
+    fast_row = {**fast_path, **lut_timing(torch, pk, T, C, True)}
+    del T, C
+    torch.cuda.empty_cache()
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    b1 = [check_kernel_shape(torch, nc, ANN_ITEMS, d, k, cpu_gen, dev) for d, k in ((ANN_COLS, ANN_NLIST), (8, 256))]
+    return {"phase": "kernels_ann", "lut_cases": lut, "fastscan_cases": fast, "fastscan_rejections": rejections,
+            "lut_accumulate": lut_row, "fastscan_lut_accumulate": fast_row, "min_dist_argmin_ann": b1}
+
+
+def ann_rows(model, df):
+    """(ids, distances) of kneighbors over `df`, partitions concatenated."""
+    knn_df = model.kneighbors(df)[2]
+    return (np.concatenate([p["indices"] for p in knn_df.partitions]),
+            np.concatenate([p["distances"] for p in knn_df.partitions]))
+
+
+def ann_merge_check(torch, ivf, pq_mod, knn_ops, kk, index, Q, k, pq, dev):
+    """One probed block of 64 queries: B7 (the search's merge) against
+    ops/knn.lex_topk on the same pool, bit for bit."""
+    qb = torch.from_numpy(Q[:64]).to(dev)
+    if pq:
+        qb = torch.nn.functional.pad(qb, (0, index.d_pad - qb.shape[1]))
+        if index.rotation is not None:
+            qb = qb @ torch.from_numpy(index.rotation).to(dev).T
+        scorer, tile = pq_mod.pq_block_scorer(index), pq_mod.pq_tile_bytes(index, ANN_NPROBE)
+    else:
+        scorer, tile = ivf._flat_block_scorer, ivf.flat_tile_bytes(index, ANN_NPROBE)
+    _, sub_rows = ivf.sweep_geometry(64, ANN_NPROBE * index.l_pad, tile)
+    vals, pos = ivf.probe_pool(index, qb, ANN_NPROBE, scorer, sub_rows)
+    dist, fpos = kk.knn_fused_merge(vals, pos, k)[:2]
+    fpos = torch.where(torch.isinf(dist), knn_ops.LEX_POS_SENTINEL, fpos)
+    d2, lpos = knn_ops.lex_topk(-vals.view(64, -1), pos.view(64, -1), k)
+    ldist = kk.sqrt_clamped(d2)
+    torch.cuda.synchronize()
+    bad = int((dist.view(torch.int32) != ldist.view(torch.int32)).sum() + (fpos != lpos).sum())
+    check(bad == 0, f"the probe merge differs from lex_topk at {bad} values")
+    return {"queries": 64, "pool": vals.shape[1] * vals.shape[2], "k": k, "mismatches": bad}
+
+
+def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, dev):
+    """One ANN arm through the public API: fit, kneighbors twice (staging,
+    then the cached call) and one profiled call with the launch counters
+    read around them; then recall@10 / @200 against exactSearch, save ->
+    load, B7 against lex_topk on one block and, for the 4-bit arm, the
+    tiered search against the resident one, on ANN_CHECK_QUERIES queries."""
+    algorithm, params, gate = ANN_ARMS[phase]
+    pq, fast = algorithm == "ivfpq", params.get("n_bits") == 4
+    item_df = port.DataFrame.from_numpy(X, num_partitions=ANN_ITEM_PARTS)
+    query_df = port.DataFrame.from_numpy(Q, num_partitions=ANN_QUERY_PARTS)
+    check_df = port.DataFrame.from_numpy(Q[:ANN_CHECK_QUERIES])
+    model_dir = os.path.join(REPO, "build", f"chip_smoke_{phase}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    model = port.ApproximateNearestNeighbors(k=ANN_K, algorithm=algorithm, algoParams=params).fit(item_df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches_fit = read_launches(wrappers)
+    t0 = time.perf_counter()
+    idx, dist = ann_rows(model, query_df)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx2, dist2 = ann_rows(model, query_df)
+    kneighbors_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    search = {name: launches[name] - launches_fit[name] for name in launches}
+    check(launches_fit["min_dist_argmin"] > 0, "the fit launched min_dist_argmin no time")
+    check(search["knn_fused_merge"] > 0, "kneighbors launched knn_fused_merge no time")
+    for name, used in (("lut_accumulate", pq and not fast), ("fastscan_lut_accumulate", pq and fast)):
+        check((search[name] > 0) == used, f"kneighbors launched {name} {search[name]} times")
+    check(idx.shape == (ANN_QUERIES, ANN_K) and idx.dtype == np.int64 and dist.dtype == np.float32,
+          f"kneighbors gave {idx.shape} {idx.dtype} / {dist.dtype}")
+    check(bool(np.isfinite(dist).all()) and bool((np.diff(dist, axis=1) >= 0).all()) and bool((idx >= 0).all()),
+          "distances not finite ascending, or an unfilled slot")
+    check(np.array_equal(idx, idx2) and np.array_equal(dist, dist2), "the cached kneighbors call gave other results")
+    profile = profile_run(torch, lambda: ann_rows(model, query_df), ANN_PROFILE_RANGES, wrappers)
+    rec = {"index_bytes_per_item": model.index_bytes_per_item()}
+    staged = model._staged_pq[1] if pq else model._staged_index[1]
+    rec["l_pad"], rec["nlist_pad"] = staged.l_pad, staged.nlist_pad
+    rec["merge_vs_lex_topk"] = ann_merge_check(torch, ivf, pq_mod, knn_ops, kk, staged, Q, pq_k(params), pq, dev)
+    # checks on ANN_CHECK_QUERIES queries, outside the counted window
+    i_c, d_c = ann_rows(model, check_df)
+    model.setExactSearch(True)
+    i_ex, _ = ann_rows(model, check_df)
+    model.setExactSearch(False)
+    rec["recall_at_10"] = ivf.recall_at_k(i_c[:, :10], i_ex[:, :10])
+    rec["recall_at_200"] = ivf.recall_at_k(i_c, i_ex)
+    rec["recall_at_10_of_the_16384_query_call"] = ivf.recall_at_k(idx[:ANN_CHECK_QUERIES, :10], i_ex[:, :10])
+    check(rec["recall_at_10"] >= gate, f"recall@10 {rec['recall_at_10']} < {gate}")
+    if pq:
+        model.setAlgoParams(dict(params, refine_ratio=1))
+        i_raw, _ = ann_rows(model, check_df)
+        model.setAlgoParams(params)
+        rec["adc_recall_at_10"] = ivf.recall_at_k(i_raw[:, :10], i_ex[:, :10])
+        rec["adc_recall_at_200"] = ivf.recall_at_k(i_raw, i_ex)
+    model.save(model_dir)
+    i_l, d_l = ann_rows(port.load(model_dir), check_df)
+    check(np.array_equal(i_l, i_c) and np.array_equal(d_l.view(np.uint32), d_c.view(np.uint32)),
+          "the reloaded model gives other results")
+    rec["reloaded_identical"] = True
+    if fast:
+        model.setAlgoParams(dict(params, hot_fraction=ANN_HOT_FRACTION))
+        t0 = time.perf_counter()
+        i_t, d_t = ann_rows(model, check_df)
+        rec["tiered_s"] = time.perf_counter() - t0
+        rec["tier"] = model._staged_pq[1].tier.stats()
+        model.setAlgoParams(params)
+        check(np.array_equal(i_t, i_c) and np.array_equal(d_t.view(np.uint32), d_c.view(np.uint32)),
+              "the tiered search differs from the resident one")
+        check(rec["tier"]["misses"] > 0 and rec["tier"]["page_bytes"] > 0, f"the tier paged nothing: {rec['tier']}")
+        rec["tiered_identical"] = True
+    return {
+        "phase": phase, "items": ANN_ITEMS, "cols": ANN_COLS, "queries": ANN_QUERIES, "k": ANN_K,
+        "algorithm": algorithm, "algo_params": params, "rows_cut": False,
+        "fit_s": fit_s, "first_kneighbors_s": first_s, "kneighbors_s": kneighbors_s,
+        "stage_s": first_s - kneighbors_s, "kneighbors_rows_per_s": ANN_QUERIES / kneighbors_s,
+        "launches_fit": launches_fit, "launches": launches, "max_memory_allocated_bytes": peak_bytes,
+        "check_queries": ANN_CHECK_QUERIES, "recall_gate": gate, **rec, "profile": profile,
+    }
+
+
+def pq_k(params):
+    """Candidates the probe merge keeps: k, times refine_ratio when > 1."""
+    ratio = params.get("refine_ratio", 1)
+    return ANN_K * ratio if ratio > 1 else ANN_K
+
+
 def main():
     import argparse
 
@@ -1132,6 +1405,9 @@ def main():
     from spark_rapids_ml_tpu_torch.ops import knn as knn_ops
     from spark_rapids_ml_tpu_torch.ops import knn_kernels as kk
     from spark_rapids_ml_tpu_torch.ops import nearest_center as nc
+    from spark_rapids_ml_tpu_torch.ops import pq_kernels as pk
+    from spark_rapids_ml_tpu_torch.ann import ivfflat as ivf
+    from spark_rapids_ml_tpu_torch.ann import pq as pq_mod
 
     wrappers = {
         "min_dist_argmin": nc.min_dist_argmin,
@@ -1142,6 +1418,8 @@ def main():
         "knn_candidates_audit": kk.knn_candidates_audit,
         "knn_fused_merge": kk.knn_fused_merge,
         "knn_count": kk.knn_count,
+        "lut_accumulate": pk.lut_accumulate,
+        "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
     }
     t_start = time.perf_counter()
     smi = smi_line()
@@ -1224,6 +1502,20 @@ def main():
                               knn_dist, dev))
         del X_knn, knn_model
 
+    if "kernels_ann" in phases:
+        results["kernels_ann"] = check_ann_kernels(torch, pk, nc, dev)
+        emit(results["kernels_ann"])
+    ann_phases = [p for p in ANN_ARMS if p in phases]
+    if ann_phases:
+        t0 = time.perf_counter()
+        X_ann, Q_ann = ann_data()
+        emit({"phase": "ann_data", "items": ANN_ITEMS, "queries": ANN_QUERIES, "cols": ANN_COLS,
+              "seconds": time.perf_counter() - t0})
+        for phase in ann_phases:
+            results[phase] = run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X_ann, Q_ann, dev)
+            emit(results[phase])
+        del X_ann, Q_ann
+
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1281,11 +1573,24 @@ def summary(results, seconds):
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": [r["n"], r["d"], r["q"], r["m"], r["k"]],
             })
+    ka = results.get("kernels_ann")
+    if ka is not None:
+        for name, arm in (("lut_accumulate", "path_ann_pq"), ("fastscan_lut_accumulate", "path_ann_pq4")):
+            r = ka[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+                "replaces": {"lut_accumulate": "spark_rapids_ml_tpu/ops/pallas_pq.py:60",
+                             "fastscan_lut_accumulate": "spark_rapids_ml_tpu/ops/pallas_pq.py:170"}[name],
+                "launches": results.get(arm, {}).get("launches", {}).get(name), "max_abs_err": r["max_abs_err"],
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": [r["b"], r["r"], r["m_sub"], r["ksub"]],
+            })
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
-          "kernels_knn", "path_knn", "knn_audit", "knn_streamed"]
+          "kernels_knn", "path_knn", "knn_audit", "knn_streamed", "kernels_ann", "path_ann", "path_ann_pq",
+          "path_ann_pq4"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",
@@ -1295,6 +1600,8 @@ KERNEL_SOURCES = {
     "knn_candidates_audit": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
     "knn_fused_merge": "spark_rapids_ml_tpu_torch/csrc/knn_merge.cu",
     "knn_count": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
+    "lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
+    "fastscan_lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
 }
 
 

@@ -8,6 +8,7 @@
 from .version import __version__
 from .core import load
 from .dataframe import DataFrame
+from .models.approximate_nn import ApproximateNearestNeighbors, ApproximateNearestNeighborsModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
 from .models.random_forest import (
@@ -19,6 +20,8 @@ from .models.random_forest import (
 
 __all__ = [
     "__version__",
+    "ApproximateNearestNeighbors",
+    "ApproximateNearestNeighborsModel",
     "DataFrame",
     "KMeans",
     "KMeansModel",

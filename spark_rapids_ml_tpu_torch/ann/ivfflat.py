@@ -1,0 +1,507 @@
+#
+# IVF-Flat approximate nearest neighbours on one device.
+#
+# Counterpart of spark_rapids_ml_tpu/ann/ivfflat.py:
+#
+#   build:  the port's k-means (ops/kmeans: k-means|| init + Lloyd) trains
+#           the coarse quantizer on a deterministic sample; list assignment
+#           is the nearest-center kernel (ops/nearest_center.min_dist_argmin,
+#           B1 on the card); the lists are laid out on the host as one dense
+#           (nlist_pad, L_pad, D) buffer, L_pad the pow2 bucket of the
+#           longest list, nlist_pad a multiple of 8.
+#   search: every query picks its nprobe nearest centroids, gathers the
+#           probed lists, computes the expanded-form distances
+#           ||q||^2 - 2 q.x + ||x||^2 on the gathered tile (torch.bmm, fp32,
+#           TF32 off) and keeps the k best by the lexicographic (d2, position)
+#           key.  probe_sweep is shared with the IVF-PQ search (pq.py).
+#
+# The selection: the probe ids of each query are sorted ascending before the
+# gather, so the columns of the (Q, nprobe, L_pad) candidate pool rise with
+# the position (list * L_pad + slot), and the fused merge kernel
+# (ops/knn_kernels.knn_fused_merge, B7: ties to the lower pool slot) computes
+# exactly the lexicographic top k of ops/knn.lex_topk, without its two full
+# sorts of every row.  Which lists are probed is unchanged: the probes are
+# the nprobe smallest d2 to the centroids, ties to the lower list id (a
+# stable sort; jax.lax.top_k's rule).
+#
+# What does not carry over: the mesh (sharding, shard_map, the cross-shard
+# psum merge), the pow2 query-block buckets and the AOT executable cache
+# (XLA compile caching), warm_probe_kernels (nothing to compile here), and the
+# JAX package's tile budget, which gives a chunk of one query at the ANN
+# path's shapes: here a query block's candidate pool stays under _POOL_BYTES
+# and each gather under _TILE_BYTES, the last block ragged.  There is no environment switch;
+# tests shrink the two constants to exercise several blocks.
+#
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import device as _device
+from ..ops.kmeans import lloyd_iterations, scalable_kmeans_pp_init
+from ..ops.knn import LEX_POS_SENTINEL
+from ..ops.knn_kernels import knn_fused_merge
+from ..ops.nearest_center import min_dist_argmin
+from ..utils import chunk_iter
+
+# nlist padding unit: the packed layout pads the list count to a multiple of 8
+_LIST_ALIGN = 8
+# smallest per-list slot bucket (pow2 ladder floor)
+_MIN_LIST_SLOTS = 8
+# positions are int32 (list * L_pad + slot); the sentinel marks invalid
+# candidate slots and exceeds every real position
+_POS_SENTINEL = LEX_POS_SENTINEL
+# device bytes of one query block's candidate pool (values and positions,
+# 8 bytes a candidate); a wider pool shortens the block
+_POOL_BYTES = 1 << 30
+# device bytes of one gathered tile of probed lists (flat: the items; PQ:
+# the codes and their ADC sums); a wider tile takes fewer queries at once
+_TILE_BYTES = 2 << 30
+# host bytes of items sent to the nearest-center kernel at once
+_ASSIGN_BYTES = 1 << 30
+# quantizer training sample cap (the FAISS convention): the cap bounds build
+# time independent of the index size
+_TRAIN_CAP = 65536
+
+
+def default_nlist(n_items: int) -> int:
+    """sqrt(n) lists clamped to [8, 1024]: the standard IVF sizing rule."""
+    return int(max(_LIST_ALIGN, min(1024, round(math.sqrt(max(n_items, 1))))))
+
+
+def default_nprobe(n_lists: int) -> int:
+    """A quarter of the lists, floor 8."""
+    return int(max(8, n_lists // 4))
+
+
+def shape_bucket(n: int, lo: int) -> int:
+    """The power-of-two bucket of n (at least lo): the list slot count of
+    the padded layout."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+class PackedIVF:
+    """Host-side index payload: items sorted by list (stable), their ids,
+    per-list counts, and the genuine (unpadded) centroids.  This is what the
+    model persists; index_from_packed expands it into the device layout."""
+
+    __slots__ = ("items", "ids", "counts", "centroids", "n_lists", "n_items")
+
+    def __init__(self, items, ids, counts, centroids, n_lists, n_items):
+        self.items = items          # (N, D) f32, list-sorted
+        self.ids = ids              # (N,) int64 user ids, list-sorted
+        self.counts = counts        # (nlist_base,) int64 per-list counts
+        self.centroids = centroids  # (n_lists, D) f32
+        self.n_lists = int(n_lists)
+        self.n_items = int(n_items)
+
+
+class IVFFlatIndex:
+    """Device-staged IVF-Flat index (the padded layout of a PackedIVF)."""
+
+    __slots__ = (
+        "list_data", "list_norm", "counts", "centroids", "c_norm",
+        "ids", "n_items", "n_lists", "nlist_pad", "l_pad", "dim",
+    )
+
+    def __init__(self, list_data, list_norm, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad,
+                 l_pad, dim):
+        self.list_data = list_data  # (nlist_pad, L_pad, D) f32
+        self.list_norm = list_norm  # (nlist_pad, L_pad) f32 ||x||^2
+        self.counts = counts        # (nlist_pad,) int32
+        self.centroids = centroids  # (nlist_pad, D) f32, pad rows zero
+        self.c_norm = c_norm        # (nlist_pad,) f32, +inf in pad rows
+        self.ids = ids              # (nlist_pad * L_pad,) int64 HOST, -1 pads
+        self.n_items = n_items
+        self.n_lists = n_lists
+        self.nlist_pad = nlist_pad
+        self.l_pad = l_pad
+        self.dim = dim
+
+    @property
+    def planes(self):
+        return (self.list_data, self.list_norm)
+
+    def device_bytes(self) -> int:
+        """Device-resident footprint of the staged index (ids stay on the
+        host): the numerator of index_bytes_per_item."""
+        return int(
+            self.list_data.nbytes + self.list_norm.nbytes
+            + self.counts.nbytes + self.centroids.nbytes + self.c_norm.nbytes
+        )
+
+
+class TieredIVFFlatIndex:
+    """IVF-Flat index whose data / norm list planes live in a
+    TieredListPlanes pool (hot lists pinned, cold lists paged from the host
+    layout).  The same search as IVFFlatIndex: paging changes residency,
+    never the arithmetic."""
+
+    __slots__ = (
+        "tier", "counts", "centroids", "c_norm", "ids", "n_items",
+        "n_lists", "nlist_pad", "l_pad", "dim", "hot_fraction",
+    )
+
+    def __init__(self, tier, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad, l_pad, dim,
+                 hot_fraction):
+        self.tier = tier            # TieredListPlanes over [data, norms]
+        self.counts = counts
+        self.centroids = centroids
+        self.c_norm = c_norm
+        self.ids = ids
+        self.n_items = n_items
+        self.n_lists = n_lists
+        self.nlist_pad = nlist_pad
+        self.l_pad = l_pad
+        self.dim = dim
+        self.hot_fraction = float(hot_fraction)
+
+    def device_bytes(self) -> int:
+        return int(self.tier.device_bytes() + self.counts.nbytes + self.centroids.nbytes + self.c_norm.nbytes)
+
+    def host_bytes(self) -> int:
+        return self.tier.host_bytes()
+
+
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+
+def train_coarse_quantizer(
+    items: np.ndarray,
+    n_clusters: int,
+    seed: int,
+    max_train_rows: int = _TRAIN_CAP,
+    max_iter: int = 25,
+    tol: float = 1e-4,
+    device: Optional[torch.device] = None,
+) -> np.ndarray:
+    """Train an (n_clusters, D) quantizer with the port's k-means on a
+    deterministic seeded sample (the JAX package's sampling rule, numpy's
+    generator).  The init draws from a torch.Generator seeded with `seed`,
+    so the centroids differ from the JAX package's (threefry) ones.  Shared
+    by the coarse quantizer and the PQ codebooks (pq.py)."""
+    dev = device if device is not None else _device.resolve()
+    items = np.ascontiguousarray(np.asarray(items), dtype=np.float32)
+    n = items.shape[0]
+    n_clusters = int(max(1, min(n_clusters, n)))
+    seed = int(seed) & 0x7FFFFFFF
+    if n > max_train_rows:
+        rng = np.random.default_rng(seed)
+        items = items[np.sort(rng.choice(n, size=max_train_rows, replace=False))]
+    X = torch.from_numpy(np.ascontiguousarray(items)).to(dev)
+    w = torch.ones(X.shape[0], dtype=torch.float32, device=dev)
+    generator = torch.Generator().manual_seed(seed)
+    chunk = min(32768, X.shape[0])
+    centers0 = scalable_kmeans_pp_init(
+        X, w, n_clusters, generator, rounds=4, round_size=max(1, min(2 * n_clusters, X.shape[0])), chunk=chunk
+    )
+    centers, _, _ = lloyd_iterations(X, w, centers0, max_iter, float(tol), chunk)
+    return centers.cpu().numpy().astype(np.float32)
+
+
+def assign_nearest(items: np.ndarray, centroids: np.ndarray, device: Optional[torch.device] = None) -> np.ndarray:
+    """Nearest-centroid id (int64) of every row, through the nearest-center
+    kernel in row blocks of at most _ASSIGN_BYTES.  Shared by the list
+    assignment and the PQ subspace encoding."""
+    dev = device if device is not None else _device.resolve()
+    items = np.asarray(items, dtype=np.float32)
+    n, d = items.shape
+    c = torch.from_numpy(np.ascontiguousarray(centroids, np.float32)).to(dev)
+    out = np.empty(n, np.int64)
+    for sl in chunk_iter(n, max(1, _ASSIGN_BYTES // (4 * max(d, 1)))):
+        x = torch.from_numpy(np.ascontiguousarray(items[sl])).to(dev)
+        out[sl] = min_dist_argmin(x, c)[1].cpu().numpy()
+    return out
+
+
+def list_order(assign: np.ndarray, n_lists: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(per-list counts over nlist rounded up to a multiple of 8, the stable
+    list-sorted order of the items): the packed layout rule."""
+    nlist_base = -(-n_lists // _LIST_ALIGN) * _LIST_ALIGN
+    return np.bincount(assign, minlength=nlist_base).astype(np.int64), np.argsort(assign, kind="stable")
+
+
+def pack_lists(items: np.ndarray, item_ids: np.ndarray, assign: np.ndarray, centroids: np.ndarray,
+               n_lists: int) -> PackedIVF:
+    """The list layout of assigned items."""
+    counts, order = list_order(assign, n_lists)
+    return PackedIVF(items[order], np.asarray(item_ids, np.int64)[order], counts, centroids, n_lists,
+                     items.shape[0])
+
+
+def build_ivfflat_packed(
+    items,
+    item_ids: np.ndarray,
+    n_lists: int,
+    seed: int = 0,
+    max_train_rows: int = _TRAIN_CAP,
+    max_iter: int = 25,
+    tol: float = 1e-4,
+    device: Optional[torch.device] = None,
+) -> PackedIVF:
+    """Train the coarse quantizer, assign every item to its nearest
+    centroid and pack the inverted lists."""
+    items = np.ascontiguousarray(np.asarray(items), dtype=np.float32)
+    n = items.shape[0]
+    if n == 0:
+        raise ValueError("cannot build an IVF-Flat index over 0 items")
+    n_lists = int(max(1, min(n_lists, n)))
+    centroids = train_coarse_quantizer(items, n_lists, seed, max_train_rows, max_iter, tol, device)
+    return pack_lists(items, item_ids, assign_nearest(items, centroids, device), centroids, n_lists)
+
+
+# ---------------------------------------------------------------------------
+# Staging
+# ---------------------------------------------------------------------------
+
+
+def item_norms(data: np.ndarray) -> np.ndarray:
+    """||x||^2 per padded row, computed on the host in float64 and stored
+    float32: index data, not per-search arithmetic."""
+    return np.einsum("nd,nd->n", data.astype(np.float64), data.astype(np.float64)).astype(np.float32)
+
+
+def padded_layout_geometry(n_lists: int, counts: np.ndarray):
+    """(nlist_pad, counts padded to it, L_pad) of a packed list layout;
+    raises when the int32 positions would overflow.  Shared by the flat and
+    PQ layouts."""
+    nlist_pad = -(-max(n_lists, 1) // _LIST_ALIGN) * _LIST_ALIGN
+    padded = np.zeros(nlist_pad, np.int64)
+    padded[: counts.shape[0]] = counts
+    l_pad = shape_bucket(int(max(padded.max(), 1)), lo=_MIN_LIST_SLOTS)
+    if nlist_pad * l_pad > int(_POS_SENTINEL):
+        raise ValueError(
+            f"IVF layout overflows int32 positions: {nlist_pad} lists x {l_pad} slots; raise nlist so lists shrink"
+        )
+    return nlist_pad, padded, l_pad
+
+
+def padded_slots(counts: np.ndarray, l_pad: int) -> np.ndarray:
+    """The flat slot (list * L_pad + slot) of every list-sorted row."""
+    offs = np.zeros(counts.shape[0] + 1, np.int64)
+    np.cumsum(counts, out=offs[1:])
+    row_list = np.repeat(np.arange(counts.shape[0], dtype=np.int64), counts)
+    return row_list * l_pad + (np.arange(int(offs[-1]), dtype=np.int64) - offs[row_list])
+
+
+def padded_host_layout(packed: PackedIVF):
+    """Expand a PackedIVF into the padded host layout: lists padded to the
+    pow2 slot bucket of the longest list, the list axis to a multiple of 8.
+    Returns (data (nlist_pad * l_pad, D), x_norm, ids_pad, counts int64,
+    cpad, c_norm, nlist_pad, l_pad)."""
+    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts)
+    d = packed.items.shape[1]
+    flat = padded_slots(counts, l_pad)
+    data = np.zeros((nlist_pad * l_pad, d), np.float32)
+    data[flat] = packed.items
+    ids_pad = np.full(nlist_pad * l_pad, -1, np.int64)
+    ids_pad[flat] = packed.ids
+    cpad = np.zeros((nlist_pad, d), np.float32)
+    cpad[: packed.n_lists] = packed.centroids
+    c_norm = item_norms(cpad)
+    c_norm[packed.n_lists :] = np.inf  # pad lists never win a probe slot
+    return data, item_norms(data), ids_pad, counts, cpad, c_norm, nlist_pad, l_pad
+
+
+def index_from_packed(packed: PackedIVF, device: Optional[torch.device] = None) -> IVFFlatIndex:
+    """Stage a PackedIVF on the device (user ids stay on the host)."""
+    dev = device if device is not None else _device.resolve()
+    data, x_norm, ids_pad, counts, cpad, c_norm, nlist_pad, l_pad = padded_host_layout(packed)
+    d = data.shape[1]
+    return IVFFlatIndex(
+        list_data=torch.from_numpy(data).view(nlist_pad, l_pad, d).to(dev),
+        list_norm=torch.from_numpy(x_norm).view(nlist_pad, l_pad).to(dev),
+        counts=torch.from_numpy(counts.astype(np.int32)).to(dev),
+        centroids=torch.from_numpy(cpad).to(dev),
+        c_norm=torch.from_numpy(c_norm).to(dev),
+        ids=ids_pad, n_items=packed.n_items, n_lists=packed.n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
+    )
+
+
+def tiered_index_from_packed(
+    packed: PackedIVF, hot_fraction: float, device: Optional[torch.device] = None, pool_slots: Optional[int] = None
+) -> TieredIVFFlatIndex:
+    """index_from_packed with only `hot_fraction` of the lists pinned on the
+    device and the rest paged in from the host layout on probe."""
+    from .tier import TieredListPlanes
+
+    dev = device if device is not None else _device.resolve()
+    data, x_norm, ids_pad, counts, cpad, c_norm, nlist_pad, l_pad = padded_host_layout(packed)
+    d = data.shape[1]
+    tier = TieredListPlanes(
+        planes=[data.reshape(nlist_pad, l_pad, d), x_norm.reshape(nlist_pad, l_pad)],
+        sentinels=[None, np.inf], counts=counts, device=dev, hot_fraction=hot_fraction, pool_slots=pool_slots,
+    )
+    return TieredIVFFlatIndex(
+        tier=tier,
+        counts=torch.from_numpy(counts.astype(np.int32)).to(dev),
+        centroids=torch.from_numpy(cpad).to(dev),
+        c_norm=torch.from_numpy(c_norm).to(dev),
+        ids=ids_pad, n_items=packed.n_items, n_lists=packed.n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
+        hot_fraction=hot_fraction,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Search
+# ---------------------------------------------------------------------------
+
+
+def select_probes(q: torch.Tensor, centroids: torch.Tensor, c_norm: torch.Tensor, nprobe: int):
+    """Probe selection shared by the flat and PQ searches: expanded-form
+    query -> centroid distances and the nprobe nearest lists, ties to the
+    lower list id (pad lists carry +inf norms and lose to every genuine
+    one).  Returns (qn (Q,), d2p (Q, nprobe) the probed lists' distances --
+    the ADC probe term --, probes (Q, nprobe) int64), the probes of each row
+    in ascending list order."""
+    qn = (q * q).sum(dim=1)
+    d2c = qn[:, None] - 2.0 * (q @ centroids.T) + c_norm[None, :]
+    d2s, order = torch.sort(d2c, dim=1, stable=True)
+    probes, by_id = torch.sort(order[:, :nprobe], dim=1)
+    return qn, d2s[:, :nprobe].gather(1, by_id), probes
+
+
+def effective_nprobe(index, nprobe: int) -> int:
+    return int(max(1, min(nprobe, index.nlist_pad)))
+
+
+def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub_rows: int):
+    """The candidate pool of one query block: (values (rows, nprobe, L_pad)
+    float32 = -d2, -inf where invalid; positions (rows, nprobe, L_pad) int32
+    = list * L_pad + slot, _POS_SENTINEL where invalid), the probes of each
+    row in ascending list order.  block_scorer(qb, qn, d2p) returns a
+    function scores(planes, slots, rows) giving the d2 (c, nprobe, L_pad) of
+    the block's rows `rows` over the lists at the (c, nprobe) plane slots;
+    it is called on at most sub_rows rows at once.  A tiered index scores
+    every group of the planner with the sub-block's full shapes and keeps
+    the group's rows, so a row's bits do not depend on the paging."""
+    dev = index.centroids.device
+    slot = torch.arange(index.l_pad, dtype=torch.int32, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    with record_function("ann.select"):
+        qn, d2p, probes = select_probes(qb, index.centroids, index.c_norm, nprobe)
+        valid = slot[None, None, :] < index.counts[probes][:, :, None]
+        pos = torch.where(valid, probes.to(torch.int32)[:, :, None] * index.l_pad + slot, _POS_SENTINEL)
+        vals = torch.empty(pos.shape, dtype=torch.float32, device=dev)
+    scores = block_scorer(qb, qn, d2p)
+    tier = getattr(index, "tier", None)
+    with record_function("ann.scan"):
+        if tier is None:
+            for sl in chunk_iter(qb.shape[0], sub_rows):
+                vals[sl] = -torch.where(valid[sl], scores(index.planes, probes[sl], sl), inf)
+        else:
+            host_probes = probes.cpu().numpy()
+            for sl in chunk_iter(qb.shape[0], sub_rows):
+                for s, e in tier.plan_groups(host_probes[sl]):
+                    planes, slot_map = tier.acquire(host_probes[sl][s:e].ravel())
+                    d2 = scores(planes, slot_map[probes[sl]], sl)
+                    g = slice(sl.start + s, sl.start + e)
+                    vals[g] = -torch.where(valid[g], d2[s:e], inf)
+    return vals, pos
+
+
+def sweep_geometry(n: int, width: int, tile_bytes_per_query: int) -> Tuple[int, int]:
+    """(query rows a block, rows scored at once): the block's pool of
+    `width` candidates a query under _POOL_BYTES, the gathered tile of
+    tile_bytes_per_query bytes a query under _TILE_BYTES."""
+    block_rows = max(1, min(n, _POOL_BYTES // (8 * width)))
+    return block_rows, max(1, min(block_rows, _TILE_BYTES // max(1, tile_bytes_per_query)))
+
+
+def probe_sweep(
+    index,
+    q: torch.Tensor,
+    k: int,
+    nprobe: int,
+    block_scorer: Callable,
+    tile_bytes_per_query: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The probed search of the flat and PQ indexes: host (distances (Q, k)
+    float32 ascending sqrt(max(d2, 0)), positions (Q, k) int32; unfillable
+    slots carry inf and _POS_SENTINEL).  Each block's pool (probe_pool) is
+    merged by knn_fused_merge (module header)."""
+    block_rows, sub_rows = sweep_geometry(q.shape[0], nprobe * index.l_pad, tile_bytes_per_query)
+    out_d, out_p = [], []
+    for blk in chunk_iter(q.shape[0], block_rows):
+        vals, pos = probe_pool(index, q[blk], nprobe, block_scorer, sub_rows)
+        with record_function("ann.merge"):
+            dist, fpos = knn_fused_merge(vals, pos, k)[:2]
+            out_d.append(dist)
+            out_p.append(torch.where(torch.isinf(dist), _POS_SENTINEL, fpos))
+    return torch.cat(out_d).cpu().numpy(), torch.cat(out_p).cpu().numpy()
+
+
+def _flat_block_scorer(qb: torch.Tensor, qn: torch.Tensor, _d2p: torch.Tensor):
+    def scores(planes, slots, sl):
+        data, norm = planes
+        c, p = slots.shape
+        l_pad, d = data.shape[1], data.shape[2]
+        flat = slots.reshape(-1)
+        tile = data.index_select(0, flat).view(c, p * l_pad, d)
+        xn = norm.index_select(0, flat).view(c, p, l_pad)
+        cross = torch.bmm(tile, qb[sl].unsqueeze(2)).view(c, p, l_pad)
+        # the exact engine's expanded form, in its rounding order
+        return (qn[sl, None, None] - 2.0 * cross) + xn
+
+    return scores
+
+
+def to_device_queries(queries, dim: int, dev: torch.device) -> torch.Tensor:
+    if isinstance(queries, torch.Tensor):
+        q = queries.to(device=dev, dtype=torch.float32)
+    else:
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(dev)
+    if q.dim() != 2 or q.shape[1] != dim:
+        raise ValueError(f"queries must be (n, {dim}); got {tuple(q.shape)}")
+    return q.contiguous()
+
+
+def ids_of(ids_pad: np.ndarray, dist: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """User ids of padded-layout positions; -1 where the distance is inf."""
+    ids = ids_pad[np.minimum(pos, ids_pad.size - 1)]
+    ids[np.isinf(dist)] = -1
+    return ids
+
+
+def flat_tile_bytes(index, nprobe: int) -> int:
+    """Device bytes a query's scoring takes: its gathered items, their
+    norms, the cross terms and the distances."""
+    return 4 * nprobe * index.l_pad * (index.dim + 3)
+
+
+def ivfflat_search_prepared(index, queries, k: int, nprobe: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Probed search of `queries` (host array or tensor) against a staged
+    index: (distances (Q, k_eff) ascending euclidean float32, ids (Q, k_eff)
+    int64, -1 in unfillable slots), k_eff = min(k, n_items)."""
+    q = to_device_queries(queries, index.dim, index.centroids.device)
+    k_eff = min(k, index.n_items)
+    if q.shape[0] == 0:
+        return np.zeros((0, k_eff), np.float32), np.zeros((0, k_eff), np.int64)
+    np_eff = effective_nprobe(index, nprobe)
+    d_all, p_all = probe_sweep(index, q, k, np_eff, _flat_block_scorer, flat_tile_bytes(index, np_eff))
+    return d_all[:, :k_eff], ids_of(index.ids, d_all, p_all)[:, :k_eff]
+
+
+def recall_at_k(approx_ids, exact_ids) -> float:
+    """Mean fraction of each row's exact k-nearest ids recovered by the
+    probed result; the -1 unfillable sentinel never counts as a hit."""
+    a = np.asarray(approx_ids)
+    e = np.asarray(exact_ids)
+    if a.shape[0] != e.shape[0]:
+        raise ValueError(f"row mismatch: {a.shape[0]} approx vs {e.shape[0]} exact")
+    if e.size == 0:
+        return 1.0
+    hits = 0
+    for ar, er in zip(a, e):
+        hits += np.intersect1d(ar[ar >= 0], er).size
+    return hits / float(e.shape[0] * e.shape[1])

@@ -8,11 +8,12 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from .dataframe import DataFrame
+from .models.approximate_nn import ApproximateNearestNeighbors, ApproximateNearestNeighborsModel
 from .models.kmeans import KMeansModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
 from .models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
@@ -64,3 +65,27 @@ def nearest_neighbors_model_from_reference(
         [{est.getOrDefault("featuresCol"): np.asarray(items), est.getIdCol(): np.asarray(ids, np.int64)}]
     )
     return est._model_for(item_df)
+
+
+_ANN_ATTRS = (
+    "centroids_", "packed_items_", "packed_ids_", "list_counts_", "n_lists", "n_items", "n_cols", "dtype",
+    "pq_codes_", "pq_scalars_", "pq_codebooks_", "pq_n_bits", "pq_rotation_",
+)
+
+
+def approximate_nearest_neighbors_model_from_reference(
+    attrs: Dict[str, Any], params: Optional[Dict[str, Any]] = None
+) -> ApproximateNearestNeighborsModel:
+    """ApproximateNearestNeighborsModel from the JAX package's model
+    attributes (centroids_, packed_items_, packed_ids_, list_counts_, n_lists,
+    n_items, n_cols, dtype and, for ivfpq, pq_codes_, pq_scalars_,
+    pq_codebooks_, pq_n_bits, pq_rotation_) and optionally its Spark params
+    (k, algorithm, algoParams, ...).  Without an `algorithm` param it
+    follows the payload: ivfpq when the attributes carry PQ codes."""
+    params = dict(params or {})
+    params.setdefault("algorithm", "ivfflat" if attrs.get("pq_codes_") is None else "ivfpq")
+    model = ApproximateNearestNeighborsModel(**{name: attrs.get(name) for name in _ANN_ATTRS if name in attrs})
+    est = ApproximateNearestNeighbors(**params)
+    est._copyValues(model)
+    model._tpu_params.update(est._tpu_params)
+    return model

@@ -1,0 +1,171 @@
+#
+# The IVF-PQ lookup-table kernels: ADC accumulation over one-byte codes and
+# over 4-bit codes packed two a byte (fast-scan).
+#
+# Counterpart of spark_rapids_ml_tpu/ops/pallas_pq.py.  Each wrapper takes its
+# plain PyTorch version for CPU tensors and launches its hand-written CUDA
+# kernel (sm_90a) for CUDA tensors, or raises; there is no fallback.
+#
+#   lut_accumulate           B9, replaces _lut_accum_kernel
+#                            (_lut_accumulate_pallas): csrc/pq_lut.cu
+#   fastscan_lut_accumulate  B10, replaces _fastscan_kernel (_fastscan_pallas):
+#                            csrc/pq_lut.cu
+#
+# Both compute out[b, r] = sum_j tables[b, j, code(b, r, j)], summed in j
+# order in float32, each term an exact table read, so the kernels, their
+# plain versions, the JAX package's numpy oracle and its interpret-mode
+# Pallas kernels agree bit for bit.  A code >= ksub adds 0.0, as in the
+# Pallas kernels (the JAX package's XLA route clamps instead; the PQ encoder
+# never writes such a code).  The TPU kernels' pre-transposed lane-major
+# layouts and their 512-row tiles are VMEM concerns that do not carry over:
+# here tables are (B, m_sub, ksub) and codes (B, R, m_bytes) as the callers
+# hold them.  Bound and design: see the source.
+#
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+_LIBRARY = "pq_lut"
+_MAX_KSUB = 256       # one-byte codes address at most 256 table entries
+_FASTSCAN_KSUB = 16   # a nibble addresses at most 16
+
+
+def _check(tables: torch.Tensor, codes: torch.Tensor, m_bytes: int, max_ksub: int) -> None:
+    if tables.dtype != torch.float32:
+        raise TypeError(f"tables must be float32, not {tables.dtype}")
+    if codes.dtype != torch.uint8:
+        raise TypeError(f"codes must be uint8, not {codes.dtype}")
+    if tables.dim() != 3 or codes.dim() != 3:
+        raise ValueError(f"tables {tuple(tables.shape)} and codes {tuple(codes.shape)} must be 3-D")
+    if codes.shape[0] != tables.shape[0] or codes.shape[2] != m_bytes:
+        raise ValueError(
+            f"codes {tuple(codes.shape)} must be ({tables.shape[0]}, R, {m_bytes}) for tables {tuple(tables.shape)}"
+        )
+    if not 1 <= tables.shape[2] <= max_ksub:
+        raise ValueError(f"tables must have 1 <= ksub <= {max_ksub}; got ksub={tables.shape[2]}")
+    if codes.device != tables.device:
+        raise ValueError(f"codes are on {codes.device}, tables on {tables.device}")
+    if not tables.is_contiguous() or not codes.is_contiguous():
+        raise ValueError("tables and codes must be contiguous")
+    if tables.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the PQ kernels run on cpu or cuda tensors, not {tables.device}")
+
+
+def _fastscan_check(tables: torch.Tensor, packed: torch.Tensor) -> int:
+    """Validate the packed fast-scan geometry; returns m_sub.  The typed
+    rejections of the JAX package's _fastscan_check: an odd m_sub cannot
+    pack two codes a byte, a nibble cannot address ksub > 16, and the packed
+    width must be m_sub / 2."""
+    m_sub = int(tables.shape[1])
+    if m_sub % 2 != 0:
+        raise ValueError(
+            f"fast-scan requires an even m_sub (two 4-bit codes pack per "
+            f"byte); got m_sub={m_sub} — use n_bits=8 or an even M"
+        )
+    if int(tables.shape[2]) > 16:
+        raise ValueError(
+            f"fast-scan tables must have ksub <= 16 (4-bit codes); got "
+            f"ksub={int(tables.shape[2])}"
+        )
+    if int(packed.shape[2]) * 2 != m_sub:
+        raise ValueError(
+            f"packed codes carry {int(packed.shape[2])} bytes/item but "
+            f"tables expect m_sub={m_sub} subspaces ({m_sub // 2} bytes)"
+        )
+    return m_sub
+
+
+def lut_accumulate(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC lookup-table accumulation: out[b, r] = sum_j tables[b, j,
+    codes[b, r, j]] (B, R) float32, sequential in j; tables (B, m_sub, ksub)
+    float32, codes (B, R, m_sub) uint8."""
+    _check(tables, codes, tables.shape[1], _MAX_KSUB)
+    if tables.device.type == "cpu":
+        return lut_accumulate_plain(tables, codes)
+    out = _launch("srml_lut_accumulate_f32", tables, codes, codes.shape[2])
+    lut_accumulate.launches += 1
+    return out
+
+
+def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The same sum over 4-bit codes packed two a byte: tables (B, m_sub,
+    ksub <= 16) float32, packed (B, R, m_sub / 2) uint8 (code j in the low
+    nibble of byte j // 2 when j is even, in the high nibble when odd)."""
+    if tables.dim() != 3 or packed.dim() != 3:
+        raise ValueError(f"tables {tuple(tables.shape)} and packed {tuple(packed.shape)} must be 3-D")
+    m_sub = _fastscan_check(tables, packed)
+    _check(tables, packed, m_sub // 2, _FASTSCAN_KSUB)
+    if tables.device.type == "cpu":
+        return fastscan_lut_accumulate_plain(tables, packed)
+    out = _launch("srml_fastscan_accumulate_f32", tables, packed, packed.shape[2])
+    fastscan_lut_accumulate.launches += 1
+    return out
+
+
+# launches of the CUDA kernel by each wrapper, for runs that must show the
+# path went through it
+lut_accumulate.launches = 0
+fastscan_lut_accumulate.launches = 0
+
+
+def _launch(entry: str, tables: torch.Tensor, codes: torch.Tensor, m_bytes: int) -> torch.Tensor:
+    b, m_sub, ksub = tables.shape
+    r = codes.shape[1]
+    out = torch.empty((b, r), dtype=torch.float32, device=tables.device)
+    if b == 0 or r == 0:
+        return out
+    vec = int(m_bytes % 16 == 0 and codes.data_ptr() % 16 == 0)
+    fn = getattr(_build.load(_LIBRARY), entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        tables.data_ptr(), codes.data_ptr(), out.data_ptr(), b, r, m_sub, ksub, vec,
+        torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def lut_accumulate_plain(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The accumulation in plain PyTorch: an explicit loop over j of one
+    gather and one add (a sum over the j axis would not keep the order); a
+    code >= ksub adds 0.0.  Runs on any device."""
+    b, m_sub, ksub = tables.shape
+    acc = torch.zeros(codes.shape[:2], dtype=torch.float32, device=tables.device)
+    for j in range(m_sub):
+        c = codes[:, :, j].long()
+        term = tables[:, j, :].gather(1, c.clamp(max=ksub - 1))
+        acc = acc + torch.where(c < ksub, term, torch.zeros_like(term))
+    return acc
+
+
+def fastscan_lut_accumulate_plain(tables: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The fast-scan accumulation in plain PyTorch: unpack the nibbles, then
+    lut_accumulate_plain.  Runs on any device."""
+    return lut_accumulate_plain(tables, unpack_codes4(packed))
+
+
+def pack_codes4(codes: np.ndarray) -> np.ndarray:
+    """Host packer, the unpack_codes4 inverse: (N, m_sub even) uint8 4-bit
+    codes -> (N, m_sub // 2) bytes, byte p = code[:, 2p] | code[:, 2p+1] << 4."""
+    codes = np.asarray(codes, np.uint8)
+    if codes.ndim != 2 or codes.shape[1] % 2:
+        raise ValueError(f"pack_codes4 needs (N, even m_sub) codes; got {codes.shape}")
+    if codes.size and int(codes.max()) > 0xF:
+        raise ValueError("pack_codes4 codes must be 4-bit (values < 16)")
+    return (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8)
+
+
+def unpack_codes4(packed: torch.Tensor) -> torch.Tensor:
+    """(B, R, m_sub // 2) packed bytes -> (B, R, m_sub) uint8 4-bit codes in
+    the j order the kernels sweep: byte p holds j = 2p (low nibble) and
+    j = 2p + 1 (high nibble)."""
+    b, r, m_half = packed.shape
+    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(b, r, 2 * m_half)

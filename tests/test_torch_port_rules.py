@@ -73,10 +73,18 @@ preds = reg.transform(df_y).partitions[0]["prediction"]
 items = np.random.default_rng(1).standard_normal((1500, 4)).astype(np.float32)
 nn = port.NearestNeighbors(k=3).fit(port.DataFrame.from_numpy(items, num_partitions=2))
 knn = nn.kneighbors(df)[2]
+ann = {}
+for algo, params in (("ivfflat", {"nlist": 8}), ("ivfpq", {"nlist": 8, "M": 2, "n_bits": 4})):
+    approx = port.ApproximateNearestNeighbors(k=3, algorithm=algo, algoParams=params).fit(
+        port.DataFrame.from_numpy(items, num_partitions=2))
+    with tempfile.TemporaryDirectory() as d:
+        approx.save(d)
+        ann[algo] = list(port.load(d).kneighbors(df)[2].partitions[0]["indices"].shape)
 print(json.dumps({
     "n_labels": int(len(labels)),
     "forest": [list(probs.shape), int(len(preds))],
     "knn": [list(knn.partitions[1]["indices"].shape), str(knn.partitions[1]["distances"].dtype)],
+    "ann": ann,
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_ml_tpu")),
 }))
@@ -95,7 +103,8 @@ def test_main_path_runs_without_jax_and_pandas():
     )
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"n_labels": 100, "forest": [[100, 2], 100], "knn": [[100, 3], "float32"], "loaded": []}
+    assert result == {"n_labels": 100, "forest": [[100, 2], 100], "knn": [[100, 3], "float32"],
+                      "ann": {"ivfflat": [100, 3], "ivfpq": [100, 3]}, "loaded": []}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -126,6 +135,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         nn.kneighbors(df)
     with port.device.use_device("cpu"):
         assert nn.kneighbors(df)[2].partitions[0]["indices"].shape == (20, 2)
+    approx = port.ApproximateNearestNeighbors(k=2, algoParams={"nlist": 2})
+    with pytest.raises(RuntimeError, match="use_device"):
+        approx.fit(df)
+    with port.device.use_device("cpu"):
+        approx_model = approx.fit(df)
+    with pytest.raises(RuntimeError, match="use_device"):
+        approx_model.kneighbors(df)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
