@@ -68,6 +68,28 @@
 #            kneighbors of 2,048 queries streams them through in 3 blocks;
 #            the device never holds two blocks (peak memory of the call under
 #            two blocks' bytes), and the results pass the float64 check
+#   kernels_exchange
+#            the ring shift (B11) against its plain version on 4 shards of
+#            the card, bit for bit: the ring hop's blocks (2,048 x 3000 f32
+#            queries, 2,048 x 200 f32 and i32 candidates) at shifts 1, -1, 3,
+#            misaligned blocks, two gateway cycles, the typed rejections;
+#            device times from a trace (library_ms: torch.roll of the
+#            stacked blocks).  kernels_exchange_peer runs the same cases over
+#            cuda:0 .. n-1 through peer pointers, or says it was skipped on a
+#            host with one card
+#   path_knn_mesh
+#            path_knn's arm on a 4-shard mesh of the card
+#            (use_device(["cuda:0"] * 4), NearestNeighbors(k=200,
+#            num_workers=4)): fit, kneighbors twice, one profiled call, B5
+#            once per shard per block and B7 once per block, the float64
+#            check, ids equal to path_knn's off near-ties
+#   knn_ring one 8,192-query block through the exact exchange on that mesh,
+#            ring and gather (equal bit for bit; 12 B11 launches on the ring,
+#            none on the gather; the section bytes of the per-hop model), and
+#            through the one-shard exchange (distances within 1e-6, ids equal
+#            off near-ties); a ragged 37-row block, padded onto the ring (12
+#            B11 launches), against the block's rows; one profiled ring call
+#            gives B11's share
 #   kernels_ann
 #            the IVF-PQ lookup-table kernels against their plain versions,
 #            bit for bit: B9 (one-byte codes) and B10 (fast-scan) at the JAX
@@ -94,8 +116,8 @@
 # read just after.  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
-# knn_audit and knn_streamed need path_knn; the ANN phases need nothing
-# else).
+# knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
+# path_knn_mesh; the ANN phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -685,11 +707,14 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "knn_topm_kernel",
-                       "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel")
+                       "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel", "ring_shift_kernel")
 
 
-def is_port_kernel(name):
-    return "at::" not in name and any(f"(anonymous namespace)::{s}" in name for s in PORT_KERNEL_SYMBOLS)
+def port_kernel(name):
+    """The port's kernel symbol a trace event names, or None."""
+    if "at::" in name:
+        return None
+    return next((s for s in PORT_KERNEL_SYMBOLS if f"(anonymous namespace)::{s}" in name), None)
 
 
 def profile_run(torch, run, ranges, wrappers):
@@ -724,7 +749,7 @@ def profile_once(torch, run, ranges):
         wall_ms = 1e3 * (time.perf_counter() - t0)  # not the profiler's own start and stop
     events = prof.events()
     host = {k: 0.0 for k in ranges}
-    spans, per_kernel, traced = [], {}, 0
+    spans, per_kernel, traced, port_ms, port_n = [], {}, 0, {}, {}
     for e in events:
         if e.device_type == DeviceType.CPU:
             if e.name in host:
@@ -733,7 +758,11 @@ def profile_once(torch, run, ranges):
             # a kernel or a copy on the card (not a range's device-side
             # annotation, nor the profiler's own buffer requests)
             spans.append((e.time_range.start, e.time_range.end))
-            traced += is_port_kernel(e.name)
+            symbol = port_kernel(e.name)
+            if symbol is not None:
+                traced += 1
+                port_ms[symbol] = port_ms.get(symbol, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+                port_n[symbol] = port_n.get(symbol, 0) + 1
             ms, count = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
     busy_us, reach = 0.0, float("-inf")
@@ -748,6 +777,8 @@ def profile_once(torch, run, ranges):
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "top_device_ms": [[name[:90], ms, count] for name, (ms, count) in top],
+        "port_kernel_ms": port_ms,
+        "port_launches": port_n,
         "traced_launches": traced,
     }
 
@@ -1127,6 +1158,384 @@ def knn_streamed(torch, port, knn_ops, wrappers, X, Qh, main_prepared, main_dist
 
 
 # ---------------------------------------------------------------------------
+# The mesh: kernel B11 and exact kNN on 4 shards of one card
+# ---------------------------------------------------------------------------
+
+# Four shards of one card: the script needs one card, and 4 shards of the
+# kNN arm's 400,000 items are 100,000 rows each, with no padding; a mesh that
+# repeats a device is the port's counterpart of the JAX package's forced host
+# device count.  The ring hop's blocks: 8,192 queries / 4 shards.
+MESH_SHARDS = 4
+RING_ROWS = KNN_BLOCK // MESH_SHARDS
+EXCHANGE_SHIFTS = (1, -1, 3)
+EXCHANGE_REPS = 50  # calls a B11 timing traces
+# the ring against the one-shard exchange: distances within this relative
+# error, ids equal off near-ties (KNN_TIE_RTOL)
+RING_DIST_RTOL = 1e-6
+# a ragged exchange block, as flagged rows come: padded to 64 rows, it runs
+# the ring with (16, 3000) sub-tiles
+RAGGED_ROWS = 37
+KNN_MESH_DIST_RTOL = 1e-5  # the mesh kernel route against path_knn's
+
+
+def bits_differ(torch, a, b):
+    """Count of bytes whose bits differ between two tensors of one shape."""
+    return int((a.reshape(-1).view(torch.uint8) != b.reshape(-1).view(torch.uint8).to(a.device)).sum())
+
+
+def ring_permutation(n, shift):
+    from spark_rapids_ml_tpu_torch.parallel.mesh import ring_permutation as port_ring_permutation
+
+    return port_ring_permutation(n, shift)
+
+
+def exchange_case(torch, ek, name, srcs, perm):
+    """B11 against its plain version on one case: bit for bit, every block
+    on its destination's device."""
+    out, ref = ek.ring_shift(srcs, perm), ek.ring_shift_plain(srcs, perm)
+    torch.cuda.synchronize()
+    differ = sum(bits_differ(torch, a, b) for a, b in zip(out, ref))
+    for d, t in enumerate(out):
+        check(t.device == srcs[d].device, f"ring_shift {name}: block {d} landed on {t.device}")
+    check(differ == 0, f"ring_shift {name} differs from its plain version in {differ} bytes")
+    return {"case": name, "perm": [list(p) for p in perm], "shape": list(srcs[0].shape),
+            "dtype": str(srcs[0].dtype), "bytes_differ": differ}
+
+
+def exchange_rejections(torch, ek, blocks):
+    """The typed rejections: each raises ValueError and launches nothing."""
+    q, cd, cp = blocks
+    n = len(q)
+    rot = [(i, (i + 1) % n) for i in range(n)]
+    cases = {
+        "unequal_shape": (q[:-1] + [q[-1][:-1]], rot),
+        "unequal_dtype": ([cd[0]] + cp[1:], rot),
+        "more_than_64_pairs": ([cd[0]] * (ek.MAX_PAIRS + 1), [(i, (i + 1) % (ek.MAX_PAIRS + 1))
+                                                               for i in range(ek.MAX_PAIRS + 1)]),
+        "not_a_permutation": (cd, [(i, 0) for i in range(n)]),
+        "not_contiguous": ([t.t() for t in cd], rot),
+    }
+    before = ek.ring_shift.launches
+    for case, (srcs, perm) in cases.items():
+        try:
+            ek.ring_shift(srcs, perm)
+        except ValueError:
+            continue
+        raise RuntimeError(f"ring_shift accepted the {case} case")
+    check(ek.ring_shift.launches == before, "a rejected ring_shift launched its kernel")
+    return sorted(cases)
+
+
+def exchange_cases(torch, ek, topology, devices, gen):
+    """B11 on the given shard devices: the ring hop's blocks (2,048 x 3000
+    f32 queries, 2,048 x 200 f32 distances and i32 positions) at every shift
+    of EXCHANGE_SHIFTS, misaligned blocks, the gateway cycles, the
+    rejections.  Returns (records, the hop's blocks)."""
+    n = len(devices)
+    home = devices[0]
+    q = [torch.randn(RING_ROWS, COLS, generator=gen, device=home).to(d) for d in devices]
+    cd = [torch.randn(RING_ROWS, KNN_K, generator=gen, device=home).to(d) for d in devices]
+    cp = [torch.randint(0, 2**31 - 1, (RING_ROWS, KNN_K), generator=gen, device=home, dtype=torch.int32).to(d)
+          for d in devices]
+    rows = []
+    for name, blocks in (("query", q), ("cand_dist", cd), ("cand_pos", cp)):
+        for shift in EXCHANGE_SHIFTS:
+            rows.append(exchange_case(torch, ek, f"{name}_shift{shift}", blocks, ring_permutation(n, shift)))
+    # one float past a 16-byte boundary (4-byte words), one byte past with a
+    # ragged length (bytes)
+    f = torch.randn(n, 1 + 7001, generator=gen, device=home)
+    rows.append(exchange_case(torch, ek, "misaligned_f32", [f[i, 1:].to(d) if d != home else f[i, 1:]
+                                                             for i, d in enumerate(devices)], ring_permutation(n, 1)))
+    b = torch.randint(0, 256, (n, 1 + 1001), generator=gen, device=home, dtype=torch.uint8)
+    rows.append(exchange_case(torch, ek, "misaligned_u8", [b[i, 1:] if d == home else b[i, 1:].to(d)
+                                                            for i, d in enumerate(devices)], ring_permutation(n, 1)))
+    maps = [("gateway_devs_per_host_2", topology.topology_map(devices=devices, devs_per_host=2))]
+    if n == 4:
+        maps.append(("gateway_interleaved", topology.TopologyMap(groups=((0, 2), (1, 3)), source="override")))
+    for name, topo in maps:
+        check(topo.is_hierarchical, f"{name}: {topo.describe()} is not hierarchical")
+        for shift in (1, -1):
+            rows.append(exchange_case(torch, ek, f"{name}_shift{shift}", q, topology.ring_cycle(topo, shift)))
+    rejections = exchange_rejections(torch, ek, (q, cd, cp))
+    return rows, rejections, (q, cd, cp)
+
+
+def device_ms(torch, fn, reps, symbol=None):
+    """(device ms per call of `fn`, traced launches) from one trace of `reps`
+    calls after a warm-up call: the mean time of the traced launches of the
+    port's kernel `symbol`, or the card's busy time (every kernel and copy)
+    over the calls."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    rec = profile_once(torch, run, ())
+    if symbol is None:
+        return rec["device_busy_ms"] / reps, None
+    traced = rec["port_launches"].get(symbol, 0)
+    check(traced > 0, f"the trace holds no launch of {symbol}")
+    return rec["port_kernel_ms"][symbol] / traced, traced
+
+
+def check_exchange_kernel(torch, ek, topology, dev):
+    """Phase kernels_exchange: B11 against its plain version on 4 shards of
+    one card, bit for bit, then its times at the ring hop's shapes (library:
+    torch.roll of the stacked blocks along the shard axis)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    devices = [dev] * MESH_SHARDS
+    rows, rejections, blocks = exchange_cases(torch, ek, topology, devices, gen)
+    timed = {}
+    for name, srcs in zip(("query", "cand_dist", "cand_pos"), blocks):
+        perm = ring_permutation(MESH_SHARDS, 1)
+        stacked = torch.stack(srcs)
+        rolled = torch.roll(stacked, 1, 0)
+        check(all(torch.equal(a, b) for a, b in zip(ek.ring_shift(srcs, perm), rolled)),
+              f"ring_shift {name} disagrees with torch.roll")
+        kernel = lambda: ek.ring_shift(srcs, perm)  # noqa: E731
+        plain = lambda: ek.ring_shift_plain(srcs, perm)  # noqa: E731
+        library = lambda: torch.roll(stacked, 1, 0)  # noqa: E731
+        # a shift takes tens of microseconds on the card, less than the
+        # wrapper's host work, so CUDA events around a call time the host:
+        # ms, plain_ms and library_ms are device times from a trace of
+        # EXCHANGE_REPS calls, the event times are kept beside them
+        r = {key[: -len("_ms")] + "_call_ms": ms
+             for key, ms in timings(torch, kernel, plain, library, EXCHANGE_REPS).items()}
+        r["kernel_ms"], r["traced_launches"] = device_ms(torch, kernel, EXCHANGE_REPS, "ring_shift_kernel")
+        r["plain_ms"], _ = device_ms(torch, plain, EXCHANGE_REPS)
+        r["library_ms"], _ = device_ms(torch, library, EXCHANGE_REPS)
+        nbytes = MESH_SHARDS * srcs[0].numel() * srcs[0].element_size()
+        r["bound_ms"], r["bound_by"] = bound(2.0 * nbytes, 0.0)
+        timed[name] = {"shards": MESH_SHARDS, "shape": list(srcs[0].shape), "dtype": str(srcs[0].dtype),
+                       "block_bytes": nbytes // MESH_SHARDS, **r, "max_abs_err": 0.0}
+        del stacked, rolled
+    del blocks
+    torch.cuda.empty_cache()
+    return {"phase": "kernels_exchange", "shards": MESH_SHARDS, "device": str(dev), "cases": rows,
+            "rejections": rejections, "bit_exact": True, "ring_shift": timed["query"],
+            "ring_shift_cand_dist": timed["cand_dist"], "ring_shift_cand_pos": timed["cand_pos"]}
+
+
+def check_exchange_peer(torch, ek, topology):
+    """Phase kernels_exchange_peer: the same cases over cuda:0 .. n-1 (at
+    most 4), through peer pointers; skipped on a host with one card."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"phase": "kernels_exchange_peer", "skipped": f"{count} CUDA device"}
+    devices = [torch.device("cuda", i) for i in range(min(count, MESH_SHARDS))]
+    gen = torch.Generator(device=devices[0]).manual_seed(SEED + 1)
+    rows, rejections, blocks = exchange_cases(torch, ek, topology, devices, gen)
+    q = blocks[0]
+    perm = ring_permutation(len(devices), 1)
+    ms, _ = device_ms(torch, lambda: ek.ring_shift(q, perm), EXCHANGE_REPS, "ring_shift_kernel")
+    del blocks, q
+    torch.cuda.empty_cache()
+    return {"phase": "kernels_exchange_peer", "devices": [str(d) for d in devices], "cases": rows,
+            "rejections": rejections, "bit_exact": True, "query_kernel_ms": ms,
+            "knn_across_cards": knn_across_cards(torch, ek, devices)}
+
+
+def knn_across_cards(torch, ek, devices):
+    """The exact kNN search with its shards on several cards against the
+    same shards on one card: the kernel route and one block through the
+    ring and the gather, bit for bit (one launch of B11 per source card and
+    call on the ring)."""
+    from spark_rapids_ml_tpu_torch.ops import knn as knn_ops
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
+
+    n, rows, cols, queries = len(devices), 100_000, 256, 2048
+    X = normal_data(n * rows, cols, KNN_ITEM_SEED)
+    Q = normal_data(queries, cols, KNN_QUERY_SEED)
+    ids = np.arange(n * rows)
+    one = knn_ops.prepare_items(X, ids, Mesh([devices[0]] * n))
+    cards = knn_ops.prepare_items(X, ids, Mesh(devices))
+    qb = torch.from_numpy(Q).to(devices[0])
+    rec = {"items": n * rows, "cols": cols, "queries": queries, "k": KNN_K}
+    for route in ("ring", "gather"):
+        before = ek.ring_shift.launches
+        want = knn_ops._exact_block_search(one, qb, KNN_K, exchange=route)
+        mid = ek.ring_shift.launches
+        got = knn_ops._exact_block_search(cards, qb, KNN_K, exchange=route)
+        torch.cuda.synchronize()
+        differ = sum(bits_differ(torch, a, b) for a, b in zip(got, want))
+        check(differ == 0, f"the {route} across {n} cards differs from one card in {differ} bytes")
+        rec[f"{route}_launches_one_card"] = mid - before
+        rec[f"{route}_launches_cards"] = ek.ring_shift.launches - mid
+    check(rec["ring_launches_cards"] == 3 * n * n, f"the ring across cards launched B11 {rec['ring_launches_cards']}")
+    want = knn_ops.knn_search_prepared(one, Q, KNN_K)
+    got = knn_ops.knn_search_prepared(cards, Q, KNN_K)
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)), "the kernel route across cards differs from one card")
+    rec["bit_exact"] = True
+    del one, cards, qb
+    torch.cuda.empty_cache()
+    return rec
+
+
+def near_tie_mismatches(torch, prepared, Qh, rows, pos_a, pos_b, dev):
+    """(entries whose positions differ, of them those off near-ties): a
+    differing pair of items must lie within KNN_TIE_RTOL of each other in
+    float64 distance to the query."""
+    differ = np.argwhere(pos_a != pos_b)
+    if differ.size == 0:
+        return 0, 0
+    r, c = differ[:, 0], differ[:, 1]
+    q = torch.from_numpy(Qh[rows[r]]).to(dev, torch.float64)
+    items = prepared.items
+    da = (items[torch.from_numpy(pos_a[r, c]).to(dev)].double() - q).norm(dim=1)
+    db = (items[torch.from_numpy(pos_b[r, c]).to(dev)].double() - q).norm(dim=1)
+    return len(r), int(((da - db).abs() > KNN_TIE_RTOL * db).sum())
+
+
+def run_knn_mesh_path(torch, port, knn_ops, wrappers, X, Qh, single, single_idx, single_dist, dev):
+    """Phase path_knn_mesh: the kNN arm through the public API on a 4-shard
+    mesh of one card: fit -> kneighbors twice, the float64 check, one
+    profiled call; the results against path_knn's."""
+    item_df = port.DataFrame.from_numpy(X, num_partitions=KNN_ITEM_PARTS)
+    query_df = port.DataFrame.from_numpy(Qh, num_partitions=KNN_QUERY_PARTS)
+    search = knn_ops.knn_search_prepared
+    with port.device.use_device([dev] * MESH_SHARDS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(wrappers)
+        search.flagged_rows = search.rerun_rows = 0
+        port.profiling.reset_counters()
+        model = port.NearestNeighbors(k=KNN_K, num_workers=MESH_SHARDS).fit(item_df)
+        t0 = time.perf_counter()
+        knn_df = model.kneighbors(query_df)[2]
+        first_s = time.perf_counter() - t0
+        launches_first = read_launches(wrappers)
+        t0 = time.perf_counter()
+        knn_df2 = model.kneighbors(query_df)[2]
+        kneighbors_s = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        counters = port.profiling.counters()
+        flagged, rerun = search.flagged_rows, search.rerun_rows
+        peak_bytes = torch.cuda.max_memory_allocated()
+        prepared = model._staged_items[1]
+        profile = profile_run(torch, lambda: model.kneighbors(query_df), KNN_PROFILE_RANGES, wrappers)
+    n_loc = KNN_ITEMS // MESH_SHARDS
+    check(len(prepared.shards) == MESH_SHARDS and all(sh.items.shape[0] == n_loc for sh in prepared.shards),
+          "the items were not sharded 4 ways of 100,000 rows")
+    blocks = -(-KNN_QUERIES // KNN_BLOCK)
+    m = knn_ops._scan_geometry(KNN_K, n_loc)[1]
+    check(launches_first["knn_candidates"] == MESH_SHARDS * blocks and launches_first["knn_fused_merge"] == blocks,
+          f"a mesh kneighbors call launched B5 / B7 {launches_first['knn_candidates']} / "
+          f"{launches_first['knn_fused_merge']} times")
+    check(launches["knn_candidates"] == 2 * MESH_SHARDS * blocks, "the cached mesh call launched B5 otherwise")
+    check(counters.get("exchange.knn.cand_pool.calls") == 2 * 2 * blocks, f"cand_pool gathers: {counters}")
+    idx = np.concatenate([p["indices"] for p in knn_df.partitions])
+    dist = np.concatenate([p["distances"] for p in knn_df.partitions])
+    check(idx.shape == (KNN_QUERIES, KNN_K) and bool(np.isfinite(dist).all()), f"mesh kneighbors gave {idx.shape}")
+    check(np.array_equal(idx, np.concatenate([p["indices"] for p in knn_df2.partitions]))
+          and np.array_equal(dist, np.concatenate([p["distances"] for p in knn_df2.partitions])),
+          "the cached mesh kneighbors call gave other results")
+    dist_err = float((np.abs(dist - single_dist) / single_dist).max())
+    check(dist_err <= KNN_MESH_DIST_RTOL, f"mesh distances off path_knn's by {dist_err} relative")
+    pos_of_id = np.empty(KNN_ITEMS, np.int64)
+    pos_of_id[single.ids] = np.arange(KNN_ITEMS)
+    differ, off_tie = near_tie_mismatches(torch, single, Qh, np.arange(KNN_QUERIES), pos_of_id[idx],
+                                          pos_of_id[single_idx], dev)
+    check(off_tie == 0, f"{off_tie} mesh ids differ from path_knn's off near-ties")
+    f64 = check_against_float64(torch, single, Qh, idx, dist, dev)
+    return {
+        "phase": "path_knn_mesh", "shards": MESH_SHARDS, "mesh": [str(dev)] * MESH_SHARDS,
+        "items": KNN_ITEMS, "cols": X.shape[1], "queries": KNN_QUERIES, "k": KNN_K, "rows_cut": False,
+        "rows_per_shard": n_loc, "m": m, "groups_per_shard": -(-n_loc // 1024),
+        "pool_per_query": MESH_SHARDS * -(-n_loc // 1024) * m,
+        "first_kneighbors_s": first_s, "kneighbors_s": kneighbors_s, "stage_s": first_s - kneighbors_s,
+        "kneighbors_rows_per_s": KNN_QUERIES / kneighbors_s,
+        "launches_first_call": launches_first, "launches": launches,
+        "exchange_counters": {k: v for k, v in counters.items() if not k.endswith("time_ns")},
+        "flagged_rows": flagged, "rerun_rows": rerun, "max_memory_allocated_bytes": peak_bytes,
+        "ids_differ_vs_path_knn": differ, "ids_differ_off_near_ties": off_tie,
+        "dist_max_rel_err_vs_path_knn": dist_err, "float64_check": f64, "profile": profile,
+    }, prepared
+
+
+def knn_ring(torch, port, knn_ops, ek, wrappers, mesh_prepared, single, Qh, dev):
+    """Phase knn_ring: one 8,192-query block through the exact exchange on
+    the 4-shard mesh, ring and gather, and through the one-shard exchange:
+    ring == gather bit for bit, 12 B11 launches on the ring and none on the
+    gather, the section bytes of the per-hop model, and the one-shard result
+    within RING_DIST_RTOL (ids equal off near-ties)."""
+    qb = torch.from_numpy(Qh[:KNN_BLOCK]).to(dev)
+    out, rec = {}, {"phase": "knn_ring", "shards": MESH_SHARDS, "queries": KNN_BLOCK, "k": KNN_K}
+    for route in ("ring", "gather"):
+        torch.cuda.synchronize()
+        reset_launches(wrappers)
+        port.profiling.reset_counters()
+        t0 = time.perf_counter()
+        out[route] = knn_ops._exact_block_search(mesh_prepared, qb, KNN_K, exchange=route)
+        torch.cuda.synchronize()
+        rec[f"{route}_s"] = time.perf_counter() - t0
+        rec[f"launches_{route}"] = read_launches(wrappers)
+        rec[f"counters_{route}"] = {k: v for k, v in port.profiling.counters().items() if not k.endswith("time_ns")}
+    (rd, rp), (gd, gp) = out["ring"], out["gather"]
+    differ = bits_differ(torch, rd, gd) + bits_differ(torch, rp, gp)
+    check(differ == 0, f"ring and gather differ in {differ} bytes")
+    check(rec["launches_ring"]["ring_shift"] == 3 * MESH_SHARDS, f"the ring launched B11 {rec['launches_ring']}")
+    check(rec["launches_gather"]["ring_shift"] == 0, "the gather launched B11")
+    ctr = rec["counters_ring"]
+    want_q = MESH_SHARDS * RING_ROWS * COLS * 4
+    want_c = MESH_SHARDS * 2 * RING_ROWS * KNN_K * 4
+    check(ctr.get("exchange.knn.ring_q.bytes") == want_q and ctr.get("exchange.knn.ring_cand.bytes") == want_c,
+          f"ring section bytes {ctr} against the model {want_q} / {want_c}")
+    check(rec["counters_ring"].get("knn.exchange_route.ring") == 1
+          and rec["counters_gather"].get("knn.exchange_route.gather") == 1, "the route counters")
+    n1 = single.items.shape[0]
+    chunk, qt = knn_ops._exchange_geometry(n1, KNN_BLOCK, 1, "ring")
+    ring_geometry = knn_ops._exchange_geometry(n1 // MESH_SHARDS, KNN_BLOCK, MESH_SHARDS, "ring")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    od, op = knn_ops.knn_block_kernel_exchange(single, qb, KNN_K, "ring", chunk, qt)
+    torch.cuda.synchronize()
+    rec["one_shard_s"] = time.perf_counter() - t0
+    rec["geometry_one_shard"], rec["geometry_ring"] = [chunk, qt], list(ring_geometry)
+    rec["bytes_differ_vs_one_shard"] = bits_differ(torch, rd, od) + bits_differ(torch, rp, op)
+    dist_err = float(((rd.double() - od.double()).abs() / od.double()).max())
+    check(dist_err <= RING_DIST_RTOL, f"ring distances off the one-shard exchange by {dist_err} relative")
+    pa, pb = rp.cpu().numpy(), op.cpu().numpy()
+    rec["ids_differ_vs_one_shard"], off_tie = near_tie_mismatches(torch, single, Qh, np.arange(KNN_BLOCK), pa, pb, dev)
+    check(off_tie == 0, f"{off_tie} ring ids differ from the one-shard exchange off near-ties")
+    rec["dist_max_rel_err_vs_one_shard"] = dist_err
+    # a ragged block pads onto the ring: 12 B11 launches, rows as the block's
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    port.profiling.reset_counters()
+    t0 = time.perf_counter()
+    xd, xp = knn_ops._exact_block_search(mesh_prepared, qb[:RAGGED_ROWS], KNN_K)
+    torch.cuda.synchronize()
+    rec["ragged_s"] = time.perf_counter() - t0
+    rec["ragged_rows"], rec["ragged_padded_rows"] = RAGGED_ROWS, knn_ops._exchange_rows(RAGGED_ROWS, MESH_SHARDS)
+    rec["launches_ragged"] = read_launches(wrappers)
+    check(port.profiling.counters("knn.exchange_route.") == {"knn.exchange_route.ring": 1}
+          and rec["launches_ragged"]["ring_shift"] == 3 * MESH_SHARDS,
+          f"the ragged block: routes {port.profiling.counters('knn.exchange_route.')}, "
+          f"launches {rec['launches_ragged']}")
+    rec["ragged_bytes_differ_vs_block"] = bits_differ(torch, xd, rd[:RAGGED_ROWS]) + bits_differ(
+        torch, xp, rp[:RAGGED_ROWS])
+    ragged_err = float(((xd.double() - rd[:RAGGED_ROWS].double()).abs() / rd[:RAGGED_ROWS].double()).max())
+    check(ragged_err <= RING_DIST_RTOL, f"the ragged block's distances off the block's by {ragged_err} relative")
+    rec["ragged_ids_differ_vs_block"], off_tie = near_tie_mismatches(
+        torch, single, Qh, np.arange(RAGGED_ROWS), xp.cpu().numpy(), pa[:RAGGED_ROWS], dev)
+    check(off_tie == 0, f"{off_tie} ragged-block ids differ from the block's off near-ties")
+    rec["ragged_dist_max_rel_err_vs_block"] = ragged_err
+    # the share of the ring's time in B11: one profiled ring call
+    prof = profile_run(torch, lambda: knn_ops._exact_block_search(mesh_prepared, qb, KNN_K, exchange="ring"),
+                       (), wrappers)
+    b11_ms = prof["port_kernel_ms"].get("ring_shift_kernel", 0.0)
+    rec["profile"] = prof
+    rec["ring_shift_device_ms"] = b11_ms
+    rec["ring_shift_share"] = b11_ms / prof["profiled_ms"]
+    rec["equal_ring_gather"] = True
+    del out, od, op, xd, xp
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # ANN: kernels B9-B10 (B1 and B7 at the ANN shapes) and the JAX package's
 # three ANN operating points
 # ---------------------------------------------------------------------------
@@ -1388,9 +1797,11 @@ def main():
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         parser.error(f"unknown phases {unknown}; choose from {PHASES}")
-    for later in ("knn_audit", "knn_streamed"):
+    for later in ("knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring"):
         if later in phases and "path_knn" not in phases:
             parser.error(f"{later} runs on path_knn's items and results: add path_knn")
+    if "knn_ring" in phases and "path_knn_mesh" not in phases:
+        parser.error("knn_ring runs on path_knn_mesh's sharded items: add path_knn_mesh")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -1401,6 +1812,7 @@ def main():
     import spark_rapids_ml_tpu_torch as port
     import spark_rapids_ml_tpu_torch.ops.forest  # noqa: F401  (port.ops.forest)
     from spark_rapids_ml_tpu_torch.ops import _build, binning
+    from spark_rapids_ml_tpu_torch.ops import exchange_kernels as ek
     from spark_rapids_ml_tpu_torch.ops import forest_hist as fh
     from spark_rapids_ml_tpu_torch.ops import knn as knn_ops
     from spark_rapids_ml_tpu_torch.ops import knn_kernels as kk
@@ -1408,6 +1820,7 @@ def main():
     from spark_rapids_ml_tpu_torch.ops import pq_kernels as pk
     from spark_rapids_ml_tpu_torch.ann import ivfflat as ivf
     from spark_rapids_ml_tpu_torch.ann import pq as pq_mod
+    from spark_rapids_ml_tpu_torch.parallel import topology
 
     wrappers = {
         "min_dist_argmin": nc.min_dist_argmin,
@@ -1420,6 +1833,7 @@ def main():
         "knn_count": kk.knn_count,
         "lut_accumulate": pk.lut_accumulate,
         "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
+        "ring_shift": ek.ring_shift,
     }
     t_start = time.perf_counter()
     smi = smi_line()
@@ -1485,6 +1899,10 @@ def main():
     if "kernels_knn" in phases:
         results["kernels_knn"] = check_knn_kernels(torch, kk, knn_ops, dev)
         emit(results["kernels_knn"])
+    if "kernels_exchange" in phases:
+        results["kernels_exchange"] = check_exchange_kernel(torch, ek, topology, dev)
+        emit(results["kernels_exchange"])
+        emit(check_exchange_peer(torch, ek, topology))
     if "path_knn" in phases:
         t0 = time.perf_counter()
         X_knn = normal_data(KNN_ITEMS, COLS, KNN_ITEM_SEED)
@@ -1500,6 +1918,15 @@ def main():
         if "knn_streamed" in phases:
             emit(knn_streamed(torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1],
                               knn_dist, dev))
+        if "path_knn_mesh" in phases:
+            results["path_knn_mesh"], mesh_prepared = run_knn_mesh_path(
+                torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1], knn_idx, knn_dist, dev)
+            emit(results["path_knn_mesh"])
+            if "knn_ring" in phases:
+                results["knn_ring"] = knn_ring(torch, port, knn_ops, ek, wrappers, mesh_prepared,
+                                               knn_model._staged_items[1], Q_knn, dev)
+                emit(results["knn_ring"])
+            del mesh_prepared
         del X_knn, knn_model
 
     if "kernels_ann" in phases:
@@ -1565,6 +1992,7 @@ def summary(results, seconds):
             ("knn_fused_merge", "spark_rapids_ml_tpu/ops/pallas_knn.py:544", path),
             ("knn_count", "spark_rapids_ml_tpu/ops/pallas_knn.py:308", audit),
         )
+        mesh = results.get("path_knn_mesh", {}).get("launches", {})
         for name, replaces, launches in picks:
             r = kn[name]
             rows.append({
@@ -1572,6 +2000,7 @@ def summary(results, seconds):
                 "launches": launches.get(name), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": [r["n"], r["d"], r["q"], r["m"], r["k"]],
+                "launches_mesh": mesh.get(name),
             })
     ka = results.get("kernels_ann")
     if ka is not None:
@@ -1585,12 +2014,23 @@ def summary(results, seconds):
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": [r["b"], r["r"], r["m_sub"], r["ksub"]],
             })
+    ke = results.get("kernels_exchange")
+    if ke is not None:
+        r = ke["ring_shift"]
+        rows.append({
+            "name": "ring_shift", "route": "cuda", "source": KERNEL_SOURCES["ring_shift"],
+            "replaces": "spark_rapids_ml_tpu/parallel/exchange.py:484",
+            "launches": results.get("knn_ring", {}).get("launches_ring", {}).get("ring_shift"),
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": [r["shards"], *r["shape"]],
+        })
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
-          "kernels_knn", "path_knn", "knn_audit", "knn_streamed", "kernels_ann", "path_ann", "path_ann_pq",
-          "path_ann_pq4"]
+          "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",
@@ -1602,6 +2042,7 @@ KERNEL_SOURCES = {
     "knn_count": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
     "lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "fastscan_lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
+    "ring_shift": "spark_rapids_ml_tpu_torch/csrc/ring_shift.cu",
 }
 
 

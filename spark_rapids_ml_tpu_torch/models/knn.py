@@ -1,17 +1,20 @@
 #
 # Exact NearestNeighbors estimator/model.
 #
-# Counterpart of spark_rapids_ml_tpu/models/knn.py on one device: fit only
+# Counterpart of spark_rapids_ml_tpu/models/knn.py: fit only
 # captures the item frame (adding a generated int64 "unique_id" column when
 # idCol is unset); kneighbors returns (item_df, query_df with ids, knn_df)
 # where knn_df keeps the query partitioning with columns query_<idCol>,
 # indices (rows, k) int64 and distances (rows, k) float32 (euclidean, float32
 # inputs); exactNearestNeighborsJoin builds the exploded join; neither
-# estimator nor model is persistable.  The search is ops/knn.py: the item
-# set is staged on the device once and cached on the model, and each query
-# partition's upload is cached too, so a repeated kneighbors call is
-# compute-only.  Item sets beyond the device's item budget stream through in
-# blocks, one on the device at a time.
+# estimator nor model is persistable.  The search is ops/knn.py over the
+# mesh get_mesh(num_workers) (num_workers defaults to the length of the
+# device list, device.devices()): the item set is staged once, row-sharded
+# over the mesh, and cached on the model under a key that carries the mesh;
+# each query partition's upload (on the mesh's first device) is cached too,
+# so a repeated kneighbors call is compute-only.  Item sets beyond the
+# devices' item budget stream through in blocks, one on the devices at a
+# time.
 #
 # Not carried over: the pyspark executor path (barrier-stage exchange,
 # Spark joins), the serving hook _serving_entry / _ensure_staged_items, and
@@ -25,11 +28,11 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import device as _device
 from ..core import _TpuEstimatorSupervised, _TpuModel
 from ..dataframe import DataFrame, as_dataframe
 from ..ops import knn as knn_ops
 from ..ops.knn import PreparedItems
+from ..parallel.mesh import Mesh, get_mesh
 from ..params import HasFeaturesCol, HasFeaturesCols, Param, TypeConverters, _dummy, _TpuParams
 from ..utils import materialize_feature_block
 
@@ -78,8 +81,8 @@ class _NearestNeighborsParams(NearestNeighborsClass, HasFeaturesCol, HasFeatures
 
 
 class NearestNeighbors(_NearestNeighborsParams, _TpuEstimatorSupervised):
-    """Exact brute-force kNN on one device (the Spark ML NearestNeighbors
-    API of spark-rapids-ml)."""
+    """Exact brute-force kNN on one device or a mesh (the Spark ML
+    NearestNeighbors API of spark-rapids-ml)."""
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -139,7 +142,7 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         self._staged_items: Optional[Tuple[Any, PreparedItems]] = None
         self._staged_queries: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
 
-    def _iter_item_blocks(self, id_col: str, dev: torch.device, block_rows: Optional[int] = None):
+    def _iter_item_blocks(self, id_col: str, mesh: Mesh, block_rows: Optional[int] = None):
         """Prepared item blocks over the item partitions: the host holds one
         block's partitions at most."""
         input_col, input_cols = self._get_input_columns()
@@ -153,14 +156,14 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
                     np.asarray(part[id_col], np.int64),
                 )
 
-        return knn_ops.iter_prepared_item_blocks(parts(), dev, block_rows)
+        return knn_ops.iter_prepared_item_blocks(parts(), mesh, block_rows)
 
     def kneighbors(self, query_df: Any) -> Tuple[DataFrame, DataFrame, DataFrame]:
         """Exact k nearest item neighbours of every query row, float32
         euclidean.  Returns (item_df, query_df with the id column,
         knn_df)."""
         assert self._item_df is not None, "fit() must be called before kneighbors"
-        dev = _device.resolve()
+        mesh = get_mesh(self.num_workers)  # raises without CUDA unless a device list was requested
         qdf = as_dataframe(query_df)
         id_col = self.getIdCol()
         if id_col not in qdf.columns:
@@ -172,7 +175,7 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         def query_feats(p: int) -> np.ndarray:
             return materialize_feature_block(q_parts[p], input_col, input_cols, np.dtype(np.float32))
 
-        per_part = self._search_partitions(id_col, dev, q_parts, query_feats, k)
+        per_part = self._search_partitions(id_col, mesh, q_parts, query_feats, k)
         out_parts = [
             {f"query_{id_col}": np.asarray(part[id_col], np.int64) if len(part) else np.zeros(0, np.int64),
              "indices": np.asarray(ids, np.int64),
@@ -181,7 +184,7 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         ]
         return self._item_df, qdf, DataFrame(out_parts)
 
-    def _search_partitions(self, id_col, dev, q_parts, query_feats, k):
+    def _search_partitions(self, id_col, mesh, q_parts, query_feats, k):
         """Exact search of every query partition.  An item set within the
         budget is staged once and cached (a repeat call pays only compute);
         a larger one streams through knn_search_streamed."""
@@ -189,36 +192,36 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         if not any(rows):
             k_eff = min(k, self._item_df.count())
             return [(np.zeros((r, k_eff), np.float32), np.zeros((r, k_eff), np.int64)) for r in rows]
-        prepared = self._stage_in_core_items(id_col, dev)
+        prepared = self._stage_in_core_items(id_col, mesh)
         if prepared is None:
-            return knn_ops.knn_search_streamed(self._iter_item_blocks(id_col, dev), query_feats, rows, k)
+            return knn_ops.knn_search_streamed(self._iter_item_blocks(id_col, mesh), query_feats, rows, k)
         k_eff = min(k, prepared.n_items)
         out = []
         for p, n_rows in enumerate(rows):
             if n_rows == 0:
                 out.append((np.zeros((0, k_eff), np.float32), np.zeros((0, k_eff), np.int64)))
                 continue
-            out.append(knn_ops.knn_search_prepared(prepared, self._staged_query(p, query_feats(p), dev), k))
+            out.append(knn_ops.knn_search_prepared(prepared, self._staged_query(p, query_feats(p), mesh.devices[0]), k))
         return out
 
-    def _stage_in_core_items(self, id_col: str, dev: torch.device) -> Optional[PreparedItems]:
-        """The item set staged on the device and cached on the model, or None
+    def _stage_in_core_items(self, id_col: str, mesh: Mesh) -> Optional[PreparedItems]:
+        """The item set staged over the mesh and cached on the model, or None
         when it is more than one item block may hold (the caller streams).
-        A cached set of another frame or device is dropped before the room
-        is measured."""
+        A cached set of another frame or mesh is dropped before the room is
+        measured."""
         rows = self._item_df.count()
         dim = self._frame_dim()
-        key = None if dim is None else self._staging_key(dev, rows, dim)
+        key = None if dim is None else self._staging_key(mesh, rows, dim)
         if self._staged_items is not None and self._staged_items[0] == key:
             return self._staged_items[1]
         self._staged_items = None
         self._staged_queries.clear()
         if dim is None:
             return None
-        block_rows = knn_ops._item_block_rows(dim, dev)
+        block_rows = knn_ops._item_block_rows(dim, mesh)
         if rows > block_rows:
             return None
-        (prepared,) = self._iter_item_blocks(id_col, dev, block_rows)
+        (prepared,) = self._iter_item_blocks(id_col, mesh, block_rows)
         self._staged_items = (key, prepared)
         return prepared
 
@@ -230,10 +233,10 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         input_col, input_cols = self._get_input_columns()
         return parts[0][input_col].shape[1] if input_col is not None else len(input_cols)
 
-    def _staging_key(self, dev: torch.device, rows: int, dim: int):
+    def _staging_key(self, mesh: Mesh, rows: int, dim: int):
         """Identity of the staged item set, shared by the lookup and
-        seed_staging."""
-        return (tuple(id(p) for p in self._item_df.partitions), str(dev), rows, dim)
+        seed_staging: the frame, the mesh it is sharded over, its shape."""
+        return (tuple(id(p) for p in self._item_df.partitions), mesh, rows, dim)
 
     def seed_staging(self, prepared: PreparedItems,
                      query_blocks: Optional[Dict[int, Tuple[np.ndarray, torch.Tensor]]] = None) -> None:
@@ -245,11 +248,11 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         dim = self._frame_dim()
         if dim is None:
             raise ValueError("cannot seed staging for an empty item frame")
-        if prepared.items.shape[1] != dim:
-            raise ValueError(f"prepared item columns ({prepared.items.shape[1]}) != the frame's feature dim ({dim})")
+        if prepared.n_cols != dim:
+            raise ValueError(f"prepared item columns ({prepared.n_cols}) != the frame's feature dim ({dim})")
         if prepared.n_items != rows:
             raise ValueError(f"prepared item count ({prepared.n_items}) != the frame's row count ({rows})")
-        self._staged_items = (self._staging_key(prepared.items.device, rows, dim), prepared)
+        self._staged_items = (self._staging_key(prepared.mesh, rows, dim), prepared)
         self._staged_queries.clear()
         if query_blocks:
             self._staged_queries.update(query_blocks)

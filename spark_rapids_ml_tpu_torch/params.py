@@ -5,8 +5,9 @@
 # copy so the port never imports the JAX package: Param/Params/TypeConverters
 # reproduce the public behaviour of pyspark.ml.param, and _TpuParams keeps
 # the Spark param space and the solver param dict (`tpu_params`, the name the
-# JAX package uses, so a reader finds each counterpart) in sync.  The port
-# runs on one device, so num_workers is always 1.
+# JAX package uses, so a reader finds each counterpart) in sync.  The default
+# num_workers is the length of the entry points' device list
+# (device.devices()), as the JAX package's is its device count.
 #
 
 from __future__ import annotations
@@ -424,8 +425,11 @@ class _TpuParams(_TpuClass, Params):
         self._num_workers = value
 
     def _infer_num_workers(self) -> int:
-        """The port fits on one device."""
-        return 1
+        """Default parallelism: one logical worker per device of the entry
+        points' device list (parallel.mesh.default_num_workers)."""
+        from .parallel.mesh import default_num_workers
+
+        return default_num_workers()
 
     def _initialize_tpu_params(self) -> None:
         self._tpu_params = self._get_tpu_params_default()
