@@ -23,16 +23,24 @@
 #            the RandomForest kernels against their plain versions: binning
 #            (B2) exact at the path's shape (1,000,000 x 3000, 127 edges),
 #            ragged shapes and NaN / +-inf / on-edge values; node histograms
-#            (B3) at shallow levels 0 and 6 and bucketed histograms (B4) at
-#            one deep window, exact on integer stats and within
-#            HIST_FLOAT_RTOL / HIST_FLOAT_ATOL on float stats; timings as above
-#            (library_ms: torch.searchsorted, one index_add_)
+#            (B3) through both routes, the tensor-core kernel and the atomic
+#            kernel, at ragged shapes and at the first launch of every
+#            shallow split level of both flagship fits (classifier F_pad 64,
+#            levels 0-6; regressor F_pad 1024, levels 0-5), and bucketed
+#            histograms (B4) at one deep window: exact on integer stats,
+#            within HIST_FLOAT_RTOL / HIST_FLOAT_ATOL on float stats, the
+#            tensor-core route bit for bit across two calls on float stats;
+#            timings as above (library_ms: torch.searchsorted, index_add_;
+#            B3's plain version and index_add_ timed at every classifier
+#            level and at the regressor's level 0 only, its plain version
+#            taking seconds a call at F_pad 1024)
 #   path_rf_clf
 #            RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128,
 #            featureSubsetStrategy="sqrt") on 1,000,000 x 3000 float32 rows
 #            (make_classification semantics, 2 classes): fit -> transform ->
 #            save -> load -> transform, identical predictions, every forest
-#            kernel launched by the fit, held-out accuracy (100k rows) above
+#            kernel launched by the fit (B3's launches by route as the
+#            route function sends them), held-out accuracy (100k rows) above
 #            the majority share
 #   path_rf_reg
 #            RandomForestRegressor(numTrees=30, maxDepth=6, maxBins=128,
@@ -154,6 +162,7 @@ SHAPES = [
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 TIE_RTOL = 1e-5
 MIN_D2_TOL = 1e-4
 
@@ -387,8 +396,17 @@ RF_F_PAD = 64                           # sqrt(3000) = 54 subset features, padde
 # float stats (regression w*y): the kernel and the plain version add the
 # same bf16-rounded terms in fp32, in other orders
 HIST_FLOAT_RTOL, HIST_FLOAT_ATOL = 1e-4, 1e-3
-# rows per chunk of the chunked index_add_ yardstick (B3 at level 0)
-HIST_LIBRARY_CHUNK = 32768
+# B3's index_add_ yardstick builds one index of every term up to this many
+# (feature, row, tree, stat) terms, else one per chunk of rows of this many
+HIST_LIBRARY_FULL = 1 << 30
+# B3's shapes: the regressor's feature subset (onethird of 3000 = 1000,
+# padded to 32s), the paths' (F_pad, parameters), the timing repeats, and
+# ragged shapes (rows not a multiple of 16, bins not of 16, odd n-tiles,
+# features not filling a block)
+RF_F_PAD_REG = 1024
+RF_HIST_PATHS = {"clf": (RF_F_PAD, RF_CLF), "reg": (RF_F_PAD_REG, RF_REG)}
+HIST_REPS = {"clf": 5, "reg": 3}
+HIST_RAGGED = [(7, 3001, 3, 4, 2, 16), (5, 1000, 2, 3, 2, 100), (3, 77, 1, 1, 1, 7), (64, 40960, 5, 1, 2, 128)]
 
 
 def classification_data(rows, cols, seed, workers=8):
@@ -539,23 +557,15 @@ def hist_flat_index(torch, dev, bins, node, stats, rows, nodes, s_dim, n_bins, f
     return torch.cat(idx_parts), torch.cat(val_parts)
 
 
-def check_hist(torch, fh, dev, gen, name, f_pad, n, t_pack, nodes, s_dim, n_bins, reps, bucketed=False,
-               library=True):
-    """B3 (node_histograms) or B4 (node_histograms_bucketed) at one shape:
-    exact on integer stats, HIST_FLOAT_* on float stats; timings on the
-    integer inputs."""
-    if bucketed:
-        n_buckets = t_pack
-        kernel = lambda b, c, s: fh.node_histograms_bucketed(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
-        plain = lambda b, c, s: fh.node_histograms_bucketed_plain(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
-        rows = 1
-    else:
-        kernel = lambda b, c, s: fh.node_histograms(b, c, s, t_pack, nodes, s_dim, n_bins)  # noqa: E731
-        plain = lambda b, c, s: fh.node_histograms_plain(b, c, s, t_pack, nodes, s_dim, n_bins)  # noqa: E731
-        rows = t_pack
+def check_hist_bucketed(torch, fh, dev, gen, f_pad, n, n_buckets, nodes, s_dim, n_bins, reps):
+    """B4 (node_histograms_bucketed) at one shape: exact on integer stats,
+    HIST_FLOAT_* on float stats; timings on the integer inputs."""
+    name = "node_histograms_bucketed"
+    kernel = lambda b, c, s: fh.node_histograms_bucketed(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
+    plain = lambda b, c, s: fh.node_histograms_bucketed_plain(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
     errs = {}
     for integer in (False, True):
-        bins, node, stats = hist_case(torch, dev, gen, f_pad, n, rows, nodes, s_dim, n_bins, integer, stray=bucketed)
+        bins, node, stats = hist_case(torch, dev, gen, f_pad, n, 1, nodes, s_dim, n_bins, integer, stray=True)
         got, want = kernel(bins, node, stats), plain(bins, node, stats)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -566,54 +576,27 @@ def check_hist(torch, fh, dev, gen, name, f_pad, n, t_pack, nodes, s_dim, n_bins
                   f"{name} float stats: max abs err {err}")
         errs["integer" if integer else "float"] = err
         del got, want
-    lib = None
-    if library:
-        # the library yardstick: index_add_ of the bf16-rounded stats over
-        # the flat output index, built beforehand
-        out_shape = tuple(kernel(bins, node, stats).shape)
-        numel = math.prod(out_shape)
-        index = lambda sl: hist_flat_index(torch, dev, bins, node, stats, rows, nodes, s_dim, n_bins, f_pad,  # noqa: E731
-                                           out_shape, bucketed, sl)
-        if library == "chunked":
-            # an index of every term would not fit the card: build and apply
-            # it in row chunks, timing only the index_add_ calls
-            lib_ms, out = [], torch.zeros(numel, device=dev)
-            for rep in range(2):
-                out.zero_()
-                total = 0.0
-                for lo in range(0, n, HIST_LIBRARY_CHUNK):
-                    idx, vals = index(slice(lo, min(lo + HIST_LIBRARY_CHUNK, n)))
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    out.index_add_(0, idx, vals)
-                    end.record()
-                    torch.cuda.synchronize()
-                    total += start.elapsed_time(end)
-                    del idx, vals
-                lib_ms.append(total)
-            check(bool((out.reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
-            del out
-        else:
-            idx, vals = index(slice(0, n))
-            lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
-            check(bool((lib().reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
+    # the library yardstick: index_add_ of the bf16-rounded stats over the
+    # flat output index, built beforehand
+    out_shape = tuple(kernel(bins, node, stats).shape)
+    numel = math.prod(out_shape)
+    idx, vals = hist_flat_index(torch, dev, bins, node, stats, 1, nodes, s_dim, n_bins, f_pad, out_shape, True,
+                                slice(0, n))
+    lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
+    check(bool((lib().reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
     row = timings(torch, lambda: kernel(bins, node, stats), lambda: plain(bins, node, stats), lib, reps)
-    if library == "chunked":
-        row["library_ms"] = statistics.median(lib_ms)
-        row["library_chunk_rows"] = HIST_LIBRARY_CHUNK
-    out_bytes = 4 * math.prod(kernel(bins, node, stats).shape)
-    b, by = bound(bins.numel() + 4 * node.numel() + 4 * stats.numel() + out_bytes,
-                  hist_terms(torch, node, stats, rows, nodes, s_dim, f_pad))
-    del bins, node, stats, lib
+    b, by = bound(bins.numel() + 4 * node.numel() + 4 * stats.numel() + 4 * numel,
+                  hist_terms(torch, node, stats, 1, nodes, s_dim, f_pad))
+    del bins, node, stats, lib, idx, vals
     torch.cuda.empty_cache()
-    return {"kernel": name, "f_pad": f_pad, "n": n, "t_pack_or_buckets": t_pack, "nodes": nodes,
+    return {"kernel": name, "f_pad": f_pad, "n": n, "t_pack_or_buckets": n_buckets, "nodes": nodes,
             "s_dim": s_dim, "n_bins": n_bins, "max_abs_err": errs["float"], "max_abs_err_integer": errs["integer"],
             **row, "bound_ms": b, "bound_by": by}
 
 
 def check_forest_kernels(torch, port, binning, fh, X_host, dev):
-    """Phase kernels_forest: B2, B3 and B4 against their plain versions on
-    the card, at the shapes the RandomForest path gives them."""
+    """Phase kernels_forest: B2, B3 (both routes) and B4 against their plain
+    versions on the card, at the shapes the RandomForest path gives them."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {"phase": "kernels_forest", "hist_float_rtol": HIST_FLOAT_RTOL, "hist_float_atol": HIST_FLOAT_ATOL}
     # B2 at the path's shape: the classifier's rows and its 127 edges
@@ -634,18 +617,113 @@ def check_forest_kernels(torch, port, binning, fh, X_host, dev):
         binning_rows.append(check_binning(torch, binning, Xs, es.contiguous(), -(-n // 2048) * 2048, reps=5,
                                           library=False))
     out["bin_features_fm"] = binning_rows
-    # B3 at the classifier's shallow levels 0 and 6, B4 at one deep window
-    # (128 buckets of 8192 rows at level 12: 32 local nodes)
-    out["node_histograms"] = [
-        check_hist(torch, fh, dev, gen, "node_histograms", RF_F_PAD, RF_N_PAD, 1, 64, 2, 128, reps=10),
-        check_hist(torch, fh, dev, gen, "node_histograms", RF_F_PAD, RF_N_PAD, 50, 1, 2, 128, reps=5,
-                   library="chunked"),
-    ]
+    # B3, both routes, at ragged shapes and at the first launch of every
+    # shallow split level of the two flagship fits
+    out["node_histograms_ragged"] = [check_hist_routes(torch, fh, dev, gen, None, None, *shape, reps=0)
+                                     for shape in HIST_RAGGED]
+    levels = []
+    for path, (f_pad, params) in RF_HIST_PATHS.items():
+        launches = port.ops.forest_grow.shallow_launches(params["numTrees"], 2, params["maxDepth"])
+        for level in sorted({lv for lv, _, _ in launches}):
+            nodes, t_pack = next((nd, tp) for lv, nd, tp in launches if lv == level)
+            timed = path == "clf" or level == 0
+            row = check_hist_routes(torch, fh, dev, gen, path, level, f_pad, RF_N_PAD, t_pack, nodes, 2, 128,
+                                    reps=HIST_REPS[path], library=timed, plain_timed=timed)
+            row["launches_at_level"] = sum(1 for lv, _, _ in launches if lv == level)
+            levels.append(row)
+            emit({"phase": "kernels_forest_level", **row})
+    out["node_histograms_levels"] = levels
+    # B4 at one deep window (128 buckets of 8192 rows at level 12: 32 local nodes)
     out["node_histograms_bucketed"] = [
-        check_hist(torch, fh, dev, gen, "node_histograms_bucketed", RF_F_PAD, 128 * 8192, 128, 32, 2, 128,
-                   reps=10, bucketed=True),
+        check_hist_bucketed(torch, fh, dev, gen, RF_F_PAD, 128 * 8192, 128, 32, 2, 128, reps=10),
     ]
     return out
+
+
+def check_hist_routes(torch, fh, dev, gen, path, level, f_pad, n, t_pack, nodes, s_dim, n_bins, reps,
+                      library=False, plain_timed=False):
+    """B3 at one shape through both routes: each equal to the plain version
+    bit for bit on integer stats and within HIST_FLOAT_* on float stats, the
+    tensor-core route bit for bit across two calls on float stats; timings
+    of both routes (reps > 0), of the plain version and of the index_add_
+    yardstick (where asked), on the integer inputs."""
+    routes = {"mma": fh.node_histograms_mma, "atomic": fh.node_histograms_atomic}
+    args = (t_pack, nodes, s_dim, n_bins)
+    row = {"path": path, "level": level, "f_pad": f_pad, "n": n, "t_pack": t_pack, "nodes": nodes,
+           "s_dim": s_dim, "n_bins": n_bins, "route": fh._hist_route(*args)}
+    for integer in (False, True):
+        bins, node, stats = hist_case(torch, dev, gen, f_pad, n, t_pack, nodes, s_dim, n_bins, integer)
+        want = fh.node_histograms_plain(bins, node, stats, *args)
+        for name, fn in routes.items():
+            got = fn(bins, node, stats, *args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            where = f"node_histograms_{name} {[f_pad, n, *args]}"
+            if integer:
+                check(err == 0.0, f"{where} integer stats: max abs err {err}")
+                row[f"max_abs_err_integer_{name}"] = err
+            else:
+                check(bool(torch.allclose(got, want, rtol=HIST_FLOAT_RTOL, atol=HIST_FLOAT_ATOL)),
+                      f"{where} float stats: max abs err {err}")
+                row[f"max_abs_err_{name}"] = err
+                if name == "mma":
+                    again = fn(bins, node, stats, *args)
+                    check(bool(torch.equal(got, again)), f"{where}: two calls on float stats differ")
+                    row["mma_repeat_bitwise"] = True
+                    del again
+            del got
+        del want
+    if reps:
+        for name, fn in routes.items():
+            row[f"{name}_ms"] = median_ms(torch, lambda: fn(bins, node, stats, *args), reps)  # noqa: B023
+        row["plain_ms"] = (median_ms(torch, lambda: fh.node_histograms_plain(bins, node, stats, *args), 1)
+                           if plain_timed else None)
+        row["library_ms"] = hist_library_ms(torch, fh, dev, bins, node, stats, *args) if library else None
+        out_bytes = 4 * f_pad * fh.M_SLOTS * n_bins
+        row["bound_ms"], row["bound_by"] = bound(
+            bins.numel() + 4 * node.numel() + 4 * stats.numel() + out_bytes,
+            hist_terms(torch, node, stats, t_pack, nodes, s_dim, f_pad))
+        # the tensor-core route's multiply-adds at the dense bf16 peak
+        macs = f_pad * n * (-(-(t_pack * nodes * s_dim) // 16) * 16) * (-(-n_bins // 16) * 16)
+        row["mma_peak_ms"] = 1e3 * 2 * macs / PEAK_BF16_FLOPS
+    del bins, node, stats
+    torch.cuda.empty_cache()
+    return row
+
+
+def hist_library_ms(torch, fh, dev, bins, node, stats, t_pack, nodes, s_dim, n_bins):
+    """The index_add_ yardstick of B3: the bf16-rounded non-zero terms added
+    over the flat output index, built beforehand; built and applied in row
+    chunks where one index of every term would not fit the card, only the
+    index_add_ calls timed.  Checked against the tensor-core route."""
+    f_pad, n = bins.shape
+    out_shape = (f_pad, 128, n_bins)
+    numel = math.prod(out_shape)
+    want = fh.node_histograms_mma(bins, node, stats, t_pack, nodes, s_dim, n_bins)
+    if f_pad * n * t_pack * s_dim <= HIST_LIBRARY_FULL:
+        idx, vals = hist_flat_index(torch, dev, bins, node, stats, t_pack, nodes, s_dim, n_bins, f_pad,
+                                    out_shape, False, slice(0, n))
+        lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
+        check(bool((lib().reshape(out_shape) == want).all()), "node_histograms disagrees with index_add_")
+        return median_ms(torch, lib, 3)
+    chunk = max(2048, HIST_LIBRARY_FULL // (f_pad * t_pack * s_dim))
+    lib_ms, acc = [], torch.zeros(numel, device=dev)
+    for _ in range(2):
+        acc.zero_()
+        total = 0.0
+        for lo in range(0, n, chunk):
+            idx, vals = hist_flat_index(torch, dev, bins, node, stats, t_pack, nodes, s_dim, n_bins, f_pad,
+                                        out_shape, False, slice(lo, min(lo + chunk, n)))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            acc.index_add_(0, idx, vals)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+            del idx, vals
+        lib_ms.append(total)
+    check(bool(torch.equal(acc.reshape(out_shape), want)), "node_histograms disagrees with index_add_")
+    return statistics.median(lib_ms)
 
 
 def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
@@ -663,6 +741,14 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_fit = read_launches(wrappers)
+    # B3's launches by route: as _hist_route sends the shallow phase's launches
+    params = {k.name: v for k, v in est.extractParamMap().items()}
+    shapes = port.ops.forest_grow.shallow_launches(params["numTrees"], 2, params["maxDepth"])
+    routes = [port.ops.forest_hist._hist_route(tp, nodes, 2, params["maxBins"]) for _, nodes, tp in shapes]
+    hist_expected = {f"node_histograms_{r}": routes.count(r) for r in ("mma", "atomic")}
+    for name, want in hist_expected.items():
+        check(launches_fit[name] == want, f"the fit launched {name} {launches_fit[name]} times, not {want}")
+    check(launches_fit["node_histograms_mma"] > 0, "the fit launched the tensor-core route no time")
     t0 = time.perf_counter()
     out = model.transform(df)
     transform_s = time.perf_counter() - t0
@@ -687,7 +773,7 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
     if classification:
         acc = float((hold_pred == y_hold).mean())
         majority = float(max(y_hold.mean(), 1 - y_hold.mean()))
-        for name in ("bin_features_fm", "node_histograms", "node_histograms_bucketed"):
+        for name in ("bin_features_fm", "node_histograms_bucketed"):
             check(launches_fit[name] > 0, f"the fit launched {name} no time")
         check(acc > majority, f"held-out accuracy {acc} <= majority share {majority}")
         rec.update(holdout_accuracy=acc, majority_share=majority)
@@ -699,22 +785,26 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
         "phase": phase, "rows": RF_ROWS, "cols": X.shape[1], "holdout_rows": len(y_hold),
         "params": {k.name: v for k, v in est.extractParamMap().items() if k.name in RF_CLF},
         "fit_s": fit_s, "transform_s": transform_s, "transform_rows_per_s": RF_ROWS / transform_s,
-        "launches_fit": launches_fit, "launches": launches,
+        "launches_fit": launches_fit, "launches": launches, "hist_launches_expected": hist_expected,
         "max_memory_allocated_bytes": peak_bytes, **rec,
     }
 
 
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
-PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "knn_topm_kernel",
-                       "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel", "ring_shift_kernel")
+PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "hist_mma_kernel",
+                       "knn_topm_kernel", "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel",
+                       "ring_shift_kernel")
+# launched beside hist_mma_kernel by the same wrapper call (the masked-stat
+# operand, the split sum): timed with the port's kernels, not counted
+PORT_AUX_SYMBOLS = ("hist_mask_stats_kernel", "hist_split_sum_kernel")
 
 
 def port_kernel(name):
     """The port's kernel symbol a trace event names, or None."""
     if "at::" in name:
         return None
-    return next((s for s in PORT_KERNEL_SYMBOLS if f"(anonymous namespace)::{s}" in name), None)
+    return next((s for s in PORT_KERNEL_SYMBOLS + PORT_AUX_SYMBOLS if f"(anonymous namespace)::{s}" in name), None)
 
 
 def profile_run(torch, run, ranges, wrappers):
@@ -760,7 +850,7 @@ def profile_once(torch, run, ranges):
             spans.append((e.time_range.start, e.time_range.end))
             symbol = port_kernel(e.name)
             if symbol is not None:
-                traced += 1
+                traced += symbol not in PORT_AUX_SYMBOLS
                 port_ms[symbol] = port_ms.get(symbol, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
                 port_n[symbol] = port_n.get(symbol, 0) + 1
             ms, count = per_kernel.get(e.name, (0.0, 0))
@@ -1825,7 +1915,8 @@ def main():
     wrappers = {
         "min_dist_argmin": nc.min_dist_argmin,
         "bin_features_fm": binning.bin_features_fm,
-        "node_histograms": fh.node_histograms,
+        "node_histograms_mma": fh.node_histograms_mma,
+        "node_histograms_atomic": fh.node_histograms_atomic,
         "node_histograms_bucketed": fh.node_histograms_bucketed,
         "knn_candidates": kk.knn_candidates,
         "knn_candidates_audit": kk.knn_candidates_audit,
@@ -1966,22 +2057,38 @@ def summary(results, seconds):
         })
     if kf is not None:
         clf = results.get("path_rf_clf", {}).get("launches", {})
-        picks = (
-            ("bin_features_fm", kf["bin_features_fm"][0], "spark_rapids_ml_tpu/ops/pallas_tpu.py:219",
-             ["n", "d", "edges", "n_pad"]),
-            ("node_histograms", kf["node_histograms"][0], "spark_rapids_ml_tpu/ops/forest_hist.py:73",
-             ["f_pad", "n", "t_pack_or_buckets", "nodes", "s_dim", "n_bins"]),
-            ("node_histograms_bucketed", kf["node_histograms_bucketed"][0],
-             "spark_rapids_ml_tpu/ops/forest_hist.py:182",
-             ["f_pad", "n", "t_pack_or_buckets", "nodes", "s_dim", "n_bins"]),
-        )
-        for name, r, replaces, keys in picks:
+        reg = results.get("path_rf_reg", {}).get("launches", {})
+        r = kf["bin_features_fm"][0]
+        rows.append({
+            "name": "bin_features_fm", "route": "cuda", "source": KERNEL_SOURCES["bin_features_fm"],
+            "replaces": "spark_rapids_ml_tpu/ops/pallas_tpu.py:219", "launches": clf.get("bin_features_fm"),
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": [r[k] for k in ("n", "d", "edges", "n_pad")],
+        })
+        # B3 at the classifier's level 0 (tensor-core route) and level 6
+        # (the atomic route's most frequent launch), launches by route
+        clf_levels = {r["level"]: r for r in kf["node_histograms_levels"] if r["path"] == "clf"}
+        by_route = {route: {"path_rf_clf": clf.get(f"node_histograms_{route}"),
+                            "path_rf_reg": reg.get(f"node_histograms_{route}")} for route in ("mma", "atomic")}
+        for name, r in (("node_histograms_mma", clf_levels[0]), ("node_histograms_atomic", clf_levels[max(clf_levels)])):
+            route = name.rsplit("_", 1)[1]
             rows.append({
-                "name": name, "route": "cuda", "source": KERNEL_SOURCES[name], "replaces": replaces,
-                "launches": clf.get(name), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "shape": [r[k] for k in keys],
+                "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+                "replaces": "spark_rapids_ml_tpu/ops/forest_hist.py:73", "launches": clf.get(name),
+                "max_abs_err": r[f"max_abs_err_{route}"], "ms": r[f"{route}_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": [r[k] for k in ("f_pad", "n", "t_pack", "nodes", "s_dim", "n_bins")],
+                "launches_by_route": by_route,
             })
+        r = kf["node_histograms_bucketed"][0]
+        rows.append({
+            "name": "node_histograms_bucketed", "route": "cuda", "source": KERNEL_SOURCES["node_histograms_bucketed"],
+            "replaces": "spark_rapids_ml_tpu/ops/forest_hist.py:182", "launches": clf.get("node_histograms_bucketed"),
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": [r[k] for k in ("f_pad", "n", "t_pack_or_buckets", "nodes", "s_dim", "n_bins")],
+        })
     kn = results.get("kernels_knn")
     if kn is not None:
         path = results.get("path_knn", {}).get("launches", {})
@@ -2034,7 +2141,8 @@ PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "fo
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",
-    "node_histograms": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
+    "node_histograms_mma": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
+    "node_histograms_atomic": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
     "node_histograms_bucketed": "spark_rapids_ml_tpu_torch/csrc/forest_hist.cu",
     "knn_candidates": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
     "knn_candidates_audit": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",

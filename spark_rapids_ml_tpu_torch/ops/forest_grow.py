@@ -76,6 +76,22 @@ def shallow_levels(s_dim: int) -> int:
     return l
 
 
+def shallow_t_pack(trees: int, nodes: int, s_dim: int) -> int:
+    """Trees packed into one 128-slot node_histograms launch at a level of
+    `nodes` nodes."""
+    return max(1, min(trees, M_SLOTS // (nodes * s_dim)))
+
+
+def shallow_launches(trees: int, s_dim: int, max_depth: int) -> List[Tuple[int, int, int]]:
+    """(level, nodes, t_pack) of every node_histograms launch of a fit's
+    shallow phase, in order: split levels 0 .. min(max_depth - 1, L_s)."""
+    out = []
+    for level in range(min(max_depth - 1, shallow_levels(s_dim)) + 1):
+        tpack = shallow_t_pack(trees, 2**level, s_dim)
+        out += [(level, 2**level, min(tpack, trees - g0)) for g0 in range(0, trees, tpack)]
+    return out
+
+
 def depth_supported(max_depth: int, s_dim: int) -> bool:
     """The shallow phase hosts levels up to L_s; the deep phase another
     L_s + 1."""
@@ -283,7 +299,7 @@ def _shallow_phase(
     feat_valid = torch.arange(f_pad, device=dev) < F
     for level in range(last_level + 1):
         nodes = 2**level
-        tpack = max(1, min(T, M_SLOTS // (nodes * S)))
+        tpack = shallow_t_pack(T, nodes, S)
         sl = slice(2**level - 1, 2**level - 1 + nodes)
         for g0 in range(0, T, tpack):
             g1 = min(g0 + tpack, T)

@@ -5,18 +5,25 @@
 #
 # Counterpart of spark_rapids_ml_tpu/ops/forest_hist.py.  It replaces the TPU
 # kernels _hist_kernel (node_histograms) and _hist_kernel_bucketed
-# (node_histograms_bucketed) with the CUDA kernel csrc/forest_hist.cu,
-# written by hand for Hopper (sm_90a), two entry points over one kernel.
+# (node_histograms_bucketed) with the CUDA kernels of csrc/forest_hist.cu,
+# written by hand for Hopper (sm_90a).
 #
-# What bounds it on the card: one shared-memory atomic add per (row,
-# feature, tree) with a non-zero stat; the bytes it reads (int8 bins, int32
-# node ids, fp32 stats) are small beside them.  The TPU kernels build the
-# histogram as a one-hot matmul on the matrix unit; here a block keeps
-# private (slots x B) fp32 histograms of a few features in shared memory
-# and adds each bf16-rounded stat into its cell (the form cuML uses), then
-# adds the block's cells into the output.  Integer stats give exact sums in
-# any order, so the kernel equals the plain version bit for bit on them;
-# float stats differ by the order of the fp32 additions only.
+# node_histograms (B3) has two routes, picked per launch by _hist_route from
+# the launch's shape alone:
+#   - node_histograms_mma: the TPU kernel's one-hot product, on the tensor
+#     cores (mma.sync bf16, fp32 sums): the one-hot of the bins built in
+#     registers, the masked stats in shared memory.  Its work is
+#     slots_pad x bins_pad multiply-adds per row and feature (both rounded
+#     up to 16), so it grows with the nodes of a level;
+#   - node_histograms_atomic: private (slots x B) fp32 histograms of a few
+#     features in shared memory, one atomic add per (row, feature, tree,
+#     non-zero stat) (the form cuML uses); its work does not grow with the
+#     nodes, so it wins at the deep end of the shallow phase.
+# node_histograms_bucketed (B4, the deep phase) runs the atomic kernel per
+# bucket.  Integer stats give exact sums on every route, so each equals the
+# plain version bit for bit on them; float stats differ by the order of the
+# fp32 additions only.  The tensor-core route adds in a fixed order (no
+# atomics) and gives the same bits on every call.
 #
 # gather_rows replaces gather_rows_matmul: on the card the feature subset is
 # a plain index_select of the feature-major bin rows (exact), zero-padded to
@@ -59,6 +66,38 @@ def gather_rows(bins_fm: torch.Tensor, feats: torch.Tensor, f_pad: int) -> torch
 # node_histograms (kernel B3)
 # ---------------------------------------------------------------------------
 
+# The tensor-core route spends slots_pad * bins_pad multiply-adds per row
+# and feature where the atomic route spends one add per (tree, stat): it is
+# taken while that ratio is at most MMA_MAX_MACS_PER_ADD.  Measured on an
+# H100 (chip_smoke.py, phase kernels_forest, both routes at every shallow
+# level of the two RandomForest flagships; PERF.md section 6): at 2 stats
+# and 128 bins the tensor cores win up to 8 nodes (ratio 1024; 8.8 against
+# 8.9 ms at the classifier's level 3, 123 against 150 ms at the
+# regressor's) and lose from 16 (8.8 against 4.5 ms, 123 against 76).
+MMA_MAX_MACS_PER_ADD = 1024
+MMA_ROWS_TILE = 128              # rows per tile of the tensor-core kernel
+MMA_TARGET_BLOCKS = 132 * 8      # ~8 waves of one 8-warp block on each of 132 SMs
+
+
+def _hist_route(t_pack: int, nodes: int, s_dim: int, n_bins: int) -> str:
+    """"mma" or "atomic": the kernel node_histograms launches for this shape."""
+    slots_pad = -(-(t_pack * nodes * s_dim) // 16) * 16
+    bins_pad = -(-n_bins // 16) * 16
+    return "mma" if slots_pad * bins_pad <= MMA_MAX_MACS_PER_ADD * t_pack * s_dim else "atomic"
+
+
+def _mma_geometry(f_pad: int, n: int, n_bins: int) -> tuple:
+    """(splits, tiles_per_split): the row split of the tensor-core kernel.
+    A block holds 8 warps, one 16-bin m-tile each, over 8 // m_tiles
+    features; rows are split across blocks until about MMA_TARGET_BLOCKS
+    blocks fill the card, each split a run of whole 128-row tiles."""
+    per_block = max(1, 8 // -(-n_bins // 16))
+    f_groups = -(-f_pad // per_block)
+    tiles = -(-n // MMA_ROWS_TILE)
+    splits = max(1, min(tiles, -(-MMA_TARGET_BLOCKS // f_groups)))
+    per_split = -(-tiles // splits)
+    return -(-tiles // per_split), per_split
+
 
 def node_histograms(
     bins_sub: torch.Tensor,  # (F_pad, N) int8 subset rows
@@ -69,17 +108,49 @@ def node_histograms(
     s_dim: int,
     n_bins: int,
 ) -> torch.Tensor:
-    """(F_pad, 128, B) float32 with slot = (t * nodes + c) * s_dim + s."""
-    _check_common(bins_sub, node_rel, stats_s, t_pack * nodes * s_dim, n_bins)
-    if node_rel.dim() != 2 or node_rel.shape[0] != t_pack or stats_s.shape[0] != t_pack * s_dim:
-        raise ValueError(
-            f"node_rel {tuple(node_rel.shape)} / stats_s {tuple(stats_s.shape)} must be "
-            f"({t_pack}, N) / ({t_pack * s_dim}, N)"
-        )
+    """(F_pad, 128, B) float32 with slot = (t * nodes + c) * s_dim + s.
+    CUDA tensors take the route _hist_route picks for the shape."""
+    _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
     if bins_sub.device.type == "cpu":
         return node_histograms_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
-    if bins_sub.device.type != "cuda":
-        raise ValueError(f"node_histograms runs on cpu or cuda tensors, not {bins_sub.device}")
+    route = node_histograms_mma if _hist_route(t_pack, nodes, s_dim, n_bins) == "mma" else node_histograms_atomic
+    return route(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+
+
+def node_histograms_mma(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
+    """node_histograms on the tensor-core kernel, whatever the shape (CPU
+    tensors: its plain version, node_histograms_onehot_plain)."""
+    _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+    if bins_sub.device.type == "cpu":
+        return node_histograms_onehot_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+    f_pad, n = bins_sub.shape
+    ns = -(-(t_pack * nodes * s_dim) // 16) * 16
+    splits, per_split = _mma_geometry(f_pad, n, n_bins)
+    dev = bins_sub.device
+    out = torch.zeros((f_pad, M_SLOTS, n_bins), dtype=torch.float32, device=dev)
+    bmat = torch.empty((-(-n // MMA_ROWS_TILE), ns, MMA_ROWS_TILE), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((splits, f_pad, ns, n_bins) if splits > 1 else (0,), dtype=torch.float32, device=dev)
+    fn = _build.load(_LIBRARY).srml_node_histograms_mma
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    aligned16 = int(n % 16 == 0 and bins_sub.data_ptr() % 16 == 0)
+    err = fn(
+        bins_sub.data_ptr(), node_rel.data_ptr(), stats_s.data_ptr(), out.data_ptr(), part.data_ptr(),
+        bmat.data_ptr(), n, f_pad, t_pack, nodes, s_dim, n_bins, M_SLOTS, splits, per_split, aligned16,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"node_histograms_mma kernel launch failed: CUDA error {err}")
+    node_histograms_mma.launches += 1
+    return out
+
+
+def node_histograms_atomic(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
+    """node_histograms on the shared-memory atomic kernel, whatever the
+    shape (CPU tensors: node_histograms_plain)."""
+    _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+    if bins_sub.device.type == "cpu":
+        return node_histograms_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
     f_pad, n = bins_sub.shape
     out = torch.zeros((f_pad, M_SLOTS, n_bins), dtype=torch.float32, device=bins_sub.device)
     fn = _build.load(_LIBRARY).srml_node_histograms
@@ -91,14 +162,35 @@ def node_histograms(
         n, f_pad, t_pack, nodes, s_dim, n_bins, M_SLOTS, stream,
     )
     if err != 0:
-        raise RuntimeError(f"node_histograms kernel launch failed: CUDA error {err}")
-    node_histograms.launches += 1
+        raise RuntimeError(f"node_histograms_atomic kernel launch failed: CUDA error {err}")
+    node_histograms_atomic.launches += 1
     return out
 
 
-# launches of the CUDA kernel, for runs that must show the main path went
-# through it
-node_histograms.launches = 0
+# launches of each route's CUDA kernel, for runs that must show the main
+# path went through it
+node_histograms_mma.launches = 0
+node_histograms_atomic.launches = 0
+
+
+def node_histograms_onehot_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
+    """The tensor-core route's arithmetic in plain PyTorch: per feature, the
+    bf16 one-hot of the bins (bins x rows) times the masked bf16 stat tile
+    (rows x slots), [node[t, r] == c] * bf16(stat[t * S + s, r]), summed in
+    fp32.  Runs on any device."""
+    f_pad, n = bins_sub.shape
+    dev = bins_sub.device
+    slots = t_pack * nodes * s_dim
+    slot = torch.arange(slots, device=dev)
+    t, c, s = slot // (nodes * s_dim), (slot // s_dim) % nodes, slot % s_dim
+    masked = torch.where(node_rel[t] == c[:, None], stats_s[t * s_dim + s], 0.0)
+    masked = masked.to(torch.bfloat16).float().T  # (rows, slots)
+    bin_ids = torch.arange(n_bins, device=dev, dtype=torch.int8)[:, None]
+    out = torch.zeros((f_pad, M_SLOTS, n_bins), dtype=torch.float32, device=dev)
+    for f in range(f_pad):
+        onehot = (bins_sub[f][None, :] == bin_ids).to(torch.bfloat16).float()  # (bins, rows)
+        out[f, :slots] = (onehot @ masked).T
+    return out
 
 
 def node_histograms_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
@@ -217,6 +309,17 @@ def node_histograms_reference(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim,
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """Round to bfloat16 (nearest even) and back to float32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins) -> None:
+    _check_common(bins_sub, node_rel, stats_s, t_pack * nodes * s_dim, n_bins)
+    if node_rel.dim() != 2 or node_rel.shape[0] != t_pack or stats_s.shape[0] != t_pack * s_dim:
+        raise ValueError(
+            f"node_rel {tuple(node_rel.shape)} / stats_s {tuple(stats_s.shape)} must be "
+            f"({t_pack}, N) / ({t_pack * s_dim}, N)"
+        )
+    if bins_sub.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"node_histograms runs on cpu or cuda tensors, not {bins_sub.device}")
 
 
 def _check_common(bins_sub, node_rel, stats_s, slots, n_bins) -> None:

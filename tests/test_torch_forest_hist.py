@@ -17,7 +17,9 @@ from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops.forest_hist import (
     gather_rows,
     node_histograms,
+    node_histograms_atomic,
     node_histograms_bucketed,
+    node_histograms_mma,
     node_histograms_reference,
 )
 
@@ -155,14 +157,17 @@ def test_stats_are_rounded_to_bf16():
 
 def test_cpu_tensors_never_touch_the_kernel(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: pytest.fail(f"kernel library {name} loaded"))
-    monkeypatch.setattr(node_histograms, "launches", 0)
-    monkeypatch.setattr(node_histograms_bucketed, "launches", 0)
+    routes = (node_histograms_mma, node_histograms_atomic, node_histograms_bucketed)
+    for fn in routes:
+        monkeypatch.setattr(fn, "launches", 0)
     bins, node, stats = _inputs(3, True)
-    node_histograms(*_torch(bins[:, :512], node[:, :512], stats[:, :512]), t_pack=T, nodes=NODES, s_dim=S, n_bins=B)
+    shallow = _torch(bins[:, :512], node[:, :512], stats[:, :512])
+    for fn in (node_histograms, node_histograms_mma, node_histograms_atomic):
+        fn(*shallow, t_pack=T, nodes=NODES, s_dim=S, n_bins=B)
     node_histograms_bucketed(
         *_torch(bins[:, :1024], node[:1, :1024], stats[:S, :1024]), n_buckets=2, nodes=NODES, s_dim=S, n_bins=B
     )
-    assert node_histograms.launches == 0 and node_histograms_bucketed.launches == 0
+    assert all(fn.launches == 0 for fn in routes)
 
 
 def test_other_devices_raise():
