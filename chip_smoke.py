@@ -14,7 +14,11 @@
 #            differ there only on rows whose two best distances are within
 #            1e-5 relative); median times of the kernel, the plain version,
 #            the unfused PyTorch composition (library_ms, a yardstick only),
-#            and the least time the card could take (bound_ms)
+#            and the least time the card could take (bound_ms).  B1 (float32,
+#            the pipelined loop of csrc/fp32_dist_tile.cuh) also at two
+#            large shapes of its 4-byte copies (SHAPES_UNALIGNED: X one
+#            element off a 16-byte boundary, and d % 4 != 0), each record
+#            naming its copy width; float64 exact at the first four shapes
 #   path     the KMeans flagship configuration through the public API:
 #            1,000,000 x 3000 float32 Gaussian blobs around 1000 centers,
 #            KMeans(k=1000, maxIter=30, initMode="random").fit -> transform ->
@@ -54,7 +58,8 @@
 #            pool (B5, and B6, the same kernel on the audit route), fused
 #            merge (B7), audit count (B8).  On integer-valued data (ragged
 #            shapes and one flagship block) pools, merges and counts are
-#            exact, a pool wider than 16,384 and 65,537 groups included;
+#            exact, a pool wider than 16,384, 65,537 groups and B8's 4-byte
+#            copies (d % 4 != 0) at 1,563 x 5 tiles included;
 #            given one pool, B7 is bit-exact on Gaussian data too, and on
 #            tied pools with k past one 4,096-rank window and past the pool;
 #            the flagship block's merged distances agree with the plain
@@ -159,6 +164,9 @@ SHAPES = [
     (262144, COLS, K),
     (ROWS // PARTITIONS, COLS, K),
 ]
+# B1's 4-byte-copy instantiation at large n: the flagship's per-partition
+# shape with X one element past a 16-byte boundary, and d % 4 != 0
+SHAPES_UNALIGNED = [(ROWS // PARTITIONS, COLS, K, True), (131072, 515, K, False)]
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -230,15 +238,28 @@ def near_ties(best, second):
     return (second - best) <= TIE_RTOL * second.abs()
 
 
-def check_kernel_shape(torch, nc, n, d, k, gen, dev):
+def b1_input(torch, X, dev, misaligned):
+    """X on the card; misaligned: its first element one float past a
+    16-byte boundary (a view into a buffer one element longer), so every
+    row start is misaligned at any d."""
+    if not misaligned:
+        return X.to(dev)
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=dev)
+    buf[1:].copy_(X.reshape(-1))
+    return buf[1:].view(X.shape)
+
+
+def check_kernel_shape(torch, nc, n, d, k, gen, dev, misaligned=False):
     """One shape: exact and continuous-data agreement, then timings."""
     # exact: values on a 1/4 grid keep every product and partial sum exact
     # in fp32, so any summation order gives the same d2, and a duplicated
     # center makes exact ties that must resolve to the lower index
-    X = (torch.randn(n, d, generator=gen) * 4).round().div(4).to(dev)
+    X = b1_input(torch, (torch.randn(n, d, generator=gen) * 4).round().div(4), dev, misaligned)
     C = (torch.randn(k, d, generator=gen) * 4).round().div(4).to(dev)
     if k > 1:
         C[k - 1] = C[0]
+    copy = nc.copy_bytes(X, C)
+    check((copy == 4) == (misaligned or d % 4 != 0), f"({n},{d},{k}) takes {copy}-byte copies")
     m, a = nc.min_dist_argmin(X, C)
     pm, pa = nc.min_dist_argmin_plain(X, C)
     torch.cuda.synchronize()
@@ -247,7 +268,7 @@ def check_kernel_shape(torch, nc, n, d, k, gen, dev):
     check(exact_mismatch == 0 and exact_err == 0.0,
           f"({n},{d},{k}) exact data: {exact_mismatch} argmin mismatches, max err {exact_err}")
     # continuous: standard normal
-    X = torch.randn(n, d, generator=gen).to(dev)
+    X = b1_input(torch, torch.randn(n, d, generator=gen), dev, misaligned)
     C = torch.randn(k, d, generator=gen).to(dev)
     x_norm, c_norm = nc.squared_norms(X), nc.squared_norms(C)
     m, a = nc.min_dist_argmin(X, C, x_norm, c_norm)
@@ -270,7 +291,7 @@ def check_kernel_shape(torch, nc, n, d, k, gen, dev):
     del X, C
     torch.cuda.empty_cache()
     return {
-        "n": n, "d": d, "k": k,
+        "n": n, "d": d, "k": k, "misaligned": misaligned, "copy_bytes": copy,
         "exact_mismatches": exact_mismatch,
         "mismatches": int(differ.sum()),
         "near_tie_rows": int(ties.sum()),
@@ -792,9 +813,9 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
 
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
-PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "bin_features_fm_kernel", "hist_kernel", "hist_mma_kernel",
-                       "knn_topm_kernel", "knn_count_kernel", "knn_fused_merge_kernel", "lut_accumulate_kernel",
-                       "ring_shift_kernel")
+PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
+                       "hist_mma_kernel", "knn_topm_kernel", "knn_count_tile_kernel", "knn_fused_merge_kernel",
+                       "lut_accumulate_kernel", "ring_shift_kernel")
 # launched beside hist_mma_kernel by the same wrapper call (the masked-stat
 # operand, the split sum): timed with the port's kernels, not counted
 PORT_AUX_SYMBOLS = ("hist_mask_stats_kernel", "hist_split_sum_kernel")
@@ -916,8 +937,9 @@ KNN_DIST_RTOL, KNN_TIE_RTOL = 1e-4, 1e-5
 # ragged kernel shapes (n, d, Q, m, k, invalid trailing items): n not a
 # multiple of 1024, d not a multiple of the 16-feature slice, Q not a
 # multiple of the 32-query tile, k past the valid items or past the pool; the
-# last two a pool of 3,418 groups x 5 = 17,090 candidates a query, and 65,537
-# groups (past one launch's 65,535)
+# last three a pool of 3,418 groups x 5 = 17,090 candidates a query, 65,537
+# groups (past one launch's 65,535), and B8's 4-byte copies (d % 4 != 0) on
+# 1,563 x 5 item and query tiles of its 128 x 128 loop
 KNN_RAGGED = [
     (2100, 300, 250, 5, 10, 30),
     (700, 37, 33, 32, 40, 0),
@@ -926,6 +948,7 @@ KNN_RAGGED = [
     (1076, 37, 33, 32, 40, 36),
     (3_500_000, 32, 64, 5, 200, 0),
     (67_109_000, 3, 33, 2, 5, 0),
+    (200_003, 515, 517, 9, 200, 3),
 ]
 # B7 alone on wide tied pools: (Q, ng, m) and the k of each merge, one
 # 4,096-rank window, several, all of the pool and past it
@@ -953,7 +976,7 @@ def normal_data(rows, cols, seed, workers=8):
     return X
 
 
-def knn_exact_case(torch, kk, dev, gen, n, d, q, m, k, invalid):
+def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid):
     """B5, B7 and B8 against their plain versions on integer-valued data
     (every sum exact in fp32): equal pools (values and positions, -inf
     slots included), equal merges, equal counts."""
@@ -976,6 +999,7 @@ def knn_exact_case(torch, kk, dev, gen, n, d, q, m, k, invalid):
         "pool_value_mismatches": int((v != pv).sum()), "pool_position_mismatches": int((p != pp).sum()),
         "merge_mismatches": [int((a != b).sum()) for a, b in zip(out, ref)],
         "count_mismatches": int((cnt != pcnt).sum()), "count_max_abs_err": int((cnt - pcnt).abs().max()),
+        "count_copy_bytes": nc.copy_bytes(X, Q),
         "invalid_in_pool": int(((p >= n - invalid) & torch.isfinite(v)).sum()) if invalid else 0,
     }
     check(rec["pool_value_mismatches"] == 0 and rec["pool_position_mismatches"] == 0,
@@ -1005,16 +1029,18 @@ def knn_wide_merge(torch, kk, dev, gen):
             "kernel_ms_k200": ms}
 
 
-def check_knn_kernels(torch, kk, knn_ops, dev):
+def check_knn_kernels(torch, kk, nc, knn_ops, dev):
     """Phase kernels_knn: B5-B8 against their plain versions at ragged shapes
     (one with a pool wider than 16,384), B7 on wide tied pools, and all at
     one flagship block, with timings at the flagship block."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     m = knn_ops._scan_geometry(KNN_K, KNN_ITEMS)[1]
-    ragged = [knn_exact_case(torch, kk, dev, gen, *shape) for shape in KNN_RAGGED]
+    ragged = [knn_exact_case(torch, kk, nc, dev, gen, *shape) for shape in KNN_RAGGED]
+    check(any(r["count_copy_bytes"] == 4 for r in ragged) and any(r["count_copy_bytes"] == 16 for r in ragged),
+          "the ragged cases miss one of B8's copy widths")
     torch.cuda.empty_cache()
     wide_merge = knn_wide_merge(torch, kk, dev, gen)
-    flagship_int = knn_exact_case(torch, kk, dev, gen, KNN_ITEMS, COLS, KNN_BLOCK, m, KNN_K, 0)
+    flagship_int = knn_exact_case(torch, kk, nc, dev, gen, KNN_ITEMS, COLS, KNN_BLOCK, m, KNN_K, 0)
     torch.cuda.empty_cache()
 
     X = torch.randn(KNN_ITEMS, COLS, generator=gen, device=dev)
@@ -1947,9 +1973,11 @@ def main():
     if "kernels" in phases:
         gen = torch.Generator().manual_seed(SEED)
         rows = [check_kernel_shape(torch, nc, n, d, k, gen, dev) for n, d, k in SHAPES]
+        unaligned = [check_kernel_shape(torch, nc, n, d, k, gen, dev, misaligned)
+                     for n, d, k, misaligned in SHAPES_UNALIGNED]
         emit({"phase": "kernels", "kernel": "min_dist_argmin", "dtype": "float32",
               "peak_fp32_flops": PEAK_FP32_FLOPS, "peak_bytes_per_s": PEAK_BYTES_PER_S,
-              "shapes": rows})
+              "shapes": rows, "unaligned": unaligned})
         # the float64 instantiation: exact agreement at the JAX package's shapes
         for n, d, k in SHAPES[:4]:
             X = (torch.randn(n, d, generator=gen, dtype=torch.float64) * 4).round().div(4).to(dev)
@@ -1988,7 +2016,7 @@ def main():
         emit(forest_card_vs_cpu(torch, port))
 
     if "kernels_knn" in phases:
-        results["kernels_knn"] = check_knn_kernels(torch, kk, knn_ops, dev)
+        results["kernels_knn"] = check_knn_kernels(torch, kk, nc, knn_ops, dev)
         emit(results["kernels_knn"])
     if "kernels_exchange" in phases:
         results["kernels_exchange"] = check_exchange_kernel(torch, ek, topology, dev)

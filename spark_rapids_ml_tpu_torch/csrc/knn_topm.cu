@@ -38,14 +38,26 @@
 //     m lexicographic argmax passes: each lane keeps the best of its 32
 //     columns, the warp reduces with shuffles, and only the winner's lane
 //     masks its column and rescans;
-//   - the count kernel runs the same dot_tile() and epilogue arithmetic, so
-//     its -d2 is bitwise the pool's (the property the audit rests on), and
-//     reduces its compares per row with warp sums and atomics.
-// Ragged edges of Q, n and d are masked in the kernel; offsets are 64-bit.
-// No wgmma, TMA or tensor cores yet.
+//   - the count kernel does not need the 1024-item group: it runs the
+//     pipelined main loop of fp32_dist_tile.cuh on 128-query x 128-item
+//     tiles, one a block, two 128-thread blocks an SM.  Its -d2 is still
+//     bitwise the pool's (the property the audit rests on): both loops sum
+//     each dot product as one fmaf chain over d in ascending order from
+//     0.0f, with zeros past the ragged edges, which gives the same bits
+//     whatever the tiling, and both form -d2 with neg_d2().  The count
+//     reduces its compares per row over the 4 lanes and then the 2 warps
+//     that share the row, then adds one atomic per row and block (none
+//     where the block counted 0).  The blocks run the (query tile, item
+//     tile) pairs in a grouped order: COUNT_GROUP query tiles at a time,
+//     the item tiles inside, so the blocks in flight share a few query
+//     tiles (12 MB at d = 3000) and each item tile, in the 50-MB L2.
+// Ragged edges of Q, n and d are masked in the kernels; offsets are 64-bit.
+// No wgmma, TMA or tensor cores: products are exact fp32 FMA.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "fp32_dist_tile.cuh"
 
 namespace {
 
@@ -62,9 +74,10 @@ constexpr int STAGE_FLOATS = BK * IS_LD + BK * QS_LD;
 constexpr int D2_FLOATS = TQ * G;
 constexpr int TOPM_SMEM_BYTES =
     4 * (D2_FLOATS > STAGE_FLOATS ? D2_FLOATS : STAGE_FLOATS);
-constexpr int COUNT_SMEM_BYTES = 4 * STAGE_FLOATS;
 constexpr int MAX_M = 32;
 constexpr long long MAX_GRID_Y = 65535;  // groups per launch
+constexpr long long MAX_GRID_X = 2147483647;  // count tiles per launch
+constexpr int COUNT_GROUP = 8;  // query tiles the count's blocks walk together
 static_assert(TQ * BK == THREADS, "one query element per thread and slice");
 static_assert(G * BK % THREADS == 0, "item slice splits evenly");
 
@@ -220,43 +233,68 @@ knn_topm_kernel(const float* __restrict__ items, const float* __restrict__ inorm
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-knn_count_kernel(const float* __restrict__ items, const float* __restrict__ inorm,
-                 const float* __restrict__ queries, const float* __restrict__ qnorm,
-                 const float* __restrict__ thresh, int32_t* __restrict__ out,
-                 int64_t n, int64_t nq, int64_t d, int64_t g0) {
-  extern __shared__ float smem[];
-  __shared__ int counts[TQ];
-  const int tid = threadIdx.x;
-  if (tid < TQ) counts[tid] = 0;  // ordered before use by dot_tile's barriers
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * TQ;
-  const int64_t i0 = (g0 + blockIdx.y) * G;
-  float acc[TM][TN];
-  dot_tile(items, queries, n, nq, d, i0, q0, smem, acc);
+namespace tile = fp32_dist_tile;
 
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  float xn[TN];
-  bool ok[TN];
+// The count's epilogue: per query row, the items of the tile whose -d2
+// beats thresh[q], summed into the block's row counts in shared memory.
+struct CountAbove {
+  const float* inorm;
+  const float* qnorm;
+  const float* thresh;
+  int* counts;  // [BM], in shared memory
+  int64_t n, nq, q0, i0;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[tile::TM][tile::TN], int) {
+    float xn[tile::TN];
+    bool ok[tile::TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    ok[j] = i0 + tx + TX * j < n;
-    xn[j] = ok[j] ? inorm[i0 + tx + TX * j] : 0.0f;
+    for (int j = 0; j < tile::TN; ++j) {
+      const int64_t c = i0 + tile::col_of(j);
+      ok[j] = c < n;
+      xn[j] = ok[j] ? __ldg(inorm + c) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < tile::TM; ++i) {
+      const int64_t r = q0 + tile::row_of(i);
+      const float qn = r < nq ? __ldg(qnorm + r) : 0.0f;
+      const float t = r < nq ? __ldg(thresh + r) : 0.0f;
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < tile::TN; ++j) c += (ok[j] && neg_d2(acc[i][j], qn, xn[j]) > t) ? 1 : 0;
+      // the row's 4 lanes in this warp are lanes 4 * lane_m() + 0..3
+      c += __shfl_xor_sync(0xffffffffu, c, 1);
+      c += __shfl_xor_sync(0xffffffffu, c, 2);
+      if (tile::lane_n() == 0 && c) atomicAdd(&counts[tile::row_of(i)], c);
+    }
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t r = q0 + ty + TY * i;
-    const float qn = r < nq ? qnorm[r] : 0.0f;
-    const float t = r < nq ? thresh[r] : 0.0f;
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) c += (ok[j] && neg_d2(acc[i][j], qn, xn[j]) > t) ? 1 : 0;
-    // the 32 lanes of a warp share ty, hence the row
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (tid % 32 == 0 && c) atomicAdd(&counts[ty + TY * i], c);
-  }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(tile::THREADS, 2)
+knn_count_tile_kernel(const float* __restrict__ items, const float* __restrict__ inorm,
+                      const float* __restrict__ queries, const float* __restrict__ qnorm,
+                      const float* __restrict__ thresh, int32_t* __restrict__ out,
+                      int64_t n, int64_t nq, int64_t d, int64_t tile0) {
+  __shared__ __align__(16) float smem[tile::SMEM_FLOATS];
+  __shared__ int counts[tile::BM];
+  const int tid = threadIdx.x;
+  if (tid < tile::BM) counts[tid] = 0;  // ordered before use by run()'s barriers
+
+  // grouped order: COUNT_GROUP query tiles at a time, item tiles inside
+  const int64_t n_qt = (nq + tile::BM - 1) / tile::BM;
+  const int64_t n_it = (n + tile::BN - 1) / tile::BN;
+  const int64_t tt = tile0 + blockIdx.x;
+  const int64_t group = tt / (COUNT_GROUP * n_it);
+  const int64_t first_qt = group * COUNT_GROUP;
+  const int64_t gq = n_qt - first_qt < COUNT_GROUP ? n_qt - first_qt : COUNT_GROUP;
+  const int64_t within = tt - group * COUNT_GROUP * n_it;
+  const int64_t q0 = (first_qt + within % gq) * tile::BM;
+  const int64_t i0 = (within / gq) * tile::BN;
+
+  CountAbove epi{inorm, qnorm, thresh, counts, n, nq, q0, i0};
+  tile::run<VEC>(queries, nq, q0, items, n, i0, 1, d, smem, epi);
   __syncthreads();
-  if (tid < TQ && q0 + tid < nq && counts[tid]) atomicAdd(&out[q0 + tid], counts[tid]);
+  if (tid < tile::BM && q0 + tid < nq && counts[tid]) atomicAdd(&out[q0 + tid], counts[tid]);
 }
 
 }  // namespace
@@ -288,24 +326,24 @@ extern "C" int srml_knn_topm_f32(const void* items, const void* inorm,
   return 0;
 }
 
-// `out` must hold zeros: blocks add their counts into it.
+// `out` must hold zeros: blocks add their counts into it.  16-byte copies
+// when items, queries and d * 4 are 16-byte aligned, else 4-byte copies.
+// d < 2^31 - 8.
 extern "C" int srml_knn_count_f32(const void* items, const void* inorm,
                                   const void* queries, const void* qnorm,
                                   const void* thresh, void* out, long long n,
                                   long long nq, long long d, void* stream) {
+  if (d > 2147483647LL - tile::BK) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || nq <= 0) return 0;
-  const long long ng = (n + G - 1) / G;
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, COUNT_SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (long long g0 = 0; g0 < ng; g0 += MAX_GRID_Y) {
-    const long long groups = ng - g0 < MAX_GRID_Y ? ng - g0 : MAX_GRID_Y;
-    const dim3 grid(static_cast<unsigned int>((nq + TQ - 1) / TQ), static_cast<unsigned int>(groups));
-    knn_count_kernel<<<grid, THREADS, COUNT_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  const long long tiles = ((nq + tile::BM - 1) / tile::BM) * ((n + tile::BN - 1) / tile::BN);
+  auto kernel = tile::copy_width(items, queries, d) == 4 ? knn_count_tile_kernel<4> : knn_count_tile_kernel<1>;
+  for (long long t0 = 0; t0 < tiles; t0 += MAX_GRID_X) {
+    const long long blocks = tiles - t0 < MAX_GRID_X ? tiles - t0 : MAX_GRID_X;
+    kernel<<<static_cast<unsigned int>(blocks), tile::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(items), static_cast<const float*>(inorm),
         static_cast<const float*>(queries), static_cast<const float*>(qnorm),
-        static_cast<const float*>(thresh), static_cast<int32_t*>(out), n, nq, d, g0);
-    err = cudaGetLastError();
+        static_cast<const float*>(thresh), static_cast<int32_t*>(out), n, nq, d, t0);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -3,8 +3,9 @@
 #
 # Each source csrc/<name>.cu has a plain C interface.  At first use nvcc
 # compiles it for sm_90a into build/torch_kernels/lib<name>-<hash>.so under
-# the repository root, keyed by a hash of the source and the flags, and the
-# library is loaded with ctypes.  build() starts one nvcc per source, all at
+# the repository root, keyed by a hash of the source, of the local headers
+# it includes (#include "..." of csrc/, followed through headers), and of the
+# flags, and the library is loaded with ctypes.  build() starts one nvcc per source, all at
 # once, and waits for them together.  Nothing here runs at import time.
 #
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +46,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a host with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> Dict[str, bytes]:
+    """csrc/<name>.cu and every local header it includes, directly or
+    through another header, by path relative to csrc/."""
+    found: Dict[str, bytes] = {}
+    pending = [f"{name}.cu"]
+    while pending:
+        rel = pending.pop()
+        if rel in found:
+            continue
+        found[rel] = (CSRC / rel).read_bytes()
+        pending.extend(m.decode() for m in _LOCAL_INCLUDE.findall(found[rel]))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for rel, text in sorted(_sources(name).items()):
+        digest.update(rel.encode() + b"\0" + text + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

@@ -13,7 +13,11 @@
 #                         counted apart
 #   knn_fused_merge       B7, replaces _knn_fused_merge_kernel:
 #                         csrc/knn_merge.cu
-#   knn_count             B8, replaces _knn_count_kernel: csrc/knn_topm.cu
+#   knn_count             B8, replaces _knn_count_kernel: csrc/knn_topm.cu,
+#                         on the pipelined main loop of
+#                         csrc/fp32_dist_tile.cuh (16-byte copies where
+#                         items, queries and D * 4 are 16-byte aligned,
+#                         4-byte copies otherwise; the C entry picks)
 #
 # The pool layout is (Q, ng, m): for every query, the top m of each group of
 # GROUP consecutive items by (-d2 descending, position ascending), ng =
@@ -36,8 +40,9 @@ from .nearest_center import squared_norms
 
 GROUP = 1024        # items per candidate group (the TPU kernel's tile_i)
 MAX_M = 32          # candidates per group the pool kernel keeps at most
-_TILE_QUERIES = 32  # queries per block of the pool and count kernels
+_TILE_QUERIES = 32  # queries per block of the pool kernel
 _INT32_LIMIT = 2**31 - 1
+_COUNT_MAX_D = 2**31 - 9  # the count kernel counts features in 32-bit integers
 # the plain version's (rows, n) distance block stays below this many bytes
 _PLAIN_BLOCK_BYTES = 256 * 1024 * 1024
 
@@ -270,6 +275,8 @@ def knn_count(
     if queries.device.type == "cpu":
         return knn_count_plain(items, inorm, queries, qnorm, thresh)
     (n, d), q = items.shape, queries.shape[0]
+    if d > _COUNT_MAX_D:
+        raise ValueError(f"the count kernel takes D <= {_COUNT_MAX_D} features, got {d}")
     out = torch.zeros(q, dtype=torch.int32, device=queries.device)
     if q == 0:
         return out

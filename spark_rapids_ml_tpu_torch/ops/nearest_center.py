@@ -5,18 +5,21 @@
 #
 # Counterpart of spark_rapids_ml_tpu/ops/pallas_tpu.py::min_dist_argmin and
 # _min_dist_argmin_pallas.  It replaces the TPU kernel
-# spark_rapids_ml_tpu/ops/pallas_tpu.py::_min_dist_kernel with the CUDA kernel
-# csrc/min_dist_argmin.cu, written by hand for Hopper (sm_90a).
+# spark_rapids_ml_tpu/ops/pallas_tpu.py::_min_dist_kernel with the CUDA
+# kernels of csrc/min_dist_argmin.cu, written by hand for Hopper (sm_90a).
 #
 # What bounds it on the card: 2*N*k*D operations against 4*(N + k)*D bytes of
 # input, about k/2 operations per byte — at the KMeans widths (k = 1000,
 # D = 3000) far above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s, ~20),
-# so it is bound by fp32 FMAs on the CUDA cores.  The design keeps the (N, k)
-# distance matrix in registers (the unfused composition writes and re-reads
-# it), blocks 8 x 8 dot products per thread to raise the FMAs per
-# shared-memory load, and masks the ragged edges of N, k and D inside the
-# kernel instead of padding X (a padded copy of the 12 GB flagship input is
-# what the card should not pay for).  No TF32: see device.py.
+# so it is bound by fp32 FMAs on the CUDA cores.  The kernels keep the
+# (N, k) distance matrix in registers (the unfused composition writes and
+# re-reads it), block dot products in register micro-tiles, and mask the
+# ragged edges of N, k and D inside the kernel instead of padding X (a
+# padded copy of the 12 GB flagship input is what the card should not pay
+# for).  float32 runs the pipelined main loop of csrc/fp32_dist_tile.cuh,
+# with 16-byte copies where every row start of X and of the centers is
+# 16-byte aligned and 4-byte copies otherwise (the C entry picks); float64
+# runs the first, synchronous design.  No TF32: see device.py.
 #
 # Routing: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 # launches the kernel or raises — there is no fallback.  The JAX package's
@@ -36,6 +39,8 @@ from . import _build
 
 _LIBRARY = "min_dist_argmin"
 _ENTRY = {torch.float32: "srml_min_dist_argmin_f32", torch.float64: "srml_min_dist_argmin_f64"}
+# the pipelined kernel counts features in 32-bit integers
+_MAX_D = 2**31 - 9
 # the plain version's (rows, k) distance block stays below this many bytes
 _PLAIN_BLOCK_BYTES = 256 * 1024 * 1024
 
@@ -86,6 +91,13 @@ def min_dist_argmin(
 min_dist_argmin.launches = 0
 
 
+def copy_bytes(X: torch.Tensor, centers: torch.Tensor) -> int:
+    """16 where every row start of X and of centers is 16-byte aligned, else
+    4: the copy width of the float32 kernel (its C entry applies the same
+    rule)."""
+    return 16 if (X.data_ptr() | centers.data_ptr() | X.shape[1] * X.element_size()) % 16 == 0 else 4
+
+
 def _min_dist_argmin_cuda(
     X: torch.Tensor, centers: torch.Tensor, x_norm: torch.Tensor, c_norm: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,6 +113,8 @@ def _min_dist_argmin_cuda(
     (n, d), k = X.shape, centers.shape[0]
     if not 1 <= k < 2**31:
         raise ValueError(f"need 1 <= k < 2**31 centers, got {k}")
+    if d > _MAX_D:
+        raise ValueError(f"need D <= {_MAX_D} features, got {d}")
     if tuple(x_norm.shape) != (n,) or tuple(c_norm.shape) != (k,):
         raise ValueError(f"x_norm {tuple(x_norm.shape)} / c_norm {tuple(c_norm.shape)} must be ({n},) / ({k},)")
     for name, t in (("X", X), ("centers", centers), ("x_norm", x_norm), ("c_norm", c_norm)):
