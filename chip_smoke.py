@@ -31,7 +31,13 @@
 #            kernel, at ragged shapes and at the first launch of every
 #            shallow split level of both flagship fits (classifier F_pad 64,
 #            levels 0-6; regressor F_pad 1024, levels 0-5), and bucketed
-#            histograms (B4) at one deep window: exact on integer stats,
+#            histograms (B4) at one deep window (each block writes its own
+#            output slice), at its level 7, with the fit's zero-padded
+#            feature rows, and at a launch too small to fill the card (rows
+#            split across blocks, atomic flush), with stray node ids and
+#            bins, every output on a block of NaNs; the atomic kernel also
+#            through the int32 cells of declared integer stats (the
+#            classifier's): exact on integer stats,
 #            within HIST_FLOAT_RTOL / HIST_FLOAT_ATOL on float stats, the
 #            tensor-core route bit for bit across two calls on float stats;
 #            timings as above (library_ms: torch.searchsorted, index_add_;
@@ -57,15 +63,19 @@
 #            the exact-kNN kernels against their plain versions: candidate
 #            pool (B5, and B6, the same kernel on the audit route), fused
 #            merge (B7), audit count (B8).  On integer-valued data (ragged
-#            shapes and one flagship block) pools, merges and counts are
-#            exact, a pool wider than 16,384, 65,537 groups and B8's 4-byte
-#            copies (d % 4 != 0) at 1,563 x 5 tiles included;
+#            shapes, one flagship block, the mesh's shard shape, m = 32)
+#            pools (-inf slots included), merges and counts are exact, a
+#            pool wider than 16,384, 65,537 groups, groups ending inside
+#            an item tile, and B5's and B8's 4-byte copies (d % 4 != 0, and
+#            misaligned views at d % 4 == 0) included; the pool kernel's
+#            ptxas registers and spills and its resident blocks an SM;
 #            given one pool, B7 is bit-exact on Gaussian data too, and on
 #            tied pools with k past one 4,096-rank window and past the pool;
 #            the flagship block's merged distances agree with the plain
-#            route within KNN_DIST_RTOL; timings as above (library_ms:
-#            matmul + a per-group topk, topk over the pool, matmul + a
-#            compare-sum)
+#            route within KNN_DIST_RTOL, and the count equals the merged
+#            lists on every unflagged row; timings as above, B5 also at the
+#            mesh's shard shape and at m = 32 (library_ms: matmul + a
+#            per-group topk, topk over the pool, matmul + a compare-sum)
 #   path_knn the JAX package's kNN arm: NearestNeighbors(k=200).fit on
 #            400,000 x 3000 float32 items (standard normal, seed 0, 8
 #            partitions), kneighbors of 16,384 queries (seed 7, 2
@@ -413,7 +423,8 @@ RF_CLF = dict(numTrees=50, maxDepth=13, maxBins=128, featureSubsetStrategy="sqrt
 RF_REG = dict(numTrees=30, maxDepth=6, maxBins=128, featureSubsetStrategy="onethird", seed=1)
 N_INF, N_RED = 10, 2
 RF_N_PAD = -(-RF_ROWS // 2048) * 2048  # rows padded to the histogram row tile
-RF_F_PAD = 64                           # sqrt(3000) = 54 subset features, padded to 32s
+RF_FEATURES = 54                        # sqrt(3000): the classifier's feature subset
+RF_F_PAD = 64                           # ... padded to 32s
 # float stats (regression w*y): the kernel and the plain version add the
 # same bf16-rounded terms in fp32, in other orders
 HIST_FLOAT_RTOL, HIST_FLOAT_ATOL = 1e-4, 1e-3
@@ -527,14 +538,19 @@ def check_binning(torch, binning, X, edges, n_pad, reps, library=True):
             "max_abs_err": 0.0, **row, "bound_ms": b, "bound_by": by}
 
 
-def hist_case(torch, dev, gen, f_pad, n, t_pack, nodes, s_dim, n_bins, integer, stray=False):
+def hist_case(torch, dev, gen, f_pad, n, t_pack, nodes, s_dim, n_bins, integer, stray=False, features=None):
     """Random inputs at one histogram shape: bins in [0, n_bins), node ids in
     [0, nodes] (== nodes is masked), stats Poisson(1) counts x one-hot
-    classes (integer) or uniform [0, 1) (float)."""
+    classes (integer) or uniform [0, 1) (float); stray: 5% of the node ids
+    1 << 18 (the deep phase's pad rows) and 2% of the bins -1; features:
+    the bin rows past it 0, as the fit's zero-padded feature subsets."""
     bins = torch.randint(0, n_bins, (f_pad, n), generator=gen, device=dev, dtype=torch.int8)
+    if features is not None:
+        bins[features:] = 0
     node = torch.randint(0, nodes + 1, (t_pack, n), generator=gen, device=dev, dtype=torch.int32)
     if stray:
         node[torch.rand((t_pack, n), generator=gen, device=dev) < 0.05] = 1 << 18
+        bins[torch.rand((f_pad, n), generator=gen, device=dev) < 0.02] = -1
     if integer:
         counts = torch.poisson(torch.ones((t_pack, n), device=dev), generator=gen)
         y = torch.randint(0, s_dim, (n,), generator=gen, device=dev)
@@ -572,46 +588,96 @@ def hist_flat_index(torch, dev, bins, node, stats, rows, nodes, s_dim, n_bins, f
             else:
                 flat = (feat * 128 + slot[None, :]) * n_bins + b
             v = stats[t * s_dim + s, sl].to(torch.bfloat16).float()
-            keep = (ok & (v != 0))[None, :].expand(f_pad, width)
+            keep = (ok & (v != 0))[None, :] & (b >= 0) & (b < n_bins)
             idx_parts.append(flat[keep])
             val_parts.append(v[None, :].expand(f_pad, width)[keep])
     return torch.cat(idx_parts), torch.cat(val_parts)
 
 
-def check_hist_bucketed(torch, fh, dev, gen, f_pad, n, n_buckets, nodes, s_dim, n_bins, reps):
-    """B4 (node_histograms_bucketed) at one shape: exact on integer stats,
-    HIST_FLOAT_* on float stats; timings on the integer inputs."""
+def poison(torch, shape, dev):
+    """Leave a freed block of NaNs of `shape` in the caching allocator, so a
+    torch.empty of that shape that follows likely gets it: a kernel that
+    skips a cell of its output then shows."""
+    t = torch.full(shape, float("nan"), device=dev)
+    del t
+
+
+def rows_first_geometry(fh):
+    """The atomic kernel's geometry with rows cut before features, for
+    comparison with ops/forest_hist._atomic_geometry: as many features a
+    block as fit its shared memory, the rows split across blocks until the
+    card is full."""
+    def geometry(f_pad, n_buckets, seg_len, slots, n_bins):
+        fb = max(1, min(f_pad, fh.ATOMIC_SMEM_BUDGET // (4 * slots * n_bins)))
+        per_split = -(-f_pad // fb) * n_buckets
+        splits = max(1, min(-(-fh.ATOMIC_TARGET_BLOCKS // per_split), -(-seg_len // fh.ATOMIC_MIN_ROWS)))
+        rows = -(-seg_len // (4 * splits)) * 4
+        return fb, -(-seg_len // rows), rows
+    return geometry
+
+
+def check_hist_bucketed(torch, fh, dev, gen, f_pad, n, n_buckets, nodes, s_dim, n_bins, reps, compare=False,
+                        features=None):
+    """B4 (node_histograms_bucketed) at one shape, on a poisoned output
+    block: exact on integer stats, through fp32 cells and through the int32
+    cells of a caller that declares them integers, HIST_FLOAT_* on float
+    stats; timings on the integer inputs, declared (the classifier's main
+    path) and not (compare: also under rows_first_geometry, checked
+    equal)."""
     name = "node_histograms_bucketed"
-    kernel = lambda b, c, s: fh.node_histograms_bucketed(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
+
+    def kernel(b, c, s, integer_stats=False):
+        return fh.node_histograms_bucketed(b, c, s, n_buckets, nodes, s_dim, n_bins, integer_stats=integer_stats)
+
     plain = lambda b, c, s: fh.node_histograms_bucketed_plain(b, c, s, n_buckets, nodes, s_dim, n_bins)  # noqa: E731
+    fb, splits, rows = fh._atomic_geometry(f_pad, n_buckets, n // n_buckets, nodes * s_dim, n_bins)
+    out_shape = (n_buckets, f_pad, fh.slots_pad_of(nodes, s_dim), n_bins)
     errs = {}
     for integer in (False, True):
-        bins, node, stats = hist_case(torch, dev, gen, f_pad, n, 1, nodes, s_dim, n_bins, integer, stray=True)
-        got, want = kernel(bins, node, stats), plain(bins, node, stats)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if integer:
-            check(err == 0.0, f"{name} integer stats: max abs err {err}")
-        else:
-            check(bool(torch.allclose(got, want, rtol=HIST_FLOAT_RTOL, atol=HIST_FLOAT_ATOL)),
-                  f"{name} float stats: max abs err {err}")
-        errs["integer" if integer else "float"] = err
-        del got, want
+        bins, node, stats = hist_case(torch, dev, gen, f_pad, n, 1, nodes, s_dim, n_bins, integer, stray=True,
+                                      features=features)
+        want = plain(bins, node, stats)
+        for declared in (False, True) if integer else (False,):
+            poison(torch, out_shape, dev)
+            got = kernel(bins, node, stats, integer_stats=declared)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if integer:
+                check(err == 0.0, f"{name} integer stats (declared: {declared}): max abs err {err}")
+            else:
+                check(bool(torch.allclose(got, want, rtol=HIST_FLOAT_RTOL, atol=HIST_FLOAT_ATOL)),
+                      f"{name} float stats: max abs err {err}")
+            errs["integer" if integer else "float"] = err
+            del got
+        del want
     # the library yardstick: index_add_ of the bf16-rounded stats over the
     # flat output index, built beforehand
-    out_shape = tuple(kernel(bins, node, stats).shape)
     numel = math.prod(out_shape)
     idx, vals = hist_flat_index(torch, dev, bins, node, stats, 1, nodes, s_dim, n_bins, f_pad, out_shape, True,
                                 slice(0, n))
     lib = lambda: torch.zeros(numel, device=dev).index_add_(0, idx, vals)  # noqa: E731
     check(bool((lib().reshape(out_shape) == kernel(bins, node, stats)).all()), f"{name} disagrees with index_add_")
-    row = timings(torch, lambda: kernel(bins, node, stats), lambda: plain(bins, node, stats), lib, reps)
+    row = timings(torch, lambda: kernel(bins, node, stats, integer_stats=True), lambda: plain(bins, node, stats),
+                  lib, reps)
+    row["fp32_cells_kernel_ms"] = median_ms(torch, lambda: kernel(bins, node, stats), reps)
+    if compare:
+        real = fh._atomic_geometry
+        fh._atomic_geometry = rows_first_geometry(fh)
+        try:
+            row["rows_first_geometry"] = fh._atomic_geometry(f_pad, n_buckets, n // n_buckets, nodes * s_dim, n_bins)
+            check(bool(torch.equal(kernel(bins, node, stats, integer_stats=True), lib().reshape(out_shape))),
+                  f"{name} under the rows-first geometry differs")
+            row["rows_first_kernel_ms"] = median_ms(torch, lambda: kernel(bins, node, stats, integer_stats=True),
+                                                    reps)
+        finally:
+            fh._atomic_geometry = real
     b, by = bound(bins.numel() + 4 * node.numel() + 4 * stats.numel() + 4 * numel,
                   hist_terms(torch, node, stats, 1, nodes, s_dim, f_pad))
     del bins, node, stats, lib, idx, vals
     torch.cuda.empty_cache()
     return {"kernel": name, "f_pad": f_pad, "n": n, "t_pack_or_buckets": n_buckets, "nodes": nodes,
-            "s_dim": s_dim, "n_bins": n_bins, "max_abs_err": errs["float"], "max_abs_err_integer": errs["integer"],
+            "s_dim": s_dim, "n_bins": n_bins, "features": features, "fb": fb, "splits": splits, "rows_per_block": rows,
+            "owner_flush": splits == 1, "max_abs_err": errs["float"], "max_abs_err_integer": errs["integer"],
             **row, "bound_ms": b, "bound_by": by}
 
 
@@ -654,10 +720,21 @@ def check_forest_kernels(torch, port, binning, fh, X_host, dev):
             levels.append(row)
             emit({"phase": "kernels_forest_level", **row})
     out["node_histograms_levels"] = levels
-    # B4 at one deep window (128 buckets of 8192 rows at level 12: 32 local nodes)
+    # B4 at one deep window (128 buckets of 8192 rows at level 12: 32 local
+    # nodes; each block owns its output slice), where the buckets are too
+    # few to fill the card (2 buckets of 16,384 rows: rows split across
+    # blocks, atomic flush) with 5 x 3 slots padded to 16, at the same
+    # window's level 7 (1 local node), and at level 12 with the fit's 54
+    # features and 10 zero-padded bin rows
     out["node_histograms_bucketed"] = [
         check_hist_bucketed(torch, fh, dev, gen, RF_F_PAD, 128 * 8192, 128, 32, 2, 128, reps=10),
+        check_hist_bucketed(torch, fh, dev, gen, RF_F_PAD, 2 * 16384, 2, 5, 3, 128, reps=10),
+        check_hist_bucketed(torch, fh, dev, gen, RF_F_PAD, 128 * 8192, 128, 1, 2, 128, reps=10, compare=True),
+        check_hist_bucketed(torch, fh, dev, gen, RF_F_PAD, 128 * 8192, 128, 32, 2, 128, reps=10,
+                            features=RF_FEATURES),
     ]
+    check(out["node_histograms_bucketed"][0]["owner_flush"] and not out["node_histograms_bucketed"][1]["owner_flush"],
+          "the B4 cases miss one of the two flushes")
     return out
 
 
@@ -665,17 +742,22 @@ def check_hist_routes(torch, fh, dev, gen, path, level, f_pad, n, t_pack, nodes,
                       library=False, plain_timed=False):
     """B3 at one shape through both routes: each equal to the plain version
     bit for bit on integer stats and within HIST_FLOAT_* on float stats, the
-    tensor-core route bit for bit across two calls on float stats; timings
-    of both routes (reps > 0), of the plain version and of the index_add_
-    yardstick (where asked), on the integer inputs."""
+    tensor-core route bit for bit across two calls on float stats, the
+    atomic route also through the int32 cells of declared integer stats;
+    timings of both routes (reps > 0; the atomic one declared and not), of
+    the plain version and of the index_add_ yardstick (where asked), on the
+    integer inputs."""
     routes = {"mma": fh.node_histograms_mma, "atomic": fh.node_histograms_atomic}
     args = (t_pack, nodes, s_dim, n_bins)
     row = {"path": path, "level": level, "f_pad": f_pad, "n": n, "t_pack": t_pack, "nodes": nodes,
-           "s_dim": s_dim, "n_bins": n_bins, "route": fh._hist_route(*args)}
+           "s_dim": s_dim, "n_bins": n_bins,
+           # the classifier declares its stats integers, the regressor's are not
+           "route": fh._hist_route(*args, integer_stats=path == "clf")}
     for integer in (False, True):
         bins, node, stats = hist_case(torch, dev, gen, f_pad, n, t_pack, nodes, s_dim, n_bins, integer)
         want = fh.node_histograms_plain(bins, node, stats, *args)
         for name, fn in routes.items():
+            poison(torch, want.shape, dev)
             got = fn(bins, node, stats, *args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -693,10 +775,19 @@ def check_hist_routes(torch, fh, dev, gen, path, level, f_pad, n, t_pack, nodes,
                     row["mma_repeat_bitwise"] = True
                     del again
             del got
+        if integer:
+            poison(torch, want.shape, dev)
+            got = fh.node_histograms_atomic(bins, node, stats, *args, integer_stats=True)
+            err = float((got - want).abs().max())
+            check(err == 0.0, f"node_histograms_atomic {[f_pad, n, *args]} declared integer stats: max abs err {err}")
+            row["max_abs_err_integer_atomic_declared"] = err
+            del got
         del want
     if reps:
         for name, fn in routes.items():
             row[f"{name}_ms"] = median_ms(torch, lambda: fn(bins, node, stats, *args), reps)  # noqa: B023
+        row["atomic_int_ms"] = median_ms(
+            torch, lambda: fh.node_histograms_atomic(bins, node, stats, *args, integer_stats=True), reps)
         row["plain_ms"] = (median_ms(torch, lambda: fh.node_histograms_plain(bins, node, stats, *args), 1)
                            if plain_timed else None)
         row["library_ms"] = hist_library_ms(torch, fh, dev, bins, node, stats, *args) if library else None
@@ -765,7 +856,8 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
     # B3's launches by route: as _hist_route sends the shallow phase's launches
     params = {k.name: v for k, v in est.extractParamMap().items()}
     shapes = port.ops.forest_grow.shallow_launches(params["numTrees"], 2, params["maxDepth"])
-    routes = [port.ops.forest_hist._hist_route(tp, nodes, 2, params["maxBins"]) for _, nodes, tp in shapes]
+    routes = [port.ops.forest_hist._hist_route(tp, nodes, 2, params["maxBins"], integer_stats=classification)
+              for _, nodes, tp in shapes]
     hist_expected = {f"node_histograms_{r}": routes.count(r) for r in ("mma", "atomic")}
     for name, want in hist_expected.items():
         check(launches_fit[name] == want, f"the fit launched {name} {launches_fit[name]} times, not {want}")
@@ -787,7 +879,10 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
         rec["reloaded_identical"] = True
     launches = read_launches(wrappers)
     peak_bytes = torch.cuda.max_memory_allocated()
-    rec["profile"] = profile_run(torch, lambda: est.fit(df), PROFILE_RANGES, wrappers)
+    with deep_launch_shapes(port) as deep:
+        rec["profile"] = profile_run(torch, lambda: est.fit(df), PROFILE_RANGES, wrappers)
+    if deep:
+        rec["deep_launches"] = deep
     hold_pred = np.concatenate([p["prediction"] for p in model.transform(hold).partitions])
     y_hold = y[RF_ROWS:]
     check(np.isfinite(pred).all() and np.isfinite(hold_pred).all(), "non-finite predictions")
@@ -811,10 +906,43 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
     }
 
 
+class deep_launch_shapes:
+    """Within the block, the B4 launches of the deep phase by local node
+    count: launches, rows, and launches whose rows the atomic kernel splits
+    across blocks (ops/forest_hist._atomic_geometry), as a list of records
+    (empty if the fit has no deep phase).  Every call goes on to the
+    wrapper unchanged."""
+
+    def __init__(self, port):
+        self.grow, self.fh, self.rows = port.ops.forest_grow, port.ops.forest_hist, {}
+
+    def __enter__(self):
+        self.real = self.grow.node_histograms_bucketed
+
+        def record(bins_sub, node_rel, stats_s, n_buckets, nodes, s_dim, n_bins, **kw):
+            f_pad, n = bins_sub.shape
+            splits = self.fh._atomic_geometry(f_pad, n_buckets, n // n_buckets, nodes * s_dim, n_bins)[1]
+            r = self.rows.setdefault(nodes, {"nodes": nodes, "launches": 0, "rows": 0, "split_launches": 0})
+            r["launches"] += 1
+            r["rows"] += n
+            r["split_launches"] += splits > 1
+            return self.real(bins_sub, node_rel, stats_s, n_buckets=n_buckets, nodes=nodes, s_dim=s_dim,
+                             n_bins=n_bins, **kw)
+
+        self.grow.node_histograms_bucketed = record
+        self.out = []
+        return self.out
+
+    def __exit__(self, *exc):
+        self.grow.node_histograms_bucketed = self.real
+        self.out.extend(self.rows[k] for k in sorted(self.rows))
+        return False
+
+
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
-                       "hist_mma_kernel", "knn_topm_kernel", "knn_count_tile_kernel", "knn_fused_merge_kernel",
+                       "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "knn_fused_merge_kernel",
                        "lut_accumulate_kernel", "ring_shift_kernel")
 # launched beside hist_mma_kernel by the same wrapper call (the masked-stat
 # operand, the split sum): timed with the port's kernels, not counted
@@ -934,22 +1062,31 @@ KNN_JOIN_QUERIES = 1000
 # expected); index sets may differ only in items within KNN_TIE_RTOL of the
 # k-th distance
 KNN_DIST_RTOL, KNN_TIE_RTOL = 1e-4, 1e-5
-# ragged kernel shapes (n, d, Q, m, k, invalid trailing items): n not a
-# multiple of 1024, d not a multiple of the 16-feature slice, Q not a
-# multiple of the 32-query tile, k past the valid items or past the pool; the
-# last three a pool of 3,418 groups x 5 = 17,090 candidates a query, 65,537
-# groups (past one launch's 65,535), and B8's 4-byte copies (d % 4 != 0) on
-# 1,563 x 5 item and query tiles of its 128 x 128 loop
+# ragged kernel shapes (n, d, Q, m, k, invalid trailing items, misaligned):
+# n not a multiple of 1024 nor of the 128-item tile, d not a multiple of the
+# 8-feature slice, Q not a multiple of the 128-query tile, k past the valid
+# items or past the pool; a pool of 3,418 groups x 5 = 17,090 candidates a
+# query, 65,537 groups, B5's and B8's 4-byte copies (d % 4 != 0) on 1,563 x
+# 5 item and query tiles; the last three on misaligned views of the items
+# and queries (each one float past a 16-byte boundary: 4-byte copies at
+# d % 4 == 0) and at m = 32, groups ending 1, 129 and 1023 items in
 KNN_RAGGED = [
-    (2100, 300, 250, 5, 10, 30),
-    (700, 37, 33, 32, 40, 0),
-    (20, 5, 7, 32, 25, 0),
-    (3000, 515, 384, 20, 33, 0),
-    (1076, 37, 33, 32, 40, 36),
-    (3_500_000, 32, 64, 5, 200, 0),
-    (67_109_000, 3, 33, 2, 5, 0),
-    (200_003, 515, 517, 9, 200, 3),
+    (2100, 300, 250, 5, 10, 30, False),
+    (700, 37, 33, 32, 40, 0, False),
+    (20, 5, 7, 32, 25, 0, False),
+    (3000, 515, 384, 20, 33, 0, False),
+    (1076, 37, 33, 32, 40, 36, False),
+    (3_500_000, 32, 64, 5, 200, 0, False),
+    (67_109_000, 3, 33, 2, 5, 0, False),
+    (200_003, 515, 517, 9, 200, 3, False),
+    (1025, 256, 300, 9, 50, 0, True),
+    (9345, 3000, 130, 32, 200, 17, True),
+    (50_175, 64, 1000, 32, 100, 0, True),
 ]
+# B5 at the main path's other shapes, exact on integer data and timed on
+# Gaussian data, (n, Q, m): one shard of path_knn_mesh, and the pool's
+# widest m at the flagship's items
+KNN_POOL_SHAPES = [(KNN_ITEMS // 4, KNN_BLOCK, 15), (KNN_ITEMS, KNN_BLOCK, 32)]
 # B7 alone on wide tied pools: (Q, ng, m) and the k of each merge, one
 # 4,096-rank window, several, all of the pool and past it
 KNN_WIDE_POOL, KNN_WIDE_KS = (256, 4000, 5), (200, 9000, 20000, 25000)
@@ -976,12 +1113,15 @@ def normal_data(rows, cols, seed, workers=8):
     return X
 
 
-def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid):
+def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid, misaligned=False):
     """B5, B7 and B8 against their plain versions on integer-valued data
     (every sum exact in fp32): equal pools (values and positions, -inf
     slots included), equal merges, equal counts."""
     X = torch.randint(-3, 4, (n, d), generator=gen, device=dev).float()
     Q = torch.randint(-3, 4, (q, d), generator=gen, device=dev).float()
+    X, Q = b1_input(torch, X, dev, misaligned), b1_input(torch, Q, dev, misaligned)
+    copy = nc.copy_bytes(X, Q)
+    check((copy == 4) == (misaligned or d % 4 != 0), f"kNN ({n},{d},{q}) takes {copy}-byte copies")
     norm = (X * X).sum(dim=1)
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     if invalid:
@@ -994,16 +1134,22 @@ def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid):
     cnt = kk.knn_count(X, norm, valid, Q, out[3])
     pcnt = kk.knn_count_plain(X, inorm, Q, qn, out[3])
     torch.cuda.synchronize()
+    ng = v.shape[1]
+    neg = ~torch.isfinite(v)
+    first = (torch.arange(ng, device=dev, dtype=torch.int32) * kk.GROUP)[None, :, None].expand_as(p)
     rec = {
-        "n": n, "d": d, "q": q, "m": m, "k": k, "invalid": invalid,
-        "pool_value_mismatches": int((v != pv).sum()), "pool_position_mismatches": int((p != pp).sum()),
+        "n": n, "d": d, "q": q, "m": m, "k": k, "invalid": invalid, "misaligned": misaligned,
+        "pool_value_mismatches": int((v.view(torch.int32) != pv.view(torch.int32)).sum()),
+        "pool_position_mismatches": int((p != pp).sum()),
+        "neg_inf_slots": int(neg.sum()), "neg_inf_slots_off_group_start": int((p != first)[neg].sum()),
         "merge_mismatches": [int((a != b).sum()) for a, b in zip(out, ref)],
         "count_mismatches": int((cnt != pcnt).sum()), "count_max_abs_err": int((cnt - pcnt).abs().max()),
-        "count_copy_bytes": nc.copy_bytes(X, Q),
+        "copy_bytes": copy,
         "invalid_in_pool": int(((p >= n - invalid) & torch.isfinite(v)).sum()) if invalid else 0,
     }
     check(rec["pool_value_mismatches"] == 0 and rec["pool_position_mismatches"] == 0,
           f"knn_candidates ({n},{d},{q},m={m}) integer data: pool differs from the plain version: {rec}")
+    check(rec["neg_inf_slots_off_group_start"] == 0, f"a -inf slot holds another position than its group's first: {rec}")
     check(sum(rec["merge_mismatches"]) == 0, f"knn_fused_merge ({n},{d},{q},k={k}) differs: {rec}")
     check(rec["count_mismatches"] == 0, f"knn_count ({n},{d},{q}) differs: {rec}")
     check(rec["invalid_in_pool"] == 0, f"an invalid item entered the pool: {rec}")
@@ -1029,16 +1175,100 @@ def knn_wide_merge(torch, kk, dev, gen):
             "kernel_ms_k200": ms}
 
 
-def check_knn_kernels(torch, kk, nc, knn_ops, dev):
+def pool_library(torch, kk, X, Q, inorm, qn, m):
+    """The pool as one PyTorch composition: matmul + a per-group topk."""
+    q_n, n = Q.shape[0], X.shape[0]
+    ng = -(-n // kk.GROUP)
+    neg = -((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :])
+    neg = torch.nn.functional.pad(neg, (0, ng * kk.GROUP - n), value=float("-inf"))
+    return torch.topk(neg.view(q_n, ng, kk.GROUP), m, dim=2)
+
+
+def pool_bound(q_n, n, d, m):
+    """B5's least time: 2 * Q * n * d fp32 operations against its inputs
+    read once and its (Q, ng, m) values and positions written once."""
+    ng = -(-n // 1024)
+    return bound(4.0 * (q_n * d + n * d + q_n + n) + 8.0 * q_n * ng * m, 2.0 * q_n * n * d)
+
+
+def time_pool(torch, kk, dev, gen, n, q_n, m):
+    """B5 at (Q, n, d = COLS, m) on Gaussian data: kernel, plain and library
+    times and the bound."""
+    X = torch.randn(n, COLS, generator=gen, device=dev)
+    Q = torch.randn(q_n, COLS, generator=gen, device=dev)
+    norm = (X * X).sum(dim=1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    inorm, qn = kk._masked_norms(norm, valid), (Q * Q).sum(dim=1)
+    row = timings(torch, lambda: kk.knn_candidates(X, norm, valid, Q, m),
+                  lambda: kk.knn_candidates_plain(X, inorm, Q, qn, m),
+                  lambda: pool_library(torch, kk, X, Q, inorm, qn, m), 3)
+    row["bound_ms"], row["bound_by"] = pool_bound(q_n, n, COLS, m)
+    del X, Q
+    torch.cuda.empty_cache()
+    return {"n": n, "d": COLS, "q": q_n, "m": m, **row}
+
+
+def pool_build_record(_build):
+    """ptxas registers and spills of the pool kernel's two copy widths
+    (VEC 4: 16-byte copies, VEC 1: 4-byte), from its build log."""
+    out, current = {}, None
+    for line in _build.build_log("knn_topm").splitlines():
+        if "Compiling entry function" in line:
+            current = None
+            if "knn_topm_tile_kernel" in line:
+                current = "copy_16_bytes" if "ILi4E" in line else "copy_4_bytes"
+                out[current] = {}
+        elif current and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[current]["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            out[current]["spill_load_bytes"] = int(words[words.index("loads") - 3])
+        elif current and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[current]["registers"] = int(words[words.index("registers") - 1])
+    check(set(out) == {"copy_16_bytes", "copy_4_bytes"}, f"the build log lacks a pool kernel: {out}")
+    return out
+
+
+def pool_occupancy(_build, kk):
+    """Resident pool blocks an SM and their dynamic shared memory, at every
+    m the checks use, for both copy widths."""
+    import ctypes
+
+    fn = _build.load("knn_topm").srml_knn_topm_occupancy
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for m in (1, 5, 9, 15, 20, 32):
+        for vec in (4, 1):
+            blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+            err = fn(m, vec, ctypes.byref(blocks), ctypes.byref(smem))
+            check(err == 0 and blocks.value >= 1, f"pool kernel m={m} vec={vec}: error {err}, {blocks.value} blocks")
+            rows.append({"m": m, "copy_bytes": 4 * vec, "blocks_per_sm": blocks.value,
+                         "dynamic_smem_bytes": smem.value})
+    return rows
+
+
+def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     """Phase kernels_knn: B5-B8 against their plain versions at ragged shapes
-    (one with a pool wider than 16,384), B7 on wide tied pools, and all at
+    (one with a pool wider than 16,384, misaligned views, m = 32), B7 on
+    wide tied pools, B5 at the mesh's shard shape and at m = 32, and all at
     one flagship block, with timings at the flagship block."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     m = knn_ops._scan_geometry(KNN_K, KNN_ITEMS)[1]
+    build = pool_build_record(_build)
+    occupancy = pool_occupancy(_build, kk)
     ragged = [knn_exact_case(torch, kk, nc, dev, gen, *shape) for shape in KNN_RAGGED]
-    check(any(r["count_copy_bytes"] == 4 for r in ragged) and any(r["count_copy_bytes"] == 16 for r in ragged),
-          "the ragged cases miss one of B8's copy widths")
+    check(any(r["copy_bytes"] == 4 and r["misaligned"] and r["d"] % 4 == 0 for r in ragged)
+          and any(r["copy_bytes"] == 4 and r["d"] % 4 for r in ragged)
+          and any(r["copy_bytes"] == 16 for r in ragged),
+          "the ragged cases miss one of B5's and B8's copy widths")
     torch.cuda.empty_cache()
+    pool_shapes = []
+    for n, q_n, pm in KNN_POOL_SHAPES:
+        exact = knn_exact_case(torch, kk, nc, dev, gen, n, COLS, q_n, pm, KNN_K, 0)
+        torch.cuda.empty_cache()
+        pool_shapes.append({**time_pool(torch, kk, dev, gen, n, q_n, pm), "integer": exact})
+        emit({"phase": "kernels_knn_pool", **pool_shapes[-1]})
     wide_merge = knn_wide_merge(torch, kk, dev, gen)
     flagship_int = knn_exact_case(torch, kk, nc, dev, gen, KNN_ITEMS, COLS, KNN_BLOCK, m, KNN_K, 0)
     torch.cuda.empty_cache()
@@ -1073,19 +1303,15 @@ def check_knn_kernels(torch, kk, nc, knn_ops, dev):
     q_n, n, d, P = KNN_BLOCK, KNN_ITEMS, COLS, v.shape[1] * v.shape[2]
     ng = v.shape[1]
 
-    def library_pool():
-        neg = -((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :])
-        neg = torch.nn.functional.pad(neg, (0, ng * kk.GROUP - n), value=float("-inf"))
-        return torch.topk(neg.view(q_n, ng, kk.GROUP), m, dim=2)
-
     def library_count():
         return (-((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :]) > thresh[:, None]).sum(dim=1)
 
     dot_ops = 2.0 * q_n * n * d
     in_bytes = 4.0 * (q_n * d + n * d + q_n + n)
     b5 = timings(torch, lambda: kk.knn_candidates(X, norm, valid, Q, m),
-                 lambda: kk.knn_candidates_plain(X, inorm, Q, qn, m), library_pool, 3)
-    b5["bound_ms"], b5["bound_by"] = bound(in_bytes + 8.0 * q_n * P, dot_ops)
+                 lambda: kk.knn_candidates_plain(X, inorm, Q, qn, m),
+                 lambda: pool_library(torch, kk, X, Q, inorm, qn, m), 3)
+    b5["bound_ms"], b5["bound_by"] = pool_bound(q_n, n, d, m)
     b6 = {"kernel_ms": median_ms(torch, lambda: kk.knn_candidates_audit(X, norm, valid, Q, m), 2),
           "plain_ms": b5["plain_ms"], "library_ms": b5["library_ms"],
           "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"]}
@@ -1099,7 +1325,8 @@ def check_knn_kernels(torch, kk, nc, knn_ops, dev):
     torch.cuda.empty_cache()
     shape = {"n": n, "d": d, "q": q_n, "m": m, "k": KNN_K, "ng": ng, "pool": P}
     return {
-        "phase": "kernels_knn", "ragged": ragged, "wide_merge": wide_merge, "flagship_integer": flagship_int,
+        "phase": "kernels_knn", "pool_build": build, "pool_occupancy": occupancy, "ragged": ragged,
+        "pool_shapes": pool_shapes, "wide_merge": wide_merge, "flagship_integer": flagship_int,
         "flagship": {**shape, "pool_max_abs_err": pool_err, "dist_max_abs_err_vs_plain_route": dist_err,
                      "flagged_rows": int((~unflagged).sum()),
                      "rows_with_other_positions_vs_plain_route": rows_differ, "dist_rtol": KNN_DIST_RTOL},
@@ -2016,7 +2243,7 @@ def main():
         emit(forest_card_vs_cpu(torch, port))
 
     if "kernels_knn" in phases:
-        results["kernels_knn"] = check_knn_kernels(torch, kk, nc, knn_ops, dev)
+        results["kernels_knn"] = check_knn_kernels(torch, kk, nc, knn_ops, _build, dev)
         emit(results["kernels_knn"])
     if "kernels_exchange" in phases:
         results["kernels_exchange"] = check_exchange_kernel(torch, ek, topology, dev)
@@ -2099,12 +2326,15 @@ def summary(results, seconds):
         clf_levels = {r["level"]: r for r in kf["node_histograms_levels"] if r["path"] == "clf"}
         by_route = {route: {"path_rf_clf": clf.get(f"node_histograms_{route}"),
                             "path_rf_reg": reg.get(f"node_histograms_{route}")} for route in ("mma", "atomic")}
+        # (the classifier declares its stats integers: the atomic route's
+        # int32 cells)
         for name, r in (("node_histograms_mma", clf_levels[0]), ("node_histograms_atomic", clf_levels[max(clf_levels)])):
             route = name.rsplit("_", 1)[1]
             rows.append({
                 "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
                 "replaces": "spark_rapids_ml_tpu/ops/forest_hist.py:73", "launches": clf.get(name),
-                "max_abs_err": r[f"max_abs_err_{route}"], "ms": r[f"{route}_ms"], "plain_ms": r["plain_ms"],
+                "max_abs_err": r[f"max_abs_err_{route}"],
+                "ms": r["atomic_int_ms"] if route == "atomic" else r["mma_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "shape": [r[k] for k in ("f_pad", "n", "t_pack", "nodes", "s_dim", "n_bins")],
                 "launches_by_route": by_route,

@@ -64,26 +64,49 @@
 // The atomic route (hist_kernel): one shared-memory fp32 atomic add per
 // (row, feature, tree) with a non-zero stat, which the compiler emits as a
 // compare-and-swap loop (cuobjdump -sass of this library for sm_90a: seven
-// ATOMS.CAST.SPIN retried in a loop, no native shared fp32 add); its work grows with the trees packed, not
-// with the nodes, so it wins at the deep end of the shallow phase:
+// ATOMS.CAST.SPIN retried in a loop, no native shared fp32 add); its work
+// grows with the trees packed, not with the nodes, so it wins at the deep
+// end of the shallow phase:
 //   - a block owns FB features (as many (slots x B) fp32 histograms as fit
 //     96 KB of shared memory, so two blocks share an SM) and a range of rows
-//     of one bucket;
-//   - each thread walks rows (consecutive rows per warp: coalesced loads of
-//     node ids, stats and int8 bins) and adds each non-zero bf16-rounded
-//     stat into its (slot, bin) cell with a shared-memory atomic (adding 0
-//     changes no fp32 sum, so zero stats are skipped);
-//   - the block then adds its non-zero cells into the output with global
-//     atomics (the wrapper zeroes the output), which lets several blocks
-//     share one bucket's rows when the buckets are too few to fill the card.
+//     of one bucket (the geometry: ops/forest_hist._atomic_geometry);
+//   - each thread walks rows and adds each non-zero bf16-rounded stat into
+//     its (slot, bin) cell with a shared-memory atomic (adding 0 changes no
+//     fp32 sum, so zero stats are skipped).  Where the rows allow it (the
+//     main path's always do), a thread takes 4 consecutive rows at a time:
+//     one 16-byte load of their node ids, one of each stat, one 4-byte load
+//     of each feature's bins, all issued before the quad's atomics.  At two
+//     256-thread blocks an SM a thread that waits on each row's loads in
+//     turn leaves the kernel bound by load latency (2.1-2.3x slower at the
+//     shallow levels, PERF.md);
+//   - integer stats: a caller that knows every stat is an integer (a
+//     classifier fit without weightCol: bootstrap counts x one-hot
+//     classes) says so, and the histograms are int32 cells added with the
+//     native shared integer atomic, converted to fp32 at the flush: the
+//     same sums, bit for bit, while a cell stays below 2^24.  An fp32 add
+//     retries its compare-and-swap once for each lane of the warp that hits
+//     the same cell, and the fit's padded features (bin 0 on every row) and
+//     its deep levels' few nodes make such lanes common;
+//   - the flush: where the (feature group, bucket) blocks fill the card
+//     alone (B4 at the deep levels: one split), each block owns its output
+//     slice and writes every cell of it, zeros and padded slots included,
+//     with coalesced 16-byte stores: no global atomics, and nothing for the
+//     wrapper to zero.  Where they do not (B3's atomic route, small B4
+//     launches), several blocks share one bucket's rows, the C entry zeroes
+//     the output, and each block adds its non-zero cells with global
+//     atomics.  The caller's geometry (ops/forest_hist._atomic_geometry)
+//     cuts a launch by features before rows: in the classifier flagship's
+//     fit 5 of the 56 B4 launches a level split rows (PERF.md).
 // The wrapper picks the route per launch from the shape alone
 // (ops/forest_hist._hist_route: the tensor cores while slots_pad x bins_pad
-// <= 1024 useful adds per row and feature, i.e. up to 8 nodes a tree at
+// <= 512 useful adds per row and feature, i.e. up to 4 nodes a tree at
 // 2 stats and 128 bins).  Measured on an H100 (chip_smoke.py,
-// kernels_forest; ms per launch, tensor cores / atomics): classifier
-// (F_pad 64) levels 0-6: 7.9 / 54.4, 8.8 / 34.5, 8.9 / 17.4, 8.8 / 8.9,
-// 8.8 / 4.5, 8.8 / 2.5, 8.7 / 1.3; regressor (F_pad 1024) levels 0-5:
-// 78 / 335, 123 / 548, 123 / 294, 123 / 150, 123 / 76, 123 / 39.
+// kernels_forest; ms per launch, tensor cores / atomics reading rows 4 at
+// a time): classifier (F_pad 64) levels 0-6: 8.0 / 24.0, 8.8 / 15.4,
+// 8.9 / 8.0, 8.9 / 4.3, 8.8 / 2.1, 8.8 / 1.1, 8.6 / 0.63; regressor
+// (F_pad 1024) levels 0-5: 78 / 170, 122 / 230, 122 / 126, 122 / 63,
+// 122 / 32, 122 / 17.  (The atomic kernel reading one row at a time took
+// 54.4, 34.5, 17.4, 8.9, 4.5, 2.5 and 1.3 ms at the classifier's levels.)
 // Offsets are 64-bit.
 
 #include <algorithm>
@@ -94,20 +117,113 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int SMEM_BUDGET = 96 * 1024;   // two blocks per SM
-constexpr int TARGET_BLOCKS = 132 * 8;   // ~4 waves of two blocks on each of 132 SMs
+constexpr int SMEM_LIMIT = 227 * 1024;  // shared memory a block can have
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// One block: features [f0, f0 + nf) x rows [r0, r1) of the bucket at `out`.
+// One term into a shared histogram cell.  INT: the caller declared every
+// stat an integer, so the cells hold int32 sums added with the native
+// shared integer atomic; an fp32 add is a compare-and-swap loop that
+// retries once for each lane of the warp that hits the same cell (the
+// padded features' bin 0 takes every row).  Integer sums below 2^24 give
+// the fp32 sums' bits.
+template <bool INT>
+__device__ __forceinline__ void add_term(float* h, int i, float v) {
+  if (INT)
+    atomicAdd(reinterpret_cast<int*>(h) + i, __float2int_rn(v));
+  else
+    atomicAdd(h + i, v);
+}
+
+template <bool INT>
+__device__ __forceinline__ float cell(const float* h, int i) {
+  return INT ? __int2float_rn(reinterpret_cast<const int*>(h)[i]) : h[i];
+}
+
+// Adds row r's terms: for every tree t with node c in range and every
+// non-zero bf16-rounded stat, one shared atomic per feature with a bin in
+// range.
+template <bool INT>
+__device__ __forceinline__ void add_row(float* h, const int8_t* __restrict__ bins,
+                                        const int32_t* __restrict__ node,
+                                        const float* __restrict__ stats, int64_t ld, int64_t r,
+                                        int f0, int nf, int t_pack, int nodes, int s_dim, int n_bins,
+                                        int cells) {
+  for (int t = 0; t < t_pack; ++t) {
+    const int c = node[t * ld + r];
+    if (static_cast<unsigned>(c) >= static_cast<unsigned>(nodes)) continue;
+    for (int s = 0; s < s_dim; ++s) {
+      const float v = round_bf16(stats[static_cast<int64_t>(t * s_dim + s) * ld + r]);
+      if (v == 0.0f) continue;
+      const int slot = (t * nodes + c) * s_dim + s;
+      for (int fl = 0; fl < nf; ++fl) {
+        const int b = bins[static_cast<int64_t>(f0 + fl) * ld + r];
+        if (static_cast<unsigned>(b) < static_cast<unsigned>(n_bins))
+          add_term<INT>(h, fl * cells + slot * n_bins + b, v);
+      }
+    }
+  }
+}
+
+// The same for the 4 rows r .. r+3 (r % 4 == 0, ld % 4 == 0, node and
+// stats 16-byte and bins 4-byte aligned): every load of a (tree, stat) is
+// one 16- or 4-byte load issued before any of the quad's atomics, so a
+// thread keeps several loads in flight where add_row waits on each in turn.
+template <bool INT>
+__device__ __forceinline__ void add_quad(float* h, const int8_t* __restrict__ bins,
+                                         const int32_t* __restrict__ node,
+                                         const float* __restrict__ stats, int64_t ld, int64_t r,
+                                         int f0, int nf, int t_pack, int nodes, int s_dim, int n_bins,
+                                         int cells) {
+  for (int t = 0; t < t_pack; ++t) {
+    const int4 c4 = __ldg(reinterpret_cast<const int4*>(node + t * ld + r));
+    const int c[4] = {c4.x, c4.y, c4.z, c4.w};
+    for (int s = 0; s < s_dim; ++s) {
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(stats + static_cast<int64_t>(t * s_dim + s) * ld + r));
+      const float v[4] = {round_bf16(v4.x), round_bf16(v4.y), round_bf16(v4.z), round_bf16(v4.w)};
+      int slot[4];
+      bool ok[4], any = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ok[q] = static_cast<unsigned>(c[q]) < static_cast<unsigned>(nodes) && v[q] != 0.0f;
+        slot[q] = ok[q] ? ((t * nodes + c[q]) * s_dim + s) * n_bins : 0;
+        any |= ok[q];
+      }
+      if (!any) continue;
+      for (int fl0 = 0; fl0 < nf; fl0 += 4) {
+        unsigned w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[k] = fl0 + k < nf ? __ldg(reinterpret_cast<const unsigned*>(bins + static_cast<int64_t>(f0 + fl0 + k) * ld + r))
+                              : 0xffffffffu;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int b = static_cast<int8_t>(w[k] >> (8 * q));
+            if (ok[q] && static_cast<unsigned>(b) < static_cast<unsigned>(n_bins))
+              add_term<INT>(h, (fl0 + k) * cells + slot[q] + b, v[q]);
+          }
+      }
+    }
+  }
+}
+
+// One block: features [f0, f0 + nf) x rows [r0, r1) of the bucket at `out`,
+// whose slice of those features is nf * out_slots * n_bins contiguous floats.
+// quad: the rows go 4 at a time (add_quad's alignment holds and r1 - r0 is a
+// multiple of 4).  owner: the block is the only one with rows of its
+// (bucket, feature group) and writes every cell of its slice, zeros and
+// slots past `slots` included, with 16-byte stores; otherwise it adds its
+// non-zero cells into an output that holds zeros.
+template <bool INT>
 __global__ void __launch_bounds__(THREADS)
 hist_kernel(const int8_t* __restrict__ bins, const int32_t* __restrict__ node,
             const float* __restrict__ stats, float* __restrict__ out,
             int64_t ld, int f_pad, int fb, int t_pack, int nodes, int s_dim,
-            int n_bins, int64_t seg_len, int64_t rows_per_block,
-            int64_t out_feature_stride, int64_t out_bucket_stride) {
+            int n_bins, int out_slots, int64_t seg_len, int64_t rows_per_block, int quad, int owner) {
   extern __shared__ float h[];
   const int tid = threadIdx.x;
   const int slots = t_pack * nodes * s_dim;
@@ -119,63 +235,76 @@ hist_kernel(const int8_t* __restrict__ bins, const int32_t* __restrict__ node,
   const int cells = slots * n_bins;
   const int hsize = nf * cells;
 
-  for (int i = tid; i < hsize; i += THREADS) h[i] = 0.0f;
+  for (int i = tid; i < hsize; i += THREADS) h[i] = 0.0f;  // the same bits as int 0
   __syncthreads();
 
-  for (int64_t r = r0 + tid; r < r1; r += THREADS) {
-    for (int t = 0; t < t_pack; ++t) {
-      const int c = node[t * ld + r];
-      if (static_cast<unsigned>(c) >= static_cast<unsigned>(nodes)) continue;
-      for (int s = 0; s < s_dim; ++s) {
-        const float v = round_bf16(stats[static_cast<int64_t>(t * s_dim + s) * ld + r]);
-        if (v == 0.0f) continue;
-        const int slot = (t * nodes + c) * s_dim + s;
-        for (int fl = 0; fl < nf; ++fl) {
-          const int b = bins[static_cast<int64_t>(f0 + fl) * ld + r];
-          if (static_cast<unsigned>(b) < static_cast<unsigned>(n_bins))
-            atomicAdd(&h[fl * cells + slot * n_bins + b], v);
-        }
-      }
-    }
+  if (quad) {
+#pragma unroll 2
+    for (int64_t r = r0 + 4 * tid; r < r1; r += 4 * THREADS)
+      add_quad<INT>(h, bins, node, stats, ld, r, f0, nf, t_pack, nodes, s_dim, n_bins, cells);
+  } else {
+    for (int64_t r = r0 + tid; r < r1; r += THREADS)
+      add_row<INT>(h, bins, node, stats, ld, r, f0, nf, t_pack, nodes, s_dim, n_bins, cells);
   }
   __syncthreads();
 
-  float* dst = out + static_cast<int64_t>(blockIdx.z) * out_bucket_stride;
-  for (int i = tid; i < hsize; i += THREADS) {
-    const float v = h[i];
-    if (v != 0.0f) {
-      const int fl = i / cells;
-      atomicAdd(&dst[(f0 + fl) * out_feature_stride + (i - fl * cells)], v);
+  const int feature_stride = out_slots * n_bins;  // a multiple of 4
+  float* dst = out + (static_cast<int64_t>(blockIdx.z) * f_pad + f0) * feature_stride;
+  if (owner) {
+    for (int fl = 0; fl < nf; ++fl) {
+      float4* row = reinterpret_cast<float4*>(dst + static_cast<int64_t>(fl) * feature_stride);
+      for (int i = tid; i < feature_stride / 4; i += THREADS) {
+        float e[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e[q] = 4 * i + q < cells ? cell<INT>(h, fl * cells + 4 * i + q) : 0.0f;
+        row[i] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  } else {
+    for (int i = tid; i < hsize; i += THREADS) {
+      const float v = cell<INT>(h, i);
+      if (v != 0.0f) {
+        const int fl = i / cells;
+        atomicAdd(&dst[static_cast<int64_t>(fl) * feature_stride + (i - fl * cells)], v);
+      }
     }
   }
 }
 
+// The geometry (fb, splits, rows_per_block) comes from the caller
+// (ops/forest_hist._atomic_geometry); with one split every block owns its
+// slice, with more the output is zeroed here first.
 int launch(const void* bins, const void* node, const void* stats, void* out,
            long long ld, int f_pad, int t_pack, int nodes, int s_dim, int n_bins,
-           long long n_buckets, long long seg_len, long long out_feature_stride,
-           long long out_bucket_stride, void* stream) {
+           long long n_buckets, long long seg_len, int out_slots, int fb, long long splits,
+           long long rows_per_block, int integer_stats, void* stream) {
   const int slots = t_pack * nodes * s_dim;
   if (f_pad <= 0 || seg_len <= 0 || n_buckets <= 0 || slots <= 0 || n_bins <= 0)
     return static_cast<int>(cudaGetLastError());
-  const int cell_bytes = slots * n_bins * static_cast<int>(sizeof(float));
-  const int fb = std::max(1, std::min(f_pad, SMEM_BUDGET / cell_bytes));
-  const int f_groups = (f_pad + fb - 1) / fb;
-  const long long per_split = static_cast<long long>(f_groups) * n_buckets;
-  long long splits = (TARGET_BLOCKS + per_split - 1) / per_split;
-  splits = std::max(1LL, std::min(splits, (seg_len + 1023) / 1024));
-  const long long rows_per_block = (seg_len + splits - 1) / splits;
-  splits = (seg_len + rows_per_block - 1) / rows_per_block;
-  const int smem = fb * cell_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long long smem = static_cast<long long>(fb) * slots * n_bins * sizeof(float);
+  if (fb < 1 || smem > SMEM_LIMIT || slots > out_slots || out_slots * n_bins % 4 ||
+      reinterpret_cast<unsigned long long>(out) % 16 || splits < 1 || splits > 65535 ||
+      n_buckets > 65535 || splits * rows_per_block < seg_len || (splits - 1) * rows_per_block >= seg_len)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int owner = splits == 1;
+  const int quad = ld % 4 == 0 && seg_len % 4 == 0 && rows_per_block % 4 == 0 &&
+                   (reinterpret_cast<unsigned long long>(node) | reinterpret_cast<unsigned long long>(stats)) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(bins) % 4 == 0;
+  cudaError_t err;
+  if (!owner) {
+    err = cudaMemsetAsync(out, 0, n_buckets * f_pad * out_slots * n_bins * sizeof(float), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = integer_stats ? hist_kernel<true> : hist_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(f_groups), static_cast<unsigned int>(splits),
+  const dim3 grid(static_cast<unsigned int>((f_pad + fb - 1) / fb), static_cast<unsigned int>(splits),
                   static_cast<unsigned int>(n_buckets));
-  hist_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, static_cast<int>(smem), st>>>(
       static_cast<const int8_t*>(bins), static_cast<const int32_t*>(node),
       static_cast<const float*>(stats), static_cast<float*>(out), ld, f_pad, fb,
-      t_pack, nodes, s_dim, n_bins, seg_len, rows_per_block, out_feature_stride,
-      out_bucket_stride);
+      t_pack, nodes, s_dim, n_bins, out_slots, seg_len, rows_per_block, quad, owner);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,30 +597,34 @@ int launch_mma(const void* bins, const void* node, const void* stats, void* out,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  They launch on `stream`, do not
-// synchronise, allocate nothing, add into `out` (which the caller zeroes),
-// and return the first CUDA error.
+// synchronise, allocate nothing, and return the first CUDA error.
 //
-// bins (f_pad, n) int8, node (t_pack, n) int32, stats (t_pack * s_dim, n)
-// fp32 -> out (f_pad, m_slots, n_bins) fp32.
+// The atomic route.  bins (f_pad, n) int8, node (t_pack, n) int32, stats
+// (t_pack * s_dim, n) fp32 -> out (f_pad, m_slots, n_bins) fp32, every cell
+// written.  fb, splits, rows_per_block: ops/forest_hist._atomic_geometry.
+// integer_stats: the caller knows every stat is an integer.
 extern "C" int srml_node_histograms(const void* bins, const void* node, const void* stats,
                                     void* out, long long n, int f_pad, int t_pack,
                                     int nodes, int s_dim, int n_bins, int m_slots,
-                                    void* stream) {
-  return launch(bins, node, stats, out, n, f_pad, t_pack, nodes, s_dim, n_bins, 1, n,
-                static_cast<long long>(m_slots) * n_bins, 0, stream);
+                                    int fb, long long splits, long long rows_per_block,
+                                    int integer_stats, void* stream) {
+  return launch(bins, node, stats, out, n, f_pad, t_pack, nodes, s_dim, n_bins, 1, n, m_slots, fb,
+                splits, rows_per_block, integer_stats, stream);
 }
 
 // bins (f_pad, n_buckets * cap) int8, node (n_buckets * cap) int32 bucket-
 // local ids, stats (s_dim, n_buckets * cap) fp32 ->
-// out (n_buckets, f_pad, slots_pad, n_bins) fp32.
+// out (n_buckets, f_pad, slots_pad, n_bins) fp32, every cell written; the
+// rest as srml_node_histograms.
 extern "C" int srml_node_histograms_bucketed(const void* bins, const void* node,
                                              const void* stats, void* out,
                                              long long n_buckets, long long cap,
                                              int f_pad, int nodes, int s_dim,
-                                             int slots_pad, int n_bins, void* stream) {
-  const long long feature_stride = static_cast<long long>(slots_pad) * n_bins;
+                                             int slots_pad, int n_bins, int fb,
+                                             long long splits, long long rows_per_block,
+                                             int integer_stats, void* stream) {
   return launch(bins, node, stats, out, n_buckets * cap, f_pad, 1, nodes, s_dim, n_bins,
-                n_buckets, cap, feature_stride, feature_stride * f_pad, stream);
+                n_buckets, cap, slots_pad, fb, splits, rows_per_block, integer_stats, stream);
 }
 
 // The tensor-core route.  bins (f_pad, n) int8, node (t_pack, n) int32,

@@ -1,14 +1,15 @@
 // The pipelined fp32 distance-tile main loop that the nearest-center kernel
-// (B1, csrc/min_dist_argmin.cu) and the audit count kernel (B8,
-// csrc/knn_topm.cu) share, for Hopper (sm_90a).
+// (B1, csrc/min_dist_argmin.cu), the exact-kNN candidate pool (B5/B6) and
+// the audit count kernel (B8, both csrc/knn_topm.cu) share, for Hopper
+// (sm_90a).
 //
 // For one block it computes, for each of n_tiles consecutive (BM x BN)
 // tiles of two row-major operands A (na, d) and B (nb, d), d contiguous,
 //
 //     acc[i][j] = A[a0 + row_of(i)] . B[b0 + BN*t + col_of(j)]
 //
-// and hands acc to an epilogue functor after each tile t.  Both kernels
-// form d2 = (||a||^2 - 2 a.b) + ||b||^2 in their epilogue; neither epilogue
+// and hands acc to an epilogue functor after each tile t.  The kernels
+// form d2 = (||a||^2 - 2 a.b) + ||b||^2 in their epilogue; no epilogue
 // cares how the tile is blocked.
 //
 // Arithmetic (a contract, not a detail): every acc[i][j] is one fmaf chain
@@ -16,8 +17,8 @@
 // K, no second accumulator, no TF32 or tensor-core product.  Rows, items and
 // features past the ragged edges read as 0, and fmaf(0, 0, acc) == acc, so
 // the result does not depend on the tiling.  That is what makes B8's -d2
-// bitwise equal to B5/B6's (csrc/knn_topm.cu dot_tile, another tiling of
-// the same chain), the property the kNN audit rests on.
+// (one 128-item tile a block) bitwise equal to B5/B6's (a 1024-item group of
+// 8 tiles a block), the property the kNN audit rests on.
 //
 // What bounds it: 2 * rows * cols * d fp32 FMAs on the CUDA cores (67
 // TFLOP/s on an H100 SXM) against 4 * (rows + cols) * d bytes of input; at
@@ -42,7 +43,7 @@
 //     are issued before the FMAs of slice s and stored, transposed, into
 //     the other of two shared-memory stages after them; one __syncthreads
 //     a slice.  The pipeline runs on across tile boundaries, so B1's loop
-//     over center tiles does not drain it.  Register prefetch rather than
+//     over center tiles and B5's over a group's item tiles do not drain it.  Register prefetch rather than
 //     cp.async: 16-byte cp.async copies bytes as they lie and cannot
 //     transpose (an [m][k] stage would need float4 reads along k and four
 //     times the fragment registers), and 4-byte cp.async copies straight
@@ -187,7 +188,10 @@ __device__ __forceinline__ void fma_slice(const float* As, const float* Bs, floa
 // memory outside the stages that was written before run() may be read in
 // it, and after the last call every thread is done with the stages, so the
 // caller may reuse them (after a barrier of its own if the epilogue wrote
-// shared memory).  1 <= d < 2^31 - BK.
+// shared memory).  Every thread makes every call, so an epilogue may hold
+// barriers of its own, and the next tile's barriers order one call's
+// shared-memory reads before the next call's writes.
+// 1 <= d < 2^31 - BK.
 template <int VEC, class Epilogue>
 __device__ __forceinline__ void run(const float* __restrict__ A, int64_t na, int64_t a0,
                                     const float* __restrict__ B, int64_t nb, int64_t b0,

@@ -304,6 +304,9 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
                 min_samples_leaf=float(params.get("min_samples_leaf", 1)),
                 min_impurity_decrease=float(params.get("min_impurity_decrease", 0.0)),
                 seed=seed, y_vals=y_vals,
+                # without weightCol every row weighs 1: the classifier's stats
+                # are bootstrap counts x one-hot classes, integers
+                integer_stats=is_classification and inputs.host_w is None,
             )
             logger.info("grew %d trees (depth<=%d, bins=%d)", n_trees, max_depth, n_bins)
             return {

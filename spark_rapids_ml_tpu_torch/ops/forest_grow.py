@@ -240,11 +240,15 @@ def grow_forest(
     min_impurity_decrease: float,
     seed: int,
     y_vals: Optional[torch.Tensor] = None,  # (N_pad,) class index / target; needed past L_s
+    integer_stats: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Grow T trees: (features (T, M) int32, thresholds (T, M) f32,
     leaf_values (T, M, V) f32, n_samples (T, M) f32, impurities (T, M) f32)
     with M = 2^(max_depth+1) - 1.  base_stats rows: regression (1, y) * mask,
-    classification the one-hot class rows."""
+    classification the one-hot class rows.  integer_stats: the caller knows
+    every histogram stat (w_trees x base_stats) is an integer, as it is for
+    a classifier whose rows all weigh 1; it goes to the histogram kernels
+    (forest_hist.node_histograms)."""
     T, n_pad = w_trees.shape
     S = base_stats.shape[0]
     V = 1 if kind == "regression" else S
@@ -272,13 +276,14 @@ def grow_forest(
     _shallow_phase(
         rel, bins_fm, w_trees, stat_rows, edges, outputs, rng, last_level=min(max_depth, l_s),
         max_depth=max_depth, n_bins=n_bins, kind=kind, s_dim=S, max_features=F,
-        min_samples_leaf=msl, min_impurity_decrease=mid,
+        min_samples_leaf=msl, min_impurity_decrease=mid, integer_stats=integer_stats,
     )
     if max_depth > l_s:
         _deep_phase(
             rel, bins_fm, w_trees, y_vals, edges, outputs, rng,
             bucket_level=l_s + 1, max_depth=max_depth, n_bins=n_bins, kind=kind,
             s_dim=S, max_features=F, min_samples_leaf=msl, min_impurity_decrease=mid,
+            integer_stats=integer_stats,
         )
     return outputs
 
@@ -286,7 +291,7 @@ def grow_forest(
 @record_function("forest.shallow")
 def _shallow_phase(
     rel, bins_fm, w_trees, stat_rows, edges, outputs, rng, *, last_level, max_depth, n_bins,
-    kind, s_dim, max_features, min_samples_leaf, min_impurity_decrease,
+    kind, s_dim, max_features, min_samples_leaf, min_impurity_decrease, integer_stats,
 ) -> None:
     """Levels 0..last_level, trees packed into 128-slot launches
     (forest_mxu._shallow_step / _shallow_leaf); updates rel in place."""
@@ -320,7 +325,8 @@ def _shallow_phase(
             sub = gather_rows(bins_fm, torch.from_numpy(feats), f_pad)
             base = stat_rows[:2] if kind == "regression" else stat_rows
             stats_s = (base[None, :, :] * w_g[:, None, :]).reshape(tp * S, n_pad).contiguous()
-            H = node_histograms(sub, rel_g, stats_s, t_pack=tp, nodes=nodes, s_dim=S, n_bins=n_bins)
+            H = node_histograms(sub, rel_g, stats_s, t_pack=tp, nodes=nodes, s_dim=S, n_bins=n_bins,
+                                integer_stats=integer_stats)
             out = split_from_hist(
                 H, tot if kind == "regression" else None, feat_valid, tp, nodes, S, kind,
                 min_samples_leaf, min_impurity_decrease,
@@ -420,7 +426,7 @@ def _deep_layout(rel, bins_fm, w_trees, y_vals, feats_all, n_buckets, f_pad, chu
 @record_function("forest.deep")
 def _deep_phase(
     rel, bins_fm, w_trees, y_vals, edges, outputs, rng, *, bucket_level, max_depth,
-    n_bins, kind, s_dim, max_features, min_samples_leaf, min_impurity_decrease,
+    n_bins, kind, s_dim, max_features, min_samples_leaf, min_impurity_decrease, integer_stats,
 ) -> None:
     """Levels bucket_level..max_depth, bucket by bucket (forest_mxu._deep_phase)."""
     _, _, leaf_value, n_samples, impurity = outputs
@@ -461,7 +467,8 @@ def _deep_phase(
             else:
                 stats = torch.stack([ch.w * (ch.y == c).float() for c in range(s_dim)])
             H = node_histograms_bucketed(
-                ch.sub, ch.rel[None, :], stats, n_buckets=nseg, nodes=local, s_dim=s_dim, n_bins=n_bins
+                ch.sub, ch.rel[None, :], stats, n_buckets=nseg, nodes=local, s_dim=s_dim, n_bins=n_bins,
+                integer_stats=integer_stats,
             )
             Hf = H[:, :, : local * s_dim, :].permute(1, 0, 2, 3).reshape(f_pad, nseg * local * s_dim, n_bins)
             del H

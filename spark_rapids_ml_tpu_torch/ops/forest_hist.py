@@ -20,10 +20,18 @@
 #     non-zero stat) (the form cuML uses); its work does not grow with the
 #     nodes, so it wins at the deep end of the shallow phase.
 # node_histograms_bucketed (B4, the deep phase) runs the atomic kernel per
-# bucket.  Integer stats give exact sums on every route, so each equals the
-# plain version bit for bit on them; float stats differ by the order of the
-# fp32 additions only.  The tensor-core route adds in a fixed order (no
-# atomics) and gives the same bits on every call.
+# bucket.  _atomic_geometry cuts a launch of the atomic kernel into blocks;
+# where each block owns its output slice (B4 wherever the buckets and
+# features fill the card) it writes all of it, and where rows are split
+# across blocks the kernel's C entry zeroes the output, so the wrappers
+# allocate with torch.empty either way.  A caller that knows its stats are
+# integers (integer_stats) has the atomic kernel add them with native
+# integer shared atomics; an fp32 shared atomic is a compare-and-swap loop
+# that retries for every lane of a warp that hits the same cell.  Integer
+# stats give exact sums on every route, so each equals the plain version bit
+# for bit on them; float stats differ by the order of the fp32 additions
+# only.  The tensor-core route adds in a fixed order (no atomics) and gives
+# the same bits on every call.
 #
 # gather_rows replaces gather_rows_matmul: on the card the feature subset is
 # a plain index_select of the feature-major bin rows (exact), zero-padded to
@@ -70,20 +78,58 @@ def gather_rows(bins_fm: torch.Tensor, feats: torch.Tensor, f_pad: int) -> torch
 # and feature where the atomic route spends one add per (tree, stat): it is
 # taken while that ratio is at most MMA_MAX_MACS_PER_ADD.  Measured on an
 # H100 (chip_smoke.py, phase kernels_forest, both routes at every shallow
-# level of the two RandomForest flagships; PERF.md section 6): at 2 stats
-# and 128 bins the tensor cores win up to 8 nodes (ratio 1024; 8.8 against
-# 8.9 ms at the classifier's level 3, 123 against 150 ms at the
-# regressor's) and lose from 16 (8.8 against 4.5 ms, 123 against 76).
-MMA_MAX_MACS_PER_ADD = 1024
+# level of the two RandomForest flagships; PERF.md section 6), since the
+# atomic kernel reads its rows 4 at a time: at 2 stats and 128 bins the
+# tensor cores win up to 4 nodes a tree (ratio 512; 123.0 against 125.6 ms
+# at the regressor's level 2) and lose from 8 (ratio 1024: 8.9 against 4.3
+# ms at the classifier's level 3, 123.2 against 63.0 at the regressor's).
+# Integer stats (int32 cells, native atomics) move the crossover down: the
+# tensor cores win at ratio 256 (9.0 against 13.1 ms at the classifier's
+# level 1) and lose at 512 (9.0 against 6.5 ms, level 2); their time over
+# the atomics' grows with the ratio (0.68, 1.38), so the two break even
+# near 376.
+MMA_MAX_MACS_PER_ADD = 512
+MMA_MAX_MACS_PER_INT_ADD = 384
 MMA_ROWS_TILE = 128              # rows per tile of the tensor-core kernel
 MMA_TARGET_BLOCKS = 132 * 8      # ~8 waves of one 8-warp block on each of 132 SMs
 
 
-def _hist_route(t_pack: int, nodes: int, s_dim: int, n_bins: int) -> str:
-    """"mma" or "atomic": the kernel node_histograms launches for this shape."""
+def _hist_route(t_pack: int, nodes: int, s_dim: int, n_bins: int, integer_stats: bool = False) -> str:
+    """"mma" or "atomic": the kernel node_histograms launches for this shape
+    and stat kind."""
     slots_pad = -(-(t_pack * nodes * s_dim) // 16) * 16
     bins_pad = -(-n_bins // 16) * 16
-    return "mma" if slots_pad * bins_pad <= MMA_MAX_MACS_PER_ADD * t_pack * s_dim else "atomic"
+    limit = MMA_MAX_MACS_PER_INT_ADD if integer_stats else MMA_MAX_MACS_PER_ADD
+    return "mma" if slots_pad * bins_pad <= limit * t_pack * s_dim else "atomic"
+
+
+# The atomic kernel: a block's (slots x B) fp32 histograms of its features
+# take at most this many bytes of shared memory (two blocks an SM); a
+# launch wants about ATOMIC_TARGET_BLOCKS blocks to fill the card, and
+# splits the rows across blocks, in runs of at least ATOMIC_MIN_ROWS rows
+# (a multiple of 4: the kernel reads aligned rows 4 at a time), only where
+# one feature a block does not give that many.
+ATOMIC_SMEM_BUDGET = 96 * 1024
+ATOMIC_TARGET_BLOCKS = 132 * 8
+ATOMIC_MIN_ROWS = 1024
+
+
+def _atomic_geometry(f_pad: int, n_buckets: int, seg_len: int, slots: int, n_bins: int) -> tuple:
+    """(fb, splits, rows_per_block) of the atomic kernel: block (f, s, z)
+    takes features [f * fb, f * fb + fb) of bucket z's rows [s *
+    rows_per_block, +rows_per_block) (clipped to the f_pad features and the
+    seg_len rows of a bucket).  With one split every block owns its output
+    slice and writes all of it; with more, the blocks of a slice add into
+    it with global atomics, after the output is zeroed.  So a launch is cut
+    by features first (each more feature group only reads the rows' node
+    ids and stats once more), and by rows only where one feature a block
+    leaves the card short of blocks."""
+    f_groups_wanted = -(-ATOMIC_TARGET_BLOCKS // n_buckets)
+    fb = max(1, min(f_pad, ATOMIC_SMEM_BUDGET // (4 * slots * n_bins), f_pad // f_groups_wanted))
+    per_split = -(-f_pad // fb) * n_buckets
+    splits = max(1, min(-(-ATOMIC_TARGET_BLOCKS // per_split), -(-seg_len // ATOMIC_MIN_ROWS)))
+    rows = -(-seg_len // (4 * splits)) * 4
+    return fb, -(-seg_len // rows), rows
 
 
 def _mma_geometry(f_pad: int, n: int, n_bins: int) -> tuple:
@@ -107,14 +153,20 @@ def node_histograms(
     nodes: int,
     s_dim: int,
     n_bins: int,
+    integer_stats: bool = False,
 ) -> torch.Tensor:
     """(F_pad, 128, B) float32 with slot = (t * nodes + c) * s_dim + s.
-    CUDA tensors take the route _hist_route picks for the shape."""
+    CUDA tensors take the route _hist_route picks for the shape and the
+    stat kind.
+    integer_stats: the caller knows every stat is an integer (it never
+    checks the data for it); the atomic kernel then sums in int32 cells,
+    bit for bit the fp32 sums while a cell stays below 2**24."""
     _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
     if bins_sub.device.type == "cpu":
         return node_histograms_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
-    route = node_histograms_mma if _hist_route(t_pack, nodes, s_dim, n_bins) == "mma" else node_histograms_atomic
-    return route(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+    if _hist_route(t_pack, nodes, s_dim, n_bins, integer_stats) == "mma":
+        return node_histograms_mma(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
+    return node_histograms_atomic(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins, integer_stats)
 
 
 def node_histograms_mma(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
@@ -145,21 +197,23 @@ def node_histograms_mma(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bin
     return out
 
 
-def node_histograms_atomic(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins):
+def node_histograms_atomic(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins, integer_stats=False):
     """node_histograms on the shared-memory atomic kernel, whatever the
     shape (CPU tensors: node_histograms_plain)."""
     _check_shallow(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
     if bins_sub.device.type == "cpu":
         return node_histograms_plain(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins)
     f_pad, n = bins_sub.shape
-    out = torch.zeros((f_pad, M_SLOTS, n_bins), dtype=torch.float32, device=bins_sub.device)
+    out = torch.empty((f_pad, M_SLOTS, n_bins), dtype=torch.float32, device=bins_sub.device)
     fn = _build.load(_LIBRARY).srml_node_histograms
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(bins_sub.device).cuda_stream
     err = fn(
         bins_sub.data_ptr(), node_rel.data_ptr(), stats_s.data_ptr(), out.data_ptr(),
-        n, f_pad, t_pack, nodes, s_dim, n_bins, M_SLOTS, stream,
+        n, f_pad, t_pack, nodes, s_dim, n_bins, M_SLOTS,
+        *_atomic_geometry(f_pad, 1, n, t_pack * nodes * s_dim, n_bins), int(integer_stats), stream,
     )
     if err != 0:
         raise RuntimeError(f"node_histograms_atomic kernel launch failed: CUDA error {err}")
@@ -227,9 +281,11 @@ def node_histograms_bucketed(
     nodes: int,              # local nodes per bucket at this level
     s_dim: int,
     n_bins: int,
+    integer_stats: bool = False,
 ) -> torch.Tensor:
     """(n_buckets, F_pad, slots_pad, B) float32: node_histograms of each
-    contiguous bucket of cap rows, with slot = c * s_dim + s."""
+    contiguous bucket of cap rows, with slot = c * s_dim + s.
+    integer_stats: as node_histograms'."""
     _check_common(bins_sub, node_rel, stats_s, nodes * s_dim, n_bins)
     n_tot = bins_sub.shape[1]
     if node_rel.dim() != 2 or node_rel.shape[0] != 1 or stats_s.shape[0] != s_dim:
@@ -245,16 +301,18 @@ def node_histograms_bucketed(
         raise ValueError(f"node_histograms_bucketed runs on cpu or cuda tensors, not {bins_sub.device}")
     if n_buckets > 65535:
         raise ValueError(f"at most 65535 buckets per launch, got {n_buckets}")
-    f_pad = bins_sub.shape[0]
+    f_pad, cap = bins_sub.shape[0], n_tot // n_buckets
     slots_pad = slots_pad_of(nodes, s_dim)
-    out = torch.zeros((n_buckets, f_pad, slots_pad, n_bins), dtype=torch.float32, device=bins_sub.device)
+    out = torch.empty((n_buckets, f_pad, slots_pad, n_bins), dtype=torch.float32, device=bins_sub.device)
     fn = _build.load(_LIBRARY).srml_node_histograms_bucketed
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(bins_sub.device).cuda_stream
     err = fn(
         bins_sub.data_ptr(), node_rel.data_ptr(), stats_s.data_ptr(), out.data_ptr(),
-        n_buckets, n_tot // n_buckets, f_pad, nodes, s_dim, slots_pad, n_bins, stream,
+        n_buckets, cap, f_pad, nodes, s_dim, slots_pad, n_bins,
+        *_atomic_geometry(f_pad, n_buckets, cap, nodes * s_dim, n_bins), int(integer_stats), stream,
     )
     if err != 0:
         raise RuntimeError(f"node_histograms_bucketed kernel launch failed: CUDA error {err}")

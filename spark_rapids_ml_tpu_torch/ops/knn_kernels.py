@@ -7,17 +7,20 @@
 #
 #   knn_candidates        B5, replaces _knn_topm_kernel_qres
 #                         (knn_candidates_pallas / knn_fused_pallas):
-#                         csrc/knn_topm.cu
+#                         csrc/knn_topm.cu, on the pipelined main loop of
+#                         csrc/fp32_dist_tile.cuh (128 queries x one
+#                         1024-item group a block)
 #   knn_candidates_audit  B6, replaces _knn_topm_kernel (legacy=True): the
 #                         same kernel, launched by the audit route and
 #                         counted apart
 #   knn_fused_merge       B7, replaces _knn_fused_merge_kernel:
 #                         csrc/knn_merge.cu
 #   knn_count             B8, replaces _knn_count_kernel: csrc/knn_topm.cu,
-#                         on the pipelined main loop of
-#                         csrc/fp32_dist_tile.cuh (16-byte copies where
-#                         items, queries and D * 4 are 16-byte aligned,
-#                         4-byte copies otherwise; the C entry picks)
+#                         on the same loop (one 128 x 128 tile a block)
+#
+# B5/B6 and B8 take 16-byte copies where items, queries and D * 4 are
+# 16-byte aligned and 4-byte copies otherwise (the C entries pick;
+# ops/nearest_center.copy_bytes states the rule).
 #
 # The pool layout is (Q, ng, m): for every query, the top m of each group of
 # GROUP consecutive items by (-d2 descending, position ascending), ng =
@@ -40,9 +43,8 @@ from .nearest_center import squared_norms
 
 GROUP = 1024        # items per candidate group (the TPU kernel's tile_i)
 MAX_M = 32          # candidates per group the pool kernel keeps at most
-_TILE_QUERIES = 32  # queries per block of the pool kernel
 _INT32_LIMIT = 2**31 - 1
-_COUNT_MAX_D = 2**31 - 9  # the count kernel counts features in 32-bit integers
+_MAX_D = 2**31 - 9  # the kernels count features in 32-bit integers
 # the plain version's (rows, n) distance block stays below this many bytes
 _PLAIN_BLOCK_BYTES = 256 * 1024 * 1024
 
@@ -67,8 +69,8 @@ def _check_search_inputs(items, item_norm, valid, queries) -> None:
     n = items.shape[0]
     if not 1 <= n < 2**31:
         raise ValueError(f"need 1 <= n < 2**31 items, got {n}")
-    if -(-queries.shape[0] // _TILE_QUERIES) > _INT32_LIMIT:
-        raise ValueError(f"{queries.shape[0]} queries make more than 2**31 - 1 tiles of {_TILE_QUERIES}")
+    if items.shape[1] > _MAX_D:
+        raise ValueError(f"the kNN kernels take D <= {_MAX_D} features, got {items.shape[1]}")
     if tuple(item_norm.shape) != (n,) or tuple(valid.shape) != (n,):
         raise ValueError(f"item_norm {tuple(item_norm.shape)} / valid {tuple(valid.shape)} must be ({n},)")
     if queries.device.type not in ("cpu", "cuda"):
@@ -132,7 +134,7 @@ def _pool(items, item_norm, valid, queries, m):
     inorm, qnorm = _masked_norms(item_norm, valid), squared_norms(queries)
     if queries.device.type == "cpu":
         return (*knn_candidates_plain(items, inorm, queries, qnorm, m), False)
-    return (*_candidates_cuda(items, inorm, queries, qnorm, m), True)
+    return (*_candidates_cuda(items, inorm, queries, qnorm, m), queries.shape[0] > 0)
 
 
 def _candidates_cuda(items, inorm, queries, qnorm, m):
@@ -275,8 +277,6 @@ def knn_count(
     if queries.device.type == "cpu":
         return knn_count_plain(items, inorm, queries, qnorm, thresh)
     (n, d), q = items.shape, queries.shape[0]
-    if d > _COUNT_MAX_D:
-        raise ValueError(f"the count kernel takes D <= {_COUNT_MAX_D} features, got {d}")
     out = torch.zeros(q, dtype=torch.int32, device=queries.device)
     if q == 0:
         return out

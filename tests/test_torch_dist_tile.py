@@ -3,8 +3,9 @@
 # not 16-byte aligned, from d % 4 != 0 or from a view that begins inside a
 # row.  The copy width the float32 kernels take (ops/nearest_center.copy_bytes,
 # the rule their C entries apply) at the shapes the port gives them, and the
-# nearest-center search (B1) and the audit count (B8) on such inputs against
-# the JAX package's Pallas kernels in interpret mode.  On the CPU the port's
+# nearest-center search (B1), the kNN candidate pool (B5/B6) and the audit
+# count (B8) on such inputs against the JAX package's Pallas kernels in
+# interpret mode.  On the CPU the port's
 # wrappers take their plain PyTorch versions; the CUDA kernels are held
 # against those on the card by chip_smoke.py.  The data sit on a 1/4 grid
 # (B1) or on small integers (B8), so every product and partial sum is exact in
@@ -16,7 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from spark_rapids_ml_tpu.ops.pallas_knn import knn_count_pallas
+from spark_rapids_ml_tpu.ops.pallas_knn import knn_candidates_pallas, knn_count_pallas
 from spark_rapids_ml_tpu.ops.pallas_tpu import min_dist_argmin as jax_min_dist_argmin
 from spark_rapids_ml_tpu_torch.device import use_device
 from spark_rapids_ml_tpu_torch.ops import knn_kernels as kk
@@ -120,3 +121,30 @@ def test_knn_count_on_misaligned_rows_matches_jax(n, d, q, layout):
     np.testing.assert_array_equal(counts.numpy(), want)
     brute = (-d2[:, valid] > thresh[:, None]).sum(axis=1)
     np.testing.assert_array_equal(counts.numpy(), brute)
+
+
+@pytest.mark.parametrize(
+    "n,d,q,m,layout",
+    [
+        (1100, 37, 130, 9, "fresh"),       # d % 4 == 1, a ragged group and query tile
+        (1500, 70, 33, 32, "row_slice"),   # rows start 8 bytes off
+        (1030, 64, 129, 5, "flat_offset"),
+    ],
+)
+def test_knn_pool_on_misaligned_rows_matches_jax_bitwise(n, d, q, m, layout):
+    rng = np.random.default_rng(n + d + q)
+    items = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    Q = rng.integers(-3, 4, size=(q, d)).astype(np.float32)
+    norms = (items * items).sum(axis=1)
+    valid = np.ones(n, bool)
+    valid[-7:] = False
+    it, qt = _view(items, layout), _view(Q, layout)
+    assert copy_bytes(it, qt) == 4
+    vals, pos = kk.knn_candidates(it, torch.from_numpy(norms), torch.from_numpy(valid), qt, m)
+    cv, ci = jax.device_get(knn_candidates_pallas(
+        jnp.asarray(items), jnp.asarray(norms), jnp.asarray(valid), jnp.asarray(Q), m, m, n, interpret=True,
+    ))
+    ng = -(-n // kk.GROUP)
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32), cv.reshape(q, ng, m).view(np.uint32))
+    np.testing.assert_array_equal(pos.numpy(), ci.reshape(q, ng, m))
+    assert (pos.numpy()[np.isfinite(vals.numpy())] < n - 7).all()

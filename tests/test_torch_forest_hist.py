@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from spark_rapids_ml_tpu.ops import forest_hist as ref
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops.forest_hist import (
+    ATOMIC_SMEM_BUDGET,
+    _atomic_geometry,
     gather_rows,
     node_histograms,
     node_histograms_atomic,
@@ -128,6 +130,95 @@ def test_node_histograms_bucketed_are_per_bucket_histograms(bucketed):
             torch.testing.assert_close(H[b], one[:, :8], rtol=0, atol=0)
         else:
             torch.testing.assert_close(H[b], one[:, :8], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["integer", "float"])
+@pytest.mark.parametrize("nodes,s_dim", [(3, 3), (5, 1), (7, 2)])
+def test_node_histograms_bucketed_padded_slots_and_strays_match_jax_kernel(kind, nodes, s_dim):
+    """nodes * s_dim not a multiple of 8: the slots past it are padding and
+    must read 0 (the card kernel writes every cell of its output itself).
+    Stray node ids (negative, == nodes, the deep phase's 1 << 18) and stray
+    bins (negative, >= B) add nothing."""
+    rng = np.random.default_rng(nodes * 10 + s_dim)
+    nb, cap = 3, 1024
+    n = nb * cap
+    bins = rng.integers(0, B, (F_PAD, n)).astype(np.int8)
+    bins[rng.random((F_PAD, n)) < 0.05] = -1
+    bins[rng.random((F_PAD, n)) < 0.05] = B + 3
+    node = rng.integers(0, nodes + 1, (1, n)).astype(np.int32)
+    node[0, rng.random(n) < 0.05] = 1 << 18
+    node[0, rng.random(n) < 0.05] = -2
+    if kind == "integer":
+        w = rng.poisson(1.0, n).astype(np.float32)
+        y = rng.integers(0, s_dim, n)
+        stats = (w[None] * (y[None] == np.arange(s_dim)[:, None])).astype(np.float32)
+    else:
+        stats = rng.random((s_dim, n)).astype(np.float32)
+    H_ref = np.asarray(
+        ref.node_histograms_bucketed(
+            jnp.asarray(bins), jnp.asarray(node), jnp.asarray(stats),
+            n_buckets=nb, nodes=nodes, s_dim=s_dim, n_bins=B, interpret=True,
+        )
+    )
+    H = node_histograms_bucketed(*_torch(bins, node, stats), n_buckets=nb, nodes=nodes, s_dim=s_dim, n_bins=B)
+    slots_pad = -(-(nodes * s_dim) // 8) * 8
+    assert tuple(H.shape) == H_ref.shape == (nb, F_PAD, slots_pad, B)
+    assert not H[:, :, nodes * s_dim :].any() and not H_ref[:, :, nodes * s_dim :].any()
+    if kind == "integer":
+        np.testing.assert_array_equal(H.numpy(), H_ref)
+        # the integer-stats declaration (the card's int32 cells) changes no bit
+        H_int = node_histograms_bucketed(
+            *_torch(bins, node, stats), n_buckets=nb, nodes=nodes, s_dim=s_dim, n_bins=B, integer_stats=True
+        )
+        np.testing.assert_array_equal(H_int.numpy(), H_ref)
+    else:
+        np.testing.assert_allclose(H.numpy(), H_ref, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+# (f_pad, n_buckets, rows a bucket, slots, bins): the deep windows
+# chip_smoke.py times (one split: each block owns its slice), the
+# classifier's atomic-route levels 4-6 and the regressor's levels 4-5 (one
+# bucket of 1,001,472 rows: split), a small deep launch, and ragged ones
+GEOMETRY_CASES = [
+    (64, 128, 8192, 64, 128), (64, 128, 8192, 2, 128), (64, 2, 16384, 15, 128), (64, 1, 1_001_472, 128, 128), (1024, 1, 1_001_472, 128, 128),
+    (64, 7, 512, 8, 128), (32, 3, 1024, 9, 16), (5, 1, 3001, 1, 7), (1024, 65535, 512, 2, 2),
+]
+
+
+@pytest.mark.parametrize("f_pad,n_buckets,seg_len,slots,n_bins", GEOMETRY_CASES, ids=str)
+def test_atomic_geometry_covers_every_bucket_feature_and_row_once(f_pad, n_buckets, seg_len, slots, n_bins):
+    """Block (f, s, z) of the atomic kernel takes features [f*fb, +fb) and
+    rows [s*rows, +rows) of bucket z, clipped: every (bucket, feature, row)
+    lies in exactly one block, no block is empty, and a block's histograms
+    fit its shared-memory budget (one feature at least)."""
+    fb, splits, rows = _atomic_geometry(f_pad, n_buckets, seg_len, slots, n_bins)
+    f_groups = -(-f_pad // fb)
+    feat_hits = np.zeros(f_pad, np.int64)
+    for f in range(f_groups):
+        lo, hi = f * fb, min(f * fb + fb, f_pad)
+        assert hi > lo
+        feat_hits[lo:hi] += 1
+    row_hits = np.zeros(seg_len, np.int64)
+    for sp in range(splits):
+        lo, hi = sp * rows, min(sp * rows + rows, seg_len)
+        assert hi > lo
+        row_hits[lo:hi] += 1
+    assert (feat_hits == 1).all() and (row_hits == 1).all()
+    assert rows % 4 == 0  # the kernel's aligned 4-row loads
+    assert fb == 1 or 4 * fb * slots * n_bins <= ATOMIC_SMEM_BUDGET
+    assert 1 <= splits <= 65535
+
+
+def test_atomic_geometry_owner_flush_where_the_main_path_needs_it():
+    # B4 at a deep window of 128 buckets, at every deep level (1 to 32 local
+    # nodes): the features are cut before the rows, so there is one split
+    # and every block writes its own slice
+    for nodes in (1, 2, 4, 8, 16, 32):
+        fb, splits, rows = _atomic_geometry(64, 128, 8192, nodes * 2, 128)
+        assert splits == 1 and rows == 8192 and -(-64 // fb) * 128 >= 1024
+    # B3's atomic route at the classifier's levels 4-6: rows split, atomics
+    for t_pack, nodes in ((4, 16), (2, 32), (1, 64)):
+        assert _atomic_geometry(64, 1, 1_001_472, t_pack * nodes * 2, 128)[1] > 1
 
 
 def test_gather_rows_matches_jax_gather():

@@ -68,6 +68,20 @@ def test_hist_route_switches_once_with_depth(name):
     assert routes[first_atomic:] == ["atomic"] * (len(routes) - first_atomic)
 
 
+@pytest.mark.parametrize("name", FLAGSHIPS)
+def test_integer_stats_route_switches_once_and_no_later(name):
+    """With integer stats (the atomic kernel's int32 cells) the route still
+    switches once with depth, and never later than with float stats."""
+    _, trees, depth = FLAGSHIPS[name]
+    launches = shallow_launches(trees, S, depth)
+    routes = [_hist_route(t_pack, nodes, S, B, integer_stats=True) for _, nodes, t_pack in launches]
+    first_atomic = routes.index("atomic") if "atomic" in routes else len(routes)
+    assert routes == ["mma"] * first_atomic + ["atomic"] * (len(routes) - first_atomic)
+    assert routes[0] == "mma"
+    float_routes = [_hist_route(t_pack, nodes, S, B) for _, nodes, t_pack in launches]
+    assert first_atomic <= (float_routes.index("atomic") if "atomic" in float_routes else len(float_routes))
+
+
 @pytest.mark.parametrize(
     "f_pad,n,n_bins",
     [(64, FLAGSHIP_N, 128), (1024, FLAGSHIP_N, 128), (7, 3001, 16), (3, 77, 7), (200, 128, 100), (1, 1, 1)],

@@ -179,3 +179,53 @@ def test_unsupported_params_raise(package):
     with pytest.raises(ValueError):
         package.RandomForestClassifier(impurity="variance")
     assert package.RandomForestRegressor(impurity="mse").tpu_params["split_criterion"] == "variance"
+
+
+# ---------------------------------------------------------------------------
+# integer stats: the histogram kernels' native integer atomics
+# ---------------------------------------------------------------------------
+
+
+def _spy_histograms(monkeypatch):
+    """Record the integer_stats every histogram launch of a fit is given."""
+    from spark_rapids_ml_tpu_torch.ops import forest_grow
+
+    seen = []
+    for name in ("node_histograms", "node_histograms_bucketed"):
+        real = getattr(forest_grow, name)
+
+        def spy(*args, _real=real, **kw):
+            seen.append(kw.get("integer_stats"))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(forest_grow, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["classifier", "classifier_weighted", "regressor"])
+def test_only_unweighted_classifiers_declare_integer_stats(monkeypatch, kind):
+    """A classifier without weightCol sums bootstrap counts x one-hot classes
+    and says so; a regressor's stats (w, w*y) are not integers, and neither
+    are a weighted classifier's (the RandomForest params reject weightCol
+    today, so the weighted fit gets its weights the way core gives a
+    weightCol's).  Every shallow and deep launch sees the same
+    declaration."""
+    seen = _spy_histograms(monkeypatch)
+    if kind == "regressor":
+        X, y = _regression(n=1024)
+        est = port.RandomForestRegressor(numTrees=2, maxDepth=8, maxBins=8, seed=3)
+    else:
+        X, y = _classification(n=1024)
+        est = port.RandomForestClassifier(numTrees=2, maxDepth=8, maxBins=8, seed=3)
+    if kind == "classifier_weighted":
+        real = type(est)._add_labels_and_weights
+
+        def weighted(self, inputs, df):
+            real(self, inputs, df)
+            inputs.host_w = np.full(inputs.n_rows, 0.5)
+            inputs.weight = inputs.weight * 0.5
+
+        monkeypatch.setattr(type(est), "_add_labels_and_weights", weighted)
+    est.fit(port.DataFrame.from_numpy(X, y))
+    assert len(seen) > 7  # the shallow levels and the deep ones
+    assert set(seen) == {kind == "classifier"}
