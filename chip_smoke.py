@@ -75,7 +75,12 @@
 #            route within KNN_DIST_RTOL, and the count equals the merged
 #            lists on every unflagged row; timings as above, B5 also at the
 #            mesh's shard shape and at m = 32 (library_ms: matmul + a
-#            per-group topk, topk over the pool, matmul + a compare-sum)
+#            per-group topk, topk over the pool, matmul + a compare-sum);
+#            B7's route at each launch shape, its radix kernel on every
+#            cluster and block size bit for bit on a wide tied pool, its
+#            ptxas registers and spills, resident clusters, the windowed
+#            kernel (the first design) timed beside it, and clock stamps of its
+#            phases
 #   path_knn the JAX package's kNN arm: NearestNeighbors(k=200).fit on
 #            400,000 x 3000 float32 items (standard normal, seed 0, 8
 #            partitions), kneighbors of 16,384 queries (seed 7, 2
@@ -114,14 +119,23 @@
 #            B11 launches), against the block's rows; one profiled ring call
 #            gives B11's share
 #   kernels_ann
-#            the IVF-PQ lookup-table kernels against their plain versions,
-#            bit for bit: B9 (one-byte codes) and B10 (fast-scan) at the JAX
-#            package's test shapes, ragged R, ksub < 256 / < 16 with codes
-#            past it, tables of two stages, misaligned codes, 65,537 queries,
-#            and one path-sized call each (32 queries x 158 x 2048 rows,
-#            m_sub 32), timed there (library_ms: gather + sum over j); B10's
-#            typed rejections; B1 at the ANN fit's shapes (400,000 x 256 vs
-#            632 centroids, 400,000 x 8 vs 256 codewords)
+#            B7 at the ANN arms' pool (414 query rows x 158 lists x 2048
+#            slots, ~69% -inf) at k = 200 / 800 / 1600: bit for bit against
+#            its plain version on tied integer values, through its route and
+#            the windowed kernel, and timed on continuous values beside
+#            torch.topk; the IVF-PQ lookup-table kernels against their plain
+#            versions, bit for bit: B9 (one-byte codes; the contiguous form
+#            and lut_accumulate_probed, which reads the probed lists in
+#            place) and B10 (fast-scan) at the JAX package's test shapes,
+#            ragged R, ksub < 256 / < 16 with codes past it, tables staged in
+#            parts, misaligned codes, 65,537 queries, ragged counts and slots
+#            outside the plane; lut_accumulate_probed at the 8-bit arm's
+#            launch (150 queries x 158 lists of 2048 rows, m_sub 32), resident
+#            and through a tier's pool planes, timed there (library_ms:
+#            index_select + gather + sum over j), B10 at the 4-bit arm's (237
+#            queries x 323,584 rows), their ptxas registers; B10's typed
+#            rejections; B1 at the ANN fit's shapes (400,000 x 256 vs 632
+#            centroids, 400,000 x 8 vs 256 codewords)
 #   path_ann / path_ann_pq / path_ann_pq4
 #            the JAX package's ANN arms (bench.py:379-442): 400,000 x 256
 #            clustered float32 items (8 partitions), 16,384 queries (their
@@ -129,8 +143,8 @@
 #            IVF-Flat, IVF-PQ (M 32, 8 bits, refine_ratio 4) and IVF-PQ
 #            fast-scan (M 32, 4 bits, opq, refine_ratio 8): fit, kneighbors
 #            twice (staging, then the cached call), one profiled call;
-#            B1 in every fit, B7 in every search, B9 only in the 8-bit and
-#            B10 only in the 4-bit search; then, on 2,048 queries, recall@10
+#            B1 in every fit, B7 in every search, B9 (lut_accumulate_probed)
+#            only in the 8-bit and B10 only in the 4-bit search; then, on 2,048 queries, recall@10
 #            and @200 against exactSearch=True (gates 0.95 flat, 0.9
 #            refined PQ), the ADC-only recall of the PQ arms, save -> load
 #            identical, B7 against lex_topk on one probed block, and (4-bit)
@@ -153,6 +167,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -942,8 +957,8 @@ class deep_launch_shapes:
 PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
-                       "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "knn_fused_merge_kernel",
-                       "lut_accumulate_kernel", "ring_shift_kernel")
+                       "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "radix_merge_kernel",
+                       "window_merge_kernel", "probed_lut_kernel", "fastscan_kernel", "ring_shift_kernel")
 # launched beside hist_mma_kernel by the same wrapper call (the masked-stat
 # operand, the split sum): timed with the port's kernels, not counted
 PORT_AUX_SYMBOLS = ("hist_mask_stats_kernel", "hist_split_sum_kernel")
@@ -1090,6 +1105,14 @@ KNN_POOL_SHAPES = [(KNN_ITEMS // 4, KNN_BLOCK, 15), (KNN_ITEMS, KNN_BLOCK, 32)]
 # B7 alone on wide tied pools: (Q, ng, m) and the k of each merge, one
 # 4,096-rank window, several, all of the pool and past it
 KNN_WIDE_POOL, KNN_WIDE_KS = (256, 4000, 5), (200, 9000, 20000, 25000)
+# B7's routes forced on that pool at k = 200, (CTAs a row, threads a CTA):
+# the radix kernel on 1-16 CTAs a row at each block size, and the windowed
+# kernel (0)
+MERGE_CONFIGS = ((1, 256), (1, 512), (1, 1024), (2, 512), (4, 512), (8, 512), (16, 256), (16, 512), (16, 1024),
+                 (0, 256))
+# B7's configurations timed at the flagship pool and at the ANN pool
+MERGE_TIMED = {"flagship": ((1, 256), (1, 512), (1, 1024), (2, 512)),
+               "ann": ((8, 512), (16, 256), (16, 512), (16, 1024))}
 # knn_streamed: the item budget (bytes), so 400,000 x 3000 items make 3
 # blocks, and its queries
 KNN_STREAM_BUDGET, KNN_STREAM_QUERIES = 2_000_000_000, 2048
@@ -1157,22 +1180,86 @@ def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid, misaligned=F
     return rec
 
 
+def merge_mismatches(torch, out, ref):
+    """Values differing between two merges' five outputs (dist and
+    thresholds compared as bits)."""
+    return [int((a.view(torch.int32) != b.view(torch.int32)).sum()) if a.dtype == torch.float32
+            else int((a != b).sum()) for a, b in zip(out, ref)]
+
+
 def knn_wide_merge(torch, kk, dev, gen):
     """B7 against its plain version on one wide pool of tied values (a
-    quarter of each row's values -inf), at every k of KNN_WIDE_KS: bit for
-    bit."""
+    quarter of each row's values -inf), at every k of KNN_WIDE_KS through
+    the route the wrapper takes, and at k = 200 on each cluster size of the
+    radix kernel and on the windowed kernel: bit for bit."""
     q, ng, m = KNN_WIDE_POOL
     v = torch.randint(-40, 0, (q, ng, m), generator=gen, device=dev).float()
     v[torch.rand(q, ng, m, generator=gen, device=dev) < 0.25] = float("-inf")
     p = torch.randint(0, 2**31 - 1, (q, ng, m), generator=gen, device=dev, dtype=torch.int32)
-    mismatches = {}
+    mismatches, routes = {}, {}
     for k in KNN_WIDE_KS:
         out, ref = kk.knn_fused_merge(v, p, k), kk.knn_fused_merge_plain(v, p, k)
-        mismatches[k] = [int((a != b).sum()) for a, b in zip(out, ref)]
+        mismatches[k] = merge_mismatches(torch, out, ref)
+        routes[k] = list(kk._merge_route(ng * m, k))
         check(sum(mismatches[k]) == 0, f"knn_fused_merge on a ({q}, {ng}, {m}) pool, k={k}, differs: {mismatches[k]}")
+    ref = kk.knn_fused_merge_plain(v, p, KNN_K)
+    by_config = {}
+    for cluster, threads in MERGE_CONFIGS:
+        name = f"{cluster}x{threads}"
+        by_config[name] = merge_mismatches(torch, kk._merge_cuda(v, p, KNN_K, cluster, threads), ref)
+        check(sum(by_config[name]) == 0, f"B7 on {cluster} CTAs a row of {threads} threads (0: windowed) differs: "
+                                         f"{by_config[name]}")
     ms = median_ms(torch, lambda: kk.knn_fused_merge(v, p, KNN_K), 5)
     return {"q": q, "ng": ng, "m": m, "pool": ng * m, "ks": list(KNN_WIDE_KS), "mismatches": mismatches,
-            "kernel_ms_k200": ms}
+            "routes": routes, "k200_by_config": by_config, "kernel_ms_k200": ms}
+
+
+def ptxas_record(_build, library, symbols):
+    """ptxas registers and spills of each kernel of `library` whose mangled
+    name holds one of `symbols`, from its build log, by mangled name."""
+    out, current = {}, None
+    for line in _build.build_log(library).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if line.count("'") >= 2 else line
+            current = name if any(sym in name for sym in symbols) else None
+            if current:
+                out[current] = {}
+        elif current and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[current]["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            out[current]["spill_load_bytes"] = int(words[words.index("loads") - 3])
+        elif current and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[current]["registers"] = int(words[words.index("registers") - 1])
+    check(all(any(sym in name for name in out) for sym in symbols), f"the {library} build log lacks a kernel: {out}")
+    return out
+
+
+def merge_occupancy(_build, p, k, cluster, threads):
+    """Clusters of B7's radix kernel resident on the card at once, and its
+    dynamic shared memory a CTA, for one launch shape."""
+    import ctypes
+
+    fn = _build.load("knn_merge").srml_knn_merge_occupancy
+    fn.argtypes = [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(p, k, cluster, threads, ctypes.byref(clusters), ctypes.byref(smem))
+    check(err == 0 and clusters.value >= 1, f"B7 radix kernel (p={p}, k={k}, cluster={cluster}, threads={threads}): "
+                                            f"error {err}, {clusters.value} clusters")
+    return {"p": p, "k": k, "cluster": cluster, "threads": threads, "resident_clusters": clusters.value,
+            "dynamic_smem_bytes": smem.value}
+
+
+def merge_routes(kk, m):
+    """B7's route (CTAs a row of the radix kernel, 0 = windowed) at each
+    launch shape of the main path and of the checks."""
+    shapes = {"flagship": (-(-KNN_ITEMS // kk.GROUP), m, KNN_K),
+              "mesh": (MESH_SHARDS * -(-KNN_ITEMS // MESH_SHARDS // kk.GROUP), 15, KNN_K),
+              **{f"ann_k{k}": (ANN_NPROBE, ANN_L_PAD, k) for k in ANN_MERGE_KS},
+              **{f"wide_k{k}": (KNN_WIDE_POOL[1], KNN_WIDE_POOL[2], k) for k in KNN_WIDE_KS}}
+    return {name: {"pool": ng * mm, "k": k, "route": list(kk._merge_route(ng * mm, k))}
+            for name, (ng, mm, k) in shapes.items()}
 
 
 def pool_library(torch, kk, X, Q, inorm, qn, m):
@@ -1182,6 +1269,30 @@ def pool_library(torch, kk, X, Q, inorm, qn, m):
     neg = -((qn[:, None] - 2.0 * (Q @ X.T)) + inorm[None, :])
     neg = torch.nn.functional.pad(neg, (0, ng * kk.GROUP - n), value=float("-inf"))
     return torch.topk(neg.view(q_n, ng, kk.GROUP), m, dim=2)
+
+
+MERGE_PHASES = ("load_and_hist", "pass0_select", "pass1", "pass2", "publish", "collect", "wait_winners", "sort",
+                "epilogue")
+
+
+def merge_phases(torch, kk, v, p, k, route):
+    """Median clock cycles of each phase of B7's radix kernel over the rows
+    (its first CTA's clock stamps; a pass not run takes 0)."""
+    ph = torch.zeros((v.shape[0], len(MERGE_PHASES) + 1), dtype=torch.int64, device=v.device)
+    kk._merge_cuda(v, p, k, *route, phases=ph)
+    torch.cuda.synchronize()
+    ph = ph.cpu().numpy()
+    for i in range(1, ph.shape[1]):
+        ph[:, i] = np.where(ph[:, i] == 0, ph[:, i - 1], ph[:, i])
+    d = np.diff(ph, axis=1)
+    return {name: float(np.median(d[:, i])) for i, name in enumerate(MERGE_PHASES)} | {
+        "total": float(np.median(ph[:, -1] - ph[:, 0]))}
+
+
+def merge_bound(q_n, p, k):
+    """B7's least time: the pool's values and positions read once (8 bytes
+    a pair), k distances and positions and three scalars a row written."""
+    return bound(8.0 * q_n * p + 8.0 * q_n * k + 12.0 * q_n, float(q_n * p))
 
 
 def pool_bound(q_n, n, d, m):
@@ -1257,6 +1368,9 @@ def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     m = knn_ops._scan_geometry(KNN_K, KNN_ITEMS)[1]
     build = pool_build_record(_build)
     occupancy = pool_occupancy(_build, kk)
+    routes = merge_routes(kk, m)
+    merge_build = ptxas_record(_build, "knn_merge", ("radix_merge_kernel", "window_merge_kernel"))
+    merge_occ = [merge_occupancy(_build, r["pool"], r["k"], *r["route"]) for r in routes.values() if r["route"][0]]
     ragged = [knn_exact_case(torch, kk, nc, dev, gen, *shape) for shape in KNN_RAGGED]
     check(any(r["copy_bytes"] == 4 and r["misaligned"] and r["d"] % 4 == 0 for r in ragged)
           and any(r["copy_bytes"] == 4 and r["d"] % 4 for r in ragged)
@@ -1284,8 +1398,9 @@ def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     ref = kk.knn_fused_merge_plain(v, p, KNN_K)
     plain_route = kk.knn_fused_merge_plain(pv, pp, KNN_K)
     torch.cuda.synchronize()
-    merge_mismatches = [int((a != b).sum()) for a, b in zip(out, ref)]
-    check(sum(merge_mismatches) == 0, f"knn_fused_merge differs from its plain version on one pool: {merge_mismatches}")
+    flagship_mismatches = merge_mismatches(torch, out, ref)
+    check(sum(flagship_mismatches) == 0,
+          f"knn_fused_merge differs from its plain version on one pool: {flagship_mismatches}")
     merge_err = float((out[0] - ref[0]).abs().max())
     pool_err = float((v - pv).abs().max())
     dist_err = float((out[0] - plain_route[0]).abs().max())
@@ -1315,9 +1430,18 @@ def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     b6 = {"kernel_ms": median_ms(torch, lambda: kk.knn_candidates_audit(X, norm, valid, Q, m), 2),
           "plain_ms": b5["plain_ms"], "library_ms": b5["library_ms"],
           "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"]}
+    window = kk._merge_cuda(v, p, KNN_K, 0)
+    window_mismatches = merge_mismatches(torch, window, out)
+    check(sum(window_mismatches) == 0, f"the windowed B7 differs from the radix one: {window_mismatches}")
     b7 = timings(torch, lambda: kk.knn_fused_merge(v, p, KNN_K), lambda: kk.knn_fused_merge_plain(v, p, KNN_K),
                  lambda: torch.topk(v.view(q_n, P), KNN_K, dim=1), 20)
-    b7["bound_ms"], b7["bound_by"] = bound(8.0 * q_n * P + 8.0 * q_n * KNN_K + 12.0 * q_n, float(q_n * P))
+    # the first design (the windowed kernel) in the same run
+    b7["window_ms"] = median_ms(torch, lambda: kk._merge_cuda(v, p, KNN_K, 0), 20)
+    b7["route"] = list(kk._merge_route(P, KNN_K))
+    b7["by_config_ms"] = {f"{c}x{t}": median_ms(torch, lambda: kk._merge_cuda(v, p, KNN_K, c, t), 10)
+                          for c, t in MERGE_TIMED["flagship"]}
+    b7["phase_cycles"] = merge_phases(torch, kk, v, p, KNN_K, b7["route"])
+    b7["bound_ms"], b7["bound_by"] = merge_bound(q_n, P, KNN_K)
     b8 = timings(torch, lambda: kk.knn_count(X, norm, valid, Q, thresh),
                  lambda: kk.knn_count_plain(X, inorm, Q, qn, thresh), library_count, 3)
     b8["bound_ms"], b8["bound_by"] = bound(in_bytes + 8.0 * q_n, dot_ops + q_n * n)
@@ -1325,7 +1449,8 @@ def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     torch.cuda.empty_cache()
     shape = {"n": n, "d": d, "q": q_n, "m": m, "k": KNN_K, "ng": ng, "pool": P}
     return {
-        "phase": "kernels_knn", "pool_build": build, "pool_occupancy": occupancy, "ragged": ragged,
+        "phase": "kernels_knn", "pool_build": build, "pool_occupancy": occupancy, "merge_routes": routes,
+        "merge_build": merge_build, "merge_occupancy": merge_occ, "ragged": ragged,
         "pool_shapes": pool_shapes, "wide_merge": wide_merge, "flagship_integer": flagship_int,
         "flagship": {**shape, "pool_max_abs_err": pool_err, "dist_max_abs_err_vs_plain_route": dist_err,
                      "flagged_rows": int((~unflagged).sum()),
@@ -1914,9 +2039,21 @@ FASTSCAN_CASES = [
     (3, 700, 4, 16, 16), (1, 512, 2, 16, 16), (2, 33, 8, 5, 16), (2, 1001, 32, 16, 16),
     (3, 517, 64, 9, 16), (65537, 3, 2, 16, 16),
 ]
-# the path-sized call: 32 queries x nprobe lists of L_pad slots, the padded
-# list length the port's fit gives on these items (each path records its own)
-ANN_LUT_QUERIES, ANN_L_PAD = 32, 2048
+# the padded list length the port's fit gives on these items (each path
+# records its own); the path-sized calls of B7, B9 and B10 take the query
+# rows of one launch from ivfflat.sweep_geometry at this length
+ANN_L_PAD = 2048
+# B7 at the ANN pool: the k of each arm's merge (flat, 8-bit refine x4,
+# 4-bit refine x8)
+ANN_MERGE_KS = (200, 800, 1600)
+# lut_accumulate_probed at ragged shapes, (B, nprobe, n_planes, L_pad,
+# m_sub, ksub, code range, misaligned): counts from below 0 to past L_pad,
+# slots outside the plane, codes past ksub, byte loads (m_sub 20), a table
+# staged in parts (64 x 256), a misaligned plane, more than 65,535 queries
+PROBED_CASES = [
+    (3, 5, 9, 700, 32, 256, 256, False), (4, 7, 6, 333, 20, 16, 32, False), (2, 3, 5, 517, 64, 256, 256, False),
+    (3, 4, 8, 256, 32, 200, 256, True), (65537, 2, 4, 3, 16, 16, 16, False),
+]
 
 
 def ann_data():
@@ -1970,16 +2107,181 @@ def lut_timing(torch, pk, T, C, packed):
     return {"b": b, "r": r, "m_sub": T.shape[1], "ksub": T.shape[2], "max_abs_err": 0.0, **row}
 
 
-def check_ann_kernels(torch, pk, nc, dev):
+def scan_rows(ivf, pq_mod, n_bits):
+    """Query rows of one B9 / B10 launch on the PQ arms: the sweep's
+    sub-block at ANN_L_PAD."""
+    index = types.SimpleNamespace(m_sub=ANN_M, fastscan=n_bits == 4, l_pad=ANN_L_PAD)
+    return ivf.sweep_geometry(ANN_QUERIES, ANN_NPROBE * ANN_L_PAD, pq_mod.pq_tile_bytes(index, ANN_NPROBE))[1]
+
+
+def ann_pool(torch, dev, gen, rows, tied):
+    """A probe pool of the ANN arms' shape: rows x ANN_NPROBE distinct lists
+    of ANN_L_PAD slots, each list holding Binomial(ANN_ITEMS, 1 / ANN_NLIST)
+    items (mean 633: ~69% of the slots -inf), -d2 as tied integers in
+    [-4096, -1] or continuous, positions list * L_pad + slot, the sentinel
+    where invalid (ivfflat.probe_pool's layout)."""
+    counts = torch.from_numpy(np.random.default_rng(SEED).binomial(ANN_ITEMS, 1.0 / ANN_NLIST, (rows, ANN_NPROBE)))
+    counts = counts.to(device=dev, dtype=torch.int32)
+    lists = torch.rand(rows, ANN_NLIST, generator=gen, device=dev).argsort(dim=1)[:, :ANN_NPROBE].sort(dim=1).values
+    slot = torch.arange(ANN_L_PAD, device=dev, dtype=torch.int32)
+    valid = slot[None, None, :] < counts[:, :, None]
+    shape = (rows, ANN_NPROBE, ANN_L_PAD)
+    if tied:
+        v = -torch.randint(1, 4097, shape, generator=gen, device=dev).float()
+    else:
+        v = -(torch.rand(shape, generator=gen, device=dev) * 2000.0 + 100.0)
+    v = torch.where(valid, v, torch.full_like(v, float("-inf")))
+    p = torch.where(valid, lists.to(torch.int32)[:, :, None] * ANN_L_PAD + slot, torch.full_like(slot, 2**31 - 1))
+    return v.contiguous(), p.contiguous(), float((~valid).float().mean())
+
+
+def check_ann_merge(torch, kk, ivf, dev, gen):
+    """B7 at the ANN arms' pool (one sweep block of query rows x 158 x 2048)
+    at k = 200 / 800 / 1600: bit for bit against its plain version on tied
+    integer values, through the route the wrapper takes and through the
+    windowed kernel (the first design); timed (the route, the windowed
+    kernel, the plain version, torch.topk over the pool) on continuous
+    values."""
+    rows = ivf.sweep_geometry(ANN_QUERIES, ANN_NPROBE * ANN_L_PAD, 1)[0]
+    out_rows = []
+    for tied in (True, False):
+        v, p, neg_share = ann_pool(torch, dev, gen, rows, tied)
+        P = ANN_NPROBE * ANN_L_PAD
+        for k in ANN_MERGE_KS:
+            rec = {"q": rows, "nprobe": ANN_NPROBE, "l_pad": ANN_L_PAD, "pool": P, "k": k, "tied": tied,
+                   "neg_inf_share": neg_share, "route": list(kk._merge_route(P, k))}
+            if tied:
+                ref = kk.knn_fused_merge_plain(v, p, k)
+                rec["mismatches"] = merge_mismatches(torch, kk.knn_fused_merge(v, p, k), ref)
+                rec["window_mismatches"] = merge_mismatches(torch, kk._merge_cuda(v, p, k, 0), ref)
+                check(sum(rec["mismatches"]) + sum(rec["window_mismatches"]) == 0,
+                      f"B7 at the ANN pool differs from its plain version: {rec}")
+                del ref
+            else:
+                rec.update(timings(torch, lambda: kk.knn_fused_merge(v, p, k),
+                                   lambda: kk.knn_fused_merge_plain(v, p, k),
+                                   (lambda: torch.topk(v.view(rows, P), k, dim=1)) if k <= P else None, 10))
+                rec["window_ms"] = median_ms(torch, lambda: kk._merge_cuda(v, p, k, 0), 5)
+                rec["by_config_ms"] = {f"{c}x{t}": median_ms(torch, lambda: kk._merge_cuda(v, p, k, c, t), 10)
+                                       for c, t in MERGE_TIMED["ann"]}
+                rec["phase_cycles"] = merge_phases(torch, kk, v, p, k, rec["route"])
+                rec["bound_ms"], rec["bound_by"] = merge_bound(rows, P, k)
+                rec["max_abs_err"] = 0.0
+            out_rows.append(rec)
+            emit({"phase": "kernels_ann_merge", **rec})
+        del v, p
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def probed_inputs(torch, dev, gen, b, nprobe, n_planes, l_pad, m_sub, ksub, hi, misaligned):
+    """Tables, a code plane, slots and counts for lut_accumulate_probed:
+    ragged counts (below 0, 0, past L_pad) and slots (some outside the
+    plane)."""
+    T = torch.randn((b, m_sub, ksub), generator=gen, device=dev)
+    plane = torch.randint(0, hi, (n_planes, l_pad, m_sub), generator=gen, device=dev, dtype=torch.uint8)
+    if misaligned:  # the same bytes one byte past a 16-byte boundary
+        buf = torch.empty(plane.numel() + 1, dtype=torch.uint8, device=dev)
+        buf[1:].copy_(plane.view(-1))
+        plane = buf[1:].view(plane.shape)
+    slots = torch.randint(-1, n_planes + 1, (b, nprobe), generator=gen, device=dev, dtype=torch.int32)
+    counts = torch.randint(-2, l_pad + 3, (b, nprobe), generator=gen, device=dev, dtype=torch.int32)
+    counts[:, 0] = 0
+    return T, plane, slots, counts
+
+
+def probed_bits(torch, pk, T, plane, slots, counts):
+    got = pk.lut_accumulate_probed(T, plane, slots, counts)
+    want = pk.lut_accumulate_probed_plain(T, plane, slots, counts)
+    torch.cuda.synchronize()
+    return got, int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+def check_probed_path(torch, pk, dev, gen, b):
+    """lut_accumulate_probed at the 8-bit arm's launch: b queries x 158
+    probed lists of an index plane (nlist_pad 640 x 2048 x 32) with
+    Binomial(400,000, 1/632) items a list (8 lists empty), resident and
+    through a tiered index's pool planes (ann/tier.TieredListPlanes, hot
+    fraction 0.5): bit for bit against the plain version, the tiered rows
+    bit for bit the resident ones; timed resident (library: index_select +
+    gather + sum over j)."""
+    from spark_rapids_ml_tpu_torch.ann.tier import TieredListPlanes
+
+    n_lists = 640
+    rng = np.random.default_rng(SEED)
+    list_counts = rng.binomial(ANN_ITEMS, 1.0 / ANN_NLIST, n_lists).astype(np.int32)
+    list_counts[ANN_NLIST:] = 0
+    list_counts[rng.choice(ANN_NLIST, 8, replace=False)] = 0
+    host_plane = rng.integers(0, 256, (n_lists, ANN_L_PAD, ANN_M), dtype=np.uint8)
+    plane = torch.from_numpy(host_plane).to(dev)
+    counts_dev = torch.from_numpy(list_counts).to(dev)
+    probes = torch.rand(b, ANN_NLIST, generator=gen, device=dev).argsort(dim=1)[:, :ANN_NPROBE].sort(dim=1).values
+    counts = counts_dev[probes]
+    T = torch.randn((b, ANN_M, 256), generator=gen, device=dev)
+    got, bad = probed_bits(torch, pk, T, plane, probes, counts)
+    check(bad == 0, f"lut_accumulate_probed at the path's launch differs from its plain version at {bad} values")
+    valid_rows = int(counts.clamp(0, ANN_L_PAD).sum())
+
+    tier = TieredListPlanes(planes=[host_plane], sentinels=[None], counts=list_counts, device=dev,
+                            hot_fraction=ANN_HOT_FRACTION)
+    host_probes = probes.cpu().numpy()
+    groups, tier_bad, tier_vs_resident = tier.plan_groups(host_probes), 0, 0
+    for s0, e0 in groups:
+        planes, slot_map = tier.acquire(host_probes[s0:e0].ravel())
+        slots = slot_map[probes]
+        t_got, t_bad = probed_bits(torch, pk, T, planes[0], slots, counts)
+        tier_bad += t_bad
+        tier_vs_resident += int((t_got[s0:e0].view(torch.int32) != got[s0:e0].view(torch.int32)).sum())
+    check(tier_bad == 0 and tier_vs_resident == 0,
+          f"lut_accumulate_probed on the tier's planes: {tier_bad} values off the plain version, "
+          f"{tier_vs_resident} off the resident result")
+
+    def library():
+        tile = plane.index_select(0, probes.reshape(-1)).view(b, ANN_NPROBE * ANN_L_PAD, ANN_M)
+        acc = T.gather(2, tile.long().transpose(1, 2)).sum(dim=1).view(b, ANN_NPROBE, ANN_L_PAD)
+        valid = torch.arange(ANN_L_PAD, device=dev)[None, None, :] < counts[:, :, None]
+        return torch.where(valid, acc, torch.full_like(acc, float("inf")))
+
+    lib = library()
+    finite = torch.isfinite(got)
+    check(bool(torch.allclose(lib[finite], got[finite], rtol=1e-5, atol=1e-4)), "the gather + sum yardstick disagrees")
+    del lib
+    torch.cuda.empty_cache()
+    row = timings(torch, lambda: pk.lut_accumulate_probed(T, plane, probes, counts),
+                  lambda: pk.lut_accumulate_probed_plain(T, plane, probes, counts), library, 20)
+    all_rows = b * ANN_NPROBE * ANN_L_PAD
+    # codes of the valid rows read, every output row written, the tables
+    # and the slots and counts read once
+    row["bound_ms"], row["bound_by"] = bound(
+        valid_rows * ANN_M + 4.0 * all_rows + 4.0 * T.numel() + 12.0 * b * ANN_NPROBE, float(valid_rows * ANN_M))
+    return {"b": b, "nprobe": ANN_NPROBE, "l_pad": ANN_L_PAD, "m_sub": ANN_M, "ksub": 256,
+            "r": ANN_NPROBE * ANN_L_PAD, "valid_rows": valid_rows, "valid_share": valid_rows / all_rows,
+            "blocks_per_query": pk.probed_splits(b, ANN_NPROBE, ANN_L_PAD, dev), "bit_mismatches": bad,
+            "tier_groups": len(groups), "tier_bit_mismatches": tier_bad, "tier_vs_resident": tier_vs_resident,
+            "tier": tier.stats(), "max_abs_err": 0.0, **row}
+
+
+def check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev):
     """Phase kernels_ann: B9 and B10 against their plain versions on the
-    card, bit for bit, at the cases above and one path-sized call each
-    (timed there); B10's typed rejections; B1 at the ANN fit's two shapes
-    (list assignment, PQ encoding)."""
+    card, bit for bit, at the cases above; lut_accumulate_probed at ragged
+    cases and at the 8-bit arm's launch (resident and tiered, timed there);
+    B10 at the 4-bit arm's launch (timed); B10's typed rejections; B7 at the
+    ANN pool (check_ann_merge); B1 at the ANN fit's two shapes (list
+    assignment, PQ encoding); ptxas registers and spills of B9's kernel."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    merge = check_ann_merge(torch, kk, ivf, dev, gen)
+    build = ptxas_record(_build, "pq_lut", ("probed_lut_kernel", "fastscan_kernel"))
     lut = [lut_case(torch, pk, dev, gen, *c, packed=False)[2] for c in LUT_CASES]
     lut.append(lut_case(torch, pk, dev, gen, 2, 999, 32, 256, 256, packed=False, misaligned=True)[2])
     fast = [lut_case(torch, pk, dev, gen, *c, packed=True)[2] for c in FASTSCAN_CASES]
     fast.append(lut_case(torch, pk, dev, gen, 2, 999, 64, 16, 16, packed=True, misaligned=True)[2])
+    probed = []
+    for case in PROBED_CASES:
+        b, nprobe, n_planes, l_pad, m_sub, ksub, hi, misaligned = case
+        inputs = probed_inputs(torch, dev, gen, *case)
+        bad = probed_bits(torch, pk, *inputs)[1]
+        check(bad == 0, f"lut_accumulate_probed {case} differs from its plain version at {bad} values")
+        probed.append({"case": list(case), "bit_mismatches": bad})
     rejections = {}
     for name, t_shape, p_shape, match in (
         ("odd_m_sub", (1, 3, 16), (1, 5, 1), "even"),
@@ -1994,17 +2296,20 @@ def check_ann_kernels(torch, pk, nc, dev):
             rejections[name] = str(e)
         else:
             raise RuntimeError(f"fast-scan accepted {name}")
+    torch.cuda.empty_cache()
+    probed_row = check_probed_path(torch, pk, dev, gen, scan_rows(ivf, pq_mod, 8))
+    emit({"phase": "kernels_ann_probed", **probed_row})
+    torch.cuda.empty_cache()
     r_path = ANN_NPROBE * ANN_L_PAD
-    T, C, lut_path = lut_case(torch, pk, dev, gen, ANN_LUT_QUERIES, r_path, ANN_M, 256, 256, packed=False)
-    lut_row = {**lut_path, **lut_timing(torch, pk, T, C, False)}
-    T, C, fast_path = lut_case(torch, pk, dev, gen, ANN_LUT_QUERIES, r_path, ANN_M, 16, 16, packed=True)
+    T, C, fast_path = lut_case(torch, pk, dev, gen, scan_rows(ivf, pq_mod, 4), r_path, ANN_M, 16, 16, packed=True)
     fast_row = {**fast_path, **lut_timing(torch, pk, T, C, True)}
     del T, C
     torch.cuda.empty_cache()
     cpu_gen = torch.Generator().manual_seed(SEED)
     b1 = [check_kernel_shape(torch, nc, ANN_ITEMS, d, k, cpu_gen, dev) for d, k in ((ANN_COLS, ANN_NLIST), (8, 256))]
-    return {"phase": "kernels_ann", "lut_cases": lut, "fastscan_cases": fast, "fastscan_rejections": rejections,
-            "lut_accumulate": lut_row, "fastscan_lut_accumulate": fast_row, "min_dist_argmin_ann": b1}
+    return {"phase": "kernels_ann", "lut_build": build, "lut_cases": lut, "fastscan_cases": fast,
+            "probed_cases": probed, "fastscan_rejections": rejections, "lut_accumulate_probed": probed_row,
+            "fastscan_lut_accumulate": fast_row, "knn_fused_merge_ann": merge, "min_dist_argmin_ann": b1}
 
 
 def ann_rows(model, df):
@@ -2069,7 +2374,8 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
     search = {name: launches[name] - launches_fit[name] for name in launches}
     check(launches_fit["min_dist_argmin"] > 0, "the fit launched min_dist_argmin no time")
     check(search["knn_fused_merge"] > 0, "kneighbors launched knn_fused_merge no time")
-    for name, used in (("lut_accumulate", pq and not fast), ("fastscan_lut_accumulate", pq and fast)):
+    for name, used in (("lut_accumulate_probed", pq and not fast), ("fastscan_lut_accumulate", pq and fast),
+                       ("lut_accumulate", False)):
         check((search[name] > 0) == used, f"kneighbors launched {name} {search[name]} times")
     check(idx.shape == (ANN_QUERIES, ANN_K) and idx.dtype == np.int64 and dist.dtype == np.float32,
           f"kneighbors gave {idx.shape} {idx.dtype} / {dist.dtype}")
@@ -2080,6 +2386,9 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
     rec = {"index_bytes_per_item": model.index_bytes_per_item()}
     staged = model._staged_pq[1] if pq else model._staged_index[1]
     rec["l_pad"], rec["nlist_pad"] = staged.l_pad, staged.nlist_pad
+    # one sweep block's query rows, and the rows of one scoring launch
+    tile = pq_mod.pq_tile_bytes(staged, ANN_NPROBE) if pq else ivf.flat_tile_bytes(staged, ANN_NPROBE)
+    rec["block_rows"], rec["scan_rows"] = ivf.sweep_geometry(ANN_QUERIES, ANN_NPROBE * staged.l_pad, tile)
     rec["merge_vs_lex_topk"] = ann_merge_check(torch, ivf, pq_mod, knn_ops, kk, staged, Q, pq_k(params), pq, dev)
     # checks on ANN_CHECK_QUERIES queries, outside the counted window
     i_c, d_c = ann_rows(model, check_df)
@@ -2176,6 +2485,7 @@ def main():
         "knn_fused_merge": kk.knn_fused_merge,
         "knn_count": kk.knn_count,
         "lut_accumulate": pk.lut_accumulate,
+        "lut_accumulate_probed": pk.lut_accumulate_probed,
         "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
         "ring_shift": ek.ring_shift,
     }
@@ -2276,7 +2586,7 @@ def main():
         del X_knn, knn_model
 
     if "kernels_ann" in phases:
-        results["kernels_ann"] = check_ann_kernels(torch, pk, nc, dev)
+        results["kernels_ann"] = check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev)
         emit(results["kernels_ann"])
     ann_phases = [p for p in ANN_ARMS if p in phases]
     if ann_phases:
@@ -2368,12 +2678,23 @@ def summary(results, seconds):
                 "launches_mesh": mesh.get(name),
             })
     ka = results.get("kernels_ann")
+    merge_row = next((row for row in rows if row["name"] == "knn_fused_merge"), None)
+    if ka is not None and merge_row is not None:
+        # B7 at the ANN arms' pools, each k with the launches of its arm
+        arms = dict(zip(ANN_MERGE_KS, ANN_ARMS))
+        merge_row["ann_pool"] = [
+            {key: r[key] for key in ("q", "pool", "k", "route", "kernel_ms", "window_ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")}
+            | {"launches": results.get(arms[r["k"]], {}).get("launches", {}).get("knn_fused_merge"),
+               "arm": arms[r["k"]]}
+            for r in ka["knn_fused_merge_ann"] if not r["tied"]
+        ]
     if ka is not None:
-        for name, arm in (("lut_accumulate", "path_ann_pq"), ("fastscan_lut_accumulate", "path_ann_pq4")):
+        for name, arm in (("lut_accumulate_probed", "path_ann_pq"), ("fastscan_lut_accumulate", "path_ann_pq4")):
             r = ka[name]
             rows.append({
                 "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
-                "replaces": {"lut_accumulate": "spark_rapids_ml_tpu/ops/pallas_pq.py:60",
+                "replaces": {"lut_accumulate_probed": "spark_rapids_ml_tpu/ops/pallas_pq.py:60",
                              "fastscan_lut_accumulate": "spark_rapids_ml_tpu/ops/pallas_pq.py:170"}[name],
                 "launches": results.get(arm, {}).get("launches", {}).get(name), "max_abs_err": r["max_abs_err"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2407,6 +2728,7 @@ KERNEL_SOURCES = {
     "knn_fused_merge": "spark_rapids_ml_tpu_torch/csrc/knn_merge.cu",
     "knn_count": "spark_rapids_ml_tpu_torch/csrc/knn_topm.cu",
     "lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
+    "lut_accumulate_probed": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "fastscan_lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "ring_shift": "spark_rapids_ml_tpu_torch/csrc/ring_shift.cu",
 }

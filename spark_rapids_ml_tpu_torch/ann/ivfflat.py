@@ -379,10 +379,12 @@ def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub
     """The candidate pool of one query block: (values (rows, nprobe, L_pad)
     float32 = -d2, -inf where invalid; positions (rows, nprobe, L_pad) int32
     = list * L_pad + slot, _POS_SENTINEL where invalid), the probes of each
-    row in ascending list order.  block_scorer(qb, qn, d2p) returns a
-    function scores(planes, slots, rows) giving the d2 (c, nprobe, L_pad) of
-    the block's rows `rows` over the lists at the (c, nprobe) plane slots;
-    it is called on at most sub_rows rows at once.  A tiered index scores
+    row in ascending list order.  block_scorer(qb, qn, d2p, counts), counts
+    (rows, nprobe) int32 the probed lists' item counts, returns a function
+    scores(planes, slots, rows) giving the d2 (c, nprobe, L_pad) of the
+    block's rows `rows` over the lists at the (c, nprobe) plane slots (any
+    value past a list's count); it is called on at most sub_rows rows at
+    once.  A tiered index scores
     every group of the planner with the sub-block's full shapes and keeps
     the group's rows, so a row's bits do not depend on the paging."""
     dev = index.centroids.device
@@ -390,10 +392,11 @@ def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub
     inf = torch.tensor(float("inf"), device=dev)
     with record_function("ann.select"):
         qn, d2p, probes = select_probes(qb, index.centroids, index.c_norm, nprobe)
-        valid = slot[None, None, :] < index.counts[probes][:, :, None]
+        counts = index.counts[probes]
+        valid = slot[None, None, :] < counts[:, :, None]
         pos = torch.where(valid, probes.to(torch.int32)[:, :, None] * index.l_pad + slot, _POS_SENTINEL)
         vals = torch.empty(pos.shape, dtype=torch.float32, device=dev)
-    scores = block_scorer(qb, qn, d2p)
+    scores = block_scorer(qb, qn, d2p, counts)
     tier = getattr(index, "tier", None)
     with record_function("ann.scan"):
         if tier is None:
@@ -441,7 +444,7 @@ def probe_sweep(
     return torch.cat(out_d).cpu().numpy(), torch.cat(out_p).cpu().numpy()
 
 
-def _flat_block_scorer(qb: torch.Tensor, qn: torch.Tensor, _d2p: torch.Tensor):
+def _flat_block_scorer(qb: torch.Tensor, qn: torch.Tensor, _d2p: torch.Tensor, _counts: torch.Tensor):
     def scores(planes, slots, sl):
         data, norm = planes
         c, p = slots.shape

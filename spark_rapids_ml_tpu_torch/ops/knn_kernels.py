@@ -14,7 +14,9 @@
 #                         same kernel, launched by the audit route and
 #                         counted apart
 #   knn_fused_merge       B7, replaces _knn_fused_merge_kernel:
-#                         csrc/knn_merge.cu
+#                         csrc/knn_merge.cu, a radix select on a
+#                         thread-block cluster a row, or the windowed
+#                         kernel past its k or width (_merge_route)
 #   knn_count             B8, replaces _knn_count_kernel: csrc/knn_topm.cu,
 #                         on the same loop (one 128 x 128 tile a block)
 #
@@ -200,6 +202,31 @@ def _check_pool(vals: torch.Tensor, pos: torch.Tensor, k: int) -> None:
         raise ValueError(f"the kNN kernels run on cpu or cuda tensors, not {vals.device}")
 
 
+# B7's routes (csrc/knn_merge.cu): the radix kernel keeps at most
+# RADIX_MAX_K ranks and stages at most SLICE_KEYS pool values a CTA (96 KB:
+# two CTAs an SM), on clusters of up to MAX_CLUSTER CTAs a row; a row split
+# across a cluster runs CLUSTER_THREADS threads a CTA, a row on one CTA 256
+RADIX_MAX_K = 2048
+SLICE_KEYS = 24_576
+MAX_CLUSTER = 16
+CLUSTER_THREADS = 512
+
+
+def _merge_route(p: int, k: int) -> Tuple[int, int]:
+    """(CTAs a row, threads a CTA) of the radix kernel for a pool p wide
+    merged to k -- the fewest CTAs whose slices hold SLICE_KEYS values or
+    fewer -- or (0, 256) for the windowed kernel: k past RADIX_MAX_K, or a
+    row wider than MAX_CLUSTER slices.  A pure function of the shape."""
+    if k > RADIX_MAX_K:
+        return 0, 256
+    cluster = 1
+    while cluster < MAX_CLUSTER and -(-p // cluster) > SLICE_KEYS:
+        cluster *= 2
+    if -(-p // cluster) > SLICE_KEYS:
+        return 0, 256
+    return cluster, 256 if cluster == 1 else CLUSTER_THREADS
+
+
 def knn_fused_merge(vals: torch.Tensor, pos: torch.Tensor, k: int):
     """Merge a (Q, ng, m) pool: (dist (Q, k) float32 = sqrt(max(d2, 0))
     ascending, positions (Q, k) int32, flags (Q,) int32 = 1 where some
@@ -210,6 +237,15 @@ def knn_fused_merge(vals: torch.Tensor, pos: torch.Tensor, k: int):
     _check_pool(vals, pos, k)
     if vals.device.type == "cpu":
         return knn_fused_merge_plain(vals, pos, k)
+    out = _merge_cuda(vals, pos, k, *_merge_route(vals.shape[1] * vals.shape[2], k))
+    knn_fused_merge.launches += int(vals.shape[0] > 0)
+    return out
+
+
+def _merge_cuda(vals: torch.Tensor, pos: torch.Tensor, k: int, cluster: int, threads: int = 256, phases=None):
+    """One launch of B7 on `cluster` CTAs a row of `threads` threads (0: the
+    windowed kernel); the radix kernel writes clock stamps of its phases
+    into `phases` ((Q, 10) int64 on the card) when given."""
     q, ng, m = vals.shape
     p = ng * m
     dev = vals.device
@@ -221,16 +257,16 @@ def knn_fused_merge(vals: torch.Tensor, pos: torch.Tensor, k: int):
     if q == 0:
         return dist, out_pos, flags, thresh, above
     fn = _build.load(_MERGE_LIBRARY).srml_knn_fused_merge_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     err = fn(
         vals.data_ptr(), pos.data_ptr(), dist.data_ptr(), out_pos.data_ptr(), flags.data_ptr(),
-        thresh.data_ptr(), above.data_ptr(), q, p, k, m,
+        thresh.data_ptr(), above.data_ptr(), q, p, k, m, cluster, threads,
+        None if phases is None else phases.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"knn_fused_merge kernel launch failed: CUDA error {err}")
-    knn_fused_merge.launches += 1
     return dist, out_pos, flags, thresh, above
 
 

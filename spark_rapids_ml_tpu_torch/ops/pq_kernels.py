@@ -6,8 +6,12 @@
 # plain PyTorch version for CPU tensors and launches its hand-written CUDA
 # kernel (sm_90a) for CUDA tensors, or raises; there is no fallback.
 #
-#   lut_accumulate           B9, replaces _lut_accum_kernel
-#                            (_lut_accumulate_pallas): csrc/pq_lut.cu
+#   lut_accumulate_probed    B9, replaces _lut_accum_kernel
+#                            (_lut_accumulate_pallas): csrc/pq_lut.cu, the
+#                            codes read in place at each query's probed
+#                            list slots, padding rows skipped
+#   lut_accumulate           B9 on a contiguous tile: the same kernel, each
+#                            query its own plane
 #   fastscan_lut_accumulate  B10, replaces _fastscan_kernel (_fastscan_pallas):
 #                            csrc/pq_lut.cu
 #
@@ -32,6 +36,8 @@ import torch
 from . import _build
 
 _LIBRARY = "pq_lut"
+_ROWS_A_BLOCK = 256   # the probed kernel's rows a (list, tile) unit, one a thread
+_BLOCKS_PER_SM = 8    # its 256-thread blocks an SM holds at most (2,048 threads)
 _MAX_KSUB = 256       # one-byte codes address at most 256 table entries
 _FASTSCAN_KSUB = 16   # a nibble addresses at most 16
 
@@ -88,9 +94,115 @@ def lut_accumulate(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     _check(tables, codes, tables.shape[1], _MAX_KSUB)
     if tables.device.type == "cpu":
         return lut_accumulate_plain(tables, codes)
-    out = _launch("srml_lut_accumulate_f32", tables, codes, codes.shape[2])
+    b, r = codes.shape[0], codes.shape[1]
+    out = torch.empty((b, r), dtype=torch.float32, device=tables.device)
+    if b == 0 or r == 0:
+        return out
+    # each query its own plane: one list of R rows, all valid
+    slots = torch.arange(b, dtype=torch.int64, device=tables.device)
+    counts = torch.full((b,), r, dtype=torch.int32, device=tables.device)
+    fn = _build.load(_LIBRARY).srml_lut_accumulate_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        tables.data_ptr(), codes.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        b, r, tables.shape[1], tables.shape[2], _vec(codes), probed_splits(b, 1, r, tables.device),
+        torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"srml_lut_accumulate_f32 kernel launch failed: CUDA error {err}")
     lut_accumulate.launches += 1
     return out
+
+
+def _check_probed(tables, code_plane, slots, counts) -> None:
+    if tables.dtype != torch.float32:
+        raise TypeError(f"tables must be float32, not {tables.dtype}")
+    if code_plane.dtype != torch.uint8:
+        raise TypeError(f"code_plane must be uint8, not {code_plane.dtype}")
+    if slots.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slots must be int32 or int64, not {slots.dtype}")
+    if counts.dtype != torch.int32:
+        raise TypeError(f"counts must be int32, not {counts.dtype}")
+    if tables.dim() != 3 or code_plane.dim() != 3 or slots.dim() != 2:
+        raise ValueError(
+            f"tables {tuple(tables.shape)}, code_plane {tuple(code_plane.shape)} and slots "
+            f"{tuple(slots.shape)} must be (B, m_sub, ksub), (n_planes, L_pad, m_sub) and (B, nprobe)"
+        )
+    if code_plane.shape[2] != tables.shape[1] or slots.shape[0] != tables.shape[0]:
+        raise ValueError(
+            f"code_plane {tuple(code_plane.shape)} and slots {tuple(slots.shape)} do not match tables "
+            f"{tuple(tables.shape)}"
+        )
+    if tuple(counts.shape) != tuple(slots.shape):
+        raise ValueError(f"counts {tuple(counts.shape)} must have the shape of slots {tuple(slots.shape)}")
+    if not 1 <= tables.shape[2] <= _MAX_KSUB:
+        raise ValueError(f"tables must have 1 <= ksub <= {_MAX_KSUB}; got ksub={tables.shape[2]}")
+    for name, t in (("code_plane", code_plane), ("slots", slots), ("counts", counts)):
+        if t.device != tables.device:
+            raise ValueError(f"{name} is on {t.device}, tables on {tables.device}")
+    if not (tables.is_contiguous() and code_plane.is_contiguous() and counts.is_contiguous()):
+        raise ValueError("tables, code_plane and counts must be contiguous")
+    if tables.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the PQ kernels run on cpu or cuda tensors, not {tables.device}")
+
+
+def lut_accumulate_probed(
+    tables: torch.Tensor, code_plane: torch.Tensor, slots: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """The accumulation over each query's probed lists, read in place:
+    out[b, p, r] (B, nprobe, L_pad) float32 = sum_j tables[b, j,
+    code_plane[slots[b, p], r, j]], sequential in j, for r < counts[b, p]
+    (clamped to [0, L_pad]); +inf for every other row, and for every row of
+    a slot outside [0, n_planes).  tables (B, m_sub, ksub) float32,
+    code_plane (n_planes, L_pad, m_sub) uint8, slots (B, nprobe) int32 or
+    int64, counts (B, nprobe) int32."""
+    _check_probed(tables, code_plane, slots, counts)
+    if tables.device.type == "cpu":
+        return lut_accumulate_probed_plain(tables, code_plane, slots, counts)
+    b, nprobe = slots.shape
+    n_planes, l_pad, m_sub = code_plane.shape
+    out = torch.empty((b, nprobe, l_pad), dtype=torch.float32, device=tables.device)
+    if out.numel() == 0:
+        return out
+    slots = slots.to(torch.int64).contiguous()
+    fn = _build.load(_LIBRARY).srml_lut_accumulate_probed_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        tables.data_ptr(), code_plane.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        b, nprobe, n_planes, l_pad, m_sub, tables.shape[2], _vec(code_plane),
+        probed_splits(b, nprobe, l_pad, tables.device), torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"srml_lut_accumulate_probed_f32 kernel launch failed: CUDA error {err}")
+    lut_accumulate_probed.launches += 1
+    return out
+
+
+def probed_splits(b: int, nprobe: int, l_pad: int, device: torch.device) -> int:
+    """Blocks a query of a probed launch: one wave of the card's SMs across
+    the b queries, at most one a (list, 256-row tile) unit."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    units = nprobe * -(-l_pad // _ROWS_A_BLOCK)
+    return max(1, min(units, sms * _BLOCKS_PER_SM // max(1, b)))
+
+
+def lut_accumulate_probed_plain(
+    tables: torch.Tensor, code_plane: torch.Tensor, slots: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """The probed accumulation in plain PyTorch: the probed lists gathered
+    with index_select, lut_accumulate_plain over the tile, +inf past each
+    list's count (and for a slot outside the plane).  Runs on any device."""
+    b, nprobe = slots.shape
+    n_planes, l_pad, m_sub = code_plane.shape
+    s = slots.long()
+    inside = (s >= 0) & (s < n_planes)
+    tile = code_plane.index_select(0, torch.where(inside, s, 0).reshape(-1)).view(b, nprobe * l_pad, m_sub)
+    acc = lut_accumulate_plain(tables, tile).view(b, nprobe, l_pad)
+    n = torch.where(inside, counts.clamp(0, l_pad), 0)
+    valid = torch.arange(l_pad, device=tables.device)[None, None, :] < n[:, :, None]
+    return torch.where(valid, acc, torch.full_like(acc, float("inf")))
 
 
 def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
@@ -103,7 +215,7 @@ def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch
     _check(tables, packed, m_sub // 2, _FASTSCAN_KSUB)
     if tables.device.type == "cpu":
         return fastscan_lut_accumulate_plain(tables, packed)
-    out = _launch("srml_fastscan_accumulate_f32", tables, packed, packed.shape[2])
+    out = _launch("srml_fastscan_accumulate_f32", tables, packed)
     fastscan_lut_accumulate.launches += 1
     return out
 
@@ -111,16 +223,23 @@ def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch
 # launches of the CUDA kernel by each wrapper, for runs that must show the
 # path went through it
 lut_accumulate.launches = 0
+lut_accumulate_probed.launches = 0
 fastscan_lut_accumulate.launches = 0
 
 
-def _launch(entry: str, tables: torch.Tensor, codes: torch.Tensor, m_bytes: int) -> torch.Tensor:
+def _vec(codes: torch.Tensor) -> int:
+    """1 where the kernels read each row's code bytes as 16-byte words: the
+    row width a multiple of 16 bytes, the codes 16-byte aligned."""
+    return int(codes.shape[-1] % 16 == 0 and codes.data_ptr() % 16 == 0)
+
+
+def _launch(entry: str, tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     b, m_sub, ksub = tables.shape
     r = codes.shape[1]
     out = torch.empty((b, r), dtype=torch.float32, device=tables.device)
     if b == 0 or r == 0:
         return out
-    vec = int(m_bytes % 16 == 0 and codes.data_ptr() % 16 == 0)
+    vec = _vec(codes)
     fn = getattr(_build.load(_LIBRARY), entry)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
