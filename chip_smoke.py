@@ -76,11 +76,11 @@
 #            lists on every unflagged row; timings as above, B5 also at the
 #            mesh's shard shape and at m = 32 (library_ms: matmul + a
 #            per-group topk, topk over the pool, matmul + a compare-sum);
-#            B7's route at each launch shape, its radix kernel on every
-#            cluster and block size bit for bit on a wide tied pool, its
-#            ptxas registers and spills, resident clusters, the windowed
-#            kernel (the first design) timed beside it, and clock stamps of its
-#            phases
+#            B7's route at each launch shape, its radix kernel bit for bit
+#            on a wide tied pool at each (CTAs a row, threads a CTA) the
+#            route can pick, its ptxas registers and spills, resident
+#            clusters, and the windowed kernel (the first design) timed
+#            beside it
 #   path_knn the JAX package's kNN arm: NearestNeighbors(k=200).fit on
 #            400,000 x 3000 float32 items (standard normal, seed 0, 8
 #            partitions), kneighbors of 16,384 queries (seed 7, 2
@@ -132,7 +132,8 @@
 #            outside the plane; lut_accumulate_probed at the 8-bit arm's
 #            launch (150 queries x 158 lists of 2048 rows, m_sub 32), resident
 #            and through a tier's pool planes, timed there (library_ms:
-#            index_select + gather + sum over j), B10 at the 4-bit arm's (237
+#            index_select + gather + sum over j) with its blocks a query and
+#            the blocks an SM holds, B10 at the 4-bit arm's (237
 #            queries x 323,584 rows), their ptxas registers; B10's typed
 #            rejections; B1 at the ANN fit's shapes (400,000 x 256 vs 632
 #            centroids, 400,000 x 8 vs 256 codewords)
@@ -958,7 +959,7 @@ PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_la
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
                        "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "radix_merge_kernel",
-                       "window_merge_kernel", "probed_lut_kernel", "fastscan_kernel", "ring_shift_kernel")
+                       "window_merge_kernel", "probed_lut_kernel", "lut_accumulate_kernel", "ring_shift_kernel")
 # launched beside hist_mma_kernel by the same wrapper call (the masked-stat
 # operand, the split sum): timed with the port's kernels, not counted
 PORT_AUX_SYMBOLS = ("hist_mask_stats_kernel", "hist_split_sum_kernel")
@@ -1106,13 +1107,9 @@ KNN_POOL_SHAPES = [(KNN_ITEMS // 4, KNN_BLOCK, 15), (KNN_ITEMS, KNN_BLOCK, 32)]
 # 4,096-rank window, several, all of the pool and past it
 KNN_WIDE_POOL, KNN_WIDE_KS = (256, 4000, 5), (200, 9000, 20000, 25000)
 # B7's routes forced on that pool at k = 200, (CTAs a row, threads a CTA):
-# the radix kernel on 1-16 CTAs a row at each block size, and the windowed
-# kernel (0)
-MERGE_CONFIGS = ((1, 256), (1, 512), (1, 1024), (2, 512), (4, 512), (8, 512), (16, 256), (16, 512), (16, 1024),
-                 (0, 256))
-# B7's configurations timed at the flagship pool and at the ANN pool
-MERGE_TIMED = {"flagship": ((1, 256), (1, 512), (1, 1024), (2, 512)),
-               "ann": ((8, 512), (16, 256), (16, 512), (16, 1024))}
+# each the route picks for some pool width (the radix kernel on 1-16 CTAs
+# a row), and the windowed kernel (0)
+MERGE_CONFIGS = ((1, 256), (2, 512), (4, 512), (8, 512), (16, 512), (0, 256))
 # knn_streamed: the item budget (bytes), so 400,000 x 3000 items make 3
 # blocks, and its queries
 KNN_STREAM_BUDGET, KNN_STREAM_QUERIES = 2_000_000_000, 2048
@@ -1190,8 +1187,8 @@ def merge_mismatches(torch, out, ref):
 def knn_wide_merge(torch, kk, dev, gen):
     """B7 against its plain version on one wide pool of tied values (a
     quarter of each row's values -inf), at every k of KNN_WIDE_KS through
-    the route the wrapper takes, and at k = 200 on each cluster size of the
-    radix kernel and on the windowed kernel: bit for bit."""
+    the route the wrapper takes, and at k = 200 on each configuration of
+    MERGE_CONFIGS: bit for bit."""
     q, ng, m = KNN_WIDE_POOL
     v = torch.randint(-40, 0, (q, ng, m), generator=gen, device=dev).float()
     v[torch.rand(q, ng, m, generator=gen, device=dev) < 0.25] = float("-inf")
@@ -1271,28 +1268,11 @@ def pool_library(torch, kk, X, Q, inorm, qn, m):
     return torch.topk(neg.view(q_n, ng, kk.GROUP), m, dim=2)
 
 
-MERGE_PHASES = ("load_and_hist", "pass0_select", "pass1", "pass2", "publish", "collect", "wait_winners", "sort",
-                "epilogue")
-
-
-def merge_phases(torch, kk, v, p, k, route):
-    """Median clock cycles of each phase of B7's radix kernel over the rows
-    (its first CTA's clock stamps; a pass not run takes 0)."""
-    ph = torch.zeros((v.shape[0], len(MERGE_PHASES) + 1), dtype=torch.int64, device=v.device)
-    kk._merge_cuda(v, p, k, *route, phases=ph)
-    torch.cuda.synchronize()
-    ph = ph.cpu().numpy()
-    for i in range(1, ph.shape[1]):
-        ph[:, i] = np.where(ph[:, i] == 0, ph[:, i - 1], ph[:, i])
-    d = np.diff(ph, axis=1)
-    return {name: float(np.median(d[:, i])) for i, name in enumerate(MERGE_PHASES)} | {
-        "total": float(np.median(ph[:, -1] - ph[:, 0]))}
-
-
 def merge_bound(q_n, p, k):
-    """B7's least time: the pool's values and positions read once (8 bytes
-    a pair), k distances and positions and three scalars a row written."""
-    return bound(8.0 * q_n * p + 8.0 * q_n * k + 12.0 * q_n, float(q_n * p))
+    """B7's least time: the bytes the function needs.  Each pool value read
+    once (4 bytes a slot), the positions of the k kept only (4 bytes each),
+    k distances and positions and three scalars a row written."""
+    return bound(4.0 * q_n * p + 4.0 * q_n * k + 8.0 * q_n * k + 12.0 * q_n, float(q_n * p))
 
 
 def pool_bound(q_n, n, d, m):
@@ -1438,9 +1418,6 @@ def check_knn_kernels(torch, kk, nc, knn_ops, _build, dev):
     # the first design (the windowed kernel) in the same run
     b7["window_ms"] = median_ms(torch, lambda: kk._merge_cuda(v, p, KNN_K, 0), 20)
     b7["route"] = list(kk._merge_route(P, KNN_K))
-    b7["by_config_ms"] = {f"{c}x{t}": median_ms(torch, lambda: kk._merge_cuda(v, p, KNN_K, c, t), 10)
-                          for c, t in MERGE_TIMED["flagship"]}
-    b7["phase_cycles"] = merge_phases(torch, kk, v, p, KNN_K, b7["route"])
     b7["bound_ms"], b7["bound_by"] = merge_bound(q_n, P, KNN_K)
     b8 = timings(torch, lambda: kk.knn_count(X, norm, valid, Q, thresh),
                  lambda: kk.knn_count_plain(X, inorm, Q, qn, thresh), library_count, 3)
@@ -2162,9 +2139,6 @@ def check_ann_merge(torch, kk, ivf, dev, gen):
                                    lambda: kk.knn_fused_merge_plain(v, p, k),
                                    (lambda: torch.topk(v.view(rows, P), k, dim=1)) if k <= P else None, 10))
                 rec["window_ms"] = median_ms(torch, lambda: kk._merge_cuda(v, p, k, 0), 5)
-                rec["by_config_ms"] = {f"{c}x{t}": median_ms(torch, lambda: kk._merge_cuda(v, p, k, c, t), 10)
-                                       for c, t in MERGE_TIMED["ann"]}
-                rec["phase_cycles"] = merge_phases(torch, kk, v, p, k, rec["route"])
                 rec["bound_ms"], rec["bound_by"] = merge_bound(rows, P, k)
                 rec["max_abs_err"] = 0.0
             out_rows.append(rec)
@@ -2256,7 +2230,8 @@ def check_probed_path(torch, pk, dev, gen, b):
         valid_rows * ANN_M + 4.0 * all_rows + 4.0 * T.numel() + 12.0 * b * ANN_NPROBE, float(valid_rows * ANN_M))
     return {"b": b, "nprobe": ANN_NPROBE, "l_pad": ANN_L_PAD, "m_sub": ANN_M, "ksub": 256,
             "r": ANN_NPROBE * ANN_L_PAD, "valid_rows": valid_rows, "valid_share": valid_rows / all_rows,
-            "blocks_per_query": pk.probed_splits(b, ANN_NPROBE, ANN_L_PAD, dev), "bit_mismatches": bad,
+            "blocks_per_query": pk.probed_splits(T, ANN_NPROBE, ANN_L_PAD, pk._vec(plane)),
+            "resident_blocks_per_sm": pk.resident_blocks(ANN_M, 256, pk._vec(plane)), "bit_mismatches": bad,
             "tier_groups": len(groups), "tier_bit_mismatches": tier_bad, "tier_vs_resident": tier_vs_resident,
             "tier": tier.stats(), "max_abs_err": 0.0, **row}
 
@@ -2270,7 +2245,7 @@ def check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev):
     assignment, PQ encoding); ptxas registers and spills of B9's kernel."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     merge = check_ann_merge(torch, kk, ivf, dev, gen)
-    build = ptxas_record(_build, "pq_lut", ("probed_lut_kernel", "fastscan_kernel"))
+    build = ptxas_record(_build, "pq_lut", ("probed_lut_kernel", "lut_accumulate_kernel"))
     lut = [lut_case(torch, pk, dev, gen, *c, packed=False)[2] for c in LUT_CASES]
     lut.append(lut_case(torch, pk, dev, gen, 2, 999, 32, 256, 256, packed=False, misaligned=True)[2])
     fast = [lut_case(torch, pk, dev, gen, *c, packed=True)[2] for c in FASTSCAN_CASES]

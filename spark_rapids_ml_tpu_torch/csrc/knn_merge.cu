@@ -17,15 +17,16 @@
 // _knn_fused_merge_kernel (wrapper knn_fused_pallas), which runs k iterated
 // first-occurrence argmax passes over a VMEM-resident pool tile.
 //
-// What bounds it on the card: bytes.  Each input read once (the pool's
-// values and positions, 8 bytes a pair) and 8 bytes written per kept
-// neighbour: 0.320 ms at an ANN sweep block (414 x 323,584), 0.073 ms at an
-// exact-kNN flagship block (8192 x 3,519), at 3.35 TB/s; there are no flops
-// to speak of.
+// What bounds it on the card: bytes.  The function needs each pool value
+// once (4 bytes a slot), the positions of the k kept only, and writes 8
+// bytes per kept neighbour and 12 a row: 0.160-0.162 ms at an ANN sweep
+// block (414 x 323,584, k 200-1600), 0.040 ms at an exact-kNN flagship
+// block (8192 x 3,519, k 200), at 3.35 TB/s; there are no flops to speak
+// of.
 //
 // Two kernels, picked per launch by ops/knn_kernels._merge_route:
 //
-//   radix_merge_kernel<NT> (k <= RADIX_MAX_K, rows up to MAX_CLUSTER slices
+//   radix_merge_kernel<NT> (NT 256 or 512; k <= RADIX_MAX_K, rows up to MAX_CLUSTER slices
 //   of ops/knn_kernels.SLICE_KEYS values): a thread-block cluster of `cl` CTAs of NT threads
 //   merges one row, each CTA holding one slice of the row's values in shared
 //   memory, so the row is read from device memory once.  Wide rows (the ANN
@@ -52,8 +53,6 @@
 //     CTA's shared memory and sorted there (bitonic, 2-8 keys a thread in
 //     registers, strides under a warp's reach by shuffles, longer ones
 //     through shared memory); the positions are read for the kept only.
-//   Where the time goes (clock stamps of the first CTA, `phases`):
-//   PERF.md.
 //
 //   window_merge_kernel (larger k or wider rows): the first design, one block
 //   a row over 64-bit (key, slot) keys in global memory: an MSD radix select
@@ -113,7 +112,6 @@ constexpr int BINS = 2048;             // 11-bit digits
 constexpr int CHUNK_FLOATS = 4096;     // 16 KB a bulk copy
 constexpr int MAX_CHUNKS = 16;         // slices of up to 64K values
 constexpr int MAX_CLUSTER = 16;        // CTAs a row (non-portable above 8)
-constexpr int PHASES = 10;             // clock stamps a row, when asked for
 
 // the select's digits: bits 31-21, 20-10 and 9-0 of the key
 __device__ __forceinline__ int pass_shift(int pass) { return pass == 0 ? 21 : pass == 1 ? 10 : 0; }
@@ -128,7 +126,7 @@ struct RadixShared {
     unsigned long long sorted[RADIX_MAX_K];  // the winners (first CTA), once the select is done
   } u;
   unsigned long long bar[MAX_CHUNKS];
-  unsigned int red[32];  // one a warp, up to 1,024 threads
+  unsigned int red[16];  // one a warp, up to 512 threads
   unsigned int range_sum;
   int rstar;
   unsigned int base;
@@ -328,8 +326,7 @@ template <int NT>
 __global__ void __launch_bounds__(NT)
 radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__ pool_p,
                    float* __restrict__ dist, int32_t* __restrict__ pos, int32_t* __restrict__ flags,
-                   float* __restrict__ thresh, int32_t* __restrict__ above, int p, int k, int m, int slice,
-                   long long* __restrict__ phases) {
+                   float* __restrict__ thresh, int32_t* __restrict__ above, int p, int k, int m, int slice) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ RadixShared s;
   cg::cluster_group cluster = cg::this_cluster();
@@ -340,11 +337,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
   const long long row = blockIdx.x / cl;
   const float* v = pool_v + row * p;
   const int sel = k < p ? k : p;  // ranks kept
-  // clock stamps of the first CTA's phases, when the caller asks for them
-  auto stamp = [&](int i) {
-    if (phases != nullptr && crank == 0 && tid == 0) phases[row * PHASES + i] = clock64();
-  };
-  stamp(0);
 
   // ---- stage the slice [lo, lo + n) of the row: element i at sl[off + i]
   const int lo = crank * slice;
@@ -427,7 +419,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
         }
       }
     }
-    if (pass == 0) stamp(1);
     cluster.sync();  // every slice's histogram is complete
 
     // the counts to scan for the bin that holds the rank: one CTA's own are
@@ -500,7 +491,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
     rank = s.rank_next;
     bin_total = s.bin_total;
     prefix = (prefix << pass_bits(pass)) | static_cast<uint32_t>(digit);
-    stamp(2 + pass);
     // stop once the keys below the bucket and all of the bucket fit the
     // sort, which then settles the bucket by (key, slot)
     if (sel - rank + bin_total <= RADIX_MAX_K) break;
@@ -532,7 +522,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
     s.take = take;
   }
   __syncthreads();
-  stamp(5);
 
   // ---- the winners, as (key, slot) into the first CTA's shared memory: the
   // keys below the bucket at any place, then the ties taken
@@ -591,10 +580,8 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
       running += chunk;
     }
   }
-  stamp(6);
   cluster.sync();  // every winner is in the first CTA's shared memory
   if (crank != 0) return;
-  stamp(7);
 
   unsigned long long* keys = s.u.sorted;
   int sort_n = SORT_MIN;
@@ -602,7 +589,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
   for (int i = gathered + tid; i < sort_n; i += NT) keys[i] = PAD_KEY;
   __syncthreads();
   sort_keys<NT>(keys, sort_n);
-  stamp(8);
   const int32_t* pp = pool_p + row * p;
   float* d_out = dist + row * k;
   int32_t* p_out = pos + row * k;
@@ -645,7 +631,6 @@ radix_merge_kernel(const float* __restrict__ pool_v, const int32_t* __restrict__
     thresh[row] = tu;
     above[row] = static_cast<int32_t>(n_above);
   }
-  stamp(9);
 }
 
 // ---------------------------------------------------------------------------
@@ -783,14 +768,13 @@ long long radix_smem(long long p, long long k, long long cluster, int* slice) {
 }
 
 using RadixKernel = void (*)(const float*, const int32_t*, float*, int32_t*, int32_t*, float*, int32_t*, int, int,
-                             int, int, long long*);
+                             int, int);
 
-// The radix kernel for `threads` a CTA (256, 512 or 1024), or null.
+// The radix kernel for `threads` a CTA (256 or 512), or null.
 RadixKernel radix_kernel(long long threads) {
   switch (threads) {
     case 256: return radix_merge_kernel<256>;
     case 512: return radix_merge_kernel<512>;
-    case 1024: return radix_merge_kernel<1024>;
     default: return nullptr;
   }
 }
@@ -819,14 +803,12 @@ cudaError_t radix_config(RadixKernel fn, long long threads, long long cluster, l
 // Plain C entry point, bound with ctypes.  Launches on `stream`, does not
 // synchronise, allocates nothing, returns a CUDA error code (0 on success).
 // cluster 0 takes the window kernel; 1, 2, 4, 8 or 16 the radix kernel with
-// that many CTAs a row of `threads` threads (256, 512 or 1024; k <= 2048),
-// which writes PHASES clock stamps a row of its first CTA's phases into
-// `phases` (nq x PHASES int64) unless it is null.  The caller has checked
-// shapes: 1 <= p, k < 2^31, p % m == 0, nq < 2^31.
+// that many CTAs a row of `threads` threads (256 or 512; k <= 2048).  The
+// caller has checked shapes: 1 <= p, k < 2^31, p % m == 0, nq < 2^31.
 extern "C" int srml_knn_fused_merge_f32(const void* pool_v, const void* pool_p, void* dist, void* pos,
                                         void* flags, void* thresh, void* above, long long nq, long long p,
                                         long long k, long long m, long long cluster, long long threads,
-                                        void* phases, void* stream) {
+                                        void* stream) {
   constexpr long long LIMIT = 0x7fffffffLL;
   if (p < 1 || p > LIMIT || k < 1 || k > LIMIT || m < 1 || p % m != 0 || nq > LIMIT || cluster < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -855,7 +837,7 @@ extern "C" int srml_knn_fused_merge_f32(const void* pool_v, const void* pool_p, 
   cfg.gridDim = dim3(static_cast<unsigned int>(nq * cluster));
   cfg.stream = s;
   err = cudaLaunchKernelEx(&cfg, fn, v, pp, d, po, f, t, a, static_cast<int>(p), static_cast<int>(k),
-                           static_cast<int>(m), slice, static_cast<long long*>(phases));
+                           static_cast<int>(m), slice);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -242,10 +242,9 @@ def knn_fused_merge(vals: torch.Tensor, pos: torch.Tensor, k: int):
     return out
 
 
-def _merge_cuda(vals: torch.Tensor, pos: torch.Tensor, k: int, cluster: int, threads: int = 256, phases=None):
-    """One launch of B7 on `cluster` CTAs a row of `threads` threads (0: the
-    windowed kernel); the radix kernel writes clock stamps of its phases
-    into `phases` ((Q, 10) int64 on the card) when given."""
+def _merge_cuda(vals: torch.Tensor, pos: torch.Tensor, k: int, cluster: int, threads: int = 256):
+    """One launch of B7 on `cluster` CTAs a row of `threads` threads (256 or
+    512; cluster 0: the windowed kernel)."""
     q, ng, m = vals.shape
     p = ng * m
     dev = vals.device
@@ -257,12 +256,11 @@ def _merge_cuda(vals: torch.Tensor, pos: torch.Tensor, k: int, cluster: int, thr
     if q == 0:
         return dist, out_pos, flags, thresh, above
     fn = _build.load(_MERGE_LIBRARY).srml_knn_fused_merge_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
         vals.data_ptr(), pos.data_ptr(), dist.data_ptr(), out_pos.data_ptr(), flags.data_ptr(),
         thresh.data_ptr(), above.data_ptr(), q, p, k, m, cluster, threads,
-        None if phases is None else phases.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -29,6 +29,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,7 +38,6 @@ from . import _build
 
 _LIBRARY = "pq_lut"
 _ROWS_A_BLOCK = 256   # the probed kernel's rows a (list, tile) unit, one a thread
-_BLOCKS_PER_SM = 8    # its 256-thread blocks an SM holds at most (2,048 threads)
 _MAX_KSUB = 256       # one-byte codes address at most 256 table entries
 _FASTSCAN_KSUB = 16   # a nibble addresses at most 16
 
@@ -106,7 +106,7 @@ def lut_accumulate(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     fn.restype = ctypes.c_int
     err = fn(
         tables.data_ptr(), codes.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        b, r, tables.shape[1], tables.shape[2], _vec(codes), probed_splits(b, 1, r, tables.device),
+        b, r, tables.shape[1], tables.shape[2], _vec(codes), probed_splits(tables, 1, r, _vec(codes)),
         torch.cuda.current_stream(tables.device).cuda_stream,
     )
     if err != 0:
@@ -172,7 +172,7 @@ def lut_accumulate_probed(
     err = fn(
         tables.data_ptr(), code_plane.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
         b, nprobe, n_planes, l_pad, m_sub, tables.shape[2], _vec(code_plane),
-        probed_splits(b, nprobe, l_pad, tables.device), torch.cuda.current_stream(tables.device).cuda_stream,
+        probed_splits(tables, nprobe, l_pad, _vec(code_plane)), torch.cuda.current_stream(tables.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"srml_lut_accumulate_probed_f32 kernel launch failed: CUDA error {err}")
@@ -180,12 +180,29 @@ def lut_accumulate_probed(
     return out
 
 
-def probed_splits(b: int, nprobe: int, l_pad: int, device: torch.device) -> int:
-    """Blocks a query of a probed launch: one wave of the card's SMs across
-    the b queries, at most one a (list, 256-row tile) unit."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def probed_splits(tables: torch.Tensor, nprobe: int, l_pad: int, vec: int) -> int:
+    """Blocks a query of a probed launch over `tables` (B, m_sub, ksub) on
+    the card: the blocks the card holds at once (its SMs times the blocks
+    an SM holds at the table's shared memory) across the B queries, at most
+    one a (list, 256-row tile) unit."""
+    b, m_sub, ksub = tables.shape
+    sms = torch.cuda.get_device_properties(tables.device).multi_processor_count
     units = nprobe * -(-l_pad // _ROWS_A_BLOCK)
-    return max(1, min(units, sms * _BLOCKS_PER_SM // max(1, b)))
+    return max(1, min(units, sms * resident_blocks(m_sub, ksub, vec) // max(1, b)))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(m_sub: int, ksub: int, vec: int) -> int:
+    """Blocks of the probed kernel one SM of the current card holds at once
+    for an m_sub x ksub table (CUDA's occupancy calculator)."""
+    fn = _build.load(_LIBRARY).srml_lut_probed_occupancy
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(m_sub, ksub, vec, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"srml_lut_probed_occupancy({m_sub}, {ksub}, {vec}): CUDA error {err}, {blocks.value} blocks")
+    return blocks.value
 
 
 def lut_accumulate_probed_plain(
