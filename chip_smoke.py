@@ -697,7 +697,7 @@ def check_hist_bucketed(torch, fh, dev, gen, f_pad, n, n_buckets, nodes, s_dim, 
             **row, "bound_ms": b, "bound_by": by}
 
 
-def check_forest_kernels(torch, port, binning, fh, X_host, dev):
+def check_forest_kernels(torch, port, binning, fh, _build, X_host, dev):
     """Phase kernels_forest: B2, B3 (both routes) and B4 against their plain
     versions on the card, at the shapes the RandomForest path gives them."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -709,17 +709,28 @@ def check_forest_kernels(torch, port, binning, fh, X_host, dev):
     binning_rows = [check_binning(torch, binning, X, edges, RF_N_PAD, reps=5)]
     del X
     torch.cuda.empty_cache()
-    # ragged, degenerate, and NaN / +-inf / values equal to an edge
-    for n, d, e in ((300, 70, 31), (129, 1, 1), (2000, 5, 127)):
+    # ragged, degenerate, NaN / +-inf / values equal to an edge, trailing
+    # NaN edges, an n_pad that is not a multiple of 4 (byte stores), and
+    # unaligned rows with a ragged strip (d 3001) at 100,000 rows
+    for n, d, e, n_pad, nan_edges in ((300, 70, 31, 2048, False), (129, 1, 1, 2048, False),
+                                      (2000, 5, 127, 2048, False), (2000, 9, 127, 2048, True),
+                                      (301, 40, 31, 303, False), (100_000, 3001, 127, 100_352, False)):
         Xs = torch.randn((n, d), generator=gen, device=dev)
         es = torch.sort(torch.randn((d, e), generator=gen, device=dev), dim=1).values
-        if e == 127:
+        if e == 127 and n <= 2000:
             Xs[0], Xs[1], Xs[2] = float("nan"), float("inf"), float("-inf")
             Xs[3], Xs[4] = es[:, 0], es[:, -1]
             es[0, 60:70] = es[0, 60]  # repeated edges
-        binning_rows.append(check_binning(torch, binning, Xs, es.contiguous(), -(-n // 2048) * 2048, reps=5,
-                                          library=False))
+        if nan_edges:  # features with 1, 27, 126 and all 127 edges NaN at the end
+            for f, k in ((1, 1), (2, 27), (3, 127), (4, 126)):
+                es[f, e - k:] = float("nan")
+            Xs[5, :] = es[:, 0]
+        row = check_binning(torch, binning, Xs, es.contiguous(), n_pad, reps=5, library=n > 2000)
+        binning_rows.append({**row, "nan_edges": nan_edges})
+        del Xs, es
+    torch.cuda.empty_cache()
     out["bin_features_fm"] = binning_rows
+    out["bin_build"] = ptxas_record(_build, "bin_features_fm", ("bin_features_fm_kernel",))
     # B3, both routes, at ragged shapes and at the first launch of every
     # shallow split level of the two flagship fits
     out["node_histograms_ragged"] = [check_hist_routes(torch, fh, dev, gen, None, None, *shape, reps=0)
@@ -959,7 +970,7 @@ PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_la
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
                        "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "radix_merge_kernel",
-                       "window_merge_kernel", "probed_lut_kernel", "lut_accumulate_kernel", "ring_shift_kernel")
+                       "window_merge_kernel", "probed_lut_kernel", "fastscan_probed_kernel", "ring_shift_kernel")
 # launched beside hist_mma_kernel by the same wrapper call (the masked-stat
 # operand, the split sum): timed with the port's kernels, not counted
 PORT_AUX_SYMBOLS = ("hist_mask_stats_kernel", "hist_split_sum_kernel")
@@ -2031,6 +2042,15 @@ PROBED_CASES = [
     (3, 5, 9, 700, 32, 256, 256, False), (4, 7, 6, 333, 20, 16, 32, False), (2, 3, 5, 517, 64, 256, 256, False),
     (3, 4, 8, 256, 32, 200, 256, True), (65537, 2, 4, 3, 16, 16, 16, False),
 ]
+# fastscan_lut_accumulate_probed at ragged shapes, the same fields (codes
+# drawn below the range, then packed two a byte): the 4-bit arm's m_sub,
+# nibbles past ksub, byte loads (m_sub 20), two register-table chunks (m_sub
+# 64), a misaligned plane, L_pad not a multiple of the 128-row warp unit,
+# more than 65,535 queries
+FASTSCAN_PROBED_CASES = [
+    (3, 5, 9, 700, 32, 16, 16, False), (4, 7, 6, 333, 20, 9, 16, False), (2, 3, 5, 517, 64, 16, 16, False),
+    (3, 4, 8, 256, 32, 5, 16, True), (65537, 2, 4, 3, 2, 16, 16, False),
+]
 
 
 def ann_data():
@@ -2148,12 +2168,14 @@ def check_ann_merge(torch, kk, ivf, dev, gen):
     return out_rows
 
 
-def probed_inputs(torch, dev, gen, b, nprobe, n_planes, l_pad, m_sub, ksub, hi, misaligned):
-    """Tables, a code plane, slots and counts for lut_accumulate_probed:
-    ragged counts (below 0, 0, past L_pad) and slots (some outside the
-    plane)."""
+def probed_inputs(torch, dev, gen, b, nprobe, n_planes, l_pad, m_sub, ksub, hi, misaligned, packed=False):
+    """Tables, a code plane (packed: two 4-bit codes a byte), slots and
+    counts for the probed entries: ragged counts (below 0, 0, past L_pad)
+    and slots (some outside the plane)."""
     T = torch.randn((b, m_sub, ksub), generator=gen, device=dev)
     plane = torch.randint(0, hi, (n_planes, l_pad, m_sub), generator=gen, device=dev, dtype=torch.uint8)
+    if packed:
+        plane = (plane[:, :, 0::2] | (plane[:, :, 1::2] << 4)).contiguous()
     if misaligned:  # the same bytes one byte past a 16-byte boundary
         buf = torch.empty(plane.numel() + 1, dtype=torch.uint8, device=dev)
         buf[1:].copy_(plane.view(-1))
@@ -2164,36 +2186,48 @@ def probed_inputs(torch, dev, gen, b, nprobe, n_planes, l_pad, m_sub, ksub, hi, 
     return T, plane, slots, counts
 
 
-def probed_bits(torch, pk, T, plane, slots, counts):
-    got = pk.lut_accumulate_probed(T, plane, slots, counts)
-    want = pk.lut_accumulate_probed_plain(T, plane, slots, counts)
+def probed_pair(pk, packed):
+    """(kernel wrapper, plain version) of the probed entry: B10's when
+    packed, else B9's."""
+    return ((pk.fastscan_lut_accumulate_probed, pk.fastscan_lut_accumulate_probed_plain) if packed
+            else (pk.lut_accumulate_probed, pk.lut_accumulate_probed_plain))
+
+
+def probed_bits(torch, pk, T, plane, slots, counts, packed=False):
+    kernel, plain = probed_pair(pk, packed)
+    got = kernel(T, plane, slots, counts)
+    want = plain(T, plane, slots, counts)
     torch.cuda.synchronize()
     return got, int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
 
-def check_probed_path(torch, pk, dev, gen, b):
-    """lut_accumulate_probed at the 8-bit arm's launch: b queries x 158
-    probed lists of an index plane (nlist_pad 640 x 2048 x 32) with
-    Binomial(400,000, 1/632) items a list (8 lists empty), resident and
-    through a tiered index's pool planes (ann/tier.TieredListPlanes, hot
-    fraction 0.5): bit for bit against the plain version, the tiered rows
-    bit for bit the resident ones; timed resident (library: index_select +
-    gather + sum over j)."""
+def check_probed_path(torch, pk, dev, gen, b, packed=False):
+    """A probed entry at its arm's launch: b queries x 158 probed lists of
+    an index plane (nlist_pad 640 x 2048) with Binomial(400,000, 1/632)
+    items a list (8 lists empty), resident and through a tiered index's pool
+    planes (ann/tier.TieredListPlanes, hot fraction 0.5): bit for bit
+    against the plain version, the tiered rows bit for bit the resident
+    ones; timed resident.  B9 (8-bit arm: m_sub 32 bytes a row, ksub 256)
+    or, packed, B10 (4-bit arm: 16 packed bytes a row, ksub 16).  Library: index_select + (unpack +) gather +
+    sum over j, masked."""
     from spark_rapids_ml_tpu_torch.ann.tier import TieredListPlanes
 
+    name = "fastscan_lut_accumulate_probed" if packed else "lut_accumulate_probed"
+    kernel, plain = probed_pair(pk, packed)
+    ksub, m_bytes = (16, ANN_M // 2) if packed else (256, ANN_M)
     n_lists = 640
     rng = np.random.default_rng(SEED)
     list_counts = rng.binomial(ANN_ITEMS, 1.0 / ANN_NLIST, n_lists).astype(np.int32)
     list_counts[ANN_NLIST:] = 0
     list_counts[rng.choice(ANN_NLIST, 8, replace=False)] = 0
-    host_plane = rng.integers(0, 256, (n_lists, ANN_L_PAD, ANN_M), dtype=np.uint8)
+    host_plane = rng.integers(0, 256, (n_lists, ANN_L_PAD, m_bytes), dtype=np.uint8)
     plane = torch.from_numpy(host_plane).to(dev)
     counts_dev = torch.from_numpy(list_counts).to(dev)
     probes = torch.rand(b, ANN_NLIST, generator=gen, device=dev).argsort(dim=1)[:, :ANN_NPROBE].sort(dim=1).values
     counts = counts_dev[probes]
-    T = torch.randn((b, ANN_M, 256), generator=gen, device=dev)
-    got, bad = probed_bits(torch, pk, T, plane, probes, counts)
-    check(bad == 0, f"lut_accumulate_probed at the path's launch differs from its plain version at {bad} values")
+    T = torch.randn((b, ANN_M, ksub), generator=gen, device=dev)
+    got, bad = probed_bits(torch, pk, T, plane, probes, counts, packed)
+    check(bad == 0, f"{name} at the path's launch differs from its plain version at {bad} values")
     valid_rows = int(counts.clamp(0, ANN_L_PAD).sum())
 
     tier = TieredListPlanes(planes=[host_plane], sentinels=[None], counts=list_counts, device=dev,
@@ -2203,16 +2237,17 @@ def check_probed_path(torch, pk, dev, gen, b):
     for s0, e0 in groups:
         planes, slot_map = tier.acquire(host_probes[s0:e0].ravel())
         slots = slot_map[probes]
-        t_got, t_bad = probed_bits(torch, pk, T, planes[0], slots, counts)
+        t_got, t_bad = probed_bits(torch, pk, T, planes[0], slots, counts, packed)
         tier_bad += t_bad
         tier_vs_resident += int((t_got[s0:e0].view(torch.int32) != got[s0:e0].view(torch.int32)).sum())
     check(tier_bad == 0 and tier_vs_resident == 0,
-          f"lut_accumulate_probed on the tier's planes: {tier_bad} values off the plain version, "
+          f"{name} on the tier's planes: {tier_bad} values off the plain version, "
           f"{tier_vs_resident} off the resident result")
 
     def library():
-        tile = plane.index_select(0, probes.reshape(-1)).view(b, ANN_NPROBE * ANN_L_PAD, ANN_M)
-        acc = T.gather(2, tile.long().transpose(1, 2)).sum(dim=1).view(b, ANN_NPROBE, ANN_L_PAD)
+        tile = plane.index_select(0, probes.reshape(-1)).view(b, ANN_NPROBE * ANN_L_PAD, m_bytes)
+        codes = pk.unpack_codes4(tile) if packed else tile
+        acc = T.gather(2, codes.long().transpose(1, 2)).sum(dim=1).view(b, ANN_NPROBE, ANN_L_PAD)
         valid = torch.arange(ANN_L_PAD, device=dev)[None, None, :] < counts[:, :, None]
         return torch.where(valid, acc, torch.full_like(acc, float("inf")))
 
@@ -2221,59 +2256,76 @@ def check_probed_path(torch, pk, dev, gen, b):
     check(bool(torch.allclose(lib[finite], got[finite], rtol=1e-5, atol=1e-4)), "the gather + sum yardstick disagrees")
     del lib
     torch.cuda.empty_cache()
-    row = timings(torch, lambda: pk.lut_accumulate_probed(T, plane, probes, counts),
-                  lambda: pk.lut_accumulate_probed_plain(T, plane, probes, counts), library, 20)
+    row = timings(torch, lambda: kernel(T, plane, probes, counts), lambda: plain(T, plane, probes, counts),
+                  library, 20)
     all_rows = b * ANN_NPROBE * ANN_L_PAD
     # codes of the valid rows read, every output row written, the tables
     # and the slots and counts read once
     row["bound_ms"], row["bound_by"] = bound(
-        valid_rows * ANN_M + 4.0 * all_rows + 4.0 * T.numel() + 12.0 * b * ANN_NPROBE, float(valid_rows * ANN_M))
-    return {"b": b, "nprobe": ANN_NPROBE, "l_pad": ANN_L_PAD, "m_sub": ANN_M, "ksub": 256,
-            "r": ANN_NPROBE * ANN_L_PAD, "valid_rows": valid_rows, "valid_share": valid_rows / all_rows,
-            "blocks_per_query": pk.probed_splits(T, ANN_NPROBE, ANN_L_PAD, pk._vec(plane)),
-            "resident_blocks_per_sm": pk.resident_blocks(ANN_M, 256, pk._vec(plane)), "bit_mismatches": bad,
-            "tier_groups": len(groups), "tier_bit_mismatches": tier_bad, "tier_vs_resident": tier_vs_resident,
-            "tier": tier.stats(), "max_abs_err": 0.0, **row}
+        valid_rows * m_bytes + 4.0 * all_rows + 4.0 * T.numel() + 12.0 * b * ANN_NPROBE, float(valid_rows * ANN_M))
+    rec = {"b": b, "nprobe": ANN_NPROBE, "l_pad": ANN_L_PAD, "m_sub": ANN_M, "ksub": ksub,
+           "r": ANN_NPROBE * ANN_L_PAD, "valid_rows": valid_rows, "valid_share": valid_rows / all_rows,
+           "bit_mismatches": bad, "tier_groups": len(groups), "tier_bit_mismatches": tier_bad,
+           "tier_vs_resident": tier_vs_resident, "tier": tier.stats(), "max_abs_err": 0.0, **row}
+    vec = pk._vec(plane)
+    if packed:
+        rec["blocks_per_query"] = pk.fastscan_splits(T, ANN_NPROBE, ANN_L_PAD, vec)
+        rec["resident_blocks_per_sm"] = pk.fastscan_resident_blocks(vec)
+    else:
+        rec["blocks_per_query"] = pk.probed_splits(T, ANN_NPROBE, ANN_L_PAD, vec)
+        rec["resident_blocks_per_sm"] = pk.resident_blocks(ANN_M, 256, vec)
+    return rec
 
 
 def check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev):
     """Phase kernels_ann: B9 and B10 against their plain versions on the
-    card, bit for bit, at the cases above; lut_accumulate_probed at ragged
-    cases and at the 8-bit arm's launch (resident and tiered, timed there);
-    B10 at the 4-bit arm's launch (timed); B10's typed rejections; B7 at the
-    ANN pool (check_ann_merge); B1 at the ANN fit's two shapes (list
-    assignment, PQ encoding); ptxas registers and spills of B9's kernel."""
+    card, bit for bit: the contiguous forms at the cases above, the probed
+    entries at ragged cases and at their arms' launches (resident and
+    tiered, timed there); B10's typed
+    rejections; B7 at the ANN pool (check_ann_merge); B1 at the ANN fit's
+    two shapes (list assignment, PQ encoding); ptxas registers and spills of
+    the two kernels of csrc/pq_lut.cu."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     merge = check_ann_merge(torch, kk, ivf, dev, gen)
-    build = ptxas_record(_build, "pq_lut", ("probed_lut_kernel", "lut_accumulate_kernel"))
+    build = ptxas_record(_build, "pq_lut", ("probed_lut_kernel", "fastscan_probed_kernel"))
     lut = [lut_case(torch, pk, dev, gen, *c, packed=False)[2] for c in LUT_CASES]
     lut.append(lut_case(torch, pk, dev, gen, 2, 999, 32, 256, 256, packed=False, misaligned=True)[2])
     fast = [lut_case(torch, pk, dev, gen, *c, packed=True)[2] for c in FASTSCAN_CASES]
     fast.append(lut_case(torch, pk, dev, gen, 2, 999, 64, 16, 16, packed=True, misaligned=True)[2])
     probed = []
-    for case in PROBED_CASES:
-        b, nprobe, n_planes, l_pad, m_sub, ksub, hi, misaligned = case
-        inputs = probed_inputs(torch, dev, gen, *case)
-        bad = probed_bits(torch, pk, *inputs)[1]
-        check(bad == 0, f"lut_accumulate_probed {case} differs from its plain version at {bad} values")
-        probed.append({"case": list(case), "bit_mismatches": bad})
+    for packed, cases in ((False, PROBED_CASES), (True, FASTSCAN_PROBED_CASES)):
+        for case in cases:
+            inputs = probed_inputs(torch, dev, gen, *case, packed=packed)
+            bad = probed_bits(torch, pk, *inputs, packed=packed)[1]
+            check(bad == 0, f"{probed_pair(pk, packed)[0].__name__} {case} differs from its plain version at "
+                            f"{bad} values")
+            probed.append({"packed": packed, "case": list(case), "bit_mismatches": bad})
     rejections = {}
     for name, t_shape, p_shape, match in (
         ("odd_m_sub", (1, 3, 16), (1, 5, 1), "even"),
         ("ksub_over_16", (1, 4, 17), (1, 5, 2), "16"),
         ("packed_width", (1, 4, 16), (1, 5, 3), "bytes/item"),
     ):
-        try:
-            pk.fastscan_lut_accumulate(torch.zeros(t_shape, device=dev),
-                                       torch.zeros(p_shape, dtype=torch.uint8, device=dev))
-        except ValueError as e:
-            check(match in str(e), f"fast-scan {name}: {e}")
-            rejections[name] = str(e)
-        else:
-            raise RuntimeError(f"fast-scan accepted {name}")
+        for entry in ("contiguous", "probed"):
+            T0 = torch.zeros(t_shape, device=dev)
+            C0 = torch.zeros(p_shape, dtype=torch.uint8, device=dev)
+            try:
+                if entry == "contiguous":
+                    pk.fastscan_lut_accumulate(T0, C0)
+                else:
+                    zeros = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+                    pk.fastscan_lut_accumulate_probed(T0, C0, zeros, zeros)
+            except ValueError as e:
+                check(match in str(e), f"fast-scan {entry} {name}: {e}")
+                rejections[f"{entry}_{name}"] = str(e)
+            else:
+                raise RuntimeError(f"fast-scan {entry} accepted {name}")
     torch.cuda.empty_cache()
     probed_row = check_probed_path(torch, pk, dev, gen, scan_rows(ivf, pq_mod, 8))
     emit({"phase": "kernels_ann_probed", **probed_row})
+    torch.cuda.empty_cache()
+    fast_probed_row = check_probed_path(torch, pk, dev, gen, scan_rows(ivf, pq_mod, 4), packed=True)
+    emit({"phase": "kernels_ann_fastscan_probed", **fast_probed_row})
     torch.cuda.empty_cache()
     r_path = ANN_NPROBE * ANN_L_PAD
     T, C, fast_path = lut_case(torch, pk, dev, gen, scan_rows(ivf, pq_mod, 4), r_path, ANN_M, 16, 16, packed=True)
@@ -2284,7 +2336,8 @@ def check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev):
     b1 = [check_kernel_shape(torch, nc, ANN_ITEMS, d, k, cpu_gen, dev) for d, k in ((ANN_COLS, ANN_NLIST), (8, 256))]
     return {"phase": "kernels_ann", "lut_build": build, "lut_cases": lut, "fastscan_cases": fast,
             "probed_cases": probed, "fastscan_rejections": rejections, "lut_accumulate_probed": probed_row,
-            "fastscan_lut_accumulate": fast_row, "knn_fused_merge_ann": merge, "min_dist_argmin_ann": b1}
+            "fastscan_lut_accumulate_probed": fast_probed_row, "fastscan_lut_accumulate": fast_row,
+            "knn_fused_merge_ann": merge, "min_dist_argmin_ann": b1}
 
 
 def ann_rows(model, df):
@@ -2349,8 +2402,8 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
     search = {name: launches[name] - launches_fit[name] for name in launches}
     check(launches_fit["min_dist_argmin"] > 0, "the fit launched min_dist_argmin no time")
     check(search["knn_fused_merge"] > 0, "kneighbors launched knn_fused_merge no time")
-    for name, used in (("lut_accumulate_probed", pq and not fast), ("fastscan_lut_accumulate", pq and fast),
-                       ("lut_accumulate", False)):
+    for name, used in (("lut_accumulate_probed", pq and not fast), ("fastscan_lut_accumulate_probed", pq and fast),
+                       ("lut_accumulate", False), ("fastscan_lut_accumulate", False)):
         check((search[name] > 0) == used, f"kneighbors launched {name} {search[name]} times")
     check(idx.shape == (ANN_QUERIES, ANN_K) and idx.dtype == np.int64 and dist.dtype == np.float32,
           f"kneighbors gave {idx.shape} {idx.dtype} / {dist.dtype}")
@@ -2462,6 +2515,7 @@ def main():
         "lut_accumulate": pk.lut_accumulate,
         "lut_accumulate_probed": pk.lut_accumulate_probed,
         "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
+        "fastscan_lut_accumulate_probed": pk.fastscan_lut_accumulate_probed,
         "ring_shift": ek.ring_shift,
     }
     t_start = time.perf_counter()
@@ -2511,7 +2565,7 @@ def main():
         X_rf, y_rf = classification_data(RF_ROWS + RF_HOLDOUT, COLS, SEED)
         emit({"phase": "rf_data", "rows": RF_ROWS + RF_HOLDOUT, "cols": COLS, "seconds": time.perf_counter() - t0})
     if "kernels_forest" in phases:
-        results["kernels_forest"] = check_forest_kernels(torch, port, binning, fh, X_rf, dev)
+        results["kernels_forest"] = check_forest_kernels(torch, port, binning, fh, _build, X_rf, dev)
         emit(results["kernels_forest"])
     if "path_rf_clf" in phases:
         results["path_rf_clf"] = run_rf_path(torch, port, wrappers, "path_rf_clf",
@@ -2665,12 +2719,12 @@ def summary(results, seconds):
             for r in ka["knn_fused_merge_ann"] if not r["tied"]
         ]
     if ka is not None:
-        for name, arm in (("lut_accumulate_probed", "path_ann_pq"), ("fastscan_lut_accumulate", "path_ann_pq4")):
+        for name, arm in (("lut_accumulate_probed", "path_ann_pq"), ("fastscan_lut_accumulate_probed", "path_ann_pq4")):
             r = ka[name]
             rows.append({
                 "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
                 "replaces": {"lut_accumulate_probed": "spark_rapids_ml_tpu/ops/pallas_pq.py:60",
-                             "fastscan_lut_accumulate": "spark_rapids_ml_tpu/ops/pallas_pq.py:170"}[name],
+                             "fastscan_lut_accumulate_probed": "spark_rapids_ml_tpu/ops/pallas_pq.py:170"}[name],
                 "launches": results.get(arm, {}).get("launches", {}).get(name), "max_abs_err": r["max_abs_err"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": [r["b"], r["r"], r["m_sub"], r["ksub"]],
@@ -2705,6 +2759,7 @@ KERNEL_SOURCES = {
     "lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "lut_accumulate_probed": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "fastscan_lut_accumulate": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
+    "fastscan_lut_accumulate_probed": "spark_rapids_ml_tpu_torch/csrc/pq_lut.cu",
     "ring_shift": "spark_rapids_ml_tpu_torch/csrc/ring_shift.cu",
 }
 

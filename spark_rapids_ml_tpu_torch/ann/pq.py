@@ -25,9 +25,8 @@
 #           The probe term comes out of probe selection, the scalar is
 #           stored per item, and the per-query table T (m_sub, ksub) feeds
 #           the lookup-table kernels (ops/pq_kernels: B9 for one-byte codes,
-#           reading the probed lists' codes in place; B10 fast-scan for
-#           n_bits = 4 and an even m_sub, over the probed lists' codes
-#           gathered into a tile).  Selection is the flat search's
+#           B10 fast-scan for n_bits = 4 and an even m_sub, both reading the
+#           probed lists' codes in place).  Selection is the flat search's
 #           (ivfflat.probe_sweep).
 #   refine: the top k * refine_ratio ADC candidates are re-scored against
 #           the float32 vectors kept on the host (_refine_host, numpy: given
@@ -47,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..ops.pq_kernels import fastscan_lut_accumulate, lut_accumulate_probed, pack_codes4
+from ..ops.pq_kernels import fastscan_lut_accumulate_probed, lut_accumulate_probed, pack_codes4
 from .ivfflat import (
     _TRAIN_CAP,
     assign_nearest,
@@ -440,9 +439,10 @@ def adc_tables(qp: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
 
 
 def pq_tile_bytes(index, nprobe: int) -> int:
-    """Device bytes a query's scoring takes: its codes (gathered on the
-    4-bit path; the 8-bit path reads them in place, and its budget keeps
-    the same bytes), its gathered scalars, the ADC sums and the distances."""
+    """Device bytes a query's scoring is budgeted: its codes (both paths
+    read them in place; the budget keeps their bytes, so a launch takes as
+    many queries as when they were gathered), its gathered scalars, the ADC
+    sums and the distances."""
     m_bytes = index.m_sub // 2 if index.fastscan else index.m_sub
     return nprobe * index.l_pad * (m_bytes + 12)
 
@@ -450,22 +450,17 @@ def pq_tile_bytes(index, nprobe: int) -> int:
 def pq_block_scorer(index):
     def block(qb, _qn, d2p, counts):
         """ADC d2 of the block's rows, the tables computed once a block.
-        The 8-bit path reads the probed lists' codes in place
-        (lut_accumulate_probed: +inf past a list's count); the 4-bit path
-        gathers them into a tile for fastscan_lut_accumulate."""
+        Both paths read the probed lists' codes in place, +inf past a
+        list's count: lut_accumulate_probed (8-bit codes) or
+        fastscan_lut_accumulate_probed (4-bit codes packed two a byte)."""
         tables = adc_tables(qb, index.codebooks)
+        probed = fastscan_lut_accumulate_probed if index.fastscan else lut_accumulate_probed
 
         def scores(planes, slots, sl):
             codes, scalars = planes
             c, p = slots.shape
-            l_pad, m_bytes = codes.shape[1], codes.shape[2]
-            flat = slots.reshape(-1)
-            st = scalars.index_select(0, flat).view(c, p, l_pad)
-            if index.fastscan:
-                tile = codes.index_select(0, flat).view(c, p * l_pad, m_bytes)
-                acc = fastscan_lut_accumulate(tables[sl], tile).view(c, p, l_pad)
-            else:
-                acc = lut_accumulate_probed(tables[sl], codes, slots, counts[sl])
+            st = scalars.index_select(0, slots.reshape(-1)).view(c, p, codes.shape[1])
+            acc = probed(tables[sl], codes, slots, counts[sl])
             # probe term + query-table term + item scalar, the JAX
             # package's association order
             return d2p[sl, :, None] + (acc + st)

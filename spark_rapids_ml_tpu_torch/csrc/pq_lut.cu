@@ -4,58 +4,71 @@
 //     out[b, r] = sum_j T[b, j, code(b, r, j)]        j = 0 .. m_sub - 1
 //
 // summed in j order in fp32, each term an exact table read; a code >= ksub
-// adds 0.0.  Two kernels:
+// adds 0.0.  Two kernels, both reading each query's probed lists in place
+// from a plane of lists at the query's slots, +inf past a list's count:
 //   - probed_lut_kernel (srml_lut_accumulate_probed_f32, and
 //     srml_lut_accumulate_f32 on a contiguous tile): one byte per code, T
-//     (B, m_sub, ksub <= 256), codes read in place from a plane of lists
-//     (n_planes, L_pad, m_sub) uint8 at each query's probed slots.  Replaces
-//     the TPU kernel spark_rapids_ml_tpu/ops/pallas_pq.py::_lut_accum_kernel
-//     (wrapper _lut_accumulate_pallas);
-//   - lut_accumulate_kernel<true, VEC> (srml_fastscan_accumulate_f32): two
-//     4-bit codes a byte, packed (B, R, m_sub / 2) uint8 with code j in the low nibble of
-//     byte j / 2 when j is even and in the high nibble when j is odd, T
-//     (B, m_sub, ksub <= 16).  Replaces spark_rapids_ml_tpu/ops/pallas_pq.py::
-//     _fastscan_kernel (wrapper _fastscan_pallas).
+//     (B, m_sub, ksub <= 256), plane (n_planes, L_pad, m_sub) uint8.
+//     Replaces the TPU kernel spark_rapids_ml_tpu/ops/pallas_pq.py::
+//     _lut_accum_kernel (wrapper _lut_accumulate_pallas);
+//   - fastscan_probed_kernel (srml_fastscan_accumulate_probed_f32, also
+//     called on a contiguous tile with each query its own plane): two 4-bit
+//     codes a byte, plane (n_planes, L_pad, m_sub / 2) uint8 with code j in
+//     the low nibble of byte j / 2 when j is even and in the high nibble
+//     when j is odd, T (B, m_sub, ksub <= 16).  Replaces spark_rapids_ml_tpu/
+//     ops/pallas_pq.py::_fastscan_kernel (wrapper _fastscan_pallas).
 //
 // Exactness is the contract: the sum is sequential in j with __fadd_rn (no
 // contraction, no reassociation; the build has no fast-math), so the kernels
 // equal their plain versions (an explicit loop over j of gather + add), the
 // JAX package's numpy oracle and its interpret-mode Pallas kernels bit for
 // bit.  The TPU kernels gather by a compare-select sweep over the ksub table
-// lanes (Mosaic has no vector gather); here a thread reads the table entry
-// from shared memory directly.
+// lanes (Mosaic has no vector gather); here a lookup is a shared-memory read
+// (one-byte codes) or a warp shuffle (4-bit codes).
 //
-// What bounds it on the card: bytes.  Per valid row it reads m_sub code bytes
-// (m_sub / 2 packed) and writes 4 bytes; the table is read once per block.
+// What bounds them on the card: bytes.  Per valid row they read m_sub code
+// bytes (m_sub / 2 packed); every output row is written (4 bytes); the
+// tables are read once per block.
 //
-// probed_lut_kernel's design:
+// Both kernels share the probed design:
 //   - the ANN search probes nprobe lists of L_pad slots per query, and most
 //     slots lie past their list's count (~69% at the ANN arms' 158 x 2048).
 //     The kernel reads each probed list's codes where the index keeps them
 //     (no gathered copy) and only the rows below the list's count; every
-//     other row gets +inf;
+//     other row gets +inf, and so does every row of a slot outside
+//     [0, n_planes);
 //   - the grid is (blocks a query, queries): as many blocks a query as the
 //     card holds at once across the queries (the caller's count, from
-//     srml_lut_probed_occupancy: the table's shared memory limits the blocks
-//     an SM), each staging its query's whole table in shared memory once
-//     ([j][c], up to 48 KB; a wider table is staged in parts per tile) and
-//     walking the query's (list, 256-row tile) units in turn;
-//   - each thread owns one row: its codes as 16-byte vector loads when the
-//     row width is a multiple of 16 bytes and the plane 16-byte aligned
-//     (two loads a row at m_sub 32), else byte by byte, then the j loop of
-//     shared-memory lookups.  The lanes of a warp look up one j at random
-//     codes, which conflicts on shared-memory banks (~3.5-way for uniform
-//     codes); a layout with the lanes on different j needs a row's sum to
-//     pass between lanes (a shuffle a term), which costs the shared-memory
-//     pipe about as much.
-//   The contiguous form (B, R, m_sub) is the same kernel with each query its
-//   own plane: one list of R rows, all valid.
+//     srml_*_occupancy), each taking its query's table once and walking the
+//     query's (list, row-tile) units.
 //
-// lut_accumulate_kernel and launch<PACKED> are PR 4's first design, kept
-// as they were for the fast-scan form (PACKED true; the one-byte form is
-// the probed kernel above): a 2-D grid of 256-row tiles by queries (at most
-// 65,535 a launch), the table staged per block as [j][c] in TABLE_FLOATS
-// stages; it still takes a contiguous (gathered) tile.
+// probed_lut_kernel: the block stages its query's whole table in shared
+// memory ([j][c], up to 48 KB; a wider table is staged in parts per tile)
+// and walks 256-row units, one row a thread: its codes as 16-byte vector
+// loads when the row width is a multiple of 16 bytes and the plane 16-byte
+// aligned (two loads a row at m_sub 32), else byte by byte, then the j loop
+// of shared-memory lookups.  The lanes of a warp look up one j at random
+// codes, which conflicts on shared-memory banks (~3.5-way for uniform
+// codes); a layout with the lanes on different j needs a row's sum to pass
+// between lanes (a shuffle a term), which costs the shared-memory pipe
+// about as much.
+//
+// fastscan_probed_kernel: ksub <= 16, so the table lives in registers: lane
+// l holds T[j][l & 15] for the 32 subspaces of a chunk (16 packed bytes),
+// and a lookup is __shfl_sync(t[j], code), which moves bits exactly and has
+// no banks to conflict on.  The source lane is the packed word shifted to
+// nibble j, unmasked: the shuffle reads only its low 5 bits, code j and one
+// bit of the next nibble, which picks lane code or code + 16, and both hold
+// T[j][code] (lanes past ksub hold 0.0, so a code >= ksub adds 0.0).  Each
+// warp walks its own contiguous run of the query's (list, 32 x FS_ROWS-row)
+// units, so the lists' valid rows spread evenly over the warps; a lane
+// carries FS_ROWS = 4 rows 32 apart (coalesced 16-byte loads: the warp
+// reads 512 contiguous bytes a row set, all 4 loads issued before the
+// first lookup) and stores each sum as one float of a coalesced 128-byte
+// row.  Row sets wholly past the count skip their loads and lookups.
+// Blocks of 128 threads held to 80 registers, 6 an SM (the occupancy
+// calculator sizes the blocks a query from that).  m_sub > 32 reloads the
+// register table per chunk and unit (no caller has it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,7 +76,6 @@
 namespace {
 
 constexpr int THREADS = 256;         // rows per block, one a thread
-constexpr int TABLE_FLOATS = 8192;   // 32 KB of table per stage
 constexpr int PROBED_TABLE_FLOATS = 12288;  // probed: 48 KB of table, static-size limit
 constexpr long long MAX_GRID_Y = 65535;
 
@@ -131,86 +143,153 @@ __global__ void __launch_bounds__(THREADS) probed_lut_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// lut_accumulate_kernel (the fast-scan form)
+// fastscan_probed_kernel
 // ---------------------------------------------------------------------------
 
-template <bool PACKED, bool VEC>
-__global__ void __launch_bounds__(THREADS) lut_accumulate_kernel(
-    const float* __restrict__ tables, const uint8_t* __restrict__ codes, float* __restrict__ out,
-    long long b0, long long r, int m_sub, int ksub, int m_bytes, int j_stage) {
-  __shared__ float tab[TABLE_FLOATS];
-  const long long b = b0 + blockIdx.y;
-  const long long row = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  const bool live = row < r;
-  const uint8_t* src = codes + (b * r + (live ? row : 0)) * m_bytes;
-  const float* tb = tables + b * static_cast<long long>(m_sub) * ksub;
-  float acc = 0.0f;
-  for (int j0 = 0; j0 < m_sub; j0 += j_stage) {
-    const int jn = min(j_stage, m_sub - j0);
-    __syncthreads();  // every thread is done with the previous stage
-    for (int i = threadIdx.x; i < jn * ksub; i += THREADS) tab[i] = tb[static_cast<long long>(j0) * ksub + i];
-    __syncthreads();
-    if (!live) continue;
-    if (VEC) {
-      // j0 is a multiple of 32 and the row width of 16 bytes, so the stage's
-      // bytes are whole 16-byte words
-      const int nwords = (PACKED ? jn / 2 : jn) / 16;
-      const uint4* words = reinterpret_cast<const uint4*>(src + (PACKED ? j0 / 2 : j0));
-      for (int g = 0; g < nwords; ++g) {
-        const uint4 v = __ldg(words + g);
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+constexpr int FS_THREADS = 128;
+constexpr int FS_BLOCKS_AN_SM = 6;  // __launch_bounds__' floor: at most 80 registers a thread
+constexpr int FS_WARPS = FS_THREADS / 32;
+constexpr int FS_CHUNK = 32;  // subspaces of one register table: 16 packed bytes a row
+constexpr int FS_ROWS = 4;    // rows a lane carries (32 x FS_ROWS rows a warp unit)
+
+// The register table of subspaces j0 .. j0 + jn - 1: t[i] = T[j0 + i][lane & 15],
+// 0.0 where lane & 15 >= ksub.
+__device__ __forceinline__ void fs_table(float (&t)[FS_CHUNK], const float* tb, int j0, int jn, int ksub,
+                                         int lane) {
+  const int c = lane & 15;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const uint32_t byte = (w[i >> 2] >> ((i & 3) * 8)) & 0xffu;
-          if (PACKED) {
-            const int j = 2 * (g * 16 + i);
-            acc = __fadd_rn(acc, lookup(tab, j, byte & 15u, ksub));
-            acc = __fadd_rn(acc, lookup(tab, j + 1, byte >> 4, ksub));
-          } else {
-            acc = __fadd_rn(acc, lookup(tab, g * 16 + i, byte, ksub));
-          }
-        }
-      }
-    } else {
-      for (int j = 0; j < jn; ++j) {
-        const int jj = j0 + j;
-        const uint32_t code = PACKED ? ((src[jj >> 1] >> ((jj & 1) * 4)) & 15u) : src[jj];
-        acc = __fadd_rn(acc, lookup(tab, j, code, ksub));
-      }
-    }
-  }
-  if (live) out[b * r + row] = acc;
+  for (int i = 0; i < FS_CHUNK; ++i) t[i] = i < jn && c < ksub ? __ldg(tb + (j0 + i) * ksub + c) : 0.0f;
 }
 
-template <bool PACKED>
-int launch(const void* tables, const void* codes, void* out, long long nb, long long r, long long m_sub,
-           long long ksub, int vec, void* stream) {
-  constexpr long long LIMIT = 0x7fffffffLL;
-  const long long m_bytes = PACKED ? m_sub / 2 : m_sub;
-  if (nb < 0 || r < 0 || m_sub < 0 || ksub < 1 || ksub > (PACKED ? 16 : 256) ||
-      (PACKED && m_sub % 2 != 0) || m_sub > LIMIT || (vec && m_bytes % 16 != 0) ||
-      (r + THREADS - 1) / THREADS > LIMIT)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nb == 0 || r == 0) return 0;
-  // subspaces a stage: as many as the shared table holds, a multiple of 32
-  const int j_stage = static_cast<int>((TABLE_FLOATS / ksub) / 32 * 32);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int gx = static_cast<unsigned int>((r + THREADS - 1) / THREADS);
-  for (long long b0 = 0; b0 < nb; b0 += MAX_GRID_Y) {
-    const dim3 grid(gx, static_cast<unsigned int>(nb - b0 < MAX_GRID_Y ? nb - b0 : MAX_GRID_Y));
-    const auto* t = static_cast<const float*>(tables);
-    const auto* c = static_cast<const uint8_t*>(codes);
-    auto* o = static_cast<float*>(out);
-    if (vec)
-      lut_accumulate_kernel<PACKED, true><<<grid, THREADS, 0, s>>>(
-          t, c, o, b0, r, static_cast<int>(m_sub), static_cast<int>(ksub), static_cast<int>(m_bytes), j_stage);
+// One row's packed bytes of a chunk (<= 16 of them) as four words.
+template <bool VEC>
+__device__ __forceinline__ uint4 fs_codes(const uint8_t* src, int nbytes) {
+  if (VEC) return __ldg(reinterpret_cast<const uint4*>(src));
+  unsigned long long lo = 0, hi = 0;
+  for (int q = 0; q < nbytes; ++q) {
+    const unsigned long long v = __ldg(src + q);
+    if (q < 8)
+      lo |= v << (8 * q);
     else
-      lut_accumulate_kernel<PACKED, false><<<grid, THREADS, 0, s>>>(
-          t, c, o, b0, r, static_cast<int>(m_sub), static_cast<int>(ksub), static_cast<int>(m_bytes), j_stage);
+      hi |= v << (8 * (q - 8));
+  }
+  return make_uint4(static_cast<uint32_t>(lo), static_cast<uint32_t>(lo >> 32), static_cast<uint32_t>(hi),
+                    static_cast<uint32_t>(hi >> 32));
+}
+
+// acc + the chunk's jn terms in j order.  FULL: jn == FS_CHUNK.  SMEM
+// looks the term up in a shared [j][16] table instead of shuffling (the
+// variant the shuffle was timed against).
+template <bool FULL, bool SMEM>
+__device__ __forceinline__ float fs_sum(float acc, const float (&t)[FS_CHUNK], const float* tab, uint4 v, int jn) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < FS_CHUNK; ++j) {
+    if (!FULL && j >= jn) break;  // uniform over the warp
+    const uint32_t bits = w[j >> 3] >> ((j & 7) * 4);
+    const float term = SMEM ? tab[j * 16 + static_cast<int>(bits & 15u)]
+                            : __shfl_sync(0xffffffffu, t[j], static_cast<int>(bits));
+    acc = __fadd_rn(acc, term);
+  }
+  return acc;
+}
+
+template <int R, bool VEC, bool SMEM>
+__global__ void __launch_bounds__(FS_THREADS, FS_BLOCKS_AN_SM) fastscan_probed_kernel(
+    const float* __restrict__ tables, const uint8_t* __restrict__ plane, const long long* __restrict__ slots,
+    const int32_t* __restrict__ counts, float* __restrict__ out, long long b0, int nprobe, long long n_planes,
+    int l_pad, int m_sub, int ksub) {
+  constexpr int TILE = 32 * R;
+  extern __shared__ float tab[];  // SMEM: the table as [j][16]
+  const int lane = threadIdx.x & 31;
+  const long long b = b0 + blockIdx.y;
+  const float* tb = tables + b * static_cast<long long>(m_sub) * ksub;
+  const int m_bytes = m_sub >> 1;
+  const int chunks = (m_sub + FS_CHUNK - 1) / FS_CHUNK;
+  float t[FS_CHUNK];
+  if (SMEM) {
+    for (int i = threadIdx.x; i < m_sub * 16; i += FS_THREADS) {
+      const int c = i & 15;
+      tab[i] = c < ksub ? tb[(i >> 4) * ksub + c] : 0.0f;
+    }
+    __syncthreads();
+  } else if (chunks == 1) {
+    fs_table(t, tb, 0, m_sub, ksub, lane);
+  }
+  // this warp's contiguous run of the query's (list, row-tile) units
+  const int tiles = (l_pad + TILE - 1) / TILE;
+  const long long units = static_cast<long long>(nprobe) * tiles;
+  const long long warps = static_cast<long long>(gridDim.x) * FS_WARPS;
+  const long long gw = static_cast<long long>(blockIdx.x) * FS_WARPS + (threadIdx.x >> 5);
+  const long long u_end = (gw + 1) * units / warps;
+  int p_at = -1, count = 0;
+  const uint8_t* list = plane;
+  for (long long u = gw * units / warps; u < u_end; ++u) {
+    const int p = static_cast<int>(u / tiles);
+    const int row0 = static_cast<int>(u - static_cast<long long>(p) * tiles) * TILE;
+    if (p != p_at) {
+      p_at = p;
+      const long long slot = slots[b * nprobe + p];
+      const int c = counts[b * nprobe + p];
+      count = slot < 0 || slot >= n_planes ? 0 : min(max(c, 0), l_pad);
+      list = plane + (count > 0 ? slot : 0) * static_cast<long long>(l_pad) * m_bytes;
+    }
+    float acc[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+    if (row0 < count) {
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int j0 = ch * FS_CHUNK, jn = min(FS_CHUNK, m_sub - j0);
+        if (!SMEM && chunks > 1) fs_table(t, tb, j0, jn, ksub, lane);
+        uint4 v[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const int row = row0 + k * 32 + lane;
+          v[k] = row < count ? fs_codes<VEC>(list + static_cast<long long>(row) * m_bytes + j0 / 2, jn / 2)
+                             : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          if (row0 + k * 32 < count) acc[k] = fs_sum<VEC, SMEM>(acc[k], t, tab + j0 * 16, v[k], jn);
+      }
+    }
+    float* o = out + (b * nprobe + p) * static_cast<long long>(l_pad);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int row = row0 + k * 32 + lane;
+      if (row < l_pad) o[row] = row < count ? acc[k] : __int_as_float(0x7f800000);
+    }
+  }
+}
+
+template <int R, bool VEC, bool SMEM>
+int launch_fastscan_at(const void* tables, const void* plane, const void* slots, const void* counts, void* out,
+                       long long nb, long long nprobe, long long n_planes, long long l_pad, long long m_sub,
+                       long long ksub, long long splits, void* stream) {
+  const int smem = SMEM ? static_cast<int>(m_sub * 16 * sizeof(float)) : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long units = nprobe * ((l_pad + 32 * R - 1) / (32 * R));
+  const long long blocks = (units + FS_WARPS - 1) / FS_WARPS;
+  for (long long b0 = 0; b0 < nb; b0 += MAX_GRID_Y) {
+    const dim3 grid(static_cast<unsigned int>(splits < blocks ? splits : blocks),
+                    static_cast<unsigned int>(nb - b0 < MAX_GRID_Y ? nb - b0 : MAX_GRID_Y));
+    fastscan_probed_kernel<R, VEC, SMEM><<<grid, FS_THREADS, smem, s>>>(
+        static_cast<const float*>(tables), static_cast<const uint8_t*>(plane), static_cast<const long long*>(slots),
+        static_cast<const int32_t*>(counts), static_cast<float*>(out), b0, static_cast<int>(nprobe), n_planes,
+        static_cast<int>(l_pad), static_cast<int>(m_sub), static_cast<int>(ksub));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+int fastscan_invalid(long long nb, long long nprobe, long long n_planes, long long l_pad, long long m_sub,
+                     long long ksub, int vec, long long splits) {
+  constexpr long long LIMIT = 0x7fffffffLL;
+  return nb < 0 || nprobe < 0 || n_planes < 0 || l_pad < 0 || m_sub < 0 || m_sub % 2 != 0 || ksub < 1 ||
+         ksub > 16 || m_sub > LIMIT / 16 || l_pad > LIMIT - 32 * FS_ROWS ||
+         nprobe * ((l_pad + 32 * FS_ROWS - 1) / (32 * FS_ROWS)) > LIMIT || (vec && m_sub % 32 != 0) ||
+         splits < 1 || splits > LIMIT;
 }
 
 // The probed kernel's table stage for a table of m_sub x ksub: subspaces a
@@ -306,11 +385,57 @@ extern "C" int srml_lut_accumulate_f32(const void* tables, const void* codes, co
   return launch_probed(tables, codes, slots, counts, out, nb, 1, nb, r, m_sub, ksub, vec, splits, stream);
 }
 
-// tables (nb, m_sub, ksub <= 16) f32, packed (nb, r, m_sub / 2) uint8,
-// out (nb, r) f32; vec != 0 when (m_sub / 2) % 16 == 0 and packed is 16-byte
-// aligned.
-extern "C" int srml_fastscan_accumulate_f32(const void* tables, const void* packed, void* out, long long nb,
-                                            long long r, long long m_sub, long long ksub, int vec,
-                                            void* stream) {
-  return launch<true>(tables, packed, out, nb, r, m_sub, ksub, vec, stream);
+// tables (nb, m_sub even, ksub <= 16) f32, plane (n_planes, l_pad, m_sub / 2)
+// uint8 packed codes, slots (nb, nprobe) int64, counts (nb, nprobe) int32,
+// out (nb, nprobe, l_pad) f32: row r of probe p is the sum over
+// plane[slots[b, p], r] when r < counts[b, p] (clamped to [0, l_pad]; 0 for
+// a slot outside [0, n_planes)), else +inf.  vec != 0 when m_sub % 32 == 0
+// (16 packed bytes a chunk) and plane is 16-byte aligned; `splits` blocks a
+// query (the caller sizes them from srml_fastscan_probed_occupancy).  The
+// contiguous form (nb, r, m_sub / 2) is this entry with nprobe 1, n_planes
+// nb, l_pad r, slots b and counts r.
+extern "C" int srml_fastscan_accumulate_probed_f32(const void* tables, const void* plane, const void* slots,
+                                                   const void* counts, void* out, long long nb, long long nprobe,
+                                                   long long n_planes, long long l_pad, long long m_sub,
+                                                   long long ksub, int vec, long long splits, void* stream) {
+  if (fastscan_invalid(nb, nprobe, n_planes, l_pad, m_sub, ksub, vec, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0 || nprobe == 0 || l_pad == 0) return 0;
+  return vec ? launch_fastscan_at<FS_ROWS, true, false>(tables, plane, slots, counts, out, nb, nprobe, n_planes,
+                                                         l_pad, m_sub, ksub, splits, stream)
+             : launch_fastscan_at<FS_ROWS, false, false>(tables, plane, slots, counts, out, nb, nprobe, n_planes,
+                                                          l_pad, m_sub, ksub, splits, stream);
+}
+
+// Blocks of the fast-scan kernel that one SM holds at once (the instance
+// `vec` picks), into *blocks; returns a CUDA error code.
+extern "C" int srml_fastscan_probed_occupancy(int vec, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, vec ? fastscan_probed_kernel<FS_ROWS, true, false> : fastscan_probed_kernel<FS_ROWS, false, false>,
+      FS_THREADS, 0));
+}
+
+// The timing variants of the fast-scan kernel at vec 1: `rows` a lane (1,
+// 2 or 4), the lookups by shuffle (smem 0) or from a shared [j][16] table
+// (smem 1, m_sub <= 768).  Same arguments and result as the entry above.
+extern "C" int srml_fastscan_probed_variant_f32(const void* tables, const void* plane, const void* slots,
+                                                const void* counts, void* out, long long nb, long long nprobe,
+                                                long long n_planes, long long l_pad, long long m_sub,
+                                                long long ksub, long long splits, int rows, int smem,
+                                                void* stream) {
+  if (fastscan_invalid(nb, nprobe, n_planes, l_pad, m_sub, ksub, 1, splits) || m_sub > 768)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0 || nprobe == 0 || l_pad == 0) return 0;
+#define SRML_FS_VARIANT(R, S)                                                                                   \
+  if (rows == R && smem == S)                                                                                   \
+    return launch_fastscan_at<R, true, S>(tables, plane, slots, counts, out, nb, nprobe, n_planes, l_pad, m_sub, \
+                                          ksub, splits, stream);
+  SRML_FS_VARIANT(1, false)
+  SRML_FS_VARIANT(2, false)
+  SRML_FS_VARIANT(4, false)
+  SRML_FS_VARIANT(1, true)
+  SRML_FS_VARIANT(2, true)
+  SRML_FS_VARIANT(4, true)
+#undef SRML_FS_VARIANT
+  return static_cast<int>(cudaErrorInvalidValue);
 }

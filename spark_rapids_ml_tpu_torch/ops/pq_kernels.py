@@ -6,24 +6,28 @@
 # plain PyTorch version for CPU tensors and launches its hand-written CUDA
 # kernel (sm_90a) for CUDA tensors, or raises; there is no fallback.
 #
-#   lut_accumulate_probed    B9, replaces _lut_accum_kernel
-#                            (_lut_accumulate_pallas): csrc/pq_lut.cu, the
-#                            codes read in place at each query's probed
-#                            list slots, padding rows skipped
-#   lut_accumulate           B9 on a contiguous tile: the same kernel, each
-#                            query its own plane
-#   fastscan_lut_accumulate  B10, replaces _fastscan_kernel (_fastscan_pallas):
-#                            csrc/pq_lut.cu
+#   lut_accumulate_probed           B9, replaces _lut_accum_kernel
+#                                   (_lut_accumulate_pallas): csrc/pq_lut.cu,
+#                                   the codes read in place at each query's
+#                                   probed list slots, padding rows skipped
+#   lut_accumulate                  B9 on a contiguous tile: the same kernel,
+#                                   each query its own plane
+#   fastscan_lut_accumulate_probed  B10, replaces _fastscan_kernel
+#                                   (_fastscan_pallas): csrc/pq_lut.cu, the
+#                                   packed codes read in place the same way
+#   fastscan_lut_accumulate         B10 on a contiguous tile: the same
+#                                   kernel, each query its own plane
 #
-# Both compute out[b, r] = sum_j tables[b, j, code(b, r, j)], summed in j
+# All compute out[b, r] = sum_j tables[b, j, code(b, r, j)], summed in j
 # order in float32, each term an exact table read, so the kernels, their
 # plain versions, the JAX package's numpy oracle and its interpret-mode
 # Pallas kernels agree bit for bit.  A code >= ksub adds 0.0, as in the
 # Pallas kernels (the JAX package's XLA route clamps instead; the PQ encoder
 # never writes such a code).  The TPU kernels' pre-transposed lane-major
 # layouts and their 512-row tiles are VMEM concerns that do not carry over:
-# here tables are (B, m_sub, ksub) and codes (B, R, m_bytes) as the callers
-# hold them.  Bound and design: see the source.
+# here tables are (B, m_sub, ksub) and codes (B, R, m_bytes) or a plane of
+# lists (n_planes, L_pad, m_bytes) as the callers hold them.  Bound and
+# design: see the source.
 #
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from . import _build
 
 _LIBRARY = "pq_lut"
 _ROWS_A_BLOCK = 256   # the probed kernel's rows a (list, tile) unit, one a thread
+_FASTSCAN_ROWS = 128  # the fast-scan kernel's rows a warp unit (32 lanes x 4 rows)
+_FASTSCAN_WARPS = 4   # ... and warps a block
 _MAX_KSUB = 256       # one-byte codes address at most 256 table entries
 _FASTSCAN_KSUB = 16   # a nibble addresses at most 16
 
@@ -115,7 +121,9 @@ def lut_accumulate(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_probed(tables, code_plane, slots, counts) -> None:
+def _check_probed(tables, code_plane, slots, counts, packed: bool = False) -> None:
+    """The probed entries' typed rejections; packed: the fast-scan form
+    (code_plane (n_planes, L_pad, m_sub / 2), _fastscan_check's three)."""
     if tables.dtype != torch.float32:
         raise TypeError(f"tables must be float32, not {tables.dtype}")
     if code_plane.dtype != torch.uint8:
@@ -124,20 +132,23 @@ def _check_probed(tables, code_plane, slots, counts) -> None:
         raise TypeError(f"slots must be int32 or int64, not {slots.dtype}")
     if counts.dtype != torch.int32:
         raise TypeError(f"counts must be int32, not {counts.dtype}")
+    m_bytes = "m_sub / 2" if packed else "m_sub"
     if tables.dim() != 3 or code_plane.dim() != 3 or slots.dim() != 2:
         raise ValueError(
             f"tables {tuple(tables.shape)}, code_plane {tuple(code_plane.shape)} and slots "
-            f"{tuple(slots.shape)} must be (B, m_sub, ksub), (n_planes, L_pad, m_sub) and (B, nprobe)"
+            f"{tuple(slots.shape)} must be (B, m_sub, ksub), (n_planes, L_pad, {m_bytes}) and (B, nprobe)"
         )
-    if code_plane.shape[2] != tables.shape[1] or slots.shape[0] != tables.shape[0]:
-        raise ValueError(
-            f"code_plane {tuple(code_plane.shape)} and slots {tuple(slots.shape)} do not match tables "
-            f"{tuple(tables.shape)}"
-        )
+    if packed:
+        _fastscan_check(tables, code_plane)
+    elif code_plane.shape[2] != tables.shape[1]:
+        raise ValueError(f"code_plane {tuple(code_plane.shape)} does not match tables {tuple(tables.shape)}")
+    if slots.shape[0] != tables.shape[0]:
+        raise ValueError(f"slots {tuple(slots.shape)} do not match tables {tuple(tables.shape)}")
     if tuple(counts.shape) != tuple(slots.shape):
         raise ValueError(f"counts {tuple(counts.shape)} must have the shape of slots {tuple(slots.shape)}")
-    if not 1 <= tables.shape[2] <= _MAX_KSUB:
-        raise ValueError(f"tables must have 1 <= ksub <= {_MAX_KSUB}; got ksub={tables.shape[2]}")
+    max_ksub = _FASTSCAN_KSUB if packed else _MAX_KSUB
+    if not 1 <= tables.shape[2] <= max_ksub:
+        raise ValueError(f"tables must have 1 <= ksub <= {max_ksub}; got ksub={tables.shape[2]}")
     for name, t in (("code_plane", code_plane), ("slots", slots), ("counts", counts)):
         if t.device != tables.device:
             raise ValueError(f"{name} is on {t.device}, tables on {tables.device}")
@@ -211,12 +222,16 @@ def lut_accumulate_probed_plain(
     """The probed accumulation in plain PyTorch: the probed lists gathered
     with index_select, lut_accumulate_plain over the tile, +inf past each
     list's count (and for a slot outside the plane).  Runs on any device."""
+    return _probed_plain(lut_accumulate_plain, tables, code_plane, slots, counts)
+
+
+def _probed_plain(tile_sum, tables, code_plane, slots, counts) -> torch.Tensor:
     b, nprobe = slots.shape
-    n_planes, l_pad, m_sub = code_plane.shape
+    n_planes, l_pad, m_bytes = code_plane.shape
     s = slots.long()
     inside = (s >= 0) & (s < n_planes)
-    tile = code_plane.index_select(0, torch.where(inside, s, 0).reshape(-1)).view(b, nprobe * l_pad, m_sub)
-    acc = lut_accumulate_plain(tables, tile).view(b, nprobe, l_pad)
+    tile = code_plane.index_select(0, torch.where(inside, s, 0).reshape(-1)).view(b, nprobe * l_pad, m_bytes)
+    acc = tile_sum(tables, tile).view(b, nprobe, l_pad)
     n = torch.where(inside, counts.clamp(0, l_pad), 0)
     valid = torch.arange(l_pad, device=tables.device)[None, None, :] < n[:, :, None]
     return torch.where(valid, acc, torch.full_like(acc, float("inf")))
@@ -232,9 +247,80 @@ def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch
     _check(tables, packed, m_sub // 2, _FASTSCAN_KSUB)
     if tables.device.type == "cpu":
         return fastscan_lut_accumulate_plain(tables, packed)
-    out = _launch("srml_fastscan_accumulate_f32", tables, packed)
-    fastscan_lut_accumulate.launches += 1
+    b, r = packed.shape[0], packed.shape[1]
+    # each query its own plane: one list of R rows, all valid
+    slots = torch.arange(b, dtype=torch.int64, device=tables.device)[:, None]
+    counts = torch.full((b, 1), r, dtype=torch.int32, device=tables.device)
+    out = _fastscan_cuda(tables, packed, slots, counts)
+    if out.numel() > 0:
+        fastscan_lut_accumulate.launches += 1
+    return out.view(b, r)
+
+
+def fastscan_lut_accumulate_probed(
+    tables: torch.Tensor, packed_plane: torch.Tensor, slots: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """The fast-scan accumulation over each query's probed lists, read in
+    place: out[b, p, r] (B, nprobe, L_pad) float32 = sum_j tables[b, j,
+    code(packed_plane[slots[b, p], r], j)], sequential in j, for r <
+    counts[b, p] (clamped to [0, L_pad]); +inf for every other row, and for
+    every row of a slot outside [0, n_planes).  tables (B, m_sub, ksub <=
+    16) float32, packed_plane (n_planes, L_pad, m_sub / 2) uint8 (the
+    nibbles as fastscan_lut_accumulate's), slots (B, nprobe) int32 or
+    int64, counts (B, nprobe) int32."""
+    _check_probed(tables, packed_plane, slots, counts, packed=True)
+    if tables.device.type == "cpu":
+        return fastscan_lut_accumulate_probed_plain(tables, packed_plane, slots, counts)
+    out = _fastscan_cuda(tables, packed_plane, slots.to(torch.int64).contiguous(), counts)
+    if out.numel() > 0:
+        fastscan_lut_accumulate_probed.launches += 1
     return out
+
+
+def _fastscan_cuda(tables, plane, slots, counts) -> torch.Tensor:
+    """srml_fastscan_accumulate_probed_f32 on int64 slots (no launch when
+    the output is empty)."""
+    b, nprobe = slots.shape
+    n_planes, l_pad, _ = plane.shape
+    out = torch.empty((b, nprobe, l_pad), dtype=torch.float32, device=tables.device)
+    if out.numel() == 0:
+        return out
+    vec = int(tables.shape[1] % 32 == 0 and plane.data_ptr() % 16 == 0)
+    fn = _build.load(_LIBRARY).srml_fastscan_accumulate_probed_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        tables.data_ptr(), plane.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        b, nprobe, n_planes, l_pad, tables.shape[1], tables.shape[2], vec,
+        fastscan_splits(tables, nprobe, l_pad, vec), torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"srml_fastscan_accumulate_probed_f32 kernel launch failed: CUDA error {err}")
+    return out
+
+
+def fastscan_splits(tables: torch.Tensor, nprobe: int, l_pad: int, vec: int) -> int:
+    """Blocks a query of a fast-scan launch on the card: the blocks the card
+    holds at once across the B queries, at most one a _FASTSCAN_WARPS
+    (list, row-tile) units."""
+    b = tables.shape[0]
+    sms = torch.cuda.get_device_properties(tables.device).multi_processor_count
+    units = nprobe * -(-l_pad // _FASTSCAN_ROWS)
+    return max(1, min(-(-units // _FASTSCAN_WARPS), sms * fastscan_resident_blocks(vec) // max(1, b)))
+
+
+@functools.lru_cache(maxsize=None)
+def fastscan_resident_blocks(vec: int) -> int:
+    """Blocks of the fast-scan kernel one SM of the current card holds at
+    once (CUDA's occupancy calculator)."""
+    fn = _build.load(_LIBRARY).srml_fastscan_probed_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(vec, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"srml_fastscan_probed_occupancy({vec}): CUDA error {err}, {blocks.value} blocks")
+    return blocks.value
 
 
 # launches of the CUDA kernel by each wrapper, for runs that must show the
@@ -242,31 +328,14 @@ def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch
 lut_accumulate.launches = 0
 lut_accumulate_probed.launches = 0
 fastscan_lut_accumulate.launches = 0
+fastscan_lut_accumulate_probed.launches = 0
 
 
 def _vec(codes: torch.Tensor) -> int:
-    """1 where the kernels read each row's code bytes as 16-byte words: the
-    row width a multiple of 16 bytes, the codes 16-byte aligned."""
+    """1 where the one-byte kernel reads each row's code bytes as 16-byte
+    words: the row width a multiple of 16 bytes, the codes 16-byte
+    aligned."""
     return int(codes.shape[-1] % 16 == 0 and codes.data_ptr() % 16 == 0)
-
-
-def _launch(entry: str, tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    b, m_sub, ksub = tables.shape
-    r = codes.shape[1]
-    out = torch.empty((b, r), dtype=torch.float32, device=tables.device)
-    if b == 0 or r == 0:
-        return out
-    vec = _vec(codes)
-    fn = getattr(_build.load(_LIBRARY), entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        tables.data_ptr(), codes.data_ptr(), out.data_ptr(), b, r, m_sub, ksub, vec,
-        torch.cuda.current_stream(tables.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    return out
 
 
 def lut_accumulate_plain(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -286,6 +355,16 @@ def fastscan_lut_accumulate_plain(tables: torch.Tensor, packed: torch.Tensor) ->
     """The fast-scan accumulation in plain PyTorch: unpack the nibbles, then
     lut_accumulate_plain.  Runs on any device."""
     return lut_accumulate_plain(tables, unpack_codes4(packed))
+
+
+def fastscan_lut_accumulate_probed_plain(
+    tables: torch.Tensor, packed_plane: torch.Tensor, slots: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """The probed fast-scan accumulation in plain PyTorch: index_select of
+    the probed lists, fastscan_lut_accumulate_plain over the tile, +inf past
+    each list's count (and for a slot outside the plane).  Runs on any
+    device."""
+    return _probed_plain(fastscan_lut_accumulate_plain, tables, packed_plane, slots, counts)
 
 
 def pack_codes4(codes: np.ndarray) -> np.ndarray:
