@@ -177,45 +177,31 @@ __device__ __forceinline__ uint4 fs_codes(const uint8_t* src, int nbytes) {
                     static_cast<uint32_t>(hi >> 32));
 }
 
-// acc + the chunk's jn terms in j order.  FULL: jn == FS_CHUNK.  SMEM
-// looks the term up in a shared [j][16] table instead of shuffling (the
-// variant the shuffle was timed against).
-template <bool FULL, bool SMEM>
-__device__ __forceinline__ float fs_sum(float acc, const float (&t)[FS_CHUNK], const float* tab, uint4 v, int jn) {
+// acc + the chunk's jn terms in j order (FULL: jn == FS_CHUNK).
+template <bool FULL>
+__device__ __forceinline__ float fs_sum(float acc, const float (&t)[FS_CHUNK], uint4 v, int jn) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int j = 0; j < FS_CHUNK; ++j) {
     if (!FULL && j >= jn) break;  // uniform over the warp
-    const uint32_t bits = w[j >> 3] >> ((j & 7) * 4);
-    const float term = SMEM ? tab[j * 16 + static_cast<int>(bits & 15u)]
-                            : __shfl_sync(0xffffffffu, t[j], static_cast<int>(bits));
-    acc = __fadd_rn(acc, term);
+    acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, t[j], static_cast<int>(w[j >> 3] >> ((j & 7) * 4))));
   }
   return acc;
 }
 
-template <int R, bool VEC, bool SMEM>
+template <bool VEC>
 __global__ void __launch_bounds__(FS_THREADS, FS_BLOCKS_AN_SM) fastscan_probed_kernel(
     const float* __restrict__ tables, const uint8_t* __restrict__ plane, const long long* __restrict__ slots,
     const int32_t* __restrict__ counts, float* __restrict__ out, long long b0, int nprobe, long long n_planes,
     int l_pad, int m_sub, int ksub) {
-  constexpr int TILE = 32 * R;
-  extern __shared__ float tab[];  // SMEM: the table as [j][16]
+  constexpr int TILE = 32 * FS_ROWS;
   const int lane = threadIdx.x & 31;
   const long long b = b0 + blockIdx.y;
   const float* tb = tables + b * static_cast<long long>(m_sub) * ksub;
   const int m_bytes = m_sub >> 1;
   const int chunks = (m_sub + FS_CHUNK - 1) / FS_CHUNK;
   float t[FS_CHUNK];
-  if (SMEM) {
-    for (int i = threadIdx.x; i < m_sub * 16; i += FS_THREADS) {
-      const int c = i & 15;
-      tab[i] = c < ksub ? tb[(i >> 4) * ksub + c] : 0.0f;
-    }
-    __syncthreads();
-  } else if (chunks == 1) {
-    fs_table(t, tb, 0, m_sub, ksub, lane);
-  }
+  if (chunks == 1) fs_table(t, tb, 0, m_sub, ksub, lane);
   // this warp's contiguous run of the query's (list, row-tile) units
   const int tiles = (l_pad + TILE - 1) / TILE;
   const long long units = static_cast<long long>(nprobe) * tiles;
@@ -234,53 +220,32 @@ __global__ void __launch_bounds__(FS_THREADS, FS_BLOCKS_AN_SM) fastscan_probed_k
       count = slot < 0 || slot >= n_planes ? 0 : min(max(c, 0), l_pad);
       list = plane + (count > 0 ? slot : 0) * static_cast<long long>(l_pad) * m_bytes;
     }
-    float acc[R];
+    float acc[FS_ROWS];
 #pragma unroll
-    for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < FS_ROWS; ++k) acc[k] = 0.0f;
     if (row0 < count) {
       for (int ch = 0; ch < chunks; ++ch) {
         const int j0 = ch * FS_CHUNK, jn = min(FS_CHUNK, m_sub - j0);
-        if (!SMEM && chunks > 1) fs_table(t, tb, j0, jn, ksub, lane);
-        uint4 v[R];
+        if (chunks > 1) fs_table(t, tb, j0, jn, ksub, lane);
+        uint4 v[FS_ROWS];
 #pragma unroll
-        for (int k = 0; k < R; ++k) {
+        for (int k = 0; k < FS_ROWS; ++k) {
           const int row = row0 + k * 32 + lane;
           v[k] = row < count ? fs_codes<VEC>(list + static_cast<long long>(row) * m_bytes + j0 / 2, jn / 2)
                              : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
-        for (int k = 0; k < R; ++k)
-          if (row0 + k * 32 < count) acc[k] = fs_sum<VEC, SMEM>(acc[k], t, tab + j0 * 16, v[k], jn);
+        for (int k = 0; k < FS_ROWS; ++k)
+          if (row0 + k * 32 < count) acc[k] = fs_sum<VEC>(acc[k], t, v[k], jn);
       }
     }
     float* o = out + (b * nprobe + p) * static_cast<long long>(l_pad);
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
+    for (int k = 0; k < FS_ROWS; ++k) {
       const int row = row0 + k * 32 + lane;
       if (row < l_pad) o[row] = row < count ? acc[k] : __int_as_float(0x7f800000);
     }
   }
-}
-
-template <int R, bool VEC, bool SMEM>
-int launch_fastscan_at(const void* tables, const void* plane, const void* slots, const void* counts, void* out,
-                       long long nb, long long nprobe, long long n_planes, long long l_pad, long long m_sub,
-                       long long ksub, long long splits, void* stream) {
-  const int smem = SMEM ? static_cast<int>(m_sub * 16 * sizeof(float)) : 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long units = nprobe * ((l_pad + 32 * R - 1) / (32 * R));
-  const long long blocks = (units + FS_WARPS - 1) / FS_WARPS;
-  for (long long b0 = 0; b0 < nb; b0 += MAX_GRID_Y) {
-    const dim3 grid(static_cast<unsigned int>(splits < blocks ? splits : blocks),
-                    static_cast<unsigned int>(nb - b0 < MAX_GRID_Y ? nb - b0 : MAX_GRID_Y));
-    fastscan_probed_kernel<R, VEC, SMEM><<<grid, FS_THREADS, smem, s>>>(
-        static_cast<const float*>(tables), static_cast<const uint8_t*>(plane), static_cast<const long long*>(slots),
-        static_cast<const int32_t*>(counts), static_cast<float*>(out), b0, static_cast<int>(nprobe), n_planes,
-        static_cast<int>(l_pad), static_cast<int>(m_sub), static_cast<int>(ksub));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
 }
 
 int fastscan_invalid(long long nb, long long nprobe, long long n_planes, long long l_pad, long long m_sub,
@@ -401,41 +366,32 @@ extern "C" int srml_fastscan_accumulate_probed_f32(const void* tables, const voi
   if (fastscan_invalid(nb, nprobe, n_planes, l_pad, m_sub, ksub, vec, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0 || nprobe == 0 || l_pad == 0) return 0;
-  return vec ? launch_fastscan_at<FS_ROWS, true, false>(tables, plane, slots, counts, out, nb, nprobe, n_planes,
-                                                         l_pad, m_sub, ksub, splits, stream)
-             : launch_fastscan_at<FS_ROWS, false, false>(tables, plane, slots, counts, out, nb, nprobe, n_planes,
-                                                          l_pad, m_sub, ksub, splits, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long units = nprobe * ((l_pad + 32 * FS_ROWS - 1) / (32 * FS_ROWS));
+  const long long blocks = (units + FS_WARPS - 1) / FS_WARPS;
+  const auto* t = static_cast<const float*>(tables);
+  const auto* c = static_cast<const uint8_t*>(plane);
+  const auto* sl = static_cast<const long long*>(slots);
+  const auto* cn = static_cast<const int32_t*>(counts);
+  auto* o = static_cast<float*>(out);
+  for (long long b0 = 0; b0 < nb; b0 += MAX_GRID_Y) {
+    const dim3 grid(static_cast<unsigned int>(splits < blocks ? splits : blocks),
+                    static_cast<unsigned int>(nb - b0 < MAX_GRID_Y ? nb - b0 : MAX_GRID_Y));
+    const int np = static_cast<int>(nprobe), lp = static_cast<int>(l_pad), ms = static_cast<int>(m_sub),
+              ks = static_cast<int>(ksub);
+    if (vec)
+      fastscan_probed_kernel<true><<<grid, FS_THREADS, 0, s>>>(t, c, sl, cn, o, b0, np, n_planes, lp, ms, ks);
+    else
+      fastscan_probed_kernel<false><<<grid, FS_THREADS, 0, s>>>(t, c, sl, cn, o, b0, np, n_planes, lp, ms, ks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // Blocks of the fast-scan kernel that one SM holds at once (the instance
 // `vec` picks), into *blocks; returns a CUDA error code.
 extern "C" int srml_fastscan_probed_occupancy(int vec, int* blocks) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, vec ? fastscan_probed_kernel<FS_ROWS, true, false> : fastscan_probed_kernel<FS_ROWS, false, false>,
-      FS_THREADS, 0));
-}
-
-// The timing variants of the fast-scan kernel at vec 1: `rows` a lane (1,
-// 2 or 4), the lookups by shuffle (smem 0) or from a shared [j][16] table
-// (smem 1, m_sub <= 768).  Same arguments and result as the entry above.
-extern "C" int srml_fastscan_probed_variant_f32(const void* tables, const void* plane, const void* slots,
-                                                const void* counts, void* out, long long nb, long long nprobe,
-                                                long long n_planes, long long l_pad, long long m_sub,
-                                                long long ksub, long long splits, int rows, int smem,
-                                                void* stream) {
-  if (fastscan_invalid(nb, nprobe, n_planes, l_pad, m_sub, ksub, 1, splits) || m_sub > 768)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nb == 0 || nprobe == 0 || l_pad == 0) return 0;
-#define SRML_FS_VARIANT(R, S)                                                                                   \
-  if (rows == R && smem == S)                                                                                   \
-    return launch_fastscan_at<R, true, S>(tables, plane, slots, counts, out, nb, nprobe, n_planes, l_pad, m_sub, \
-                                          ksub, splits, stream);
-  SRML_FS_VARIANT(1, false)
-  SRML_FS_VARIANT(2, false)
-  SRML_FS_VARIANT(4, false)
-  SRML_FS_VARIANT(1, true)
-  SRML_FS_VARIANT(2, true)
-  SRML_FS_VARIANT(4, true)
-#undef SRML_FS_VARIANT
-  return static_cast<int>(cudaErrorInvalidValue);
+      blocks, vec ? fastscan_probed_kernel<true> : fastscan_probed_kernel<false>, FS_THREADS, 0));
 }
