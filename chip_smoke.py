@@ -133,9 +133,11 @@
 #            launch (150 queries x 158 lists of 2048 rows, m_sub 32), resident
 #            and through a tier's pool planes, timed there (library_ms:
 #            index_select + gather + sum over j) with its blocks a query and
-#            the blocks an SM holds, B10 at the 4-bit arm's (237
-#            queries x 323,584 rows), their ptxas registers; B10's typed
-#            rejections; B1 at the ANN fit's shapes (400,000 x 256 vs 632
+#            the blocks an SM holds; fastscan_lut_accumulate_probed the same
+#            way at the 4-bit arm's launch (237 queries x 158 lists of 2048
+#            rows, 16 packed bytes a row; library_ms: index_select + unpack +
+#            gather + sum) and B10's contiguous form at 237 x 323,584 rows;
+#            their ptxas registers; B10's typed rejections on both entries; B1 at the ANN fit's shapes (400,000 x 256 vs 632
 #            centroids, 400,000 x 8 vs 256 codewords)
 #   path_ann / path_ann_pq / path_ann_pq4
 #            the JAX package's ANN arms (bench.py:379-442): 400,000 x 256

@@ -6,13 +6,11 @@
 // summed in j order in fp32, each term an exact table read; a code >= ksub
 // adds 0.0.  Two kernels, both reading each query's probed lists in place
 // from a plane of lists at the query's slots, +inf past a list's count:
-//   - probed_lut_kernel (srml_lut_accumulate_probed_f32, and
-//     srml_lut_accumulate_f32 on a contiguous tile): one byte per code, T
+//   - probed_lut_kernel (srml_lut_accumulate_probed_f32): one byte per code, T
 //     (B, m_sub, ksub <= 256), plane (n_planes, L_pad, m_sub) uint8.
 //     Replaces the TPU kernel spark_rapids_ml_tpu/ops/pallas_pq.py::
 //     _lut_accum_kernel (wrapper _lut_accumulate_pallas);
-//   - fastscan_probed_kernel (srml_fastscan_accumulate_probed_f32, also
-//     called on a contiguous tile with each query its own plane): two 4-bit
+//   - fastscan_probed_kernel (srml_fastscan_accumulate_probed_f32): two 4-bit
 //     codes a byte, plane (n_planes, L_pad, m_sub / 2) uint8 with code j in
 //     the low nibble of byte j / 2 when j is even and in the high nibble
 //     when j is odd, T (B, m_sub, ksub <= 16).  Replaces spark_rapids_ml_tpu/
@@ -37,6 +35,8 @@
 //     (no gathered copy) and only the rows below the list's count; every
 //     other row gets +inf, and so does every row of a slot outside
 //     [0, n_planes);
+//   - a contiguous tile (B, R, m_bytes) is a plane of B lists, each query
+//     probing its own list of R rows (the wrappers' contiguous forms);
 //   - the grid is (blocks a query, queries): as many blocks a query as the
 //     card holds at once across the queries (the caller's count, from
 //     srml_*_occupancy), each taking its query's table once and walking the
@@ -338,16 +338,6 @@ extern "C" int srml_lut_probed_occupancy(long long m_sub, long long ksub, int ve
   const ProbedStage st = probed_stage(m_sub, ksub);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, vec && st.whole ? probed_lut_kernel<true> : probed_lut_kernel<false>, THREADS, st.smem));
-}
-
-// tables (nb, m_sub, ksub <= 256) f32, codes (nb, r, m_sub) uint8, out
-// (nb, r) f32: the probed kernel with each query its own plane of one list
-// of r rows; slots (nb,) int64 = 0 .. nb - 1 and counts (nb,) int32 = r,
-// made by the caller.  vec and splits as above.
-extern "C" int srml_lut_accumulate_f32(const void* tables, const void* codes, const void* slots,
-                                       const void* counts, void* out, long long nb, long long r, long long m_sub,
-                                       long long ksub, int vec, long long splits, void* stream) {
-  return launch_probed(tables, codes, slots, counts, out, nb, 1, nb, r, m_sub, ksub, vec, splits, stream);
 }
 
 // tables (nb, m_sub even, ksub <= 16) f32, plane (n_planes, l_pad, m_sub / 2)

@@ -100,25 +100,18 @@ def lut_accumulate(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     _check(tables, codes, tables.shape[1], _MAX_KSUB)
     if tables.device.type == "cpu":
         return lut_accumulate_plain(tables, codes)
+    out = _launch_probed(tables, codes, *_own_planes(codes), packed=False)
+    if out.numel() > 0:
+        lut_accumulate.launches += 1
+    return out.view(codes.shape[0], codes.shape[1])
+
+
+def _own_planes(codes: torch.Tensor):
+    """(slots, counts) that make a contiguous (B, R, m_bytes) tile a plane
+    of B lists, each query probing its own list of R rows, all valid."""
     b, r = codes.shape[0], codes.shape[1]
-    out = torch.empty((b, r), dtype=torch.float32, device=tables.device)
-    if b == 0 or r == 0:
-        return out
-    # each query its own plane: one list of R rows, all valid
-    slots = torch.arange(b, dtype=torch.int64, device=tables.device)
-    counts = torch.full((b,), r, dtype=torch.int32, device=tables.device)
-    fn = _build.load(_LIBRARY).srml_lut_accumulate_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        tables.data_ptr(), codes.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        b, r, tables.shape[1], tables.shape[2], _vec(codes), probed_splits(tables, 1, r, _vec(codes)),
-        torch.cuda.current_stream(tables.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"srml_lut_accumulate_f32 kernel launch failed: CUDA error {err}")
-    lut_accumulate.launches += 1
-    return out
+    slots = torch.arange(b, dtype=torch.int64, device=codes.device)[:, None]
+    return slots, torch.full((b, 1), r, dtype=torch.int32, device=codes.device)
 
 
 def _check_probed(tables, code_plane, slots, counts, packed: bool = False) -> None:
@@ -171,23 +164,9 @@ def lut_accumulate_probed(
     _check_probed(tables, code_plane, slots, counts)
     if tables.device.type == "cpu":
         return lut_accumulate_probed_plain(tables, code_plane, slots, counts)
-    b, nprobe = slots.shape
-    n_planes, l_pad, m_sub = code_plane.shape
-    out = torch.empty((b, nprobe, l_pad), dtype=torch.float32, device=tables.device)
-    if out.numel() == 0:
-        return out
-    slots = slots.to(torch.int64).contiguous()
-    fn = _build.load(_LIBRARY).srml_lut_accumulate_probed_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        tables.data_ptr(), code_plane.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        b, nprobe, n_planes, l_pad, m_sub, tables.shape[2], _vec(code_plane),
-        probed_splits(tables, nprobe, l_pad, _vec(code_plane)), torch.cuda.current_stream(tables.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"srml_lut_accumulate_probed_f32 kernel launch failed: CUDA error {err}")
-    lut_accumulate_probed.launches += 1
+    out = _launch_probed(tables, code_plane, slots.to(torch.int64).contiguous(), counts, packed=False)
+    if out.numel() > 0:
+        lut_accumulate_probed.launches += 1
     return out
 
 
@@ -197,9 +176,14 @@ def probed_splits(tables: torch.Tensor, nprobe: int, l_pad: int, vec: int) -> in
     an SM holds at the table's shared memory) across the B queries, at most
     one a (list, 256-row tile) unit."""
     b, m_sub, ksub = tables.shape
+    return _blocks_a_query(tables, b, nprobe * -(-l_pad // _ROWS_A_BLOCK), resident_blocks(m_sub, ksub, vec))
+
+
+def _blocks_a_query(tables: torch.Tensor, b: int, most: int, per_sm: int) -> int:
+    """The blocks the card holds at once (its SMs times per_sm) across b
+    queries, at least 1 and at most `most`."""
     sms = torch.cuda.get_device_properties(tables.device).multi_processor_count
-    units = nprobe * -(-l_pad // _ROWS_A_BLOCK)
-    return max(1, min(units, sms * resident_blocks(m_sub, ksub, vec) // max(1, b)))
+    return max(1, min(most, sms * per_sm // max(1, b)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,14 +231,10 @@ def fastscan_lut_accumulate(tables: torch.Tensor, packed: torch.Tensor) -> torch
     _check(tables, packed, m_sub // 2, _FASTSCAN_KSUB)
     if tables.device.type == "cpu":
         return fastscan_lut_accumulate_plain(tables, packed)
-    b, r = packed.shape[0], packed.shape[1]
-    # each query its own plane: one list of R rows, all valid
-    slots = torch.arange(b, dtype=torch.int64, device=tables.device)[:, None]
-    counts = torch.full((b, 1), r, dtype=torch.int32, device=tables.device)
-    out = _fastscan_cuda(tables, packed, slots, counts)
+    out = _launch_probed(tables, packed, *_own_planes(packed), packed=True)
     if out.numel() > 0:
         fastscan_lut_accumulate.launches += 1
-    return out.view(b, r)
+    return out.view(packed.shape[0], packed.shape[1])
 
 
 def fastscan_lut_accumulate_probed(
@@ -271,31 +251,40 @@ def fastscan_lut_accumulate_probed(
     _check_probed(tables, packed_plane, slots, counts, packed=True)
     if tables.device.type == "cpu":
         return fastscan_lut_accumulate_probed_plain(tables, packed_plane, slots, counts)
-    out = _fastscan_cuda(tables, packed_plane, slots.to(torch.int64).contiguous(), counts)
+    out = _launch_probed(tables, packed_plane, slots.to(torch.int64).contiguous(), counts, packed=True)
     if out.numel() > 0:
         fastscan_lut_accumulate_probed.launches += 1
     return out
 
 
-def _fastscan_cuda(tables, plane, slots, counts) -> torch.Tensor:
-    """srml_fastscan_accumulate_probed_f32 on int64 slots (no launch when
-    the output is empty)."""
+def _launch_probed(tables, plane, slots, counts, packed: bool) -> torch.Tensor:
+    """One launch of a probed C entry on int64 slots: B10's
+    (srml_fastscan_accumulate_probed_f32) when packed, else B9's
+    (srml_lut_accumulate_probed_f32); the two take the same arguments.  No
+    launch when the output is empty."""
     b, nprobe = slots.shape
     n_planes, l_pad, _ = plane.shape
     out = torch.empty((b, nprobe, l_pad), dtype=torch.float32, device=tables.device)
     if out.numel() == 0:
         return out
-    vec = int(tables.shape[1] % 32 == 0 and plane.data_ptr() % 16 == 0)
-    fn = _build.load(_LIBRARY).srml_fastscan_accumulate_probed_f32
+    if packed:
+        entry = "srml_fastscan_accumulate_probed_f32"
+        vec = int(tables.shape[1] % 32 == 0 and plane.data_ptr() % 16 == 0)
+        splits = fastscan_splits(tables, nprobe, l_pad, vec)
+    else:
+        entry = "srml_lut_accumulate_probed_f32"
+        vec = _vec(plane)
+        splits = probed_splits(tables, nprobe, l_pad, vec)
+    fn = getattr(_build.load(_LIBRARY), entry)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
         tables.data_ptr(), plane.data_ptr(), slots.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        b, nprobe, n_planes, l_pad, tables.shape[1], tables.shape[2], vec,
-        fastscan_splits(tables, nprobe, l_pad, vec), torch.cuda.current_stream(tables.device).cuda_stream,
+        b, nprobe, n_planes, l_pad, tables.shape[1], tables.shape[2], vec, splits,
+        torch.cuda.current_stream(tables.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"srml_fastscan_accumulate_probed_f32 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return out
 
 
@@ -303,10 +292,8 @@ def fastscan_splits(tables: torch.Tensor, nprobe: int, l_pad: int, vec: int) -> 
     """Blocks a query of a fast-scan launch on the card: the blocks the card
     holds at once across the B queries, at most one a _FASTSCAN_WARPS
     (list, row-tile) units."""
-    b = tables.shape[0]
-    sms = torch.cuda.get_device_properties(tables.device).multi_processor_count
     units = nprobe * -(-l_pad // _FASTSCAN_ROWS)
-    return max(1, min(-(-units // _FASTSCAN_WARPS), sms * fastscan_resident_blocks(vec) // max(1, b)))
+    return _blocks_a_query(tables, tables.shape[0], -(-units // _FASTSCAN_WARPS), fastscan_resident_blocks(vec))
 
 
 @functools.lru_cache(maxsize=None)
