@@ -152,16 +152,54 @@
 #            refined PQ), the ADC-only recall of the PQ arms, save -> load
 #            identical, B7 against lex_topk on one probed block, and (4-bit)
 #            hot_fraction 0.5 bitwise the resident search
+#   path_pca the reference benchmark's PCA (k = 3) on 1,000,000 x 3000
+#            float32 low-rank rows (rank 32 plus 0.1 noise, bench.py's):
+#            fit -> transform -> save -> load -> transform (identical), the
+#            fitted mean, components (signs equal), variance ratio and
+#            singular values against the float64 covariance and float64 eigh
+#            of the same rows on the card (PCA_* gates), projections against
+#            float64, TF32 off (the settings and an X^T X probe against
+#            float64), stage times (ingest, moments, covariance, float64
+#            eigh), a profiled fit
+#   path_linreg
+#            LinearRegression OLS, ridge (regParam 1e-5) and elastic net
+#            (regParam 1e-5, elasticNetParam 0.5, maxIter 10) from one frame
+#            of 1,000,000 x 3000 Gaussian rows, y = X . coef + 0.1 noise:
+#            each fit -> transform -> save -> load -> transform (identical)
+#            and held-out R^2 > 0.99 (100,000 rows); OLS and ridge against a
+#            float64 solve of the float64 normal equations (LINREG_RTOL) and
+#            the port's solve on the float64 statistics against it
+#            (LINREG_F64_RTOL); elastic net against the port's CD on the CPU
+#            from the card's statistics (ENET_RTOL, sweeps equal); one CD
+#            sweep eager and as its CUDA graph's replay; a profiled ridge fit
+#   path_logreg
+#            binary LogisticRegression(regParam 1e-5, maxIter 200) on the
+#            same rows, y > 0: fit -> transform -> save -> load -> transform
+#            (identical), held-out accuracy > 0.9, L-BFGS iterations,
+#            evaluations and convergence, one objective evaluation (X read
+#            twice) against its bound, a profiled fit
+#   path_logreg_sparse
+#            multinomial LogisticRegression(regParam 1e-5, maxIter 100, tol
+#            1e-6) on 4,000,000 x 100 CSR rows (one nonzero a row, 4 classes;
+#            bench.py's sparse arm): two fits bit for bit, peak device memory
+#            under the dense features' 1.6 GB, accuracy above the majority
+#            share, transform, one evaluation timed, a profiled fit
+#   glm_card_vs_cpu
+#            PCA, the three linear fits and four logistic fits (binary and 4
+#            classes, dense and CSR) at 65,536 x 256 on the card and under
+#            use_device("cpu"), within the CVC_* tolerances
 # Every path runs with all kernel launch counters reset just before it and
-# read just after.  It ends with the card's nvidia-smi line, a
+# read just after (the PCA and GLM paths run no kernel of the port's own:
+# their launches stay 0).  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; the ANN phases need nothing else).
+# path_knn_mesh; the ANN, PCA and GLM phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
 
+import functools
 import json
 import math
 import os
@@ -2467,6 +2505,545 @@ def pq_k(params):
     return ANN_K * ratio if ratio > 1 else ANN_K
 
 
+# ---------------------------------------------------------------------------
+# PCA, LinearRegression and LogisticRegression: no kernel of the port's own
+# (cuBLAS and cuSOLVER through torch, TF32 off)
+# ---------------------------------------------------------------------------
+
+# The reference benchmark's configurations (databricks/run_benchmark.sh as
+# SURVEY.md section 6 cites it), with data as bench.py makes it:
+# PCA k = 3 on 1,000,000 x 3000 float32 low-rank rows (rank 32 plus 0.1
+# noise, bench.py:196-201; run_benchmark.sh:57-64); LinearRegression OLS,
+# ridge (regParam 1e-5, maxIter 10) and elastic net (regParam 1e-5,
+# elasticNetParam 0.5, maxIter 10) (:66-99) and LogisticRegression
+# (regParam 1e-5, maxIter 200; :125-133) on 1,000,000 x 3000 Gaussian X
+# with y = X . coef + 0.1 noise, binary y > 0 (bench.py:226-232), 100,000
+# more rows held out; the sparse multinomial arm (bench.py:259-301, the
+# BASELINE.json shape at one card's scale): 4,000,000 x 100 CSR, one
+# nonzero a row, 4 classes, regParam 1e-5, maxIter 100, tol 1e-6.  Not cut.
+GLM_ROWS, GLM_HOLDOUT, GLM_COLS, GLM_PARTITIONS, GLM_SEED = 1_000_000, 100_000, 3000, 8, 42
+PCA_K, PCA_RANK, PCA_SEED = 3, 32, 11
+LINREG_FITS = {
+    "ols": {},
+    "ridge": dict(regParam=1e-5, maxIter=10),
+    "elastic_net": dict(regParam=1e-5, elasticNetParam=0.5, maxIter=10),
+}
+LOGREG = dict(regParam=1e-5, maxIter=200)
+SPARSE_ROWS, SPARSE_COLS, SPARSE_CLASSES, SPARSE_SEED = 4_000_000, 100, 4, 5
+SPARSE_LOGREG = dict(regParam=1e-5, maxIter=100, tol=1e-6)
+# PCA against the float64 covariance and float64 eigh of the same rows on
+# the card: the JAX package's PCA test gates (tests/test_pca.py:40-48),
+# component signs equal; the transform against float64 projections of
+# 4,096 rows, max |error| over max |projection|
+PCA_MEAN_ATOL, PCA_COMP_ATOL, PCA_RATIO_ATOL, PCA_SV_RTOL, PCA_PROJ_RTOL = 1e-4, 1e-3, 1e-4, 1e-3, 1e-5
+# OLS and ridge against a float64 solve of the float64 normal equations
+# (centred, standardised, ridge's alpha * n) on the card: max |coef -
+# coef64| (and |intercept error|) over max |coef64|; the port's solve_linear
+# on the float64 statistics against the same solve (ridge shrinks the
+# coefficients by ~1e-5 relative, so this is where its alpha scaling shows)
+LINREG_RTOL, LINREG_F64_RTOL = 1e-5, 1e-9
+# elastic net against the port's CD run on the CPU from the card's float32
+# statistics, max |error| over max |coef|; sweep counts equal
+ENET_RTOL = 1e-5
+HOLDOUT_R2, HOLDOUT_ACCURACY = 0.99, 0.9
+# X^T X of 256 rows on the card against float64: max |error| over the
+# product of absolute values, entry by entry (fp32 FMA sums stay under ~1e-6;
+# TF32 products, 10 mantissa bits, leave ~1e-4)
+TF32_PROBE_ROWS, TF32_PROBE_RTOL = 256, 5e-6
+# glm_card_vs_cpu: 65,536 x 256, the same fits on the card and under
+# use_device("cpu"): PCA components within 1e-4 (signs equal), linear
+# coefficients within 1e-5 of max |coef| (CD sweeps equal), logistic
+# coefficients within 1e-3 of max(1, max |W|) (regParam 1e-3, tol 1e-6, so
+# both reach the same optimum)
+CVC_ROWS, CVC_COLS, CVC_SEED = 65536, 256, 77
+CVC_PCA_ATOL, CVC_LINEAR_RTOL, CVC_LOGISTIC_ATOL = 1e-4, 1e-5, 1e-3
+GLM_PHASES = ("path_pca", "path_linreg", "path_logreg", "path_logreg_sparse", "glm_card_vs_cpu")
+
+
+def low_rank_data(rows, cols, rank, seed, workers=8):
+    """bench.py's PCA rows: A @ B + 0.1 noise with A (rows, rank), B (rank,
+    cols) and the noise standard normal float32, filled by `workers`
+    threads with independent seeded streams."""
+    B = np.random.default_rng(seed).standard_normal((rank, cols), dtype=np.float32)
+    X = np.empty((rows, cols), np.float32)
+    streams = np.random.SeedSequence(seed + 1).spawn(workers)
+    bounds = np.linspace(0, rows, workers + 1, dtype=int)
+
+    def fill(i):
+        rng_i = np.random.default_rng(streams[i])
+        for lo in range(bounds[i], bounds[i + 1], 16384):
+            hi = min(lo + 16384, bounds[i + 1])
+            rng_i.standard_normal(out=X[lo:hi], dtype=np.float32)
+            X[lo:hi] *= 0.1
+            X[lo:hi] += rng_i.standard_normal((hi - lo, rank), dtype=np.float32) @ B
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(fill, range(workers)))
+    return X
+
+
+def glm_data():
+    """bench.py's GLM rows: standard normal X (GLM_ROWS + GLM_HOLDOUT rows),
+    coef standard normal, y = X . coef + 0.1 noise, float32."""
+    X = normal_data(GLM_ROWS + GLM_HOLDOUT, GLM_COLS, GLM_SEED)
+    rng = np.random.default_rng(GLM_SEED + 1)
+    coef = rng.standard_normal(GLM_COLS, dtype=np.float32)
+    y = X @ coef + np.float32(0.1) * rng.standard_normal(len(X), dtype=np.float32)
+    return X, y.astype(np.float32)
+
+
+def f64_moments(torch, X, dev, y=None, chunk=65536):
+    """(n, sum x, X^T X[, sum y, X^T y, sum y^2]) of the host rows in float64
+    on the card, a chunk of rows at a time."""
+    d = X.shape[1]
+    sx = torch.zeros(d, dtype=torch.float64, device=dev)
+    G = torch.zeros((d, d), dtype=torch.float64, device=dev)
+    sy = torch.zeros((), dtype=torch.float64, device=dev)
+    c = torch.zeros(d, dtype=torch.float64, device=dev)
+    y2 = torch.zeros((), dtype=torch.float64, device=dev)
+    for lo in range(0, len(X), chunk):
+        xb = torch.from_numpy(X[lo : lo + chunk]).to(dev).double()
+        sx += xb.sum(dim=0)
+        G.addmm_(xb.T, xb)
+        if y is not None:
+            yb = torch.from_numpy(y[lo : lo + chunk]).to(dev).double()
+            sy += yb.sum()
+            c.addmv_(xb.T, yb)
+            y2 += (yb * yb).sum()
+        del xb
+    return float(len(X)), sx, G, sy, c, y2
+
+
+def tf32_probe(torch, X, dev):
+    """max |X^T X (float32, card) - float64| / (|X|^T |X|) over the entries,
+    for the first TF32_PROBE_ROWS rows."""
+    xb = torch.from_numpy(X[:TF32_PROBE_ROWS]).to(dev)
+    got = (xb.T @ xb).double()
+    x64 = xb.double()
+    err = (got - x64.T @ x64).abs() / (x64.abs().T @ x64.abs()).clamp_min(1e-30)
+    return float(err.max())
+
+
+def precision_record(torch, X, dev):
+    """The card's matmul precision settings after a fit, and the probe."""
+    rec = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "tf32_probe_rel_err": tf32_probe(torch, X, dev)}
+    check(rec["allow_tf32"] is False and rec["float32_matmul_precision"] == "highest",
+          f"TF32 is on after the fit: {rec}")
+    check(rec["tf32_probe_rel_err"] <= TF32_PROBE_RTOL,
+          f"X^T X is not exact float32 on the card: {rec['tf32_probe_rel_err']} > {TF32_PROBE_RTOL}")
+    return rec
+
+
+def concat_col(df, name):
+    return np.concatenate([np.asarray(p[name]) for p in df.partitions])
+
+
+def round_trip(port, model, df, phase, cols):
+    """transform -> save -> load -> transform: (the first outputs, seconds of
+    the first transform); raises unless the reloaded model's outputs are
+    identical."""
+    model_dir = os.path.join(REPO, "build", f"chip_smoke_{phase}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = model.transform(df)
+    seconds = time.perf_counter() - t0
+    first = {c: concat_col(out, c) for c in cols}
+    model.save(model_dir)
+    out2 = port.load(model_dir).transform(df)
+    for c in cols:
+        check(np.array_equal(first[c], concat_col(out2, c)), f"{phase}: the reloaded model gives another {c}")
+    return first, seconds
+
+
+def timed_fit(torch, est, df, wrappers):
+    """(model, fit seconds, peak device bytes over the bytes allocated
+    before the fit, launches of the port's kernels)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return model, seconds, torch.cuda.max_memory_allocated() - base, read_launches(wrappers)
+
+
+def synced(torch, fn):
+    """(fn(), seconds to its end on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pca_reference(torch, X, dev, k):
+    """The float64 covariance and float64 eigh of the rows on the card:
+    (mean, components with the sign rule, variance ratio, singular values)."""
+    n, sx, G, *_ = f64_moments(torch, X, dev)
+    mean = sx / n
+    cov = (G - n * torch.outer(mean, mean)) / (n - 1.0)
+    evals, evecs = torch.linalg.eigh((cov + cov.T) * 0.5)
+    evals, comps = evals.flip(0), evecs.flip(1).T
+    comps = comps[:k]
+    comps = comps * torch.sign(comps.gather(1, comps.abs().argmax(dim=1, keepdim=True)))
+    top = evals[:k]
+    return (mean.cpu().numpy(), comps.cpu().numpy(), (top / evals.sum()).cpu().numpy(),
+            torch.sqrt(top * (n - 1.0)).cpu().numpy())
+
+
+def run_pca_path(torch, port, wrappers, dev):
+    """Phase path_pca: PCA(k=3) on the low-rank rows through the public API,
+    fit -> transform -> save -> load -> transform, against the float64
+    covariance and eigh of the same rows; stage times and a profiled fit."""
+    from spark_rapids_ml_tpu_torch.ops import linalg
+
+    t0 = time.perf_counter()
+    X = low_rank_data(GLM_ROWS, GLM_COLS, PCA_RANK, PCA_SEED)
+    gen_s = time.perf_counter() - t0
+    df = port.DataFrame.from_numpy(X, num_partitions=GLM_PARTITIONS)
+    est = port.PCA(k=PCA_K)
+    model, fit_s, peak, launches = timed_fit(torch, est, df, wrappers)
+    precision = precision_record(torch, X, dev)
+    outs, transform_s = round_trip(port, model, df, "path_pca", ["pca_features"])
+    proj = outs["pca_features"]
+    check(proj.shape == (GLM_ROWS, PCA_K) and np.isfinite(proj).all(), f"projections {proj.shape}")
+
+    (mean, comps, ratio, sv), ref_s = synced(torch, lambda: pca_reference(torch, X, dev, PCA_K))
+    errs = {
+        "mean_max_abs_err": float(np.abs(model.mean_ - mean).max()),
+        "components_max_abs_err": float(np.abs(model.components_ - comps).max()),
+        "ratio_max_abs_err": float(np.abs(model.explained_variance_ratio_ - ratio).max()),
+        "singular_values_max_rel_err": float(np.abs(model.singular_values_ / sv - 1.0).max()),
+    }
+    check(np.array_equal(np.sign(model.components_[np.arange(PCA_K), np.abs(comps).argmax(axis=1)]),
+                         np.sign(comps[np.arange(PCA_K), np.abs(comps).argmax(axis=1)])), "component signs differ")
+    check(errs["mean_max_abs_err"] <= PCA_MEAN_ATOL and errs["components_max_abs_err"] <= PCA_COMP_ATOL
+          and errs["ratio_max_abs_err"] <= PCA_RATIO_ATOL and errs["singular_values_max_rel_err"] <= PCA_SV_RTOL,
+          f"PCA against float64: {errs}")
+    want = X[:4096].astype(np.float64) @ model.components_.T
+    errs["transform_max_rel_err"] = float(np.abs(proj[:4096] - want).max() / np.abs(want).max())
+    check(errs["transform_max_rel_err"] <= PCA_PROJ_RTOL, f"projections against float64: {errs}")
+
+    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    (wsum, mean_t, scatter), moments_s = synced(torch, lambda: linalg.weighted_moments(inputs.X, inputs.weight))
+    del inputs
+    cov, cov_s = synced(torch, lambda: linalg.covariance(wsum, mean_t, scatter))
+    _, eigh_s = synced(torch, lambda: linalg.eigh_descending(cov))
+    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "pca.fit"), wrappers)
+    del X, df, cov, scatter
+    return {
+        "phase": "path_pca", "rows": GLM_ROWS, "cols": GLM_COLS, "k": PCA_K, "rank": PCA_RANK,
+        "partitions": GLM_PARTITIONS, "data_gen_s": gen_s,
+        "fit_s": fit_s, "transform_s": transform_s, "transform_rows_per_s": GLM_ROWS / transform_s,
+        "max_memory_allocated_bytes": peak, "launches": launches, "precision": precision,
+        "explained_variance_ratio": model.explained_variance_ratio_.tolist(),
+        "gates": {"mean_atol": PCA_MEAN_ATOL, "components_atol": PCA_COMP_ATOL, "ratio_atol": PCA_RATIO_ATOL,
+                  "singular_values_rtol": PCA_SV_RTOL, "transform_rtol": PCA_PROJ_RTOL},
+        "errors_vs_float64": errs, "float64_reference_s": ref_s, "reloaded_identical": True,
+        "stages_s": {"ingest": ingest_s, "moments": moments_s, "covariance": cov_s, "eigh_float64": eigh_s},
+        "moments_bound_s": 2.0 * GLM_ROWS * GLM_COLS ** 2 / PEAK_FP32_FLOPS,
+        "profile": profile,
+    }
+
+
+def f64_linear_solve(torch, stats64, alpha, fit_intercept=True, standardize=True):
+    """The float64 reference of OLS / Spark ridge, written apart from the
+    port: centred normal equations, features scaled to unit variance,
+    (G + alpha n I) b = c, no jitter.  (coef, intercept) on the card."""
+    n, sx, G, sy, c, _ = stats64
+    xm, ym = sx / n, sy / n
+    if fit_intercept:
+        G = G - n * torch.outer(xm, xm)
+        c = c - n * xm * ym
+    s = torch.sqrt(torch.diagonal(G) / n) if standardize else torch.ones_like(xm)
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    A = G / torch.outer(s, s) + alpha * n * torch.eye(len(s), dtype=G.dtype, device=G.device)
+    b = torch.linalg.solve(A, c / s) / s
+    return b, (ym - xm @ b) if fit_intercept else torch.zeros((), dtype=b.dtype, device=b.device)
+
+
+def cd_sweep_times(torch, glm, stats, params, dev):
+    """One elastic-net CD sweep on the card's statistics, run eagerly and as
+    the replay of its captured CUDA graph (ms), and the capture's cost."""
+    system, _ = glm._cd_system(stats, float(params["alpha"]), float(params["l1_ratio"]),
+                               bool(params["fit_intercept"]), bool(params["normalize"]))
+    b = torch.zeros(system[0].shape[0], dtype=system[0].dtype, device=dev)
+    md = torch.zeros((), dtype=system[0].dtype, device=dev)
+    eager = [synced(torch, lambda: glm._cd_sweep(*system, b, md))[1] for _ in range(2)]
+    run, capture_s = synced(torch, lambda: glm._sweep_runner(functools.partial(glm._cd_sweep, *system, b, md), dev))
+    replays = [synced(torch, run)[1] for _ in range(3)]
+    return {"eager_sweep_ms": [1e3 * t for t in eager], "graph_sweep_ms": [1e3 * t for t in replays],
+            "graph_warmup_and_capture_ms": 1e3 * capture_s, "coordinates": int(system[0].shape[0])}
+
+
+def run_linreg_path(torch, port, wrappers, X, y, dev):
+    """Phase path_linreg: OLS, ridge and elastic net from one frame through
+    the public API, each fit -> transform -> save -> load -> transform with
+    held-out R^2; OLS and ridge against a float64 solve of the float64
+    normal equations, elastic net against the port's CD on the CPU from the
+    card's statistics; stage times, CD sweeps eager and as a CUDA graph, and
+    a profiled ridge fit."""
+    from spark_rapids_ml_tpu_torch.ops import glm
+
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], y[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    hold = port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)
+    y_hold = y[GLM_ROWS:].astype(np.float64)
+    stats64, ref_s = synced(torch, lambda: f64_moments(torch, X[:GLM_ROWS], dev, y[:GLM_ROWS]))
+    n, sx, G64, sy, c64, y2 = stats64
+    stats64_port = glm.LinregStats(torch.tensor(n, dtype=torch.float64, device=dev), sx / n, sy / n, G64, c64, y2)
+
+    est0 = port.LinearRegression()
+    inputs, ingest_s = synced(torch, lambda: est0._build_fit_inputs(df))
+    stats32, stats_s = synced(torch, lambda: glm.linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight))
+    del inputs
+    fits, precision = {}, None
+    for name, params in LINREG_FITS.items():
+        est = port.LinearRegression(**params)
+        port.profiling.reset_counters("glm.")
+        model, fit_s, peak, launches = timed_fit(torch, est, df, wrappers)
+        if precision is None:
+            precision = precision_record(torch, X, dev)
+        outs, transform_s = round_trip(port, model, df, f"path_linreg_{name}", ["prediction"])
+        check(np.isfinite(outs["prediction"]).all(), f"{name}: non-finite predictions")
+        hold_pred = concat_col(model.transform(hold), "prediction")
+        r2 = float(1.0 - ((hold_pred - y_hold) ** 2).mean() / y_hold.var())
+        check(r2 > HOLDOUT_R2, f"{name}: held-out R^2 {r2} <= {HOLDOUT_R2}")
+        tp = dict(est._tpu_params)
+        rec = {"params": params, "fit_s": fit_s, "transform_s": transform_s,
+               "transform_rows_per_s": GLM_ROWS / transform_s, "max_memory_allocated_bytes": peak,
+               "launches": launches, "holdout_r2": r2, "reloaded_identical": True}
+        if name in ("ols", "ridge"):
+            alpha = float(tp["alpha"])
+            b64, b0_64 = f64_linear_solve(torch, stats64, alpha)
+            scale = float(b64.abs().max())
+            b64_h, b0_h = b64.cpu().numpy(), float(b0_64)
+            rec["coef_max_rel_err_vs_float64"] = float(np.abs(model.coef_ - b64_h).max()) / scale
+            rec["intercept_rel_err_vs_float64"] = abs(model.intercept_ - b0_h) / scale
+            pb, pb0 = glm.solve_linear(stats64_port, alpha, fit_intercept=True, normalize=True)
+            rec["port_solve_float64_max_rel_err"] = float((pb - b64).abs().max()) / scale
+            check(rec["coef_max_rel_err_vs_float64"] <= LINREG_RTOL and rec["intercept_rel_err_vs_float64"] <= LINREG_RTOL,
+                  f"{name} against the float64 solve: {rec}")
+            check(rec["port_solve_float64_max_rel_err"] <= LINREG_F64_RTOL, f"{name}: the port's float64 solve: {rec}")
+            _, rec["solve_s"] = synced(torch, lambda: glm.solve_linear(stats32, alpha, True, True))
+        else:
+            sweeps = port.profiling.counters("glm.").get("glm.cd_sweeps")
+            cpu_stats = glm.LinregStats(*(t.cpu() for t in stats32))
+            (b_cpu, b0_cpu, it_cpu), cpu_s = synced(torch, lambda: glm.solve_elasticnet_cd(
+                cpu_stats, float(tp["alpha"]), float(tp["l1_ratio"]), bool(tp["fit_intercept"]),
+                bool(tp["normalize"]), int(tp["max_iter"]), float(tp["tol"])))
+            scale = float(b_cpu.abs().max())
+            rec.update(cd_sweeps=sweeps, cd_sweeps_cpu=it_cpu, cd_cpu_s=cpu_s,
+                       coef_max_rel_err_vs_cpu_cd=float(np.abs(model.coef_ - b_cpu.numpy()).max()) / scale,
+                       intercept_abs_err_vs_cpu_cd=abs(model.intercept_ - float(b0_cpu)))
+            check(sweeps == it_cpu, f"CD sweeps: card {sweeps}, CPU {it_cpu}")
+            check(rec["coef_max_rel_err_vs_cpu_cd"] <= ENET_RTOL, f"elastic net against the CPU's CD: {rec}")
+            _, rec["cd_s"] = synced(torch, lambda: glm.solve_elasticnet_cd(
+                stats32, float(tp["alpha"]), float(tp["l1_ratio"]), bool(tp["fit_intercept"]), bool(tp["normalize"]),
+                int(tp["max_iter"]), float(tp["tol"])))
+            rec["cd_sweep"] = cd_sweep_times(torch, glm, stats32, tp, dev)
+        fits[name] = rec
+    profile = profile_run(torch, lambda: port.LinearRegression(**LINREG_FITS["ridge"]).fit(df),
+                          ("core.ingest", "glm.stats", "glm.solve"), wrappers)
+    del df, hold, stats64, stats64_port, G64
+    return {
+        "phase": "path_linreg", "rows": GLM_ROWS, "cols": GLM_COLS, "holdout_rows": GLM_HOLDOUT,
+        "partitions": GLM_PARTITIONS, "fits": fits, "precision": precision,
+        "gates": {"ols_ridge_rtol_vs_float64": LINREG_RTOL, "port_float64_solve_rtol": LINREG_F64_RTOL,
+                  "elastic_net_rtol_vs_cpu_cd": ENET_RTOL, "holdout_r2_above": HOLDOUT_R2},
+        "stages_s": {"ingest": ingest_s, "stats": stats_s, "float64_reference": ref_s},
+        "stats_bound_s": 2.0 * GLM_ROWS * GLM_COLS ** 2 / PEAK_FP32_FLOPS,
+        "profile_ridge": profile,
+    }
+
+
+def run_logreg_path(torch, port, wrappers, X, y, dev):
+    """Phase path_logreg: binary LogisticRegression(regParam=1e-5,
+    maxIter=200) on y > 0 through the public API: fit -> transform -> save ->
+    load -> transform, held-out accuracy, the L-BFGS counts, one dense
+    objective evaluation timed against its bound, a profiled fit."""
+    from spark_rapids_ml_tpu_torch.ops import logistic
+
+    yb = (y > 0).astype(np.float32)
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], yb[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    hold = port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)
+    est = port.LogisticRegression(**LOGREG)
+    port.profiling.reset_counters("lbfgs.")
+    model, fit_s, peak, launches = timed_fit(torch, est, df, wrappers)
+    solver = port.profiling.counters("lbfgs.")
+    precision = precision_record(torch, X, dev)
+    cols = ["prediction", "probability", "rawPrediction"]
+    outs, transform_s = round_trip(port, model, df, "path_logreg", cols)
+    check(all(np.isfinite(outs[c]).all() for c in cols), "non-finite outputs")
+    acc = float((concat_col(model.transform(hold), "prediction") == yb[GLM_ROWS:]).mean())
+    check(acc > HOLDOUT_ACCURACY, f"held-out accuracy {acc} <= {HOLDOUT_ACCURACY}")
+
+    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    theta = torch.as_tensor(np.concatenate([model.coef_.ravel(), model.intercept_]).astype(np.float32), device=dev)
+    wsum = inputs.weight.sum()
+    eval_ms = median_ms(torch, lambda: logistic._data_value_and_grad(
+        theta, inputs.X, inputs.y, inputs.weight, wsum, 1, GLM_COLS, True), 5)
+    del inputs
+    eval_bound_ms = 1e3 * 2 * GLM_ROWS * GLM_COLS * 4 / PEAK_BYTES_PER_S  # X read twice
+    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "lbfgs.fit"), wrappers)
+    del df, hold
+    return {
+        "phase": "path_logreg", "rows": GLM_ROWS, "cols": GLM_COLS, "holdout_rows": GLM_HOLDOUT,
+        "params": LOGREG, "fit_s": fit_s, "transform_s": transform_s,
+        "transform_rows_per_s": GLM_ROWS / transform_s, "max_memory_allocated_bytes": peak,
+        "launches": launches, "precision": precision,
+        "lbfgs_iterations": solver.get("lbfgs.iterations"), "lbfgs_evaluations": solver.get("lbfgs.evaluations"),
+        "converged": bool(solver.get("lbfgs.converged")), "num_iters": model.num_iters,
+        "holdout_accuracy": acc, "holdout_accuracy_above": HOLDOUT_ACCURACY, "reloaded_identical": True,
+        "stages_s": {"ingest": ingest_s, "lbfgs": fit_s - ingest_s},
+        "evaluation_ms": eval_ms, "evaluation_bound_ms": eval_bound_ms,
+        "profiled_lbfgs_ms_per_evaluation": profile["range_host_ms"]["lbfgs.fit"] / solver["lbfgs.evaluations"],
+        "profile": profile,
+    }
+
+
+def sparse_glm_data():
+    """bench.py's sparse multinomial rows: one (column, value) a row,
+    standard normal values, labels the argmax of the row's value times a
+    standard normal (cols, 4) weight row.  (CSR matrix, labels float32)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(SPARSE_SEED)
+    idx = rng.integers(0, SPARSE_COLS, size=SPARSE_ROWS, dtype=np.int32)
+    val = rng.standard_normal(SPARSE_ROWS, dtype=np.float32)
+    W_true = rng.standard_normal((SPARSE_COLS, SPARSE_CLASSES), dtype=np.float32)
+    y = (val[:, None] * W_true[idx]).argmax(axis=1).astype(np.float32)
+    indptr = np.arange(SPARSE_ROWS + 1, dtype=np.int64)
+    return sp.csr_matrix((val, idx.astype(np.int64), indptr), shape=(SPARSE_ROWS, SPARSE_COLS)), y
+
+
+def run_logreg_sparse_path(torch, port, wrappers, dev):
+    """Phase path_logreg_sparse: multinomial LogisticRegression on the CSR
+    frame through the public API, twice: bit-identical coefficients, no
+    dense (N, D) feature tensor on the card, accuracy above the majority
+    share; transform; one objective evaluation timed; a profiled fit."""
+    from spark_rapids_ml_tpu_torch.ops import logistic
+
+    t0 = time.perf_counter()
+    csr, y = sparse_glm_data()
+    gen_s = time.perf_counter() - t0
+    df = port.DataFrame.from_numpy(csr, y, num_partitions=1)
+    est = port.LogisticRegression(**SPARSE_LOGREG)
+    port.profiling.reset_counters("lbfgs.")
+    first, fit_s, peak, launches = timed_fit(torch, est, df, wrappers)
+    solver = port.profiling.counters("lbfgs.")
+    second, fit2_s, _, _ = timed_fit(torch, est, df, wrappers)
+    check(np.array_equal(first.coef_, second.coef_) and np.array_equal(first.intercept_, second.intercept_),
+          "two fits of the same sparse frame differ")
+    dense_bytes = SPARSE_ROWS * SPARSE_COLS * 4
+    check(peak < dense_bytes, f"the sparse fit peaked at {peak} bytes, not under the dense {dense_bytes}")
+    t0 = time.perf_counter()
+    pred = concat_col(first.transform(df), "prediction")
+    transform_s = time.perf_counter() - t0
+    acc = float((pred == y).mean())
+    majority = float(np.bincount(y.astype(np.int64)).max() / len(y))
+    check(acc > majority, f"accuracy {acc} <= majority share {majority}")
+
+    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    ell = inputs.X
+    y_enc = inputs.y.long()
+    theta = torch.as_tensor(np.concatenate([first.coef_.ravel(), first.intercept_]).astype(np.float32), device=dev)
+    wsum = inputs.weight.sum()
+    eval_ms = median_ms(torch, lambda: logistic._data_value_and_grad(
+        theta, ell, y_enc, inputs.weight, wsum, SPARSE_CLASSES, SPARSE_COLS, True), 5)
+    # bytes the evaluation needs: the ELL pair and its transpose once, the
+    # scores written and read back, labels and weights
+    eval_bytes = ell.nbytes() + 2 * SPARSE_ROWS * SPARSE_CLASSES * 4 + SPARSE_ROWS * (8 + 4)
+    ell_bytes = ell.nbytes()
+    del inputs, ell
+    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "lbfgs.fit"), wrappers)
+    del df, csr
+    return {
+        "phase": "path_logreg_sparse", "rows": SPARSE_ROWS, "cols": SPARSE_COLS, "classes": SPARSE_CLASSES,
+        "nnz_per_row": 1, "params": SPARSE_LOGREG, "data_gen_s": gen_s,
+        "fit_s": fit_s, "second_fit_s": fit2_s, "identical_fits": True,
+        "transform_s": transform_s, "transform_rows_per_s": SPARSE_ROWS / transform_s,
+        "max_memory_allocated_bytes": peak, "dense_feature_bytes": dense_bytes, "ell_bytes": ell_bytes,
+        "launches": launches, "lbfgs_iterations": solver.get("lbfgs.iterations"),
+        "lbfgs_evaluations": solver.get("lbfgs.evaluations"), "converged": bool(solver.get("lbfgs.converged")),
+        "accuracy": acc, "majority_share": majority,
+        "stages_s": {"ingest": ingest_s, "lbfgs": fit_s - ingest_s},
+        "evaluation_ms": eval_ms, "evaluation_bound_ms": 1e3 * eval_bytes / PEAK_BYTES_PER_S,
+        "profiled_lbfgs_ms_per_evaluation": profile["range_host_ms"]["lbfgs.fit"] / solver["lbfgs.evaluations"],
+        "profile": profile,
+    }
+
+
+def glm_card_vs_cpu(torch, port):
+    """Phase glm_card_vs_cpu: the same reduced fits on the card and under
+    use_device("cpu"): PCA, OLS, ridge, elastic net, and logistic (binary
+    and 4-class, dense and CSR)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(CVC_SEED)
+    X = rng.standard_normal((CVC_ROWS, CVC_COLS), dtype=np.float32)
+    coef = rng.standard_normal(CVC_COLS, dtype=np.float32)
+    y = (X @ coef + np.float32(0.1) * rng.standard_normal(CVC_ROWS, dtype=np.float32)).astype(np.float32)
+    W4 = rng.standard_normal((CVC_COLS, 4), dtype=np.float32) / np.float32(8.0)
+    noisy = rng.standard_normal((CVC_ROWS, 4), dtype=np.float32)
+    y2 = ((X @ W4[:, 0] + noisy[:, 0]) > 0).astype(np.float32)
+    y4 = (X @ W4 + noisy).argmax(axis=1).astype(np.float32)
+    S = sp.random(CVC_ROWS, CVC_COLS, density=0.05, format="csr", random_state=CVC_SEED, dtype=np.float32)
+    S.data = rng.standard_normal(S.nnz, dtype=np.float32)
+    s_logits = S @ (W4 * np.float32(8.0)) + noisy
+    s2 = (s_logits[:, 0] > 0).astype(np.float32)
+    s4 = s_logits.argmax(axis=1).astype(np.float32)
+    X_pca = low_rank_data(CVC_ROWS, CVC_COLS, PCA_RANK, CVC_SEED)
+    logistic_params = dict(regParam=1e-3, maxIter=200, tol=1e-6)
+    cases = [
+        ("pca", port.PCA(k=PCA_K), X_pca, None),
+        *((name, port.LinearRegression(**params), X, y) for name, params in LINREG_FITS.items()),
+        ("logistic_binary", port.LogisticRegression(**logistic_params), X, y2),
+        ("logistic_4_class", port.LogisticRegression(**logistic_params), X, y4),
+        ("logistic_binary_csr", port.LogisticRegression(**logistic_params), S, s2),
+        ("logistic_4_class_csr", port.LogisticRegression(**logistic_params), S, s4),
+    ]
+    rows = []
+    for name, est, feats, labels in cases:
+        df = port.DataFrame.from_numpy(feats, labels, num_partitions=2)
+        port.profiling.reset_counters()
+        card, card_s = synced(torch, lambda: est.fit(df))
+        card_counts = port.profiling.counters()
+        port.profiling.reset_counters()
+        with port.device.use_device("cpu"):
+            t0 = time.perf_counter()
+            cpu = est.fit(df)
+            cpu_s = time.perf_counter() - t0
+        cpu_counts = port.profiling.counters()
+        rec = {"case": name, "card_fit_s": card_s, "cpu_fit_s": cpu_s}
+        if name == "pca":
+            a, b = card.components_, cpu.components_
+            rec["max_abs_err"] = float(np.abs(a - b).max())
+            check(np.array_equal(np.sign(a[np.arange(PCA_K), np.abs(b).argmax(axis=1)]), np.ones(PCA_K)),
+                  "card PCA signs differ from the CPU's")
+            check(rec["max_abs_err"] <= CVC_PCA_ATOL, f"card and CPU PCA differ: {rec}")
+        elif name.startswith("logistic"):
+            a = np.concatenate([card.coef_.ravel(), card.intercept_])
+            b = np.concatenate([cpu.coef_.ravel(), cpu.intercept_])
+            rec.update(max_abs_err=float(np.abs(a - b).max()), scale=float(max(1.0, np.abs(b).max())),
+                       iterations_card=card.num_iters, iterations_cpu=cpu.num_iters)
+            check(rec["max_abs_err"] <= CVC_LOGISTIC_ATOL * rec["scale"], f"card and CPU logistic differ: {rec}")
+        else:
+            scale = float(np.abs(cpu.coef_).max())
+            rec["max_rel_err"] = float(max(np.abs(card.coef_ - cpu.coef_).max(),
+                                           abs(card.intercept_ - cpu.intercept_)) / scale)
+            rec["cd_sweeps"] = [card_counts.get("glm.cd_sweeps"), cpu_counts.get("glm.cd_sweeps")]
+            check(rec["cd_sweeps"][0] == rec["cd_sweeps"][1], f"CD sweeps differ: {rec}")
+            check(rec["max_rel_err"] <= CVC_LINEAR_RTOL, f"card and CPU linear fits differ: {rec}")
+        rows.append(rec)
+    return {"phase": "glm_card_vs_cpu", "rows": CVC_ROWS, "cols": CVC_COLS,
+            "tolerances": {"pca_atol": CVC_PCA_ATOL, "linear_rtol": CVC_LINEAR_RTOL,
+                           "logistic_atol": CVC_LOGISTIC_ATOL}, "cases": rows}
+
+
 def main():
     import argparse
 
@@ -2630,6 +3207,23 @@ def main():
             emit(results[phase])
         del X_ann, Q_ann
 
+    if "path_pca" in phases:
+        emit(run_pca_path(torch, port, wrappers, dev))
+    if {"path_linreg", "path_logreg"} & set(phases):
+        t0 = time.perf_counter()
+        X_glm, y_glm = glm_data()
+        emit({"phase": "glm_data", "rows": GLM_ROWS + GLM_HOLDOUT, "cols": GLM_COLS,
+              "seconds": time.perf_counter() - t0})
+        if "path_linreg" in phases:
+            emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+        if "path_logreg" in phases:
+            emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+        del X_glm, y_glm
+    if "path_logreg_sparse" in phases:
+        emit(run_logreg_sparse_path(torch, port, wrappers, dev))
+    if "glm_card_vs_cpu" in phases:
+        emit(glm_card_vs_cpu(torch, port))
+
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2747,7 +3341,7 @@ def summary(results, seconds):
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4"]
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

@@ -11,6 +11,9 @@ from .dataframe import DataFrame
 from .models.approximate_nn import ApproximateNearestNeighbors, ApproximateNearestNeighborsModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
+from .models.linear_regression import LinearRegression, LinearRegressionModel
+from .models.logistic_regression import LogisticRegression, LogisticRegressionModel
+from .models.pca import PCA, PCAModel
 from .models.random_forest import (
     RandomForestClassificationModel,
     RandomForestClassifier,
@@ -25,8 +28,14 @@ __all__ = [
     "DataFrame",
     "KMeans",
     "KMeansModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "NearestNeighbors",
     "NearestNeighborsModel",
+    "PCA",
+    "PCAModel",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
     "RandomForestRegressionModel",

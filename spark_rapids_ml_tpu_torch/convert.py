@@ -16,6 +16,9 @@ from .dataframe import DataFrame
 from .models.approximate_nn import ApproximateNearestNeighbors, ApproximateNearestNeighborsModel
 from .models.kmeans import KMeansModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
+from .models.linear_regression import LinearRegressionModel
+from .models.logistic_regression import LogisticRegressionModel
+from .models.pca import PCAModel
 from .models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
 
 
@@ -28,6 +31,43 @@ def kmeans_model_from_reference(attrs: Dict[str, Any]) -> KMeansModel:
         dtype=str(attrs["dtype"]),
         n_iter_=int(attrs.get("n_iter_", 0)),
         inertia_=float(attrs.get("inertia_", 0.0)),
+    )
+
+
+def pca_model_from_reference(attrs: Dict[str, Any]) -> PCAModel:
+    """PCAModel from the JAX package's PCAModel attributes (mean_,
+    components_, explained_variance_, explained_variance_ratio_,
+    singular_values_, n_cols, dtype)."""
+    return PCAModel(
+        **{name: np.asarray(attrs[name], np.float64) for name in (
+            "mean_", "components_", "explained_variance_", "explained_variance_ratio_", "singular_values_")},
+        n_cols=int(attrs["n_cols"]),
+        dtype=str(attrs["dtype"]),
+    )
+
+
+def linear_regression_model_from_reference(attrs: Dict[str, Any]) -> LinearRegressionModel:
+    """LinearRegressionModel from the JAX package's LinearRegressionModel
+    attributes (coef_, intercept_, n_cols, dtype) of a single model."""
+    return LinearRegressionModel(
+        coef_=np.asarray(attrs["coef_"], np.float64),
+        intercept_=float(attrs["intercept_"]),
+        n_cols=int(attrs["n_cols"]),
+        dtype=str(attrs["dtype"]),
+    )
+
+
+def logistic_regression_model_from_reference(attrs: Dict[str, Any]) -> LogisticRegressionModel:
+    """LogisticRegressionModel from the JAX package's LogisticRegressionModel
+    attributes (coef_ (k, D), intercept_ (k,), classes_, n_cols, dtype,
+    num_iters) of a single model."""
+    return LogisticRegressionModel(
+        coef_=np.asarray(attrs["coef_"], np.float64),
+        intercept_=np.asarray(attrs["intercept_"], np.float64),
+        classes_=np.asarray(attrs["classes_"], np.float64),
+        n_cols=int(attrs["n_cols"]),
+        dtype=str(attrs["dtype"]),
+        num_iters=int(np.ravel(attrs.get("num_iters", 0))[0]),
     )
 
 

@@ -15,9 +15,14 @@
 # spark_rapids_ml_tpu_torch., so models saved by the JAX package load here
 # without importing it.
 #
-# Not carried over yet: the Spark executor paths, the sparse (ELL) ingest,
-# the fit-input cache, fitMultiple, and the profiling / watch / sanitize /
-# fault-injection hooks.
+# CSR partitions (DataFrame.from_numpy of a sparse matrix) are ingested as
+# one ELL pair with its column-major transpose (ops/sparse.py) by estimators
+# that declare _supports_sparse_input (the GLMs), and densified partition by
+# partition for the others; a model with a sparse path transforms CSR
+# partitions as they are.
+#
+# Not carried over yet: the Spark executor paths, the fit-input cache,
+# fitMultiple, and the profiling / watch / sanitize / fault-injection hooks.
 #
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from .utils import get_logger, materialize_feature_block
 class FitInputs:
     """Training inputs on one device, handed to fit functions."""
 
-    X: Optional[torch.Tensor]  # (N_pad, D); a fit may drop it once it is done with it
+    # (N_pad, D), or an ops.sparse.EllMatrix for CSR input to an estimator
+    # with a sparse path; a fit may drop it once it is done with it
+    X: Any
     weight: torch.Tensor     # (N_pad,) user weight * valid-row mask: pad rows carry 0
     n_rows: int              # valid rows (N_pad >= n_rows)
     n_cols: int
@@ -83,6 +90,20 @@ def _validate_input_columns(instance: _TpuParams, df: DataFrame) -> None:
         raise ValueError(f"Input column(s) {missing} not found in dataset {cols}")
 
 
+def _partition_features(
+    instance: _TpuParams, part: Any, input_col: Optional[str], input_cols: Optional[List[str]], dtype: np.dtype
+) -> Any:
+    """One partition's features in `dtype`: a CSR block stays CSR for an
+    estimator or model with a sparse path and is densified, with a warning,
+    for the others."""
+    sparse_ok = instance._supports_sparse_input
+    if input_col is not None and hasattr(part[input_col], "tocsr") and not sparse_ok:
+        get_logger(type(instance)).warning(
+            "%s has no sparse path; densifying the CSR partition", type(instance).__name__
+        )
+    return materialize_feature_block(part, input_col, input_cols, dtype, densify_sparse=not sparse_ok)
+
+
 class _TpuCaller(_TpuParams):
     """Shared ingest + fit dispatch."""
 
@@ -111,7 +132,7 @@ class _TpuCaller(_TpuParams):
         input_col, input_cols = self._get_input_columns()
         dtype = self._use_dtype(df, input_col, input_cols)
         feats = [
-            materialize_feature_block(p, input_col, input_cols, dtype)
+            _partition_features(self, p, input_col, input_cols, dtype)
             for p in df.partitions
             if len(p) > 0
         ]
@@ -119,14 +140,23 @@ class _TpuCaller(_TpuParams):
             raise RuntimeError("Dataset is empty; cannot fit")
         dev = _device.resolve()
         n_rows, n_cols = sum(f.shape[0] for f in feats), feats[0].shape[1]
-        X = torch.empty((n_rows, n_cols), dtype=torch_dtype(dtype), device=dev)
-        offset = 0
-        for f in feats:
-            X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
-            offset += f.shape[0]
+        if any(hasattr(f, "tocsr") for f in feats):
+            # CSR partitions -> one ELL pair on the device, never densified
+            import scipy.sparse as sp
+
+            from .ops.sparse import ell_device_from_scipy
+
+            csr = sp.vstack(feats).tocsr() if len(feats) > 1 else feats[0]
+            X = ell_device_from_scipy(csr, dtype, dev)
+        else:
+            X = torch.empty((n_rows, n_cols), dtype=torch_dtype(dtype), device=dev)
+            offset = 0
+            for f in feats:
+                X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
+                offset += f.shape[0]
         inputs = FitInputs(
             X=X,
-            weight=torch.ones(n_rows, dtype=X.dtype, device=dev),
+            weight=torch.ones(n_rows, dtype=torch_dtype(dtype), device=dev),
             n_rows=n_rows,
             n_cols=n_cols,
             device=dev,
@@ -322,7 +352,7 @@ class _TpuModel(_TpuParams):
                 outputs.append(None)  # filled once the output columns are known
                 continue
             outputs.append(
-                transform_fn(materialize_feature_block(part, input_col, input_cols, dtype))
+                transform_fn(_partition_features(self, part, input_col, input_cols, dtype))
             )
         # empty partitions get the same output columns as the others
         template = next((o for o in outputs if o is not None), None)

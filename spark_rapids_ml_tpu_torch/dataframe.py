@@ -7,7 +7,9 @@
 # {column: numpy array} mapping.  A vector column is a 2-D array — the
 # contiguous feature block itself, which ingest and transform read without a
 # copy (the role the JAX package's FEATURE_BLOCK_ATTR stash plays beside its
-# pandas object column).  pandas is imported only by from_pandas/toPandas.
+# pandas object column), or a scipy CSR block when from_numpy is given a
+# sparse matrix (kept sparse, as the JAX package's from_numpy keeps it).
+# pandas is imported only by from_pandas/toPandas.
 #
 # Feature layouts, as in the JAX package:
 #   - "array" / "vector": one column of fixed-length vectors (a 2-D block)
@@ -26,15 +28,20 @@ import numpy as np
 from .utils import stack_feature_cells
 
 
+def _is_sparse(v: Any) -> bool:
+    return hasattr(v, "tocsr") and hasattr(v, "toarray")
+
+
 class Partition:
     """One row partition: an ordered {column name: numpy array} mapping whose
-    arrays all have the same number of rows."""
+    arrays all have the same number of rows.  A vector column may also be a
+    scipy CSR block (DataFrame.from_numpy of a sparse matrix)."""
 
     __slots__ = ("_cols", "_n")
 
-    def __init__(self, cols: Mapping[str, np.ndarray]) -> None:
-        self._cols: Dict[str, np.ndarray] = {k: np.asarray(v) for k, v in cols.items()}
-        rows = [len(v) for v in self._cols.values()]
+    def __init__(self, cols: Mapping[str, Any]) -> None:
+        self._cols: Dict[str, Any] = {k: v if _is_sparse(v) else np.asarray(v) for k, v in cols.items()}
+        rows = [v.shape[0] for v in self._cols.values()]
         if rows and any(r != rows[0] for r in rows):
             raise ValueError(f"partition columns differ in length: {rows}")
         self._n = rows[0] if rows else 0
@@ -75,7 +82,7 @@ class DataFrame:
     @classmethod
     def from_numpy(
         cls,
-        X: np.ndarray,
+        X: Any,
         y: Optional[np.ndarray] = None,
         feature_layout: str = "array",
         featuresCol: Union[str, List[str]] = "features",
@@ -84,16 +91,22 @@ class DataFrame:
         weight: Optional[np.ndarray] = None,
         weightCol: str = "weight",
     ) -> "DataFrame":
-        X = np.asarray(X)
+        sparse = _is_sparse(X)
+        X = X.tocsr() if sparse else np.asarray(X)
         if X.ndim != 2:
             raise ValueError(f"X must be 2-D, got shape {X.shape}")
         if feature_layout in ("array", "vector"):
             col = featuresCol if isinstance(featuresCol, str) else featuresCol[0]
 
-            def features(lo: int, hi: int) -> Dict[str, np.ndarray]:
-                # a row slice of a C-contiguous X is itself contiguous: no copy
-                return {col: np.ascontiguousarray(X[lo:hi])}
+            def features(lo: int, hi: int) -> Dict[str, Any]:
+                # a row slice of a C-contiguous X is itself contiguous: no
+                # copy.  A sparse X stays sparse: each partition's vector
+                # column is a CSR block, which the GLMs fit and transform
+                # through the ELL layout and the other estimators densify.
+                return {col: X[lo:hi] if sparse else np.ascontiguousarray(X[lo:hi])}
 
+        elif sparse:
+            raise ValueError("sparse X requires feature_layout='array'/'vector'")
         elif feature_layout == "multi_cols":
             names = (
                 featuresCol
@@ -197,7 +210,10 @@ class DataFrame:
 
         data: Dict[str, Any] = {}
         for name in self.columns:
-            values = np.concatenate([p[name] for p in self._partitions])
+            blocks = [p[name] for p in self._partitions]
+            if _is_sparse(blocks[0]):
+                blocks = [b.toarray() for b in blocks]
+            values = np.concatenate(blocks)
             data[name] = list(values) if values.ndim == 2 else values
         return pd.DataFrame(data)
 

@@ -230,7 +230,7 @@ def _dummy() -> Any:
 
 
 # ---------------------------------------------------------------------------
-# Shared param mixins (the subset KMeans and RandomForest use)
+# Shared param mixins (the subset the ported estimators use)
 # ---------------------------------------------------------------------------
 
 
@@ -347,6 +347,80 @@ class HasTol(Params):
         return self.getOrDefault(self.tol)
 
 
+class HasInputCol(Params):
+    inputCol = Param(_dummy(), "inputCol", "input column name", TypeConverters.toString)
+
+    def getInputCol(self) -> str:
+        return self.getOrDefault(self.inputCol)
+
+
+class HasInputCols(Params):
+    inputCols = Param(
+        _dummy(), "inputCols", "input column names", TypeConverters.toListString
+    )
+
+    def getInputCols(self) -> List[str]:
+        return self.getOrDefault(self.inputCols)
+
+
+class HasOutputCol(Params):
+    outputCol = Param(
+        _dummy(), "outputCol", "output column name", TypeConverters.toString
+    )
+
+    def getOutputCol(self) -> str:
+        return self.getOrDefault(self.outputCol)
+
+
+class HasRegParam(Params):
+    regParam = Param(
+        _dummy(), "regParam", "regularization parameter (>= 0)", TypeConverters.toFloat
+    )
+
+    def getRegParam(self) -> float:
+        return self.getOrDefault(self.regParam)
+
+
+class HasElasticNetParam(Params):
+    elasticNetParam = Param(
+        _dummy(),
+        "elasticNetParam",
+        "the ElasticNet mixing parameter, in range [0, 1]. alpha = 0 -> L2, alpha = 1 -> L1",
+        TypeConverters.toFloat,
+    )
+
+    def getElasticNetParam(self) -> float:
+        return self.getOrDefault(self.elasticNetParam)
+
+
+class HasFitIntercept(Params):
+    fitIntercept = Param(
+        _dummy(),
+        "fitIntercept",
+        "whether to fit an intercept term",
+        TypeConverters.toBoolean,
+    )
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self._setDefault(fitIntercept=True)
+
+    def getFitIntercept(self) -> bool:
+        return self.getOrDefault(self.fitIntercept)
+
+
+class HasStandardization(Params):
+    standardization = Param(
+        _dummy(),
+        "standardization",
+        "whether to standardize the training features before fitting the model",
+        TypeConverters.toBoolean,
+    )
+
+    def getStandardization(self) -> bool:
+        return self.getOrDefault(self.standardization)
+
+
 class HasSeed(Params):
     seed = Param(_dummy(), "seed", "random seed", TypeConverters.toInt)
 
@@ -411,6 +485,9 @@ class _TpuParams(_TpuClass, Params):
     _tpu_params: Dict[str, Any]
     _num_workers: Optional[int] = None
     _float32_inputs: bool = True
+    # estimators and models with a sparse (CSR -> ELL) compute path set this
+    # True (the GLMs); the others densify CSR input partition by partition
+    _supports_sparse_input: bool = False
 
     @property
     def tpu_params(self) -> Dict[str, Any]:
@@ -508,8 +585,12 @@ class _TpuParams(_TpuClass, Params):
             input_cols = self.getOrDefault("featuresCols")
         elif self.hasParam("featuresCol") and self.isDefined("featuresCol"):
             input_col = self.getOrDefault("featuresCol")
+        elif self.hasParam("inputCols") and self.isDefined("inputCols"):
+            input_cols = self.getOrDefault("inputCols")
+        elif self.hasParam("inputCol") and self.isDefined("inputCol"):
+            input_col = self.getOrDefault("inputCol")
         else:
-            raise ValueError("Please set featuresCol(s)")
+            raise ValueError("Please set inputCol(s) or featuresCol(s)")
         return input_col, input_cols
 
     def setFeaturesCol(self: P, value: Union[str, List[str]]) -> P:
@@ -521,6 +602,9 @@ class _TpuParams(_TpuClass, Params):
 
     def setFeaturesCols(self: P, value: List[str]) -> P:
         return self._set_params(featuresCols=value)
+
+    def setLabelCol(self: P, value: str) -> P:
+        return self._set_params(labelCol=value)
 
     def setPredictionCol(self: P, value: str) -> P:
         return self._set_params(predictionCol=value)

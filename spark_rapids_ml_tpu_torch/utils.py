@@ -51,12 +51,18 @@ def materialize_feature_block(
     input_col: Optional[str],
     input_cols: Optional[List[str]],
     dtype: np.dtype,
-) -> np.ndarray:
+    densify_sparse: bool = True,
+) -> Any:
     """One partition's (rows, D) feature matrix in `dtype`: the vector
     column's block itself (no copy when it already has that dtype), or the
-    scalar columns of `input_cols` stacked side by side."""
+    scalar columns of `input_cols` stacked side by side.  A sparse CSR block
+    stays CSR (in `dtype`) when densify_sparse is False."""
     if input_col is not None:
         block = part[input_col]
+        if hasattr(block, "tocsr"):
+            if not densify_sparse:
+                return block.tocsr().astype(dtype, copy=False)
+            return np.ascontiguousarray(block.toarray(), dtype=dtype)
         if block.ndim != 2:
             raise ValueError(
                 f"column '{input_col}' holds scalars, not feature vectors; "

@@ -144,6 +144,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         approx_model.kneighbors(df)
 
 
+@pytest.mark.parametrize("name", ["PCA", "LinearRegression", "LogisticRegression"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_pca_and_glm_entry_points_raise_without_cuda(monkeypatch, name, sparse):
+    import scipy.sparse as sp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(2).standard_normal((30, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    df = port.DataFrame.from_numpy(sp.csr_matrix(X) if sparse else X, y)
+    est = getattr(port, name)()
+    with pytest.raises(RuntimeError, match="use_device"):
+        est.fit(df)
+    with port.device.use_device("cpu"):
+        model = est.fit(df)
+    with pytest.raises(RuntimeError, match="use_device"):
+        model.transform(df)
+    if name != "PCA":
+        with pytest.raises(RuntimeError, match="use_device"):
+            model.predict(X[0])
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     if alone:
