@@ -188,13 +188,46 @@
 #            PCA, the three linear fits and four logistic fits (binary and 4
 #            classes, dense and CSR) at 65,536 x 256 on the card and under
 #            use_device("cpu"), within the CVC_* tolerances
+#   path_cv_linreg
+#            CrossValidator(LinearRegression(standardization=False)) over
+#            regParam geomspace(1e-3, 1, 4) x elasticNetParam {0, 0.5}, 3
+#            folds, RegressionEvaluator(rmse), on path_linreg's 1,000,000 x
+#            3000 rows: the batched sweep (one staged dataset: ingest.staged
+#            1), its stage times, fold 0's best and a CD lane against solo
+#            fits on fold 0's train frame (LINREG_RTOL), a repeat sweep with
+#            the grid shifted 2x capturing no CD graph, and the fold loop
+#            timed once
+#   path_cv_logreg
+#            CrossValidator(LogisticRegression(maxIter=100)) over the same
+#            grid and rows, y > 0, MulticlassClassificationEvaluator(accuracy):
+#            two families of 12 lanes (L-BFGS, OWL-QN), their iterations,
+#            evaluations and ms an evaluation against X read twice, the best
+#            lane against its solo fit on fold 0 (CV_LOGISTIC_ATOL, num_iters
+#            within CV_ITER_SLACK), a profiled sweep's idle share
+#   path_cv_rf
+#            CrossValidator(RandomForestRegressor(numTrees=30, "onethird"))
+#            over maxDepth {4, 6}, 3 folds, on path_rf_reg's rows (run while
+#            they exist): one B2 a fold and the refit, B3's launches by route
+#            as _hist_route sends them for the 6 fits and the refit, fold 0's
+#            combined transform-evaluate equal to each sub-model's own
+#            evaluate(transform)
+#   cv_card_vs_cpu
+#            at 65,536 x 256 integer-valued rows: the batched sweep against
+#            the fold loop on the card (linear bit for bit, logistic
+#            avgMetrics exactly on margin-separated labels), the card against
+#            use_device("cpu"), a KMeans CV (k {4, 8}, ClusteringEvaluator,
+#            B1 in the scored transforms) against a float64 silhouette,
+#            Pipeline and CrossValidatorModel save -> load
+# The fit-input cache is emptied before each timed fit and ingest, so the
+# phases time cold fits.
 # Every path runs with all kernel launch counters reset just before it and
 # read just after (the PCA and GLM paths run no kernel of the port's own:
 # their launches stay 0).  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; the ANN, PCA and GLM phases need nothing else).
+# path_knn_mesh; the ANN, PCA, GLM and model-selection phases need nothing
+# else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -2660,6 +2693,7 @@ def round_trip(port, model, df, phase, cols):
 def timed_fit(torch, est, df, wrappers):
     """(model, fit seconds, peak device bytes over the bytes allocated
     before the fit, launches of the port's kernels)."""
+    cold(lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2728,12 +2762,12 @@ def run_pca_path(torch, port, wrappers, dev):
     errs["transform_max_rel_err"] = float(np.abs(proj[:4096] - want).max() / np.abs(want).max())
     check(errs["transform_max_rel_err"] <= PCA_PROJ_RTOL, f"projections against float64: {errs}")
 
-    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    inputs, ingest_s = synced(torch, lambda: cold(lambda: est._build_fit_inputs(df)))
     (wsum, mean_t, scatter), moments_s = synced(torch, lambda: linalg.weighted_moments(inputs.X, inputs.weight))
     del inputs
     cov, cov_s = synced(torch, lambda: linalg.covariance(wsum, mean_t, scatter))
     _, eigh_s = synced(torch, lambda: linalg.eigh_descending(cov))
-    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "pca.fit"), wrappers)
+    profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "pca.fit"), wrappers)
     del X, df, cov, scatter
     return {
         "phase": "path_pca", "rows": GLM_ROWS, "cols": GLM_COLS, "k": PCA_K, "rank": PCA_RANK,
@@ -2797,7 +2831,7 @@ def run_linreg_path(torch, port, wrappers, X, y, dev):
     stats64_port = glm.LinregStats(torch.tensor(n, dtype=torch.float64, device=dev), sx / n, sy / n, G64, c64, y2)
 
     est0 = port.LinearRegression()
-    inputs, ingest_s = synced(torch, lambda: est0._build_fit_inputs(df))
+    inputs, ingest_s = synced(torch, lambda: cold(lambda: est0._build_fit_inputs(df)))
     stats32, stats_s = synced(torch, lambda: glm.linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight))
     del inputs
     fits, precision = {}, None
@@ -2846,7 +2880,7 @@ def run_linreg_path(torch, port, wrappers, X, y, dev):
                 int(tp["max_iter"]), float(tp["tol"])))
             rec["cd_sweep"] = cd_sweep_times(torch, glm, stats32, tp, dev)
         fits[name] = rec
-    profile = profile_run(torch, lambda: port.LinearRegression(**LINREG_FITS["ridge"]).fit(df),
+    profile = profile_run(torch, lambda: cold(lambda: port.LinearRegression(**LINREG_FITS["ridge"]).fit(df)),
                           ("core.ingest", "glm.stats", "glm.solve"), wrappers)
     del df, hold, stats64, stats64_port, G64
     return {
@@ -2881,14 +2915,14 @@ def run_logreg_path(torch, port, wrappers, X, y, dev):
     acc = float((concat_col(model.transform(hold), "prediction") == yb[GLM_ROWS:]).mean())
     check(acc > HOLDOUT_ACCURACY, f"held-out accuracy {acc} <= {HOLDOUT_ACCURACY}")
 
-    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    inputs, ingest_s = synced(torch, lambda: cold(lambda: est._build_fit_inputs(df)))
     theta = torch.as_tensor(np.concatenate([model.coef_.ravel(), model.intercept_]).astype(np.float32), device=dev)
     wsum = inputs.weight.sum()
     eval_ms = median_ms(torch, lambda: logistic._data_value_and_grad(
         theta, inputs.X, inputs.y, inputs.weight, wsum, 1, GLM_COLS, True), 5)
     del inputs
     eval_bound_ms = 1e3 * 2 * GLM_ROWS * GLM_COLS * 4 / PEAK_BYTES_PER_S  # X read twice
-    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "lbfgs.fit"), wrappers)
+    profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "lbfgs.fit"), wrappers)
     del df, hold
     return {
         "phase": "path_logreg", "rows": GLM_ROWS, "cols": GLM_COLS, "holdout_rows": GLM_HOLDOUT,
@@ -2947,7 +2981,7 @@ def run_logreg_sparse_path(torch, port, wrappers, dev):
     majority = float(np.bincount(y.astype(np.int64)).max() / len(y))
     check(acc > majority, f"accuracy {acc} <= majority share {majority}")
 
-    inputs, ingest_s = synced(torch, lambda: est._build_fit_inputs(df))
+    inputs, ingest_s = synced(torch, lambda: cold(lambda: est._build_fit_inputs(df)))
     ell = inputs.X
     y_enc = inputs.y.long()
     theta = torch.as_tensor(np.concatenate([first.coef_.ravel(), first.intercept_]).astype(np.float32), device=dev)
@@ -2959,7 +2993,7 @@ def run_logreg_sparse_path(torch, port, wrappers, dev):
     eval_bytes = ell.nbytes() + 2 * SPARSE_ROWS * SPARSE_CLASSES * 4 + SPARSE_ROWS * (8 + 4)
     ell_bytes = ell.nbytes()
     del inputs, ell
-    profile = profile_run(torch, lambda: est.fit(df), ("core.ingest", "lbfgs.fit"), wrappers)
+    profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "lbfgs.fit"), wrappers)
     del df, csr
     return {
         "phase": "path_logreg_sparse", "rows": SPARSE_ROWS, "cols": SPARSE_COLS, "classes": SPARSE_CLASSES,
@@ -3042,6 +3076,401 @@ def glm_card_vs_cpu(torch, port):
     return {"phase": "glm_card_vs_cpu", "rows": CVC_ROWS, "cols": CVC_COLS,
             "tolerances": {"pca_atol": CVC_PCA_ATOL, "linear_rtol": CVC_LINEAR_RTOL,
                            "logistic_atol": CVC_LOGISTIC_ATOL}, "cases": rows}
+
+# ---------------------------------------------------------------------------
+# Model selection: CrossValidator over the GLMs (the batched sweep), the
+# forest and KMeans (the fold loop), Pipeline and persistence
+# ---------------------------------------------------------------------------
+
+# The GLM grid: regParam geomspace(1e-3, 1, 4) x elasticNetParam {0, 0.5}:
+# 8 candidates, 4 closed-form and 4 coordinate-descent (linear), 4 L-BFGS
+# and 4 OWL-QN (logistic); 3 folds, seed 7.  The repeat sweep's grid is the
+# same shape shifted by 2x.
+CV_FOLDS, CV_SEED = 3, 7
+CV_REGS = tuple(float(v) for v in np.geomspace(1e-3, 1.0, 4))
+CV_REGS_SHIFTED = tuple(float(v) for v in np.geomspace(2e-3, 2.0, 4))
+CV_L1S = (0.0, 0.5)
+CV_LOGREG = dict(maxIter=100)
+# the forest CV: PERF.md's regressor rows, maxDepth {4, 6}
+CV_RF = dict(numTrees=30, maxBins=128, featureSubsetStrategy="onethird", seed=1)
+CV_RF_DEPTHS = (4, 6)
+# a batched logistic lane against the solo fit on its fold's train rows
+CV_LOGISTIC_ATOL, CV_ITER_SLACK = 5e-3, 2
+# cv_card_vs_cpu: integer-valued rows (every sum exact in float32), its
+# grids, KMeans' k grid, and the silhouette against float64 on the host
+CV_SMALL_REGS, CV_SMALL_L1S = (0.01, 1.0), (0.0, 0.5)
+CV_KMEANS_KS = (4, 8)
+SILHOUETTE_RTOL = 1e-9
+CV_PHASES = ("path_cv_linreg", "path_cv_logreg", "path_cv_rf", "cv_card_vs_cpu")
+
+
+def cold(fn):
+    """fn() after emptying the port's fit-input cache: the next ingest
+    stages its frame anew (the phases time cold fits and cold ingests)."""
+    from spark_rapids_ml_tpu_torch.core import clear_fit_cache
+
+    clear_fit_cache()
+    return fn()
+
+
+def glm_grid(port, cls, regs, l1s=CV_L1S):
+    return port.ParamGridBuilder().addGrid(cls.regParam, list(regs)).addGrid(cls.elasticNetParam, list(l1s)).build()
+
+
+def timed_cv(torch, port, cv, df, wrappers, batched=True, clear=True):
+    """(model, seconds, counters, launches, peak bytes over the bytes
+    allocated before): one CrossValidator fit (from an empty fit-input cache
+    unless clear is False), every counter and kernel launch counter reset
+    just before it."""
+    if clear:
+        port.clear_fit_cache()
+    port.profiling.reset_counters()
+    reset_launches(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = cv._fit(df, batched=batched)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return model, seconds, port.profiling.counters(), read_launches(wrappers), torch.cuda.max_memory_allocated() - base
+
+
+def cv_record(cv, model, seconds, counts, launches, peak):
+    """The fields every CV record carries."""
+    n = len(model.avgMetrics)
+    return {
+        "cv_fit_s": seconds, "candidates": n, "folds": cv.getNumFolds(), "candidates_per_s": n / seconds,
+        "stages_s": dict(cv._last_fit_phase_times), "counters": counts, "launches": launches,
+        "max_memory_allocated_bytes": peak, "avgMetrics": model.avgMetrics, "stdMetrics": model.stdMetrics,
+    }
+
+
+def coef_rel_err(a, b):
+    """max |a - b| over max |b| of two coefficient arrays."""
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max() / max(np.abs(np.asarray(b)).max(), 1e-30))
+
+
+def run_cv_linreg_path(torch, port, wrappers, X, y, dev):
+    """Phase path_cv_linreg: CrossValidator(LinearRegression) over the 8
+    candidates and 3 folds of 1,000,000 x 3000 rows: the batched sweep
+    (one staged dataset), its lanes against solo fits on fold 0's train
+    frame, a repeat sweep with the shifted grid (no new CD graph), and the
+    fold loop timed once."""
+    LR = port.LinearRegression
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], y[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    est = LR(standardization=False)
+    grid = glm_grid(port, LR, CV_REGS)
+    eva = port.RegressionEvaluator(metricName="rmse")
+
+    def make_cv(g):
+        return port.CrossValidator(estimator=est, estimatorParamMaps=g, evaluator=eva, numFolds=CV_FOLDS,
+                                   seed=CV_SEED, collectSubModels=True)
+
+    cv = make_cv(grid)
+    model, cv_s, counts, launches, peak = timed_cv(torch, port, cv, df, wrappers)
+    rec = cv_record(cv, model, cv_s, counts, launches, peak)
+    check(counts.get("ingest.staged") == 1, f"the batched CV staged {counts.get('ingest.staged')} datasets, not 1")
+    check(all(np.isfinite(model.avgMetrics)), f"avgMetrics {model.avgMetrics}")
+    best = int(np.argmin(model.avgMetrics))
+    rec["best"] = {"index": best, "regParam": grid[best][LR.regParam], "elasticNetParam": grid[best][LR.elasticNetParam]}
+    rec["ingest_staged"] = counts.get("ingest.staged", 0)
+    # 0 when an earlier phase captured the graph of this shape
+    rec["cd_graph_captures"] = counts.get("glm.cd_graph_captures", 0)
+    rec["precision"] = precision_record(torch, X, dev)
+
+    # the repeat sweep: another grid of the same shape, no new CD capture
+    cv2 = make_cv(glm_grid(port, LR, CV_REGS_SHIFTED))
+    model2, cv2_s, counts2, _, _ = timed_cv(torch, port, cv2, df, wrappers, clear=False)
+    check(counts2.get("glm.cd_graph_captures", 0) == 0,
+          f"the repeat sweep captured {counts2.get('glm.cd_graph_captures')} CD graphs")
+    rec["repeat"] = {"cv_fit_s": cv2_s, "counters": counts2, "avgMetrics": model2.avgMetrics,
+                     "cd_graph_captures": counts2.get("glm.cd_graph_captures", 0),
+                     "stages_s": dict(cv2._last_fit_phase_times)}
+
+    # fold 0's lanes against solo fits on fold 0's train frame: the best
+    # lane and a coordinate-descent lane
+    cd_lane = next(i for i, pm in enumerate(grid) if pm[LR.elasticNetParam] > 0 and i != best)
+    train0 = cold(lambda: cv._kFold(df)[0][0])
+    solo = {}
+    for i in (best, cd_lane):
+        fit = est.copy(grid[i]).fit(train0)
+        lane = model.subModels[0][i]
+        scale = float(np.abs(fit.coef_).max())
+        solo[str(i)] = {"coef_max_rel_err": coef_rel_err(lane.coef_, fit.coef_),
+                        "intercept_rel_err": abs(lane.intercept_ - fit.intercept_) / scale}
+        check(solo[str(i)]["coef_max_rel_err"] <= LINREG_RTOL and solo[str(i)]["intercept_rel_err"] <= LINREG_RTOL,
+              f"lane {i} of fold 0 against its solo fit: {solo[str(i)]}")
+    rec["lanes_vs_solo_fold0"] = solo
+    del train0
+
+    # the fold loop at this size, timed once (no gate)
+    cvs = make_cv(grid)
+    model_s, seq_s, counts_s, _, _ = timed_cv(torch, port, cvs, df, wrappers, batched=False)
+    rec["fold_loop"] = {
+        "cv_fit_s": seq_s, "stages_s": dict(cvs._last_fit_phase_times), "counters": counts_s,
+        "avgMetrics": model_s.avgMetrics, "best_index": int(np.argmin(model_s.avgMetrics)),
+        "avgMetrics_max_rel_diff": float(np.max(np.abs(np.subtract(model_s.avgMetrics, model.avgMetrics))
+                                                / np.abs(model.avgMetrics))),
+        "coef_max_rel_err_vs_batched": max(coef_rel_err(a.coef_, b.coef_)
+                                           for fa, fb in zip(model.subModels, model_s.subModels)
+                                           for a, b in zip(fa, fb)),
+    }
+    port.clear_fit_cache()
+    del df
+    return {"phase": "path_cv_linreg", "rows": GLM_ROWS, "cols": GLM_COLS, "partitions": GLM_PARTITIONS,
+            "grid": {"regParam": list(CV_REGS), "elasticNetParam": list(CV_L1S)}, "seed": CV_SEED,
+            "gates": {"ingest_staged": 1, "lanes_vs_solo_rtol": LINREG_RTOL, "repeat_cd_graph_captures": 0}, **rec}
+
+
+def run_cv_logreg_path(torch, port, wrappers, X, y, dev):
+    """Phase path_cv_logreg: CrossValidator(LogisticRegression(maxIter=100))
+    over the 8 candidates and 3 folds of 1,000,000 x 3000 rows, y > 0: the
+    batched sweep's two families of 12 lanes (L-BFGS and OWL-QN), each
+    family's iterations, evaluations and ms an evaluation against the byte
+    bound, the best lane against its solo fit on fold 0, and a profiled
+    sweep's idle share."""
+    LG = port.LogisticRegression
+    yb = (y > 0).astype(np.float32)
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], yb[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    est = LG(**CV_LOGREG)
+    grid = glm_grid(port, LG, CV_REGS)
+    eva = port.MulticlassClassificationEvaluator(metricName="accuracy")
+    cv = port.CrossValidator(estimator=est, estimatorParamMaps=grid, evaluator=eva, numFolds=CV_FOLDS,
+                             seed=CV_SEED, collectSubModels=True)
+    model, cv_s, counts, launches, peak = timed_cv(torch, port, cv, df, wrappers)
+    rec = cv_record(cv, model, cv_s, counts, launches, peak)
+    check(counts.get("ingest.staged") == 1, f"the batched CV staged {counts.get('ingest.staged')} datasets, not 1")
+    best = int(np.argmax(model.avgMetrics))
+    rec["best"] = {"index": best, "regParam": grid[best][LG.regParam], "elasticNetParam": grid[best][LG.elasticNetParam]}
+    eval_bound_ms = 1e3 * 2 * GLM_ROWS * GLM_COLS * 4 / PEAK_BYTES_PER_S  # X read twice
+    families = {}
+    for fam in ("lbfgs", "owlqn"):
+        evals = counts.get(f"tuning.sweep.{fam}.evaluations", 0)
+        seconds = rec["stages_s"].get(f"tuning.sweep.solve.{fam}")
+        families[fam] = {"lanes": CV_FOLDS * 4, "iterations": counts.get(f"tuning.sweep.{fam}.iterations"),
+                         "evaluations": evals, "seconds": seconds,
+                         "ms_per_evaluation": 1e3 * seconds / evals if evals else None,
+                         "evaluation_bound_ms": eval_bound_ms}
+    check(all(f["evaluations"] > 0 for f in families.values()), f"a penalty family did not run: {families}")
+    rec["families"] = families
+    rec["precision"] = precision_record(torch, X, dev)
+
+    train0 = cold(lambda: cv._kFold(df)[0][0])
+    fit = est.copy(grid[best]).fit(train0)
+    lane = model.subModels[0][best]
+    gate = {"coef_max_abs_err": float(np.abs(lane.coef_ - fit.coef_).max()),
+            "intercept_abs_err": float(np.abs(lane.intercept_ - fit.intercept_).max()),
+            "num_iters": [int(lane.num_iters), int(fit.num_iters)]}
+    check(gate["coef_max_abs_err"] <= CV_LOGISTIC_ATOL and gate["intercept_abs_err"] <= CV_LOGISTIC_ATOL
+          and abs(gate["num_iters"][0] - gate["num_iters"][1]) <= CV_ITER_SLACK,
+          f"the best lane of fold 0 against its solo fit: {gate}")
+    rec["best_lane_vs_solo_fold0"] = gate
+    del train0
+
+    # a profiled sweep, its dataset staged beforehand: the solver's idle share
+    cold(lambda: est._build_fit_inputs(df))
+    rec["profile_sweep"] = profile_run(
+        torch, lambda: est._fitBatchedSweep(df, grid, CV_FOLDS, CV_SEED),
+        ("tuning.sweep.ingest", "tuning.sweep.solve", "tuning.sweep.solve.lbfgs", "tuning.sweep.solve.owlqn"),
+        wrappers)
+    port.clear_fit_cache()
+    del df
+    return {"phase": "path_cv_logreg", "rows": GLM_ROWS, "cols": GLM_COLS, "partitions": GLM_PARTITIONS,
+            "params": CV_LOGREG, "grid": {"regParam": list(CV_REGS), "elasticNetParam": list(CV_L1S)},
+            "seed": CV_SEED, "gates": {"ingest_staged": 1, "lane_vs_solo_atol": CV_LOGISTIC_ATOL,
+                                       "num_iters_slack": CV_ITER_SLACK}, **rec}
+
+
+def forest_hist_launches(port, trees, depth, n_bins):
+    """B3's launches by route of one regressor fit's shallow phase, as
+    _hist_route sends them."""
+    shapes = port.ops.forest_grow.shallow_launches(trees, 2, depth)
+    routes = [port.ops.forest_hist._hist_route(tp, nodes, 2, n_bins) for _, nodes, tp in shapes]
+    return {f"node_histograms_{r}": routes.count(r) for r in ("mma", "atomic")}
+
+
+def run_cv_rf_path(torch, port, wrappers, X, y):
+    """Phase path_cv_rf: CrossValidator(RandomForestRegressor(numTrees=30,
+    "onethird")) over maxDepth {4, 6} and 3 folds of the RF rows: one
+    binning (B2) a fold, B3's launches by route as _hist_route sends them
+    for the 6 fits and the refit, and the combined transform-evaluate of
+    fold 0 equal to each sub-model's own evaluate(transform)."""
+    RFR = port.RandomForestRegressor
+    df = port.DataFrame.from_numpy(X[:RF_ROWS], y[:RF_ROWS], num_partitions=RF_PARTITIONS)
+    est = RFR(**CV_RF)
+    grid = port.ParamGridBuilder().addGrid(RFR.maxDepth, list(CV_RF_DEPTHS)).build()
+    eva = port.RegressionEvaluator(metricName="rmse")
+    cv = port.CrossValidator(estimator=est, estimatorParamMaps=grid, evaluator=eva, numFolds=CV_FOLDS,
+                             seed=CV_SEED, collectSubModels=True)
+    model, cv_s, counts, launches, peak = timed_cv(torch, port, cv, df, wrappers)
+    rec = cv_record(cv, model, cv_s, counts, launches, peak)
+    best_depth = int(model.bestModel.getOrDefault("maxDepth"))
+    n_bins = CV_RF["maxBins"]
+    want = {"bin_features_fm": CV_FOLDS + 1}
+    for depth, times in [(d, CV_FOLDS) for d in CV_RF_DEPTHS] + [(best_depth, 1)]:
+        for name, n in forest_hist_launches(port, CV_RF["numTrees"], depth, n_bins).items():
+            want[name] = want.get(name, 0) + times * n
+    for name, n in want.items():
+        check(launches[name] == n, f"the forest CV launched {name} {launches[name]} times, not {n}")
+    rec["launches_expected"] = want
+    rec["best_max_depth"] = best_depth
+
+    valid0 = cold(lambda: cv._kFold(df)[0][1])
+    subs = model.subModels[0]
+    t0 = time.perf_counter()
+    fused = subs[0]._combine(subs)._transformEvaluate(valid0, eva)
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [eva.evaluate(m.transform(valid0)) for m in subs]
+    single_s = time.perf_counter() - t0
+    check(fused == single, f"the combined evaluation {fused} differs from the per-model one {single}")
+    rec["fold0_combined_vs_per_model"] = {"combined": fused, "per_model": single, "identical": True,
+                                          "combined_s": fused_s, "per_model_s": single_s}
+    del valid0, df
+    port.clear_fit_cache()
+    return {"phase": "path_cv_rf", "rows": RF_ROWS, "cols": X.shape[1], "partitions": RF_PARTITIONS,
+            "params": CV_RF, "grid": {"maxDepth": list(CV_RF_DEPTHS)}, "seed": CV_SEED, **rec}
+
+
+def silhouette64(X, labels):
+    """The squared-euclidean silhouette of the rows in float64, from the
+    clusters' counts, sums and squared-norm sums (written apart from the
+    port's metrics/clustering.py)."""
+    X = np.asarray(X, np.float64)
+    labels = np.asarray(labels).astype(np.int64)
+    ks = np.unique(labels)
+    n = np.array([(labels == k).sum() for k in ks], np.float64)
+    S = np.stack([X[labels == k].sum(axis=0) for k in ks])
+    Om = np.array([(X[labels == k] ** 2).sum() for k in ks])
+    pos = np.searchsorted(ks, labels)
+    x2 = (X * X).sum(axis=1)
+    XS = X @ S.T
+    D = np.maximum(Om[None, :] / n[None, :] + x2[:, None] - 2.0 * XS / n[None, :], 0.0)
+    rows = np.arange(len(X))
+    own = n[pos]
+    a = np.maximum((Om[pos] + own * x2 - 2.0 * XS[rows, pos]) / np.maximum(own - 1.0, 1.0), 0.0)
+    D[rows, pos] = np.inf
+    b = D.min(axis=1)
+    s = np.where(own <= 1.0, 0.0, (b - a) / np.maximum(np.maximum(a, b), 1e-300))
+    return float(s.mean())
+
+
+def cv_card_vs_cpu(torch, port, wrappers):
+    """Phase cv_card_vs_cpu, at 65,536 x 256: on integer-valued rows the
+    batched sweep equals the fold loop on the card (linear coefficients and
+    avgMetrics bit for bit; logistic avgMetrics exactly and coefficients to
+    CV_LOGISTIC_ATOL, margin-separated labels); the card against
+    use_device("cpu") within the CVC_* tolerances; a KMeans CV with
+    ClusteringEvaluator (B1 in every scored transform) against a float64
+    silhouette; Pipeline fit -> transform -> save -> load; CrossValidatorModel
+    save -> load."""
+    rng = np.random.default_rng(CVC_SEED)
+    X = rng.integers(-3, 4, size=(CVC_ROWS * 3 // 2, CVC_COLS)).astype(np.float32)
+    c = rng.integers(-1, 2, size=CVC_COLS).astype(np.float32)
+    score = X @ c
+    X = X[score != 0][:CVC_ROWS]
+    score = score[score != 0][:CVC_ROWS]
+    check(len(X) == CVC_ROWS, "too few margin-separated rows")
+    y_lin = (score + rng.integers(-2, 3, size=CVC_ROWS)).astype(np.float32)
+    y_cls = (score > 0).astype(np.float32)
+    cases = {
+        "linear": (port.LinearRegression(standardization=False), port.LinearRegression, y_lin,
+                   port.RegressionEvaluator(metricName="rmse")),
+        "logistic": (port.LogisticRegression(maxIter=100), port.LogisticRegression, y_cls,
+                     port.MulticlassClassificationEvaluator(metricName="accuracy")),
+    }
+    rows, models = {}, {}
+    for name, (est, cls, labels, eva) in cases.items():
+        df = port.DataFrame.from_numpy(X, labels, num_partitions=2)
+        grid = glm_grid(port, cls, CV_SMALL_REGS, CV_SMALL_L1S)
+
+        def run(batched, device=None):
+            cv = port.CrossValidator(estimator=est, estimatorParamMaps=grid, evaluator=eva, numFolds=CV_FOLDS,
+                                     seed=CV_SEED, collectSubModels=True)
+            with port.device.use_device(device):
+                return cold(lambda: cv._fit(df, batched=batched))
+
+        (bat, bat_s), (seq, seq_s) = (synced(torch, lambda b=b: run(b)) for b in (True, False))
+        t0 = time.perf_counter()
+        cpu = run(True, "cpu")
+        cpu_s = time.perf_counter() - t0
+        pairs = [(a, b, s) for fa, fb, fs in zip(bat.subModels, seq.subModels, cpu.subModels)
+                 for a, b, s in zip(fa, fb, fs)]
+        rec = {"card_batched_s": bat_s, "card_fold_loop_s": seq_s, "cpu_batched_s": cpu_s,
+               "avgMetrics": [bat.avgMetrics, seq.avgMetrics, cpu.avgMetrics]}
+        check(bat.avgMetrics == seq.avgMetrics, f"{name}: batched avgMetrics {bat.avgMetrics} != {seq.avgMetrics}")
+        if name == "linear":
+            check(all(np.array_equal(a.coef_, b.coef_) and a.intercept_ == b.intercept_ for a, b, _ in pairs),
+                  "linear: a batched sub-model differs from the fold loop's")
+            rec["card_vs_cpu_coef_max_rel_err"] = max(
+                max(coef_rel_err(a.coef_, s.coef_), abs(a.intercept_ - s.intercept_) / np.abs(s.coef_).max())
+                for a, _, s in pairs)
+            rec["card_vs_cpu_avgMetrics_max_rel_diff"] = float(
+                np.max(np.abs(np.subtract(bat.avgMetrics, cpu.avgMetrics)) / np.abs(cpu.avgMetrics)))
+            check(rec["card_vs_cpu_coef_max_rel_err"] <= CVC_LINEAR_RTOL
+                  and rec["card_vs_cpu_avgMetrics_max_rel_diff"] <= CVC_LINEAR_RTOL, f"linear card vs CPU: {rec}")
+        else:
+            rec["batched_vs_fold_loop_coef_max_abs_err"] = max(float(np.abs(a.coef_ - b.coef_).max())
+                                                               for a, b, _ in pairs)
+            check(rec["batched_vs_fold_loop_coef_max_abs_err"] <= CV_LOGISTIC_ATOL, f"logistic batched: {rec}")
+            rec["card_vs_cpu_coef_max_abs_err"] = max(float(np.abs(a.coef_ - s.coef_).max()) for a, _, s in pairs)
+            scale = max(1.0, max(float(np.abs(s.coef_).max()) for _, _, s in pairs))
+            check(rec["card_vs_cpu_coef_max_abs_err"] <= CVC_LOGISTIC_ATOL * scale, f"logistic card vs CPU: {rec}")
+        rows[name], models[name] = rec, (bat, df)
+
+    # a CrossValidatorModel through save -> load
+    bat, df = models["linear"]
+    model_dir = os.path.join(REPO, "build", "chip_smoke_cv_model")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    bat.save(model_dir)
+    loaded = port.load(model_dir)
+    check(loaded.avgMetrics == bat.avgMetrics, "the reloaded CrossValidatorModel has other avgMetrics")
+    check(np.array_equal(concat_col(bat.transform(df), "prediction"), concat_col(loaded.transform(df), "prediction")),
+          "the reloaded CrossValidatorModel predicts otherwise")
+
+    # KMeans CV: B1 in every scored transform, the silhouette against float64
+    Xb = blobs(CVC_ROWS, CVC_COLS, max(CV_KMEANS_KS), CVC_SEED)
+    kdf = port.DataFrame.from_numpy(Xb, num_partitions=2)
+    kgrid = port.ParamGridBuilder().addGrid(port.KMeans.k, list(CV_KMEANS_KS)).build()
+    kcv = port.CrossValidator(estimator=port.KMeans(maxIter=20, seed=1), estimatorParamMaps=kgrid,
+                              evaluator=port.ClusteringEvaluator(), numFolds=CV_FOLDS, seed=CV_SEED,
+                              collectSubModels=True)
+    kmodel, k_s, _, k_launches, _ = timed_cv(torch, port, kcv, kdf, wrappers)
+    folds = kdf.randomSplit([1.0] * CV_FOLDS, seed=CV_SEED)
+    want = np.mean([[silhouette64(concat_col(valid, "features"), concat_col(m.transform(valid), "prediction"))
+                     for m in subs] for valid, subs in zip(folds, kmodel.subModels)], axis=0)
+    sil_err = float(np.max(np.abs(np.asarray(kmodel.avgMetrics) - want) / np.abs(want)))
+    # one B1 launch a nonempty partition of every scored transform
+    scored = len(CV_KMEANS_KS) * sum(1 for f in folds for p in f.partitions if len(p))
+    check(sil_err <= SILHOUETTE_RTOL, f"silhouette against float64: {sil_err} > {SILHOUETTE_RTOL}")
+    check(k_launches["min_dist_argmin"] >= scored,
+          f"the KMeans CV launched min_dist_argmin {k_launches['min_dist_argmin']} times, under {scored}")
+    rows["kmeans"] = {"cv_fit_s": k_s, "avgMetrics": kmodel.avgMetrics, "silhouette_float64": want.tolist(),
+                      "silhouette_max_rel_err": sil_err, "launches": k_launches,
+                      "scored_transform_partitions": scored, "best_k": int(kmodel.bestModel.getOrDefault("k"))}
+
+    # Pipeline: PCA -> LogisticRegression, fit -> transform -> save -> load
+    pipe = port.Pipeline([port.PCA(k=8).setInputCol("features").setOutputCol("pca_features"),
+                          port.LogisticRegression(maxIter=50).setFeaturesCol("pca_features")])
+    pdf = port.DataFrame.from_numpy(X, y_cls, num_partitions=2)
+    pm = cold(lambda: pipe.fit(pdf))
+    out = pm.transform(pdf)
+    pipe_dir = os.path.join(REPO, "build", "chip_smoke_pipeline")
+    shutil.rmtree(pipe_dir, ignore_errors=True)
+    pm.save(pipe_dir)
+    out2 = port.load(pipe_dir).transform(pdf)
+    for col in ("pca_features", "prediction", "probability"):
+        check(np.array_equal(concat_col(out, col), concat_col(out2, col)), f"the reloaded pipeline gives another {col}")
+    acc = float((concat_col(out, "prediction") == y_cls).mean())
+    check(acc > 0.5, f"pipeline accuracy {acc}")
+    rows["pipeline"] = {"stages": ["PCA", "LogisticRegression"], "accuracy": acc, "reloaded_identical": True}
+    port.clear_fit_cache()
+    return {"phase": "cv_card_vs_cpu", "rows": CVC_ROWS, "cols": CVC_COLS,
+            "grid": {"regParam": list(CV_SMALL_REGS), "elasticNetParam": list(CV_SMALL_L1S)},
+            "tolerances": {"linear_rtol": CVC_LINEAR_RTOL, "logistic_atol": CVC_LOGISTIC_ATOL,
+                           "batched_logistic_atol": CV_LOGISTIC_ATOL, "silhouette_rtol": SILHOUETTE_RTOL},
+            "cases": rows}
 
 
 def main():
@@ -3137,8 +3566,9 @@ def main():
     if "path" in phases:
         results["path"] = run_path(torch, port, nc, wrappers)
         emit(results["path"])
+        port.clear_fit_cache()
 
-    rf_phases = {"kernels_forest", "path_rf_clf", "path_rf_reg"} & set(phases)
+    rf_phases = {"kernels_forest", "path_rf_clf", "path_rf_reg", "path_cv_rf"} & set(phases)
     if rf_phases:
         t0 = time.perf_counter()
         X_rf, y_rf = classification_data(RF_ROWS + RF_HOLDOUT, COLS, SEED)
@@ -3155,6 +3585,11 @@ def main():
         results["path_rf_reg"] = run_rf_path(torch, port, wrappers, "path_rf_reg",
                                              port.RandomForestRegressor(**RF_REG), X_rf, y_reg, False)
         emit(results["path_rf_reg"])
+    if "path_cv_rf" in phases:
+        # the regressor's rows, while they exist (the phase is listed with
+        # the model-selection phases)
+        results["path_cv_rf"] = run_cv_rf_path(torch, port, wrappers, X_rf, regression_target(X_rf, SEED + 3))
+        emit(results["path_cv_rf"])
     if rf_phases:
         del X_rf
     if "forest_card_vs_cpu" in phases:
@@ -3209,20 +3644,36 @@ def main():
 
     if "path_pca" in phases:
         emit(run_pca_path(torch, port, wrappers, dev))
-    if {"path_linreg", "path_logreg"} & set(phases):
+        port.clear_fit_cache()
+    if {"path_linreg", "path_logreg", "path_cv_linreg", "path_cv_logreg"} & set(phases):
         t0 = time.perf_counter()
         X_glm, y_glm = glm_data()
         emit({"phase": "glm_data", "rows": GLM_ROWS + GLM_HOLDOUT, "cols": GLM_COLS,
               "seconds": time.perf_counter() - t0})
         if "path_linreg" in phases:
             emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+            port.clear_fit_cache()
         if "path_logreg" in phases:
             emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+            port.clear_fit_cache()
+        # the model-selection phases on the same rows (listed after the
+        # other GLM phases)
+        if "path_cv_linreg" in phases:
+            results["path_cv_linreg"] = run_cv_linreg_path(torch, port, wrappers, X_glm, y_glm, dev)
+            emit(results["path_cv_linreg"])
+        if "path_cv_logreg" in phases:
+            results["path_cv_logreg"] = run_cv_logreg_path(torch, port, wrappers, X_glm, y_glm, dev)
+            emit(results["path_cv_logreg"])
         del X_glm, y_glm
     if "path_logreg_sparse" in phases:
         emit(run_logreg_sparse_path(torch, port, wrappers, dev))
+        port.clear_fit_cache()
     if "glm_card_vs_cpu" in phases:
         emit(glm_card_vs_cpu(torch, port))
+        port.clear_fit_cache()
+    if "cv_card_vs_cpu" in phases:
+        results["cv_card_vs_cpu"] = cv_card_vs_cpu(torch, port, wrappers)
+        emit(results["cv_card_vs_cpu"])
 
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
@@ -3336,12 +3787,21 @@ def summary(results, seconds):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": [r["shards"], *r["shape"]],
         })
+    # B1-B4's launches in the model-selection phases
+    cv_launches = {phase: results[phase]["launches"] for phase in ("path_cv_rf",) if phase in results}
+    if "cv_card_vs_cpu" in results:
+        cv_launches["cv_card_vs_cpu"] = results["cv_card_vs_cpu"]["cases"]["kmeans"]["launches"]
+    for row in rows:
+        if row["name"] in ("min_dist_argmin", "bin_features_fm", "node_histograms_mma", "node_histograms_atomic",
+                           "node_histograms_bucketed") and cv_launches:
+            row["launches_model_selection"] = {phase: launches.get(row["name"])
+                                               for phase, launches in cv_launches.items()}
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES]
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

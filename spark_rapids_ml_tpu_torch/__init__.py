@@ -6,8 +6,14 @@
 # asks for the CPU with device.use_device("cpu").
 #
 from .version import __version__
-from .core import load
+from .core import clear_fit_cache, load
 from .dataframe import DataFrame
+from .evaluation import (
+    BinaryClassificationEvaluator,
+    ClusteringEvaluator,
+    MulticlassClassificationEvaluator,
+    RegressionEvaluator,
+)
 from .models.approximate_nn import ApproximateNearestNeighbors, ApproximateNearestNeighborsModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
@@ -20,11 +26,17 @@ from .models.random_forest import (
     RandomForestRegressionModel,
     RandomForestRegressor,
 )
+from .pipeline import Pipeline, PipelineModel
+from .tuning import CrossValidator, CrossValidatorModel, ParamGridBuilder
 
 __all__ = [
     "__version__",
     "ApproximateNearestNeighbors",
     "ApproximateNearestNeighborsModel",
+    "BinaryClassificationEvaluator",
+    "ClusteringEvaluator",
+    "CrossValidator",
+    "CrossValidatorModel",
     "DataFrame",
     "KMeans",
     "KMeansModel",
@@ -32,13 +44,19 @@ __all__ = [
     "LinearRegressionModel",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "MulticlassClassificationEvaluator",
     "NearestNeighbors",
     "NearestNeighborsModel",
     "PCA",
     "PCAModel",
+    "ParamGridBuilder",
+    "Pipeline",
+    "PipelineModel",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
     "RandomForestRegressionModel",
     "RandomForestRegressor",
+    "RegressionEvaluator",
+    "clear_fit_cache",
     "load",
 ]

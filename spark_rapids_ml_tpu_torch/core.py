@@ -21,8 +21,25 @@
 # partition for the others; a model with a sparse path transforms CSR
 # partitions as they are.
 #
-# Not carried over yet: the Spark executor paths, the fit-input cache,
-# fitMultiple, and the profiling / watch / sanitize / fault-injection hooks.
+# The fit-input cache holds one staged dataset (the JAX package's single
+# slot): a fit whose feature blocks are a frame's own arrays, by identity,
+# reuses the device tensor of the last such fit (fitMultiple, the batched
+# sweep's best-model refit, repeated fits of one frame).  Labels and weights
+# are extracted anew each fit.  The counters ingest.staged (datasets
+# uploaded) and ingest.cache_hit count both outcomes; clear_fit_cache() and
+# DataFrame.unpersist() free the slot, and the slot is freed before a new
+# dataset is staged, so the card holds one staged dataset, not two.
+#
+# fit(dataset, [paramMaps]) and fitMultiple follow the JAX package: an
+# estimator that fits every map in one pass over its data
+# (_enable_fit_multiple_in_single_pass) gets the maps as solver-param
+# overrides (extra_params of _get_tpu_fit_func); the others fit a copy per
+# map.  The model-side hooks _combine / _transformEvaluate, and the batched
+# sweep's _supportsBatchedSweep / _fitBatchedSweep, are overridden by the
+# estimators that have them (tuning.CrossValidator).
+#
+# Not carried over yet: the Spark executor paths (ROADMAP A14c), and the
+# profiling / watch / sanitize / fault-injection hooks.
 #
 
 from __future__ import annotations
@@ -30,15 +47,17 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import threading
 from abc import abstractmethod
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from . import device as _device
+from . import profiling
 from .dataframe import DataFrame, as_dataframe
 from .params import Param, _TpuParams
 from .parallel.partition import PartitionDescriptor
@@ -80,6 +99,30 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
+# single-slot device-input cache; see _TpuCaller._build_fit_inputs
+_FIT_INPUT_CACHE: Dict[str, Any] = {}
+_FIT_INPUT_LOCK = threading.Lock()
+
+
+def clear_fit_cache() -> None:
+    """Release the device-resident fit-input cache (the staged feature
+    tensor and the host blocks it was staged from).  Also reachable through
+    DataFrame.unpersist()."""
+    with _FIT_INPUT_LOCK:
+        _FIT_INPUT_CACHE.pop("slot", None)
+
+
+def _release_fit_features(inputs: "FitInputs") -> None:
+    """Drop a fit's reference to its feature tensor, and the cache slot's
+    if the slot holds that tensor, so the memory is freed (the forest,
+    once its features are binned)."""
+    with _FIT_INPUT_LOCK:
+        slot = _FIT_INPUT_CACHE.get("slot")
+        if slot is not None and slot[1][0] is inputs.X:
+            del _FIT_INPUT_CACHE["slot"]
+    inputs.X = None
+
+
 def _validate_input_columns(instance: _TpuParams, df: DataFrame) -> None:
     input_col, input_cols = instance._get_input_columns()
     cols = df.columns
@@ -102,6 +145,25 @@ def _partition_features(
             "%s has no sparse path; densifying the CSR partition", type(instance).__name__
         )
     return materialize_feature_block(part, input_col, input_cols, dtype, densify_sparse=not sparse_ok)
+
+
+def _stage_features(feats: List[Any], n_rows: int, n_cols: int, dtype: np.dtype, dev: torch.device) -> Any:
+    """The partitions' feature blocks as one device tensor, each block
+    copied straight into its rows; CSR blocks as one ELL pair, never
+    densified."""
+    if any(hasattr(f, "tocsr") for f in feats):
+        import scipy.sparse as sp
+
+        from .ops.sparse import ell_device_from_scipy
+
+        csr = sp.vstack(feats).tocsr() if len(feats) > 1 else feats[0]
+        return ell_device_from_scipy(csr, dtype, dev)
+    X = torch.empty((n_rows, n_cols), dtype=torch_dtype(dtype), device=dev)
+    offset = 0
+    for f in feats:
+        X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
+        offset += f.shape[0]
+    return X
 
 
 class _TpuCaller(_TpuParams):
@@ -131,29 +193,28 @@ class _TpuCaller(_TpuParams):
             return self._build_fit_inputs_device(df, df._device_features)
         input_col, input_cols = self._get_input_columns()
         dtype = self._use_dtype(df, input_col, input_cols)
-        feats = [
-            _partition_features(self, p, input_col, input_cols, dtype)
-            for p in df.partitions
-            if len(p) > 0
-        ]
+        parts = [p for p in df.partitions if len(p) > 0]
+        feats = [_partition_features(self, p, input_col, input_cols, dtype) for p in parts]
         if not feats:
             raise RuntimeError("Dataset is empty; cannot fit")
         dev = _device.resolve()
         n_rows, n_cols = sum(f.shape[0] for f in feats), feats[0].shape[1]
-        if any(hasattr(f, "tocsr") for f in feats):
-            # CSR partitions -> one ELL pair on the device, never densified
-            import scipy.sparse as sp
-
-            from .ops.sparse import ell_device_from_scipy
-
-            csr = sp.vstack(feats).tocsr() if len(feats) > 1 else feats[0]
-            X = ell_device_from_scipy(csr, dtype, dev)
-        else:
-            X = torch.empty((n_rows, n_cols), dtype=torch_dtype(dtype), device=dev)
-            offset = 0
-            for f in feats:
-                X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
-                offset += f.shape[0]
+        # only feature arrays that ARE the frame's blocks are cached: their
+        # ids are stable while the slot holds them (it keeps the blocks)
+        cacheable = input_col is not None and all(f is p[input_col] for f, p in zip(feats, parts))
+        key = (tuple(id(f) for f in feats), str(dtype), str(dev))
+        with _FIT_INPUT_LOCK:
+            slot = _FIT_INPUT_CACHE.get("slot")
+            if slot is not None and slot[0] == key:
+                X = slot[1][0]
+                profiling.incr_counter("ingest.cache_hit")
+            else:
+                # free the previous dataset before staging this one
+                _FIT_INPUT_CACHE.pop("slot", None)
+                X = _stage_features(feats, n_rows, n_cols, dtype, dev)
+                profiling.incr_counter("ingest.staged")
+                if cacheable:
+                    _FIT_INPUT_CACHE["slot"] = (key, (X, feats))
         inputs = FitInputs(
             X=X,
             weight=torch.ones(n_rows, dtype=torch_dtype(dtype), device=dev),
@@ -233,22 +294,83 @@ class _TpuCaller(_TpuParams):
         self._add_labels_and_weights(inputs, df)
         return inputs
 
-    def _call_tpu_fit_func(self, dataset: Any) -> Dict[str, Any]:
+    def _call_tpu_fit_func(
+        self, dataset: Any, paramMaps: Optional[List[Dict[Param, Any]]] = None
+    ) -> Union[Dict[str, Any], List[Dict[str, Any]]]:
+        """One fit, or with `paramMaps` one fit per map over one ingest (a
+        list of attribute dicts, in the maps' order)."""
+        if _is_live_spark(dataset):
+            raise NotImplementedError(
+                "fitting a live pyspark DataFrame is not in this port yet (ROADMAP A14c)"
+            )
         df = as_dataframe(dataset)
         _validate_input_columns(self, df)
         with record_function("core.ingest"):
             inputs = self._build_fit_inputs(df)
-        fit_func = self._get_tpu_fit_func(df)
+        if paramMaps is None:
+            fit_func = self._get_tpu_fit_func(df)
+        else:
+            extra = [self._paramMap_to_tpu_overrides(pm) for pm in paramMaps]
+            fit_func = self._get_tpu_fit_func(df, extra_params=extra)
         get_logger(type(self)).info(
             "Invoking fit: %d rows x %d cols on %s",
             inputs.n_rows, inputs.n_cols, inputs.device,
         )
         return fit_func(inputs, dict(self._tpu_params))
 
+    def _paramMap_to_tpu_overrides(self, paramMap: Dict[Param, Any]) -> Dict[str, Any]:
+        """A param map -> the solver-param overrides it sets (mapped values),
+        raising ValueError for a param or value the solver does not take."""
+        mapping = self._param_mapping()
+        value_mapping = self._param_value_mapping()
+        overrides: Dict[str, Any] = {}
+        for param, value in paramMap.items():
+            solver = mapping.get(param.name)
+            if solver:
+                if solver in value_mapping:
+                    mapped = value_mapping[solver](value)
+                    if mapped is None:
+                        raise ValueError(f"Value '{value}' for param '{param.name}' is not supported")
+                    value = mapped
+                overrides[solver] = value
+            elif solver is None and param.name in mapping:
+                raise ValueError(f"Param '{param.name}' is not supported")
+        return overrides
+
     # -- abstract ----------------------------------------------------------
     @abstractmethod
-    def _get_tpu_fit_func(self, dataset: DataFrame) -> FitFunc:
+    def _get_tpu_fit_func(self, dataset: DataFrame, extra_params: Optional[List[Dict[str, Any]]] = None) -> FitFunc:
         raise NotImplementedError
+
+
+def _is_live_spark(dataset: Any) -> bool:
+    """Whether `dataset` is a pyspark object (pyspark is never imported)."""
+    return (type(dataset).__module__ or "").startswith("pyspark")
+
+
+class _FitMultipleIterator:
+    """Thread-safe (index, model) iterator over a single-pass multi-model
+    fit: the first next() runs the fit of every map."""
+
+    def __init__(self, fit_multiple_models: Callable[[], List["_TpuModel"]], num_models: int):
+        self.fit_multiple_models = fit_multiple_models
+        self.num_models = num_models
+        self.counter = 0
+        self.lock = threading.Lock()
+        self.models: Optional[List[_TpuModel]] = None
+
+    def __iter__(self) -> "_FitMultipleIterator":
+        return self
+
+    def __next__(self) -> Tuple[int, "_TpuModel"]:
+        with self.lock:
+            index = self.counter
+            if index >= self.num_models:
+                raise StopIteration()
+            self.counter += 1
+            if self.models is None:
+                self.models = self.fit_multiple_models()
+        return index, self.models[index]
 
 
 class _TpuEstimator(_TpuCaller):
@@ -259,25 +381,87 @@ class _TpuEstimator(_TpuCaller):
         self.logger = get_logger(type(self))
 
     # -- public API --------------------------------------------------------
-    def fit(self, dataset: Any, params: Optional[Dict[Param, Any]] = None) -> "_TpuModel":
-        if params:
+    def fit(
+        self, dataset: Any, params: Optional[Union[Dict[Param, Any], List[Dict[Param, Any]]]] = None
+    ) -> Any:
+        """fit(df) -> model; fit(df, paramMap) -> the model of this
+        estimator's copy with the map; fit(df, [maps]) -> a model per map,
+        in the maps' order (through fitMultiple)."""
+        if isinstance(params, (list, tuple)):
+            return [m for _, m in sorted(self.fitMultiple(dataset, list(params)), key=lambda im: im[0])]
+        if isinstance(params, dict) and params:
             return self.copy(params)._fit(dataset)
         return self._fit(dataset)
 
     def _fit(self, dataset: Any) -> "_TpuModel":
-        return self._fit_internal(dataset)[0]
+        return self._fit_internal(dataset, None)[0]
 
-    def _fit_internal(self, dataset: Any) -> List["_TpuModel"]:
-        return [self._materialize_model(self._call_tpu_fit_func(dataset))]
+    def fitMultiple(
+        self, dataset: Any, paramMaps: List[Dict[Param, Any]]
+    ) -> Iterator[Tuple[int, "_TpuModel"]]:
+        """(index, model) for each param map: all of them from one pass over
+        the data when the estimator fits them in a single pass, else a copy
+        fitted per map."""
+        if self._enable_fit_multiple_in_single_pass():
+            return _FitMultipleIterator(lambda: self._fit_internal(dataset, paramMaps), len(paramMaps))
+        return iter([(i, self.copy(pm)._fit(dataset)) for i, pm in enumerate(paramMaps)])
 
-    def _materialize_model(self, attrs: Dict[str, Any]) -> "_TpuModel":
-        """Model-attribute dict -> model carrying this estimator's params."""
+    def _fit_internal(
+        self, dataset: Any, paramMaps: Optional[List[Dict[Param, Any]]]
+    ) -> List["_TpuModel"]:
+        results = self._call_tpu_fit_func(dataset, paramMaps)
+        if paramMaps is None:
+            return [self._materialize_model(results)]
+        return [self._materialize_model(attrs, pm) for attrs, pm in zip(results, paramMaps)]
+
+    def _materialize_model(
+        self, attrs: Dict[str, Any], paramMap: Optional[Dict[Param, Any]] = None
+    ) -> "_TpuModel":
+        """Model-attribute dict -> model carrying this estimator's params and
+        the map's own values (set through _set_params, which keeps the Spark
+        param and the solver param in step), the one bookkeeping every fit
+        route shares, the batched sweep's included."""
         model = self._create_model(attrs)
         self._copyValues(model)
         model._tpu_params.update(self._tpu_params)
         model._num_workers = self._num_workers
         model._float32_inputs = self._float32_inputs
+        if paramMap is not None:
+            for p, v in paramMap.items():
+                if model.hasParam(p.name):
+                    model._set_params(**{p.name: v})
         return model
+
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        return False
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        return False
+
+    # -- batched hyperparameter sweep --------------------------------------
+    def _supportsBatchedSweep(self, df: DataFrame, paramMaps: List[Dict[Param, Any]], evaluator: Any) -> bool:
+        """Whether a CrossValidator sweep over `paramMaps` can run as the
+        batched sweep (one staged dataset, folds as weight masks, candidates
+        as solver lanes).  The GLMs override it; the default keeps the fold
+        loop."""
+        return False
+
+    def _fitBatchedSweep(
+        self, df: DataFrame, paramMaps: List[Dict[Param, Any]], n_folds: int, seed: int
+    ) -> List[List[Dict[str, Any]]]:
+        """Every (fold, map) fit over one staged dataset: n_folds lists of
+        per-map model-attribute dicts.  Called only when
+        _supportsBatchedSweep returned True."""
+        raise NotImplementedError(f"{type(self).__name__} has no batched sweep")
+
+    def _sweep_sparse_input(self, df: DataFrame) -> bool:
+        """Whether any partition holds a CSR feature block: the batched sweep
+        declines those (masked-fold ELL statistics are not a goal, as in the
+        JAX package)."""
+        input_col, _ = self._get_input_columns()
+        if input_col is None or input_col not in df.columns:
+            return False
+        return any(hasattr(p[input_col], "tocsr") for p in df.partitions)
 
     # -- abstract ----------------------------------------------------------
     @abstractmethod
@@ -379,6 +563,17 @@ class _TpuModel(_TpuParams):
     @abstractmethod
     def _get_tpu_transform_func(self, dataset: DataFrame) -> TransformFunc:
         raise NotImplementedError
+
+    # -- multi-model -------------------------------------------------------
+    @classmethod
+    def _combine(cls, models: List["_TpuModel"]) -> "_TpuModel":
+        """One model scoring every model of `models` in one pass
+        (_transformEvaluate); the estimators with a single-pass
+        transform-evaluate override it."""
+        raise NotImplementedError(f"{cls.__name__} has no combined multi-model")
+
+    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None) -> List[float]:
+        raise NotImplementedError(f"{type(self).__name__} has no single-pass transform-evaluate")
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str) -> None:

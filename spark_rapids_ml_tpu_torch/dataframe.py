@@ -3,8 +3,8 @@
 #
 # Counterpart of spark_rapids_ml_tpu/dataframe.py with the same API
 # (from_numpy, from_device, from_pandas, partitions, toPandas, count,
-# columns) but without pandas on the main path: a partition is an ordered
-# {column: numpy array} mapping.  A vector column is a 2-D array — the
+# columns, randomSplit, unpersist) but without pandas on the main path: a
+# partition is an ordered {column: numpy array} mapping.  A vector column is a 2-D array — the
 # contiguous feature block itself, which ingest and transform read without a
 # copy (the role the JAX package's FEATURE_BLOCK_ATTR stash plays beside its
 # pandas object column), or a scipy CSR block when from_numpy is given a
@@ -18,9 +18,18 @@
 # Instances are immutable by convention: transform returns new partitions
 # that share the input's arrays.
 #
+# randomSplit assigns rows to splits by random_split_ids, the JAX package's
+# seeded permutation (numpy's default_rng(seed).permutation, cut at the
+# weights' fractions), so fold membership equals the JAX package's row for
+# row; it gathers each split's rows straight from the partitions' arrays,
+# a thread a partition (one copy of the rows, no pandas round trip), and
+# cuts them into as many partitions as the frame has.
+#
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -193,6 +202,41 @@ class DataFrame:
     def count(self) -> int:
         return sum(len(p) for p in self._partitions)
 
+    def randomSplit(self, weights: List[float], seed: int = 0) -> List["DataFrame"]:
+        """Split the rows by random_split_ids(count, weights, seed): row r of
+        the concatenated frame lands in split random_split_ids(...)[r].  Each
+        split keeps the rows' order and is cut into as many partitions as
+        this frame has, as np.array_split cuts."""
+        if self._device_features is not None:
+            raise NotImplementedError("randomSplit of a DataFrame.from_device frame: split the host rows")
+        split_id = random_split_ids(self.count(), weights, seed)
+        offsets = np.cumsum([0] + [len(p) for p in self._partitions])
+        nparts = max(1, len(self._partitions))
+        out = []
+        for i in range(len(weights)):
+            # the split's rows of each partition, in row order
+            local = [
+                np.flatnonzero(split_id[lo:hi] == i) for lo, hi in zip(offsets[:-1], offsets[1:])
+            ]
+            n = sum(len(ix) for ix in local)
+            cols = {name: _gather_rows([p[name] for p in self._partitions], local) for name in self.columns}
+            # np.array_split's cut, as the JAX package partitions a split
+            sizes = [n // nparts + (j < n % nparts) for j in range(nparts)]
+            bounds = np.cumsum([0] + sizes)
+            out.append(DataFrame([
+                Partition({name: v[lo:hi] for name, v in cols.items()})
+                for lo, hi in zip(bounds[:-1], bounds[1:])
+            ]))
+        return out
+
+    def unpersist(self) -> "DataFrame":
+        """Release the device-resident fit-input cache (core.clear_fit_cache),
+        the state a Spark unpersist would drop."""
+        from .core import clear_fit_cache
+
+        clear_fit_cache()
+        return self
+
     def with_row_id(self, col: str = "unique_id") -> "DataFrame":
         """New partitions with an int64 column of globally unique,
         increasing row ids (0, 1, ... in partition order)."""
@@ -219,6 +263,58 @@ class DataFrame:
 
     def __repr__(self) -> str:
         return f"DataFrame[{', '.join(self.columns)}] ({self.num_partitions} partitions)"
+
+
+def _gather_rows(blocks: List[Any], local: List[np.ndarray]) -> Any:
+    """The rows `local[j]` of each block j, stacked in block order: one
+    copy into a new array (a CSR block stays CSR).  The blocks are gathered
+    on a thread each: numpy's copy loops run without the GIL, and one
+    thread's copy, the first touch of the new pages included, was most of
+    a cross validation's time at 1M x 3000 rows."""
+    if _is_sparse(blocks[0]):
+        import scipy.sparse as sp
+
+        return sp.vstack([b.tocsr()[ix] for b, ix in zip(blocks, local)], format="csr")
+    first = np.asarray(blocks[0])
+    out = np.empty((sum(len(ix) for ix in local),) + first.shape[1:], dtype=first.dtype)
+    at = np.cumsum([0] + [len(ix) for ix in local])
+
+    def gather(j: int) -> None:
+        np.take(np.asarray(blocks[j]), local[j], axis=0, out=out[at[j] : at[j + 1]])
+
+    if len(blocks) == 1 or out.nbytes < (64 << 20):
+        for j in range(len(blocks)):
+            gather(j)
+    else:
+        with ThreadPoolExecutor(min(len(blocks), os.cpu_count() or 1)) as pool:
+            list(pool.map(gather, range(len(blocks))))
+    return out
+
+
+def random_split_ids(n: int, weights: Union[int, List[float]], seed: int = 0) -> np.ndarray:
+    """Per-row split assignment of randomSplit(weights, seed): row r of the
+    concatenated frame lands in split random_split_ids(...)[r].  The one
+    definition of the split, shared by DataFrame.randomSplit and the batched
+    sweep's fold ids (ops/sweep.stage_fold_ids), so the two never disagree
+    on fold membership.  `weights` may be an int k, k equal folds.  The JAX
+    package's function, copied."""
+    if isinstance(weights, int):
+        weights = [1.0] * weights
+    total = float(sum(weights))
+    bounds = np.cumsum([w / total for w in weights])[:-1]
+    cut = (bounds * n).astype(int)
+    return _permutation_split(n, cut, seed)
+
+
+def _permutation_split(n: int, cuts: np.ndarray, seed: int) -> np.ndarray:
+    """Permute the rows with default_rng(seed), cut the permutation at
+    `cuts` and label each row with its segment."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    split_id = np.empty(n, dtype=np.int32)
+    for i, g in enumerate(np.split(perm, cuts)):
+        split_id[g] = i
+    return split_id
 
 
 def _host(v: Any) -> np.ndarray:

@@ -1,0 +1,222 @@
+#
+# Multiclass classification metrics from mergeable confusion statistics.
+#
+# Counterpart of spark_rapids_ml_tpu/metrics/multiclass.py, this package's
+# own copy (numpy only).  Spark's MulticlassMetrics and its fixed-eps
+# logLoss (eps 1e-15), over dense per-class arrays (tp / fp / count indexed
+# by class id); the public metric names are Spark's.
+#
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def log_loss(labels: np.ndarray, probs: np.ndarray, eps: float) -> float:
+    """Sum (not mean) of -log P(true class), clamped at eps (reference
+    MulticlassMetrics.py:24-31; Spark uses eps=1e-15)."""
+    labels = np.asarray(labels)
+    probs = np.asarray(probs)
+    if np.any(labels < 0) or np.any(labels > probs.shape[1] - 1):
+        raise ValueError(
+            f"found a label outside the class index range "
+            f"[0, {probs.shape[1] - 1}]"
+        )
+    if np.any(probs < 0) or np.any(probs > 1.0):
+        raise ValueError("every probability must lie within [0.0, 1.0]")
+    p = probs[np.arange(probs.shape[0]), labels.astype(np.int64)]
+    return float(-np.log(np.maximum(p, eps)).sum())
+
+
+class MulticlassMetrics:
+    """Confusion-statistic metrics; partials merge by addition."""
+
+    SUPPORTED_MULTI_CLASS_METRIC_NAMES = [
+        "f1",
+        "accuracy",
+        "weightedPrecision",
+        "weightedRecall",
+        "weightedTruePositiveRate",
+        "weightedFalsePositiveRate",
+        "weightedFMeasure",
+        "truePositiveRateByLabel",
+        "falsePositiveRateByLabel",
+        "precisionByLabel",
+        "recallByLabel",
+        "fMeasureByLabel",
+        "hammingLoss",
+        "logLoss",
+    ]
+
+    def __init__(
+        self,
+        tp: Optional[Dict[float, float]] = None,
+        fp: Optional[Dict[float, float]] = None,
+        label: Optional[Dict[float, float]] = None,
+        label_count: int = 0,
+        log_loss: float = -1.0,
+    ):
+        self._tp = dict(tp or {})
+        self._fp = dict(fp or {})
+        self._label_count_by_class = dict(label or {})
+        self._label_count = label_count
+        self._log_loss = log_loss
+
+    @classmethod
+    def from_arrays(
+        cls,
+        labels: np.ndarray,
+        preds: np.ndarray,
+        probs: Optional[np.ndarray] = None,
+        eps: float = 1.0e-15,
+    ) -> "MulticlassMetrics":
+        """One partition's partial confusion statistics."""
+        labels = np.asarray(labels, dtype=np.float64)
+        preds = np.asarray(preds, dtype=np.float64)
+        classes = np.unique(np.concatenate([labels, preds]))
+        tp = {c: float(((labels == c) & (preds == c)).sum()) for c in classes}
+        fp = {c: float(((labels != c) & (preds == c)).sum()) for c in classes}
+        # label counts keyed by TRUE labels only (reference semantics): a
+        # predicted-but-absent class must not enter the weighted averages,
+        # where its zero count would divide by zero
+        cnt = {c: float((labels == c).sum()) for c in np.unique(labels)}
+        ll = log_loss(labels, probs, eps) if probs is not None else -1.0
+        return cls(tp, fp, cnt, len(labels), ll)
+
+    def merge(self, other: "MulticlassMetrics") -> "MulticlassMetrics":
+        def _add(a: Dict[float, float], b: Dict[float, float]) -> Dict[float, float]:
+            out = dict(a)
+            for k, v in b.items():
+                out[k] = out.get(k, 0.0) + v
+            return out
+
+        ll = (
+            self._log_loss + other._log_loss
+            if self._log_loss >= 0 and other._log_loss >= 0
+            else max(self._log_loss, other._log_loss)
+        )
+        return MulticlassMetrics(
+            _add(self._tp, other._tp),
+            _add(self._fp, other._fp),
+            _add(self._label_count_by_class, other._label_count_by_class),
+            self._label_count + other._label_count,
+            ll,
+        )
+
+    def to_row(self, model_index: int) -> dict:
+        """JSON-safe partial tagged with its model index; inverse of
+        _from_rows (the executor-side evaluate ships partials this way,
+        reference core.py:1159-1176)."""
+        return {
+            "model_index": model_index,
+            "tp": self._tp,
+            "fp": self._fp,
+            "label_count_by_class": self._label_count_by_class,
+            "label_count": self._label_count,
+            "log_loss": self._log_loss,
+        }
+
+    @classmethod
+    def _from_rows(cls, num_models: int, rows: List[dict]) -> List["MulticlassMetrics"]:
+        def _fkeys(d: dict) -> dict:
+            # JSON stringifies the float class keys; coerce them back
+            return {float(k): v for k, v in d.items()}
+
+        out: List[MulticlassMetrics] = [None] * num_models  # type: ignore[list-item]
+        for row in rows:
+            metric = cls(
+                tp=_fkeys(row["tp"]),
+                fp=_fkeys(row["fp"]),
+                label=_fkeys(row["label_count_by_class"]),
+                label_count=row["label_count"],
+                log_loss=row.get("log_loss", -1.0),
+            )
+            i = row["model_index"]
+            out[i] = metric if out[i] is None else out[i].merge(metric)
+        return out
+
+    # -- per-label metrics -------------------------------------------------
+    def _precision(self, label: float) -> float:
+        tp, fp = self._tp.get(label, 0.0), self._fp.get(label, 0.0)
+        return 0.0 if tp + fp == 0 else tp / (tp + fp)
+
+    def _recall(self, label: float) -> float:
+        return self._tp.get(label, 0.0) / self._label_count_by_class[label]
+
+    def _f_measure(self, label: float, beta: float = 1.0) -> float:
+        p, r = self._precision(label), self._recall(label)
+        b2 = beta * beta
+        return 0.0 if p + r == 0 else (1 + b2) * p * r / (b2 * p + r)
+
+    def false_positive_rate(self, label: float) -> float:
+        return self._fp.get(label, 0.0) / (
+            self._label_count - self._label_count_by_class[label]
+        )
+
+    def true_positive_rate_by_label(self, label: float) -> float:
+        return self._recall(label)
+
+    # -- aggregate metrics -------------------------------------------------
+    def accuracy(self) -> float:
+        return sum(self._tp.values()) / self._label_count
+
+    def _weighted(self, fn) -> float:
+        return sum(
+            fn(c) * n / self._label_count
+            for c, n in self._label_count_by_class.items()
+        )
+
+    def weighted_fmeasure(self, beta: float = 1.0) -> float:
+        return self._weighted(lambda c: self._f_measure(c, beta))
+
+    def weighted_precision(self) -> float:
+        return self._weighted(self._precision)
+
+    def weighted_recall(self) -> float:
+        return self._weighted(self._recall)
+
+    def weighted_true_positive_rate(self) -> float:
+        return self.weighted_recall()
+
+    def weighted_false_positive_rate(self) -> float:
+        return self._weighted(self.false_positive_rate)
+
+    def hamming_loss(self) -> float:
+        return sum(self._fp.values()) / self._label_count
+
+    def log_loss_metric(self) -> float:
+        return self._log_loss / self._label_count
+
+    def evaluate(self, evaluator) -> float:
+        name = evaluator.getMetricName()
+        if name == "f1":
+            return self.weighted_fmeasure()
+        if name == "accuracy":
+            return self.accuracy()
+        if name == "weightedPrecision":
+            return self.weighted_precision()
+        if name == "weightedRecall":
+            return self.weighted_recall()
+        if name == "weightedTruePositiveRate":
+            return self.weighted_true_positive_rate()
+        if name == "weightedFalsePositiveRate":
+            return self.weighted_false_positive_rate()
+        if name == "weightedFMeasure":
+            return self.weighted_fmeasure(evaluator.getBeta())
+        if name == "truePositiveRateByLabel":
+            return self.true_positive_rate_by_label(evaluator.getMetricLabel())
+        if name == "falsePositiveRateByLabel":
+            return self.false_positive_rate(evaluator.getMetricLabel())
+        if name == "precisionByLabel":
+            return self._precision(evaluator.getMetricLabel())
+        if name == "recallByLabel":
+            return self._recall(evaluator.getMetricLabel())
+        if name == "fMeasureByLabel":
+            return self._f_measure(evaluator.getMetricLabel(), evaluator.getBeta())
+        if name == "hammingLoss":
+            return self.hamming_loss()
+        if name == "logLoss":
+            return self.log_loss_metric()
+        raise ValueError(f"Unsupported metric name, found {name}")

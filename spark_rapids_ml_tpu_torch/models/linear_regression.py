@@ -8,18 +8,26 @@
 # same model attributes (coef_, intercept_, n_cols, dtype) and a float64
 # prediction column.  The statistics pass and the solve run on one device
 # (ops/glm.py); the intercept is computed on the host in float64 from the
-# solved coefficients and the weighted means, as in the JAX package.  CSR
-# input fits and transforms through the ELL layout (ops/sparse.py).
+# solved coefficients and the weighted means, as in the JAX package, on
+# every route: that is what lets a batched sweep's sub-model equal the
+# sequential fit's.  CSR input fits and transforms through the ELL layout
+# (ops/sparse.py).
 #
-# Not carried over yet: fitMultiple, _fitBatchedSweep, _transformEvaluate
-# and _combine (ROADMAP A7), streaming() (A12), the serving hooks
+# Model selection: fitMultiple fits every param map from one statistics
+# pass (a solve per map); _fitBatchedSweep fits every (fold, map) of a
+# CrossValidator over one staged dataset (ops/glm.py sweep_*), when the
+# grid varies only regParam and elasticNetParam and the input is dense;
+# _combine stacks models and _transformEvaluate scores them all in one pass
+# over each partition (RegressionEvaluator).
+#
+# Not carried over yet: streaming() (ROADMAP A12), the serving hooks
 # _serving_entry / _lane_entry (A13) and cpu() (A14c); each raises
 # NotImplementedError.
 #
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,9 +35,28 @@ from torch.profiler import record_function
 
 from .. import device as _device
 from .. import profiling
-from ..core import FitInputs, _TpuEstimatorSupervised, _TpuModelWithPredictionCol
-from ..dataframe import DataFrame
-from ..ops.glm import linear_predict_kernel, linreg_sufficient_stats, solve_elasticnet_cd, solve_linear
+from ..core import (
+    FitInputs,
+    _partition_features,
+    _TpuEstimatorSupervised,
+    _TpuModelWithPredictionCol,
+    numpy_dtype,
+    torch_dtype,
+)
+from ..dataframe import DataFrame, as_dataframe
+from ..metrics.regression import RegressionMetrics
+from ..ops.glm import (
+    linear_predict_kernel,
+    linreg_sufficient_stats,
+    solve_elasticnet_cd,
+    solve_linear,
+    sweep_linreg_fold_stats,
+    sweep_solve_elasticnet_cd,
+    sweep_solve_linear,
+)
+from ..ops.lanes import pack_lane_subset
+from ..ops.linalg import exact_matmul
+from ..ops.sweep import stage_fold_ids
 from ..ops.sparse import EllMatrix, ell_device_from_scipy, ell_sufficient_stats
 from ..params import (
     HasElasticNetParam,
@@ -54,9 +81,61 @@ from ..utils import get_logger
 _NOT_PORTED = "is not in this port yet (ROADMAP {})"
 
 
+class _RegressionModelEvaluationMixIn:
+    """Single-pass transform-evaluate of a (combined) regression model:
+    every sub-model's predictions of a block of rows in one pass, merged
+    into RegressionMetrics per sub-model (shared with the forest
+    regressor)."""
+
+    def _transform_evaluate(self, dataset: Any, evaluator: Any, num_models: int) -> List[float]:
+        from ..evaluation import RegressionEvaluator
+
+        if not isinstance(evaluator, RegressionEvaluator):
+            raise NotImplementedError(f"{evaluator} is unsupported yet.")
+        evaluator._evaluate_executor_side(dataset)
+        return self._evaluate_blocks(_frame_blocks(self, as_dataframe(dataset)), evaluator, num_models)
+
+    def _evaluate_blocks(self, blocks: Iterable[Tuple[Any, np.ndarray]], evaluator: Any, num_models: int) -> List[float]:
+        """The metrics of each sub-model over (features, labels) blocks, one
+        partial a block, merged in order; features a host block or a tensor
+        on the device."""
+        predict_all = self._get_eval_predict_func()
+        metrics: List[Optional[RegressionMetrics]] = [None] * num_models
+        for features, labels in blocks:
+            preds = predict_all(features)  # (M, n)
+            for i in range(num_models):
+                m = RegressionMetrics.from_arrays(labels, preds[i])
+                metrics[i] = m if metrics[i] is None else metrics[i].merge(m)
+        return [m.evaluate(evaluator) for m in metrics]  # type: ignore[union-attr]
+
+
+def _frame_blocks(model: Any, df: DataFrame) -> Iterator[Tuple[Any, np.ndarray]]:
+    """(features, labels) of each nonempty partition of `df`, the features
+    in the model's transform dtype."""
+    label_col = model.getOrDefault("labelCol")
+    if label_col not in df.columns:
+        raise RuntimeError("Label column is not existing.")
+    input_col, input_cols = model._get_input_columns()
+    dtype = model._transform_dtype(model._model_attributes.get("dtype"))
+    for part in df.partitions:
+        if len(part):
+            yield _partition_features(model, part, input_col, input_cols, dtype), np.asarray(part[label_col])
+
+
+def _device_rows(features: Any, np_dtype: np.dtype, dev: torch.device) -> Any:
+    """A block of rows on the device: a tensor as it is (in the dtype), a
+    host block uploaded, a CSR block as ELL."""
+    if isinstance(features, torch.Tensor):
+        return features.to(device=dev, dtype=torch_dtype(np_dtype))
+    if hasattr(features, "tocsr"):
+        return ell_device_from_scipy(features, np_dtype, dev, transpose=False)
+    return torch.from_numpy(np.ascontiguousarray(features, dtype=np_dtype)).to(dev)
+
+
 def _host_intercept(coef64: np.ndarray, x_mean: Any, y_mean: Any, fit_intercept: bool) -> float:
     """intercept = y_mean - x_mean . coef, on the host in float64 from the
-    means, as the JAX package derives it."""
+    means, as the JAX package derives it: the same on the sequential and
+    the batched route by construction."""
     if not fit_intercept:
         return 0.0
     return float(np.asarray(y_mean, dtype=np.float64) - np.asarray(x_mean, dtype=np.float64) @ coef64)
@@ -177,17 +256,18 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
         self._initialize_tpu_params()
         self._set_params(**kwargs)
 
-    def _get_tpu_fit_func(self, dataset: DataFrame):
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        return True
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        from ..evaluation import RegressionEvaluator
+
+        return isinstance(evaluator, RegressionEvaluator)
+
+    def _get_tpu_fit_func(self, dataset: DataFrame, extra_params: Optional[List[Dict[str, Any]]] = None):
         logger = get_logger(type(self))
 
-        def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
-            if inputs.y is None:
-                raise ValueError("LinearRegression needs a label column")
-            with record_function("glm.stats"):
-                if isinstance(inputs.X, EllMatrix):
-                    stats = ell_sufficient_stats(inputs.X, inputs.y, inputs.weight)
-                else:
-                    stats = linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight)
+        def _single_fit(stats, params: Dict[str, Any], inputs: FitInputs) -> Dict[str, Any]:
             alpha = float(params["alpha"])
             l1_ratio = float(params["l1_ratio"])
             fit_intercept = bool(params["fit_intercept"])
@@ -219,23 +299,104 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
                 "dtype": str(inputs.dtype),
             }
 
+        def _fit(inputs: FitInputs, params: Dict[str, Any]):
+            if inputs.y is None:
+                raise ValueError("LinearRegression needs a label column")
+            with record_function("glm.stats"):
+                if isinstance(inputs.X, EllMatrix):
+                    stats = ell_sufficient_stats(inputs.X, inputs.y, inputs.weight)
+                else:
+                    stats = linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight)
+            if extra_params is None:
+                return _single_fit(stats, params, inputs)
+            # every param map from the one statistics pass
+            return [_single_fit(stats, {**params, **override}, inputs) for override in extra_params]
+
         return _fit
 
     def _create_model(self, result: Dict[str, Any]) -> "LinearRegressionModel":
         return LinearRegressionModel(**result)
 
-    def fitMultiple(self, dataset: Any, paramMaps: Any):
-        raise NotImplementedError("LinearRegression.fitMultiple " + _NOT_PORTED.format("A7"))
+    # -- batched sweep -----------------------------------------------------
+    def _supportsBatchedSweep(self, df: Any, paramMaps: List[Dict[Param, Any]], evaluator: Any) -> bool:
+        if not paramMaps or not self._supportsTransformEvaluate(evaluator):
+            return False
+        try:
+            overrides = [self._paramMap_to_tpu_overrides(pm) for pm in paramMaps]
+        except ValueError:
+            return False  # the fold loop raises its own error
+        if any(set(ov) - {"alpha", "l1_ratio"} for ov in overrides):
+            return False  # only the regularizer axes ride as lanes
+        return not self._sweep_sparse_input(as_dataframe(df))
 
-    def _fitBatchedSweep(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError("LinearRegression._fitBatchedSweep " + _NOT_PORTED.format("A7"))
+    def _fitBatchedSweep(
+        self, df: Any, paramMaps: List[Dict[Param, Any]], n_folds: int, seed: int
+    ) -> List[List[Dict[str, Any]]]:
+        """Every (fold, map) fit over one staged dataset: one masked-fold
+        statistics pass, then the closed-form lanes and the CD lanes, each
+        lane the sequential fit's own solve on its fold's statistics."""
+        params = dict(self._tpu_params)
+        cand = []
+        for pm in paramMaps:
+            p = {**params, **self._paramMap_to_tpu_overrides(pm)}
+            cand.append((float(p["alpha"]), float(p["l1_ratio"])))
+        fit_intercept = bool(params["fit_intercept"])
+        normalize = bool(params["normalize"])
+        # the sequential fit's solver choice per candidate
+        closed = [i for i, (a, l1r) in enumerate(cand) if a == 0.0 or l1r == 0.0]
+        cd = [i for i in range(len(cand)) if i not in closed]
+        dev = _device.resolve()
+        with profiling.phase("tuning.sweep.ingest", dev):
+            inputs = self._build_fit_inputs(as_dataframe(df))
+        if inputs.y is None:
+            raise ValueError("LinearRegression needs a label column")
+        if isinstance(inputs.X, EllMatrix):
+            raise ValueError("the batched sweep takes dense features")
+        fid = stage_fold_ids(inputs.n_rows, inputs.X.shape[0], n_folds, seed, inputs.device)
+        with profiling.phase("tuning.sweep.stats", dev):
+            stats = sweep_linreg_fold_stats(inputs.X, inputs.y, inputs.weight, fid, n_folds)
+        del inputs, fid
+        xm_h, ym_h = stats.x_mean.cpu().numpy(), stats.y_mean.cpu().numpy()
+        n_cols, dtype = int(stats.G.shape[1]), str(numpy_dtype(stats.G.dtype))
+        results: List[List[Dict[str, Any]]] = [[{} for _ in cand] for _ in range(n_folds)]
+
+        def collect(idxs: List[int], coef_h: np.ndarray) -> None:
+            for j, i in enumerate(idxs):
+                for f in range(n_folds):
+                    coef64 = np.asarray(coef_h[f, j], dtype=np.float64)
+                    results[f][i] = {
+                        "coef_": coef64,
+                        "intercept_": _host_intercept(coef64, xm_h[f], ym_h[f], fit_intercept),
+                        "n_cols": n_cols,
+                        "dtype": dtype,
+                    }
+
+        if closed:
+            with profiling.phase("tuning.sweep.solve", dev):
+                _, (alphas,) = pack_lane_subset(cand, closed)
+                coef, _ = sweep_solve_linear(stats, alphas.tolist(), fit_intercept=fit_intercept, normalize=normalize)
+                collect(closed, coef.cpu().numpy())
+        if cd:
+            with profiling.phase("tuning.sweep.cd", dev):
+                _, (alphas, l1s) = pack_lane_subset(cand, cd, fields=(0, 1))
+                coef, _, sweeps = sweep_solve_elasticnet_cd(
+                    stats, alphas.tolist(), l1s.tolist(), float(params["tol"]),
+                    fit_intercept=fit_intercept, normalize=normalize, max_iter=int(params["max_iter"]),
+                )
+                collect(cd, coef.cpu().numpy())
+            profiling.incr_counter("glm.cd_sweeps", int(sweeps[:, : len(cd)].sum()))
+            get_logger(type(self)).info("sweep CD sweeps (fold x candidate): %s", sweeps[:, : len(cd)].tolist())
+        return results
 
     def streaming(self):
         raise NotImplementedError("LinearRegression.streaming() " + _NOT_PORTED.format("A12"))
 
 
-class LinearRegressionModel(_LinearRegressionParams, _TpuModelWithPredictionCol):
-    def __init__(self, coef_: Any, intercept_: float, n_cols: int, dtype: str) -> None:
+class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationMixIn, _TpuModelWithPredictionCol):
+    """A fitted linear model; a _combine'd model holds M models' coef_
+    (M, D) and intercept_ (M,) and only scores them (_transformEvaluate)."""
+
+    def __init__(self, coef_: Any, intercept_: Union[float, List[float]], n_cols: int, dtype: str) -> None:
         super().__init__(coef_=np.asarray(coef_), intercept_=intercept_, n_cols=int(n_cols), dtype=str(dtype))
         self.coef_ = np.asarray(coef_)
         self.intercept_ = intercept_
@@ -243,11 +404,17 @@ class LinearRegressionModel(_LinearRegressionParams, _TpuModelWithPredictionCol)
         self.dtype = str(dtype)
 
     @property
+    def _num_models(self) -> int:
+        return len(self.intercept_) if isinstance(self.intercept_, (list, np.ndarray)) and self.coef_.ndim == 2 else 1
+
+    @property
     def coefficients(self) -> np.ndarray:
+        assert self._num_models == 1
         return self.coef_
 
     @property
     def intercept(self) -> float:
+        assert self._num_models == 1
         return float(self.intercept_)
 
     @property
@@ -281,13 +448,43 @@ class LinearRegressionModel(_LinearRegressionParams, _TpuModelWithPredictionCol)
         raise NotImplementedError("LinearRegressionModel._lane_entry " + _NOT_PORTED.format("A13"))
 
     @classmethod
-    def _combine(cls, models: List["LinearRegressionModel"]):
-        raise NotImplementedError("LinearRegressionModel._combine " + _NOT_PORTED.format("A7"))
+    def _combine(cls, models: List["LinearRegressionModel"]) -> "LinearRegressionModel":
+        assert models and all(isinstance(m, cls) for m in models)
+        first = models[0]
+        combined = cls(
+            coef_=np.stack([np.asarray(m.coef_) for m in models]),
+            intercept_=[float(m.intercept_) for m in models],
+            n_cols=first.n_cols,
+            dtype=first.dtype,
+        )
+        first._copyValues(combined)
+        combined._tpu_params.update(first._tpu_params)
+        combined._float32_inputs = first._float32_inputs
+        return combined
 
-    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None):
-        raise NotImplementedError("LinearRegressionModel._transformEvaluate " + _NOT_PORTED.format("A7"))
+    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None) -> List[float]:
+        return self._transform_evaluate(dataset, evaluator, self._num_models)
+
+    def _get_eval_predict_func(self):
+        """features -> (M, n) float64 predictions of every sub-model: one
+        (n, D) x (D, M) product a partition."""
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = _device.resolve()
+        coefs = torch.as_tensor(np.atleast_2d(np.asarray(self.coef_, dtype=np_dtype)), device=dev)
+        intercepts = torch.as_tensor(np.atleast_1d(np.asarray(self.intercept_, dtype=np_dtype)), device=dev)
+
+        def _predict_all(features: Any) -> np.ndarray:
+            X = _device_rows(features, np_dtype, dev)
+            if isinstance(X, EllMatrix):
+                preds = torch.stack([linear_predict_kernel(X, c, b) for c, b in zip(coefs, intercepts)])
+            else:
+                preds = exact_matmul(coefs, X.T) + intercepts[:, None]
+            return preds.cpu().numpy().astype(np.float64)
+
+        return _predict_all
 
     def _get_tpu_transform_func(self, dataset: DataFrame):
+        assert self._num_models == 1, "transform() of a combined multi-model: use _transformEvaluate"
         np_dtype = self._transform_dtype(self.dtype)
         coef, intercept = self._device_params(np_dtype)
         pred_col = self.getOrDefault("predictionCol")

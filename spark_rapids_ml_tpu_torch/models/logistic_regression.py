@@ -13,15 +13,23 @@
 # (ops/logistic.py).  CSR input fits and transforms through the ELL layout,
 # with a deterministic gradient (ops/sparse.ell_rmatmat).
 #
-# Not carried over yet: fitMultiple, _fitBatchedSweep, _transformEvaluate
-# and _combine (ROADMAP A7), streaming() (A12), the serving hooks
+# Model selection: fitMultiple fits every param map over one ingest and one
+# label encoding; _fitBatchedSweep fits every (fold, map) of a
+# CrossValidator as one lane-batched L-BFGS run a penalty family (smooth,
+# and OWL-QN when elasticNetParam > 0) over one staged dataset
+# (ops/logistic.sweep_logistic_fit_kernel), when the grid varies only
+# regParam and elasticNetParam and the input is dense; _combine stacks
+# models and _transformEvaluate scores them in one pass over each partition
+# (MulticlassClassificationEvaluator only, as in the JAX package).
+#
+# Not carried over yet: streaming() (ROADMAP A12), the serving hooks
 # _serving_entry / _lane_entry (A13) and cpu() (A14c); each raises
 # NotImplementedError.
 #
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,10 +37,25 @@ from torch.profiler import record_function
 
 from .. import device as _device
 from .. import profiling
-from ..core import FitInputs, _TpuEstimatorSupervised, _TpuModelWithPredictionCol, discover_label_classes
-from ..dataframe import DataFrame
+from ..core import (
+    FitInputs,
+    _TpuEstimatorSupervised,
+    _TpuModelWithPredictionCol,
+    discover_label_classes,
+)
+from ..dataframe import DataFrame, as_dataframe
+from ..metrics.multiclass import MulticlassMetrics
 from ..ops.labels import encode_labels
-from ..ops.logistic import logistic_decision_kernel, logistic_fit_kernel, scores_to_labels, scores_to_probs
+from ..ops.lanes import pack_lane_subset
+from ..ops.logistic import (
+    logistic_decision_kernel,
+    logistic_fit_kernel,
+    scores_to_labels,
+    scores_to_probs,
+    sweep_logistic_fit_kernel,
+)
+from ..ops.sparse import EllMatrix
+from ..ops.sweep import stage_fold_ids
 from ..ops.sparse import ell_device_from_scipy
 from ..params import (
     HasElasticNetParam,
@@ -55,8 +78,40 @@ from ..params import (
     _TpuParams,
 )
 from ..utils import get_logger
+from .linear_regression import _device_rows, _frame_blocks
 
 _NOT_PORTED = "is not in this port yet (ROADMAP {})"
+
+
+class _ClassificationModelEvaluationMixIn:
+    """Single-pass transform-evaluate of a (combined) classification model:
+    every sub-model's predictions of a block of rows in one pass, merged
+    into MulticlassMetrics per sub-model (shared with the forest
+    classifier)."""
+
+    def _transform_evaluate(self, dataset: Any, evaluator: Any, num_models: int) -> List[float]:
+        from ..evaluation import MulticlassClassificationEvaluator
+
+        if not isinstance(evaluator, MulticlassClassificationEvaluator):
+            raise NotImplementedError(f"{evaluator} is unsupported yet.")
+        evaluator._evaluate_executor_side(dataset)
+        return self._evaluate_blocks(_frame_blocks(self, as_dataframe(dataset)), evaluator, num_models)
+
+    def _evaluate_blocks(self, blocks: Iterable[Tuple[Any, np.ndarray]], evaluator: Any, num_models: int) -> List[float]:
+        """The metrics of each sub-model over (features, labels) blocks, one
+        partial a block, merged in order; features a host block or a tensor
+        on the device."""
+        needs_probs = evaluator.getMetricName() == "logLoss"
+        predict_all = self._get_eval_predict_func()
+        metrics: List[Optional[MulticlassMetrics]] = [None] * num_models
+        for features, labels in blocks:
+            preds, probs = predict_all(features)
+            for i in range(num_models):
+                m = MulticlassMetrics.from_arrays(
+                    labels, preds[i], probs=probs[i] if needs_probs else None, eps=evaluator.getEps()
+                )
+                metrics[i] = m if metrics[i] is None else metrics[i].merge(m)
+        return [m.evaluate(evaluator) for m in metrics]  # type: ignore[union-attr]
 
 
 class LogisticRegressionClass(_TpuParams):
@@ -198,18 +253,18 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             self._set_tpu_reg_params()
         return out
 
-    def _get_tpu_fit_func(self, dataset: DataFrame):
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        return True
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        from ..evaluation import MulticlassClassificationEvaluator
+
+        return isinstance(evaluator, MulticlassClassificationEvaluator)
+
+    def _get_tpu_fit_func(self, dataset: DataFrame, extra_params: Optional[List[Dict[str, Any]]] = None):
         logger = get_logger(type(self))
 
-        def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
-            if inputs.y is None:
-                raise ValueError("LogisticRegression needs a label column")
-            classes = discover_label_classes(inputs)
-            if len(classes) < 2:
-                raise RuntimeError("LogisticRegression requires at least two distinct labels")
-            # class indices on the labels' device (pad rows clamp into
-            # range; their weight is 0)
-            y_enc = encode_labels(inputs.y, torch.as_tensor(classes.astype(inputs.host_y.dtype)))
+        def _single_fit(inputs: FitInputs, params: Dict[str, Any], classes: np.ndarray, y_enc) -> Dict[str, Any]:
             C = float(params["C"])
             l1_ratio = float(params.get("l1_ratio") or 0.0)
             reg = 1.0 / C if C > 0 else 0.0
@@ -240,22 +295,109 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
                 "num_iters": n_iter,
             }
 
+        def _fit(inputs: FitInputs, params: Dict[str, Any]):
+            if inputs.y is None:
+                raise ValueError("LogisticRegression needs a label column")
+            classes = discover_label_classes(inputs)
+            if len(classes) < 2:
+                raise RuntimeError("LogisticRegression requires at least two distinct labels")
+            # class indices on the labels' device (pad rows clamp into
+            # range; their weight is 0)
+            y_enc = encode_labels(inputs.y, torch.as_tensor(classes.astype(inputs.host_y.dtype)))
+            if extra_params is None:
+                return _single_fit(inputs, params, classes, y_enc)
+            return [_single_fit(inputs, {**params, **override}, classes, y_enc) for override in extra_params]
+
         return _fit
 
     def _create_model(self, result: Dict[str, Any]) -> "LogisticRegressionModel":
         return LogisticRegressionModel(**result)
 
-    def fitMultiple(self, dataset: Any, paramMaps: Any):
-        raise NotImplementedError("LogisticRegression.fitMultiple " + _NOT_PORTED.format("A7"))
+    # -- batched sweep -----------------------------------------------------
+    def _supportsBatchedSweep(self, df: Any, paramMaps: List[Dict[Param, Any]], evaluator: Any) -> bool:
+        if not paramMaps or not self._supportsTransformEvaluate(evaluator):
+            return False
+        try:
+            overrides = [self._paramMap_to_tpu_overrides(pm) for pm in paramMaps]
+        except ValueError:
+            return False
+        if any(set(ov) - {"C", "l1_ratio"} for ov in overrides):
+            return False  # only the regularizer axes ride as lanes
+        return not self._sweep_sparse_input(as_dataframe(df))
 
-    def _fitBatchedSweep(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError("LogisticRegression._fitBatchedSweep " + _NOT_PORTED.format("A7"))
+    def _fitBatchedSweep(
+        self, df: Any, paramMaps: List[Dict[Param, Any]], n_folds: int, seed: int
+    ) -> List[List[Dict[str, Any]]]:
+        """Every (fold, map) fit as one lane-batched L-BFGS run a penalty
+        family over one staged dataset: folds as weight masks, candidates as
+        reg / l1 lanes, each lane with its own convergence."""
+        params = dict(self._tpu_params)
+        cand = []
+        for pm in paramMaps:
+            p = {**params, **self._paramMap_to_tpu_overrides(pm)}
+            C = float(p["C"])
+            l1_ratio = float(p.get("l1_ratio") or 0.0)
+            reg = 1.0 / C if C > 0 else 0.0
+            cand.append((reg, l1_ratio, reg > 0 and l1_ratio > 0))
+        dev = _device.resolve()
+        with profiling.phase("tuning.sweep.ingest", dev):
+            inputs = self._build_fit_inputs(as_dataframe(df))
+        if inputs.y is None:
+            raise ValueError("LogisticRegression needs a label column")
+        if isinstance(inputs.X, EllMatrix):
+            raise ValueError("the batched sweep takes dense features")
+        classes = discover_label_classes(inputs)
+        if len(classes) < 2:
+            raise RuntimeError("LogisticRegression requires at least two distinct labels")
+        kcls = 1 if len(classes) == 2 else len(classes)
+        fid = stage_fold_ids(inputs.n_rows, inputs.X.shape[0], n_folds, seed, inputs.device)
+        y_enc = encode_labels(inputs.y, torch.as_tensor(classes.astype(inputs.host_y.dtype)))
+        results: List[List[Dict[str, Any]]] = [[{} for _ in cand] for _ in range(n_folds)]
+        logger = get_logger(type(self))
+        # one lane-batched run a penalty family: OWL-QN is another optimizer
+        # and cannot share lanes with the smooth penalties
+        with profiling.phase("tuning.sweep.solve", dev):
+            for owlqn in (False, True):
+                idxs = [i for i, c in enumerate(cand) if c[2] == owlqn]
+                if not idxs:
+                    continue
+                family = "owlqn" if owlqn else "lbfgs"
+                _, (regs, l1s) = pack_lane_subset(cand, idxs, fields=(0, 1))
+                with profiling.phase(f"tuning.sweep.solve.{family}", dev):
+                    W, b, n_iter, conv, n_evals = sweep_logistic_fit_kernel(
+                        inputs.X, y_enc, inputs.weight, fid, regs, l1s, float(params["tol"]),
+                        k_folds=n_folds, kcls=kcls, fit_intercept=bool(params["fit_intercept"]),
+                        max_iter=int(params["max_iter"]), use_owlqn=owlqn,
+                    )
+                    W_h, b_h = W.cpu().numpy(), b.cpu().numpy()
+                    n_iter_h, conv_h = n_iter.cpu().numpy(), conv.cpu().numpy()
+                profiling.incr_counter(f"tuning.sweep.{family}.iterations", int(n_iter_h.max()))
+                profiling.incr_counter(f"tuning.sweep.{family}.evaluations", n_evals)
+                logger.info(
+                    "sweep L-BFGS iters (fold x candidate): %s converged: %s",
+                    n_iter_h[:, : len(idxs)].tolist(), conv_h[:, : len(idxs)].tolist(),
+                )
+                for j, i in enumerate(idxs):
+                    for f in range(n_folds):
+                        results[f][i] = {
+                            "coef_": W_h[f, j].astype(np.float64),
+                            "intercept_": b_h[f, j].astype(np.float64),
+                            "classes_": np.asarray(classes, dtype=np.float64),
+                            "n_cols": inputs.n_cols,
+                            "dtype": str(inputs.dtype),
+                            "num_iters": int(n_iter_h[f, j]),
+                        }
+        return results
 
     def streaming(self, classes: Any = None):
         raise NotImplementedError("LogisticRegression.streaming() " + _NOT_PORTED.format("A12"))
 
 
-class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithPredictionCol):
+class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEvaluationMixIn, _TpuModelWithPredictionCol):
+    """A fitted logistic model; a _combine'd model holds M models' coef_
+    (M, k, D) and intercept_ (M, k) and only scores them
+    (_transformEvaluate)."""
+
     def __init__(
         self,
         coef_: np.ndarray,
@@ -346,12 +488,53 @@ class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithPrediction
     def _lane_entry(self, mesh: Any = None):
         raise NotImplementedError("LogisticRegressionModel._lane_entry " + _NOT_PORTED.format("A13"))
 
-    @classmethod
-    def _combine(cls, models: List["LogisticRegressionModel"]):
-        raise NotImplementedError("LogisticRegressionModel._combine " + _NOT_PORTED.format("A7"))
+    @property
+    def _num_models(self) -> int:
+        return self.coef_.shape[0] if self.coef_.ndim == 3 else 1
 
-    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None):
-        raise NotImplementedError("LogisticRegressionModel._transformEvaluate " + _NOT_PORTED.format("A7"))
+    @classmethod
+    def _combine(cls, models: List["LogisticRegressionModel"]) -> "LogisticRegressionModel":
+        assert models and all(isinstance(m, cls) for m in models)
+        first = models[0]
+        combined = cls(
+            coef_=np.stack([m.coef_ for m in models]),
+            intercept_=np.stack([m.intercept_ for m in models]),
+            classes_=first.classes_,
+            n_cols=first.n_cols,
+            dtype=first.dtype,
+            num_iters=[int(np.ravel(m.num_iters)[0]) for m in models],
+        )
+        first._copyValues(combined)
+        combined._tpu_params.update(first._tpu_params)
+        combined._float32_inputs = first._float32_inputs
+        return combined
+
+    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None) -> List[float]:
+        return self._transform_evaluate(dataset, evaluator, self._num_models)
+
+    def _get_eval_predict_func(self):
+        """features -> ((M, n) float64 predictions, (M, n, C) float64
+        probabilities) of every sub-model: one product of the partition with
+        the stacked (M k, D) coefficients."""
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = _device.resolve()
+        coefs = self.coef_ if self.coef_.ndim == 3 else self.coef_[None]  # (M, k, D)
+        intercepts = self.intercept_ if self.intercept_.ndim == 2 else self.intercept_[None]  # (M, k)
+        M, k, d = coefs.shape
+        W = torch.as_tensor(coefs.reshape(M * k, d).astype(np_dtype), device=dev)
+        b = torch.as_tensor(intercepts.reshape(M * k).astype(np_dtype), device=dev)
+        classes, num_classes = self.classes_, self._num_classes
+
+        def _predict_all(features: Any):
+            scores = logistic_decision_kernel(_device_rows(features, np_dtype, dev), W, b).reshape(-1, M, k)
+            preds, probs = [], []
+            for i in range(M):
+                idx = scores_to_labels(scores[:, i], num_classes).cpu().numpy().astype(np.int64)
+                preds.append(classes[idx].astype(np.float64))
+                probs.append(scores_to_probs(scores[:, i], num_classes).cpu().numpy().astype(np.float64))
+            return np.stack(preds), np.stack(probs)
+
+        return _predict_all
 
     def _out_columns(self) -> List[str]:
         return [
@@ -361,6 +544,7 @@ class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithPrediction
         ]
 
     def _get_tpu_transform_func(self, dataset: DataFrame):
+        assert self._num_models == 1, "transform() of a combined multi-model: use _transformEvaluate"
         np_dtype = self._transform_dtype(self.dtype)
         W, b = self._device_params(np_dtype)
         classes = self.classes_

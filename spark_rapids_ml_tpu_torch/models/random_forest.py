@@ -17,9 +17,15 @@
 # which is not ported.  The bootstrap draws from a seeded torch.Generator, so
 # its weights differ from the JAX package's (jax.random.poisson).
 #
-# Not carried over yet: _transformEvaluate and the evaluators, fitMultiple,
-# model combining, cpu() (pyspark.ml conversion), the serving hooks, and
-# multi-rank binning.
+# Model selection: fitMultiple bins once (once for each distinct maxBins)
+# and grows each param map's forest over the same bins; _combine
+# concatenates the sub-models' trees along the tree axis with their counts
+# (tree_counts, kept through persistence), and _transformEvaluate scores
+# every sub-model in one pass over each partition (RegressionEvaluator for
+# the regressor, MulticlassClassificationEvaluator for the classifier).
+#
+# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c), the
+# serving hooks (A13), and multi-rank binning (A14b).
 #
 
 from __future__ import annotations
@@ -32,7 +38,13 @@ import torch
 from torch.profiler import record_function
 
 from .. import device as _device
-from ..core import FitInputs, _TpuEstimatorSupervised, _TpuModelWithPredictionCol, discover_label_classes
+from ..core import (
+    FitInputs,
+    _release_fit_features,
+    _TpuEstimatorSupervised,
+    _TpuModelWithPredictionCol,
+    discover_label_classes,
+)
 from ..dataframe import DataFrame
 from ..ops.forest import bin_features_feature_major, compute_bin_edges, forest_predict
 from ..ops.forest_grow import depth_supported, grow_forest
@@ -54,6 +66,8 @@ from ..params import (
     _TpuParams,
 )
 from ..utils import get_logger
+from .linear_regression import _RegressionModelEvaluationMixIn
+from .logistic_regression import _ClassificationModelEvaluationMixIn
 
 _MAX_SUPPORTED_DEPTH = 16  # dense tree layout: 2^(d+1)-1 node slots
 # the limits of histogram growth (the JAX package's _mxu_eligible)
@@ -234,11 +248,23 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
         needs (class index or target), and extra model attributes."""
         raise NotImplementedError
 
-    def _get_tpu_fit_func(self, dataset: DataFrame):
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        return True
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        from ..evaluation import MulticlassClassificationEvaluator, RegressionEvaluator
+
+        if self._is_classification:
+            return isinstance(evaluator, MulticlassClassificationEvaluator)
+        return isinstance(evaluator, RegressionEvaluator)
+
+    def _get_tpu_fit_func(self, dataset: DataFrame, extra_params: Optional[List[Dict[str, Any]]] = None):
         logger = get_logger(type(self))
         is_classification = self._is_classification
 
-        def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+        def _settings(params: Dict[str, Any], n_cols: int, s_split: int) -> Dict[str, Any]:
+            """One map's tree settings, within the histogram builder's
+            limits (NotImplementedError outside them)."""
             max_depth = int(params["max_depth"])
             if max_depth > _MAX_SUPPORTED_DEPTH:
                 raise ValueError(
@@ -247,15 +273,8 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
             n_trees = int(params["n_estimators"])
             n_bins = int(params["n_bins"])
             criterion = params.get("split_criterion")
-            kind = "regression" if not is_classification else ("entropy" if criterion == "entropy" else "gini")
-            max_features = _resolve_max_features(
-                params.get("max_features", "auto"), inputs.n_cols, is_classification, n_trees
-            )
+            max_features = _resolve_max_features(params.get("max_features", "auto"), n_cols, is_classification, n_trees)
             seed = params.get("random_state")
-            seed = int(seed) & 0x7FFFFFFF if seed is not None else 42
-            bootstrap = bool(params.get("bootstrap", True))
-            stats, y_vals, extra_attrs = self._label_stats(inputs)
-            s_split = 2 if not is_classification else stats.shape[0]
             limits = [
                 (n_bins <= _MAX_BINS, f"maxBins {n_bins} > {_MAX_BINS}"),
                 (max_features <= _MAX_FEATURES, f"{max_features} features per split > {_MAX_FEATURES}"),
@@ -268,81 +287,187 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
                     "the JAX package's scatter engine (ops/forest.grow_forest), which takes such "
                     "fits, is not ported"
                 )
+            return {
+                "max_depth": max_depth,
+                "n_trees": n_trees,
+                "n_bins": n_bins,
+                "kind": "regression" if not is_classification else ("entropy" if criterion == "entropy" else "gini"),
+                "max_features": max_features,
+                "seed": int(seed) & 0x7FFFFFFF if seed is not None else 42,
+                "bootstrap": bool(params.get("bootstrap", True)),
+                "min_samples_leaf": float(params.get("min_samples_leaf", 1)),
+                "min_impurity_decrease": float(params.get("min_impurity_decrease", 0.0)),
+            }
 
-            # quantile edges from a bounded strided row sample, on the host
+        def _fit(inputs: FitInputs, params: Dict[str, Any]):
+            stats, y_vals, extra_attrs = self._label_stats(inputs)
+            s_split = 2 if not is_classification else stats.shape[0]
+            maps = [params] if extra_params is None else [{**params, **o} for o in extra_params]
+            settings = [_settings(p, inputs.n_cols, s_split) for p in maps]
+
+            # quantile edges from a bounded strided row sample, on the host;
+            # one binning for each distinct maxBins, shared by the maps
             X = inputs.X
+            n_pad = -(-X.shape[0] // ROW_TILE) * ROW_TILE
+            binned: Dict[int, Any] = {}
             with record_function("forest.bin"):
                 w_host = inputs.weight.cpu().numpy()
                 rows = _binning_rows(w_host[: inputs.n_rows], inputs.n_cols, X.element_size())
                 sample = X[torch.from_numpy(rows).to(X.device)].cpu().numpy()
-                edges = compute_bin_edges(sample, n_bins)
-                n_pad = -(-X.shape[0] // ROW_TILE) * ROW_TILE
-                bins_fm = bin_features_feature_major(X.float(), torch.from_numpy(edges), n_pad)
+                for st in settings:
+                    if st["n_bins"] not in binned:
+                        edges = compute_bin_edges(sample, st["n_bins"])
+                        binned[st["n_bins"]] = (
+                            edges, bin_features_feature_major(X.float(), torch.from_numpy(edges), n_pad)
+                        )
             # the feature tensor is not needed once binned: free it for the
             # tree growth (12 GB at the 1M x 3000 flagship)
-            inputs.X = X = None
+            X = None
+            _release_fit_features(inputs)
 
-            dev = bins_fm.device
             pad = n_pad - stats.shape[1]
             stats = torch.nn.functional.pad(stats.float(), (0, pad)).contiguous()
             y_vals = torch.nn.functional.pad(y_vals.float(), (0, pad))
             w_pad = torch.nn.functional.pad(inputs.weight.float(), (0, n_pad - inputs.weight.shape[0]))
-            if bootstrap:
-                gen = torch.Generator(device=dev).manual_seed((seed + 104729) & 0x7FFFFFFF)
-                counts = torch.poisson(torch.ones((n_trees, n_pad), device=dev), generator=gen)
-                w_trees = w_pad[None, :] * counts
-                del counts
-            else:
-                w_trees = w_pad[None, :].expand(n_trees, n_pad).contiguous()
             if is_classification:
                 base_stats, stats3 = stats, None
             else:
                 base_stats, stats3 = stats[:2], stats
-            features, thresholds, leaf_values, node_counts, impurities = grow_forest(
-                bins_fm, base_stats, w_trees, stats3, edges,
-                max_depth=max_depth, n_bins=n_bins, kind=kind, max_features=max_features,
-                min_samples_leaf=float(params.get("min_samples_leaf", 1)),
-                min_impurity_decrease=float(params.get("min_impurity_decrease", 0.0)),
-                seed=seed, y_vals=y_vals,
-                # without weightCol every row weighs 1: the classifier's stats
-                # are bootstrap counts x one-hot classes, integers
-                integer_stats=is_classification and inputs.host_w is None,
-            )
-            logger.info("grew %d trees (depth<=%d, bins=%d)", n_trees, max_depth, n_bins)
-            return {
-                "features_": features,
-                "thresholds_": thresholds,
-                "leaf_values_": leaf_values,
-                "node_counts_": node_counts,
-                "impurities_": impurities,
-                "max_depth": max_depth,
-                "n_cols": inputs.n_cols,
-                "dtype": str(inputs.dtype),
-                **extra_attrs,
-            }
+            results = []
+            for st in settings:
+                edges, bins_fm = binned[st["n_bins"]]
+                n_trees = st["n_trees"]
+                if st["bootstrap"]:
+                    gen = torch.Generator(device=bins_fm.device).manual_seed((st["seed"] + 104729) & 0x7FFFFFFF)
+                    counts = torch.poisson(torch.ones((n_trees, n_pad), device=bins_fm.device), generator=gen)
+                    w_trees = w_pad[None, :] * counts
+                    del counts
+                else:
+                    w_trees = w_pad[None, :].expand(n_trees, n_pad).contiguous()
+                features, thresholds, leaf_values, node_counts, impurities = grow_forest(
+                    bins_fm, base_stats, w_trees, stats3, edges,
+                    max_depth=st["max_depth"], n_bins=st["n_bins"], kind=st["kind"],
+                    max_features=st["max_features"], min_samples_leaf=st["min_samples_leaf"],
+                    min_impurity_decrease=st["min_impurity_decrease"], seed=st["seed"], y_vals=y_vals,
+                    # without weightCol every row weighs 1: the classifier's
+                    # stats are bootstrap counts x one-hot classes, integers
+                    integer_stats=is_classification and inputs.host_w is None,
+                )
+                del w_trees
+                logger.info("grew %d trees (depth<=%d, bins=%d)", n_trees, st["max_depth"], st["n_bins"])
+                results.append({
+                    "features_": features,
+                    "thresholds_": thresholds,
+                    "leaf_values_": leaf_values,
+                    "node_counts_": node_counts,
+                    "impurities_": impurities,
+                    "max_depth": st["max_depth"],
+                    "n_cols": inputs.n_cols,
+                    "dtype": str(inputs.dtype),
+                    **extra_attrs,
+                })
+            return results[0] if extra_params is None else results
 
         return _fit
 
 
 class _RandomForestModelBase(_RandomForestParams, _TpuModelWithPredictionCol):
-    """Shared forest model: dense arrays + batched traversal predict."""
+    """Shared forest model: dense arrays + batched traversal predict.
 
-    def _predict_values(self, features: np.ndarray) -> np.ndarray:
-        """(N, V) mean leaf values of the rows of `features`."""
+    A _combine'd multi-model holds its sub-models' trees concatenated along
+    the tree axis, with `_tree_counts` the trees of each; it only scores
+    (_transformEvaluate), it does not transform."""
+
+    @property
+    def _num_models(self) -> int:
+        counts = getattr(self, "_tree_counts", None)
+        return len(counts) if counts else 1
+
+    @classmethod
+    def _construct(cls, attrs: Dict[str, Any]) -> "_RandomForestModelBase":
+        """A combined model's split into sub-models (tree_counts) is an
+        attribute, not a constructor argument: reattach it on load."""
+        attrs = dict(attrs)
+        tc = attrs.pop("tree_counts", None)
+        model = cls(**attrs)
+        if tc is not None:
+            model._tree_counts = [int(c) for c in np.asarray(tc).tolist()]
+            model._model_attributes["tree_counts"] = model._tree_counts
+        return model
+
+    @classmethod
+    def _combine(cls, models: List["_RandomForestModelBase"]) -> "_RandomForestModelBase":
+        """The sub-models' trees concatenated, each dense layout padded to the
+        deepest one (a shallower tree embeds unchanged in the deeper node
+        indexing), with the trees of each sub-model in tree_counts."""
+        assert models and all(isinstance(m, cls) for m in models)
+        first = models[0]
+        assert all(m.n_cols == first.n_cols for m in models)
+        assert all(m.leaf_values_.shape[2] == first.leaf_values_.shape[2] for m in models), (
+            "cannot combine forests with different value widths"
+        )
+        m_max = max(m.features_.shape[1] for m in models)
+
+        def pad_nodes(a: np.ndarray, fill: Any = 0) -> np.ndarray:
+            if a.shape[1] == m_max:
+                return a
+            width = [(0, 0), (0, m_max - a.shape[1])] + [(0, 0)] * (a.ndim - 2)
+            return np.pad(a, width, constant_values=fill)
+
+        kwargs: Dict[str, Any] = dict(
+            features_=np.concatenate([pad_nodes(m.features_, -1) for m in models]),
+            thresholds_=np.concatenate([pad_nodes(m.thresholds_) for m in models]),
+            leaf_values_=np.concatenate([pad_nodes(m.leaf_values_) for m in models]),
+            node_counts_=np.concatenate([pad_nodes(m.node_counts_) for m in models]),
+            impurities_=np.concatenate([pad_nodes(m.impurities_) for m in models]),
+            max_depth=max(int(m.max_depth) for m in models),
+            n_cols=first.n_cols,
+            dtype=first.dtype,
+        )
+        if hasattr(first, "classes_"):
+            assert all(np.array_equal(m.classes_, first.classes_) for m in models), (
+                "cannot combine classifiers fit on different label sets"
+            )
+            kwargs.update(classes_=first.classes_, num_classes=first.num_classes)
+        combined = cls(**kwargs)
+        combined._tree_counts = [m.features_.shape[0] for m in models]
+        combined._model_attributes["tree_counts"] = combined._tree_counts
+        first._copyValues(combined)
+        combined._tpu_params.update(first._tpu_params)
+        combined._float32_inputs = first._float32_inputs
+        return combined
+
+    def _rows_on_device(self, features: np.ndarray) -> torch.Tensor:
         features = np.atleast_2d(np.asarray(features))
         if features.shape[1] != self.n_cols:
             raise ValueError(f"feature width {features.shape[1]} != model n_cols {self.n_cols}")
         np_dtype = self._transform_dtype(self.dtype)
-        dev = _device.resolve()
-        X = torch.from_numpy(np.ascontiguousarray(features, dtype=np_dtype)).to(dev)
-        values = forest_predict(
-            X,
-            torch.tensor(self.features_, dtype=torch.int32, device=dev),
-            torch.tensor(self.thresholds_.astype(np_dtype), device=dev),
-            torch.tensor(self.leaf_values_, dtype=torch.float32, device=dev),
-            int(self.max_depth),
-        )
-        return values.cpu().numpy()
+        return torch.from_numpy(np.ascontiguousarray(features, dtype=np_dtype)).to(_device.resolve())
+
+    def _per_model_values(self, features: np.ndarray) -> List[np.ndarray]:
+        """(N, V) mean leaf values of each sub-model, over one upload of the
+        rows: each sub-model's tree slice, as its own transform computes
+        them."""
+        X = self._rows_on_device(features)
+        dev = X.device
+        f = torch.tensor(self.features_, dtype=torch.int32, device=dev)
+        t = torch.tensor(self.thresholds_.astype(self._transform_dtype(self.dtype)), device=dev)
+        v = torch.tensor(self.leaf_values_, dtype=torch.float32, device=dev)
+        counts = getattr(self, "_tree_counts", None) or [self.features_.shape[0]]
+        out, off = [], 0
+        for c in counts:
+            sl = slice(off, off + c)
+            off += c
+            out.append(forest_predict(X, f[sl], t[sl], v[sl], int(self.max_depth)))
+        return [o.cpu().numpy() for o in out]
+
+    def _predict_values(self, features: np.ndarray) -> np.ndarray:
+        """(N, V) mean leaf values of the rows of `features`."""
+        assert self._num_models == 1, "transform() of a combined multi-model: use _transformEvaluate"
+        return self._per_model_values(features)[0]
+
+    def _transformEvaluate(self, dataset: Any, evaluator: Any, params: Any = None) -> List[float]:
+        return self._transform_evaluate(dataset, evaluator, self._num_models)
 
     @property
     def getNumTrees(self) -> int:  # property for pyspark API parity
@@ -388,7 +513,9 @@ class RandomForestClassifier(_RandomForestEstimator):
         return RandomForestClassificationModel(**result)
 
 
-class RandomForestClassificationModel(HasProbabilityCol, HasRawPredictionCol, _RandomForestModelBase):
+class RandomForestClassificationModel(
+    HasProbabilityCol, HasRawPredictionCol, _ClassificationModelEvaluationMixIn, _RandomForestModelBase
+):
     def __init__(
         self,
         features_: np.ndarray,
@@ -435,6 +562,21 @@ class RandomForestClassificationModel(HasProbabilityCol, HasRawPredictionCol, _R
     def _get_tpu_transform_func(self, dataset: DataFrame):
         return lambda features: self._outputs(self._predict_values(features))
 
+    def _get_eval_predict_func(self):
+        """features -> ((M, n) predictions, (M, n, C) probabilities) of every
+        sub-model, as each one's transform gives them."""
+        classes = self.classes_
+
+        def _predict_all(features: np.ndarray):
+            preds, probs = [], []
+            for values in self._per_model_values(features):
+                p = values / np.maximum(values.sum(axis=1, keepdims=True), 1e-12)
+                probs.append(p.astype(np.float64))
+                preds.append(classes[p.argmax(axis=1)].astype(np.float64))
+            return np.stack(preds), np.stack(probs)
+
+        return _predict_all
+
     def predict(self, value: np.ndarray) -> float:
         probs = self._predict_values(np.asarray(value)[None, :])
         return float(self.classes_[int(probs[0].argmax())])
@@ -469,7 +611,7 @@ class RandomForestRegressor(_RandomForestEstimator):
         return RandomForestRegressionModel(**result)
 
 
-class RandomForestRegressionModel(_RandomForestModelBase):
+class RandomForestRegressionModel(_RegressionModelEvaluationMixIn, _RandomForestModelBase):
     def __init__(
         self,
         features_: np.ndarray,
@@ -491,6 +633,10 @@ class RandomForestRegressionModel(_RandomForestModelBase):
     def _get_tpu_transform_func(self, dataset: DataFrame):
         pred_col = self.getOrDefault("predictionCol")
         return lambda features: {pred_col: self._predict_values(features)[:, 0].astype(np.float64)}
+
+    def _get_eval_predict_func(self):
+        """features -> (M, n) float64 predictions of every sub-model."""
+        return lambda features: np.stack([v[:, 0].astype(np.float64) for v in self._per_model_values(features)])
 
     def predict(self, value: np.ndarray) -> float:
         return float(self._predict_values(np.asarray(value)[None, :])[0, 0])

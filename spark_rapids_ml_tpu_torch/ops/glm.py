@@ -20,18 +20,37 @@
 # captured once as a CUDA graph and replayed, with max_delta read once a
 # sweep (at D = 3000 on an NVIDIA H100 80GB HBM3 at 700 W a replay took
 # 59-74 ms against 587-589 ms for the eager sweep, chip_smoke.py
-# path_linreg); on the CPU the same sweep runs eagerly.
-# Not carried over yet: the sweep_* lanes (ROADMAP A7), the stream_* kernels
-# (A12) and the multi_ / lane_ predict kernels (A13).
+# path_linreg); on the CPU the same sweep runs eagerly.  The graph reads
+# its system (G, c, the diagonal, the denominators, the weight sum and the
+# L1 threshold) from static buffers, one set per (D, dtype, device), into
+# which each solve copies its own system before its replays: one capture
+# serves every fit, fold and candidate lane of that shape (counter
+# glm.cd_graph_captures), and a lane's alpha and l1 ratio are data, not
+# values baked into the graph.
+#
+# The batched sweep (CrossValidator over one staged dataset, the JAX
+# package's sweep_* functions): sweep_linreg_fold_stats forms every fold's
+# TRAIN statistics in one pass over X, folds as weight masks; then
+# sweep_solve_linear and sweep_solve_elasticnet_cd run the sequential fit's
+# own solve for each (fold, lane), in order, with no batched factorisation
+# (a batched LU's low bits drift from the single solve's).  On
+# integer-valued data every sum is exact, so a lane's coefficients equal
+# the sequential fit's on its fold bit for bit.
+# Not carried over yet: the stream_* kernels (ROADMAP A12) and the multi_ /
+# lane_ predict kernels (A13).
 #
 
 from __future__ import annotations
 
+import threading
 from functools import partial
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import profiling
+from ..utils import chunk_iter
 from .linalg import MOMENT_CHUNK, _local_moments, exact_matmul
 
 
@@ -98,7 +117,7 @@ def _cd_sweep(
     Gd: torch.Tensor,
     denom: torch.Tensor,
     n: torch.Tensor,
-    thresh: float,
+    thresh: torch.Tensor,
     b: torch.Tensor,
     max_delta: torch.Tensor,
     coords: Optional[range] = None,
@@ -107,22 +126,24 @@ def _cd_sweep(
     updating b and max_delta (the largest |change| of the sweep) in place:
         rho_j = (c_j - G_j.b + G_jj b_j) / n
         b_j   = soft(rho_j, thresh) / denom_j
-    softshrink(rho, thresh) is sign(rho) max(|rho| - thresh, 0) bit for
-    bit."""
+    with soft(rho, t) = rho - clamp(rho, -t, t), softshrink bit for bit,
+    and thresh a tensor, so a captured sweep reads it from its buffer."""
     max_delta.zero_()
+    neg = -thresh
     for j in range(G.shape[0]) if coords is None else coords:
         bj_old = b[j]
         rho = (c[j] - torch.dot(G[j], b) + Gd[j] * bj_old) / n
-        bj = torch.nn.functional.softshrink(rho, thresh) / denom[j]
+        bj = (rho - torch.clamp(rho, neg, thresh)) / denom[j]
         torch.maximum(max_delta, (bj - bj_old).abs(), out=max_delta)
         b[j] = bj
 
 
 def _sweep_runner(sweep: Callable[..., None], device: torch.device) -> Callable[[], None]:
     """`sweep` itself on the CPU; on the card a CUDA graph of one sweep,
-    captured once, whose replay runs the same launches.  Graph capture asks
-    for a warm-up on a side stream: one coordinate's update (a whole eager
-    sweep costs ~9x a replay at D = 3000 on an H100)."""
+    captured once (counted in glm.cd_graph_captures), whose replay runs the
+    same launches on the same tensors.  Graph capture asks for a warm-up on
+    a side stream: one coordinate's update (a whole eager sweep costs ~9x a
+    replay at D = 3000 on an H100)."""
     if device.type != "cuda":
         return sweep
     stream = torch.cuda.Stream(device)
@@ -133,12 +154,13 @@ def _sweep_runner(sweep: Callable[..., None], device: torch.device) -> Callable[
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         sweep()
+    profiling.incr_counter("glm.cd_graph_captures")
     return graph.replay
 
 
 def _cd_system(
     stats: LinregStats, alpha: float, l1_ratio: float, fit_intercept: bool, normalize: bool
-) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]:
+) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """((G, c, Gd, denom, n, thresh), s): _cd_sweep's arguments before b,
     in the scaled space, and the feature scales s."""
     Gc, cc = _centered_system(stats, fit_intercept)
@@ -147,7 +169,39 @@ def _cd_system(
     Gd = torch.diagonal(G).contiguous()
     denom = Gd / stats.wsum + alpha * (1.0 - l1_ratio)
     denom = torch.where(denom > 0, denom, torch.ones_like(denom))
-    return (G, cc / s, Gd, denom, stats.wsum, float(alpha * l1_ratio)), s
+    thresh = torch.tensor(alpha * l1_ratio, dtype=G.dtype, device=G.device)
+    return (G, cc / s, Gd, denom, stats.wsum, thresh), s
+
+
+class _CdRunner:
+    """The static buffers of one CD system shape, (G, c, Gd, denom, n,
+    thresh, b, max_delta), and the sweep over them: a captured graph on the
+    card, the eager sweep on the CPU.  `lock` serialises the solves that
+    share them."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device: torch.device) -> None:
+        def z(*shape: int) -> torch.Tensor:
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.system = (z(d, d), z(d), z(d), z(d), z(), z())
+        self.b, self.max_delta = z(d), z()
+        self.lock = threading.Lock()
+        self.run = _sweep_runner(partial(_cd_sweep, *self.system, self.b, self.max_delta), device)
+
+
+_CD_RUNNERS: Dict[Tuple[int, torch.dtype, str], _CdRunner] = {}
+_CD_RUNNERS_LOCK = threading.Lock()
+
+
+def _cd_runner(d: int, dtype: torch.dtype, device: torch.device) -> _CdRunner:
+    """The runner of (d, dtype, device), built (and on the card captured)
+    on first use."""
+    key = (d, dtype, str(device))
+    with _CD_RUNNERS_LOCK:
+        runner = _CD_RUNNERS.get(key)
+        if runner is None:
+            runner = _CD_RUNNERS[key] = _CdRunner(d, dtype, device)
+        return runner
 
 
 def solve_elasticnet_cd(
@@ -167,20 +221,115 @@ def solve_elasticnet_cd(
     max_iter sweeps ran.  Returns (coef, intercept, n_sweeps)."""
     system, s = _cd_system(stats, alpha, l1_ratio, fit_intercept, normalize)
     G = system[0]
-    b = torch.zeros(G.shape[0], dtype=G.dtype, device=G.device)
-    max_delta = torch.zeros((), dtype=G.dtype, device=G.device)
     n_iter = 0
-    if max_iter > 0:
-        run = _sweep_runner(partial(_cd_sweep, *system, b, max_delta), G.device)
-        # the graph's warm-up updated b: start over
-        b.zero_()
-        while n_iter < max_iter:
-            run()
-            n_iter += 1
-            if not float(max_delta) > tol:
-                break
+    if max_iter <= 0:
+        b = torch.zeros(G.shape[0], dtype=G.dtype, device=G.device)
+    else:
+        runner = _cd_runner(G.shape[0], G.dtype, G.device)
+        with runner.lock:
+            for buf, value in zip(runner.system, system):
+                buf.copy_(value)
+            runner.b.zero_()
+            while n_iter < max_iter:
+                runner.run()
+                n_iter += 1
+                if not float(runner.max_delta) > tol:
+                    break
+            b = runner.b.clone()
     b = b / s
     return b, _intercept(stats, b, fit_intercept), n_iter
+
+
+# -- the batched sweep ------------------------------------------------------
+
+
+def fold_stats(stats: LinregStats, f: int) -> LinregStats:
+    """Fold f's statistics out of stats with a leading (k,) axis."""
+    return LinregStats(*(t[f] for t in stats))
+
+
+def sweep_linreg_fold_stats(
+    X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold_id: torch.Tensor, k: int, chunk: int = MOMENT_CHUNK
+) -> LinregStats:
+    """Every fold's TRAIN sufficient statistics, a leading (k,) axis on each
+    field, from one pass over (X, y, w) in `chunk`-row blocks.  Fold f's
+    train weights are w * (fold_id != f) (padded rows carry fold -1 and
+    weight 0).  A chunk's k masked Grams X_c^T diag(w_f) X_c each take one
+    (chunk, D) weighted block: X * w_f is never formed for the whole X, and
+    no train Gram is the total less the held-out fold's (that cancels in
+    float32)."""
+    n, d = X.shape
+
+    def z(*shape: int) -> torch.Tensor:
+        return torch.zeros((k, *shape), dtype=X.dtype, device=X.device)
+
+    wsum, xwsum, G, ywsum, c, y2 = z(), z(d), z(d, d), z(), z(d), z()
+    folds = torch.arange(k, dtype=fold_id.dtype, device=X.device)
+    for sl in chunk_iter(n, max(1, chunk)):
+        xb, yb = X[sl], y[sl].to(X.dtype)
+        wk = w[sl].to(X.dtype)[None, :] * (fold_id[sl][None, :] != folds[:, None]).to(X.dtype)
+        for f in range(k):
+            wf = wk[f]
+            xw = xb * wf[:, None]
+            wsum[f] += wf.sum()
+            xwsum[f] += xw.sum(dim=0)
+            G[f].addmm_(xw.T, xb)
+            ywsum[f] += (yb * wf).sum()
+            c[f].addmv_(xw.T, yb)
+            y2[f] += (yb * yb * wf).sum()
+    return LinregStats(wsum, xwsum / wsum[:, None], ywsum / wsum, G, c, y2)
+
+
+def sweep_solve_linear(
+    stats: LinregStats, alphas: Sequence[float], fit_intercept: bool = True, normalize: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every (fold, lane) closed-form OLS / ridge solve, one solve_linear
+    each, in order: coef (k, m, D), intercept (k, m)."""
+    out = [
+        [solve_linear(fold_stats(stats, f), float(a), fit_intercept=fit_intercept, normalize=normalize) for a in alphas]
+        for f in range(stats.G.shape[0])
+    ]
+    return (
+        torch.stack([torch.stack([b for b, _ in lanes]) for lanes in out]),
+        torch.stack([torch.stack([b0 for _, b0 in lanes]) for lanes in out]),
+    )
+
+
+def sweep_solve_elasticnet_cd(
+    stats: LinregStats,
+    alphas: Sequence[float],
+    l1_ratios: Sequence[float],
+    tol: float,
+    fit_intercept: bool = True,
+    normalize: bool = False,
+    max_iter: int = 1000,
+) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Every (fold, lane) coordinate-descent solve, each lane its own
+    solve_elasticnet_cd run to its own convergence, so its sweep count is
+    the sequential fit's; on the card every lane replays the one captured
+    sweep of the system's shape.  Returns (coef (k, m, D), intercept
+    (k, m), sweeps (k, m) int64)."""
+    k = stats.G.shape[0]
+    coefs: List[List[torch.Tensor]] = []
+    intercepts: List[List[torch.Tensor]] = []
+    sweeps = np.zeros((k, len(alphas)), dtype=np.int64)
+    for f in range(k):
+        st = fold_stats(stats, f)
+        coefs.append([])
+        intercepts.append([])
+        for j, (a, l1) in enumerate(zip(alphas, l1_ratios)):
+            b, b0, n_iter = solve_elasticnet_cd(
+                st, float(a), float(l1), fit_intercept=fit_intercept, normalize=normalize,
+                max_iter=max_iter, tol=float(tol),
+            )
+            coefs[f].append(b)
+            intercepts[f].append(b0)
+            sweeps[f, j] = n_iter
+    return (
+        torch.stack([torch.stack(row) for row in coefs]),
+        torch.stack([torch.stack(row) for row in intercepts]),
+        sweeps,
+    )
 
 
 def linear_predict_kernel(X, coef: torch.Tensor, intercept: torch.Tensor) -> torch.Tensor:

@@ -13,12 +13,18 @@
 # and the three stop tests (relative improvement, the (pseudo-)gradient's
 # inf-norm, an exhausted line search).  OWL-QN handles the L1 term with a
 # per-coordinate weight vector, so intercepts stay unregularised.
-# minimize_lbfgs_batched (the sweep's lanes) waits for ROADMAP A7.
+#
+# minimize_lbfgs_batched runs L independent minimisations as lanes of (L, P)
+# tensors (the batched sweep's folds x candidates): one objective evaluation
+# a step for all lanes, and per lane its own iteration counter, convergence
+# tests, history and Armijo halving.  A lane that has stopped takes masked
+# no-op updates, so its state freezes where its solo run stops; the host
+# reads one device flag a line-search step and one an iteration.
 #
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple, Union
 
 import torch
 
@@ -26,8 +32,8 @@ import torch
 class LbfgsResult(NamedTuple):
     x: torch.Tensor
     f: torch.Tensor
-    n_iter: int
-    converged: bool
+    n_iter: Union[int, torch.Tensor]      # (L,) int64 for the lanes
+    converged: Union[bool, torch.Tensor]  # (L,) bool for the lanes
     n_evals: int
 
 
@@ -151,4 +157,137 @@ def minimize_lbfgs(
         )
         x, f, g = x_new, f_new, g_new
         it += 1
+    return LbfgsResult(x=x, f=f, n_iter=it, converged=converged, n_evals=n_evals)
+
+
+def _two_loop_lanes(
+    g: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, rho: torch.Tensor, count: torch.Tensor, history: int
+) -> torch.Tensor:
+    """_two_loop for each lane of g (L, P), over the lanes' own (L, history,
+    P) pair buffers held newest first (slot 0 the newest pair) and their
+    pair counts (L,): the slots a lane has not filled take no part."""
+    used = torch.clamp(count, max=history)
+    q = g
+    alphas = []
+    for i in range(history):  # newest first
+        a = rho[:, i] * (S[:, i] * q).sum(dim=-1) * (i < used).to(g.dtype)
+        q = q - a[:, None] * Y[:, i]
+        alphas.append(a)
+    sy = (S[:, 0] * Y[:, 0]).sum(dim=-1)
+    yy = (Y[:, 0] * Y[:, 0]).sum(dim=-1)
+    ones = torch.ones_like(yy)
+    q = q * torch.where((count > 0) & (yy > 0), sy / torch.where(yy > 0, yy, ones), ones)[:, None]
+    for i in reversed(range(history)):  # oldest first
+        b = rho[:, i] * (Y[:, i] * q).sum(dim=-1)
+        q = q + ((alphas[i] - b) * (i < used).to(g.dtype))[:, None] * S[:, i]
+    return q
+
+
+def minimize_lbfgs_batched(
+    value_and_grad: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+    x0: torch.Tensor,
+    l1_weight: torch.Tensor,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    history: int = 10,
+    use_owlqn: bool = False,
+    max_ls: int = 20,
+) -> LbfgsResult:
+    """minimize_lbfgs for each lane of x0 (L, P), with l1_weight (L, P);
+    value_and_grad maps (L, P) -> ((L,), (L, P)) and is evaluated for every
+    lane at each step.  A lane runs until its own stop tests or its own
+    iteration budget end it, each lane halving its own step until its own
+    Armijo test passes; a stopped lane's state, history and n_iter stay as
+    its solo run leaves them.  Its numbers may differ from a solo run in
+    the last bits (the lanes' dot products reduce in another order).
+    n_iter and converged are (L,) tensors; n_evals counts evaluations of
+    all lanes."""
+    L, P = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    l1w = l1_weight.to(dtype)
+    n_evals = 0
+
+    def full_objective(x):
+        nonlocal n_evals
+        n_evals += 1
+        f, g = value_and_grad(x)
+        if use_owlqn:
+            f = f + (l1w * x.abs()).sum(dim=-1)
+        return f, g
+
+    x = x0
+    f, g = full_objective(x0)
+    S = torch.zeros((L, history, P), dtype=dtype, device=dev)
+    Y = torch.zeros((L, history, P), dtype=dtype, device=dev)
+    rho = torch.zeros((L, history), dtype=dtype, device=dev)
+    count = torch.zeros(L, dtype=torch.int64, device=dev)
+    it = torch.zeros(L, dtype=torch.int64, device=dev)
+    converged = torch.zeros(L, dtype=torch.bool, device=dev)
+    while True:
+        active = (it < max_iter) & ~converged
+        if not bool(active.any()):
+            break
+        pg = _pseudo_gradient(x, g, l1w) if use_owlqn else g
+        d = -_two_loop_lanes(pg, S, Y, rho, count, history)
+        if use_owlqn:
+            d = torch.where(d * -pg > 0, d, torch.zeros_like(d))
+        xi = torch.sign(x)
+        if use_owlqn:
+            xi = torch.where(x == 0, torch.sign(-pg), xi)
+        deriv = (pg * d).sum(dim=-1)
+        bad_dir = deriv >= 0
+        d = torch.where(bad_dir[:, None], -pg, d)
+        deriv = torch.where(bad_dir, -(pg * pg).sum(dim=-1), deriv)
+        t = torch.where(
+            count == 0,
+            1.0 / torch.clamp(torch.linalg.vector_norm(pg, dim=-1), min=1.0),
+            torch.ones(L, dtype=dtype, device=dev),
+        )
+        x_new, f_new, g_new = x, f, g
+        n_ls = torch.zeros(L, dtype=torch.int64, device=dev)
+        ls_ok = torch.zeros(L, dtype=torch.bool, device=dev)
+        while True:
+            live = active & ~ls_ok & (n_ls < max_ls)
+            if not bool(live.any()):
+                break
+            x_try = x + t[:, None] * d
+            if use_owlqn:
+                x_try = torch.where(torch.sign(x_try) == xi, x_try, torch.zeros_like(x_try))
+            f_try, g_try = full_objective(x_try)
+            ok_try = f_try <= f + 1e-4 * t * deriv
+            lv = live[:, None]
+            t = torch.where(live, t * 0.5, t)
+            x_new = torch.where(lv, x_try, x_new)
+            f_new = torch.where(live, f_try, f_new)
+            g_new = torch.where(lv, g_try, g_new)
+            n_ls = n_ls + live.to(torch.int64)
+            ls_ok = torch.where(live, ok_try, ls_ok)
+        # a lane whose line search is exhausted keeps its current iterate
+        keep = ls_ok[:, None]
+        x_new = torch.where(keep, x_new, x)
+        f_new = torch.where(ls_ok, f_new, f)
+        g_new = torch.where(keep, g_new, g)
+        s = x_new - x
+        y = g_new - g
+        sy = (s * y).sum(dim=-1)
+        # a stored pair enters at slot 0 and the oldest of a full history
+        # drops out
+        store = active & (sy > 1e-10)
+        S = torch.where(store[:, None, None], torch.cat([s[:, None], S[:, :-1]], dim=1), S)
+        Y = torch.where(store[:, None, None], torch.cat([y[:, None], Y[:, :-1]], dim=1), Y)
+        r = 1.0 / torch.where(sy != 0, sy, torch.ones_like(sy))
+        rho = torch.where(store[:, None], torch.cat([r[:, None], rho[:, :-1]], dim=1), rho)
+        count = count + store.to(torch.int64)
+        pg_new = _pseudo_gradient(x_new, g_new, l1w) if use_owlqn else g_new
+        stop = (
+            ~ls_ok
+            | ((f - f_new).abs() <= tol * torch.clamp(f_new.abs(), min=1.0))
+            | (pg_new.abs().amax(dim=-1) <= tol)
+        )
+        act = active[:, None]
+        x = torch.where(act, x_new, x)
+        f = torch.where(active, f_new, f)
+        g = torch.where(act, g_new, g)
+        it = it + active.to(torch.int64)
+        converged = torch.where(active, stop, converged)
     return LbfgsResult(x=x, f=f, n_iter=it, converged=converged, n_evals=n_evals)

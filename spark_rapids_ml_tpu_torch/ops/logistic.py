@@ -14,8 +14,15 @@
 # gradient, so a dense evaluation reads X twice, once for the scores
 # X W^T + b and once for R^T X, and an ELL evaluation's X^T R is
 # ops/sparse.ell_rmatmat, whose bits do not change from run to run.
-# Not carried over yet: the sweep and streaming kernels (ROADMAP A7, A12)
-# and lane_logistic_predict_kernel (A13).
+#
+# sweep_logistic_fit_kernel fits a whole regularisation sweep, candidates x
+# folds, as the lanes of one minimize_lbfgs_batched run over the one staged
+# X: fold f trains on w * (fold_id != f), and an evaluation of every lane is
+# two plain products, X (N, D) times the lanes' (D, k m kcls) block and the
+# residual block's transpose times X, read once each (torch.matmul with
+# TF32 off: the JAX package leaves them to XLA).
+# Not carried over yet: the streaming kernel (ROADMAP A12) and
+# lane_logistic_predict_kernel (A13).
 #
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Tuple, Union
 
 import torch
 
-from .lbfgs import minimize_lbfgs
+from .lbfgs import minimize_lbfgs, minimize_lbfgs_batched
 from .linalg import exact_matmul
 from .sparse import EllMatrix, ell_matmat, ell_rmatmat
 
@@ -120,6 +127,92 @@ def logistic_fit_kernel(
     n_params = k * d + (k if fit_intercept else 0)
     theta0 = torch.zeros(n_params, dtype=X.dtype, device=X.device)
     return _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn)
+
+
+def sweep_logistic_fit_kernel(
+    X: torch.Tensor,
+    y_enc: torch.Tensor,
+    w: torch.Tensor,
+    fold_id: torch.Tensor,
+    regs: torch.Tensor,
+    l1_ratios: torch.Tensor,
+    tol: float,
+    k_folds: int,
+    kcls: int,
+    fit_intercept: bool,
+    max_iter: int,
+    use_owlqn: bool,
+):
+    """Fit m candidates (regs, l1_ratios: (m,) lane values) x k_folds folds
+    as one lane-batched L-BFGS / OWL-QN run over the dense X; lane
+    f * m + j is fold f's fit of candidate j.  Returns (W (k, m, kcls, D),
+    b (k, m, kcls), n_iter (k, m), converged (k, m), n_evals)."""
+    n, d = X.shape
+    m = regs.shape[0]
+    lanes = k_folds * m
+    kd = kcls * d
+    n_params = kd + (kcls if fit_intercept else 0)
+    dtype, dev = X.dtype, X.device
+    folds = torch.arange(k_folds, dtype=fold_id.dtype, device=dev)
+    w_folds = w.to(dtype)[None, :] * (fold_id[None, :] != folds[:, None]).to(dtype)  # (k, N)
+    wsum = w_folds.sum(dim=1)
+    w_rows = w_folds.T[:, :, None]  # (N, k, 1)
+    scale = (w_folds / wsum[:, None]).T[:, :, None]  # (N, k, 1)
+    regs = regs.to(device=dev, dtype=torch.float64)
+    l1_ratios = l1_ratios.to(device=dev, dtype=torch.float64)
+    l2 = (regs * (1.0 - l1_ratios)).to(dtype).repeat(k_folds)  # (lanes,)
+    l1 = (regs * l1_ratios).to(dtype).repeat(k_folds)
+    reg_mask = torch.cat([torch.ones(kd, dtype=dtype, device=dev), torch.zeros(n_params - kd, dtype=dtype, device=dev)])
+    y = y_enc.to(dtype) if kcls == 1 else y_enc.long()
+
+    def value_and_grad(theta):  # (lanes, P) -> ((lanes,), (lanes, P))
+        W = theta[:, :kd].reshape(lanes * kcls, d)
+        z = exact_matmul(X, W.T).reshape(n, k_folds, m, kcls)
+        if fit_intercept:
+            z = z + theta[:, kd:].reshape(k_folds, m, kcls)[None]
+        if kcls == 1:
+            z1 = z[..., 0]  # (N, k, m)
+            yb = y[:, None, None]
+            ll = torch.logaddexp(torch.zeros_like(z1), z1) - yb * z1
+            r = (torch.sigmoid(z1) - yb)[..., None]
+        else:
+            lse = torch.logsumexp(z, dim=-1, keepdim=True)
+            idx = y[:, None, None, None].expand(n, k_folds, m, 1)
+            ll = -(z - lse).gather(-1, idx)[..., 0]
+            r = torch.exp(z - lse)
+            r.scatter_add_(-1, idx, torch.full_like(r[..., :1], -1.0))
+        value = (ll * w_rows).sum(dim=0) / wsum[:, None]  # (k, m)
+        R = (r * scale[..., None]).reshape(n, lanes * kcls)
+        parts = [exact_matmul(R.T, X).reshape(lanes, kd)]
+        if fit_intercept:
+            parts.append(R.sum(dim=0).reshape(lanes, kcls))
+        masked = theta * reg_mask
+        return (
+            value.reshape(lanes) + 0.5 * l2 * (masked * masked).sum(dim=-1),
+            torch.cat(parts, dim=1) + l2[:, None] * masked,
+        )
+
+    result = minimize_lbfgs_batched(
+        value_and_grad,
+        torch.zeros((lanes, n_params), dtype=dtype, device=dev),
+        l1_weight=l1[:, None] * reg_mask[None, :],
+        max_iter=max_iter,
+        tol=tol,
+        history=10,
+        use_owlqn=use_owlqn,
+    )
+    W = result.x[:, :kd].reshape(k_folds, m, kcls, d)
+    if fit_intercept:
+        b = result.x[:, kd:].reshape(k_folds, m, kcls)
+    else:
+        b = torch.zeros((k_folds, m, kcls), dtype=dtype, device=dev)
+    return (
+        W,
+        b,
+        result.n_iter.reshape(k_folds, m),
+        result.converged.reshape(k_folds, m),
+        result.n_evals,
+    )
 
 
 def logistic_decision_kernel(X: Features, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
