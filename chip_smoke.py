@@ -218,6 +218,31 @@
 #            use_device("cpu"), a KMeans CV (k {4, 8}, ClusteringEvaluator,
 #            B1 in the scored transforms) against a float64 silhouette,
 #            Pipeline and CrossValidatorModel save -> load
+#   path_umap
+#            UMAP(n_neighbors=15, n_components=2, n_epochs=200,
+#            random_state=1, spectral init) on 1,000,000 x 128 float32 rows
+#            around 100 blobs (seed 1), 100,000 more held out: fit_s and its
+#            phases (umap.knn, the self-join through B5 -> B7; umap.graph,
+#            the assembly; umap.init; umap.layout), 2 graph uploads and
+#            ceil(200 / 50) layout dispatches, the graph against float64 on
+#            1,024 rows (the kNN gate, the self slot apart: how many self
+#            distances are > 0 and the largest), P and the edges, 10 layout
+#            epochs timed and profiled (ms an epoch, idle share, bound),
+#            the JAX package's quality gates (blob centroids apart,
+#            trustworthiness k = 10 on 5,000 rows in float64, held-out rows
+#            at their blob's fit centroid), the held-out transform's rows a
+#            second, save -> load -> an equal transform, a second fit bit
+#            for bit, B5 and B7 at the self-join's launch block against
+#            their plain versions (exact on integer data) and timed, and a
+#            fit at the JAX bench arm's shape (50,000 x 128 standard normal)
+#   umap_card_vs_cpu
+#            at 20,000 x 32 blob rows and one graph from the card: threefry
+#            bits, uniform, randint and the random init at the layout's and
+#            the transform's shapes equal bit for bit on the card and under
+#            use_device("cpu"), normal within 4 ulps, the layout assembled
+#            on both equal (degrees, starts, P, each head's (tail, weight)
+#            set), and a fit on each within 0.01 k=15 neighbour preservation
+#            (`chip_smoke.py --phases path_umap,umap_card_vs_cpu` runs both)
 # The fit-input cache is emptied before each timed fit and ingest, so the
 # phases time cold fits.
 # Every path runs with all kernel launch counters reset just before it and
@@ -226,8 +251,8 @@
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; the ANN, PCA, GLM and model-selection phases need nothing
-# else).
+# path_knn_mesh; the ANN, PCA, GLM, model-selection and UMAP phases need
+# nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -401,10 +426,10 @@ def check_kernel_shape(torch, nc, n, d, k, gen, dev, misaligned=False):
     }
 
 
-def blobs(rows, cols, k, seed, workers=8):
+def blobs(rows, cols, k, seed, workers=8, labels=False):
     """Gaussian blobs (cluster_std 1, centers uniform in [-10, 10]) as in the
     benchmark's BlobsDataGen, filled by `workers` threads with independent
-    seeded streams."""
+    seeded streams; with labels, also each row's blob."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-10.0, 10.0, size=(k, cols)).astype(np.float32)
     assign = rng.integers(0, k, size=rows)
@@ -421,7 +446,7 @@ def blobs(rows, cols, k, seed, workers=8):
 
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(fill, range(workers)))
-    return X
+    return (X, assign) if labels else X
 
 
 def run_path(torch, port, nc, wrappers):
@@ -3473,6 +3498,449 @@ def cv_card_vs_cpu(torch, port, wrappers):
             "cases": rows}
 
 
+# -- UMAP -----------------------------------------------------------------------
+# path_umap: 1,000,000 x 128 float32 rows around 100 blobs (seed 1) and
+# 100,000 held-out rows; UMAP(n_neighbors=15, n_components=2, n_epochs=200,
+# random_state=1), spectral init.  Then a fit at the JAX package's bench arm
+# (bench.py:589-603: 50,000 x 128 standard normal rows, seed 0, same params).
+UMAP_ROWS, UMAP_HOLDOUT, UMAP_COLS, UMAP_BLOBS, UMAP_K = 1_000_000, 100_000, 128, 100, 15
+UMAP_PARAMS = dict(n_neighbors=UMAP_K, n_components=2, n_epochs=200, random_state=1)
+UMAP_PARTS, UMAP_HOLDOUT_PARTS = 8, 4
+UMAP_BENCH_ROWS, UMAP_BENCH_SEED = 50_000, 0
+# the JAX package's quality gates (tests/test_umap.py): inter-blob centroid
+# distance over the intra-blob spread, trustworthiness at k = 10 on sampled
+# rows (float64 on the card), held-out rows at their blob's fit centroid
+UMAP_SEPARATION, UMAP_TRUST_MIN, UMAP_AGREE_MIN = 2.0, 0.85, 0.9
+UMAP_TRUST_SAMPLE, UMAP_TRUST_K = 5000, 10
+UMAP_RELOAD_ROWS = 20_000     # held-out rows transformed by the reloaded model
+UMAP_PROFILE_EPOCHS = 10      # layout epochs under the profiler
+UMAP_PROFILE_RANGES = ("umap.knn", "umap.graph", "umap.init", "umap.layout")
+# umap_card_vs_cpu: 20,000 x 32 blob rows, one graph for both devices
+UMAP_CVC_ROWS, UMAP_CVC_COLS, UMAP_CVC_EPOCHS = 20_000, 32, 200
+UMAP_NORMAL_ULPS, UMAP_PRESERVATION_TOL = 4, 0.01
+# operations of one firing draw (threefry-2x32: 20 rounds of an add, a
+# rotate (two shifts and an or) and an xor, 5 key injections of 3 adds) and
+# of one attraction or repulsion pair in two components (differences,
+# squares, two powers, the quotient, clips and sums)
+UMAP_HASH_OPS, UMAP_PAIR_OPS = 20 * 5 + 5 * 3, 24
+
+
+def umap_hooks(port):
+    """Record the graph and the layout a fit builds: wraps the fit's calls
+    of umap_fit_embedding and build_head_layout_device.  Returns (captured,
+    restore)."""
+    from spark_rapids_ml_tpu_torch.models import umap as model_mod
+    from spark_rapids_ml_tpu_torch.ops import umap as ops_mod
+
+    captured = {}
+    fit, build = model_mod.umap_fit_embedding, ops_mod.build_head_layout_device
+
+    def fit_hook(ids, dists, **kwargs):
+        captured["ids"], captured["dists"] = ids, dists
+        return fit(ids, dists, **kwargs)
+
+    def build_hook(*args, **kwargs):
+        captured["layout"] = build(*args, **kwargs)
+        return captured["layout"]
+
+    model_mod.umap_fit_embedding, ops_mod.build_head_layout_device = fit_hook, build_hook
+
+    def restore():
+        model_mod.umap_fit_embedding, ops_mod.build_head_layout_device = fit, build
+
+    return captured, restore
+
+
+def umap_graph_check(torch, X, ids, dists, dev):
+    """The fit's kNN graph against float64 brute force on KNN_SAMPLE rows
+    (the gate of path_knn: distances within KNN_DIST_RTOL, sets off the
+    KNN_TIE_RTOL band equal), the self slot apart: its expanded-form
+    distance is a residual, not a distance.  Also every row's self slot:
+    how many are > 0, the largest, and rows that miss themselves."""
+    n, k = ids.shape
+    rng = np.random.default_rng(SEED)
+    sample = np.sort(rng.choice(n, KNN_SAMPLE, replace=False))
+    Xd = torch.from_numpy(X).to(dev)
+    q64 = Xd[torch.from_numpy(sample).to(dev)].double()
+    qn = (q64 * q64).sum(dim=1)
+    d2 = torch.empty((KNN_SAMPLE, n), dtype=torch.float64, device=dev)
+    for lo in range(0, n, 50_000):
+        x = Xd[lo : lo + 50_000].double()
+        d2[:, lo : lo + 50_000] = (qn[:, None] - 2.0 * (q64 @ x.T)) + (x * x).sum(dim=1)[None, :]
+    rows = torch.arange(KNN_SAMPLE, device=dev)
+    sample_t = torch.from_numpy(sample).to(dev)
+    d2[rows, sample_t] = 0.0
+    d64 = d2.clamp_(min=0.0).sqrt_()
+    true_d = torch.topk(d64, k, dim=1, largest=False, sorted=True).values
+    kth = true_d[:, -1:]
+    got_pos = torch.from_numpy(ids[sample]).to(dev)
+    got_d = torch.from_numpy(dists[sample]).to(dev, torch.float64)
+    got_d64 = d64.gather(1, got_pos)
+    not_self = got_pos != sample_t[:, None]
+    rel = ((got_d - got_d64).abs() / got_d64.clamp(min=1e-300))[not_self]
+    dist_err = float(rel.max())
+    below = (d64 < kth * (1 - KNN_TIE_RTOL)).sum(dim=1)
+    got_below = (got_d64 < kth * (1 - KNN_TIE_RTOL)).sum(dim=1)
+    unique = bool((torch.sort(got_pos, dim=1).values.diff(dim=1) > 0).all())
+    worst_out = float((got_d64 / kth - 1).max())
+    check(dist_err <= KNN_DIST_RTOL, f"UMAP graph distances off float64 by up to {dist_err} relative")
+    check(unique, "a row of the UMAP graph lists an item twice")
+    check(worst_out <= KNN_TIE_RTOL, f"a UMAP graph item lies {worst_out} relative beyond the k-th distance")
+    check(bool((below == got_below).all()), f"{int((below != got_below).sum())} graph rows miss an item off the tie band")
+    del d2, d64, Xd
+    torch.cuda.empty_cache()
+    self_slot = ids == np.arange(n)[:, None]
+    self_d = dists[self_slot]
+    return {"sample": KNN_SAMPLE, "dist_max_rel_err_off_self": dist_err, "dist_rtol": KNN_DIST_RTOL,
+            "tie_rtol": KNN_TIE_RTOL, "rows_missing_self": int(n - self_slot.any(axis=1).sum()),
+            "self_distances_positive": int((self_d > 0).sum()), "self_distance_max": float(self_d.max()),
+            "self_in_column_0": int(self_slot[:, 0].sum())}
+
+
+def blob_centroids(emb, labels, k):
+    counts = np.bincount(labels, minlength=k).astype(np.float64)
+    cents = np.stack([np.bincount(labels, weights=emb[:, j], minlength=k) for j in range(emb.shape[1])], 1)
+    return cents / counts[:, None]
+
+
+def blob_gates(emb, labels, k):
+    """The JAX package's cluster gate over k blobs: the mean inter-centroid
+    distance against the mean distance of a row to its blob's centroid."""
+    cents = blob_centroids(emb, labels, k)
+    intra = float(np.mean(np.bincount(labels, weights=np.linalg.norm(emb - cents[labels], axis=1), minlength=k)
+                          / np.bincount(labels, minlength=k)))
+    diff = cents[:, None, :] - cents[None, :, :]
+    pair = np.linalg.norm(diff, axis=2)[np.triu_indices(k, 1)]
+    return intra, float(pair.mean()), cents
+
+
+def trustworthiness64(torch, X, E, k, dev):
+    """sklearn.manifold.trustworthiness in float64 on the card: each row's
+    k embedding neighbours' ranks among its input-space neighbours."""
+    n = X.shape[0]
+    Xd = torch.from_numpy(X).to(dev, torch.float64)
+    Ed = torch.from_numpy(np.ascontiguousarray(E)).to(dev, torch.float64)
+    dx = torch.cdist(Xd, Xd, compute_mode="donot_use_mm_for_euclid_dist")
+    dx.fill_diagonal_(float("inf"))
+    order = dx.argsort(dim=1)
+    ranks = torch.empty_like(order)
+    ranks.scatter_(1, order, torch.arange(1, n + 1, device=dev).expand(n, n).contiguous())
+    de = torch.cdist(Ed, Ed, compute_mode="donot_use_mm_for_euclid_dist")
+    de.fill_diagonal_(float("inf"))
+    nn_e = torch.topk(de, k, dim=1, largest=False).indices
+    t = float((ranks.gather(1, nn_e) - k).clamp(min=0).sum())
+    del dx, order, ranks, de
+    torch.cuda.empty_cache()
+    return 1.0 - 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)) * t
+
+
+def neighbor_preservation64(torch, X, E, k, dev):
+    """Mean share of each row's k input-space neighbours among its k
+    embedding neighbours (float64 on the card; self excluded)."""
+    def knn(A):
+        A = torch.from_numpy(np.ascontiguousarray(A)).to(dev, torch.float64)
+        out = []
+        for lo in range(0, A.shape[0], 4096):
+            d = torch.cdist(A[lo : lo + 4096], A, compute_mode="donot_use_mm_for_euclid_dist")
+            d[torch.arange(d.shape[0], device=dev), torch.arange(lo, lo + d.shape[0], device=dev)] = float("inf")
+            out.append(torch.topk(d, k, dim=1, largest=False).indices)
+        return torch.cat(out)
+
+    hi, lo = knn(X), knn(E)
+    hit = (hi[:, :, None] == lo[:, None, :]).any(dim=2).sum(dim=1).double() / k
+    return float(hit.mean())
+
+
+def umap_kernel_shapes(torch, kk, nc, knn_ops, dev, X_host, launch_q):
+    """B5 and B7 at the self-join's launch shape (a query block of
+    `launch_q` rows against the 1,000,000 staged rows, d = 128, m from
+    _select_m, k = 15): exact against their plain versions on integer data,
+    B7 bit for bit on the blob rows' pool, and timed on the blob rows
+    (library_ms: matmul + a per-group topk in 4,096-query chunks; topk over
+    the pool)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, d = X_host.shape
+    m = knn_ops._scan_geometry(UMAP_K, n)[1]
+    integer = knn_exact_case(torch, kk, nc, dev, gen, n, d, launch_q, m, UMAP_K, 0)
+    torch.cuda.empty_cache()
+    X = torch.from_numpy(X_host).to(dev)
+    Q = X[:launch_q].contiguous()
+    norm = (X * X).sum(dim=1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    inorm, qn = kk._masked_norms(norm, valid), (Q * Q).sum(dim=1)
+    v, p = kk.knn_candidates(X, norm, valid, Q, m)
+    pv, pp = kk.knn_candidates_plain(X, inorm, Q, qn, m)
+    out, ref = kk.knn_fused_merge(v, p, UMAP_K), kk.knn_fused_merge_plain(v, p, UMAP_K)
+    plain_route = kk.knn_fused_merge_plain(pv, pp, UMAP_K)
+    torch.cuda.synchronize()
+    mismatches = merge_mismatches(torch, out, ref)
+    check(sum(mismatches) == 0, f"knn_fused_merge at the UMAP block differs from its plain version: {mismatches}")
+    merge_err = float((out[0] - ref[0]).abs().max())
+    pool_err = float((v - pv).abs().max())
+    dist_err = float((out[0] - plain_route[0]).abs().max())
+    # the merged distances off the self slot (a residual) against the plain
+    # route's within the kNN gate
+    off_self = out[1] != torch.arange(launch_q, device=dev, dtype=out[1].dtype)[:, None]
+    rel = ((out[0] - plain_route[0]).abs() / plain_route[0].clamp(min=1e-30))[off_self]
+    check(float(rel.max()) <= KNN_DIST_RTOL, f"UMAP block distances off the plain route's by {float(rel.max())}")
+    del pv, pp, plain_route, ref
+    P = v.shape[1] * v.shape[2]
+
+    def library_pool():
+        return [pool_library(torch, kk, X, Q[lo : lo + 4096], inorm, qn[lo : lo + 4096], m)
+                for lo in range(0, launch_q, 4096)]
+
+    b5 = timings(torch, lambda: kk.knn_candidates(X, norm, valid, Q, m),
+                 lambda: kk.knn_candidates_plain(X, inorm, Q, qn, m), library_pool, 3)
+    b5["bound_ms"], b5["bound_by"] = pool_bound(launch_q, n, d, m)
+    b7 = timings(torch, lambda: kk.knn_fused_merge(v, p, UMAP_K), lambda: kk.knn_fused_merge_plain(v, p, UMAP_K),
+                 lambda: torch.topk(v.view(launch_q, P), UMAP_K, dim=1), 20)
+    b7["route"] = list(kk._merge_route(P, UMAP_K))
+    b7["bound_ms"], b7["bound_by"] = merge_bound(launch_q, P, UMAP_K)
+    del X, Q, v, p
+    torch.cuda.empty_cache()
+    shape = {"n": n, "d": d, "q": launch_q, "m": m, "k": UMAP_K, "ng": -(-n // kk.GROUP), "pool": P}
+    return {"integer": integer,
+            "knn_candidates": {**shape, **b5, "max_abs_err": pool_err},
+            "knn_fused_merge": {**shape, **b7, "max_abs_err": merge_err,
+                                "dist_max_abs_err_vs_plain_route": dist_err}}
+
+
+def run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev):
+    """Phase path_umap: the fit, its graph, layout and quality gates, the
+    held-out transform, save -> load, a second fit bit for bit, B5 / B7 at
+    the self-join's shapes, and the bench arm's fit."""
+    from spark_rapids_ml_tpu_torch.ops import umap as umap_ops
+
+    t0 = time.perf_counter()
+    X_all, labels_all = blobs(UMAP_ROWS + UMAP_HOLDOUT, UMAP_COLS, UMAP_BLOBS, SEED, labels=True)
+    X, Xh = X_all[:UMAP_ROWS], X_all[UMAP_ROWS:]
+    labels, labels_h = labels_all[:UMAP_ROWS], labels_all[UMAP_ROWS:]
+    data_s = time.perf_counter() - t0
+    df = port.DataFrame.from_numpy(X, num_partitions=UMAP_PARTS)
+    hdf = port.DataFrame.from_numpy(Xh, num_partitions=UMAP_HOLDOUT_PARTS)
+    est = port.UMAP(**UMAP_PARAMS)
+
+    def fit():
+        port.clear_fit_cache()
+        port.profiling.reset_phase_times()
+        port.profiling.reset_counters("umap.")
+        reset_launches(wrappers)
+        search = knn_ops.knn_search_prepared
+        search.flagged_rows = search.rerun_rows = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = est.fit(df)
+        torch.cuda.synchronize()
+        return (model, time.perf_counter() - t, port.profiling.phase_times(), port.profiling.counters("umap."),
+                read_launches(wrappers), torch.cuda.max_memory_allocated(),
+                {"flagged_rows": search.flagged_rows, "rerun_rows": search.rerun_rows})
+
+    captured, restore = umap_hooks(port)
+    try:
+        model, fit_s, phases, counts, launches, peak, flags = fit()
+    finally:
+        restore()
+    for name in ("knn_candidates", "knn_fused_merge"):
+        check(launches[name] > 0, f"the UMAP fit launched {name} no time")
+    emb = model.embedding_
+    check(emb.shape == (UMAP_ROWS, 2) and bool(np.isfinite(emb).all()), f"embedding {emb.shape} not finite")
+    check(counts.get("umap.h2d_transfers") == 2, f"the fit uploaded {counts.get('umap.h2d_transfers')} arrays, not 2")
+    check(counts.get("umap.layout.dispatches") == -(-UMAP_PARAMS["n_epochs"] // umap_ops.EPOCH_BLOCK),
+          f"layout dispatches {counts.get('umap.layout.dispatches')}")
+    ids, dists = captured["ids"], captured["dists"]
+    tails, w = captured["layout"]
+    P, n_pad = int(tails.shape[1]), int(tails.shape[0])
+    edges = int((w > 0).sum())
+    graph = umap_graph_check(torch, X, ids, dists, dev)
+    emit({"phase": "path_umap_fit", "fit_s": fit_s, "phases": phases, "graph": graph, "P": P, "n_pad": n_pad})
+
+    # the layout alone: ms an epoch and the card's idle share, profiled
+    a, b = umap_ops.find_ab_params(1.0, 0.1)
+    init = umap_ops._random_init(1, n_pad, 2, dev)
+
+    def layout_epochs():
+        umap_ops.optimize_layout(init, tails, w, UMAP_ROWS, a, b, UMAP_PROFILE_EPOCHS, 1.0, 1.0, 5, 1)
+
+    layout_epochs()  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    layout_epochs()
+    torch.cuda.synchronize()
+    layout_epoch_ms = 1e3 * (time.perf_counter() - t) / UMAP_PROFILE_EPOCHS
+    layout_profile = profile_once(torch, layout_epochs, ())
+    layout_profile.pop("port_kernel_ms", None)
+    # bound of one epoch: the layout's tails and weights read once, the
+    # gathered embedding rows and the embedding read and written once
+    # (bytes); the firing hash (UMAP_HASH_OPS integer operations a slot,
+    # counted at the fp32 peak: the data sheet gives no int32 rate), the
+    # attraction (UMAP_PAIR_OPS a slot) and the (256, n) repulsion
+    # (UMAP_PAIR_OPS a pair)
+    epoch_bytes = P * n_pad * (4 + 4 + 8) + 2 * 8 * n_pad
+    epoch_ops = P * n_pad * (UMAP_HASH_OPS + UMAP_PAIR_OPS) + umap_ops.NEG_TABLE * n_pad * UMAP_PAIR_OPS
+    layout_bound_ms, layout_bound_by = bound(epoch_bytes, epoch_ops)
+
+    # quality: blobs apart, trustworthiness, held-out rows at their blob
+    intra, inter, cents = blob_gates(emb, labels, UMAP_BLOBS)
+    check(inter > UMAP_SEPARATION * intra, f"blob separation {inter} <= {UMAP_SEPARATION} x {intra}")
+    rng = np.random.default_rng(SEED)
+    sample = np.sort(rng.choice(UMAP_ROWS, UMAP_TRUST_SAMPLE, replace=False))
+    trust = trustworthiness64(torch, X[sample], emb[sample], UMAP_TRUST_K, dev)
+    check(trust > UMAP_TRUST_MIN, f"trustworthiness {trust} <= {UMAP_TRUST_MIN}")
+    reset_launches(wrappers)
+    t = time.perf_counter()
+    out = model.transform(hdf)
+    transform_s = time.perf_counter() - t
+    transform_launches = read_launches(wrappers)
+    emb_h = concat_col(out, "embedding")
+    check(emb_h.shape == (UMAP_HOLDOUT, 2) and bool(np.isfinite(emb_h).all()), "held-out embedding not finite")
+    # each blob's fit centroid, as the fit rows of the blob pick it
+    fit_pick = np.argmin(((emb[:, None, :] - cents[None]) ** 2).sum(axis=2), axis=1)
+    majority = np.array([np.bincount(fit_pick[labels == c], minlength=UMAP_BLOBS).argmax() for c in range(UMAP_BLOBS)])
+    pick_h = np.argmin(((emb_h[:, None, :] - cents[None]) ** 2).sum(axis=2), axis=1)
+    agree = float((pick_h == majority[labels_h]).mean())
+    check(agree > UMAP_AGREE_MIN, f"held-out agreement {agree} <= {UMAP_AGREE_MIN}")
+
+    # save -> load -> an equal transform; a second fit bit for bit
+    umap_dir = os.path.join(REPO, "build", "chip_smoke_umap")
+    shutil.rmtree(umap_dir, ignore_errors=True)
+    model.save(umap_dir)
+    small = port.DataFrame.from_numpy(Xh[:UMAP_RELOAD_ROWS], num_partitions=2)
+    e1 = concat_col(model.transform(small), "embedding")
+    e2 = concat_col(port.load(umap_dir).transform(small), "embedding")
+    check(np.array_equal(e1, e2), "the reloaded model transforms otherwise")
+    shutil.rmtree(umap_dir, ignore_errors=True)
+    model2, fit2_s, phases2, _, launches2, _, _ = fit()
+    check(np.array_equal(model2.embedding_, emb), "two fits differ")
+    del model2, captured
+
+    # B5 / B7 at the self-join's launch shape
+    pool = -(-UMAP_ROWS // kk.GROUP) * knn_ops._scan_geometry(UMAP_K, UMAP_ROWS)[1]
+    launch_q = min(UMAP_ROWS, knn_ops._block_rows(32768, UMAP_COLS, pool, UMAP_K))
+    kernels = umap_kernel_shapes(torch, kk, nc, knn_ops, dev, X, launch_q)
+    del model, out, X_all
+
+    # the JAX package's bench arm
+    Xb = normal_data(UMAP_BENCH_ROWS, UMAP_COLS, UMAP_BENCH_SEED)
+    bdf = port.DataFrame.from_numpy(Xb, num_partitions=8)
+    port.clear_fit_cache()
+    port.profiling.reset_phase_times()
+    t = time.perf_counter()
+    bench_model = port.UMAP(**UMAP_PARAMS).fit(bdf)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t
+    check(bool(np.isfinite(bench_model.embedding_).all()), "bench-arm embedding not finite")
+    bench_phases = port.profiling.phase_times()
+    port.clear_fit_cache()
+    torch.cuda.empty_cache()
+    return {
+        "phase": "path_umap", "rows": UMAP_ROWS, "cols": UMAP_COLS, "blobs": UMAP_BLOBS, "params": UMAP_PARAMS,
+        "data_s": data_s, "fit_s": fit_s, "fit2_s": fit2_s, "phases": phases, "phases_fit2": phases2,
+        "counters": counts, "launches": launches, "launches_fit2": launches2, "knn_flags": flags,
+        "max_memory_allocated_bytes": peak, "P": P, "n_pad": n_pad, "edges": edges,
+        "graph": graph, "layout_epoch_ms": layout_epoch_ms,
+        "layout_epoch_ms_in_fit": 1e3 * phases["umap.layout"] / UMAP_PARAMS["n_epochs"],
+        "layout_bound_ms": layout_bound_ms, "layout_bound_by": layout_bound_by,
+        "layout_profile": layout_profile, "separation": {"intra": intra, "inter": inter, "min_ratio": UMAP_SEPARATION},
+        "trustworthiness": trust, "trust_sample": UMAP_TRUST_SAMPLE, "trust_k": UMAP_TRUST_K,
+        "transform_rows": UMAP_HOLDOUT, "transform_s": transform_s, "transform_rows_per_s": UMAP_HOLDOUT / transform_s,
+        "transform_launches": transform_launches, "holdout_agreement": agree, "reload_equal": True,
+        "fits_bit_for_bit": True, "kernels": kernels,
+        "bench_arm": {"rows": UMAP_BENCH_ROWS, "cols": UMAP_COLS, "fit_s": bench_s, "phases": bench_phases},
+    }
+
+
+def umap_card_vs_cpu(torch, port, knn_ops, dev):
+    """Phase umap_card_vs_cpu: threefry draws at the layout's and the
+    transform's shapes equal bit for bit on the card and the CPU (normal
+    within UMAP_NORMAL_ULPS), the assembled layout from one graph equal
+    (degrees, starts, P, each head's (tail, weight) set), and a fit on each
+    device from that graph within UMAP_PRESERVATION_TOL of each other's k=15
+    neighbour preservation."""
+    from spark_rapids_ml_tpu_torch.ann.ivfflat import shape_bucket
+    from spark_rapids_ml_tpu_torch.device import use_device
+    from spark_rapids_ml_tpu_torch.ops import prng
+    from spark_rapids_ml_tpu_torch.ops import umap as umap_ops
+    from spark_rapids_ml_tpu_torch.parallel.mesh import padded_row_count
+
+    cpu = torch.device("cpu")
+    X, _ = blobs(UMAP_CVC_ROWS, UMAP_CVC_COLS, UMAP_BLOBS, SEED + 5, labels=True)
+    Xd = torch.from_numpy(X).to(dev)
+    dists, ids = knn_ops.knn_search_prepared(knn_ops.prepare_items(Xd, np.arange(UMAP_CVC_ROWS), dev), Xd, UMAP_K)
+    n_pad = padded_row_count(UMAP_CVC_ROWS)
+
+    # the assembled layout, from the same graph on each device
+    def assemble(device):
+        i = torch.from_numpy(ids).to(device)
+        W = umap_ops._calibrated_weights(i, torch.from_numpy(dists).to(device), 1.0, 1.0)
+        heads, tails, w2, valid, wmax = umap_ops._graph_edges(i, W)
+        st, sw, starts, deg, q = umap_ops._edge_order(
+            heads, tails, w2, valid, wmax, torch.tensor(float(UMAP_CVC_EPOCHS), device=device),
+            umap_ops.DEGREE_QUANTILE, n_pad)
+        tails_pad, w_pad = umap_ops.build_head_layout_device(i, W, n_pad, UMAP_CVC_EPOCHS)
+        order = torch.argsort(tails_pad.long() * 2 + (w_pad > 0).long(), dim=1, stable=True)
+        return {"W": W.cpu(), "starts": starts.cpu(), "deg": deg.cpu(), "P": int(tails_pad.shape[1]),
+                "tails_sorted": tails_pad.gather(1, order).cpu(), "w_sorted": w_pad.gather(1, order).cpu()}
+
+    card, host = assemble(dev), assemble(cpu)
+    layout = {"P": [card["P"], host["P"]], "W_max_abs_err": float((card["W"] - host["W"]).abs().max()),
+              "starts_equal": bool(torch.equal(card["starts"], host["starts"])),
+              "degrees_equal": bool(torch.equal(card["deg"], host["deg"])),
+              "head_sets_equal": bool(torch.equal(card["tails_sorted"], host["tails_sorted"])
+                                      and torch.equal(card["w_sorted"], host["w_sorted"]))}
+    check(layout["P"][0] == layout["P"][1] and layout["starts_equal"] and layout["degrees_equal"]
+          and layout["head_sets_equal"], f"the layouts assembled on the card and the CPU differ: {layout}")
+
+    # the draws at the layout's and the transform's shapes
+    P, bucket = card["P"], shape_bucket(UMAP_CVC_ROWS, lo=64)
+    draws = {}
+    for e in (0, UMAP_CVC_EPOCHS - 1):
+        key = prng.split(prng.fold_in(prng.prng_key(1), e))
+        grid = umap_ops._layout_grid(P, n_pad, cpu)
+        pairs = {
+            "firing_uniform": lambda d: umap_ops._counter_uniform(key[0].to(d), grid.to(d)),
+            "bits_layout": lambda d: prng.random_bits(key[0].to(d), (P, n_pad)),
+            "uniform_layout": lambda d: prng.uniform(key[0].to(d), (P, n_pad)),
+            "negative_table": lambda d: prng.randint(key[1].to(d), (umap_ops.NEG_TABLE,), 0,
+                                                     torch.tensor(UMAP_CVC_ROWS, device=d)),
+            "uniform_transform": lambda d: prng.uniform(key[0].to(d), (bucket, UMAP_K)),
+            "randint_transform": lambda d: prng.randint(key[1].to(d), (bucket, UMAP_K, 5), 0, UMAP_CVC_ROWS),
+            "random_init": lambda d: umap_ops._random_init(e + 1, n_pad, 2, d),
+        }
+        for name, draw in pairs.items():
+            a, b = draw(dev).cpu(), draw(cpu)
+            same = bool(torch.equal(a, b))
+            draws.setdefault(name, []).append(same)
+            check(same, f"{name} (epoch {e}) differs on the card")
+        nrm_card, nrm_cpu = prng.normal(key[0].to(dev), (n_pad, 2)).cpu(), prng.normal(key[0], (n_pad, 2))
+        ulps = int((nrm_card.view(torch.int32).long() - nrm_cpu.view(torch.int32).long()).abs().max())
+        draws.setdefault("normal_max_ulps", []).append(ulps)
+        check(ulps <= UMAP_NORMAL_ULPS, f"normal differs by {ulps} ulps")
+
+    # a fit on each device from the one graph
+    df = port.DataFrame.from_numpy(X, num_partitions=2)
+    est = port.UMAP(n_neighbors=UMAP_K, n_epochs=UMAP_CVC_EPOCHS, random_state=1, precomputed_knn=(ids, dists))
+    t = time.perf_counter()
+    e_card = est.fit(df).embedding_
+    card_s = time.perf_counter() - t
+    with use_device("cpu"):
+        t = time.perf_counter()
+        e_cpu = est.fit(df).embedding_
+        cpu_s = time.perf_counter() - t
+    s_card = neighbor_preservation64(torch, X, e_card, UMAP_K, dev)
+    s_cpu = neighbor_preservation64(torch, X, e_cpu, UMAP_K, dev)
+    check(abs(s_card - s_cpu) < UMAP_PRESERVATION_TOL, f"neighbour preservation card {s_card} vs cpu {s_cpu}")
+    port.clear_fit_cache()
+    return {"phase": "umap_card_vs_cpu", "rows": UMAP_CVC_ROWS, "cols": UMAP_CVC_COLS, "n_epochs": UMAP_CVC_EPOCHS,
+            "layout": layout, "draws": draws, "normal_ulps_max": UMAP_NORMAL_ULPS,
+            "preservation": {"card": s_card, "cpu": s_cpu, "tol": UMAP_PRESERVATION_TOL},
+            "embeddings_equal": bool(np.array_equal(e_card, e_cpu)), "fit_s": {"card": card_s, "cpu": cpu_s}}
+
+
+UMAP_PHASES = ("path_umap", "umap_card_vs_cpu")
+
+
 def main():
     import argparse
 
@@ -3674,6 +4142,11 @@ def main():
     if "cv_card_vs_cpu" in phases:
         results["cv_card_vs_cpu"] = cv_card_vs_cpu(torch, port, wrappers)
         emit(results["cv_card_vs_cpu"])
+    if "path_umap" in phases:
+        results["path_umap"] = run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev)
+        emit(results["path_umap"])
+    if "umap_card_vs_cpu" in phases:
+        emit(umap_card_vs_cpu(torch, port, knn_ops, dev))
 
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
@@ -3744,6 +4217,7 @@ def summary(results, seconds):
             ("knn_count", "spark_rapids_ml_tpu/ops/pallas_knn.py:308", audit),
         )
         mesh = results.get("path_knn_mesh", {}).get("launches", {})
+        umap_launches = results.get("path_umap", {}).get("launches", {})
         for name, replaces, launches in picks:
             r = kn[name]
             rows.append({
@@ -3751,8 +4225,16 @@ def summary(results, seconds):
                 "launches": launches.get(name), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": [r["n"], r["d"], r["q"], r["m"], r["k"]],
-                "launches_mesh": mesh.get(name),
+                "launches_mesh": mesh.get(name), "launches_umap": umap_launches.get(name),
             })
+    umap_kernels = results.get("path_umap", {}).get("kernels")
+    if umap_kernels is not None:
+        # B5 and B7 at the UMAP self-join's launch shape
+        for row in rows:
+            r = umap_kernels.get(row["name"])
+            if r is not None:
+                row["umap_shape"] = {key: r[key] for key in ("n", "d", "q", "m", "k", "pool", "kernel_ms", "plain_ms",
+                                                             "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     ka = results.get("kernels_ann")
     merge_row = next((row for row in rows if row["name"] == "knn_fused_merge"), None)
     if ka is not None and merge_row is not None:
@@ -3801,7 +4283,7 @@ def summary(results, seconds):
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES]
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

@@ -26,6 +26,7 @@ from .models.random_forest import (
     RandomForestRegressionModel,
     RandomForestRegressor,
 )
+from .models.umap import UMAP, UMAPModel
 from .pipeline import Pipeline, PipelineModel
 from .tuning import CrossValidator, CrossValidatorModel, ParamGridBuilder
 
@@ -57,6 +58,8 @@ __all__ = [
     "RandomForestRegressionModel",
     "RandomForestRegressor",
     "RegressionEvaluator",
+    "UMAP",
+    "UMAPModel",
     "clear_fit_cache",
     "load",
 ]

@@ -20,6 +20,7 @@ from .models.linear_regression import LinearRegressionModel
 from .models.logistic_regression import LogisticRegressionModel
 from .models.pca import PCAModel
 from .models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
+from .models.umap import UMAPModel
 
 
 def kmeans_model_from_reference(attrs: Dict[str, Any]) -> KMeansModel:
@@ -91,6 +92,17 @@ def random_forest_model_from_reference(attrs: Dict[str, Any]):
             classes_=np.asarray(attrs["classes_"]), num_classes=int(attrs["num_classes"]), **common
         )
     return RandomForestRegressionModel(**common)
+
+
+def umap_model_from_reference(attrs: Dict[str, Any]) -> UMAPModel:
+    """UMAPModel from the JAX package's UMAPModel attributes (embedding_,
+    raw_data_, n_cols, dtype); the Spark params are the estimator's to set."""
+    return UMAPModel(
+        embedding_=np.asarray(attrs["embedding_"], np.float32),
+        raw_data_=np.asarray(attrs["raw_data_"], np.float32),
+        n_cols=int(attrs["n_cols"]),
+        dtype=str(attrs["dtype"]),
+    )
 
 
 def nearest_neighbors_model_from_reference(
