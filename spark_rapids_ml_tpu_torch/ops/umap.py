@@ -9,8 +9,8 @@
 #           all rows at once, exp as XLA evaluates it, ops/xla_math.py),
 #           the fuzzy union, the optional label
 #           intersection, then the on-device assembly of the padded
-#           head-grouped layout: _graph_edges (the dense transpose lookup,
-#           in row chunks), _edge_order (head-major, weight-descending: a
+#           head-grouped layout: _graph_edges (the dense transpose lookup),
+#           _edge_order (head-major, weight-descending: a
 #           stable sort on -w2 then one on the head key, torch's lexsort) and
 #           _gather_layout.  Its one host read is the degree quantile that
 #           fixes the pad width P.
@@ -31,8 +31,11 @@
 # Rows are padded to parallel.mesh.padded_row_count(n, mesh), the geometry
 # the firing draws are keyed on, so a fixed seed gives the JAX package's
 # draws on every mesh size that divides 64 (its determinism contract).  The
-# float results agree with the JAX package to rounding: XLA fuses some
-# multiply-adds and reduces in its own order.
+# float results agree with the JAX package to rounding: ops/xla_math.py
+# copies XLA's float32 exp, its reduction order and the multiply-adds it
+# fuses, where they steer a decision (a bisection step, the edge order) or
+# an epoch's update; the matmuls, and the orders XLA picks inside a fusion,
+# differ in the last bits.
 #
 # Phases (profiling.phase): umap.graph, umap.init, umap.layout,
 # umap.transform.  Counters: umap.h2d_transfers / umap.h2d_bytes (host
@@ -59,7 +62,6 @@ import torch
 from .. import device as _device
 from .. import profiling
 from ..parallel.mesh import Mesh, padded_row_count
-from ..utils import chunk_iter
 from . import prng
 from .xla_math import exp_f32, fma_f32, pow_f32, sum_dim0
 
@@ -67,8 +69,6 @@ DEGREE_CAP = 36
 DEGREE_QUANTILE = 0.98
 EPOCH_BLOCK = 50
 NEG_TABLE = 256
-# rows of the (rows, k, k) transpose lookup at once
-_LOOKUP_ROWS = 1 << 18
 
 
 def find_ab_params(spread: float, min_dist: float) -> Tuple[float, float]:
@@ -135,18 +135,12 @@ def smooth_knn_calibration(
 
 def _transpose_lookup(knn_ids: torch.Tensor, W: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each edge (i -> j = knn_ids[i, s]): the weight of (j -> i) if j
-    lists i, else 0, and whether it does (the dense (n, k, k) lookup, in
-    chunks of _LOOKUP_ROWS rows)."""
-    n, k = knn_ids.shape
-    wT = torch.empty_like(W)
-    mutual = torch.empty((n, k), dtype=torch.bool, device=W.device)
-    for sl in chunk_iter(n, _LOOKUP_ROWS):
-        ids = knn_ids[sl]
-        rows = torch.arange(sl.start, sl.stop, device=W.device)[:, None, None]
-        match = knn_ids[ids] == rows
-        wT[sl] = torch.where(match, W[ids], 0.0).amax(dim=2)
-        mutual[sl] = match.any(dim=2)
-    return wT, mutual
+    lists i, else 0, and whether it does (the dense (n, k, k) lookup; at
+    1,000,000 x 15 its int64 ids take 1.8 GB, under the layout's peak)."""
+    n = knn_ids.shape[0]
+    rows = torch.arange(n, device=W.device)[:, None, None]
+    match = knn_ids[knn_ids] == rows
+    return torch.where(match, W[knn_ids], 0.0).amax(dim=2), match.any(dim=2)
 
 
 def fuzzy_simplicial_set(

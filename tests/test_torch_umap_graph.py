@@ -81,16 +81,6 @@ def test_fuzzy_simplicial_set_matches_reference(mix):
     )
 
 
-def test_transpose_lookup_in_chunks(monkeypatch):
-    ids, dists, _ = _blob_graph(n=200, seed=4)
-    W = torch.from_numpy(_ref_weights(ids, dists))
-    whole = port._transpose_lookup(torch.from_numpy(ids), W)
-    monkeypatch.setattr(port, "_LOOKUP_ROWS", 37)
-    chunked = port._transpose_lookup(torch.from_numpy(ids), W)
-    for a, b in zip(whole, chunked):
-        assert torch.equal(a, b)
-
-
 def test_categorical_intersection_matches_reference():
     ids, dists, labels = _blob_graph(n=240, seed=5)
     W = _ref_weights(ids, dists)
