@@ -243,16 +243,53 @@
 #            on both equal (degrees, starts, P, each head's (tail, weight)
 #            set), and a fit on each within 0.01 k=15 neighbour preservation
 #            (`chip_smoke.py --phases path_umap,umap_card_vs_cpu` runs both)
+#   path_stream
+#            the streaming engines at the flagship configurations, uncut,
+#            through est.streaming().partial_fit / finalize in contiguous
+#            chunks, each run beside the path that makes its rows (the
+#            record is emitted after the UMAP phases):
+#            LinearRegression (OLS) on path_linreg's 1,000,000 x 3000
+#            rows in 8,192-row chunks against the batch fit of the same rows
+#            (LINREG_RTOL) with held-out R^2; the JAX bench arm's 400,000 x
+#            512 stream; 10 chunks profiled (host /
+#            copy / kernel time, idle share); LogisticRegression (path_logreg's
+#            params) in 65,536-row chunks, held-out accuracy; PCA(k=3) on
+#            path_pca's rows against its batch fit (the PCA gates); KMeans
+#            (the KMeans cell's k, init, maxIter, seed) on its rows: the
+#            running centers' inertia on 65,536 held-out rows falling at
+#            each third, save -> load bit for bit; each engine's
+#            streaming_ingest_rows_per_s (from the second chunk on) and
+#            finalize_s.  Then the live index on path_ann's items (IVF-Flat,
+#            nlist 632, nprobe 158, k 200): mutable_index(), kneighbors of
+#            the 16,384 queries, 10 adds of 10,000 rows from the same blobs
+#            (B1 once each, counted), 50,000 deletes (no deleted id on 2,048
+#            queries; B7 against lex_topk on the tombstoned pool), one add
+#            overflowing L_pad (a repack), kneighbors again (B7, counted):
+#            add rows/s, delete and repack seconds, kneighbors rows/s
+#            before and after, recall@10 >= 0.95 against exactSearch over
+#            the frozen live set, freeze -> save -> load identical; B1 at
+#            the add's shape against its plain version
+#   stream_card_vs_cpu
+#            at 65,536 x 256 integer rows in 8,192-row chunks, each engine on
+#            the card and under use_device("cpu"): linear and PCA states bit
+#            for bit; KMeans (the CPU engine adopting the card's first
+#            chunk, its init) sums, counts and anchor bit for bit, cost
+#            within 1e-6; logistic within 1e-3; a live index (nlist 256) after
+#            the same add / deletes / regrowing add / deletes on both, and
+#            on the card tiered (hot_fraction 0.5, pinned host mirrors):
+#            to_packed() equal, search ids and distances bit for bit
+#            (`chip_smoke.py --phases path_stream,stream_card_vs_cpu`)
 # The fit-input cache is emptied before each timed fit and ingest, so the
 # phases time cold fits.
 # Every path runs with all kernel launch counters reset just before it and
 # read just after (the PCA and GLM paths run no kernel of the port's own:
-# their launches stay 0).  It ends with the card's nvidia-smi line, a
+# their launches stay 0; path_stream resets them before each engine and
+# before the live index's mutations, whose adds launch B1 and searches B7).  It ends with the card's nvidia-smi line, a
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; the ANN, PCA, GLM, model-selection and UMAP phases need
-# nothing else).
+# path_knn_mesh; the ANN, PCA, GLM, model-selection, UMAP and streaming
+# phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -449,12 +486,10 @@ def blobs(rows, cols, k, seed, workers=8, labels=False):
     return (X, assign) if labels else X
 
 
-def run_path(torch, port, nc, wrappers):
-    """The flagship configuration through the public API.  Returns the
-    path's record; raises on any failed check."""
-    t0 = time.perf_counter()
-    X = blobs(ROWS, COLS, K, SEED)
-    gen_s = time.perf_counter() - t0
+def run_path(torch, port, nc, wrappers, X, gen_s):
+    """The flagship configuration through the public API on the rows X (made
+    in gen_s seconds).  Returns the path's record; raises on any failed
+    check."""
     df = port.DataFrame.from_numpy(X, num_partitions=PARTITIONS)
     model_dir = os.path.join(REPO, "build", "chip_smoke_model")
     shutil.rmtree(model_dir, ignore_errors=True)
@@ -1113,7 +1148,7 @@ def profile_once(torch, run, ranges):
         wall_ms = 1e3 * (time.perf_counter() - t0)  # not the profiler's own start and stop
     events = prof.events()
     host = {k: 0.0 for k in ranges}
-    spans, per_kernel, traced, port_ms, port_n = [], {}, 0, {}, {}
+    spans, per_kernel, traced, port_ms, port_n, copy_us = [], {}, 0, {}, {}, 0.0
     for e in events:
         if e.device_type == DeviceType.CPU:
             if e.name in host:
@@ -1122,6 +1157,8 @@ def profile_once(torch, run, ranges):
             # a kernel or a copy on the card (not a range's device-side
             # annotation, nor the profiler's own buffer requests)
             spans.append((e.time_range.start, e.time_range.end))
+            if e.name.startswith(("Memcpy", "Memset")):
+                copy_us += e.time_range.end - e.time_range.start
             symbol = port_kernel(e.name)
             if symbol is not None:
                 traced += symbol not in PORT_AUX_SYMBOLS
@@ -1139,6 +1176,7 @@ def profile_once(torch, run, ranges):
         "profiled_ms": wall_ms,
         "range_host_ms": host,
         "device_busy_ms": busy_us / 1e3,
+        "device_copy_ms": copy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "top_device_ms": [[name[:90], ms, count] for name, (ms, count) in top],
         "port_kernel_ms": port_ms,
@@ -2754,15 +2792,13 @@ def pca_reference(torch, X, dev, k):
             torch.sqrt(top * (n - 1.0)).cpu().numpy())
 
 
-def run_pca_path(torch, port, wrappers, dev):
-    """Phase path_pca: PCA(k=3) on the low-rank rows through the public API,
-    fit -> transform -> save -> load -> transform, against the float64
-    covariance and eigh of the same rows; stage times and a profiled fit."""
+def run_pca_path(torch, port, wrappers, dev, X, gen_s):
+    """Phase path_pca: PCA(k=3) on the low-rank rows X (made in gen_s
+    seconds) through the public API, fit -> transform -> save -> load ->
+    transform, against the float64 covariance and eigh of the same rows;
+    stage times and a profiled fit."""
     from spark_rapids_ml_tpu_torch.ops import linalg
 
-    t0 = time.perf_counter()
-    X = low_rank_data(GLM_ROWS, GLM_COLS, PCA_RANK, PCA_SEED)
-    gen_s = time.perf_counter() - t0
     df = port.DataFrame.from_numpy(X, num_partitions=GLM_PARTITIONS)
     est = port.PCA(k=PCA_K)
     model, fit_s, peak, launches = timed_fit(torch, est, df, wrappers)
@@ -2793,7 +2829,7 @@ def run_pca_path(torch, port, wrappers, dev):
     cov, cov_s = synced(torch, lambda: linalg.covariance(wsum, mean_t, scatter))
     _, eigh_s = synced(torch, lambda: linalg.eigh_descending(cov))
     profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "pca.fit"), wrappers)
-    del X, df, cov, scatter
+    del df, cov, scatter
     return {
         "phase": "path_pca", "rows": GLM_ROWS, "cols": GLM_COLS, "k": PCA_K, "rank": PCA_RANK,
         "partitions": GLM_PARTITIONS, "data_gen_s": gen_s,
@@ -3941,6 +3977,439 @@ def umap_card_vs_cpu(torch, port, knn_ops, dev):
 UMAP_PHASES = ("path_umap", "umap_card_vs_cpu")
 
 
+# ---------------------------------------------------------------------------
+# Streaming (srml-stream): the four engines at the flagship configurations
+# and the live IVF-Flat index on the ANN cell
+# ---------------------------------------------------------------------------
+
+# the JAX bench arm's chunk (bench.py:618) for the linear, PCA and KMeans
+# engines; 65,536-row chunks for the logistic engine, whose L-BFGS host loop
+# runs once a chunk (16 chunks over the 1M rows)
+STREAM_CHUNK, STREAM_LOGREG_CHUNK = 8192, 65536
+# the JAX bench arm's own shape (bench.py:609-611): 400,000 x 512 linear rows
+STREAM_BENCH_ROWS, STREAM_BENCH_COLS, STREAM_BENCH_SEED = 400_000, 512, 3
+STREAM_PROFILE_CHUNKS = 10
+# the KMeans engine's running centers are scored on 65,536 held-out rows of
+# the same blobs after its first chunk and at a third, two thirds and all
+# of the stream
+STREAM_EVAL_ROWS, STREAM_EVAL_POINTS, STREAM_EVAL_SEED = 65536, (0.0, 1 / 3, 2 / 3, 1.0), 5
+# the live index on the ANN cell: 10 adds of 10,000 rows from the same
+# blobs, 50,000 deletes, one add that overflows L_pad (a repack)
+LIVE_ADDS, LIVE_ADD_ROWS, LIVE_DELETES, LIVE_SEED = 10, 10_000, 50_000, 43
+# stream_card_vs_cpu: 65,536 x 256 integer rows, each engine on the card
+# and under use_device("cpu"); the live index at nlist 256, nprobe 16
+SCVC_ROWS, SCVC_COLS, SCVC_CHUNK, SCVC_SEED, SCVC_K = 65536, 256, 8192, 91, 16
+SCVC_NLIST, SCVC_NPROBE, SCVC_QUERIES, SCVC_HOT_FRACTION = 256, 16, 256, 0.5
+# the kmeans running cost (a difference-form sum of non-integer residuals)
+# card against CPU; the logistic iterate averages (L-BFGS iterates in float32
+# on two devices) within glm_card_vs_cpu's logistic tolerance
+SCVC_COST_RTOL = 1e-6
+STREAM_PHASES = ("path_stream", "stream_card_vs_cpu")
+
+
+def stream_chunks(n, chunk):
+    return [slice(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+
+def timed_stream(torch, port, engine, X, y, chunk, n=None):
+    """Every chunk of the first n rows through engine.partial_fit (contiguous
+    slices, as bench.py's arm), then finalize: (model, record).  The ingest
+    rate is timed from the second chunk on (bench_streaming.py's window: the
+    first chunk allocates the staging buffers, and KMeans's first chunk
+    runs its init)."""
+    n = X.shape[0] if n is None else n
+    chunks = stream_chunks(n, chunk)
+    port.profiling.reset_phase_times()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.partial_fit(X[chunks[0]], y=None if y is None else y[chunks[0]])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sl in chunks[1:]:
+        engine.partial_fit(X[sl], y=None if y is None else y[sl])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = engine.finalize()
+    finalize_s = time.perf_counter() - t0
+    timed_rows = n - (chunks[0].stop - chunks[0].start)
+    return model, {
+        "rows": n, "chunk_rows": chunk, "chunks": len(chunks), "first_chunk_s": first_s, "ingest_s": ingest_s,
+        "streaming_ingest_rows_per_s": timed_rows / ingest_s, "ms_per_chunk": 1e3 * ingest_s / (len(chunks) - 1),
+        "finalize_s": finalize_s, "phase_s": port.profiling.phase_times(),
+    }
+
+
+def stream_profile(torch, engine, X, y, chunk, start):
+    """STREAM_PROFILE_CHUNKS more chunks under the profiler: stream.update's
+    host milliseconds, the card's busy time split into copies (memcpy /
+    memset) and kernels, and the idle share."""
+    sls = stream_chunks(X.shape[0], chunk)[start : start + STREAM_PROFILE_CHUNKS]
+    rec = profile_once(torch, lambda: [engine.partial_fit(X[sl], y=None if y is None else y[sl]) for sl in sls],
+                       ("stream.update",))
+    rec["chunks"] = len(sls)
+    return rec
+
+
+def stream_linreg_part(torch, port, wrappers, X, y):
+    """The linear engine on path_linreg's rows (OLS) against the port's batch
+    fit of the same rows, held-out R^2; the bench arm's shape; a profile of
+    10 chunks."""
+    t0 = time.perf_counter()
+    est = port.LinearRegression(**LINREG_FITS["ols"])
+    reset_launches(wrappers)
+    model, rec = timed_stream(torch, port, est.streaming(), X, y, STREAM_CHUNK, GLM_ROWS)
+    rec["launches"] = read_launches(wrappers)
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], y[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    batch, rec["batch_fit_s"], _, _ = timed_fit(torch, est, df, wrappers)
+    del df
+    scale = float(np.abs(batch.coef_).max())
+    rec["coef_max_rel_err_vs_batch"] = float(np.abs(model.coef_ - batch.coef_).max()) / scale
+    rec["intercept_rel_err_vs_batch"] = abs(model.intercept_ - batch.intercept_) / scale
+    check(rec["coef_max_rel_err_vs_batch"] <= LINREG_RTOL and rec["intercept_rel_err_vs_batch"] <= LINREG_RTOL,
+          f"streamed linear model against the batch fit: {rec}")
+    hold = port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)
+    y_hold = y[GLM_ROWS:].astype(np.float64)
+    pred = concat_col(model.transform(hold), "prediction")
+    rec["holdout_r2"] = float(1.0 - ((pred - y_hold) ** 2).mean() / y_hold.var())
+    check(rec["holdout_r2"] > HOLDOUT_R2, f"streamed linear model: held-out R^2 {rec['holdout_r2']}")
+    engine = est.streaming()
+    engine.partial_fit(X[:STREAM_CHUNK], y=y[:STREAM_CHUNK])
+    rec["profile"] = stream_profile(torch, engine, X, y, STREAM_CHUNK, 1)
+    rng = np.random.default_rng(STREAM_BENCH_SEED)
+    Xb = normal_data(STREAM_BENCH_ROWS, STREAM_BENCH_COLS, STREAM_BENCH_SEED)
+    yb = (Xb @ rng.standard_normal(STREAM_BENCH_COLS, dtype=np.float32)
+          + np.float32(0.1) * rng.standard_normal(STREAM_BENCH_ROWS, dtype=np.float32))
+    bench_model, bench = timed_stream(torch, port, port.LinearRegression(standardization=False).streaming(), Xb,
+                                      yb, STREAM_CHUNK)
+    check(np.isfinite(bench_model.coef_).all(), "the bench arm's coefficients are not finite")
+    rec["bench_arm"] = {"cols": STREAM_BENCH_COLS, **bench}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def stream_pca_part(torch, port, wrappers, X):
+    """The PCA engine on path_pca's low-rank rows X against the port's batch
+    fit of the same rows (the PCA gates)."""
+    t0 = time.perf_counter()
+    est = port.PCA(k=PCA_K)
+    reset_launches(wrappers)
+    model, rec = timed_stream(torch, port, est.streaming(), X, None, STREAM_CHUNK)
+    rec["launches"] = read_launches(wrappers)
+    batch, rec["batch_fit_s"], _, _ = timed_fit(torch, est, port.DataFrame.from_numpy(
+        X, num_partitions=GLM_PARTITIONS), wrappers)
+    rec["errors_vs_batch"] = errs = {
+        "mean_max_abs_err": float(np.abs(model.mean_ - batch.mean_).max()),
+        "components_max_abs_err": float(np.abs(model.components_ - batch.components_).max()),
+        "ratio_max_abs_err": float(np.abs(model.explained_variance_ratio_ - batch.explained_variance_ratio_).max()),
+        "singular_values_max_rel_err": float(np.abs(model.singular_values_ / batch.singular_values_ - 1.0).max()),
+    }
+    check(np.array_equal(np.sign(model.components_[np.arange(PCA_K), np.abs(batch.components_).argmax(axis=1)]),
+                         np.sign(batch.components_[np.arange(PCA_K), np.abs(batch.components_).argmax(axis=1)])),
+          "component signs differ")
+    check(errs["mean_max_abs_err"] <= PCA_MEAN_ATOL and errs["components_max_abs_err"] <= PCA_COMP_ATOL
+          and errs["ratio_max_abs_err"] <= PCA_RATIO_ATOL and errs["singular_values_max_rel_err"] <= PCA_SV_RTOL,
+          f"streamed PCA against the batch fit: {errs}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def stream_kmeans_part(torch, port, wrappers, dev, X):
+    """The KMeans engine (the KMeans cell's k, maxIter, init and seed) on the
+    KMeans cell's rows X: its running cost finite, the running centers'
+    inertia on STREAM_EVAL_ROWS held-out rows of the same blobs (plain torch
+    on the card, float64 sums) falling at each of STREAM_EVAL_POINTS, and
+    the finalized centers saved and loaded bit for bit."""
+    t0 = time.perf_counter()
+    centers = np.random.default_rng(SEED).uniform(-10.0, 10.0, size=(K, COLS)).astype(np.float32)  # blobs()'s
+    rng = np.random.default_rng(STREAM_EVAL_SEED)
+    held = centers[rng.integers(0, K, STREAM_EVAL_ROWS)] + rng.standard_normal((STREAM_EVAL_ROWS, COLS), np.float32)
+    gen_s = time.perf_counter() - t0
+    engine = port.KMeans(k=K, maxIter=MAX_ITER, initMode="random", seed=SEED).streaming()
+    n_chunks = len(stream_chunks(ROWS, STREAM_CHUNK))
+    at = {max(1, round(f * n_chunks)) for f in STREAM_EVAL_POINTS}
+    Xs = torch.from_numpy(held).to(dev)
+    xs_norm = (Xs * Xs).sum(dim=1)
+    inertia = []
+
+    class Tracked:
+        """partial_fit that, at the chunk counts in `at`, scores the running
+        centers on the held-out rows (plain torch, no kernel of the
+        port's)."""
+
+        def partial_fit(self, chunk, y=None):
+            engine.partial_fit(chunk)
+            if engine.chunks_ingested in at:
+                C = engine._running_centers(dev).to(torch.float32)
+                best = plain_top2(torch, Xs, C, xs_norm, (C * C).sum(dim=1))[0]
+                inertia.append([engine.chunks_ingested, float(best.clamp_min(0).double().sum())])
+
+        def finalize(self):
+            return engine.finalize()
+
+    reset_launches(wrappers)
+    model, rec = timed_stream(torch, port, Tracked(), X, None, STREAM_CHUNK)
+    rec["launches"] = read_launches(wrappers)
+    del Xs
+    rec["sample_inertia"] = inertia
+    rec["inertia"] = model.inertia_
+    values = [v for _, v in inertia]
+    check(math.isfinite(model.inertia_) and np.isfinite(values).all(), "non-finite running inertia")
+    check(all(a > b for a, b in zip(values, values[1:])), f"the sample inertia does not fall over the stream: {inertia}")
+    model_dir = os.path.join(REPO, "build", "chip_smoke_stream_kmeans")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model.save(model_dir)
+    check(np.array_equal(port.load(model_dir).cluster_centers_, model.cluster_centers_),
+          "the reloaded streamed centers differ")
+    rec["reloaded_identical"] = True
+    rec["held_out_gen_s"] = gen_s
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def stream_logreg_part(torch, port, wrappers, X, y):
+    """The logistic engine (path_logreg's params) on path_logreg's rows in
+    65,536-row chunks: held-out accuracy."""
+    t0 = time.perf_counter()
+    yb = (y > 0).astype(np.float32)
+    reset_launches(wrappers)
+    model, rec = timed_stream(torch, port, port.LogisticRegression(**LOGREG).streaming(), X, yb,
+                              STREAM_LOGREG_CHUNK, GLM_ROWS)
+    rec["launches"] = read_launches(wrappers)
+    hold = port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)
+    rec["holdout_accuracy"] = float((concat_col(model.transform(hold), "prediction") == yb[GLM_ROWS:]).mean())
+    check(rec["holdout_accuracy"] > HOLDOUT_ACCURACY, f"streamed logistic model: accuracy {rec['holdout_accuracy']}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X, Q):
+    """The live index on the ANN cell (items X, queries Q): fit,
+    mutable_index(), kneighbors of the 16,384 queries, 10 adds of 10,000
+    rows (B1 once each), 50,000 deletes (checked on 2,048 queries: no
+    deleted id, B7 against lex_topk on the tombstoned pool), one add
+    overflowing L_pad (a repack), kneighbors of the 16,384 queries again;
+    then recall@10 against exactSearch over the frozen live set, and freeze
+    -> save -> load identical."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LIVE_SEED)
+    centers = 10.0 * np.random.default_rng(ANN_SEED).standard_normal((max(32, ANN_NLIST), ANN_COLS), dtype=np.float32)
+    lab = rng.integers(0, centers.shape[0], size=LIVE_ADDS * LIVE_ADD_ROWS)
+    adds = centers[lab] + rng.standard_normal((len(lab), ANN_COLS), dtype=np.float32)
+    gen_s = time.perf_counter() - t0
+    query_df = port.DataFrame.from_numpy(Q, num_partitions=ANN_QUERY_PARTS)
+    check_df = port.DataFrame.from_numpy(Q[:ANN_CHECK_QUERIES])
+    t0 = time.perf_counter()
+    model = port.ApproximateNearestNeighbors(k=ANN_K, algorithm="ivfflat", algoParams=dict(_ANN_BASE)).fit(
+        port.DataFrame.from_numpy(X, num_partitions=ANN_ITEM_PARTS))
+    fit_s = time.perf_counter() - t0
+    holder, stage_s = synced(torch, model.mutable_index)
+    rec = {"items": ANN_ITEMS, "queries": ANN_QUERIES, "k": ANN_K, "fit_s": fit_s, "stage_s": stage_s,
+           "data_gen_s": gen_s, "l_pad_before": holder.stats()["l_pad"]}
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    port.profiling.reset_counters("ann.mutate.")
+    (idx0, _), before_s = synced(torch, lambda: ann_rows(model, query_df))
+    rec["kneighbors_rows_per_s_before"] = ANN_QUERIES / before_s
+    add_s = []
+    for j in range(LIVE_ADDS):
+        rows = slice(j * LIVE_ADD_ROWS, (j + 1) * LIVE_ADD_ROWS)
+        _, s = synced(torch, lambda: holder.add_items(adds[rows], ANN_ITEMS + np.arange(rows.start, rows.stop)))
+        add_s.append(s)
+    rec["add_s"] = add_s
+    rec["add_rows_per_s"] = LIVE_ADDS * LIVE_ADD_ROWS / sum(add_s)
+    live_ids = np.concatenate([np.arange(ANN_ITEMS), ANN_ITEMS + np.arange(len(adds))])
+    deleted = rng.choice(live_ids, size=LIVE_DELETES, replace=False)
+    n_del, rec["delete_s"] = synced(torch, lambda: holder.delete_items(deleted))
+    check(n_del == LIVE_DELETES, f"{n_del} of {LIVE_DELETES} deletes")
+    i_t, _ = ann_rows(model, check_df)
+    check(not np.isin(i_t, deleted).any(), "a deleted id came back from the tombstoned index")
+    tombstoned = holder.index  # a snapshot: B7 is checked on its pool after the counted window
+    # one add into the fullest list, one row past its slots (tombstones
+    # included): the add repacks
+    full = int(np.argmax(holder._counts))
+    burst_n = holder.stats()["l_pad"] - int(holder._counts[full]) + 1
+    burst = (model.centroids_[full] + 0.01 * rng.standard_normal((burst_n, ANN_COLS))).astype(np.float32)
+    burst_ids = ANN_ITEMS + len(adds) + np.arange(burst_n)
+    _, rec["repack_add_s"] = synced(torch, lambda: holder.add_items(burst, burst_ids))
+    rec["stats_after"] = stats = holder.stats()
+    check(stats["repacks"] == 1 and stats["tombstoned"] == 0, f"the overflowing add did not repack: {stats}")
+    rec["burst_rows"] = burst_n
+    (idx1, dist1), after_s = synced(torch, lambda: ann_rows(model, query_df))
+    rec["kneighbors_rows_per_s_after"] = ANN_QUERIES / after_s
+    rec["launches"] = launches = read_launches(wrappers)
+    rec["counters"] = port.profiling.counters("ann.mutate.")
+    check(launches["min_dist_argmin"] == LIVE_ADDS + 1, f"the adds launched min_dist_argmin {launches}")
+    check(launches["knn_fused_merge"] > 0, "the live searches launched knn_fused_merge no time")
+    check(not np.isin(idx1, deleted).any(), "a deleted id came back after the repack")
+    check(bool(np.isfinite(dist1).all()) and bool((idx1 >= 0).all()), "an unfilled slot after the mutations")
+    rec["merge_vs_lex_topk_tombstoned"] = ann_merge_check(torch, ivf, pq_mod, knn_ops, kk, tombstoned, Q, ANN_K,
+                                                          False, dev)
+    del tombstoned
+    # B1 at the add's shape against its plain version
+    cent = torch.from_numpy(np.ascontiguousarray(model.centroids_)).to(dev)
+    xa = torch.from_numpy(adds[:LIVE_ADD_ROWS]).to(dev)
+    m, a = nc.min_dist_argmin(xa, cent)
+    best, parg, second = plain_top2(torch, xa, cent, nc.squared_norms(xa), (cent * cent).sum(dim=1))
+    off = (a.long() != parg) & ~near_ties(best, second)
+    check(int(off.sum()) == 0, f"B1 at the add's shape: {int(off.sum())} rows off near-ties")
+    rec["b1_add_shape"] = {"n": LIVE_ADD_ROWS, "d": ANN_COLS, "k": int(cent.shape[0]),
+                           "max_abs_err": float((m - best).abs().max())}
+    model.freeze_mutations()
+    model.setExactSearch(True)
+    i_ex, _ = ann_rows(model, check_df)
+    model.setExactSearch(False)
+    rec["recall_at_10"] = ivf.recall_at_k(idx1[:ANN_CHECK_QUERIES, :10], i_ex[:, :10])
+    check(rec["recall_at_10"] >= ANN_ARMS["path_ann"][2], f"live recall@10 {rec['recall_at_10']}")
+    check(not np.isin(i_ex, deleted).any(), "the frozen payload holds a deleted id")
+    i_f, d_f = ann_rows(model, check_df)
+    model_dir = os.path.join(REPO, "build", "chip_smoke_live_ann")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model.save(model_dir)
+    i_l, d_l = ann_rows(port.load(model_dir), check_df)
+    check(np.array_equal(i_l, i_f) and np.array_equal(d_l.view(np.uint32), d_f.view(np.uint32)),
+          "freeze -> save -> load gives other results")
+    rec["frozen_items"] = model.n_items
+    rec["reloaded_identical"] = True
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def run_stream_path(parts):
+    """Phase path_stream's record: its parts (the engines and the live
+    index), each run beside the path that made its rows (main), with the
+    launch counters reset before it and read after it."""
+    launches = {name: sum(p["launches"].get(name, 0) for p in parts.values())
+                for name in ("min_dist_argmin", "knn_fused_merge")}
+    return {"phase": "path_stream", "rows_cut": False, "seconds": sum(p["seconds"] for p in parts.values()),
+            "gates": {"linreg_rtol_vs_batch": LINREG_RTOL, "holdout_r2_above": HOLDOUT_R2,
+                      "pca_gates": [PCA_MEAN_ATOL, PCA_COMP_ATOL, PCA_RATIO_ATOL, PCA_SV_RTOL],
+                      "holdout_accuracy_above": HOLDOUT_ACCURACY, "live_recall_at_10": ANN_ARMS["path_ann"][2]},
+            "launches": launches, **parts}
+
+
+def integer_blob_rows(rows, cols, k, seed):
+    """Integer rows around k well separated integer centers (|x| <= 33) and
+    an integer label (|y| <= 40): every sum over SCVC_CHUNK rows of x x', x y
+    and y^2 stays under 2^24, so each chunk partial is exact in float32."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(-6, 7, size=(k, cols)) * 5
+    X = (centers[rng.integers(0, k, rows)] + rng.integers(-3, 4, size=(rows, cols))).astype(np.float32)
+    return X, np.clip(X[:, 0] + X[:, 1] - X[:, 2], -40, 40)
+
+
+def stream_card_vs_cpu(torch, port, wrappers, card="cuda"):
+    """Phase stream_card_vs_cpu: each engine's state on the card and under
+    use_device("cpu") after the same chunks of integer rows: linear and PCA
+    bit for bit; KMeans, the CPU engine adopting the card's state after the
+    first chunk (its init), sums, counts and anchor bit for bit and the cost
+    within SCVC_COST_RTOL; logistic, on Gaussian rows, within
+    CVC_LOGISTIC_ATOL.  Then the live
+    index, one payload fitted on the card, after the same mutations on the
+    card, on the CPU and tiered on the card (an add, deletes, an add that
+    regrows L_pad, more deletes): to_packed() equal, search ids and
+    distances bit for bit.
+    `card` is the device held against the CPU ("cpu" rehearses the phase on
+    a host without a card)."""
+    from spark_rapids_ml_tpu_torch.ann.mutable import MutableIVFIndex
+
+    X, y = integer_blob_rows(SCVC_ROWS, SCVC_COLS, SCVC_K, SCVC_SEED)
+    # the logistic engine on Gaussian rows and noisy labels (glm_card_vs_cpu's
+    # setting): each chunk's L-BFGS converges to its optimum on both devices
+    rng = np.random.default_rng(SCVC_SEED + 1)
+    Xg = normal_data(SCVC_ROWS, SCVC_COLS, SCVC_SEED)
+    yg = (Xg @ rng.standard_normal(SCVC_COLS, dtype=np.float32)
+          + rng.standard_normal(SCVC_ROWS, dtype=np.float32) > 0).astype(np.float32)
+    chunks = stream_chunks(SCVC_ROWS, SCVC_CHUNK)
+    engines = {
+        "linreg": (lambda: port.LinearRegression().streaming(), X, y),
+        "pca": (lambda: port.PCA(k=PCA_K).streaming(), X, None),
+        "kmeans": (lambda: port.KMeans(k=SCVC_K, maxIter=10, seed=SEED).streaming(), X, None),
+        "logreg": (lambda: port.LogisticRegression(regParam=1e-3, maxIter=200, tol=1e-6).streaming(), Xg, yg),
+    }
+    out = {}
+    for name, (make, rows, labels) in engines.items():
+        states, first = {}, None
+        for where in (card, "cpu"):
+            with port.device.use_device(where):
+                eng = make()
+                t0 = time.perf_counter()
+                for j, sl in enumerate(chunks):
+                    if name == "kmeans" and j == 0 and first is not None:
+                        eng.merge(first)  # the card's init anchor and first chunk
+                        continue
+                    eng.partial_fit(rows[sl], y=None if labels is None else labels[sl])
+                    if name == "kmeans" and j == 0:
+                        first = eng.state.copy()
+                states[where] = (eng.state, time.perf_counter() - t0)
+        (card_state, card_s), (cpu_state, cpu_s) = states[card], states["cpu"]
+        on_card, on_cpu = card_state.arrays, cpu_state.arrays
+        rec = {"card_s": card_s, "cpu_s": cpu_s}
+        if name in ("linreg", "pca"):
+            check(card_state == cpu_state, f"{name}: the card's state differs from the CPU's")
+            rec["bit_for_bit"] = True
+        elif name == "kmeans":
+            for f in ("sums", "counts", "init_centers"):
+                check(np.array_equal(on_card[f], on_cpu[f]), f"kmeans {f} differ card against CPU")
+            rec["cost_rel_err"] = float(abs(on_card["cost"] / on_cpu["cost"] - 1.0))
+            check(rec["cost_rel_err"] <= SCVC_COST_RTOL, f"kmeans cost: {rec}")
+        else:
+            check(np.array_equal(on_card["classes"], on_cpu["classes"]) and on_card["wsum"] == on_cpu["wsum"],
+                  "logistic anchors")
+            scale = max(1.0, float(np.abs(on_cpu["WS"] / on_cpu["wsum"]).max()))
+            rec["coef_max_abs_err"] = float(np.abs(on_card["WS"] - on_cpu["WS"]).max() / on_cpu["wsum"]) / scale
+            check(rec["coef_max_abs_err"] <= CVC_LOGISTIC_ATOL, f"logistic state: {rec}")
+        out[name] = rec
+    # the live index
+    t0 = time.perf_counter()
+    with port.device.use_device(card):
+        model = port.ApproximateNearestNeighbors(
+            k=10, algoParams={"nlist": SCVC_NLIST, "nprobe": SCVC_NPROBE}).fit(port.DataFrame.from_numpy(X))
+    # integer centroids (the fit's, rounded): an add's distances are exact
+    # integers, so B1 and its plain version assign every row alike
+    fit = model._packed()
+    packed = type(fit)(fit.items, fit.ids, fit.counts, np.round(fit.centroids), fit.n_lists, fit.n_items)
+    extra = integer_blob_rows(4096, SCVC_COLS, SCVC_K, SCVC_SEED)[0] + rng.integers(-1, 2, size=(4096, SCVC_COLS))
+    l_pad0 = ivf_geometry_l_pad(packed)
+    # identical rows: one list takes them all, past any slot count
+    burst = np.repeat(packed.centroids[:1], l_pad0 + 1, axis=0).astype(np.float32)
+    Q = X[rng.choice(SCVC_ROWS, SCVC_QUERIES, replace=False)]
+    results = {}
+    for where, hot in ((card, 1.0), ("cpu", 1.0), (card, SCVC_HOT_FRACTION)):
+        holder = MutableIVFIndex(packed, torch.device(where), hot_fraction=hot)
+        reset_launches(wrappers)
+        holder.add_items(extra.astype(np.float32), 10**6 + np.arange(len(extra)))
+        holder.delete_items(np.arange(0, SCVC_ROWS, 7))
+        holder.add_items(burst, 2 * 10**6 + np.arange(len(burst)))
+        holder.delete_items(2 * 10**6 + np.arange(0, len(burst), 3))
+        results[where, hot] = (holder.to_packed(), holder.search(Q, 10, SCVC_NPROBE), holder.stats(),
+                               read_launches(wrappers), getattr(holder.index, "tier", None))
+    (pc, (dc, ic), sc, lc, _), (pp, (dp, ip), _, _, _) = results[card, 1.0], results["cpu", 1.0]
+    pt, (dt, it), _, _, tier = results[card, SCVC_HOT_FRACTION]
+    for f in ("items", "ids", "counts", "centroids"):
+        check(np.array_equal(getattr(pc, f), getattr(pp, f)) and np.array_equal(getattr(pc, f), getattr(pt, f)),
+              f"live index to_packed {f}: card, CPU and the card's tiered index differ")
+    check(np.array_equal(ic, ip) and np.array_equal(dc.view(np.uint32), dp.view(np.uint32)),
+          "live index search: card against CPU")
+    check(np.array_equal(ic, it) and np.array_equal(dc.view(np.uint32), dt.view(np.uint32)),
+          "live index search: the card's tiered index against its resident one")
+    tier_stats = tier.stats()
+    check(tier_stats["misses"] > 0, f"the tiered live index paged nothing: {tier_stats}")
+    check(sc["l_pad"] > l_pad0 and sc["repacks"] == 1, f"the burst did not regrow L_pad: {sc}")
+    check(lc["min_dist_argmin"] == 2 and lc["knn_fused_merge"] > 0, f"the card's live index launched {lc}")
+    out["live_index"] = {"seconds": time.perf_counter() - t0, "items": int(pc.n_items), "l_pad": [l_pad0, sc["l_pad"]],
+                         "stats": sc, "ids_and_distances_equal": True, "launches": lc,
+                         "tiered": {"hot_fraction": SCVC_HOT_FRACTION, "equal_to_resident": True, **tier_stats}}
+    return {"phase": "stream_card_vs_cpu", "rows": SCVC_ROWS, "cols": SCVC_COLS, "chunk_rows": SCVC_CHUNK,
+            "gates": {"kmeans_cost_rtol": SCVC_COST_RTOL, "logistic_atol": CVC_LOGISTIC_ATOL}, **out}
+
+
+def ivf_geometry_l_pad(packed):
+    from spark_rapids_ml_tpu_torch.ann.ivfflat import padded_layout_geometry
+
+    return padded_layout_geometry(packed.n_lists, packed.counts)[2]
+
+
 def main():
     import argparse
 
@@ -4031,10 +4500,21 @@ def main():
         emit({"phase": "kernels_f64", "shapes": [list(s) for s in SHAPES[:4]], "exact": True})
         results["kernels"] = rows[-1]
 
-    if "path" in phases:
-        results["path"] = run_path(torch, port, nc, wrappers)
-        emit(results["path"])
-        port.clear_fit_cache()
+    # path_stream's engines run beside the paths that make their rows (the
+    # KMeans cell's, the PCA cell's, the GLM cells'), each dataset made once
+    stream_parts = {}
+    if {"path", "path_stream"} & set(phases):
+        t0 = time.perf_counter()
+        X_km = blobs(ROWS, COLS, K, SEED)
+        gen_s = time.perf_counter() - t0
+        if "path" in phases:
+            results["path"] = run_path(torch, port, nc, wrappers, X_km, gen_s)
+            emit(results["path"])
+            port.clear_fit_cache()
+        if "path_stream" in phases:
+            stream_parts["kmeans"] = stream_kmeans_part(torch, port, wrappers, dev, X_km)
+            port.clear_fit_cache()
+        del X_km
 
     rf_phases = {"kernels_forest", "path_rf_clf", "path_rf_reg", "path_cv_rf"} & set(phases)
     if rf_phases:
@@ -4100,7 +4580,7 @@ def main():
         results["kernels_ann"] = check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev)
         emit(results["kernels_ann"])
     ann_phases = [p for p in ANN_ARMS if p in phases]
-    if ann_phases:
+    if ann_phases or "path_stream" in phases:
         t0 = time.perf_counter()
         X_ann, Q_ann = ann_data()
         emit({"phase": "ann_data", "items": ANN_ITEMS, "queries": ANN_QUERIES, "cols": ANN_COLS,
@@ -4108,12 +4588,23 @@ def main():
         for phase in ann_phases:
             results[phase] = run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X_ann, Q_ann, dev)
             emit(results[phase])
+        if "path_stream" in phases:
+            stream_parts["live_index"] = live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev,
+                                                         X_ann, Q_ann)
         del X_ann, Q_ann
 
-    if "path_pca" in phases:
-        emit(run_pca_path(torch, port, wrappers, dev))
-        port.clear_fit_cache()
-    if {"path_linreg", "path_logreg", "path_cv_linreg", "path_cv_logreg"} & set(phases):
+    if {"path_pca", "path_stream"} & set(phases):
+        t0 = time.perf_counter()
+        X_pca = low_rank_data(GLM_ROWS, GLM_COLS, PCA_RANK, PCA_SEED)
+        gen_s = time.perf_counter() - t0
+        if "path_pca" in phases:
+            emit(run_pca_path(torch, port, wrappers, dev, X_pca, gen_s))
+            port.clear_fit_cache()
+        if "path_stream" in phases:
+            stream_parts["pca"] = stream_pca_part(torch, port, wrappers, X_pca)
+            port.clear_fit_cache()
+        del X_pca
+    if {"path_linreg", "path_logreg", "path_cv_linreg", "path_cv_logreg", "path_stream"} & set(phases):
         t0 = time.perf_counter()
         X_glm, y_glm = glm_data()
         emit({"phase": "glm_data", "rows": GLM_ROWS + GLM_HOLDOUT, "cols": GLM_COLS,
@@ -4132,6 +4623,12 @@ def main():
         if "path_cv_logreg" in phases:
             results["path_cv_logreg"] = run_cv_logreg_path(torch, port, wrappers, X_glm, y_glm, dev)
             emit(results["path_cv_logreg"])
+        if "path_stream" in phases:
+            port.clear_fit_cache()
+            stream_parts["linreg"] = stream_linreg_part(torch, port, wrappers, X_glm, y_glm)
+            port.clear_fit_cache()
+            stream_parts["logreg"] = stream_logreg_part(torch, port, wrappers, X_glm, y_glm)
+            port.clear_fit_cache()
         del X_glm, y_glm
     if "path_logreg_sparse" in phases:
         emit(run_logreg_sparse_path(torch, port, wrappers, dev))
@@ -4147,6 +4644,12 @@ def main():
         emit(results["path_umap"])
     if "umap_card_vs_cpu" in phases:
         emit(umap_card_vs_cpu(torch, port, knn_ops, dev))
+    if "path_stream" in phases:
+        results["path_stream"] = run_stream_path(stream_parts)
+        emit(results["path_stream"])
+        port.clear_fit_cache()
+    if "stream_card_vs_cpu" in phases:
+        emit(stream_card_vs_cpu(torch, port, wrappers))
 
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
@@ -4278,12 +4781,16 @@ def summary(results, seconds):
                            "node_histograms_bucketed") and cv_launches:
             row["launches_model_selection"] = {phase: launches.get(row["name"])
                                                for phase, launches in cv_launches.items()}
+        if row["name"] in ("min_dist_argmin", "knn_fused_merge") and "path_stream" in results:
+            # B1 in the live index's adds, B7 in its searches
+            row["launches_stream"] = results["path_stream"]["launches"][row["name"]]
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES]
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES,
+          *STREAM_PHASES]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

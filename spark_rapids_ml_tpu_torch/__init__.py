@@ -28,6 +28,7 @@ from .models.random_forest import (
 )
 from .models.umap import UMAP, UMAPModel
 from .pipeline import Pipeline, PipelineModel
+from .stream import StreamingSession, streaming_fit
 from .tuning import CrossValidator, CrossValidatorModel, ParamGridBuilder
 
 __all__ = [
@@ -58,8 +59,10 @@ __all__ = [
     "RandomForestRegressionModel",
     "RandomForestRegressor",
     "RegressionEvaluator",
+    "StreamingSession",
     "UMAP",
     "UMAPModel",
     "clear_fit_cache",
     "load",
+    "streaming_fit",
 ]

@@ -1,8 +1,8 @@
 #
 # Approximate nearest-neighbour engines on one device: IVF-Flat (ivfflat.py)
 # and IVF-PQ (pq.py), with tiered device / host residency of the list planes
-# (tier.py).  Counterpart of spark_rapids_ml_tpu/ann; the live-mutation tier
-# (mutable.py) comes with the serving and streaming slices.
+# (tier.py), and live add / delete / repack of a serving IVF-Flat index
+# (mutable.py).  Counterpart of spark_rapids_ml_tpu/ann.
 #
 
 from .ivfflat import (
@@ -15,6 +15,7 @@ from .ivfflat import (
     ivfflat_search_prepared,
     recall_at_k,
 )
+from .mutable import MutableIVFIndex
 from .pq import (
     IVFPQIndex,
     PackedPQ,
@@ -32,6 +33,7 @@ __all__ = [
     "index_from_packed_pq",
     "ivfpq_search_prepared",
     "IVFFlatIndex",
+    "MutableIVFIndex",
     "PackedIVF",
     "build_ivfflat_packed",
     "default_nlist",

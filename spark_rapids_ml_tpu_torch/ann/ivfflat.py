@@ -24,6 +24,11 @@
 # the nprobe smallest d2 to the centroids, ties to the lower list id (a
 # stable sort; jax.lax.top_k's rule).
 #
+# stage_padded_layout / tiered_stage_padded_layout stage a padded host
+# layout as new device tensors (index_from_packed's second half, and the
+# live index's restage, ann/mutable.py); the live index's tombstones are
+# +inf norms, whose -inf pool values rank behind every live candidate.
+#
 # What does not carry over: the mesh (sharding, shard_map, the cross-shard
 # psum merge), the pow2 query-block buckets and the AOT executable cache
 # (XLA compile caching), warm_probe_kernels (nothing to compile here), and the
@@ -43,6 +48,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import device as _device
+from .. import profiling
 from ..ops.kmeans import lloyd_iterations, scalable_kmeans_pp_init
 from ..ops.knn import LEX_POS_SENTINEL
 from ..ops.knn_kernels import knn_fused_merge
@@ -209,18 +215,29 @@ def train_coarse_quantizer(
     return centers.cpu().numpy().astype(np.float32)
 
 
-def assign_nearest(items: np.ndarray, centroids: np.ndarray, device: Optional[torch.device] = None) -> np.ndarray:
+def assign_nearest(
+    items: np.ndarray,
+    centroids: np.ndarray,
+    device: Optional[torch.device] = None,
+    phase: str = "ann.assign",
+    counter: str = "ann.assign_blocks",
+) -> np.ndarray:
     """Nearest-centroid id (int64) of every row, through the nearest-center
-    kernel in row blocks of at most _ASSIGN_BYTES.  Shared by the list
-    assignment and the PQ subspace encoding."""
+    kernel in row blocks of at most _ASSIGN_BYTES, under the range `phase`
+    with the blocks counted in `counter`.  Shared by the list assignment,
+    the PQ subspace encoding and the live index's adds (ann/mutable.py)."""
     dev = device if device is not None else _device.resolve()
     items = np.asarray(items, dtype=np.float32)
     n, d = items.shape
-    c = torch.from_numpy(np.ascontiguousarray(centroids, np.float32)).to(dev)
     out = np.empty(n, np.int64)
-    for sl in chunk_iter(n, max(1, _ASSIGN_BYTES // (4 * max(d, 1)))):
-        x = torch.from_numpy(np.ascontiguousarray(items[sl])).to(dev)
-        out[sl] = min_dist_argmin(x, c)[1].cpu().numpy()
+    with record_function(phase):
+        c = torch.from_numpy(np.ascontiguousarray(centroids, np.float32)).to(dev)
+        blocks = 0
+        for sl in chunk_iter(n, max(1, _ASSIGN_BYTES // (4 * max(d, 1)))):
+            x = torch.from_numpy(np.ascontiguousarray(items[sl])).to(dev)
+            out[sl] = min_dist_argmin(x, c)[1].cpu().numpy()
+            blocks += 1
+    profiling.incr_counter(counter, blocks)
     return out
 
 
@@ -271,14 +288,19 @@ def item_norms(data: np.ndarray) -> np.ndarray:
     return np.einsum("nd,nd->n", data.astype(np.float64), data.astype(np.float64)).astype(np.float32)
 
 
-def padded_layout_geometry(n_lists: int, counts: np.ndarray):
-    """(nlist_pad, counts padded to it, L_pad) of a packed list layout;
-    raises when the int32 positions would overflow.  Shared by the flat and
-    PQ layouts."""
+def padded_layout_geometry(n_lists: int, counts: np.ndarray, l_pad: Optional[int] = None):
+    """(nlist_pad, counts padded to it, L_pad) of a packed list layout, L_pad
+    the pow2 bucket of the longest list unless given; raises when the given
+    L_pad cannot hold the longest list or the int32 positions would
+    overflow.  Shared by the flat and PQ layouts."""
     nlist_pad = -(-max(n_lists, 1) // _LIST_ALIGN) * _LIST_ALIGN
     padded = np.zeros(nlist_pad, np.int64)
     padded[: counts.shape[0]] = counts
-    l_pad = shape_bucket(int(max(padded.max(), 1)), lo=_MIN_LIST_SLOTS)
+    l_need = shape_bucket(int(max(padded.max(), 1)), lo=_MIN_LIST_SLOTS)
+    if l_pad is None:
+        l_pad = l_need
+    elif l_pad < int(padded.max()):
+        raise ValueError(f"l_pad={l_pad} cannot hold the longest list ({padded.max()} items needs {l_need} slots)")
     if nlist_pad * l_pad > int(_POS_SENTINEL):
         raise ValueError(
             f"IVF layout overflows int32 positions: {nlist_pad} lists x {l_pad} slots; raise nlist so lists shrink"
@@ -294,12 +316,12 @@ def padded_slots(counts: np.ndarray, l_pad: int) -> np.ndarray:
     return row_list * l_pad + (np.arange(int(offs[-1]), dtype=np.int64) - offs[row_list])
 
 
-def padded_host_layout(packed: PackedIVF):
-    """Expand a PackedIVF into the padded host layout: lists padded to the
-    pow2 slot bucket of the longest list, the list axis to a multiple of 8.
-    Returns (data (nlist_pad * l_pad, D), x_norm, ids_pad, counts int64,
-    cpad, c_norm, nlist_pad, l_pad)."""
-    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts)
+def padded_host_layout(packed: PackedIVF, l_pad: Optional[int] = None):
+    """Expand a PackedIVF into the padded host layout: lists padded to
+    `l_pad` slots (default the pow2 slot bucket of the longest list), the
+    list axis to a multiple of 8.  Returns (data (nlist_pad * l_pad, D),
+    x_norm, ids_pad, counts int64, cpad, c_norm, nlist_pad, l_pad)."""
+    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts, l_pad)
     d = packed.items.shape[1]
     flat = padded_slots(counts, l_pad)
     data = np.zeros((nlist_pad * l_pad, d), np.float32)
@@ -313,19 +335,84 @@ def padded_host_layout(packed: PackedIVF):
     return data, item_norms(data), ids_pad, counts, cpad, c_norm, nlist_pad, l_pad
 
 
+def stage_padded_layout(
+    data: np.ndarray,
+    x_norm: np.ndarray,
+    ids_pad: np.ndarray,
+    counts: np.ndarray,
+    cpad: np.ndarray,
+    c_norm: np.ndarray,
+    nlist_pad: int,
+    l_pad: int,
+    n_items: int,
+    n_lists: int,
+    device: torch.device,
+) -> IVFFlatIndex:
+    """Upload a padded host layout as an IVFFlatIndex (the staging half of
+    index_from_packed, and the live index's full restage): new device
+    tensors, never views of the host arrays."""
+    d = data.shape[1]
+    with record_function("ann.stage"):
+        return IVFFlatIndex(
+            list_data=torch.from_numpy(data).view(nlist_pad, l_pad, d).to(device, copy=True),
+            list_norm=torch.from_numpy(x_norm).view(nlist_pad, l_pad).to(device, copy=True),
+            counts=torch.from_numpy(counts.astype(np.int32)).to(device),
+            centroids=torch.from_numpy(cpad).to(device, copy=True),
+            c_norm=torch.from_numpy(c_norm).to(device, copy=True),
+            ids=ids_pad, n_items=n_items, n_lists=n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
+        )
+
+
+def _plane(a, shape: Tuple[int, ...]):
+    """A host plane in `shape`: a view of a numpy array or of a (pinned)
+    tensor."""
+    return a.view(shape) if isinstance(a, torch.Tensor) else a.reshape(shape)
+
+
+def tiered_stage_padded_layout(
+    data,
+    x_norm,
+    ids_pad: np.ndarray,
+    counts: np.ndarray,
+    cpad: np.ndarray,
+    c_norm: np.ndarray,
+    nlist_pad: int,
+    l_pad: int,
+    n_items: int,
+    n_lists: int,
+    device: torch.device,
+    hot_fraction: float,
+    pool_slots: Optional[int] = None,
+) -> TieredIVFFlatIndex:
+    """stage_padded_layout's tiered twin: only `hot_fraction` of the lists
+    pinned in a device pool, the rest paged in on probe.  The tier's host
+    planes are views of `data` / `x_norm` (numpy arrays, or pinned tensors
+    on a CUDA device), so an edit of those arrays reaches every later
+    page-in."""
+    from .tier import TieredListPlanes
+
+    d = data.shape[1]
+    with record_function("ann.stage"):
+        tier = TieredListPlanes(
+            planes=[_plane(data, (nlist_pad, l_pad, d)), _plane(x_norm, (nlist_pad, l_pad))],
+            sentinels=[None, np.inf], counts=counts, device=device, hot_fraction=hot_fraction,
+            pool_slots=pool_slots,
+        )
+        return TieredIVFFlatIndex(
+            tier=tier,
+            counts=torch.from_numpy(counts.astype(np.int32)).to(device),
+            centroids=torch.from_numpy(cpad).to(device, copy=True),
+            c_norm=torch.from_numpy(c_norm).to(device, copy=True),
+            ids=ids_pad, n_items=n_items, n_lists=n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
+            hot_fraction=hot_fraction,
+        )
+
+
 def index_from_packed(packed: PackedIVF, device: Optional[torch.device] = None) -> IVFFlatIndex:
     """Stage a PackedIVF on the device (user ids stay on the host)."""
     dev = device if device is not None else _device.resolve()
-    data, x_norm, ids_pad, counts, cpad, c_norm, nlist_pad, l_pad = padded_host_layout(packed)
-    d = data.shape[1]
-    return IVFFlatIndex(
-        list_data=torch.from_numpy(data).view(nlist_pad, l_pad, d).to(dev),
-        list_norm=torch.from_numpy(x_norm).view(nlist_pad, l_pad).to(dev),
-        counts=torch.from_numpy(counts.astype(np.int32)).to(dev),
-        centroids=torch.from_numpy(cpad).to(dev),
-        c_norm=torch.from_numpy(c_norm).to(dev),
-        ids=ids_pad, n_items=packed.n_items, n_lists=packed.n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
-    )
+    layout = padded_host_layout(packed)
+    return stage_padded_layout(*layout, packed.n_items, packed.n_lists, dev)
 
 
 def tiered_index_from_packed(
@@ -333,23 +420,9 @@ def tiered_index_from_packed(
 ) -> TieredIVFFlatIndex:
     """index_from_packed with only `hot_fraction` of the lists pinned on the
     device and the rest paged in from the host layout on probe."""
-    from .tier import TieredListPlanes
-
     dev = device if device is not None else _device.resolve()
-    data, x_norm, ids_pad, counts, cpad, c_norm, nlist_pad, l_pad = padded_host_layout(packed)
-    d = data.shape[1]
-    tier = TieredListPlanes(
-        planes=[data.reshape(nlist_pad, l_pad, d), x_norm.reshape(nlist_pad, l_pad)],
-        sentinels=[None, np.inf], counts=counts, device=dev, hot_fraction=hot_fraction, pool_slots=pool_slots,
-    )
-    return TieredIVFFlatIndex(
-        tier=tier,
-        counts=torch.from_numpy(counts.astype(np.int32)).to(dev),
-        centroids=torch.from_numpy(cpad).to(dev),
-        c_norm=torch.from_numpy(c_norm).to(dev),
-        ids=ids_pad, n_items=packed.n_items, n_lists=packed.n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
-        hot_fraction=hot_fraction,
-    )
+    layout = padded_host_layout(packed)
+    return tiered_stage_padded_layout(*layout, packed.n_items, packed.n_lists, dev, hot_fraction, pool_slots)
 
 
 # ---------------------------------------------------------------------------

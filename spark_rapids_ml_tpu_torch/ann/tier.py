@@ -27,9 +27,11 @@
 # stream after every search kernel already queued, so a kernel that reads
 # the slot's previous list runs before the slot is overwritten.  The host
 # planes are held in pinned memory on a CUDA device, so the copies are
-# asynchronous; they are never written after staging.  The slot map is
-# uploaded anew at each acquire().  Counters are plain integers on the
-# object (stats()).
+# asynchronous; planes given as pinned tensors are used as they are (the
+# live index, ann/mutable.py, passes its own host mirrors so that its edits
+# reach every later page-in, and refresh() re-pages the resident copies of
+# the lists it edits).  The slot map is uploaded anew at each acquire().
+# Counters are plain integers on the object (stats()).
 #
 
 from __future__ import annotations
@@ -85,15 +87,15 @@ class TieredListPlanes:
             raise ValueError(f"pool_slots ({pool_slots}) must be >= 1")
         # slot layout: [0] sentinel, [1 .. h] pinned hot, [1 + h ..] the LRU pool
         self.slots = 1 + self._hot_count + self.pool_slots
-        self._host = [torch.from_numpy(np.ascontiguousarray(p)) for p in planes]
+        self._host = [p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p)) for p in planes]
         if self.device.type == "cuda":
-            self._host = [h.pin_memory() for h in self._host]
+            self._host = [h if h.is_pinned() else h.pin_memory() for h in self._host]
         self._lock = threading.Lock()
         self._slot_of: Dict[int, int] = {}
         self._hot_ids: set = set()
         self._lru: OrderedDict = OrderedDict()  # pool slot -> list id
         self._free: List[int] = list(range(1 + self._hot_count, self.slots))[::-1]
-        self.hits = self.misses = self.evictions = self.page_bytes = 0
+        self.hits = self.misses = self.evictions = self.page_bytes = self.refreshes = 0
         self._stage_initial(sentinels)
 
     # -- staging -----------------------------------------------------------
@@ -137,6 +139,7 @@ class TieredListPlanes:
                 "misses": self.misses,
                 "evictions": self.evictions,
                 "page_bytes": self.page_bytes,
+                "refreshes": self.refreshes,
                 "device_bytes": self.device_bytes(),
                 "host_bytes": self.host_bytes(),
             }
@@ -191,6 +194,17 @@ class TieredListPlanes:
             if misses:
                 self._map_dev = torch.from_numpy(self._map.copy()).to(self.device)
             return tuple(self._planes), self._map_dev
+
+    def refresh(self, lists: Sequence[int]) -> None:
+        """Re-page the resident lists among `lists` from the (just edited)
+        host planes: a live delete's tombstones reach the resident copies at
+        once, and the other lists pick the edit up at their next page-in."""
+        with self._lock:
+            for g in sorted({int(g) for g in lists}):
+                slot = self._slot_of.get(g)
+                if slot is not None:
+                    self._write_planes(slot, g)
+                    self.refreshes += 1
 
     def _page_in_locked(self, g: int) -> None:
         self.misses += 1

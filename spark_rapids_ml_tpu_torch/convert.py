@@ -21,6 +21,7 @@ from .models.logistic_regression import LogisticRegressionModel
 from .models.pca import PCAModel
 from .models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
 from .models.umap import UMAPModel
+from .stream.state import KINDS, WIRE_SCHEMA, StreamState
 
 
 def kmeans_model_from_reference(attrs: Dict[str, Any]) -> KMeansModel:
@@ -117,6 +118,21 @@ def nearest_neighbors_model_from_reference(
         [{est.getOrDefault("featuresCol"): np.asarray(items), est.getIdCol(): np.asarray(ids, np.int64)}]
     )
     return est._model_for(item_df)
+
+
+def stream_state_from_reference(d: Dict[str, Any]) -> StreamState:
+    """The port's StreamState from a JAX streaming engine's state_dict()
+    (or any srml-stream/v1 wire dict): checked against the schema, the
+    kinds and the shapes each field declares.  A port engine's merge()
+    takes the result, so a stream begun by the JAX package goes on here."""
+    if d.get("schema") != WIRE_SCHEMA:
+        raise ValueError(f"unknown stream state schema {d.get('schema')!r}; expected {WIRE_SCHEMA}")
+    if d.get("kind") not in KINDS:
+        raise ValueError(f"unknown stream state kind {d.get('kind')!r}; one of {KINDS}")
+    for name, spec in d["arrays"].items():
+        if int(np.prod(spec["shape"], dtype=np.int64)) != len(spec["data"]):
+            raise ValueError(f"stream state field {name!r}: {len(spec['data'])} values for shape {spec['shape']}")
+    return StreamState.from_dict(d)
 
 
 _ANN_ATTRS = (

@@ -23,7 +23,8 @@
 # weights' fractions), so fold membership equals the JAX package's row for
 # row; it gathers each split's rows straight from the partitions' arrays,
 # a thread a partition (one copy of the rows, no pandas round trip), and
-# cuts them into as many partitions as the frame has.
+# cuts them into as many partitions as the frame has.  stream_chunk_ids
+# cuts the same permutation into the chunks of a streamed replay.
 #
 
 from __future__ import annotations
@@ -315,6 +316,21 @@ def _permutation_split(n: int, cuts: np.ndarray, seed: int) -> np.ndarray:
     for i, g in enumerate(np.split(perm, cuts)):
         split_id[g] = i
     return split_id
+
+
+def stream_chunk_ids(n: int, chunk_rows: int, seed: int = 0) -> np.ndarray:
+    """Per-row chunk of a streamed replay of an n-row dataset: row r belongs
+    to chunk stream_chunk_ids(...)[r], chunks 0 .. ceil(n / chunk_rows) - 1
+    of exactly chunk_rows rows but a short tail (exact integer cuts of the
+    seeded permutation random_split_ids rides, so a replay at the same
+    (n, chunk_rows, seed) has the same chunks).  The JAX package's
+    function, copied."""
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+    if n <= 0:
+        return np.zeros(0, dtype=np.int32)
+    cuts = np.arange(chunk_rows, n, chunk_rows, dtype=np.int64)
+    return _permutation_split(n, cuts, seed)
 
 
 def _host(v: Any) -> np.ndarray:

@@ -13,10 +13,14 @@
 # codebooks) with the port's k-means, whose draws differ from the JAX
 # package's, so a fresh fit gives other centroids there.
 #
-# Not carried over: the live-mutation tier (mutable_index /
-# freeze_mutations raise NotImplementedError; they come with the serving and
-# streaming slices), the serving hook _serving_entry, the warm hooks (XLA
-# ahead-of-time compiles), the pyspark executor paths, and the
+# mutable_index() stages the IVF-Flat payload as a live index
+# (ann/mutable.MutableIVFIndex: add / delete / repack); from then on
+# kneighbors searches the holder's snapshot, exactSearch is refused (it reads
+# the persisted payload, which mutations reach only at freeze), and
+# freeze_mutations() folds the live rows back into the payload.
+#
+# Not carried over: the serving hook _serving_entry (ROADMAP A13), the warm
+# hooks (XLA ahead-of-time compiles), the pyspark executor paths, and the
 # SRML_ANN_HOT_FRACTION environment default.
 #
 
@@ -62,7 +66,6 @@ _ALGO_PARAM_KEYS = {
         "refine_ratio", "opq", "hot_fraction",
     },
 }
-_NOT_PORTED = "comes with the serving and streaming slices of the port (ROADMAP A12/A13)"
 
 
 class ApproximateNearestNeighborsClass(_TpuParams):
@@ -319,6 +322,9 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         self._staged_index: Optional[Tuple[Any, Any]] = None
         self._staged_pq: Optional[Tuple[Any, Any]] = None
         self._staged_exact: Optional[Tuple[Any, Any]] = None
+        # the live-mutation holder, keyed like the staged index; once it
+        # exists it owns the flat index's staging
+        self._mutable: Optional[Tuple[Any, Any]] = None
 
     def _packed(self) -> PackedIVF:
         return PackedIVF(self.packed_items_, self.packed_ids_, self.list_counts_, self.centroids_, self.n_lists,
@@ -339,6 +345,13 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
     def _ensure_staged_index(self, dev):
         hf = self._resolved_hot_fraction()
         key = (str(dev), hf)
+        if self._mutable is not None:
+            if self._mutable[0] != key:
+                raise ValueError(
+                    "this model's index is live-mutable on another device or hot_fraction; freeze_mutations() "
+                    "before staging it elsewhere"
+                )
+            return self._mutable[1].index
         if self._staged_index is None or self._staged_index[0] != key:
             self._staged_index = None  # the old index leaves the device first
             if hf < 1.0:
@@ -363,19 +376,63 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
     def _ensure_staged_exact(self, dev):
         from ..ops.knn import prepare_items
 
+        if self._mutable is not None:
+            # the exact route stages the persisted payload, which mutations
+            # reach only at freeze: it would return deleted ids and miss
+            # the added ones
+            raise ValueError(
+                "exactSearch is unavailable while the index is live-mutable (the exact route reads the persisted "
+                "payload, which mutations update only at freeze_mutations()); freeze first"
+            )
         key = str(dev)
         if self._staged_exact is None or self._staged_exact[0] != key:
             self._staged_exact = None
             self._staged_exact = (key, prepare_items(self.packed_items_, self.packed_ids_, dev))
         return self._staged_exact[1]
 
-    def mutable_index(self, *args: Any, **kwargs: Any):
-        """Live add / delete / repack of a serving IVF-Flat index: not in
-        this port yet."""
-        raise NotImplementedError(f"mutable_index() {_NOT_PORTED}")
+    def mutable_index(self):
+        """The live-mutation holder of this model's IVF-Flat index
+        (ann/mutable.MutableIVFIndex), staged on the entry points' device at
+        the first call and returned after.  Once it exists, kneighbors
+        searches its snapshot, so add_items / delete_items / repack show at
+        once.  IVF-Flat only: PQ codes are not incrementally mutable."""
+        self._check_algorithm()
+        if self.getAlgorithm() == "ivfpq":
+            raise ValueError(
+                "live mutation is IVF-Flat-only; the PQ tier requires codebook-consistent codes (refit to mutate "
+                "an ivfpq model)"
+            )
+        from ..ann.mutable import MutableIVFIndex
 
-    def freeze_mutations(self):
-        raise NotImplementedError(f"freeze_mutations() {_NOT_PORTED}")
+        dev = _device.resolve()
+        hf = self._resolved_hot_fraction()
+        key = (str(dev), hf)
+        if self._mutable is None:
+            self._staged_index = None  # the holder owns the staging now
+            self._mutable = (key, MutableIVFIndex(self._packed(), dev, hot_fraction=hf))
+        elif self._mutable[0] != key:
+            raise ValueError(
+                "mutable index already staged on another device or hot_fraction; freeze_mutations() and create it "
+                "again to move it"
+            )
+        return self._mutable[1]
+
+    def freeze_mutations(self) -> "ApproximateNearestNeighborsModel":
+        """Fold the live holder's rows back into the persisted payload
+        (compacted) and drop the holder: save() and staging then behave as
+        for an index built over the mutated item set."""
+        if self._mutable is None:
+            return self
+        packed = self._mutable[1].to_packed()
+        for name, value in (("packed_items_", packed.items), ("packed_ids_", packed.ids),
+                            ("list_counts_", packed.counts), ("centroids_", packed.centroids),
+                            ("n_items", packed.n_items)):
+            setattr(self, name, value)
+            self._model_attributes[name] = value
+        self._mutable = None
+        self._staged_index = None
+        self._staged_exact = None
+        return self
 
     def kneighbors(self, query_df: Any) -> Tuple[Optional[DataFrame], DataFrame, DataFrame]:
         """Probed approximate k nearest items of every query row (float32
@@ -404,7 +461,7 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
             refine_ratio = self._resolved_pq_params(self.n_cols)[2]
         else:
             index = self._ensure_staged_index(dev)
-        k_eff = min(k, self.n_items)
+        k_eff = min(k, self.n_items if self._mutable is None else self._mutable[1].n_items)
         out_parts = []
         for part in qdf.partitions:
             if len(part) == 0:

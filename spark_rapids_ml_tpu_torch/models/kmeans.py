@@ -7,8 +7,12 @@
 # solver is ops/kmeans.py on one device; transform/predict run the
 # hand-written CUDA nearest-center kernel on the card.
 #
-# Not carried over yet: cpu() (pyspark.ml conversion), streaming(), and the
-# serving hooks _serving_entry / _lane_entry.
+# streaming() returns the partial_fit / merge / finalize engine
+# (stream/engines.StreamingKMeans: the first chunk's init and Lloyd, then
+# mini-batch updates of the running centers).
+#
+# Not carried over yet: cpu() (pyspark.ml conversion) and the serving hooks
+# _serving_entry / _lane_entry.
 #
 
 from __future__ import annotations
@@ -191,6 +195,13 @@ class KMeans(_KMeansParams, _TpuEstimator):
 
     def _create_model(self, result: Dict[str, Any]) -> "KMeansModel":
         return KMeansModel(**result)
+
+    def streaming(self, **kwargs: Any):
+        """The streaming engine over this estimator (partial_fit / merge /
+        finalize; stream/engines.StreamingKMeans)."""
+        from ..stream.engines import StreamingKMeans
+
+        return StreamingKMeans(self, **kwargs)
 
 
 class KMeansModel(_KMeansParams, _TpuModelWithPredictionCol):

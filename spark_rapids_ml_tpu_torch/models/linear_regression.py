@@ -20,9 +20,11 @@
 # _combine stacks models and _transformEvaluate scores them all in one pass
 # over each partition (RegressionEvaluator).
 #
-# Not carried over yet: streaming() (ROADMAP A12), the serving hooks
-# _serving_entry / _lane_entry (A13) and cpu() (A14c); each raises
-# NotImplementedError.
+# streaming() returns the partial_fit / merge / finalize engine
+# (stream/engines.StreamingLinearRegression).
+#
+# Not carried over yet: the serving hooks _serving_entry / _lane_entry
+# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -388,8 +390,12 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
             get_logger(type(self)).info("sweep CD sweeps (fold x candidate): %s", sweeps[:, : len(cd)].tolist())
         return results
 
-    def streaming(self):
-        raise NotImplementedError("LinearRegression.streaming() " + _NOT_PORTED.format("A12"))
+    def streaming(self, **kwargs: Any):
+        """The streaming engine over this estimator (partial_fit / merge /
+        finalize; stream/engines.StreamingLinearRegression)."""
+        from ..stream.engines import StreamingLinearRegression
+
+        return StreamingLinearRegression(self, **kwargs)
 
 
 class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationMixIn, _TpuModelWithPredictionCol):

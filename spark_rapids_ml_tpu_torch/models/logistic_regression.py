@@ -22,9 +22,11 @@
 # models and _transformEvaluate scores them in one pass over each partition
 # (MulticlassClassificationEvaluator only, as in the JAX package).
 #
-# Not carried over yet: streaming() (ROADMAP A12), the serving hooks
-# _serving_entry / _lane_entry (A13) and cpu() (A14c); each raises
-# NotImplementedError.
+# streaming(classes=None) returns the partial_fit / merge / finalize
+# engine (stream/engines.StreamingLogisticRegression).
+#
+# Not carried over yet: the serving hooks _serving_entry / _lane_entry
+# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -389,8 +391,14 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
                         }
         return results
 
-    def streaming(self, classes: Any = None):
-        raise NotImplementedError("LogisticRegression.streaming() " + _NOT_PORTED.format("A12"))
+    def streaming(self, classes: Any = None, **kwargs: Any):
+        """The streaming engine over this estimator (partial_fit / merge /
+        finalize; stream/engines.StreamingLogisticRegression); `classes`
+        declares the label set up front, else the first chunk's labels are
+        the set."""
+        from ..stream.engines import StreamingLogisticRegression
+
+        return StreamingLogisticRegression(self, classes=classes, **kwargs)
 
 
 class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEvaluationMixIn, _TpuModelWithPredictionCol):

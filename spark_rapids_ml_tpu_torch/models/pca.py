@@ -8,11 +8,11 @@
 # Spark's transform semantics (no mean removal at transform time; whiten
 # scales each component by 1 / sqrt(its variance)).  The fit is
 # ops/linalg.pca_fit on one device: chunked moments, covariance in the
-# compute dtype, a float64 eigh on the card.
+# compute dtype, a float64 eigh on the card.  streaming() returns the
+# partial_fit / merge / finalize engine (stream/engines.StreamingPCA).
 #
-# Not carried over yet: streaming() (ROADMAP A12), the serving hooks
-# _serving_entry / _lane_entry (A13) and cpu() (A14c); each raises
-# NotImplementedError.
+# Not carried over yet: the serving hooks _serving_entry / _lane_entry
+# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -112,8 +112,12 @@ class PCA(_PCAParams, _TpuEstimator):
     def _create_model(self, result: Dict[str, Any]) -> "PCAModel":
         return PCAModel(**result)
 
-    def streaming(self):
-        raise NotImplementedError("PCA.streaming() " + _NOT_PORTED.format("A12"))
+    def streaming(self, **kwargs: Any):
+        """The streaming engine over this estimator (partial_fit / merge /
+        finalize; stream/engines.StreamingPCA)."""
+        from ..stream.engines import StreamingPCA
+
+        return StreamingPCA(self, **kwargs)
 
 
 class PCAModel(_PCAParams, _TpuModel):

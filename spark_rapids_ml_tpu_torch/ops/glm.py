@@ -36,8 +36,10 @@
 # (a batched LU's low bits drift from the single solve's).  On
 # integer-valued data every sum is exact, so a lane's coefficients equal
 # the sequential fit's on its fold bit for bit.
-# Not carried over yet: the stream_* kernels (ROADMAP A12) and the multi_ /
-# lane_ predict kernels (A13).
+# stream_linreg_chunk_kernel is one streamed chunk's unreduced statistics
+# (stream/engines.py folds them in float64 and solves them here at
+# finalize).  Not carried over yet: the multi_ / lane_ predict kernels
+# (A13).
 #
 
 from __future__ import annotations
@@ -69,6 +71,16 @@ def linreg_sufficient_stats(
     """One pass over (X, y, w) in `chunk`-row blocks."""
     wsum, xwsum, G, ywsum, c, y2 = _local_moments(X, w, chunk, y=y)
     return LinregStats(wsum, xwsum / wsum, ywsum / wsum, G, c, y2)
+
+
+def stream_linreg_chunk_kernel(
+    X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, chunk: int = MOMENT_CHUNK
+) -> Tuple[torch.Tensor, ...]:
+    """One streamed chunk's unreduced sufficient statistics (wsum, xwsum,
+    X'Wx, sum w y, X'Wy, sum w y^2): raw sums, not means, so chunk partials
+    fold by addition and the means are derived once at finalize.  Pad rows
+    carry weight 0."""
+    return _local_moments(X, w, chunk, y=y)
 
 
 def _centered_system(stats: LinregStats, fit_intercept: bool) -> Tuple[torch.Tensor, torch.Tensor]:

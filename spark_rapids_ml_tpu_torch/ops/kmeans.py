@@ -15,7 +15,9 @@
 #     `seed`, on the CPU so a seed gives the same draws on every device.  They
 #     do not reproduce the JAX package's threefry draws.
 # transform/predict go through ops/nearest_center.min_dist_argmin, the CUDA
-# kernel on the card.
+# kernel on the card.  stream_kmeans_chunk_kernel is the streaming engine's
+# chunk update (stream/engines.py), in plain torch ops as the JAX package's
+# is plain XLA.
 #
 
 from __future__ import annotations
@@ -198,6 +200,24 @@ def random_init(
     """init="random": k distinct weighted-random data rows."""
     keys = _log_or_neg_inf(w, w > 0) + _gumbel(X.shape[0], generator, X)
     return X[torch.topk(keys, k).indices]
+
+
+def stream_kmeans_chunk_kernel(
+    X: torch.Tensor, w: torch.Tensor, centers: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One streamed chunk's mini-batch Lloyd statistics against the running
+    centers: (per-center weighted sums (k, D), counts (k,), the chunk's
+    cost in the exact difference form).  The JAX package's XLA formula:
+    expanded-form distances, first-index argmin, the one-hot product for
+    the sums (never index_add_, whose float atomics on the card add in no
+    fixed order).  Pad rows carry weight 0."""
+    x_norm = (X * X).sum(dim=1)
+    c_norm = (centers * centers).sum(dim=1)
+    d2 = x_norm[:, None] - 2.0 * (X @ centers.T) + c_norm[None, :]
+    assign = torch.argmin(d2, dim=1)
+    onehot = torch.zeros_like(d2).scatter_(1, assign[:, None], w[:, None].to(d2.dtype))
+    diff = X - centers[assign]
+    return onehot.T @ X, onehot.sum(dim=0), ((diff * diff).sum(dim=1) * w).sum()
 
 
 def kmeans_predict_kernel(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

@@ -19,15 +19,22 @@
 #     CPU and its subspace iteration on the TPU do not come over:
 #     pca_fit_subspace_kernel exists only because of the TPU eigh's compile
 #     time.
+# Streaming (srml-stream, stream/engines.py): stream_moments_chunk_kernel is
+# _local_moments over one staged chunk (pad rows carry weight 0), and
+# pca_finalize_moments derives the model from the accumulated moments with
+# the batch fit's own _pca_from_moments on the device the entry points
+# resolve.  The JAX package's host-eigh branch (HOST_EIGH_MIN_D, its native
+# eigh on CPU backends) has no counterpart: the port's one route is the
+# float64 eigh above, cuSOLVER on the card.
 # Not carried over yet: the mesh forms (_sharded_moments, shard_map; ROADMAP
-# A14b), stream_moments_chunk_kernel (A12), lane_pca_transform_kernel and
-# exact_gather_matmul (A13).
+# A14b), lane_pca_transform_kernel and exact_gather_matmul (A13).
 #
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import chunk_iter
@@ -147,3 +154,23 @@ def pca_transform_kernel(X: torch.Tensor, components: torch.Tensor) -> torch.Ten
     """Spark's projection X @ PC^T, without mean removal (Spark does not
     centre at transform time)."""
     return exact_matmul(X, components.T)
+
+
+def stream_moments_chunk_kernel(
+    X: torch.Tensor, w: torch.Tensor, chunk: int = MOMENT_CHUNK
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One streamed chunk's weighted moments (wsum, xwsum, scatter): the
+    streaming PCA update.  Pad rows carry weight 0."""
+    return _local_moments(X, w, chunk)
+
+
+def pca_finalize_moments(
+    wsum: np.ndarray, xwsum: np.ndarray, scatter: np.ndarray, k: int, device: torch.device
+) -> Tuple[np.ndarray, ...]:
+    """The streaming PCA finalize: accumulated (wsum, xwsum, scatter), host
+    arrays in the fit's compute dtype, through pca_from_moments_kernel on
+    `device`.  Returns float64 numpy arrays in pca_fit's order."""
+    out = pca_from_moments_kernel(
+        *(torch.from_numpy(np.array(a)).to(device) for a in (wsum, xwsum, scatter)), k
+    )
+    return tuple(t.cpu().numpy() for t in out)

@@ -21,8 +21,9 @@
 # two plain products, X (N, D) times the lanes' (D, k m kcls) block and the
 # residual block's transpose times X, read once each (torch.matmul with
 # TF32 off: the JAX package leaves them to XLA).
-# Not carried over yet: the streaming kernel (ROADMAP A12) and
-# lane_logistic_predict_kernel (A13).
+# logistic_warm_fit_kernel is the streaming engine's chunk update: the same
+# objective from the running coefficients instead of zeros.  Not carried
+# over yet: lane_logistic_predict_kernel (A13).
 #
 
 from __future__ import annotations
@@ -126,6 +127,30 @@ def logistic_fit_kernel(
     d = X.shape[1]
     n_params = k * d + (k if fit_intercept else 0)
     theta0 = torch.zeros(n_params, dtype=X.dtype, device=X.device)
+    return _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn)
+
+
+def logistic_warm_fit_kernel(
+    X: Features,
+    y_enc: torch.Tensor,
+    w: torch.Tensor,
+    W0: torch.Tensor,
+    b0: torch.Tensor,
+    reg: float,
+    l1_ratio: float,
+    tol: float,
+    k: int,
+    fit_intercept: bool,
+    max_iter: int,
+    use_owlqn: bool,
+):
+    """logistic_fit_kernel warm-started from (W0 (k, D), b0 (k,)): the
+    streaming partial_fit update, each chunk resuming the solve from the
+    running coefficients.  Same objective and fixed point as the batch
+    kernel.  Returns (W, b, n_iter, converged, n_evals)."""
+    theta0 = W0.reshape(-1).to(X.dtype)
+    if fit_intercept:
+        theta0 = torch.cat([theta0, b0.to(X.dtype)])
     return _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn)
 
 

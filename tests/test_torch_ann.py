@@ -468,7 +468,8 @@ def test_model_surface_partitions_ids_and_unported_hooks():
     with pytest.warns(UserWarning, match="usePrecomputedTables"):
         port.ApproximateNearestNeighbors(algorithm="ivfpq", algoParams={"nlist": 4, "usePrecomputedTables": True}
                                          ).fit(port.DataFrame.from_numpy(X))
-    for hook in (model.mutable_index, model.freeze_mutations):
-        with pytest.raises(NotImplementedError, match="serving"):
-            hook()
+    # the live-mutation hooks (ROADMAP A12) work now
+    # (tests/test_torch_mutable_index.py): a holder, then frozen back
+    holder = model.mutable_index()
+    assert holder.n_items == 300 and model.freeze_mutations() is model and model.n_items == 300
     assert model.index_bytes_per_item() > 0
