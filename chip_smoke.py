@@ -279,6 +279,32 @@
 #            on the card tiered (hot_fraction 0.5, pinned host mirrors):
 #            to_packed() equal, search ids and distances bit for bit
 #            (`chip_smoke.py --phases path_stream,stream_card_vs_cpu`)
+#   path_serve
+#            the online layer (spark_rapids_ml_tpu_torch.serving) over the
+#            models the path phases fit, each served right after its path
+#            while its rows exist: KMeans (path), the RF classifier
+#            (path_rf_clf), OLS and binary logistic (path_linreg,
+#            path_logreg), PCA (path_pca), exact kNN (path_knn), IVF-Flat
+#            and 8-bit IVF-PQ (path_ann, path_ann_pq).  One ModelServer a
+#            model at max_batch 256, max_wait_ms 5, min_bucket 16; 4 client
+#            threads send requests of 1-64 rows of the path's rows (2,000 a
+#            model, 500 kNN and IVF-Flat, 200 IVF-PQ).  Gates: on 1,024 rows
+#            served == the batch call (KMeans labels off near-ties, forest
+#            outputs equal, GLM / PCA rtol = atol = 1e-5, kNN ids off
+#            near-ties and distances rtol 1e-5, ANN ids off ties);
+#            assert_steady_state() (zero warm-ups after the warm-up) on
+#            every server; a 2-replica Router of the KMeans model on the one
+#            card swapped under traffic to its centers reversed with zero
+#            failed requests and every later answer the new model's; one
+#            worker death injected through the port's faults site,
+#            recovered; path_stream's live IVF-Flat index refreshed into
+#            that Router through a StreamingSession, an add after the
+#            refresh found by a served search (then deleted again).
+#            Records rows/s, latency percentiles, the mean batch, dispatch
+#            ms by bucket, B1 / B5 / B7 / B9 launches, B1 and B5 / B7 at the
+#            serving buckets (CUDA events), the KMeans traffic's device idle
+#            share, the recovered worker's first dispatches.  Needs path;
+#            serves only the models of the path phases that run with it.
 # The fit-input cache is emptied before each timed fit and ingest, so the
 # phases time cold fits.
 # Every path runs with all kernel launch counters reset just before it and
@@ -288,8 +314,8 @@
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; the ANN, PCA, GLM, model-selection, UMAP and streaming
-# phases need nothing else).
+# path_knn_mesh; path_serve needs path; the ANN, PCA, GLM, model-selection,
+# UMAP and streaming phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -302,6 +328,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -486,7 +513,7 @@ def blobs(rows, cols, k, seed, workers=8, labels=False):
     return (X, assign) if labels else X
 
 
-def run_path(torch, port, nc, wrappers, X, gen_s):
+def run_path(torch, port, nc, wrappers, X, gen_s, keep=None):
     """The flagship configuration through the public API on the rows X (made
     in gen_s seconds).  Returns the path's record; raises on any failed
     check."""
@@ -540,6 +567,8 @@ def run_path(torch, port, nc, wrappers, X, gen_s):
         del Xp
     check(mismatches == tie_mismatches,
           f"{mismatches - tie_mismatches} labels differ from the plain version off near-ties")
+    if keep is not None:
+        keep["path"] = model
     return {
         "phase": "path",
         "rows": ROWS, "cols": COLS, "k": K, "max_iter": MAX_ITER,
@@ -998,7 +1027,7 @@ def hist_library_ms(torch, fh, dev, bins, node, stats, t_pack, nodes, s_dim, n_b
     return statistics.median(lib_ms)
 
 
-def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
+def run_rf_path(torch, port, wrappers, phase, est, X, y, classification, keep=None):
     """One RandomForest flagship configuration through the public API on
     the first RF_ROWS rows; held-out quality on the rest."""
     df = port.DataFrame.from_numpy(X[:RF_ROWS], y[:RF_ROWS], num_partitions=RF_PARTITIONS)
@@ -1057,6 +1086,8 @@ def run_rf_path(torch, port, wrappers, phase, est, X, y, classification):
         r2 = float(1.0 - ((hold_pred - y_hold) ** 2).mean() / y_hold.var())
         check(r2 > 0.0, f"held-out R^2 {r2} <= 0")
         rec["holdout_r2"] = r2
+    if keep is not None:
+        keep[phase] = model
     return {
         "phase": phase, "rows": RF_ROWS, "cols": X.shape[1], "holdout_rows": len(y_hold),
         "params": {k.name: v for k, v in est.extractParamMap().items() if k.name in RF_CLF},
@@ -2506,7 +2537,7 @@ def ann_merge_check(torch, ivf, pq_mod, knn_ops, kk, index, Q, k, pq, dev):
     return {"queries": 64, "pool": vals.shape[1] * vals.shape[2], "k": k, "mismatches": bad}
 
 
-def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, dev):
+def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, dev, keep=None):
     """One ANN arm through the public API: fit, kneighbors twice (staging,
     then the cached call) and one profiled call with the launch counters
     read around them; then recall@10 / @200 against exactSearch, save ->
@@ -2585,6 +2616,8 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
               "the tiered search differs from the resident one")
         check(rec["tier"]["misses"] > 0 and rec["tier"]["page_bytes"] > 0, f"the tier paged nothing: {rec['tier']}")
         rec["tiered_identical"] = True
+    if keep is not None:
+        keep[phase] = model
     return {
         "phase": phase, "items": ANN_ITEMS, "cols": ANN_COLS, "queries": ANN_QUERIES, "k": ANN_K,
         "algorithm": algorithm, "algo_params": params, "rows_cut": False,
@@ -2792,7 +2825,7 @@ def pca_reference(torch, X, dev, k):
             torch.sqrt(top * (n - 1.0)).cpu().numpy())
 
 
-def run_pca_path(torch, port, wrappers, dev, X, gen_s):
+def run_pca_path(torch, port, wrappers, dev, X, gen_s, keep=None):
     """Phase path_pca: PCA(k=3) on the low-rank rows X (made in gen_s
     seconds) through the public API, fit -> transform -> save -> load ->
     transform, against the float64 covariance and eigh of the same rows;
@@ -2830,6 +2863,8 @@ def run_pca_path(torch, port, wrappers, dev, X, gen_s):
     _, eigh_s = synced(torch, lambda: linalg.eigh_descending(cov))
     profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "pca.fit"), wrappers)
     del df, cov, scatter
+    if keep is not None:
+        keep["path_pca"] = model
     return {
         "phase": "path_pca", "rows": GLM_ROWS, "cols": GLM_COLS, "k": PCA_K, "rank": PCA_RANK,
         "partitions": GLM_PARTITIONS, "data_gen_s": gen_s,
@@ -2875,7 +2910,7 @@ def cd_sweep_times(torch, glm, stats, params, dev):
             "graph_warmup_and_capture_ms": 1e3 * capture_s, "coordinates": int(system[0].shape[0])}
 
 
-def run_linreg_path(torch, port, wrappers, X, y, dev):
+def run_linreg_path(torch, port, wrappers, X, y, dev, keep=None):
     """Phase path_linreg: OLS, ridge and elastic net from one frame through
     the public API, each fit -> transform -> save -> load -> transform with
     held-out R^2; OLS and ridge against a float64 solve of the float64
@@ -2941,6 +2976,8 @@ def run_linreg_path(torch, port, wrappers, X, y, dev):
                 int(tp["max_iter"]), float(tp["tol"])))
             rec["cd_sweep"] = cd_sweep_times(torch, glm, stats32, tp, dev)
         fits[name] = rec
+        if keep is not None and name == "ols":
+            keep["path_linreg"] = model
     profile = profile_run(torch, lambda: cold(lambda: port.LinearRegression(**LINREG_FITS["ridge"]).fit(df)),
                           ("core.ingest", "glm.stats", "glm.solve"), wrappers)
     del df, hold, stats64, stats64_port, G64
@@ -2955,7 +2992,7 @@ def run_linreg_path(torch, port, wrappers, X, y, dev):
     }
 
 
-def run_logreg_path(torch, port, wrappers, X, y, dev):
+def run_logreg_path(torch, port, wrappers, X, y, dev, keep=None):
     """Phase path_logreg: binary LogisticRegression(regParam=1e-5,
     maxIter=200) on y > 0 through the public API: fit -> transform -> save ->
     load -> transform, held-out accuracy, the L-BFGS counts, one dense
@@ -2985,6 +3022,8 @@ def run_logreg_path(torch, port, wrappers, X, y, dev):
     eval_bound_ms = 1e3 * 2 * GLM_ROWS * GLM_COLS * 4 / PEAK_BYTES_PER_S  # X read twice
     profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "lbfgs.fit"), wrappers)
     del df, hold
+    if keep is not None:
+        keep["path_logreg"] = model
     return {
         "phase": "path_logreg", "rows": GLM_ROWS, "cols": GLM_COLS, "holdout_rows": GLM_HOLDOUT,
         "params": LOGREG, "fit_s": fit_s, "transform_s": transform_s,
@@ -3996,6 +4035,7 @@ STREAM_EVAL_ROWS, STREAM_EVAL_POINTS, STREAM_EVAL_SEED = 65536, (0.0, 1 / 3, 2 /
 # the live index on the ANN cell: 10 adds of 10,000 rows from the same
 # blobs, 50,000 deletes, one add that overflows L_pad (a repack)
 LIVE_ADDS, LIVE_ADD_ROWS, LIVE_DELETES, LIVE_SEED = 10, 10_000, 50_000, 43
+LIVE_SERVE_ADDS = 64  # path_serve: rows added through the streaming session after its refresh
 # stream_card_vs_cpu: 65,536 x 256 integer rows, each engine on the card
 # and under use_device("cpu"); the live index at nlist 256, nprobe 16
 SCVC_ROWS, SCVC_COLS, SCVC_CHUNK, SCVC_SEED, SCVC_K = 65536, 256, 8192, 91, 16
@@ -4183,7 +4223,7 @@ def stream_logreg_part(torch, port, wrappers, X, y):
     return rec
 
 
-def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X, Q):
+def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X, Q, serve=None):
     """The live index on the ANN cell (items X, queries Q): fit,
     mutable_index(), kneighbors of the 16,384 queries, 10 adds of 10,000
     rows (B1 once each), 50,000 deletes (checked on 2,048 queries: no
@@ -4255,6 +4295,14 @@ def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X,
     check(int(off.sum()) == 0, f"B1 at the add's shape: {int(off.sum())} rows off near-ties")
     rec["b1_add_shape"] = {"n": LIVE_ADD_ROWS, "d": ANN_COLS, "k": int(cent.shape[0]),
                            "max_abs_err": float((m - best).abs().max())}
+    if serve is not None:
+        # path_serve: the live model refreshed into the router, one add
+        # through the session, the added rows deleted again before freezing
+        noise = np.random.default_rng(LIVE_SEED + 1).standard_normal((LIVE_SERVE_ADDS, ANN_COLS))
+        fresh = (adds[:LIVE_SERVE_ADDS] + 0.01 * noise).astype(np.float32)
+        fresh_ids = burst_ids[-1] + 1 + np.arange(LIVE_SERVE_ADDS)
+        serve.live_refresh(model, holder, fresh, fresh_ids)
+        check(holder.delete_items(fresh_ids) == LIVE_SERVE_ADDS, "the served adds were not deleted again")
     model.freeze_mutations()
     model.setExactSearch(True)
     i_ex, _ = ann_rows(model, check_df)
@@ -4410,6 +4458,430 @@ def ivf_geometry_l_pad(packed):
     return padded_layout_geometry(packed.n_lists, packed.counts)[2]
 
 
+# ---------------------------------------------------------------------------
+# Serving: path_serve, the models of the path phases behind the online layer
+# ---------------------------------------------------------------------------
+
+# One ModelServer a model at the JAX package's serving defaults (max_batch
+# 256, max_wait_ms 5, min_bucket 16); 4 client threads, each keeping up to
+# SERVE_WINDOW requests outstanding, send requests of 1-64 rows (uniform)
+# drawn from the path's own rows.
+SERVE_OPTS = dict(max_batch=256, max_wait_ms=5.0)
+SERVE_CLIENTS, SERVE_WINDOW, SERVE_SEED = 4, 8, 16
+SERVE_REQUESTS = {"kmeans": 2000, "rf_clf": 2000, "linreg": 2000, "logreg": 2000, "pca": 2000,
+                  "knn": 500, "ivfflat": 500, "ivfpq": 200}
+SERVE_CHECK_ROWS = 1024      # served against the batch call on these rows
+SERVE_RTOL = SERVE_ATOL = 1e-5  # GLM and PCA outputs (tests/test_serving.py:447-462)
+SERVE_PROFILE_REQUESTS = 200
+SERVE_ROUTER_REPLICAS = 2
+SERVE_BUDGET_S = 60.0  # the phase's share of the script's time limit (recorded, not a gate)
+# the kernels whose served launches the phase counts
+SERVE_KERNELS = ("min_dist_argmin", "knn_candidates", "knn_fused_merge", "lut_accumulate_probed")
+SERVE_ANN_ARMS = {"path_ann": "ivfflat", "path_ann_pq": "ivfpq"}  # the 4-bit arm is not served (time)
+
+
+def serve_traffic(srv, X, n_requests, seed, submit=None):
+    """SERVE_CLIENTS client threads send n_requests requests of 1-64 rows of
+    X through `submit` (default srv.submit), each with up to SERVE_WINDOW
+    outstanding: (rows sent, seconds until every answer is in)."""
+    submit = submit or srv.submit
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 65, n_requests)
+    starts = rng.integers(0, len(X) - 64, n_requests)
+
+    def client(c):
+        window = []
+        for i in range(c, n_requests, SERVE_CLIENTS):
+            window.append(submit(X[starts[i] : starts[i] + sizes[i]]))
+            if len(window) >= SERVE_WINDOW:
+                window.pop(0).result(timeout=600)
+        for fut in window:
+            fut.result(timeout=600)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        for fut in [pool.submit(client, c) for c in range(SERVE_CLIENTS)]:
+            fut.result()
+    return int(sizes.sum()), time.perf_counter() - t0
+
+
+def served_rows(srv, X):
+    """The outputs of serving X in requests of 64 rows, concatenated."""
+    futs = [srv.submit(X[i : i + 64]) for i in range(0, len(X), 64)]
+    outs = [f.result(timeout=600) for f in futs]
+    return {c: np.concatenate([o[c] for o in outs]) for c in outs[0]}
+
+
+def same_up_to_ties(d_a, i_a, d_b, i_b, rtol):
+    """Rows whose neighbour ids differ other than by ties: the distances
+    must agree within rtol, and the ids strictly inside a row's k-th
+    distance (by more than rtol) must be the same sets."""
+    check(np.allclose(d_a, d_b, rtol=rtol, atol=0.0), "served distances differ from the batch call's")
+    bad = 0
+    for r in np.flatnonzero((i_a != i_b).any(axis=1)):
+        edge = d_b[r, -1] * (1.0 - rtol)
+        bad += set(i_a[r][d_a[r] < edge].tolist()) != set(i_b[r][d_b[r] < edge].tolist())
+    return int((i_a != i_b).any(axis=1).sum()), bad
+
+
+def serve_timed(method):
+    """A ServePlane part whose whole time (its gates, traffic, kernel
+    timings and extra checks) counts to the phase's seconds."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+    return run
+
+
+class ServePlane:
+    """Phase path_serve: each path's model behind one ModelServer, served
+    right after its path while the path's rows exist; the KMeans model also
+    behind a 2-replica Router (a rolling swap to other centers under
+    traffic, and the live index of path_stream refreshed into it) and
+    through one injected worker death."""
+
+    def __init__(self, torch, port, nc, kk, knn_ops, wrappers, dev):
+        self.torch, self.port, self.nc, self.wrappers, self.dev = torch, port, nc, wrappers, dev
+        self.kk, self.knn_ops = kk, knn_ops
+        self.parts = {}
+        self.router = None
+        self.seconds = 0.0
+
+    # -- one model ---------------------------------------------------------------
+    def serve(self, key, model, X, check_rows):
+        """Serve `model` (check_rows(served, rows) holds the served outputs on
+        SERVE_CHECK_ROWS rows against the batch call), then its traffic with
+        every launch counter reset just before and read just after."""
+        torch, port = self.torch, self.port
+        S = port.serving
+        name = f"serve_{key}"
+        t_part = time.perf_counter()
+        t0 = time.perf_counter()
+        srv = S.ModelServer(name, model, **SERVE_OPTS)
+        warm_s = time.perf_counter() - t0
+        try:
+            rec = {"requests": SERVE_REQUESTS[key], "buckets": srv.buckets, "warm_s": warm_s,
+                   "warm_dispatch_ms": [1e3 * s for s in port.profiling.durations(
+                       f"serve.{name}.warm_dispatch")[f"serve.{name}.warm_dispatch"]]}
+            rec["check"] = check_rows(served_rows(srv, X[:SERVE_CHECK_ROWS]), X[:SERVE_CHECK_ROWS])
+            port.profiling.reset_durations(f"serve.{name}.")
+            before = port.profiling.counters(f"serving.{name}.")
+            torch.cuda.synchronize()
+            reset_launches(self.wrappers)
+            rows, seconds = serve_traffic(srv, X, SERVE_REQUESTS[key], SERVE_SEED)
+            launches = read_launches(self.wrappers)
+            moved = port.profiling.counter_deltas(before, f"serving.{name}.")
+            stats = srv.stats()
+            srv.drain()
+            srv.assert_steady_state()
+        finally:
+            srv.shutdown(drain=False)
+        batches = moved.get(f"serving.{name}.batches", 0)
+        lat = stats["latency"]
+        rec.update({
+            "rows": rows, "seconds": seconds, "rows_per_s": rows / seconds,
+            "latency_ms": {q: 1e3 * lat[q] for q in ("p50", "p95", "p99", "max")},
+            "batches": batches, "mean_batch_rows": rows / max(batches, 1),
+            "mean_requests_per_batch": stats["batch_occupancy"].get("mean"),
+            "dispatch_ms_by_bucket": {b: {"p50": 1e3 * d["p50"], "count": d["count"]}
+                                      for b, d in stats["dispatch_by_bucket"].items() if d},
+            "launches": {k: launches[k] for k in SERVE_KERNELS},
+            "steady_compiles": stats["steady_compiles"], "counters": moved,
+        })
+        check(moved.get(f"serving.{name}.requests", 0) == SERVE_REQUESTS[key], f"{name}: requests {moved}")
+        check(not moved.get(f"serving.{name}.errors"), f"{name}: dispatch errors {moved}")
+        rec["part_s"] = time.perf_counter() - t_part
+        self.parts[key] = rec
+        return rec
+
+    # -- per-model gates -----------------------------------------------------------
+    @serve_timed
+    def kmeans(self, model, X):
+        torch, nc = self.torch, self.nc
+        C = torch.from_numpy(np.ascontiguousarray(model.cluster_centers_, np.float32)).to(self.dev)
+
+        def check_rows(served, rows):
+            want = model.transform(self.port.DataFrame.from_numpy(rows)).partitions[0]["prediction"]
+            Xc = torch.from_numpy(rows).to(self.dev)
+            best, parg, second = plain_top2(torch, Xc, C, nc.squared_norms(Xc), (C * C).sum(dim=1))
+            ties = near_ties(best, second).cpu().numpy()
+            off = (served["prediction"] != want) & ~ties
+            check(not off.any(), f"served KMeans labels differ from transform at {int(off.sum())} rows off near-ties")
+            return {"rows": len(rows), "differ": int((served["prediction"] != want).sum()), "near_ties": int(ties.sum())}
+
+        rec = self.serve("kmeans", model, X, check_rows)
+        check(rec["launches"]["min_dist_argmin"] > 0, "served KMeans batches launched min_dist_argmin no time")
+        # B1 at each serving bucket (CUDA events; not counted launches)
+        rec["min_dist_argmin_ms_by_bucket"] = {
+            b: median_ms(torch, lambda Xb=torch.from_numpy(X[:b]).to(self.dev): nc.min_dist_argmin(Xb, C), 20)
+            for b in rec["buckets"]}
+        rec["profile"] = self.kmeans_profile(model, X)
+        rec["worker_death"] = self.worker_death(model, X)
+        self.router_part(model, X)
+        return rec
+
+    def kmeans_profile(self, model, X):
+        """device_idle_share of SERVE_PROFILE_REQUESTS served KMeans requests
+        under torch.profiler (one more server, warmed before the trace)."""
+        srv = self.port.serving.ModelServer("serve_kmeans_prof", model, **SERVE_OPTS)
+        try:
+            prof = profile_once(self.torch, lambda: serve_traffic(srv, X, SERVE_PROFILE_REQUESTS, SERVE_SEED + 1),
+                                ("serve.serve_kmeans_prof.dispatch",))
+        finally:
+            srv.shutdown(drain=False)
+        return {k: prof[k] for k in ("profiled_ms", "device_busy_ms", "device_copy_ms", "device_idle_share",
+                                     "top_device_ms", "port_kernel_ms", "port_launches")}
+
+    def worker_death(self, model, X):
+        """One injected worker death (the port's serving.dispatch fault site):
+        the request it took fails with the retryable ServerRecovering, the
+        supervisor re-warms a new worker, and the next requests succeed; the
+        recovered worker's first (warm) dispatch and first request timed."""
+        port = self.port
+        S, faults = port.serving, port.parallel.faults
+        name = "serve_kmeans_death"
+        srv = S.ModelServer(name, model, **SERVE_OPTS)
+        try:
+            srv.predict(X[:8])
+            os.environ[faults.FAULTS_ENV] = f"serving.dispatch:tag={name}:call=1:action=kill"
+            faults.reload()
+            try:
+                try:
+                    srv.predict(X[:8])
+                    failed = None
+                except S.ServerRecovering as exc:
+                    failed = type(exc).__name__ if exc.retryable else "not retryable"
+            finally:
+                del os.environ[faults.FAULTS_ENV]
+                faults.reload()
+            check(failed == "ServerRecovering", f"the killed worker's request gave {failed}")
+            deadline = time.perf_counter() + 60
+            while (srv.state() != S.READY or port.profiling.counter(f"serving.{name}.restarts") < 1) \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            check(srv.state() == S.READY, f"the server did not recover: {srv.state()}")
+            warm = port.profiling.durations(f"serve.{name}.warm_dispatch")[f"serve.{name}.warm_dispatch"]
+            n = len(srv.buckets)
+            t0 = time.perf_counter()
+            out = srv.predict(X[:8])
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            srv.predict(X[:8])
+            second_ms = 1e3 * (time.perf_counter() - t0)
+            want = model.transform(port.DataFrame.from_numpy(X[:8])).partitions[0]["prediction"]
+            check(np.array_equal(out["prediction"], want), "the recovered server answers otherwise")
+            srv.drain()
+            srv.assert_steady_state()
+            rec = {"failed_with": failed, "restarts": srv.health()["restarts"],
+                   "recovery_ms": 1e3 * port.profiling.percentiles(f"serve.{name}.recovery")["max"],
+                   "warm_dispatch_ms_first_worker": [1e3 * s for s in warm[:n]],
+                   "warm_dispatch_ms_recovered_worker": [1e3 * s for s in warm[n : 2 * n]],
+                   "recovered_first_request_ms": first_ms, "recovered_second_request_ms": second_ms,
+                   "steady_compiles": srv.health()["steady_compiles"]}
+        finally:
+            srv.shutdown(drain=False)
+        return rec
+
+    def router_part(self, model, X):
+        """A Router with SERVE_ROUTER_REPLICAS replicas of the KMeans model on
+        the one card (shared leases), traffic through it, and a rolling swap
+        under traffic to the model with its centers in reverse order: zero
+        failed requests, and every answer after the cut-over the new
+        model's.  The router stays up for the live index's refresh."""
+        port = self.port
+        S = port.serving
+        t_part = time.perf_counter()
+        self.router = router = S.Router(replicas=SERVE_ROUTER_REPLICAS, **SERVE_OPTS)
+        router.serve("serve_km", model, allow_oversubscribe=True)
+        new = port.KMeansModel(cluster_centers_=np.ascontiguousarray(model.cluster_centers_[::-1]),
+                               n_cols=model.n_cols, dtype=model.dtype)
+        stop, failures, answered = threading.Event(), [], [0]
+
+        def pump(seed):
+            rng = np.random.default_rng(seed)
+            while not stop.is_set():
+                i, n = int(rng.integers(0, len(X) - 64)), int(rng.integers(1, 65))
+                try:
+                    router.predict("serve_km", X[i : i + n], timeout_ms=60_000)
+                    answered[0] += 1
+                except Exception as exc:  # noqa: BLE001 - the gate counts every failure
+                    failures.append(f"{type(exc).__name__}: {exc}")
+
+        pumps = [threading.Thread(target=pump, args=(SERVE_SEED + 10 + c,)) for c in range(SERVE_CLIENTS)]
+        for t in pumps:
+            t.start()
+        try:
+            while answered[0] < 200:
+                time.sleep(0.01)
+            before_swap = answered[0]
+            t0 = time.perf_counter()
+            router.swap("serve_km", new)
+            swap_s = time.perf_counter() - t0
+            after = answered[0]
+            while answered[0] < after + 200:
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            for t in pumps:
+                t.join(timeout=120)
+        check(not failures, f"requests failed through the rolling swap: {failures[:3]}")
+        Xc = X[:SERVE_CHECK_ROWS]
+        routed = np.concatenate([router.predict("serve_km", Xc[i : i + 64])["prediction"]
+                                 for i in range(0, len(Xc), 64)])
+        want = new.transform(port.DataFrame.from_numpy(Xc)).partitions[0]["prediction"]
+        old = model.transform(port.DataFrame.from_numpy(Xc)).partitions[0]["prediction"]
+        check(np.array_equal(routed, want), "an answer after the cut-over is not the new model's")
+        check(not np.array_equal(want, old), "the swapped-in model answers as the old one")
+        for r in router.replicas("serve_km"):
+            r.assert_steady_state()
+        health = router.health()["models"]["serve_km"]
+        self.parts["router"] = {
+            "replicas": SERVE_ROUTER_REPLICAS, "answered_before_swap": before_swap,
+            "answered_total": answered[0], "failures": len(failures), "swap_s": swap_s,
+            "post_swap_rows_checked": len(Xc), "state": health["state"], "in_rotation": health["in_rotation"],
+            "counters": port.profiling.counters("router.serve_km."),
+            "part_s": time.perf_counter() - t_part,
+        }
+
+    @serve_timed
+    def forest(self, model, X):
+        def check_rows(served, rows):
+            want = model.transform(self.port.DataFrame.from_numpy(rows)).partitions[0]
+            for c in ("prediction", "probability", "rawPrediction"):
+                check(np.array_equal(served[c], want[c]), f"served forest {c} differs from transform")
+            return {"rows": len(rows), "identical": True}
+
+        return self.serve("rf_clf", model, X, check_rows)
+
+    @serve_timed
+    def glm(self, key, model, X, cols):
+        def check_rows(served, rows):
+            want = model.transform(self.port.DataFrame.from_numpy(rows)).partitions[0]
+            errs = {}
+            for c in cols:
+                g, w = np.asarray(served[c], np.float64), np.asarray(want[c], np.float64)
+                check(np.allclose(g, w, rtol=SERVE_RTOL, atol=SERVE_ATOL), f"served {key} {c} differs from transform")
+                errs[c] = float(np.abs(g - w).max())
+            return {"rows": len(rows), "max_abs_err": errs, "rtol": SERVE_RTOL, "atol": SERVE_ATOL}
+
+        return self.serve(key, model, X, check_rows)
+
+    @serve_timed
+    def knn(self, model, Q):
+        prepared = model._staged_items[1]
+
+        def check_rows(served, rows):
+            df = self.port.DataFrame.from_numpy(rows, num_partitions=1)
+            part = model.kneighbors(df)[2].partitions[0]
+            idx = np.asarray(part["indices"])
+            pos_of = np.empty(int(prepared.ids.max()) + 1, np.int64)
+            pos_of[prepared.ids] = np.arange(len(prepared.ids))
+            pos_s, pos_b = pos_of[served["indices"]], pos_of[idx]
+            differ, off = near_tie_mismatches(self.torch, prepared, rows, np.arange(len(rows)), pos_s, pos_b,
+                                              self.dev)
+            check(off == 0, f"served kNN ids differ from kneighbors at {off} entries off near-ties")
+            check(np.allclose(served["distances"], part["distances"], rtol=SERVE_RTOL, atol=0.0),
+                  "served kNN distances differ from kneighbors")
+            return {"rows": len(rows), "differing_entries": differ, "off_near_ties": off}
+
+        rec = self.serve("knn", model, Q, check_rows)
+        for k in ("knn_candidates", "knn_fused_merge"):
+            check(rec["launches"][k] > 0, f"served kNN batches launched {k} no time")
+        # B5 and B7 at the served query blocks (64-256 rows; CUDA events, not
+        # counted launches)
+        torch, kk = self.torch, self.kk
+        sh = prepared.shards[0]
+        _, m = self.knn_ops._kernel_route(model.getK(), sh.items.shape[0])
+        by_bucket = {}
+        for b in sorted({max(b, 64) for b in rec["buckets"]}):
+            q = torch.from_numpy(Q[:b]).to(self.dev)
+            vals, pos = kk.knn_candidates(sh.items, sh.norm, sh.valid, q, m)
+            by_bucket[b] = {
+                "pool": int(vals.shape[1] * vals.shape[2]), "m": m,
+                "knn_candidates_ms": median_ms(torch, lambda: kk.knn_candidates(sh.items, sh.norm, sh.valid, q, m), 3),
+                "knn_fused_merge_ms": median_ms(torch, lambda: kk.knn_fused_merge(vals, pos, model.getK()), 10),
+            }
+        rec["kernel_ms_by_bucket"] = by_bucket
+        return rec
+
+    @serve_timed
+    def ann(self, key, model, Q):
+        def check_rows(served, rows):
+            part = model.kneighbors(self.port.DataFrame.from_numpy(rows, num_partitions=1))[2].partitions[0]
+            differ, off = same_up_to_ties(served["distances"], served["indices"], np.asarray(part["distances"]),
+                                          np.asarray(part["indices"]), SERVE_RTOL)
+            check(off == 0, f"served {key} ids differ from the probed search at {off} rows off ties")
+            return {"rows": len(rows), "rows_differing": differ, "off_ties": off,
+                    "identical": bool(np.array_equal(served["indices"], part["indices"]))}
+
+        rec = self.serve(key, model, Q, check_rows)
+        check(rec["launches"]["knn_fused_merge"] > 0, f"served {key} batches launched knn_fused_merge no time")
+        if key == "ivfpq":
+            check(rec["launches"]["lut_accumulate_probed"] > 0, "served IVF-PQ batches launched B9 no time")
+        return rec
+
+    # -- the live index, refreshed into the router ---------------------------------
+    @serve_timed
+    def live_refresh(self, model, holder, adds, add_ids):
+        """StreamingSession.refresh() of the live IVF-Flat model into the
+        router (its first refresh serves it), then one add through the
+        session: the added rows come back from a served search as their own
+        nearest neighbours."""
+        port = self.port
+        t_part = time.perf_counter()
+
+        class LiveIndexEngine:
+            """A streaming engine over the live index: partial_fit adds rows
+            (a chunk is (rows, ids)), finalize hands out the model, whose
+            searches read the holder's latest snapshot."""
+
+            kind = "ivfflat_live"
+            rows_ingested = chunks_ingested = 0
+
+            def partial_fit(self, chunk, y=None, weight=None):
+                rows, ids = chunk
+                holder.add_items(rows, ids)
+                self.rows_ingested += len(rows)
+                self.chunks_ingested += 1
+
+            def finalize(self):
+                return model
+
+        session = port.StreamingSession(LiveIndexEngine(), name="serve_live_ann", router=self.router, replicas=1)
+        session.refresh()
+        before = self.router.predict("serve_live_ann", adds[:32])["indices"]
+        session.partial_fit((adds, add_ids))
+        after = self.router.predict("serve_live_ann", adds[:32])["indices"]
+        check(np.array_equal(after[:, 0], add_ids[:32]), "a row added after the refresh is not its own nearest "
+                                                         "neighbour in a served search")
+        check(not np.isin(add_ids, before).any(), "the added ids were served before their add")
+        rec = {"refreshes": session.stats()["refreshes"], "added_rows": len(adds), "served_checked_rows": 32,
+               "found_after_add": True, "steady_compiles": [r.health()["steady_compiles"]
+                                                            for r in self.router.replicas("serve_live_ann")]}
+        self.router.unroute("serve_live_ann")
+        rec["part_s"] = time.perf_counter() - t_part
+        self.parts["live_index_refresh"] = rec
+        return rec
+
+    def close(self):
+        if self.router is not None:
+            self.router.shutdown()
+            self.router = None
+
+    def record(self, smi):
+        launches = {k: sum(p.get("launches", {}).get(k, 0) for p in self.parts.values()) for k in SERVE_KERNELS}
+        return {"phase": "path_serve", "rows_cut": False, "seconds": self.seconds, "budget_s": SERVE_BUDGET_S,
+                "within_budget": self.seconds <= SERVE_BUDGET_S,
+                "options": {**SERVE_OPTS, "min_bucket": 16, "clients": SERVE_CLIENTS, "window": SERVE_WINDOW},
+                "launches": launches, "card": smi, **self.parts}
+
+
 def main():
     import argparse
 
@@ -4427,6 +4899,8 @@ def main():
             parser.error(f"{later} runs on path_knn's items and results: add path_knn")
     if "knn_ring" in phases and "path_knn_mesh" not in phases:
         parser.error("knn_ring runs on path_knn_mesh's sharded items: add path_knn_mesh")
+    if "path_serve" in phases and "path" not in phases:
+        parser.error("path_serve serves the models of the path phases and routes path's KMeans model: add path")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -4436,6 +4910,8 @@ def main():
     sys.path.insert(0, REPO)
     import spark_rapids_ml_tpu_torch as port
     import spark_rapids_ml_tpu_torch.ops.forest  # noqa: F401  (port.ops.forest)
+    import spark_rapids_ml_tpu_torch.parallel.faults  # noqa: F401  (port.parallel.faults)
+    import spark_rapids_ml_tpu_torch.serving  # noqa: F401  (port.serving)
     from spark_rapids_ml_tpu_torch.ops import _build, binning
     from spark_rapids_ml_tpu_torch.ops import exchange_kernels as ek
     from spark_rapids_ml_tpu_torch.ops import forest_hist as fh
@@ -4480,6 +4956,10 @@ def main():
     emit({"phase": "build", "nvcc_s": seconds, "ptxas": ptxas})
     dev = port.device.resolve()  # cuda:0, with TF32 off for the plain versions
     results = {}
+    # path_serve serves each path's model right after its path, while the
+    # path's rows exist (keep holds the models until then)
+    serve = ServePlane(torch, port, nc, kk, knn_ops, wrappers, dev) if "path_serve" in phases else None
+    keep = {} if serve is not None else None
 
     if "kernels" in phases:
         gen = torch.Generator().manual_seed(SEED)
@@ -4508,9 +4988,11 @@ def main():
         X_km = blobs(ROWS, COLS, K, SEED)
         gen_s = time.perf_counter() - t0
         if "path" in phases:
-            results["path"] = run_path(torch, port, nc, wrappers, X_km, gen_s)
+            results["path"] = run_path(torch, port, nc, wrappers, X_km, gen_s, keep)
             emit(results["path"])
             port.clear_fit_cache()
+            if serve is not None:
+                serve.kmeans(keep.pop("path"), X_km)
         if "path_stream" in phases:
             stream_parts["kmeans"] = stream_kmeans_part(torch, port, wrappers, dev, X_km)
             port.clear_fit_cache()
@@ -4526,8 +5008,10 @@ def main():
         emit(results["kernels_forest"])
     if "path_rf_clf" in phases:
         results["path_rf_clf"] = run_rf_path(torch, port, wrappers, "path_rf_clf",
-                                             port.RandomForestClassifier(**RF_CLF), X_rf, y_rf, True)
+                                             port.RandomForestClassifier(**RF_CLF), X_rf, y_rf, True, keep)
         emit(results["path_rf_clf"])
+        if serve is not None:
+            serve.forest(keep.pop("path_rf_clf"), X_rf[:RF_ROWS])
     if "path_rf_reg" in phases:
         y_reg = regression_target(X_rf, SEED + 3)
         results["path_rf_reg"] = run_rf_path(torch, port, wrappers, "path_rf_reg",
@@ -4559,6 +5043,8 @@ def main():
         results["path_knn"], knn_model, knn_idx, knn_dist = run_knn_path(
             torch, port, knn_ops, wrappers, X_knn, Q_knn, dev)
         emit(results["path_knn"])
+        if serve is not None:
+            serve.knn(knn_model, Q_knn)
         if "knn_audit" in phases:
             results["knn_audit"] = knn_audit(torch, knn_ops, wrappers, knn_model, Q_knn, knn_idx, knn_dist, dev)
             emit(results["knn_audit"])
@@ -4586,11 +5072,17 @@ def main():
         emit({"phase": "ann_data", "items": ANN_ITEMS, "queries": ANN_QUERIES, "cols": ANN_COLS,
               "seconds": time.perf_counter() - t0})
         for phase in ann_phases:
-            results[phase] = run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X_ann, Q_ann, dev)
+            results[phase] = run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X_ann, Q_ann, dev,
+                                         keep)
             emit(results[phase])
+            served = SERVE_ANN_ARMS.get(phase) if serve is not None else None
+            if served is not None:
+                serve.ann(served, keep.pop(phase), Q_ann)
+            elif keep is not None:
+                keep.pop(phase, None)
         if "path_stream" in phases:
             stream_parts["live_index"] = live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev,
-                                                         X_ann, Q_ann)
+                                                         X_ann, Q_ann, serve)
         del X_ann, Q_ann
 
     if {"path_pca", "path_stream"} & set(phases):
@@ -4598,8 +5090,10 @@ def main():
         X_pca = low_rank_data(GLM_ROWS, GLM_COLS, PCA_RANK, PCA_SEED)
         gen_s = time.perf_counter() - t0
         if "path_pca" in phases:
-            emit(run_pca_path(torch, port, wrappers, dev, X_pca, gen_s))
+            emit(run_pca_path(torch, port, wrappers, dev, X_pca, gen_s, keep))
             port.clear_fit_cache()
+            if serve is not None:
+                serve.glm("pca", keep.pop("path_pca"), X_pca, ["pca_features"])
         if "path_stream" in phases:
             stream_parts["pca"] = stream_pca_part(torch, port, wrappers, X_pca)
             port.clear_fit_cache()
@@ -4610,11 +5104,15 @@ def main():
         emit({"phase": "glm_data", "rows": GLM_ROWS + GLM_HOLDOUT, "cols": GLM_COLS,
               "seconds": time.perf_counter() - t0})
         if "path_linreg" in phases:
-            emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+            emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
+            if serve is not None:
+                serve.glm("linreg", keep.pop("path_linreg"), X_glm, ["prediction"])
         if "path_logreg" in phases:
-            emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev))
+            emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
+            if serve is not None:
+                serve.glm("logreg", keep.pop("path_logreg"), X_glm, ["prediction", "probability", "rawPrediction"])
         # the model-selection phases on the same rows (listed after the
         # other GLM phases)
         if "path_cv_linreg" in phases:
@@ -4650,6 +5148,10 @@ def main():
         port.clear_fit_cache()
     if "stream_card_vs_cpu" in phases:
         emit(stream_card_vs_cpu(torch, port, wrappers))
+    if serve is not None:
+        serve.close()
+        results["path_serve"] = serve.record(smi)
+        emit(results["path_serve"])
 
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
@@ -4784,13 +5286,16 @@ def summary(results, seconds):
         if row["name"] in ("min_dist_argmin", "knn_fused_merge") and "path_stream" in results:
             # B1 in the live index's adds, B7 in its searches
             row["launches_stream"] = results["path_stream"]["launches"][row["name"]]
+        if row["name"] in SERVE_KERNELS and "path_serve" in results:
+            # B1, B5, B7 and B9 in served batches
+            row["launches_serve"] = results["path_serve"]["launches"][row["name"]]
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
           "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES,
-          *STREAM_PHASES]
+          *STREAM_PHASES, "path_serve"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

@@ -564,6 +564,17 @@ class _TpuModel(_TpuParams):
     def _get_tpu_transform_func(self, dataset: DataFrame) -> TransformFunc:
         raise NotImplementedError
 
+    # -- online serving ----------------------------------------------------
+    def _serving_entry(self, mesh: Any = None):
+        """ServingEntry for the online inference engine (serving/engine.py).
+        Served model classes override it; the base raises, so ModelServer
+        gives an actionable error for a model with no online path."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no serving entry; servable models "
+            "are KMeans/PCA/LinearRegression/LogisticRegression/"
+            "RandomForest*/NearestNeighbors/ApproximateNearestNeighbors"
+        )
+
     # -- multi-model -------------------------------------------------------
     @classmethod
     def _combine(cls, models: List["_TpuModel"]) -> "_TpuModel":

@@ -19,8 +19,14 @@
 # the persisted payload, which mutations reach only at freeze), and
 # freeze_mutations() folds the live rows back into the payload.
 #
-# Not carried over: the serving hook _serving_entry (ROADMAP A13), the warm
-# hooks (XLA ahead-of-time compiles), the pyspark executor paths, and the
+# _serving_entry serves each padded batch as ONE probed search (flat or PQ),
+# its query block padded to at least 64 rows (models/knn.serve_padded).  The
+# flat entry reads the staged index again for every batch, so with a live
+# holder it searches the latest snapshot: adds, deletes and repacks show in
+# served results without re-registering the model.
+#
+# Not carried over: the warm hooks (XLA ahead-of-time compiles; the serving
+# engine warms by dispatching), the pyspark executor paths, and the
 # SRML_ANN_HOT_FRACTION environment default.
 #
 
@@ -486,6 +492,58 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
 
     def _get_tpu_transform_func(self, dataset):  # pragma: no cover
         raise NotImplementedError("ApproximateNearestNeighborsModel has no transform; use kneighbors instead.")
+
+    def _serving_entry(self, mesh: Any = None):
+        """Online ANN hook (serving/): each padded batch is one probed
+        search, IVF-Flat or IVF-PQ (with its host refine) by the algorithm
+        param, on the mesh's first device (the entry points' device without
+        a mesh)."""
+        from ..ops import precompile
+        from ..serving.entry import ServingEntry
+        from .knn import SERVE_MIN_QUERIES, serve_padded
+
+        self._check_algorithm()
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        pq = self.getAlgorithm() == "ivfpq"
+        k = self.getK()
+        _nlist, nprobe = self._resolved_algo_params(self.n_items, n_lists=self.n_lists)
+        dtype = np.dtype(np.float32)
+        info = {"k": int(min(k, self.n_items)), "n_items": int(self.n_items), "nlist": int(self.n_lists),
+                "nprobe": int(nprobe), "algorithm": self.getAlgorithm()}
+        if pq:
+            index = self._ensure_staged_pq(dev)
+            refine_ratio = self._resolved_pq_params(self.n_cols)[2]
+            refine_items = self.packed_items_ if refine_ratio > 1 else None
+            info.update(m_sub=int(self.pq_codes_.shape[1]), n_bits=int(self.pq_n_bits), refine_ratio=int(refine_ratio))
+
+            def search(queries: np.ndarray):
+                return ivfpq_search_prepared(index, queries, k, nprobe, refine_items=refine_items,
+                                             refine_ratio=refine_ratio)
+        else:
+            self._ensure_staged_index(dev)  # stage now (or check the live holder's device)
+
+            def search(queries: np.ndarray):
+                return ivfflat_search_prepared(self._ensure_staged_index(dev), queries, k, nprobe)
+
+        def key(rows: int):
+            return precompile.warm_key("serve.ann", max(rows, SERVE_MIN_QUERIES), dtype, dev)
+
+        def call(batch: np.ndarray) -> Dict[str, np.ndarray]:
+            precompile.dispatch(key(batch.shape[0]))
+            dists, ids = search(serve_padded(np.ascontiguousarray(batch, np.float32)))
+            n = batch.shape[0]
+            return {"indices": np.asarray(ids[:n], np.int64), "distances": np.asarray(dists[:n], np.float32)}
+
+        return ServingEntry(
+            name="serve.ann",
+            n_cols=int(self.n_cols),
+            dtype=dtype,
+            out_cols=["indices", "distances"],
+            call=call,
+            warm=lambda buckets: [key(b) for b in buckets],
+            info=info,
+            device=dev,
+        )
 
     def index_bytes_per_item(self) -> float:
         """Device-resident index bytes per indexed item (host payloads -- ids,

@@ -11,8 +11,11 @@
 # (stream/engines.StreamingKMeans: the first chunk's init and Lloyd, then
 # mini-batch updates of the running centers).
 #
-# Not carried over yet: cpu() (pyspark.ml conversion) and the serving hooks
-# _serving_entry / _lane_entry.
+# _serving_entry serves nearest-center assignment: each padded batch is one
+# launch of the CUDA nearest-center kernel (serving/entry.kernel_entry).
+#
+# Not carried over yet: cpu() (pyspark.ml conversion) and the multiplexed
+# serving hook _lane_entry (ROADMAP A13b; it raises NotImplementedError).
 #
 
 from __future__ import annotations
@@ -247,6 +250,31 @@ class KMeansModel(_KMeansParams, _TpuModelWithPredictionCol):
         centers = self._device_centers(np_dtype)
         x = torch.as_tensor(np.asarray(value, dtype=np_dtype)[None, :], device=centers.device)
         return int(kmeans_predict_kernel(x, centers)[0])
+
+    def _serving_entry(self, mesh: Any = None):
+        """Online inference hook (serving/): nearest-center assignment of a
+        padded batch, one kernel launch, on the mesh's first device (the
+        entry points' device without a mesh)."""
+        from ..serving.entry import kernel_entry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        centers = torch.as_tensor(np.ascontiguousarray(self.cluster_centers_, dtype=np_dtype), device=dev)
+        pred_col = self.getOrDefault("predictionCol")
+        return kernel_entry(
+            "serve.kmeans",
+            kmeans_predict_kernel,
+            (centers,),
+            lambda out: {pred_col: out[0]},
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=[pred_col],
+            info={"k": len(self.cluster_centers_)},
+        )
+
+    def _lane_entry(self, mesh: Any = None):
+        raise NotImplementedError("KMeansModel._lane_entry is not in this port yet (ROADMAP A13b)")
 
     def _get_tpu_transform_func(self, dataset: DataFrame):
         np_dtype = self._transform_dtype(self.dtype)

@@ -16,9 +16,14 @@
 # devices' item budget stream through in blocks, one on the devices at a
 # time.
 #
+# _serving_entry serves each padded batch as one knn_search_prepared call
+# (B5 -> B7) against the item set staged by _ensure_staged_items, with the
+# batch's query block padded to at least 64 rows as the JAX search buckets
+# it (SERVE_MIN_QUERIES).
+#
 # Not carried over: the pyspark executor path (barrier-stage exchange,
-# Spark joins), the serving hook _serving_entry / _ensure_staged_items, and
-# warm_search_kernels (ahead-of-time XLA compiles; nothing to compile here).
+# Spark joins) and warm_search_kernels (ahead-of-time XLA compiles; the
+# serving engine warms by dispatching).
 #
 
 from __future__ import annotations
@@ -35,6 +40,19 @@ from ..ops.knn import PreparedItems
 from ..parallel.mesh import Mesh, get_mesh
 from ..params import HasFeaturesCol, HasFeaturesCols, Param, TypeConverters, _dummy, _TpuParams
 from ..utils import materialize_feature_block
+
+# the smallest query block a served batch is searched at (the JAX search's
+# _query_block_bucket floor)
+SERVE_MIN_QUERIES = 64
+
+
+def serve_padded(batch: np.ndarray) -> np.ndarray:
+    """A served batch zero-padded to at least SERVE_MIN_QUERIES rows."""
+    if batch.shape[0] >= SERVE_MIN_QUERIES:
+        return batch
+    out = np.zeros((SERVE_MIN_QUERIES, batch.shape[1]), batch.dtype)
+    out[: batch.shape[0]] = batch
+    return out
 
 
 class NearestNeighborsClass(_TpuParams):
@@ -224,6 +242,54 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         (prepared,) = self._iter_item_blocks(id_col, mesh, block_rows)
         self._staged_items = (key, prepared)
         return prepared
+
+    def _ensure_staged_items(self, mesh: Mesh) -> PreparedItems:
+        """The staged item set of the serving path: kneighbors' staging and
+        cache, but an item set past one item block is an error here (an
+        online server never streams the index a batch)."""
+        if self._item_df is None:
+            raise ValueError("fit() must be called before serving")
+        prepared = self._stage_in_core_items(self.getIdCol(), mesh)
+        if prepared is None:
+            raise ValueError("the item set is larger than one item block of the devices; out-of-core item sets "
+                             "are kneighbors-only")
+        return prepared
+
+    def _serving_entry(self, mesh: Any = None):
+        """Online inference hook (serving/): each padded batch is ONE
+        knn_search_prepared call against the staged item set, its query
+        block at least SERVE_MIN_QUERIES rows."""
+        from ..ops import precompile
+        from ..serving.entry import HostStaging, ServingEntry
+
+        mesh = mesh if mesh is not None else get_mesh(self.num_workers)
+        prepared = self._ensure_staged_items(mesh)
+        dev = prepared.shards[0].items.device
+        dtype = np.dtype(np.float32)
+        dim = prepared.n_cols
+        k = self.getK()
+        staging = HostStaging(dev, dtype)
+
+        def key(rows: int):
+            return precompile.warm_key("serve.knn", max(rows, SERVE_MIN_QUERIES), dtype, dev)
+
+        def call(batch: np.ndarray) -> Dict[str, np.ndarray]:
+            precompile.dispatch(key(batch.shape[0]))
+            dists, ids = knn_ops.knn_search_prepared(prepared, staging.upload(serve_padded(batch)), k)
+            n = batch.shape[0]
+            return {"indices": ids[:n], "distances": dists[:n].astype(np.float32)}
+
+        return ServingEntry(
+            name="serve.knn",
+            n_cols=int(dim),
+            dtype=dtype,
+            out_cols=["indices", "distances"],
+            call=call,
+            warm=lambda buckets: [key(b) for b in buckets],
+            info={"k": int(min(k, prepared.n_items)), "n_items": int(prepared.n_items),
+                  "exchange_route": knn_ops._exchange_route(mesh)},
+            device=dev,
+        )
 
     def _frame_dim(self) -> Optional[int]:
         """Feature dimension of the item frame (None when it has no rows)."""

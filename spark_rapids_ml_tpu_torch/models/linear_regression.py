@@ -23,8 +23,11 @@
 # streaming() returns the partial_fit / merge / finalize engine
 # (stream/engines.StreamingLinearRegression).
 #
-# Not carried over yet: the serving hooks _serving_entry / _lane_entry
-# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
+# _serving_entry serves the dense Xw + b prediction (one fp32 matmul, TF32
+# off, serving/entry.kernel_entry); sparse bulk scoring stays on transform.
+#
+# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
+# A13b) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -448,10 +451,30 @@ class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationM
         raise NotImplementedError("LinearRegressionModel.cpu() " + _NOT_PORTED.format("A14c"))
 
     def _serving_entry(self, mesh: Any = None):
-        raise NotImplementedError("LinearRegressionModel._serving_entry " + _NOT_PORTED.format("A13"))
+        """Online inference hook (serving/): the dense Xw + b prediction of
+        a padded batch."""
+        if self._num_models != 1:
+            raise ValueError("combined multi-models are not servable")
+        from ..serving.entry import kernel_entry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        coef = torch.as_tensor(np.asarray(self.coef_, dtype=np_dtype), device=dev)
+        intercept = torch.as_tensor(np_dtype.type(self.intercept_), device=dev)
+        pred_col = self.getOrDefault("predictionCol")
+        return kernel_entry(
+            "serve.linreg",
+            linear_predict_kernel,
+            (coef, intercept),
+            lambda out: {pred_col: out[0].astype(np.float64)},
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=[pred_col],
+        )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("LinearRegressionModel._lane_entry " + _NOT_PORTED.format("A13"))
+        raise NotImplementedError("LinearRegressionModel._lane_entry " + _NOT_PORTED.format("A13b"))
 
     @classmethod
     def _combine(cls, models: List["LinearRegressionModel"]) -> "LinearRegressionModel":

@@ -25,8 +25,11 @@
 # streaming(classes=None) returns the partial_fit / merge / finalize
 # engine (stream/engines.StreamingLogisticRegression).
 #
-# Not carried over yet: the serving hooks _serving_entry / _lane_entry
-# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
+# _serving_entry serves decision scores, probabilities and label indices of
+# a padded batch in one call (serving/entry.kernel_entry).
+#
+# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
+# A13b) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -491,10 +494,52 @@ class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEva
         raise NotImplementedError("LogisticRegressionModel.cpu() " + _NOT_PORTED.format("A14c"))
 
     def _serving_entry(self, mesh: Any = None):
-        raise NotImplementedError("LogisticRegressionModel._serving_entry " + _NOT_PORTED.format("A13"))
+        """Online inference hook (serving/): scores, probabilities and label
+        indices of a padded batch from one call on the device, mapped to the
+        output columns as transform() maps them."""
+        if self._num_models != 1:
+            raise ValueError("combined multi-models are not servable")
+        from ..serving.entry import kernel_entry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        W = torch.as_tensor(self.coef_.astype(np_dtype), device=dev)
+        b = torch.as_tensor(self.intercept_.astype(np_dtype), device=dev)
+        classes = self.classes_
+        num_classes = self._num_classes
+        pred_col = self.getOrDefault("predictionCol")
+        prob_col = self.getOrDefault("probabilityCol")
+        raw_col = self.getOrDefault("rawPredictionCol")
+
+        def serve_kernel(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
+            scores = logistic_decision_kernel(X, W, b)
+            return scores, scores_to_probs(scores, num_classes), scores_to_labels(scores, num_classes)
+
+        def post(out) -> Dict[str, Any]:
+            scores, probs, labels = out
+            raw = scores.astype(np.float64)
+            if num_classes == 2 and raw.shape[1] == 1:
+                raw = np.concatenate([-raw, raw], axis=1)
+            return {
+                pred_col: classes[labels.astype(np.int64)].astype(np.float64),
+                prob_col: probs.astype(np.float64),
+                raw_col: raw,
+            }
+
+        return kernel_entry(
+            "serve.logreg",
+            serve_kernel,
+            (W, b),
+            post,
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=[pred_col, prob_col, raw_col],
+            info={"num_classes": num_classes},
+        )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("LogisticRegressionModel._lane_entry " + _NOT_PORTED.format("A13"))
+        raise NotImplementedError("LogisticRegressionModel._lane_entry " + _NOT_PORTED.format("A13b"))
 
     @property
     def _num_models(self) -> int:

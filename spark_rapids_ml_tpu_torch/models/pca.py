@@ -11,8 +11,11 @@
 # compute dtype, a float64 eigh on the card.  streaming() returns the
 # partial_fit / merge / finalize engine (stream/engines.StreamingPCA).
 #
-# Not carried over yet: the serving hooks _serving_entry / _lane_entry
-# (ROADMAP A13) and cpu() (A14c); each raises NotImplementedError.
+# _serving_entry serves the projection transform() applies (one fp32 matmul,
+# TF32 off, serving/entry.kernel_entry).
+#
+# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
+# A13b) and cpu() (A14c); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -166,10 +169,28 @@ class PCAModel(_PCAParams, _TpuModel):
         raise NotImplementedError("PCAModel.cpu() " + _NOT_PORTED.format("A14c"))
 
     def _serving_entry(self, mesh: Any = None):
-        raise NotImplementedError("PCAModel._serving_entry " + _NOT_PORTED.format("A13"))
+        """Online inference hook (serving/): the (whiten-scaled) projection
+        of a padded batch, the matrix transform() applies."""
+        from ..serving.entry import kernel_entry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        components = torch.as_tensor(self._projection(np_dtype), device=dev)
+        out_col = self.getOrDefault("outputCol")
+        return kernel_entry(
+            "serve.pca",
+            pca_transform_kernel,
+            (components,),
+            lambda out: {out_col: out[0]},
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=[out_col],
+            info={"k": len(self.components_)},
+        )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("PCAModel._lane_entry " + _NOT_PORTED.format("A13"))
+        raise NotImplementedError("PCAModel._lane_entry " + _NOT_PORTED.format("A13b"))
 
     def _out_columns(self) -> List[str]:
         return [self.getOrDefault("outputCol")]

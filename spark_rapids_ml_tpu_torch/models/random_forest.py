@@ -24,8 +24,12 @@
 # every sub-model in one pass over each partition (RegressionEvaluator for
 # the regressor, MulticlassClassificationEvaluator for the classifier).
 #
-# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c), the
-# serving hooks (A13), and multi-rank binning (A14b).
+# _serving_entry serves one forest traversal of a padded batch
+# (ops/forest.forest_predict, serving/entry.kernel_entry), the outputs
+# mapped as transform() maps them.
+#
+# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c) and
+# multi-rank binning (A14b).
 #
 
 from __future__ import annotations
@@ -461,6 +465,33 @@ class _RandomForestModelBase(_RandomForestParams, _TpuModelWithPredictionCol):
             out.append(forest_predict(X, f[sl], t[sl], v[sl], int(self.max_depth)))
         return [o.cpu().numpy() for o in out]
 
+    def _serving_values_entry(self, postprocess, out_cols: List[str], mesh: Any = None):
+        """Serving plumbing shared by both forest models: the mean-leaf-values
+        traversal of a padded batch on the mesh's first device (the entry
+        points' device without a mesh); `postprocess` maps the host values
+        to the output columns."""
+        if self._num_models != 1:
+            raise ValueError("combined multi-models are not servable")
+        from ..serving.entry import kernel_entry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        f = torch.tensor(self.features_, dtype=torch.int32, device=dev)
+        t = torch.tensor(self.thresholds_.astype(np_dtype), device=dev)
+        v = torch.tensor(self.leaf_values_, dtype=torch.float32, device=dev)
+        max_depth = int(self.max_depth)
+        return kernel_entry(
+            "serve.forest",
+            lambda X, f, t, v: forest_predict(X, f, t, v, max_depth),
+            (f, t, v),
+            lambda out: postprocess(out[0]),
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=out_cols,
+            info={"num_trees": int(self.features_.shape[0])},
+        )
+
     def _predict_values(self, features: np.ndarray) -> np.ndarray:
         """(N, V) mean leaf values of the rows of `features`."""
         assert self._num_models == 1, "transform() of a combined multi-model: use _transformEvaluate"
@@ -562,6 +593,12 @@ class RandomForestClassificationModel(
     def _get_tpu_transform_func(self, dataset: DataFrame):
         return lambda features: self._outputs(self._predict_values(features))
 
+    def _serving_entry(self, mesh: Any = None):
+        """Online inference hook (serving/): one forest traversal per padded
+        batch, class mapping and normalisation on the host as in
+        transform()."""
+        return self._serving_values_entry(self._outputs, self._out_columns(), mesh)
+
     def _get_eval_predict_func(self):
         """features -> ((M, n) predictions, (M, n, C) probabilities) of every
         sub-model, as each one's transform gives them."""
@@ -633,6 +670,13 @@ class RandomForestRegressionModel(_RegressionModelEvaluationMixIn, _RandomForest
     def _get_tpu_transform_func(self, dataset: DataFrame):
         pred_col = self.getOrDefault("predictionCol")
         return lambda features: {pred_col: self._predict_values(features)[:, 0].astype(np.float64)}
+
+    def _serving_entry(self, mesh: Any = None):
+        """Online inference hook (serving/): one forest traversal per padded
+        batch, the first value column as the prediction."""
+        pred_col = self.getOrDefault("predictionCol")
+        return self._serving_values_entry(lambda values: {pred_col: values[:, 0].astype(np.float64)},
+                                          [pred_col], mesh)
 
     def _get_eval_predict_func(self):
         """features -> (M, n) float64 predictions of every sub-model."""

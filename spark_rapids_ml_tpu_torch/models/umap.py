@@ -25,7 +25,7 @@
 #
 # Not carried over yet: the Spark single-task fit (_cluster_fit_single_task)
 # and cpu() (ROADMAP A14c), the serving hooks _serving_entry / _lane_entry
-# (A13); each raises NotImplementedError.
+# (A13b); each raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -339,10 +339,10 @@ class UMAPModel(_UMAPParams, _TpuModel):
         raise NotImplementedError("UMAPModel.cpu() " + _NOT_PORTED.format("A14c"))
 
     def _serving_entry(self, mesh: Any = None):
-        raise NotImplementedError("UMAPModel._serving_entry " + _NOT_PORTED.format("A13"))
+        raise NotImplementedError("UMAPModel._serving_entry " + _NOT_PORTED.format("A13b"))
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("UMAPModel._lane_entry " + _NOT_PORTED.format("A13"))
+        raise NotImplementedError("UMAPModel._lane_entry " + _NOT_PORTED.format("A13b"))
 
     def _out_columns(self) -> List[str]:
         return [self.getOrDefault("outputCol")]

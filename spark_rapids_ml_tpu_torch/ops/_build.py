@@ -6,7 +6,9 @@
 # the repository root, keyed by a hash of the source, of the local headers
 # it includes (#include "..." of csrc/, followed through headers), and of the
 # flags, and the library is loaded with ctypes.  build() starts one nvcc per source, all at
-# once, and waits for them together.  Nothing here runs at import time.
+# once, and waits for them together.  Nothing here runs at import time.  The
+# first load of a library in the process counts precompile.compile
+# (ops/precompile.py).
 #
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+from .. import profiling
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -118,4 +122,7 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
+            # a first load is a build the serving steady state must not
+            # do: the serving engine's warm-cache watermark reads it
+            profiling.incr_counter("precompile.compile")
         return lib

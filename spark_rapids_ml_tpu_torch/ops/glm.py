@@ -39,7 +39,7 @@
 # stream_linreg_chunk_kernel is one streamed chunk's unreduced statistics
 # (stream/engines.py folds them in float64 and solves them here at
 # finalize).  Not carried over yet: the multi_ / lane_ predict kernels
-# (A13).
+# (A13b).
 #
 
 from __future__ import annotations

@@ -9,7 +9,7 @@
 # candidate, and its result is discarded), so the two packages run the same
 # lane count for a grid.
 # Not carried over yet: stack_lanes, write_lane and lane_write_kernel, which
-# serve the serving multiplex and the ANN tier (ROADMAP A13).
+# serve the serving multiplex and the ANN tier (ROADMAP A13b).
 #
 
 from __future__ import annotations

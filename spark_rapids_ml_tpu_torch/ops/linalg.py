@@ -27,7 +27,7 @@
 # eigh on CPU backends) has no counterpart: the port's one route is the
 # float64 eigh above, cuSOLVER on the card.
 # Not carried over yet: the mesh forms (_sharded_moments, shard_map; ROADMAP
-# A14b), lane_pca_transform_kernel and exact_gather_matmul (A13).
+# A14b), lane_pca_transform_kernel and exact_gather_matmul (A13b).
 #
 
 from __future__ import annotations

@@ -23,7 +23,7 @@
 # TF32 off: the JAX package leaves them to XLA).
 # logistic_warm_fit_kernel is the streaming engine's chunk update: the same
 # objective from the running coefficients instead of zeros.  Not carried
-# over yet: lane_logistic_predict_kernel (A13).
+# over yet: lane_logistic_predict_kernel (A13b).
 #
 
 from __future__ import annotations

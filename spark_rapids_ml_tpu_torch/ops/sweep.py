@@ -8,7 +8,7 @@
 # assignment DataFrame.randomSplit materialises for scoring, so the masked
 # folds and the scored folds never disagree.
 # The JAX package's dispatch, warm and replicated_aval serve its AOT
-# executable cache (ROADMAP A13); here the sweep's solvers are called
+# executable cache (ROADMAP A13b); here the sweep's solvers are called
 # directly.
 #
 

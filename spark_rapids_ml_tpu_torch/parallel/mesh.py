@@ -9,9 +9,13 @@
 # device count).  A sharded value is a list of per-shard tensors, shard i on
 # mesh.devices[i]; the collectives over such lists are parallel/exchange.py.
 #
+# slice_meshes / carve_device_slices carve the device list into the serving
+# plane's replica slices (serving/slicepool.py, serving/router.py), in the
+# group-major order of parallel/topology.group_major_devices.  On one card,
+# N replicas get N single-device slices of cuda:0: the surplus rule below.
+#
 # Not carried over yet: the 2-D (data, model) mesh and the NamedSharding
-# helpers (no engine of the port shards columns), slice_meshes and
-# carve_device_slices (the serving router's replica slices, with serving).
+# helpers (no engine of the port shards columns).
 #
 
 from __future__ import annotations
@@ -63,6 +67,51 @@ def get_mesh(num_workers: Optional[int] = None) -> Mesh:
     n = num_workers or len(devices)
     n = min(n, len(devices))
     return Mesh(tuple(devices[:n]))
+
+
+def slice_meshes(n_slices: int, devices=None, devs_per_host: Optional[int] = None) -> List[Mesh]:
+    """`n_slices` disjoint 1-D meshes over the device list (default: the
+    entry points' device.devices()), carved group-major so a contiguous
+    slice stays inside a host group when the count allows.  With fewer
+    devices than slices the surplus slices each get ONE device,
+    round-robin (the JAX package's rule)."""
+    if n_slices < 1:
+        raise ValueError(f"n_slices must be >= 1, got {n_slices}")
+    from . import topology
+
+    devs = list(devices) if devices is not None else list(_device.devices())
+    devs = topology.group_major_devices(devs, devs_per_host)
+    per = len(devs) // n_slices
+    out = []
+    for i in range(n_slices):
+        local = devs[i * per : (i + 1) * per] if per >= 1 else [devs[i % len(devs)]]
+        out.append(Mesh(tuple(local)))
+    return out
+
+
+def carve_device_slices(devices, slice_devices: int, devs_per_host: Optional[int] = None) -> List[list]:
+    """The device list cut into as many disjoint `slice_devices`-sized
+    groups as it holds (the slice pool's carve).  When host groups are
+    known and a slice fits in one, the carve runs per group and devices left
+    over inside a group are stranded; otherwise contiguous group-major
+    runs."""
+    if slice_devices < 1:
+        raise ValueError(f"slice_devices must be >= 1, got {slice_devices}")
+    from . import topology
+
+    devs = list(devices) if devices is not None else list(_device.devices())
+    topo = topology.topology_map(devices=devs, devs_per_host=devs_per_host)
+    out = []
+    if topo.n_groups > 1 and slice_devices <= min(len(g) for g in topo.groups):
+        for g in topo.groups:
+            members = [devs[p] for p in g]
+            for i in range(len(members) // slice_devices):
+                out.append(members[i * slice_devices : (i + 1) * slice_devices])
+        return out
+    ordered = topology.group_major_devices(devs, devs_per_host)
+    for i in range(len(ordered) // slice_devices):
+        out.append(ordered[i * slice_devices : (i + 1) * slice_devices])
+    return out
 
 
 def ring_permutation(n_dev: int, shift: int = 1) -> List[Tuple[int, int]]:

@@ -1,0 +1,348 @@
+#
+# Runtime sanitizer.
+#
+# Counterpart of spark_rapids_ml_tpu/sanitize.py.  SRML_SANITIZE=1 arms
+# sanitize_scope(device), which the serving dispatch enters around each
+# batch (serving/engine.py):
+#
+#   - a NaN check: check_nans(outputs, where) raises FloatingPointError when
+#     a floating output of the scope holds a NaN (the JAX scope's
+#     jax.debug_nans, which re-runs a jitted function to find the primitive;
+#     here the check names the outputs that carry the NaN);
+#   - on a CUDA device, torch.cuda.set_sync_debug_mode("error") for the
+#     scope's lifetime, so a synchronising copy or call (an .item(), a
+#     blocking .cpu(), a stream or device synchronize) raises (the JAX
+#     scope's transfer_guard_device_to_host("disallow")).  The mode is
+#     process-wide, so it is entered under a refcount and a lock: the first
+#     scope in sets it, the last one out restores the mode it found, and a
+#     scope on one server never turns it off under another.  The mode cannot
+#     tell an explicit readback from an implicit one; an explicit readback
+#     inside a scope copies into pinned memory without blocking and waits on
+#     an event, which the mode does not flag (serving/entry.fetch).
+#
+# enable_global_debug_nans() turns the NaN check on outside any scope as
+# well (the JAX package's suite-wide jax_debug_nans).
+#
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import traceback
+from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
+
+
+def enabled() -> bool:
+    """Whether SRML_SANITIZE=1 is set (read per call: tests toggle it)."""
+    return os.environ.get("SRML_SANITIZE", "0") == "1"
+
+
+def lockdep_enabled() -> bool:
+    """Whether lockdep is armed: SRML_SANITIZE=1 (the full sanitizer) or a
+    'lockdep' token (just the lock-order validator)."""
+    v = os.environ.get("SRML_SANITIZE", "0")
+    return v == "1" or "lockdep" in {t.strip() for t in v.split(",")}
+
+
+_scope_tls = threading.local()
+_sync_lock = threading.Lock()
+_sync_refs = 0
+_sync_saved: Optional[int] = None
+_global_nans = False
+
+
+def _enter_sync_error() -> None:
+    import torch
+
+    global _sync_refs, _sync_saved
+    with _sync_lock:
+        if _sync_refs == 0:
+            _sync_saved = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        _sync_refs += 1
+
+
+def _exit_sync_error() -> None:
+    import torch
+
+    global _sync_refs
+    with _sync_lock:
+        _sync_refs -= 1
+        if _sync_refs == 0:
+            torch.cuda.set_sync_debug_mode(_sync_saved)
+
+
+@contextlib.contextmanager
+def sanitize_scope(device: Any = None) -> Iterator[None]:
+    """The NaN check (and, on a CUDA `device`, the sync-debug "error" mode)
+    for the enclosed work; a no-op unless SRML_SANITIZE=1."""
+    if not enabled():
+        yield
+        return
+    import torch
+
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        _enter_sync_error()
+    depth = getattr(_scope_tls, "depth", 0)
+    _scope_tls.depth = depth + 1
+    try:
+        yield
+    finally:
+        _scope_tls.depth = depth
+        if cuda:
+            _exit_sync_error()
+
+
+def check_nans(outputs: Dict[str, Any], where: str) -> None:
+    """Raise FloatingPointError naming the floating outputs that hold a NaN,
+    inside a sanitize scope or after enable_global_debug_nans(); a no-op
+    otherwise.  `outputs` are host arrays (the check reads them)."""
+    if not ((enabled() and getattr(_scope_tls, "depth", 0) > 0) or _global_nans):
+        return
+    import numpy as np
+
+    bad = sorted(name for name, v in outputs.items()
+                 if np.asarray(v).dtype.kind in "fc" and bool(np.isnan(np.asarray(v)).any()))
+    if bad:
+        raise FloatingPointError(f"{where}: NaN in output(s) {bad}")
+
+
+def enable_global_debug_nans() -> bool:
+    """The NaN check outside any scope too (when SRML_SANITIZE=1): every
+    check_nans call site checks."""
+    global _global_nans
+    if not enabled():
+        return False
+    _global_nans = True
+    return True
+
+
+# -- lockdep ------------------------------------------------------------------
+
+class LockOrderViolation(RuntimeError):
+    """Acquiring `acquiring` while holding `held` closes a cycle in the
+    process-wide lock-order graph: some other execution acquired them in
+    the opposite order.  Carries both stacks — `current_stack` is this
+    acquisition, `prior_stack` is where the reverse edge was first
+    recorded — so the report names both nesting sites, not just one."""
+
+    def __init__(
+        self,
+        held: str,
+        acquiring: str,
+        current_stack: str,
+        prior_thread: str,
+        prior_stack: str,
+    ):
+        self.held = held
+        self.acquiring = acquiring
+        self.current_stack = current_stack
+        self.prior_thread = prior_thread
+        self.prior_stack = prior_stack
+        super().__init__(
+            f"lock-order inversion: acquiring '{acquiring}' while holding "
+            f"'{held}', but the reverse order was recorded on thread "
+            f"'{prior_thread}'.\n--- this acquisition "
+            f"({threading.current_thread().name}) ---\n{current_stack}"
+            f"--- first reverse-order acquisition ({prior_thread}) ---\n"
+            f"{prior_stack}"
+        )
+
+
+# Leaf state lock (raw, never wrapped: invisible to lockdep itself).
+_ld_state_lock = threading.Lock()
+# (held name, acquired name) -> (thread name, stack at first observation)
+_ld_edges: Dict[Tuple[str, str], Tuple[str, str]] = {}
+_ld_adj: Dict[str, Set[str]] = {}
+_ld_lock_count = 0
+_ld_violations = 0
+_ld_tls = threading.local()
+
+
+def _ld_held() -> List[List]:
+    """This thread's held stack: [[name, count], ...] in acquisition order."""
+    h = getattr(_ld_tls, "held", None)
+    if h is None:
+        h = _ld_tls.held = []
+    return h
+
+
+def _ld_reaches(src: str, dst: str) -> bool:
+    stack, seen = [src], {src}
+    while stack:
+        n = stack.pop()
+        if n == dst:
+            return True
+        for nxt in _ld_adj.get(n, ()):
+            if nxt not in seen:
+                seen.add(nxt)
+                stack.append(nxt)
+    return False
+
+
+def _ld_counter(name: str) -> None:
+    from . import profiling
+
+    profiling.incr_counter(name)
+
+
+def _ld_record(held_names: List[str], name: str) -> None:
+    """Record held->name edges; raise on the edge that closes a cycle.
+    Stacks are captured only for NEW edges — steady-state acquisitions of
+    known pairs never format a stack.
+
+    Deliberately NO profiling.incr_counter here: the counter path's
+    flight-recorder hook appends under the watch ring lock — itself a
+    lockdep lock — so a synchronous bump from inside acquire() could
+    re-enter the very lock being acquired and deadlock on its raw inner.
+    Edge/violation totals are exported as gauges instead (pull-based:
+    the provider reads ints, takes no lockdep lock)."""
+    with _ld_state_lock:
+        for h in held_names:
+            if h == name or (h, name) in _ld_edges:
+                continue
+            _ld_edges[(h, name)] = (
+                threading.current_thread().name,
+                "".join(traceback.format_stack(limit=24)[:-2]),
+            )
+            _ld_adj.setdefault(h, set()).add(name)
+            if _ld_reaches(name, h):
+                global _ld_violations
+                _ld_violations += 1
+                prior = _ld_edges.get((name, h))
+                if prior is None:
+                    # cycle through intermediates: report the first hop
+                    for nxt in sorted(_ld_adj.get(name, ())):
+                        if nxt != h and _ld_reaches(nxt, h):
+                            prior = _ld_edges[(name, nxt)]
+                            break
+                p_thread, p_stack = prior if prior else ("?", "<unknown>\n")
+                raise LockOrderViolation(
+                    held=h,
+                    acquiring=name,
+                    current_stack="".join(
+                        traceback.format_stack(limit=24)[:-2]
+                    ),
+                    prior_thread=p_thread,
+                    prior_stack=p_stack,
+                )
+
+
+class _DepLock:
+    """Order-validating proxy over a threading lock.  Mirrors the
+    acquire/release/context-manager protocol, so threading.Condition(proxy)
+    works through its acquire/release fallbacks.  Same-name reentry (RLock
+    recursion, or a sibling instance of the same class) is counted, never
+    edged — lock order is a class-level discipline."""
+
+    __slots__ = ("name", "_inner")
+
+    def __init__(self, name: str, inner):
+        self.name = name
+        self._inner = inner
+
+    def acquire(self, blocking: bool = True, timeout: float = -1):
+        ok = self._inner.acquire(blocking, timeout)
+        if not ok:
+            return ok
+        held = _ld_held()
+        for entry in held:
+            if entry[0] == self.name:
+                entry[1] += 1
+                return ok
+        try:
+            _ld_record([e[0] for e in held], self.name)
+        except LockOrderViolation:
+            self._inner.release()
+            raise
+        held.append([self.name, 1])
+        return ok
+
+    def release(self) -> None:
+        self._inner.release()
+        held = _ld_held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i][0] == self.name:
+                held[i][1] -= 1
+                if held[i][1] == 0:
+                    del held[i]
+                break
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __repr__(self) -> str:
+        return f"<DepLock {self.name} over {self._inner!r}>"
+
+
+def lockdep_lock(name: str, factory: Callable = threading.Lock):
+    """Construct a lock for the concurrency-heavy modules: the raw
+    `factory()` primitive when lockdep is off (zero overhead — no wrapper,
+    no registry entry), an order-validating _DepLock when armed.  The env
+    is read at CONSTRUCTION: long-lived objects built before arming stay
+    raw (CI's lockdep runs set SRML_SANITIZE at process start)."""
+    inner = factory()
+    if not lockdep_enabled():
+        return inner
+    global _ld_lock_count
+    with _ld_state_lock:
+        _ld_lock_count += 1
+        first = _ld_lock_count == 1
+    # gauge registration + counter bump OUTSIDE the state lock: both may
+    # re-enter lockdep through the flight-recorder hook's ring lock
+    if first:
+        _ld_register_gauges()
+    _ld_counter("sanitize.lockdep.locks")
+    return _DepLock(name, inner)
+
+
+def _ld_register_gauges() -> None:
+    from . import profiling
+
+    def provider() -> Dict[str, float]:
+        return {
+            "lockdep.locks": float(_ld_lock_count),
+            "lockdep.edges": float(len(_ld_edges)),
+            "lockdep.violations": float(_ld_violations),
+        }
+
+    profiling.register_gauges("lockdep", provider)
+
+
+def lockdep_stats() -> Dict[str, int]:
+    """{'locks', 'edges', 'violations'} — what the CI lockdep rerun
+    asserts on (violations must be zero after the chaos matrix)."""
+    with _ld_state_lock:
+        return {
+            "locks": _ld_lock_count,
+            "edges": len(_ld_edges),
+            "violations": _ld_violations,
+        }
+
+
+def lockdep_graph() -> Dict[str, List[str]]:
+    """Copy of the observed held->acquired adjacency (name -> sorted
+    successors) — tests assert the serving smoke's graph is a DAG."""
+    with _ld_state_lock:
+        return {k: sorted(v) for k, v in _ld_adj.items()}
+
+
+def lockdep_reset() -> None:
+    """Clear the process-wide order graph and counters (tests only: the
+    graph is deliberately cumulative in production — an inversion between
+    two long-lived subsystems should be caught across requests)."""
+    global _ld_lock_count, _ld_violations
+    with _ld_state_lock:
+        _ld_edges.clear()
+        _ld_adj.clear()
+        _ld_lock_count = 0
+        _ld_violations = 0

@@ -1,0 +1,1183 @@
+#
+# ModelServer: one fitted model behind a dynamic micro-batcher and a
+# dedicated dispatch worker thread.
+#
+# Counterpart of spark_rapids_ml_tpu/serving/engine.py: the same lifecycle
+# states, counters (serving.<name>.*), duration series (serve.<name>.*),
+# restart supervisor, wedge recovery, depth > 1 pipelining and SLO burn.
+#
+# The worker pops coalesced batches (serving/batcher.py), zero-pads each to
+# its power-of-two row bucket (serving/entry.py bucket_rows), and runs the
+# model's ServingEntry.call (upload, the model's kernels, host fetch), then
+# scatters the output columns back to the requests' futures.  The worker
+# enters torch.cuda.device(entry.device) for its lifetime: the current
+# device, like torch's current stream, is per thread.
+#
+# Warm-up runs ON THE WORKER THREAD before it takes traffic: one synthetic
+# batch per bucket through the full dispatch path, so the thread that serves
+# is the one whose first launches, pinned buffers and cuBLAS handle were
+# paid for; construction waits for it and raises what it raised.  A
+# recovered worker generation re-warms the same way, on its own new thread,
+# before the server reports READY again.  Each dispatch brackets the warm
+# cache's watermark (ops/precompile.py: a never-dispatched (entry, bucket,
+# dtype, device) key, or a first kernel-library load); a post-warm rise is
+# recorded in serving.<name>.steady_compiles and assert_steady_state() turns
+# it into a failure.  The synthetic warm dispatches' times are the series
+# serve.<name>.warm_dispatch; each real dispatch's time also lands in
+# serve.<name>.by_bucket.<bucket>.
+#
+# SRML_SANITIZE=1 runs every dispatch inside sanitize.sanitize_scope (the
+# NaN check of its outputs and, on the card, the sync-debug "error" mode).
+#
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import queue
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import profiling, sanitize, watch
+from ..ops import precompile
+from ..parallel import faults
+from .batcher import (  # noqa: F401
+    MicroBatcher,
+    RequestTimeout,
+    ServerOverloaded,
+    resolve_future,
+)
+from .entry import ServingEntry, bucket_rows, entry_for, serve_buckets
+
+logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
+
+# -- lifecycle states (srml-watch health plane + srml-shield recovery) --------
+# WARMING    constructing: buckets compiling, worker not yet started
+# READY      serving; SLO burn within budget
+# DEGRADED   serving, but the SLO burn fraction over the latency window
+#            exceeds SRML_SERVE_SLO_BURN (alert, don't page)
+# DRAINING   drain()/shutdown() started; new submits rejected
+# UNHEALTHY  the dispatch worker is wedged or dead and the supervisor is
+#            out of restart budget: submits fail fast with ServerUnhealthy
+#            (fail over to another replica — this server will not recover
+#            by itself)
+# RECOVERING the supervisor is restarting the worker after a death or a
+#            watchdog-confirmed wedge: queued and in-flight requests were
+#            failed with the typed retryable ServerRecovering; submits
+#            fail fast with the same until the restart completes
+WARMING = "WARMING"
+READY = "READY"
+DEGRADED = "DEGRADED"
+DRAINING = "DRAINING"
+UNHEALTHY = "UNHEALTHY"
+RECOVERING = "RECOVERING"
+
+# numeric codes for the gauge surface (render_prometheus srml_health family).
+# Codes are STABLE identifiers (dashboards key on them), so RECOVERING takes
+# the next free code; severity ORDER for worst-state rollups is SEVERITY.
+STATE_CODES = {
+    WARMING: 0, READY: 1, DEGRADED: 2, DRAINING: 3, UNHEALTHY: 4,
+    RECOVERING: 5,
+}
+# least- to most-severe, for ModelRegistry.health()'s worst-state rollup
+# (RECOVERING outranks DRAINING — it is an active failure being repaired —
+# but UNHEALTHY stays worst: it means the supervisor gave up)
+SEVERITY = (WARMING, READY, DEGRADED, DRAINING, RECOVERING, UNHEALTHY)
+
+SLO_MS_ENV = "SRML_SERVE_SLO_MS"
+SLO_BURN_ENV = "SRML_SERVE_SLO_BURN"
+_DEFAULT_SLO_BURN = 0.1
+
+# -- continuous batching (srml-router) ----------------------------------------
+# SRML_SERVE_INFLIGHT_DEPTH > 1 splits the request path into a two-stage
+# pipeline per server: an ASSEMBLY thread pops coalesced batches and does
+# the host-side work (deadline bookkeeping, zero-pad to the pow2 bucket)
+# while the DISPATCH worker — still the only thread that touches the device
+# for this server — runs the previous batch on device.  Depth bounds the
+# assembled-but-undispatched backlog (depth-1 slots), double-buffering
+# applied to serving: admit and assemble batch k+1 while batch k
+# executes.  Depth 1 (the default) is the original single-thread
+# path, bit-for-bit.
+INFLIGHT_DEPTH_ENV = "SRML_SERVE_INFLIGHT_DEPTH"
+_DEFAULT_INFLIGHT_DEPTH = 1
+
+# -- srml-shield recovery policy (docs/robustness.md) -------------------------
+# A worker death (exception escaping the dispatch loop) or a watchdog-
+# confirmed wedge triggers a bounded-restart-with-backoff: up to
+# SRML_SERVE_MAX_RESTARTS supervised restarts per server lifetime, each
+# preceded by SRML_SERVE_RESTART_BACKOFF_S * 2^(n-1) seconds of backoff and
+# a re-warm of every bucket on the new worker thread (every key is already
+# in the process-wide warm cache: zero new steady-state warm-ups — gated).
+# Budget exhausted => UNHEALTHY, for good: restart storms hide real
+# breakage.
+MAX_RESTARTS_ENV = "SRML_SERVE_MAX_RESTARTS"
+RESTART_BACKOFF_ENV = "SRML_SERVE_RESTART_BACKOFF_S"
+_DEFAULT_MAX_RESTARTS = 3
+_DEFAULT_RESTART_BACKOFF_S = 0.05
+
+
+def _max_restarts() -> int:
+    from ..utils import env_float
+
+    return int(env_float(MAX_RESTARTS_ENV, _DEFAULT_MAX_RESTARTS))
+
+
+def _restart_backoff_s() -> float:
+    from ..utils import env_float
+
+    return env_float(RESTART_BACKOFF_ENV, _DEFAULT_RESTART_BACKOFF_S)
+
+
+class ServerUnhealthy(RuntimeError):
+    """Raised by submit() when the server's dispatch worker is wedged or
+    the supervisor has exhausted its restart budget (UNHEALTHY state):
+    callers should fail over to another replica rather than queue behind a
+    worker that may never come back."""
+
+    retryable = True  # on ANOTHER replica, not this server
+
+
+class ServerRecovering(RuntimeError):
+    """The typed RETRYABLE error of the self-healing path: set on queued
+    and in-flight requests when the supervisor restarts the dispatch
+    worker, and raised by submit() while the restart is underway.  The
+    same request retried after the (sub-second) recovery window succeeds —
+    unlike ServerUnhealthy, the server IS coming back."""
+
+    retryable = True
+
+
+class _Warmed:
+    """A worker generation's warm-up outcome: the thread that waits for it
+    (construction, the recovery path) gets the warm-up's exception or
+    None."""
+
+    def __init__(self) -> None:
+        self._done = threading.Event()
+        self._error: Optional[BaseException] = None
+
+    def finish(self, error: Optional[BaseException]) -> None:
+        self._error = error
+        self._done.set()
+
+    def wait_error(self) -> Optional[BaseException]:
+        # bounded re-checks, never one unbounded wait: a warm-up that
+        # hangs is the wedge detector's to escalate
+        while not self._done.wait(timeout=1.0):
+            pass
+        return self._error
+
+    def wait(self) -> None:
+        error = self.wait_error()
+        if error is not None:
+            raise error
+
+
+def _slo_ms() -> float:
+    """SRML_SERVE_SLO_MS: target request latency.  0 (default) disables SLO
+    scoring — attainment reports 1.0 vacuously."""
+    try:
+        return float(os.environ.get(SLO_MS_ENV, "") or 0.0)
+    except ValueError:
+        return 0.0
+
+
+def _slo_burn_budget() -> float:
+    try:
+        return float(os.environ.get(SLO_BURN_ENV, "") or _DEFAULT_SLO_BURN)
+    except ValueError:
+        return _DEFAULT_SLO_BURN
+
+
+def _compile_watermark() -> int:
+    """Warm-cache misses so far (ops/precompile.py): never-dispatched keys
+    and first kernel-library loads, plus the fallback counter the JAX
+    engine reads (never counted in the port)."""
+    return profiling.counter("precompile.compile") + profiling.counter(
+        "precompile.fallback"
+    )
+
+
+# The warm-cache watermark is PROCESS-wide, so a server dispatching while
+# ANOTHER server warms up would see the warmer's misses in its own window
+# and fail assert_steady_state spuriously (the multi-model registry
+# load-under-traffic case).  Every warmup registers here; a dispatch whose
+# window overlapped any warmup skips attribution for that batch (counted as
+# unattributed, never as a steady-state breach).
+_warm_lock = sanitize.lockdep_lock("serve.engine.warm")
+_warm_active = 0
+_warm_epoch = 0  # bumped at every warmup start AND end
+
+
+@contextlib.contextmanager
+def _warm_scope():
+    global _warm_active, _warm_epoch
+    with _warm_lock:
+        _warm_active += 1
+        _warm_epoch += 1
+    try:
+        yield
+    finally:
+        with _warm_lock:
+            _warm_active -= 1
+            _warm_epoch += 1
+
+
+def _warm_snapshot():
+    with _warm_lock:
+        return _warm_active, _warm_epoch
+
+
+class ModelServer:
+    """Online inference for one fitted model.
+
+    Construction warms every serving bucket and starts the dispatch worker;
+    `submit` enqueues a request and returns a Future, `predict` is the
+    blocking convenience.  Use as a context manager or call shutdown()."""
+
+    def __init__(
+        self,
+        name: str,
+        model: Any,
+        mesh: Any = None,
+        *,
+        max_batch: Optional[int] = None,
+        max_wait_ms: Optional[float] = None,
+        queue_depth: Optional[int] = None,
+        default_timeout_ms: Optional[float] = None,
+        inflight_depth: Optional[int] = None,
+        warm: bool = True,
+    ):
+        self.name = str(name)
+        self.model = model
+        self.ns = f"serving.{self.name}"
+        from ..utils import env_float
+
+        self.inflight_depth = max(
+            1,
+            int(
+                inflight_depth
+                if inflight_depth is not None
+                else env_float(INFLIGHT_DEPTH_ENV, _DEFAULT_INFLIGHT_DEPTH)
+            ),
+        )
+        self._entry: ServingEntry = entry_for(model, mesh)
+        self._batcher = MicroBatcher(
+            n_cols=self._entry.n_cols,
+            dtype=self._entry.dtype,
+            counter_ns=self.ns,
+            max_batch=max_batch,
+            max_wait_ms=max_wait_ms,
+            queue_depth=queue_depth,
+            default_timeout_ms=default_timeout_ms,
+        )
+        self.buckets = serve_buckets(self._batcher.max_batch)
+        self._steady_compiles = 0
+        self._warmed = False
+        # health plane: lifecycle state + wedge detection.  _busy_since is
+        # set by the worker around each device dispatch; a dispatch older
+        # than SRML_WATCH_STALL_S flips the server UNHEALTHY (lazily, from
+        # submit()/health() — no extra thread).
+        # State/busy transitions happen under _health_lock: a client
+        # flipping UNHEALTHY and the worker clearing busy must not
+        # interleave, or a slow-but-successful dispatch near the threshold
+        # could pin UNHEALTHY with no recovery path left.
+        self._state = WARMING
+        self._busy_since: Optional[float] = None
+        self._drain_begun = False
+        self._health_lock = sanitize.lockdep_lock("serve.engine.health")
+        # srml-shield supervisor state: restart budget spent so far, the
+        # CURRENT worker generation (a wedge recovery SUPERSEDES the stuck
+        # worker by bumping the generation — when its blocked dispatch
+        # finally returns it sees the stale generation and exits instead of
+        # double-consuming the batcher), and the in-flight batch (so a
+        # recovery can fail those requests from outside the worker thread)
+        self._restarts = 0
+        self._worker_gen = 0
+        self._inflight: Optional[list] = None
+        self._shutdown_begun = False
+        self._recovery_epoch = 0  # guards stale recoveries (see _recover)
+        # depth>1 continuous batching: the CURRENT generation's bounded
+        # assembled-batch queue and assembly thread (None at depth 1).
+        # Rebuilt per worker generation — a recovery must never leave a new
+        # dispatcher popping a dead generation's pipe.
+        self._pipe: Optional["queue.Queue"] = None
+        self._worker: Optional[threading.Thread] = None
+        self._asm: Optional[threading.Thread] = None
+        self._burn_cache = (float("-inf"), 0.0)  # (stamped-at, burn)
+        # one srml-scope trace session spans the server's lifetime (warmup
+        # through shutdown) when SRML_TRACE_DIR is set: every queue/dispatch
+        # span — recorded on the worker thread — lands in one Perfetto file.
+        # The session holds the process-wide span-collection scope open, so
+        # it MUST close on every exit path: a failed warmup closes it here
+        # (re-raised), shutdown() closes it normally, and __del__ backstops
+        # a server abandoned without shutdown — a leaked scope would starve
+        # every later fit/search trace of its spans.
+        self._trace_stack = contextlib.ExitStack()
+        self.trace_path = self._trace_stack.enter_context(
+            profiling.trace_session(f"serve-{self.name}")
+        )
+        try:
+            _gen, warmed = self._start_worker(warm)
+            if warmed is not None:
+                warmed.wait()
+            self._state = READY
+        except BaseException:
+            self._batcher.stop()
+            for t in (self._worker, self._asm):
+                if t is not None:
+                    t.join(timeout=60.0)
+            self._trace_stack.close()
+            raise
+
+    def _make_worker_locked(self, warm: bool) -> Tuple[int, list, Optional["_Warmed"]]:
+        """Build the next worker generation's thread set (dispatch worker,
+        plus the assembly thread and a FRESH pipe at inflight_depth > 1)
+        under the already-held health lock; returns (gen, threads to start,
+        the worker's warm-up outcome or None without one).  The ONE
+        construction rule shared by _start_worker and the recovery path, so
+        a recovered server always gets the same pipeline shape it was built
+        with."""
+        self._worker_gen += 1
+        gen = self._worker_gen
+        pipe = None
+        if self.inflight_depth > 1:
+            pipe = queue.Queue(maxsize=self.inflight_depth - 1)
+            self._pipe = pipe
+        # BOTH pipeline threads are pinned to THEIR generation's pipe via
+        # thread args — a late-scheduled stale-generation thread reading
+        # self._pipe would pop the successor's work (double dispatch: two
+        # device threads for one server)
+        warmed = _Warmed() if warm else None
+        worker = threading.Thread(
+            target=self._worker_main, args=(gen, pipe, warmed),
+            name=f"srml-serve-{self.name}-g{gen}", daemon=True,
+        )
+        self._worker = worker
+        threads = [worker]
+        if pipe is not None:
+            asm = threading.Thread(
+                target=self._assembler_main, args=(gen, pipe),
+                name=f"srml-serve-{self.name}-asm-g{gen}", daemon=True,
+            )
+            self._asm = asm
+            threads.append(asm)
+        return gen, threads, warmed
+
+    def _start_worker(self, warm: bool) -> Tuple[int, Optional["_Warmed"]]:
+        """Start the first dispatch worker thread (and, at inflight_depth >
+        1, its assembly-stage sibling); returns (generation, its warm-up
+        outcome or None)."""
+        with self._health_lock:
+            gen, threads, warmed = self._make_worker_locked(warm)
+        for t in threads:
+            t.start()
+        return gen, warmed
+
+    def __del__(self):  # pragma: no cover - GC timing
+        try:
+            self._trace_stack.close()  # idempotent
+        except Exception:  # graftlint: disable=R9 (GC-time close; logging itself can fail at interpreter teardown)
+            pass
+
+    # -- warmup -------------------------------------------------------------
+    def _warm_buckets(self, tag: str) -> None:
+        """One synthetic batch per bucket through the FULL dispatch path, on
+        the calling (worker) thread, inside _warm_scope so nothing it warms
+        is attributed to a concurrently dispatching server's steady state.
+        busy_since is set for its duration, so a model that HANGS here is
+        visible to the same wedge detector as a hung dispatch.  `tag` names
+        the span and duration series: warm (construction) or rewarm
+        (recovery)."""
+        t0 = profiling.now()
+        with self._health_lock:
+            self._busy_since = t0
+        try:
+            with _warm_scope(), profiling.span(f"serve.{self.name}.{tag}", buckets=len(self.buckets)):
+                keys = self._entry.warm(list(self.buckets))
+                for b in self.buckets:
+                    t1 = profiling.now()
+                    out = self._entry.call(self._synth(b))
+                    profiling.record_duration(f"serve.{self.name}.warm_dispatch", profiling.now() - t1)
+                    missing = [c for c in self._entry.out_cols if c not in out]
+                    if missing:
+                        raise ValueError(
+                            f"serving entry {self._entry.name!r} returned columns "
+                            f"{sorted(out)} missing declared {missing}"
+                        )
+                if not precompile.warmed(keys):
+                    raise RuntimeError(
+                        f"serving entry {self._entry.name!r}: the warm dispatches left keys "
+                        f"{[k for k in keys if not precompile.is_warm(k)]} cold"
+                    )
+        finally:
+            with self._health_lock:
+                self._busy_since = None
+        if tag == "warm":
+            profiling.record_duration(f"serve.{self.name}.warmup", profiling.now() - t0)
+            profiling.incr_counter(f"{self.ns}.warmed_buckets", len(self.buckets))
+        self._warmed = True
+
+    def _device_scope(self):
+        """The entry's CUDA device as the calling thread's current device
+        (nothing for a host entry)."""
+        dev = self._entry.device
+        if dev is not None and torch.device(dev).type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+
+    # -- client API ---------------------------------------------------------
+    def submit(
+        self,
+        features: np.ndarray,
+        timeout_ms: Optional[float] = None,
+    ):
+        """Enqueue one request ((D,) row or (n, D) block, n <= max_batch);
+        returns a Future resolving to {output column: np array of n rows}.
+        Raises ServerOverloaded when the queue bound is hit, ServerRecovering
+        (retryable: the supervisor is restarting the worker — retry HERE
+        after the sub-second recovery window) while a restart is underway,
+        and ServerUnhealthy when the worker is wedged with no restart
+        budget left (fail over to ANOTHER replica)."""
+        age = self._check_wedged()
+        with self._health_lock:
+            state = self._state
+        if state == RECOVERING:
+            # also the path the DETECTING submit takes when restart budget
+            # remains: _maybe_restart_wedged flips to RECOVERING
+            # synchronously, so the caller that noticed the wedge is told
+            # "retry here" — not to abandon a replica that is seconds from
+            # READY
+            raise ServerRecovering(
+                f"{self.ns}: restarting the dispatch worker after a "
+                "failure; retry shortly"
+            )
+        if age is not None or state == UNHEALTHY:
+            raise ServerUnhealthy(
+                f"{self.ns}: dispatch worker wedged for {age or 0.0:.1f}s "
+                f"(> SRML_WATCH_STALL_S={watch.stall_threshold_s():g}) "
+                "with no restart budget left; fail over to another replica"
+            )
+        return self._batcher.submit(features, timeout_ms=timeout_ms)
+
+    def _check_wedged(self) -> Optional[float]:
+        """Seconds the in-flight dispatch has been wedged when the server
+        is UNHEALTHY, else None.  The flip decision (and the age the error
+        message quotes) is taken under the health lock; reporting side
+        effects run outside it.  SRML_WATCH_STALL_S == 0 disables
+        detection; the worker restores the lifecycle state if the dispatch
+        eventually returns."""
+        stall_s = watch.stall_threshold_s()
+        flipped = False
+        with self._health_lock:
+            busy = self._busy_since
+            now = profiling.now()
+            if self._state == UNHEALTHY:
+                return now - busy if busy is not None else 0.0
+            if stall_s <= 0 or busy is None or now - busy <= stall_s:
+                return None
+            self._state = UNHEALTHY
+            flipped = True
+            age = now - busy
+        if flipped:
+            profiling.incr_counter(f"{self.ns}.unhealthy")
+            logger.error(
+                "%s: dispatch worker wedged for %.1fs — flipping UNHEALTHY "
+                "and dumping flight recorder",
+                self.ns, age,
+            )
+            watch.dump(f"serve-wedged-{self.name}")
+            # srml-shield: the watchdog ACTS (dump + supervised restart)
+            # instead of only flagging — wedge detection is lazy (driven
+            # by submit()/state()/health() calls), so the restart launches
+            # from whichever caller noticed
+            self._maybe_restart_wedged()
+        return age
+
+    def predict(
+        self, features: np.ndarray, timeout_ms: Optional[float] = None
+    ) -> Dict[str, np.ndarray]:
+        """Blocking convenience around submit(); the client-side wait is
+        bounded by the request timeout plus one dispatch."""
+        fut = self.submit(features, timeout_ms=timeout_ms)
+        wait_s = None
+        if timeout_ms is not None and timeout_ms > 0:
+            wait_s = timeout_ms / 1000.0 + 60.0  # dispatch slack
+        return fut.result(timeout=wait_s)
+
+    # -- dispatch worker + srml-shield supervisor ----------------------------
+    def _worker_main(self, gen: int, pipe: Optional["queue.Queue"], warmed: Optional["_Warmed"]) -> None:
+        """Worker thread top frame, inside the entry's device: the warm-up
+        (when `warmed` is given; its outcome goes there, and a failed one
+        ends the thread), then the dispatch loop.  A BaseException escaping
+        the loop is a WORKER DEATH (not a per-batch model error — those are
+        relayed to futures inside _dispatch) and triggers the supervised
+        restart."""
+        with self._device_scope():
+            if warmed is not None:
+                try:
+                    self._warm_buckets("warm" if gen == 1 else "rewarm")
+                except BaseException as exc:  # noqa: BLE001 - handed to the waiter
+                    warmed.finish(exc)
+                    return
+                warmed.finish(None)
+                if self._worker_gen != gen:
+                    return  # superseded while warming
+            try:
+                self._run(gen, pipe)
+            except BaseException as exc:  # noqa: BLE001 - the supervisor catches
+                self._on_worker_death(exc, gen)
+
+    def _run(self, gen: int, pipe: Optional["queue.Queue"]) -> None:
+        if pipe is not None:
+            self._run_pipelined(gen, pipe)
+            return
+        from .batcher import CANCELLED
+
+        while True:
+            # the queue span covers the worker's wait for a coalesced batch:
+            # in a trace, long serve.<n>.queue spans between short dispatch
+            # spans read as spare capacity, back-to-back dispatches as
+            # saturation.  A generation superseded while idle here (a
+            # recovery that gave up on it) leaves without consuming.
+            with profiling.span(f"serve.{self.name}.queue"):
+                item = self._batcher.take(cancelled=lambda: self._worker_gen != gen)
+            if item is None or item is CANCELLED:
+                return
+            batch, _reason = item
+            profiling.record_duration(
+                f"serve.{self.name}.inflight_depth", 1.0
+            )
+            if not self._process(gen, batch, None):
+                return
+
+    # -- depth>1 continuous batching (srml-router) ----------------------------
+    def _assembler_main(self, gen: int, pipe: "queue.Queue") -> None:
+        """Assembly stage of the depth>1 pipeline: pop coalesced batches
+        and do the HOST-side work (pad to the pow2 bucket) while the
+        dispatch worker has the previous batch on device.  This thread
+        never touches the device: one device thread per server at every
+        depth.  On supersede/stop it fails its in-hand batch and
+        drains its own pipe (it is the only producer, so after this drain
+        the pipe stays empty forever — no future is ever stranded)."""
+        from .batcher import CANCELLED
+
+        try:
+            while True:
+                with profiling.span(f"serve.{self.name}.queue"):
+                    # hold=pipe.full is the iteration-level part of the
+                    # pipeline: while a staged batch already waits for the
+                    # device, the NEXT batch stays open to late arrivals
+                    # (closing it early could not dispatch it sooner, only
+                    # freeze its occupancy below the bucket) — the
+                    # dispatcher kick()s the moment the slot frees
+                    item = self._batcher.take(
+                        cancelled=lambda: self._worker_gen != gen,
+                        hold=pipe.full,
+                    )
+                if item is CANCELLED:
+                    break  # superseded: queued work belongs to the successor
+                if item is None:
+                    # stopped and drained: wake the dispatcher for exit.
+                    # The sentinel trails every real item (single producer),
+                    # so the dispatcher resolves everything first.
+                    self._pipe_put(pipe, None, gen)
+                    return
+                batch, _reason = item
+                assembled = self._assemble(batch)
+                if not self._pipe_put(pipe, (batch, assembled), gen):
+                    break  # superseded while the pipe was full
+                # pipeline depth achieved by THIS admission: batches staged
+                # in the pipe plus the one on device — the
+                # serve.<n>.inflight_depth series (percentiles > 1 mean
+                # assembly genuinely overlapped device execution)
+                busy = 1 if self._busy_since is not None else 0
+                profiling.record_duration(
+                    f"serve.{self.name}.inflight_depth",
+                    float(pipe.qsize() + busy),
+                )
+        except BaseException as exc:  # noqa: BLE001 - assembly must not hang clients
+            # host-side assembly death (bookkeeping bug or injected): fail
+            # queued work the way a worker death does, through the same
+            # supervisor — a silently dead assembler would strand every
+            # queued request behind a live-looking server
+            self._on_worker_death(exc, gen)
+            return
+        self._drain_pipe(pipe)
+
+    def _pipe_put(self, pipe: "queue.Queue", item, gen: int) -> bool:
+        """Bounded-wait put that notices supersede: a pipe stuck full
+        because its dispatcher died must not park the assembler forever
+        (graftlint R9 discipline, same as the batcher's 1 s re-check)."""
+        while True:
+            try:
+                pipe.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                if self._worker_gen != gen:
+                    if item is not None:
+                        for r in item[0]:
+                            resolve_future(
+                                r.future,
+                                exc=ServerRecovering(
+                                    f"{self.ns}: worker superseded with the "
+                                    "pipeline full; retry"
+                                ),
+                            )
+                    return False
+
+    def _drain_pipe(self, pipe: Optional["queue.Queue"]) -> int:
+        """Fail every assembled-but-undispatched batch in `pipe` with the
+        typed retryable error; returns the number of requests failed."""
+        n = 0
+        while pipe is not None:
+            try:
+                item = pipe.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                continue
+            for r in item[0]:
+                if resolve_future(
+                    r.future,
+                    exc=ServerRecovering(
+                        f"{self.ns}: pipeline flushed during recovery; retry"
+                    ),
+                ):
+                    n += 1
+        return n
+
+    def _run_pipelined(self, gen: int, pipe: "queue.Queue") -> None:
+        """Dispatch stage of the depth>1 pipeline: pop ASSEMBLED batches
+        and run the device leg.  The pop wait is bounded so a superseded
+        generation exits within one re-check interval even if its
+        assembler died without a sentinel."""
+        while True:
+            try:
+                with profiling.span(f"serve.{self.name}.pipe"):
+                    item = pipe.get(timeout=1.0)
+            except queue.Empty:
+                if self._worker_gen != gen:
+                    return
+                continue
+            if item is None:
+                return
+            # the staging slot just freed: wake an assembler holding a
+            # deadline-expired batch open so it closes and stages now
+            self._batcher.kick()
+            batch, assembled = item
+            if not self._process(gen, batch, assembled):
+                return
+
+    def _process(self, gen: int, batch, assembled) -> bool:
+        """Shared per-batch guard around _dispatch (both depths): health
+        bookkeeping, error relay, supersede detection.  Returns False when
+        this worker generation was superseded and must exit."""
+        with self._health_lock:
+            self._busy_since = profiling.now()
+            self._inflight = batch
+        dying = True  # a BaseException escaping _dispatch = worker death
+        try:
+            self._dispatch(batch, assembled)
+            dying = False
+        except Exception as exc:  # noqa: BLE001 - worker must survive
+            dying = False
+            # _dispatch relays model errors to the batch's futures; this
+            # guard is for bookkeeping bugs (e.g. a racing future state)
+            # — one batch may be lost, the server must not wedge.
+            # BaseExceptions (InjectedWorkerDeath, interpreter teardown)
+            # deliberately ESCAPE to _worker_main: they are deaths, not
+            # batch errors.
+            logger.exception("%s: dispatch bookkeeping failed", self.ns)
+            profiling.incr_counter(f"{self.ns}.errors")
+            rec = watch.recorder()
+            if rec is not None:
+                rec.record_exception(exc, f"serve-{self.name}")
+            for r in batch:
+                resolve_future(
+                    r.future,
+                    exc=RuntimeError(f"{self.ns}: dispatch failed"),
+                )
+        finally:
+            with self._health_lock:
+                superseded = self._worker_gen != gen
+                recovered = False
+                if not superseded and not dying:
+                    # on the DEATH path _inflight must survive this
+                    # finally: _on_worker_death fails those futures
+                    # with the typed retryable error
+                    self._busy_since = None
+                    self._inflight = None
+                    recovered = self._state == UNHEALTHY
+                    if recovered:
+                        # the wedged dispatch came back after all (no
+                        # restart budget was left, so no supersede):
+                        # recover — UNHEALTHY describes the worker, not
+                        # history (but a drain that began meanwhile
+                        # stays a drain)
+                        self._state = (
+                            DRAINING if self._drain_begun else READY
+                        )
+            if recovered:
+                profiling.incr_counter(f"{self.ns}.recovered")
+                logger.warning(
+                    "%s: wedged dispatch returned; %s",
+                    self.ns, self._state,
+                )
+        if self._worker_gen != gen:
+            # a wedge recovery superseded this worker while its dispatch
+            # was blocked: a new generation owns the batcher now — exit
+            # instead of double-consuming (the blocked batch's futures
+            # were already failed with ServerRecovering; resolve_future
+            # made this worker's late scatter a harmless no-op)
+            logger.warning(
+                "%s: superseded worker generation %d exiting after its "
+                "blocked dispatch returned", self.ns, gen,
+            )
+            return False
+        return True
+
+    # -- the supervisor: bounded restart with backoff -------------------------
+    def _on_worker_death(self, exc: BaseException, gen: int) -> None:
+        """The dispatch worker died (exception escaped its loop).  Fail the
+        in-flight batch with the typed retryable error, then run the
+        bounded-restart policy."""
+        profiling.incr_counter(f"{self.ns}.worker_deaths")
+        logger.error("%s: dispatch worker died: %s: %s",
+                     self.ns, type(exc).__name__, exc)
+        rec = watch.recorder()
+        if rec is not None:
+            rec.record_exception(exc, f"serve-{self.name}")
+        watch.dump(f"serve-died-{self.name}")
+        with self._health_lock:
+            if self._worker_gen != gen:
+                return  # already superseded by a wedge recovery
+            inflight, self._inflight = self._inflight, None
+            self._busy_since = None
+        for r in inflight or []:
+            resolve_future(
+                r.future,
+                exc=ServerRecovering(
+                    f"{self.ns}: dispatch worker died mid-batch; retry"
+                ),
+            )
+        self._recover("worker-death")
+
+    def _maybe_restart_wedged(self) -> None:
+        """Wedge half of the supervisor: SUPERSEDE the stuck worker (bump
+        the generation; its eventual return becomes a no-op exit), fail its
+        in-flight batch, and restart — on a helper thread, because the
+        caller is a client inside submit()/health()."""
+        with self._health_lock:
+            if self._state != UNHEALTHY or self._drain_begun:
+                return
+            if self._restarts >= _max_restarts():
+                return  # budget spent: stay UNHEALTHY (legacy lazy-recover
+                #         path still applies if the dispatch ever returns)
+            # flip RECOVERING synchronously so the caller that DETECTED the
+            # wedge (this very submit/state call) already reports the
+            # retryable "restarting" verdict, not fail-over
+            self._state = RECOVERING
+            self._worker_gen += 1
+            inflight, self._inflight = self._inflight, None
+            self._busy_since = None
+        threading.Thread(
+            target=self._wedge_recovery, args=(inflight,),
+            name=f"srml-serve-{self.name}-recover", daemon=True,
+        ).start()
+
+    def _wedge_recovery(self, inflight) -> None:
+        for r in inflight or []:
+            resolve_future(
+                r.future,
+                exc=ServerRecovering(
+                    f"{self.ns}: dispatch wedged past the stall threshold; "
+                    "worker superseded — retry"
+                ),
+            )
+        self._recover("wedged-dispatch")
+
+    def _recover(self, reason: str) -> None:
+        """Bounded-restart-with-backoff: shed everything queued with the
+        typed retryable error (never a hang), back off, then start a new
+        worker generation that re-warms every bucket on its own thread
+        before it takes traffic (every key is already in the warm cache:
+        zero new warm-ups — a recovery into a cold replica would defeat the
+        SLO — and a model that can no longer dispatch burns the restart
+        budget HERE, not on live traffic).  Budget exhausted => UNHEALTHY,
+        permanently.  A recovery racing drain()/shutdown() sheds (so
+        quiescence resolves) but never restarts — a shut-down server must
+        not resurrect a worker or report READY."""
+        t0 = profiling.now()
+        with self._health_lock:
+            aborting = self._drain_begun or self._shutdown_begun
+            if aborting:
+                budget_spent = False
+                attempt = self._restarts
+            elif self._restarts >= _max_restarts():
+                self._state = UNHEALTHY
+                budget_spent = True
+                attempt = self._restarts
+            else:
+                self._restarts += 1
+                attempt = self._restarts
+                self._state = RECOVERING
+                budget_spent = False
+            self._recovery_epoch += 1
+            my_epoch = self._recovery_epoch
+        shed = self._batcher.fail_pending(
+            ServerRecovering(
+                f"{self.ns}: recovering from {reason}; retry shortly"
+            )
+        )
+        # depth>1: assembled-but-undispatched batches in the dead
+        # generation's pipe are admitted requests too — shed them the same
+        # way (the old assembler's own exit-drain backstops any later put)
+        shed += self._drain_pipe(self._pipe)
+        if shed:
+            profiling.incr_counter(f"{self.ns}.shed_recovery", shed)
+        if aborting:
+            logger.warning(
+                "%s: %s during drain/shutdown — shed %d request(s), no "
+                "restart", self.ns, reason, shed,
+            )
+            return
+        if budget_spent:
+            logger.error(
+                "%s: %s after %d restart(s) — budget (%s=%d) exhausted; "
+                "UNHEALTHY until replaced",
+                self.ns, reason, attempt, MAX_RESTARTS_ENV, _max_restarts(),
+            )
+            return
+        time.sleep(_restart_backoff_s() * (2 ** (attempt - 1)))
+        with self._health_lock:
+            # a recovery superseded during the backoff (another wedge
+            # escalation consumed the budget, or shutdown began) must not
+            # resurrect a worker: the check and the generation reservation
+            # share ONE lock acquisition
+            stale = self._stale_recovery(my_epoch)
+            if not stale:
+                gen, threads, warmed = self._make_worker_locked(True)
+        if stale:
+            logger.warning("%s: recovery #%d superseded during backoff; standing down", self.ns, attempt)
+            return
+        for t in threads:
+            t.start()
+        error = warmed.wait_error()
+        with self._health_lock:
+            stale = self._stale_recovery(my_epoch)
+            if error is not None or stale:
+                if self._worker_gen == gen:
+                    self._worker_gen += 1  # this generation's threads leave
+                if error is not None and not stale:
+                    self._state = UNHEALTHY
+            else:
+                self._state = DRAINING if self._drain_begun else READY
+        if error is not None:
+            logger.error(
+                "%s: bucket re-warm failed during recovery — UNHEALTHY: %s: %s",
+                self.ns, type(error).__name__, error,
+            )
+            return
+        if stale:
+            logger.warning("%s: recovery #%d superseded during re-warm; standing down", self.ns, attempt)
+            return
+        dt = profiling.now() - t0
+        profiling.incr_counter(f"{self.ns}.restarts")
+        profiling.record_duration(f"serve.{self.name}.recovery", dt)
+        logger.warning(
+            "%s: recovered from %s via supervised restart #%d in %.1f ms "
+            "(buckets re-warmed on the new worker)",
+            self.ns, reason, attempt, dt * 1e3,
+        )
+
+    def _stale_recovery(self, epoch: int) -> bool:
+        """Under the health lock: whether a recovery of `epoch` was
+        superseded (a later recovery, shutdown, or a terminal state)."""
+        return self._recovery_epoch != epoch or self._shutdown_begun or self._state == UNHEALTHY
+
+    def _synth(self, b: int) -> np.ndarray:
+        """The synthetic warm / re-warm batch for one bucket."""
+        return np.zeros((b, self._entry.n_cols), dtype=self._entry.dtype)
+
+    def _assemble(self, batch) -> Tuple[np.ndarray, int, int]:
+        """Host-side batch assembly: zero-pad the coalesced requests to
+        their pow2 row bucket.  Runs on the dispatch worker at depth 1 and
+        on the assembly thread at depth > 1 — the work the pipeline
+        overlaps with device execution.  Returns (padded, n_rows, b)."""
+        n_rows = sum(r.n_rows for r in batch)
+        b = bucket_rows(n_rows, self._batcher.max_batch)
+        # empty + tail-only zero fill, NOT np.zeros + overwrite: the bucket
+        # is written exactly once either way, but zeros() pre-fills the
+        # whole buffer, doubling assembly memory traffic for a full bucket
+        # — host bandwidth the depth>1 assembler shares with the device leg
+        padded = np.empty((b, self._entry.n_cols), dtype=self._entry.dtype)
+        off = 0
+        for r in batch:
+            padded[off : off + r.n_rows] = r.features
+            off += r.n_rows
+        if b > n_rows:
+            padded[n_rows:] = 0
+        profiling.incr_counter(f"{self.ns}.pad_rows", b - n_rows)
+        return padded, n_rows, b
+
+    def _dispatch(self, batch, assembled=None) -> None:
+        # srml-shield: the serving injection site (tag = server name, so a
+        # plan targets ONE server deterministically).  kill here raises
+        # InjectedWorkerDeath — a BaseException that escapes the per-batch
+        # Exception guard and lands in _worker_main as a worker death.
+        faults.site("serving.dispatch", tag=self.name)
+        padded, n_rows, b = assembled if assembled is not None else self._assemble(batch)
+        # warm-cache accounting brackets THIS dispatch: the watermark
+        # counters are process-wide, so a baseline taken at warmup end would
+        # blame this server for another server's later warm-ups (any miss
+        # our own dispatch causes is counted inside entry.call).  A window
+        # that overlapped any concurrent warmup (epoch moved / warm active)
+        # skips attribution entirely — see _warm_scope.
+        active0, epoch0 = _warm_snapshot()
+        mark0 = _compile_watermark() if self._warmed else 0
+        t0 = profiling.now()
+        try:
+            with sanitize.sanitize_scope(self._entry.device), profiling.span(
+                f"serve.{self.name}.dispatch",
+                rows=n_rows, bucket=b, requests=len(batch),
+            ):
+                out = self._entry.call(padded)
+                sanitize.check_nans(out, self.ns)
+        except BaseException as exc:  # noqa: BLE001 - relayed to every waiter
+            profiling.incr_counter(f"{self.ns}.errors")
+            rec = watch.recorder()
+            if rec is not None:
+                # ring-record the model error (cheap, no dump: per-batch
+                # model errors are relayed to callers, not process fatal)
+                rec.record_exception(exc, f"serve-{self.name}")
+            for r in batch:
+                resolve_future(r.future, exc=exc)
+            return
+        dt = profiling.now() - t0
+        profiling.record_duration(f"serve.{self.name}.dispatch", dt)
+        profiling.record_duration(f"serve.{self.name}.by_bucket.{b}", dt)
+        profiling.record_duration(f"serve.{self.name}.occupancy", float(len(batch)))
+        if self._warmed:
+            delta = _compile_watermark() - mark0
+            if delta > 0:
+                active1, epoch1 = _warm_snapshot()
+                if active0 == 0 and active1 == 0 and epoch0 == epoch1:
+                    profiling.incr_counter(f"{self.ns}.steady_compiles", delta)
+                    self._steady_compiles += delta
+                else:
+                    profiling.incr_counter(
+                        f"{self.ns}.unattributed_compiles", delta
+                    )
+        done_t = profiling.now()
+        off = 0
+        for r in batch:
+            sl = slice(off, off + r.n_rows)
+            off += r.n_rows
+            result = {c: np.asarray(v[sl]) for c, v in out.items()}
+            if resolve_future(r.future, result):
+                profiling.record_duration(
+                    f"serve.{self.name}.latency", done_t - r.enqueue_t
+                )
+
+    # -- lifecycle / observability ------------------------------------------
+    def drain(self, timeout_s: float = 60.0) -> None:
+        """Flush pending partial batches immediately and wait until every
+        queued request has resolved (quiescence).  The server keeps running
+        only in the sense that the worker stays alive for shutdown(); new
+        submits are rejected once draining starts."""
+        with self._health_lock:
+            self._drain_begun = True
+            if self._state != UNHEALTHY:
+                self._state = DRAINING
+        self._batcher.begin_drain()
+        if not self._batcher.wait_quiescent(timeout_s=timeout_s):
+            raise TimeoutError(
+                f"{self.ns}: drain timed out with "
+                f"{self._batcher.outstanding()} request(s) unresolved"
+            )
+
+    def shutdown(self, drain: bool = True, timeout_s: float = 60.0) -> None:
+        with self._health_lock:
+            # any in-flight recovery observes this and stands down instead
+            # of resurrecting a worker on a server being torn down
+            self._shutdown_begun = True
+        try:
+            if drain:
+                try:
+                    self.drain(timeout_s=timeout_s)
+                finally:
+                    self._batcher.stop()
+            else:
+                self._batcher.stop()
+            self._worker.join(timeout=timeout_s)
+            asm = self._asm
+            if asm is not None:
+                asm.join(timeout=timeout_s)
+        finally:
+            # close the lifetime trace session (writes the Perfetto file
+            # when SRML_TRACE_DIR is set; no-op otherwise)
+            self._trace_stack.close()
+
+    def __enter__(self) -> "ModelServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+    def assert_steady_state(self) -> None:
+        """Zero-new-warm-ups contract: every post-warmup dispatch ran on a
+        warmed (entry, bucket, dtype, device) key with its kernel libraries
+        loaded.  Raises AssertionError otherwise — the serving gate, and
+        available to deployments that treat a steady-state warm-up as an
+        SLO breach."""
+        if self._steady_compiles != 0:
+            raise AssertionError(
+                f"{self.ns}: {self._steady_compiles} warm-cache miss(es) "
+                "after warmup — a serving bucket or kernel library was not "
+                "covered by the warm set"
+            )
+
+    def state(self) -> str:
+        """Current lifecycle state (wedge detection applied lazily)."""
+        self._check_wedged()
+        return self._state
+
+    # -- router-facing surface (serving/scheduler.py reads these) ------------
+    def outstanding(self) -> int:
+        """Admitted requests without an outcome yet — the least-outstanding
+        dispatch signal."""
+        return self._batcher.outstanding()
+
+    def queued_rows(self) -> int:
+        return self._batcher.queued_rows()
+
+    def queue_depth(self) -> int:
+        return self._batcher.queue_depth
+
+    # burn-verdict cache TTL: effective_state() sits on the ROUTER'S
+    # dispatch hot path (scheduler.pick calls it per candidate per submit),
+    # and the naive burn computation copies + scans the whole latency ring
+    # (up to the 64k sample cap) under the global durations lock — per
+    # request, that is throughput collapse exactly at the QPS where routing
+    # matters.  Rotation decisions don't need sub-quarter-second burn
+    # freshness, so one scan per TTL per replica amortizes it away.
+    _BURN_CACHE_S = 0.25
+
+    def _slo_burn(self) -> float:
+        """Burn fraction over the latency window vs SRML_SERVE_SLO_MS
+        (0.0 with no SLO configured or no samples), cached _BURN_CACHE_S."""
+        slo_ms = _slo_ms()
+        if slo_ms <= 0:
+            return 0.0
+        now = profiling.now()
+        t, cached = self._burn_cache  # tuple read: GIL-atomic
+        if now - t < self._BURN_CACHE_S:
+            return cached
+        samples = profiling.durations(f"serve.{self.name}.latency").get(
+            f"serve.{self.name}.latency", []
+        )
+        burn = 0.0
+        if samples:
+            met = sum(1 for s in samples if s * 1000.0 <= slo_ms)
+            burn = 1.0 - met / len(samples)
+        self._burn_cache = (now, burn)
+        return burn
+
+    def slo_burn(self) -> float:
+        """Public read of the cached SLO burn fraction — the autoscaler's
+        scale-up signal (serving/autoscale.py).  Same windowed verdict the
+        DEGRADED overlay and health() score against, amortized by the
+        _BURN_CACHE_S cache so a policy loop polling every replica every
+        tick never pays the latency-ring scan per call."""
+        return self._slo_burn()
+
+    def effective_state(self) -> str:
+        """Lifecycle state with the SLO-burn DEGRADED overlay applied —
+        the router's rotation signal.  state() alone never reports
+        DEGRADED: burn is a derived, windowed verdict that health()
+        computes; the router needs the same verdict without the rest of
+        the health document."""
+        state = self.state()
+        if state == READY and self._slo_burn() > _slo_burn_budget():
+            return DEGRADED
+        return state
+
+    def health(self) -> Dict[str, Any]:
+        """SLO-scored health: lifecycle state, p99 vs SRML_SERVE_SLO_MS,
+        and the burn fraction (share of window requests OVER the SLO) —
+        Prometheus-style burn-rate health over the latency sample window.
+        With no SLO configured attainment is vacuously 1.0; a READY server
+        whose burn exceeds SRML_SERVE_SLO_BURN reports DEGRADED."""
+        self._check_wedged()
+        slo_ms = _slo_ms()
+        samples = profiling.durations(f"serve.{self.name}.latency").get(
+            f"serve.{self.name}.latency", []
+        )
+        if slo_ms > 0 and samples:
+            met = sum(1 for s in samples if s * 1000.0 <= slo_ms)
+            attainment = met / len(samples)
+        else:
+            attainment = 1.0
+        burn = 1.0 - attainment
+        state = self._state
+        if state == READY and burn > _slo_burn_budget():
+            state = DEGRADED
+        lat = profiling.percentiles(f"serve.{self.name}.latency")
+        busy = self._busy_since
+        return {
+            "name": self.name,
+            "state": state,
+            "state_code": STATE_CODES[state],
+            "slo_ms": slo_ms,
+            "attainment": round(attainment, 6),
+            "burn": round(burn, 6),
+            "burn_budget": _slo_burn_budget(),
+            "window_count": len(samples),
+            "p99_ms": (
+                round(lat["p99"] * 1000.0, 3) if lat else None
+            ),
+            "queued_rows": self._batcher.queued_rows(),
+            "queued_requests": self._batcher.queued_requests(),
+            "outstanding": self._batcher.outstanding(),
+            "busy_s": (
+                round(profiling.now() - busy, 3) if busy is not None else 0.0
+            ),
+            "steady_compiles": self._steady_compiles,
+            "restarts": self._restarts,
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """One self-describing snapshot: queue gauges, batching counters,
+        latency percentiles, and the steady-state warm-cache misses."""
+        lat = profiling.percentiles(f"serve.{self.name}.latency")
+        disp = profiling.percentiles(f"serve.{self.name}.dispatch")
+        occ = profiling.percentiles(f"serve.{self.name}.occupancy")
+        return {
+            "name": self.name,
+            "state": self.state(),
+            "entry": self._entry.name,
+            "out_cols": list(self._entry.out_cols),
+            "buckets": list(self.buckets),
+            "max_batch": self._batcher.max_batch,
+            "max_wait_ms": self._batcher.max_wait_s * 1000.0,
+            "queue_depth": self._batcher.queue_depth,
+            "inflight_depth": self.inflight_depth,
+            "queued_rows": self._batcher.queued_rows(),
+            "queued_requests": self._batcher.queued_requests(),
+            "counters": profiling.counters(self.ns + "."),
+            "latency": lat,
+            "dispatch": disp,
+            "dispatch_by_bucket": {
+                b: profiling.percentiles(f"serve.{self.name}.by_bucket.{b}") for b in self.buckets
+            },
+            "batch_occupancy": occ,
+            "steady_compiles": self._steady_compiles,
+            "restarts": self._restarts,
+            **({"info": self._entry.info} if self._entry.info else {}),
+        }

@@ -7,8 +7,8 @@
 # on refresh() materializes a model snapshot and hands it to the serving
 # planes: the first snapshot is registered (registry.register /
 # router.serve), every later one swapped in (registry.swap / router.swap).
-# The planes are duck-typed, as in the JAX package; the port's serving
-# planes come with ROADMAP A13.  One threading.Lock serializes snapshot,
+# The planes are duck-typed, as in the JAX package: the port's
+# serving.ModelRegistry and serving.Router are two.  One threading.Lock serializes snapshot,
 # swap and bookkeeping, so a staleness watcher calling refresh() beside the
 # ingest loop's refresh_every_rows trigger cannot interleave two swaps.
 #

@@ -11,10 +11,20 @@
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from typing import Any, Iterator, List, Optional, Union
 
 import numpy as np
+
+
+def env_float(name: str, default: float) -> float:
+    """Float environment knob: `default` when unset, empty or not a number
+    (the one parse of the serving, watch and slice-pool knobs)."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 def get_logger(cls: Union[type, str], level: int = logging.INFO) -> logging.Logger:

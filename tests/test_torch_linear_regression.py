@@ -209,7 +209,9 @@ def test_hooks_not_in_this_slice_raise():
         model._transformEvaluate(df, None)
     # streaming (ROADMAP A12) works now (tests/test_torch_streaming.py)
     assert type(est.streaming()).__name__ == "StreamingLinearRegression"
-    calls = ((model._serving_entry, "A13"), (model._lane_entry, "A13"), (model.cpu, "A14c"))
+    # serving (ROADMAP A13a) works now (tests/test_torch_serving.py)
+    assert type(model._serving_entry()).__name__ == "ServingEntry"
+    calls = ((model._lane_entry, "A13b"), (model.cpu, "A14c"))
     for call, item in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()

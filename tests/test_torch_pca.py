@@ -178,6 +178,8 @@ def test_hooks_not_in_this_slice_raise():
     model = port.PCA(k=1).fit(port.DataFrame.from_numpy(_low_rank(n=50, d=3, seed=11)))
     # streaming (ROADMAP A12) works now (tests/test_torch_streaming.py)
     assert type(port.PCA().streaming()).__name__ == "StreamingPCA"
-    for call, item in ((model._serving_entry, "A13"), (model._lane_entry, "A13"), (model.cpu, "A14c")):
+    # serving (ROADMAP A13a) works now (tests/test_torch_serving.py)
+    assert type(model._serving_entry()).__name__ == "ServingEntry"
+    for call, item in ((model._lane_entry, "A13b"), (model.cpu, "A14c")):
         with pytest.raises(NotImplementedError, match=item):
             call()

@@ -423,28 +423,6 @@ def test_allgather_merge_over_a_control_plane(exact_data):
 # -- the session --------------------------------------------------------------
 
 
-class _RecordingPlane:
-    """A serving plane stub: records register / serve / swap calls."""
-
-    def __init__(self, first: str):
-        self.first = first
-        self.calls = []
-        self.models = {}
-
-    def __contains__(self, name):
-        return name in self.models
-
-    def _first(self, name, model, **kw):
-        self.calls.append((self.first, name, kw))
-        self.models[name] = model
-
-    def swap(self, name, model):
-        self.calls.append(("swap", name, {}))
-        self.models[name] = model
-
-    register = serve = _first
-
-
 def test_session_staleness_and_refresh_accounting(clustered_data):
     X, cid, k = clustered_data
     session = StreamingSession(port.KMeans(k=k, maxIter=5, seed=1).streaming())
@@ -470,32 +448,49 @@ def test_session_ingest_refresh_every_rows(clustered_data):
 
 
 def test_session_registers_then_swaps(clustered_data):
+    """The first refresh registers the snapshot in a port ModelRegistry and
+    serves it on a port Router, every later one swaps it in; the served
+    labels are the snapshot's."""
+    from spark_rapids_ml_tpu_torch.serving import ModelRegistry, Router
+
     X, cid, k = clustered_data
-    registry, router = _RecordingPlane("register"), _RecordingPlane("serve")
-    session = StreamingSession(port.KMeans(k=k, maxIter=5, seed=1).streaming(), name="km", registry=registry,
-                               router=router, replicas=2)
-    session.partial_fit(X[cid == 0])
-    first = session.refresh()
-    session.partial_fit(X[cid == 1])
-    second = session.refresh()
-    assert registry.calls == [("register", "km", {"replicas": 2}), ("swap", "km", {})]
-    assert router.calls == [("serve", "km", {"replicas": 2}), ("swap", "km", {})]
-    assert registry.models["km"] is second and router.models["km"] is second and first is not second
+    with ModelRegistry() as registry, Router(replicas=1) as router:
+        session = StreamingSession(port.KMeans(k=k, maxIter=5, seed=1).streaming(), name="km", registry=registry,
+                                   router=router, max_batch=32, max_wait_ms=1)
+        session.partial_fit(X[cid == 0])
+        first = session.refresh()
+        assert registry.names() == ["km"] and router.names() == ["km"]
+        session.partial_fit(X[cid == 1])
+        second = session.refresh()
+        assert first is not second
+        assert registry.get("km").model is second and router.replicas("km")[0].model is second
+        assert profiling.counters("serving.km.swaps")["serving.km.swaps"] >= 1
+        assert profiling.counters("router.km.swaps")["router.km.swaps"] >= 1
+        want = second.transform(port.DataFrame.from_numpy(X[:16])).partitions[0]["prediction"]
+        np.testing.assert_array_equal(registry.get("km").predict(X[:16])["prediction"], want)
+        np.testing.assert_array_equal(router.predict("km", X[:16])["prediction"], want)
 
 
 def test_session_refreshes_serialize(clustered_data):
-    """Concurrent refresh() calls do not interleave their swaps."""
+    """Concurrent refresh() calls do not interleave their swaps: one
+    register, then one swap each."""
+    from spark_rapids_ml_tpu_torch.serving import ModelRegistry
+
     X, cid, k = clustered_data
-    plane = _RecordingPlane("register")
-    session = StreamingSession(port.KMeans(k=k, maxIter=5, seed=1).streaming(), name="km", registry=plane)
-    session.partial_fit(X[cid == 0])
-    threads = [threading.Thread(target=session.refresh) for _ in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert [c[0] for c in plane.calls] == ["register", "swap", "swap", "swap"]
-    assert session.stats()["refreshes"] == 4
+    with ModelRegistry(max_batch=16, max_wait_ms=1) as registry:
+        session = StreamingSession(port.KMeans(k=k, maxIter=5, seed=1).streaming(), name="km_ser",
+                                   registry=registry)
+        session.partial_fit(X[cid == 0])
+        before = profiling.counters("serving.km_ser.swaps").get("serving.km_ser.swaps", 0)
+        threads = [threading.Thread(target=session.refresh) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert profiling.counters("serving.km_ser.swaps")["serving.km_ser.swaps"] - before == 3
+        assert registry.names() == ["km_ser"] and session.stats()["refreshes"] == 4
+        assert registry.get("km_ser").model is session._model
 
 
 def test_engine_classes(exact_data):

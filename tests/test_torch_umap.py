@@ -252,7 +252,7 @@ def test_spark_hooks_name_their_roadmap_items():
     model = UMAPModel(np.zeros((4, 2), np.float32), np.zeros((4, 3), np.float32), 3, "float32")
     with pytest.raises(NotImplementedError, match="A14c"):
         model.cpu()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         model._serving_entry()
 
 
