@@ -305,6 +305,32 @@
 #            serving buckets (CUDA events), the KMeans traffic's device idle
 #            share, the recovered worker's first dispatches.  Needs path;
 #            serves only the models of the path phases that run with it.
+#   path_serve_lanes
+#            multiplexed serving and autoscaling (MultiplexServer, Router.
+#            scale_to / replace_replica, Autoscaler) over path_serve's models,
+#            each part right after path_serve's part of the same model:
+#            (a) 16 KMeans variants (the fitted centers rolled by i rows) on
+#            4 resident lanes at k 1,000, D 3,000; 1,000 requests of 1-64 of
+#            path's rows from 4 clients (up to 8 outstanding each), tenants
+#            drawn Zipf (s = 1.1): each multiplexed batch launches B1 once
+#            per distinct lane; (b) 256 OLS variants (coef x (1 + i/256),
+#            intercept + i) on 32 resident lanes, 8 binary logistic and 8 PCA
+#            (k 3) variants, 500 requests each; (c) path's KMeans model behind
+#            a 1-replica router under an Autoscaler (1-3 replicas, windows
+#            and cooldowns shortened, ticks every 0.1 s): a 16-client burst
+#            until it scales up to 3, idle until a scale_down, then one
+#            replica killed through the serving.dispatch fault site with its
+#            restart budget spent until the repair.  Gates: every KMeans
+#            tenant's 1,024 rows (64-row requests) bit for bit its dedicated
+#            ModelServer's labels; every GLM / PCA tenant within rtol = atol =
+#            1e-5 of its dedicated server; 0 steady-state warm-ups with
+#            paging and on every new replica; 0 failed client requests; the
+#            journal holds scale_up, scale_down and repair.  Records rows/s
+#            (beside path_serve's dedicated rows/s), latency percentiles, the
+#            mean batch, distinct lanes (B1 launches) per batch, page-ins,
+#            page-in ms, hits, evictions, the scale-up latency (decision to
+#            in rotation) and the new replicas' first dispatches.  Needs
+#            path_serve, path, path_linreg, path_logreg and path_pca.
 # The fit-input cache is emptied before each timed fit and ingest, so the
 # phases time cold fits.
 # Every path runs with all kernel launch counters reset just before it and
@@ -314,8 +340,9 @@
 # {"kernels": [...]} summary line and {"ok": true, "device": {...}}.
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
-# path_knn_mesh; path_serve needs path; the ANN, PCA, GLM, model-selection,
-# UMAP and streaming phases need nothing else).
+# path_knn_mesh; path_serve needs path; path_serve_lanes needs path_serve,
+# path, path_linreg, path_logreg and path_pca; the ANN, PCA, GLM,
+# model-selection, UMAP and streaming phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -4480,10 +4507,11 @@ SERVE_KERNELS = ("min_dist_argmin", "knn_candidates", "knn_fused_merge", "lut_ac
 SERVE_ANN_ARMS = {"path_ann": "ivfflat", "path_ann_pq": "ivfpq"}  # the 4-bit arm is not served (time)
 
 
-def serve_traffic(srv, X, n_requests, seed, submit=None):
+def serve_traffic(srv, X, n_requests, seed, submit=None, model_ids=None):
     """SERVE_CLIENTS client threads send n_requests requests of 1-64 rows of
     X through `submit` (default srv.submit), each with up to SERVE_WINDOW
-    outstanding: (rows sent, seconds until every answer is in)."""
+    outstanding: (rows sent, seconds until every answer is in).  With
+    `model_ids` (one a request) request i goes to tenant model_ids[i]."""
     submit = submit or srv.submit
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, 65, n_requests)
@@ -4492,7 +4520,8 @@ def serve_traffic(srv, X, n_requests, seed, submit=None):
     def client(c):
         window = []
         for i in range(c, n_requests, SERVE_CLIENTS):
-            window.append(submit(X[starts[i] : starts[i] + sizes[i]]))
+            kw = {} if model_ids is None else {"model_id": model_ids[i]}
+            window.append(submit(X[starts[i] : starts[i] + sizes[i]], **kw))
             if len(window) >= SERVE_WINDOW:
                 window.pop(0).result(timeout=600)
         for fut in window:
@@ -4505,9 +4534,10 @@ def serve_traffic(srv, X, n_requests, seed, submit=None):
     return int(sizes.sum()), time.perf_counter() - t0
 
 
-def served_rows(srv, X):
-    """The outputs of serving X in requests of 64 rows, concatenated."""
-    futs = [srv.submit(X[i : i + 64]) for i in range(0, len(X), 64)]
+def served_rows(srv, X, **kw):
+    """The outputs of serving X in requests of 64 rows, concatenated (`kw`
+    goes to each submit: a multiplexed server's model_id)."""
+    futs = [srv.submit(X[i : i + 64], **kw) for i in range(0, len(X), 64)]
     outs = [f.result(timeout=600) for f in futs]
     return {c: np.concatenate([o[c] for o in outs]) for c in outs[0]}
 
@@ -4882,6 +4912,368 @@ class ServePlane:
                 "launches": launches, "card": smi, **self.parts}
 
 
+# ---------------------------------------------------------------------------
+# Serving lanes: path_serve_lanes, multiplexed tenants and the autoscaled router
+# ---------------------------------------------------------------------------
+
+# (a) 16 KMeans variants (the fitted centers rolled by i rows, so each
+# tenant's labels differ) on 4 resident lanes; (b) 256 OLS variants (coef x
+# (1 + i/256), intercept + i) on 32 resident lanes, 8 binary logistic and 8
+# PCA variants; the traffic is path_serve's with each request's tenant drawn
+# Zipf (s = 1.1); (c) path's KMeans model behind a 1-replica router under an
+# Autoscaler with shortened windows and cooldowns.
+LANES_KM_VARIANTS, LANES_KM_RESIDENT, LANES_KM_REQUESTS = 16, 4, 1000
+LANES_GLM = {"linreg": (256, 32), "logreg": (8, 8), "pca": (8, 8)}  # variants, resident lanes
+LANES_GLM_REQUESTS = 500
+LANES_ZIPF_S = 1.1
+LANES_KM_CHECK_ROWS = 1024   # KMeans rows a tenant held against its dedicated server, in 64-row requests
+LANES_GLM_CHECK_ROWS = 64    # GLM / PCA rows a tenant
+LANES_BUDGET_S = 40.0        # the phase's share of the script's time limit (recorded, not a gate)
+AUTOSCALE_CLIENTS = 16
+# rows a replica's queue holds: 16 clients x 8 requests x 64 rows never
+# overflow one replica's queue, nor reach the interactive class's shedding
+AUTOSCALE_QUEUE_DEPTH = 16384
+AUTOSCALE_POLICY = dict(min_replicas=1, max_replicas=3, window_s=0.5, down_window_s=1.0, up_fill=0.02, up_burn=0.1,
+                        down_fill=0.01, down_occupancy=0.05, up_cooldown_s=0.2, down_cooldown_s=3.0)
+AUTOSCALE_INTERVAL_S = 0.1
+AUTOSCALE_STEP_S = 30.0  # the most each step (burst, idle, repair) may wait for its decision
+
+
+def zipf_tenants(n_tenants, n_requests, seed):
+    """The tenant ("t<i>") of each of n_requests requests, i drawn with
+    probability proportional to 1 / (i + 1)^LANES_ZIPF_S."""
+    p = 1.0 / np.arange(1, n_tenants + 1) ** LANES_ZIPF_S
+    picks = np.random.default_rng(seed).choice(n_tenants, size=n_requests, p=p / p.sum())
+    return [f"t{i}" for i in picks]
+
+
+class LanePlane:
+    """Phase path_serve_lanes: the models of path, path_linreg, path_logreg
+    and path_pca as multiplexed tenants (MultiplexServer, each held against
+    dedicated ModelServers of its variants), and path's KMeans model behind
+    an autoscaled router through a burst, an idle spell and one replica
+    killed with its restart budget spent."""
+
+    def __init__(self, torch, port, wrappers, serve):
+        self.torch, self.port, self.wrappers, self.serve = torch, port, wrappers, serve
+        self.parts = {}
+        self.seconds = 0.0
+        self.launches = 0  # B1 in the phase's traffic
+
+    def multiplexed(self, key, variants, resident, X, n_requests, check_tenants):
+        """`variants` ({"t<i>": model}) behind one MultiplexServer:
+        check_tenants(mux) holds every tenant against its dedicated server,
+        then the Zipf traffic with every launch counter reset just before
+        and read just after."""
+        port = self.port
+        S = port.serving
+        name = f"lanes_{key}"
+        t_part = time.perf_counter()
+        t0 = time.perf_counter()
+        mux = S.MultiplexServer(name, variants, resident_lanes=resident, **SERVE_OPTS)
+        warm_s = time.perf_counter() - t0
+        try:
+            rec = {"variants": len(variants), "resident_lanes": mux.lanes()["n_lanes"], "requests": n_requests,
+                   "warm_s": warm_s}
+            t0 = time.perf_counter()
+            rec["check"] = check_tenants(mux)
+            rec["check"]["seconds"] = time.perf_counter() - t0
+            port.profiling.reset_durations(f"serve.{name}.")
+            before = port.profiling.counters(f"serving.{name}.")
+            self.torch.cuda.synchronize()
+            reset_launches(self.wrappers)
+            tenants = zipf_tenants(len(variants), n_requests, SERVE_SEED + 20)
+            rows, seconds = serve_traffic(mux, X, n_requests, SERVE_SEED + 21, model_ids=tenants)
+            launches = read_launches(self.wrappers)["min_dist_argmin"]
+            moved = port.profiling.counter_deltas(before, f"serving.{name}.")
+            stats = mux.stats()
+            mux.drain()
+            mux.assert_steady_state()
+        finally:
+            mux.shutdown(drain=False)
+        batches = moved.get(f"serving.{name}.batches", 0)
+        lat, page = stats["latency"], stats["lanes"]["page_in_latency"]
+        dedicated = self.serve.parts.get(key, {}).get("rows_per_s")
+        rec.update({
+            "rows": rows, "seconds": seconds, "rows_per_s": rows / seconds, "dedicated_rows_per_s": dedicated,
+            "latency_ms": {q: 1e3 * lat[q] for q in ("p50", "p95", "p99", "max")},
+            "batches": batches, "mean_batch_rows": rows / max(batches, 1),
+            "mean_requests_per_batch": stats["batch_occupancy"].get("mean"),
+            "dispatch_ms_by_bucket": {b: {"p50": 1e3 * d["p50"], "count": d["count"]}
+                                      for b, d in stats["dispatch_by_bucket"].items() if d},
+            "tenants_served": len(set(tenants)),
+            "min_dist_argmin_launches": launches,
+            "page_in": moved.get(f"serving.{name}.lanes.page_in", 0),
+            "hits": moved.get(f"serving.{name}.lanes.hits", 0),
+            "evictions": moved.get(f"serving.{name}.lanes.evictions", 0),
+            "page_in_ms": {q: 1e3 * page[q] for q in ("p50", "p99", "max")} if page else None,
+            "steady_compiles": stats["steady_compiles"],
+            "counters": {k: v for k, v in moved.items() if ".tenant." not in k},
+        })
+        check(moved.get(f"serving.{name}.requests", 0) == n_requests, f"{name}: requests {moved}")
+        check(not moved.get(f"serving.{name}.errors"), f"{name}: dispatch errors {moved}")
+        check(stats["steady_compiles"] == 0, f"{name}: steady-state warm-ups {stats['steady_compiles']}")
+        rec["part_s"] = time.perf_counter() - t_part
+        return rec
+
+    def done(self, key, rec):
+        """Keep a part's record and print it at once (a later part's failure
+        leaves the earlier parts' records in the log)."""
+        self.parts[key] = rec
+        emit({"phase": "path_serve_lanes", "part": key, **rec})
+        return rec
+
+    # -- (a) KMeans lanes at full width --------------------------------------------
+    @serve_timed
+    def kmeans(self, model, X):
+        port = self.port
+        S = port.serving
+        C = np.asarray(model.cluster_centers_)
+        variants = {f"t{i}": port.KMeansModel(cluster_centers_=np.ascontiguousarray(np.roll(C, i, axis=0)),
+                                              n_cols=model.n_cols, dtype=model.dtype)
+                    for i in range(LANES_KM_VARIANTS)}
+        Xc = X[:LANES_KM_CHECK_ROWS]
+
+        def check_tenants(mux):
+            """Each tenant's 1,024 rows in 64-row requests against a
+            dedicated ModelServer of its variant: labels bit for bit."""
+            differ, labels = 0, {}
+            for mid, m in variants.items():
+                got = served_rows(mux, Xc, model_id=mid)["prediction"]
+                ded = S.ModelServer(f"lanes_km_ded_{mid}", m, **SERVE_OPTS)
+                try:
+                    want = served_rows(ded, Xc)["prediction"]
+                finally:
+                    ded.shutdown(drain=False)
+                differ += int((got != want).sum())
+                labels[mid] = got
+            check(differ == 0, f"multiplexed KMeans labels differ from the dedicated servers' at {differ} rows")
+            check(not np.array_equal(labels["t0"], labels["t1"]), "two tenants' variants answer alike")
+            return {"tenants": len(variants), "rows_a_tenant": len(Xc), "differing_rows": differ}
+
+        rec = self.multiplexed("kmeans", variants, LANES_KM_RESIDENT, X, LANES_KM_REQUESTS, check_tenants)
+        check(rec["min_dist_argmin_launches"] > 0, "multiplexed KMeans batches launched min_dist_argmin no time")
+        check(rec["page_in"] > 0, "the KMeans traffic paged no lane in")
+        rec["lanes_per_batch"] = rec["min_dist_argmin_launches"] / max(rec["batches"], 1)
+        rec["lane_bytes"] = int(C.shape[0] * C.shape[1] * 4)
+        self.launches += rec["min_dist_argmin_launches"]
+        return self.done("kmeans", rec)
+
+    # -- (b) GLM and PCA lanes at D 3,000 --------------------------------------------
+    @serve_timed
+    def glm(self, key, model, X):
+        port = self.port
+        S = port.serving
+        n, resident = LANES_GLM[key]
+        if key == "linreg":
+            variants = {f"t{i}": port.LinearRegressionModel(
+                coef_=np.asarray(model.coef_) * (1.0 + i / n), intercept_=float(model.intercept_) + i,
+                n_cols=model.n_cols, dtype=model.dtype) for i in range(n)}
+            cols = ["prediction"]
+        elif key == "logreg":
+            variants = {f"t{i}": port.LogisticRegressionModel(
+                coef_=np.asarray(model.coef_) * (1.0 + i / n), intercept_=np.asarray(model.intercept_) + i / n,
+                classes_=np.asarray(model.classes_), n_cols=model.n_cols, dtype=model.dtype) for i in range(n)}
+            cols = ["prediction", "probability", "rawPrediction"]
+        else:
+            variants = {}
+            for i in range(n):
+                v = port.PCAModel(mean_=np.asarray(model.mean_), components_=np.asarray(model.components_) * (1.0 + i / n),
+                                  explained_variance_=np.asarray(model.explained_variance_),
+                                  explained_variance_ratio_=np.asarray(model.explained_variance_ratio_),
+                                  singular_values_=np.asarray(model.singular_values_), n_cols=model.n_cols,
+                                  dtype=model.dtype)
+                v.setOutputCol(model.getOrDefault("outputCol"))
+                variants[f"t{i}"] = v
+            cols = [model.getOrDefault("outputCol")]
+        Xc = X[:LANES_GLM_CHECK_ROWS]
+
+        def check_tenants(mux):
+            """Each tenant's 64 rows against a dedicated ModelServer of its
+            variant (not warmed: a comparator) at rtol = atol = 1e-5."""
+            futs = {mid: mux.submit(Xc, model_id=mid) for mid in variants}
+            # every multiplexed answer first: the comparators' first
+            # dispatches then overlap no dispatch of the multiplexed server
+            outs = {mid: fut.result(timeout=600) for mid, fut in futs.items()}
+            err = {c: 0.0 for c in cols}
+            for mid, got in outs.items():
+                ded = S.ModelServer(f"lanes_{key}_ded_{mid}", variants[mid], max_batch=SERVE_OPTS["max_batch"],
+                                    max_wait_ms=0.5, warm=False)
+                try:
+                    want = ded.predict(Xc)
+                finally:
+                    ded.shutdown(drain=False)
+                for c in cols:
+                    g, w = np.asarray(got[c], np.float64), np.asarray(want[c], np.float64)
+                    check(np.allclose(g, w, rtol=SERVE_RTOL, atol=SERVE_ATOL),
+                          f"multiplexed {key} tenant {mid} {c} differs from its dedicated server")
+                    err[c] = max(err[c], float(np.abs(g - w).max()))
+            return {"tenants": len(variants), "rows_a_tenant": len(Xc), "max_abs_err": err, "rtol": SERVE_RTOL,
+                    "atol": SERVE_ATOL}
+
+        return self.done(key, self.multiplexed(key, variants, resident, X, LANES_GLM_REQUESTS, check_tenants))
+
+    # -- (c) autoscaling the KMeans router --------------------------------------------
+    @serve_timed
+    def autoscale(self, model, X):
+        """A 1-replica router of the KMeans model under an Autoscaler (ticks
+        every AUTOSCALE_INTERVAL_S): a burst of AUTOSCALE_CLIENTS clients
+        until the set reaches max_replicas, idle until a scale_down, then
+        one replica killed at its next dispatch through the serving.dispatch
+        fault site with SRML_SERVE_MAX_RESTARTS=0 under two clients until
+        the repair.  Zero failed requests; the journal holds scale_up,
+        scale_down and repair; no replica warms up in its steady state."""
+        port = self.port
+        S, faults = port.serving, port.parallel.faults
+        P = port.profiling
+        name = "lanes_as_km"
+        t_part = time.perf_counter()
+        router = S.Router(replicas=1, queue_depth=AUTOSCALE_QUEUE_DEPTH, **SERVE_OPTS)
+        autoscaler = None
+        failures, answered, seen = [], [0], {}
+        stop = threading.Event()
+
+        def settle(window):
+            for fut in window:
+                try:
+                    fut.result(timeout=120)
+                    answered[0] += 1
+                except Exception as exc:  # noqa: BLE001 - the gate counts every failure
+                    failures.append(f"{type(exc).__name__}: {exc}")
+            window.clear()
+
+        def pump(seed):
+            """One client: requests of 1-64 rows, up to SERVE_WINDOW outstanding."""
+            rng = np.random.default_rng(seed)
+            window = []
+            try:
+                while not stop.is_set():
+                    i, n = int(rng.integers(0, len(X) - 64)), int(rng.integers(1, 65))
+                    window.append(router.submit(name, X[i : i + n], timeout_ms=60_000))
+                    if len(window) >= SERVE_WINDOW:
+                        settle(window)
+            except Exception as exc:  # noqa: BLE001 - a refused submit is a failed request too
+                failures.append(f"{type(exc).__name__}: {exc}")
+            settle(window)
+
+        def watch_rotation():
+            """The time each replica first shows in rotation (the replica is
+            held, so its id is never reused)."""
+            while not stop_watch.is_set():
+                now = P.now()
+                for r in router.replicas(name):
+                    seen.setdefault(id(r), (r, now))
+                stop_watch.wait(0.002)
+
+        def decided(decision):
+            return any(e["decision"] == decision for e in autoscaler.journal())
+
+        def run_until(pred, clients, seed):
+            stop.clear()
+            pumps = [threading.Thread(target=pump, args=(seed + c,)) for c in range(clients)]
+            for t in pumps:
+                t.start()
+            try:
+                deadline = time.perf_counter() + AUTOSCALE_STEP_S
+                while not pred() and time.perf_counter() < deadline:
+                    time.sleep(0.005)
+            finally:
+                stop.set()
+                for t in pumps:
+                    t.join(timeout=600)
+            return pred()
+
+        stop_watch = threading.Event()
+        watcher = threading.Thread(target=watch_rotation)
+        try:
+            router.serve(name, model, allow_oversubscribe=True)
+            first = router.replicas(name)[0]
+            watcher.start()
+            autoscaler = S.Autoscaler(router, policy=S.AutoscalePolicy(**AUTOSCALE_POLICY),
+                                      interval_s=AUTOSCALE_INTERVAL_S, names=[name]).start()
+            reset_launches(self.wrappers)
+            t0 = time.perf_counter()
+            up = run_until(lambda: len(router.replicas(name)) >= AUTOSCALE_POLICY["max_replicas"],
+                           AUTOSCALE_CLIENTS, SERVE_SEED + 40)
+            burst_s = time.perf_counter() - t0
+            check(decided("scale_up"), f"no scale_up in the burst: {autoscaler.journal()}")
+            peak = len(router.replicas(name))
+            t0 = time.perf_counter()
+            check(run_until(lambda: decided("scale_down"), 0, 0), f"no scale_down when idle: {autoscaler.journal()}")
+            idle_s = time.perf_counter() - t0
+            survivors = router.replicas(name)
+            check(len(survivors) >= 2, f"{len(survivors)} replica(s) left to reroute a killed one's requests")
+            victim = survivors[0]
+            series = f"serve.{victim.name}.dispatch"
+            n_before = len(P.durations(series).get(series, []))
+            os.environ["SRML_SERVE_MAX_RESTARTS"] = "0"
+            os.environ[faults.FAULTS_ENV] = f"serving.dispatch:tag={victim.name}:call=1:action=kill"
+            faults.reload()
+            try:
+                t0 = time.perf_counter()
+                check(run_until(lambda: decided("repair"), 2, SERVE_SEED + 60),
+                      f"no repair of the killed replica: {autoscaler.journal()}")
+                repair_s = time.perf_counter() - t0
+            finally:
+                del os.environ[faults.FAULTS_ENV], os.environ["SRML_SERVE_MAX_RESTARTS"]
+                faults.reload()
+            for i in range(8):  # the repaired replica's first dispatches (it holds the victim's slot)
+                router.predict(name, X[64 * i : 64 * i + 64], timeout_ms=60_000)
+            launches = read_launches(self.wrappers)["min_dist_argmin"]
+            journal = autoscaler.journal()
+            final = router.replicas(name)
+            check(victim not in final and victim.state() == S.UNHEALTHY, "the killed replica was not replaced")
+            for r in final:
+                check(r.state() == S.READY, f"{r.name} is {r.state()} after the repair")
+                r.assert_steady_state()
+            replica_names = sorted({r.name for r, _t in seen.values()})
+            steady = {n: P.counter(f"serving.{n}.steady_compiles") for n in replica_names}
+            check(not any(steady.values()), f"steady-state warm-ups on a replica: {steady}")
+            check(not failures, f"{len(failures)} client requests failed: {failures[:3]}")
+        finally:
+            stop.set()
+            stop_watch.set()
+            if watcher.is_alive():
+                watcher.join(timeout=60)
+            if autoscaler is not None:
+                autoscaler.stop()
+            router.shutdown(drain=False)
+        # scale-up latency: each scale_up's decision (its tick's time) to its
+        # replica's first sight in rotation
+        ups = [e for e in journal if e["decision"] == "scale_up"]
+        joined = sorted(t for r, t in seen.values() if r is not first)
+        up_latency = [1e3 * (t - e["t"]) for e, t in zip(ups, joined)]
+
+        def first_ms(n, kind, start=0):
+            series = f"serve.{n}.{kind}"
+            return [1e3 * d for d in P.durations(series).get(series, [])[start : start + 5]]
+
+        new_first = {n: {"warm_dispatch_ms": first_ms(n, "warm_dispatch"), "dispatch_ms": first_ms(n, "dispatch")}
+                     for n in replica_names if n != first.name}
+        new_first[f"{victim.name} (repaired)"] = {"dispatch_ms": first_ms(victim.name, "dispatch", n_before)}
+        self.launches += launches
+        rec = {"policy": AUTOSCALE_POLICY, "interval_s": AUTOSCALE_INTERVAL_S, "clients": AUTOSCALE_CLIENTS,
+               "queue_depth": AUTOSCALE_QUEUE_DEPTH, "reached_max": up, "peak_replicas": peak,
+               "burst_s": burst_s, "idle_s": idle_s, "repair_s": repair_s,
+               "journal": [{k: e[k] for k in ("t", "decision", "from_replicas", "to_replicas", "reason")}
+                           for e in journal],
+               "scale_up_latency_ms": up_latency, "new_replica_first_dispatch_ms": new_first,
+               "answered": answered[0], "failed": len(failures), "min_dist_argmin_launches": launches,
+               "steady_compiles": steady, "final_replicas": [r.name for r in final],
+               "counters": {k: v for k, v in P.counters(f"autoscale.{name}.").items()},
+               "router_counters": P.counters(f"router.{name}."), "part_s": time.perf_counter() - t_part}
+        return self.done("autoscale", rec)
+
+    def record(self, smi):
+        return {"phase": "path_serve_lanes", "rows_cut": False, "seconds": self.seconds, "budget_s": LANES_BUDGET_S,
+                "within_budget": self.seconds <= LANES_BUDGET_S,
+                "options": {**SERVE_OPTS, "min_bucket": 16, "clients": SERVE_CLIENTS, "window": SERVE_WINDOW,
+                            "zipf_s": LANES_ZIPF_S},
+                "launches": {"min_dist_argmin": self.launches}, "card": smi,
+                "lanes_per_kmeans_batch": self.parts.get("kmeans", {}).get("lanes_per_batch"),
+                "part_s": {key: rec["part_s"] for key, rec in self.parts.items()}}
+
+
 def main():
     import argparse
 
@@ -4901,6 +5293,10 @@ def main():
         parser.error("knn_ring runs on path_knn_mesh's sharded items: add path_knn_mesh")
     if "path_serve" in phases and "path" not in phases:
         parser.error("path_serve serves the models of the path phases and routes path's KMeans model: add path")
+    lane_needs = ("path_serve", "path", "path_linreg", "path_logreg", "path_pca")
+    if "path_serve_lanes" in phases and not set(lane_needs) <= set(phases):
+        parser.error(f"path_serve_lanes multiplexes the models of {lane_needs[1:]} beside path_serve: add "
+                     f"{sorted(set(lane_needs) - set(phases))}")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -4959,6 +5355,9 @@ def main():
     # path_serve serves each path's model right after its path, while the
     # path's rows exist (keep holds the models until then)
     serve = ServePlane(torch, port, nc, kk, knn_ops, wrappers, dev) if "path_serve" in phases else None
+    # path_serve_lanes multiplexes the same models right after path_serve
+    # has served them
+    lanes = LanePlane(torch, port, wrappers, serve) if "path_serve_lanes" in phases else None
     keep = {} if serve is not None else None
 
     if "kernels" in phases:
@@ -4992,7 +5391,12 @@ def main():
             emit(results["path"])
             port.clear_fit_cache()
             if serve is not None:
-                serve.kmeans(keep.pop("path"), X_km)
+                km_model = keep.pop("path")
+                serve.kmeans(km_model, X_km)
+                if lanes is not None:
+                    lanes.kmeans(km_model, X_km)
+                    lanes.autoscale(km_model, X_km)
+                del km_model
         if "path_stream" in phases:
             stream_parts["kmeans"] = stream_kmeans_part(torch, port, wrappers, dev, X_km)
             port.clear_fit_cache()
@@ -5093,7 +5497,11 @@ def main():
             emit(run_pca_path(torch, port, wrappers, dev, X_pca, gen_s, keep))
             port.clear_fit_cache()
             if serve is not None:
-                serve.glm("pca", keep.pop("path_pca"), X_pca, ["pca_features"])
+                pca_model = keep.pop("path_pca")
+                serve.glm("pca", pca_model, X_pca, ["pca_features"])
+                if lanes is not None:
+                    lanes.glm("pca", pca_model, X_pca)
+                del pca_model
         if "path_stream" in phases:
             stream_parts["pca"] = stream_pca_part(torch, port, wrappers, X_pca)
             port.clear_fit_cache()
@@ -5107,12 +5515,20 @@ def main():
             emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
             if serve is not None:
-                serve.glm("linreg", keep.pop("path_linreg"), X_glm, ["prediction"])
+                lin_model = keep.pop("path_linreg")
+                serve.glm("linreg", lin_model, X_glm, ["prediction"])
+                if lanes is not None:
+                    lanes.glm("linreg", lin_model, X_glm)
+                del lin_model
         if "path_logreg" in phases:
             emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
             if serve is not None:
-                serve.glm("logreg", keep.pop("path_logreg"), X_glm, ["prediction", "probability", "rawPrediction"])
+                log_model = keep.pop("path_logreg")
+                serve.glm("logreg", log_model, X_glm, ["prediction", "probability", "rawPrediction"])
+                if lanes is not None:
+                    lanes.glm("logreg", log_model, X_glm)
+                del log_model
         # the model-selection phases on the same rows (listed after the
         # other GLM phases)
         if "path_cv_linreg" in phases:
@@ -5152,6 +5568,9 @@ def main():
         serve.close()
         results["path_serve"] = serve.record(smi)
         emit(results["path_serve"])
+    if lanes is not None:
+        results["path_serve_lanes"] = lanes.record(smi)
+        emit(results["path_serve_lanes"])
 
     print(smi, flush=True)
     emit(summary(results, time.perf_counter() - t_start))
@@ -5289,13 +5708,18 @@ def summary(results, seconds):
         if row["name"] in SERVE_KERNELS and "path_serve" in results:
             # B1, B5, B7 and B9 in served batches
             row["launches_serve"] = results["path_serve"]["launches"][row["name"]]
+        if row["name"] == "min_dist_argmin" and "path_serve_lanes" in results:
+            # B1 once per distinct lane of a multiplexed KMeans batch
+            lanes_rec = results["path_serve_lanes"]
+            row["launches_serve_lanes"] = lanes_rec["launches"]["min_dist_argmin"]
+            row["lanes_per_kmeans_batch"] = lanes_rec["lanes_per_kmeans_batch"]
     return {"kernels": rows, "seconds": seconds}
 
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
           "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES,
-          *STREAM_PHASES, "path_serve"]
+          *STREAM_PHASES, "path_serve", "path_serve_lanes"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

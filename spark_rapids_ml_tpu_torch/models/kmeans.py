@@ -13,9 +13,11 @@
 #
 # _serving_entry serves nearest-center assignment: each padded batch is one
 # launch of the CUDA nearest-center kernel (serving/entry.kernel_entry).
+# _lane_entry is the multiplexed hook (serving/multiplex.py): the centers as
+# one lane of ops/kmeans.lane_kmeans_predict_kernel, which launches the same
+# kernel once per distinct lane of a batch.
 #
-# Not carried over yet: cpu() (pyspark.ml conversion) and the multiplexed
-# serving hook _lane_entry (ROADMAP A13b; it raises NotImplementedError).
+# Not carried over yet: cpu() (pyspark.ml conversion).
 #
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..core import FitInputs, _TpuEstimator, _TpuModelWithPredictionCol
 from ..dataframe import DataFrame
 from ..ops.kmeans import (
     kmeans_predict_kernel,
+    lane_kmeans_predict_kernel,
     lloyd_iterations,
     random_init,
     scalable_kmeans_pp_init,
@@ -274,7 +277,27 @@ class KMeansModel(_KMeansParams, _TpuModelWithPredictionCol):
         )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("KMeansModel._lane_entry is not in this port yet (ROADMAP A13b)")
+        """Multiplexed serving hook (serving/multiplex): this model's
+        centers as ONE lane of the lane-stacked nearest-center kernel —
+        variants must share k (the leaf-shape check in lane_signature
+        enforces it)."""
+        from ..serving.multiplex import LaneEntry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        centers = np.ascontiguousarray(np.asarray(self.cluster_centers_, dtype=np_dtype))
+        pred_col = self.getOrDefault("predictionCol")
+        return LaneEntry(
+            name="lanes.kmeans",
+            n_cols=self.n_cols,
+            dtype=np_dtype,
+            out_cols=[pred_col],
+            leaves=(centers,),
+            kernel=lane_kmeans_predict_kernel,
+            statics={},
+            postprocess=lambda out: {pred_col: out[0]},
+            info={"k": len(self.cluster_centers_)},
+            device=mesh.devices[0] if mesh is not None else _device.resolve(),
+        )
 
     def _get_tpu_transform_func(self, dataset: DataFrame):
         np_dtype = self._transform_dtype(self.dtype)

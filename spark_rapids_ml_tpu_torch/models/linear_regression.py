@@ -26,8 +26,10 @@
 # _serving_entry serves the dense Xw + b prediction (one fp32 matmul, TF32
 # off, serving/entry.kernel_entry); sparse bulk scoring stays on transform.
 #
-# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
-# A13b) and cpu() (A14c); each raises NotImplementedError.
+# _lane_entry is the multiplexed hook (serving/multiplex.py): (coef,
+# intercept) as one lane of ops/glm.lane_linear_predict_kernel.
+#
+# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ from ..core import (
 from ..dataframe import DataFrame, as_dataframe
 from ..metrics.regression import RegressionMetrics
 from ..ops.glm import (
+    lane_linear_predict_kernel,
     linear_predict_kernel,
     linreg_sufficient_stats,
+    multi_linear_predict_kernel,
     solve_elasticnet_cd,
     solve_linear,
     sweep_linreg_fold_stats,
@@ -60,7 +64,6 @@ from ..ops.glm import (
     sweep_solve_linear,
 )
 from ..ops.lanes import pack_lane_subset
-from ..ops.linalg import exact_matmul
 from ..ops.sweep import stage_fold_ids
 from ..ops.sparse import EllMatrix, ell_device_from_scipy, ell_sufficient_stats
 from ..params import (
@@ -474,7 +477,28 @@ class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationM
         )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("LinearRegressionModel._lane_entry " + _NOT_PORTED.format("A13b"))
+        """Multiplexed serving hook (serving/multiplex): this model's
+        (coef, intercept) as ONE lane of a lane-stacked GLM predict — K
+        same-shape variants share one lane_linear_predict_kernel call per
+        micro-batch, bitwise-equal per tenant to the dedicated entry above
+        on integer-exact data."""
+        if self._num_models != 1:
+            raise ValueError("combined multi-models are not servable")
+        from ..serving.multiplex import LaneEntry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        pred_col = self.getOrDefault("predictionCol")
+        return LaneEntry(
+            name="lanes.linreg",
+            n_cols=self.n_cols,
+            dtype=np_dtype,
+            out_cols=[pred_col],
+            leaves=(np.ascontiguousarray(np.asarray(self.coef_, dtype=np_dtype)), np.asarray(np_dtype.type(self.intercept_))),
+            kernel=lane_linear_predict_kernel,
+            statics={},
+            postprocess=lambda out: {pred_col: out[0].astype(np.float64)},
+            device=mesh.devices[0] if mesh is not None else _device.resolve(),
+        )
 
     @classmethod
     def _combine(cls, models: List["LinearRegressionModel"]) -> "LinearRegressionModel":
@@ -507,7 +531,7 @@ class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationM
             if isinstance(X, EllMatrix):
                 preds = torch.stack([linear_predict_kernel(X, c, b) for c, b in zip(coefs, intercepts)])
             else:
-                preds = exact_matmul(coefs, X.T) + intercepts[:, None]
+                preds = multi_linear_predict_kernel(X, coefs, intercepts)
             return preds.cpu().numpy().astype(np.float64)
 
         return _predict_all

@@ -28,8 +28,11 @@
 # _serving_entry serves decision scores, probabilities and label indices of
 # a padded batch in one call (serving/entry.kernel_entry).
 #
-# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
-# A13b) and cpu() (A14c); each raises NotImplementedError.
+# _lane_entry is the multiplexed hook (serving/multiplex.py): (W, b) as one
+# lane of ops/logistic.lane_logistic_predict_kernel, the class labels in
+# its meta.
+#
+# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from ..metrics.multiclass import MulticlassMetrics
 from ..ops.labels import encode_labels
 from ..ops.lanes import pack_lane_subset
 from ..ops.logistic import (
+    lane_logistic_predict_kernel,
     logistic_decision_kernel,
     logistic_fit_kernel,
     scores_to_labels,
@@ -505,15 +509,33 @@ class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEva
         dev = mesh.devices[0] if mesh is not None else _device.resolve()
         W = torch.as_tensor(self.coef_.astype(np_dtype), device=dev)
         b = torch.as_tensor(self.intercept_.astype(np_dtype), device=dev)
+        num_classes = self._num_classes
+
+        def serve_kernel(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
+            scores = logistic_decision_kernel(X, W, b)
+            return scores, scores_to_probs(scores, num_classes), scores_to_labels(scores, num_classes)
+
+        return kernel_entry(
+            "serve.logreg",
+            serve_kernel,
+            (W, b),
+            self._serve_postprocess(),
+            device=dev,
+            dtype=np_dtype,
+            n_cols=self.n_cols,
+            out_cols=[self.getOrDefault(c) for c in ("predictionCol", "probabilityCol", "rawPredictionCol")],
+            info={"num_classes": num_classes},
+        )
+
+    def _serve_postprocess(self):
+        """(scores, probabilities, label indices) host arrays -> the output
+        columns, as transform() maps them (the dedicated and the lane
+        entries share it)."""
         classes = self.classes_
         num_classes = self._num_classes
         pred_col = self.getOrDefault("predictionCol")
         prob_col = self.getOrDefault("probabilityCol")
         raw_col = self.getOrDefault("rawPredictionCol")
-
-        def serve_kernel(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
-            scores = logistic_decision_kernel(X, W, b)
-            return scores, scores_to_probs(scores, num_classes), scores_to_labels(scores, num_classes)
 
         def post(out) -> Dict[str, Any]:
             scores, probs, labels = out
@@ -526,20 +548,33 @@ class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEva
                 raw_col: raw,
             }
 
-        return kernel_entry(
-            "serve.logreg",
-            serve_kernel,
-            (W, b),
-            post,
-            device=dev,
-            dtype=np_dtype,
-            n_cols=self.n_cols,
-            out_cols=[pred_col, prob_col, raw_col],
-            info={"num_classes": num_classes},
-        )
+        return post
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("LogisticRegressionModel._lane_entry " + _NOT_PORTED.format("A13b"))
+        """Multiplexed serving hook (serving/multiplex): (W, b) as ONE lane
+        of the lane-stacked fused decision/probability/label kernel.  The
+        class labels ride `meta`: variants sharing a lane buffer must agree
+        on them, because the shared postprocess maps label indices through
+        variant 0's classes_."""
+        if self._num_models != 1:
+            raise ValueError("combined multi-models are not servable")
+        from ..serving.multiplex import LaneEntry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        classes = np.asarray(self.classes_)
+        return LaneEntry(
+            name="lanes.logreg",
+            n_cols=self.n_cols,
+            dtype=np_dtype,
+            out_cols=[self.getOrDefault(c) for c in ("predictionCol", "probabilityCol", "rawPredictionCol")],
+            leaves=(np.ascontiguousarray(self.coef_.astype(np_dtype)), np.ascontiguousarray(self.intercept_.astype(np_dtype))),
+            kernel=lane_logistic_predict_kernel,
+            statics={"num_classes": self._num_classes},
+            postprocess=self._serve_postprocess(),
+            meta=(str(classes.dtype), classes.tobytes()),
+            info={"num_classes": self._num_classes},
+            device=mesh.devices[0] if mesh is not None else _device.resolve(),
+        )
 
     @property
     def _num_models(self) -> int:

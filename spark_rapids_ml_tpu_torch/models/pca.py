@@ -14,8 +14,10 @@
 # _serving_entry serves the projection transform() applies (one fp32 matmul,
 # TF32 off, serving/entry.kernel_entry).
 #
-# Not carried over yet: the multiplexed serving hook _lane_entry (ROADMAP
-# A13b) and cpu() (A14c); each raises NotImplementedError.
+# _lane_entry is the multiplexed hook (serving/multiplex.py): the same
+# (whiten-scaled) matrix as one lane of ops/linalg.lane_pca_transform_kernel.
+#
+# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
 #
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch.profiler import record_function
 from .. import device as _device
 from ..core import FitInputs, _TpuEstimator, _TpuModel
 from ..dataframe import DataFrame
-from ..ops.linalg import pca_fit, pca_transform_kernel
+from ..ops.linalg import lane_pca_transform_kernel, pca_fit, pca_transform_kernel
 from ..params import (
     HasInputCol,
     HasInputCols,
@@ -190,7 +192,26 @@ class PCAModel(_PCAParams, _TpuModel):
         )
 
     def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("PCAModel._lane_entry " + _NOT_PORTED.format("A13b"))
+        """Multiplexed serving hook (serving/multiplex): the (whiten-scaled)
+        component matrix as ONE lane of the lane-stacked projection kernel
+        — the whiten scale is folded on the host exactly as in the
+        dedicated entry, so each lane's rows get the dedicated projection."""
+        from ..serving.multiplex import LaneEntry
+
+        np_dtype = self._transform_dtype(self.dtype)
+        out_col = self.getOrDefault("outputCol")
+        return LaneEntry(
+            name="lanes.pca",
+            n_cols=self.n_cols,
+            dtype=np_dtype,
+            out_cols=[out_col],
+            leaves=(np.ascontiguousarray(self._projection(np_dtype)),),
+            kernel=lane_pca_transform_kernel,
+            statics={},
+            postprocess=lambda out: {out_col: out[0]},
+            info={"k": len(self.components_)},
+            device=mesh.devices[0] if mesh is not None else _device.resolve(),
+        )
 
     def _out_columns(self) -> List[str]:
         return [self.getOrDefault("outputCol")]

@@ -24,8 +24,9 @@
 # _EPOCH_BLOCK, _TABLE).
 #
 # Not carried over yet: the Spark single-task fit (_cluster_fit_single_task)
-# and cpu() (ROADMAP A14c), the serving hooks _serving_entry / _lane_entry
-# (A13b); each raises NotImplementedError.
+# and cpu() (ROADMAP A14c); each raises NotImplementedError.
+# UMAPModel has no serving entry, as in the JAX package: serving one raises
+# the base hook's error (core._TpuModel._serving_entry).
 #
 
 from __future__ import annotations
@@ -337,12 +338,6 @@ class UMAPModel(_UMAPParams, _TpuModel):
 
     def cpu(self):
         raise NotImplementedError("UMAPModel.cpu() " + _NOT_PORTED.format("A14c"))
-
-    def _serving_entry(self, mesh: Any = None):
-        raise NotImplementedError("UMAPModel._serving_entry " + _NOT_PORTED.format("A13b"))
-
-    def _lane_entry(self, mesh: Any = None):
-        raise NotImplementedError("UMAPModel._lane_entry " + _NOT_PORTED.format("A13b"))
 
     def _out_columns(self) -> List[str]:
         return [self.getOrDefault("outputCol")]

@@ -38,8 +38,9 @@
 # the sequential fit's on its fold bit for bit.
 # stream_linreg_chunk_kernel is one streamed chunk's unreduced statistics
 # (stream/engines.py folds them in float64 and solves them here at
-# finalize).  Not carried over yet: the multi_ / lane_ predict kernels
-# (A13b).
+# finalize).  multi_linear_predict_kernel predicts for M combined models in
+# one product; lane_linear_predict_kernel is the multiplexed predict of
+# serving/multiplex.py (ops/linalg's header states its contract).
 #
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import torch
 
 from .. import profiling
 from ..utils import chunk_iter
+from .lanes import by_lane
 from .linalg import MOMENT_CHUNK, _local_moments, exact_matmul
 
 
@@ -351,3 +353,19 @@ def linear_predict_kernel(X, coef: torch.Tensor, intercept: torch.Tensor) -> tor
     if isinstance(X, EllMatrix):
         return ell_matvec(X, coef) + intercept
     return exact_matmul(X, coef) + intercept
+
+
+def multi_linear_predict_kernel(X: torch.Tensor, coefs: torch.Tensor, intercepts: torch.Tensor) -> torch.Tensor:
+    """(N, D) rows x (M, D) coefficients -> (M, N): one product predicting
+    for M combined models."""
+    return exact_matmul(coefs, X.T) + intercepts[:, None]
+
+
+def lane_linear_predict_kernel(
+    X: torch.Tensor, lanes: torch.Tensor, coefs: torch.Tensor, intercepts: torch.Tensor
+) -> torch.Tensor:
+    """Multiplexed linear_predict_kernel: coefs (L, D) and intercepts (L,)
+    are lane-stacked variant parameters, and row r predicts with lane
+    lanes[r] — each lane's rows through linear_predict_kernel itself
+    (ops/linalg's header states the contract)."""
+    return by_lane(X, lanes, lambda rows, lane: linear_predict_kernel(rows, coefs[lane], intercepts[lane]))

@@ -18,6 +18,16 @@
 # kernel on the card.  stream_kmeans_chunk_kernel is the streaming engine's
 # chunk update (stream/engines.py), in plain torch ops as the JAX package's
 # is plain XLA.
+# lane_kmeans_predict_kernel is the multiplexed serving kernel
+# (serving/multiplex.py).  The JAX kernel gathers centers[lanes] into an
+# (N, k, D) tensor (3.07 GB at 256 rows x k 1,000 x D 3,000 float32); here
+# the batch's rows are grouped by lane and min_dist_argmin (B1 on the card)
+# runs once per distinct lane, that lane's rows against its (k, D) centers,
+# the labels scattered back in row order (ops/lanes.by_lane).  No (N, k, D)
+# tensor is formed, and a lane's rows go through the dedicated server's own
+# kmeans_predict_kernel, so its labels equal the dedicated labels of those
+# rows (bit for bit on integer-exact rows, where the JAX lane kernel's equal
+# them too).  A batch spanning L lanes costs L launches.
 #
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils import chunk_iter
+from .lanes import by_lane
 from .nearest_center import min_dist_argmin, squared_norms
 
 
@@ -225,3 +236,12 @@ def kmeans_predict_kernel(X: torch.Tensor, centers: torch.Tensor) -> torch.Tenso
     card, its plain version on the CPU."""
     _, assign = min_dist_argmin(X, centers)
     return assign
+
+
+def lane_kmeans_predict_kernel(X: torch.Tensor, lanes: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Multiplexed nearest-center label (int32) of every row: row r against
+    lane lanes[r] of the lane-stacked (L, k, D) centers, one
+    kmeans_predict_kernel call (B1 on the card) per distinct lane (module
+    header).  `lanes` may lie on any device; the grouping reads it on the
+    host."""
+    return by_lane(X, lanes, lambda rows, lane: kmeans_predict_kernel(rows, centers[lane]))

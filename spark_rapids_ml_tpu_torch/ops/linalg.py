@@ -26,8 +26,18 @@
 # resolve.  The JAX package's host-eigh branch (HOST_EIGH_MIN_D, its native
 # eigh on CPU backends) has no counterpart: the port's one route is the
 # float64 eigh above, cuSOLVER on the card.
+# Multiplexed serving (serving/multiplex.py): exact_gather_matmul contracts
+# each row against its own lane's (K, D) slab of a lane-stacked buffer.  The
+# JAX function gathers the (N, K, D) slabs and contracts them in one
+# einsum; here the rows are grouped by lane (ops/lanes.by_lane) and each
+# lane's rows go through exact_matmul against that lane's slab, so a row's
+# result is the dedicated product of its lane, not a batched product's
+# with another summation order.  Contract: bit for bit the JAX lane kernel
+# and the dedicated kernel on integer-exact rows; on other rows the
+# dedicated kernel's product of the lane's rows.  Lane ids may lie on any
+# device (the serving entry passes the host's).
 # Not carried over yet: the mesh forms (_sharded_moments, shard_map; ROADMAP
-# A14b), lane_pca_transform_kernel and exact_gather_matmul (A13b).
+# A14b).
 #
 
 from __future__ import annotations
@@ -48,6 +58,15 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32 products on the card, since device.resolve() turns TF32 off and
     nothing in the port turns it back on."""
     return torch.matmul(a, b)
+
+
+def exact_gather_matmul(X: torch.Tensor, stacked: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """out[r] = X[r] @ stacked[lanes[r]].T: (N, D) rows against the
+    (L, K, D) lane-stacked buffer, by lane ids (N,) -> (N, K), in full
+    float32 (module header)."""
+    from .lanes import by_lane
+
+    return by_lane(X, lanes, lambda rows, lane: exact_matmul(rows, stacked[lane].T))
 
 
 def sign_flip(components: torch.Tensor) -> torch.Tensor:
@@ -154,6 +173,12 @@ def pca_transform_kernel(X: torch.Tensor, components: torch.Tensor) -> torch.Ten
     """Spark's projection X @ PC^T, without mean removal (Spark does not
     centre at transform time)."""
     return exact_matmul(X, components.T)
+
+
+def lane_pca_transform_kernel(X: torch.Tensor, lanes: torch.Tensor, components: torch.Tensor) -> torch.Tensor:
+    """Multiplexed pca_transform_kernel: row r projects against lane
+    lanes[r] of the lane-stacked (L, K, D) components."""
+    return exact_gather_matmul(X, components, lanes)
 
 
 def stream_moments_chunk_kernel(

@@ -22,8 +22,10 @@
 # residual block's transpose times X, read once each (torch.matmul with
 # TF32 off: the JAX package leaves them to XLA).
 # logistic_warm_fit_kernel is the streaming engine's chunk update: the same
-# objective from the running coefficients instead of zeros.  Not carried
-# over yet: lane_logistic_predict_kernel (A13b).
+# objective from the running coefficients instead of zeros.
+# lane_logistic_predict_kernel is the multiplexed serving kernel
+# (serving/multiplex.py; ops/linalg's header states its contract): scores,
+# probabilities and label indices in one call.
 #
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Tuple, Union
 import torch
 
 from .lbfgs import minimize_lbfgs, minimize_lbfgs_batched
+from .lanes import by_lane
 from .linalg import exact_matmul
 from .sparse import EllMatrix, ell_matmat, ell_rmatmat
 
@@ -259,3 +262,14 @@ def scores_to_labels(scores: torch.Tensor, num_classes: int) -> torch.Tensor:
     if num_classes == 2 and scores.shape[1] == 1:
         return (scores[:, 0] > 0).to(torch.float32)
     return torch.argmax(scores, dim=1).to(torch.float32)
+
+
+def lane_logistic_predict_kernel(
+    X: torch.Tensor, lanes: torch.Tensor, Ws: torch.Tensor, bs: torch.Tensor, *, num_classes: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multiplexed serve kernel: Ws (L, k, D) and bs (L, k) are lane-stacked
+    variant parameters and row r scores against lane lanes[r] (each lane's
+    rows through logistic_decision_kernel itself); decision scores,
+    probabilities and label indices come out of one call."""
+    scores = by_lane(X, lanes, lambda rows, lane: logistic_decision_kernel(rows, Ws[lane], bs[lane]))
+    return scores, scores_to_probs(scores, num_classes), scores_to_labels(scores, num_classes)

@@ -8,8 +8,9 @@
 # assignment DataFrame.randomSplit materialises for scoring, so the masked
 # folds and the scored folds never disagree.
 # The JAX package's dispatch, warm and replicated_aval serve its AOT
-# executable cache (ROADMAP A13b); here the sweep's solvers are called
-# directly.
+# executable cache and have no counterpart, by design: the port compiles
+# nothing per shape (ops/precompile.py's header), so the sweep's solvers are
+# called directly.
 #
 
 from __future__ import annotations

@@ -17,12 +17,17 @@
 #                zero-downtime hot swap
 #   scheduler.py admission / priority classes and least-outstanding pick
 #   router.py    replica sets over slice-pool leases, health-aware routing,
-#                load shedding, failover and rolling swap
+#                load shedding, failover, rolling swap, scale_to and
+#                replace_replica, multiplexed sets
+#   multiplex.py srml-lanes: K same-shape model variants stacked on a pow2
+#                lane axis behind one lane kernel per micro-batch, with LRU
+#                lane paging (in-place page-in on a copy stream)
 #   slicepool.py the capacity ledger of disjoint device slices
+#   autoscale.py signal-driven scale-up / scale-down with hysteresis and
+#                cooldowns, and the repair of terminal replicas, through
+#                Router.scale_to / Router.replace_replica
 #
-# Multiplexed lane servers and the autoscaler (multiplex.py, autoscale.py)
-# wait for ROADMAP A13b.
-#
+from .autoscale import Autoscaler, AutoscalePolicy
 from .batcher import (
     MicroBatcher,
     RequestTimeout,
@@ -43,6 +48,7 @@ from .engine import (
     ServerUnhealthy,
 )
 from .entry import ServingEntry, bucket_rows, entry_for, kernel_entry, serve_buckets
+from .multiplex import LaneEntry, MultiplexServer, lane_entry_for, lane_signature
 from .registry import ModelRegistry, default_registry
 from .router import Router
 from .scheduler import (
@@ -54,15 +60,19 @@ from .scheduler import (
 from .slicepool import CapacityExhausted, SliceLease, SlicePool
 
 __all__ = [
+    "Autoscaler",
+    "AutoscalePolicy",
     "CapacityExhausted",
     "SliceLease",
     "SlicePool",
     "DEFAULT_CLASS",
     "DEGRADED",
     "DRAINING",
+    "LaneEntry",
     "MicroBatcher",
     "ModelRegistry",
     "ModelServer",
+    "MultiplexServer",
     "NoReplicaAvailable",
     "PRIORITY_CLASSES",
     "READY",
@@ -83,5 +93,7 @@ __all__ = [
     "default_registry",
     "entry_for",
     "kernel_entry",
+    "lane_entry_for",
+    "lane_signature",
     "serve_buckets",
 ]

@@ -1,0 +1,378 @@
+#
+# srml-elastic policy loop: signal-driven autoscaling over the router.
+#
+# Counterpart of spark_rapids_ml_tpu/serving/autoscale.py: the same policy,
+# knobs (SRML_AUTOSCALE_*), counters (autoscale.<model>.*) and decision
+# journal.  The Autoscaler is a small control loop with three rules:
+#
+#   SIGNALS ONLY FROM THE EXPORTED SURFACE.  Every input is something an
+#   operator already sees: per-replica SLO burn over the
+#   serve.<replica>.latency window (engine.slo_burn, the verdict of the
+#   DEGRADED overlay), the admission fill fraction (scheduler.aggregate_fill,
+#   what shedding keys on), occupancy (scheduler.aggregate_occupancy,
+#   busyness including in-flight rows), and router.<model>.shed counter
+#   deltas.
+#
+#   HYSTERESIS, ASYMMETRIC ON PURPOSE.  Scale UP fast: any shed in the
+#   window, or windowed fill / burn over the up-thresholds, adds one
+#   replica after a short cooldown.  Scale DOWN slow: only after fill,
+#   burn, sheds AND occupancy stay under the idle thresholds for the whole
+#   (longer) down-window, behind a long cooldown.  Flapping pays the
+#   warm-up twice and the p99 both times.
+#
+#   LOSS IS REPAIR, NOT SCALING.  A replica that goes terminal (UNHEALTHY
+#   with its restart budget spent: a killed worker under SRML_FAULTS, a
+#   lost device) is replaced through Router.replace_replica on the next
+#   tick but one: release the lease, lease again, re-warm (every key is
+#   warm already: zero new warm-ups), atomic slot cut-over.  The target
+#   count never changes; the journal records a "repair".
+#
+# Every decision (scale_up / scale_down / repair / hold) bumps an
+# autoscale.<model>.* counter and, for actions and pressured holds, lands in
+# a bounded decision journal with its reason string.  On one card the new
+# replicas are shared leases of it (Router.serve(...,
+# allow_oversubscribe=True)): scaling there adds dispatch workers and
+# queues, not device capacity.
+#
+
+from __future__ import annotations
+
+import logging
+import threading
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+from .. import profiling, sanitize
+from . import scheduler
+from .engine import UNHEALTHY
+from .slicepool import CapacityExhausted
+
+logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
+
+# knob defaults; every one overridable through SRML_AUTOSCALE_*
+INTERVAL_ENV = "SRML_AUTOSCALE_INTERVAL_S"
+_DEFAULT_INTERVAL_S = 0.25
+MIN_ENV = "SRML_AUTOSCALE_MIN"
+_DEFAULT_MIN = 1
+MAX_ENV = "SRML_AUTOSCALE_MAX"
+_DEFAULT_MAX = 4
+WINDOW_ENV = "SRML_AUTOSCALE_WINDOW_S"
+_DEFAULT_WINDOW_S = 2.0
+DOWN_WINDOW_ENV = "SRML_AUTOSCALE_DOWN_WINDOW_S"
+_DEFAULT_DOWN_WINDOW_S = 5.0
+UP_FILL_ENV = "SRML_AUTOSCALE_UP_FILL"
+_DEFAULT_UP_FILL = 0.5
+UP_BURN_ENV = "SRML_AUTOSCALE_UP_BURN"
+_DEFAULT_UP_BURN = 0.1
+DOWN_FILL_ENV = "SRML_AUTOSCALE_DOWN_FILL"
+_DEFAULT_DOWN_FILL = 0.05
+DOWN_OCCUPANCY_ENV = "SRML_AUTOSCALE_DOWN_OCCUPANCY"
+_DEFAULT_DOWN_OCCUPANCY = 0.25
+UP_COOLDOWN_ENV = "SRML_AUTOSCALE_UP_COOLDOWN_S"
+_DEFAULT_UP_COOLDOWN_S = 1.0
+DOWN_COOLDOWN_ENV = "SRML_AUTOSCALE_DOWN_COOLDOWN_S"
+_DEFAULT_DOWN_COOLDOWN_S = 10.0
+
+# consecutive ticks a replica must read UNHEALTHY before it is replaced:
+# state() flips transient wedges to RECOVERING synchronously, but the
+# worker-death window can expose a momentary UNHEALTHY that the bounded
+# supervisor is about to recover in place — replacing THAT replica would
+# waste a warmup racing the restart.  Two reads one tick apart only ever
+# see a replica whose restart budget is spent (terminal by construction).
+_TERMINAL_STREAK = 2
+
+
+@dataclass(frozen=True)
+class AutoscalePolicy:
+    """One model's scaling policy; from_env() reads the SRML_AUTOSCALE_*
+    knobs so deployments tune without code."""
+
+    min_replicas: int = _DEFAULT_MIN
+    max_replicas: int = _DEFAULT_MAX
+    window_s: float = _DEFAULT_WINDOW_S
+    down_window_s: float = _DEFAULT_DOWN_WINDOW_S
+    up_fill: float = _DEFAULT_UP_FILL
+    up_burn: float = _DEFAULT_UP_BURN
+    down_fill: float = _DEFAULT_DOWN_FILL
+    down_occupancy: float = _DEFAULT_DOWN_OCCUPANCY
+    up_cooldown_s: float = _DEFAULT_UP_COOLDOWN_S
+    down_cooldown_s: float = _DEFAULT_DOWN_COOLDOWN_S
+
+    @classmethod
+    def from_env(cls) -> "AutoscalePolicy":
+        from ..utils import env_float
+
+        return cls(
+            min_replicas=max(1, int(env_float(MIN_ENV, _DEFAULT_MIN))),
+            max_replicas=max(1, int(env_float(MAX_ENV, _DEFAULT_MAX))),
+            window_s=env_float(WINDOW_ENV, _DEFAULT_WINDOW_S),
+            down_window_s=env_float(DOWN_WINDOW_ENV, _DEFAULT_DOWN_WINDOW_S),
+            up_fill=env_float(UP_FILL_ENV, _DEFAULT_UP_FILL),
+            up_burn=env_float(UP_BURN_ENV, _DEFAULT_UP_BURN),
+            down_fill=env_float(DOWN_FILL_ENV, _DEFAULT_DOWN_FILL),
+            down_occupancy=env_float(
+                DOWN_OCCUPANCY_ENV, _DEFAULT_DOWN_OCCUPANCY
+            ),
+            up_cooldown_s=env_float(UP_COOLDOWN_ENV, _DEFAULT_UP_COOLDOWN_S),
+            down_cooldown_s=env_float(
+                DOWN_COOLDOWN_ENV, _DEFAULT_DOWN_COOLDOWN_S
+            ),
+        )
+
+
+class _ModelScaleState:
+    """Per-model sliding window + hysteresis clocks (touched only under
+    the autoscaler's state lock)."""
+
+    def __init__(self):
+        self.window: deque = deque()  # (t, fill, burn, shed_delta, occupancy)
+        self.last_shed: Optional[float] = None  # counter watermark
+        self.last_up: float = float("-inf")
+        self.last_down: float = float("-inf")
+        self.unhealthy_streak: Dict[int, int] = {}  # id(replica) -> ticks
+
+
+class Autoscaler:
+    """The srml-elastic policy loop: one daemon thread ticking every
+    `interval_s`, reading the exported signal surface for every routed
+    model (or the explicit `names` subset) and actuating through
+    Router.scale_to / Router.replace_replica.  `tick()` is public and
+    thread-safe so tests drive the policy deterministically without the
+    thread.  Use as a context manager, or start()/stop()."""
+
+    def __init__(
+        self,
+        router: Any,
+        policy: Optional[AutoscalePolicy] = None,
+        interval_s: Optional[float] = None,
+        names: Optional[List[str]] = None,
+    ):
+        from ..utils import env_float
+
+        self._router = router
+        self._policy = policy or AutoscalePolicy.from_env()
+        self._interval_s = (
+            interval_s
+            if interval_s is not None
+            else env_float(INTERVAL_ENV, _DEFAULT_INTERVAL_S)
+        )
+        self._names = list(names) if names is not None else None
+        self._lock = sanitize.lockdep_lock("serve.autoscale.state")
+        self._states: Dict[str, _ModelScaleState] = {}
+        self._journal: deque = deque(maxlen=256)
+        self._stop_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> "Autoscaler":
+        with self._lock:
+            if self._thread is not None:
+                return self
+            self._stop_event.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="srml-autoscale", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        with self._lock:
+            thread, self._thread = self._thread, None
+        self._stop_event.set()
+        if thread is not None:
+            thread.join(timeout=timeout_s)
+
+    def __enter__(self) -> "Autoscaler":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _run(self) -> None:
+        while not self._stop_event.wait(self._interval_s):
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 - the loop must outlive one bad tick
+                logger.exception("autoscale: tick failed; continuing")
+                profiling.incr_counter("autoscale.tick_errors")
+
+    # -- the policy tick ------------------------------------------------------
+    def tick(self) -> None:
+        """One policy evaluation over every watched model."""
+        names = self._names if self._names is not None else self._router.names()
+        now = profiling.now()
+        for name in names:
+            try:
+                self._tick_model(name, now)
+            except KeyError:
+                continue  # unrouted between names() and the read — skip
+
+    def _tick_model(self, name: str, now: float) -> None:
+        reps = self._router.replicas(name)
+        if not reps:
+            return
+        with self._lock:
+            st = self._states.setdefault(name, _ModelScaleState())
+        # -- repair: a lost replica as the common case -------------------
+        reps = self._repair(name, st, reps)
+        # -- signals (the exported surface only) --------------------------
+        fill = scheduler.aggregate_fill(reps)
+        occupancy = scheduler.aggregate_occupancy(reps)
+        burn = max(
+            (r.slo_burn() for r in reps if hasattr(r, "slo_burn")),
+            default=0.0,
+        )
+        shed_total = profiling.counter(f"router.{name}.shed")
+        with self._lock:
+            shed_delta = (
+                0.0 if st.last_shed is None else shed_total - st.last_shed
+            )
+            st.last_shed = shed_total
+            st.window.append((now, fill, burn, shed_delta, occupancy))
+            horizon = max(self._policy.window_s, self._policy.down_window_s)
+            while st.window and now - st.window[0][0] > horizon:
+                st.window.popleft()
+            decision, target, reason = self._decide(
+                name, st, now, len(reps)
+            )
+        if decision == "hold":
+            profiling.incr_counter(f"autoscale.{name}.holds")
+            if reason is not None:  # pressured hold (cooldown/capacity)
+                self._record(now, name, "hold", reason, len(reps), len(reps))
+            return
+        try:
+            self._router.scale_to(name, target)
+        except CapacityExhausted as exc:
+            profiling.incr_counter(f"autoscale.{name}.holds")
+            profiling.incr_counter(f"autoscale.{name}.capacity_exhausted")
+            self._record(
+                now, name, "hold", f"capacity exhausted: {exc}",
+                len(reps), len(reps),
+            )
+            return
+        except KeyError:
+            return  # unrouted mid-decision
+        with self._lock:
+            if decision == "scale_up":
+                st.last_up = now
+            else:
+                st.last_down = now
+        profiling.incr_counter(f"autoscale.{name}.{decision}")
+        self._record(now, name, decision, reason, len(reps), target)
+        logger.info(
+            "autoscale.%s: %s %d -> %d (%s)",
+            name, decision, len(reps), target, reason,
+        )
+
+    def _repair(self, name: str, st: _ModelScaleState, reps: List[Any]):
+        """Replace replicas terminal for _TERMINAL_STREAK consecutive
+        ticks; returns the refreshed replica snapshot."""
+        dead: List[Any] = []
+        with self._lock:
+            seen = set()
+            for r in reps:
+                state = r.state()
+                key = id(r)
+                seen.add(key)
+                if state == UNHEALTHY:
+                    streak = st.unhealthy_streak.get(key, 0) + 1
+                    st.unhealthy_streak[key] = streak
+                    if streak >= _TERMINAL_STREAK:
+                        dead.append(r)
+                else:
+                    st.unhealthy_streak.pop(key, None)
+            for key in list(st.unhealthy_streak):
+                if key not in seen:  # replaced/scaled away
+                    st.unhealthy_streak.pop(key, None)
+        replaced = 0
+        for r in dead:
+            incoming = self._router.replace_replica(name, r)
+            if incoming is not None:
+                replaced += 1
+                with self._lock:
+                    st.unhealthy_streak.pop(id(r), None)
+                profiling.incr_counter(f"autoscale.{name}.repairs")
+                self._record(
+                    profiling.now(), name, "repair",
+                    f"replica {r.name} terminal (restart budget spent); "
+                    "re-leased and re-warmed from the warm cache",
+                    len(reps), len(reps),
+                )
+        if replaced:
+            return self._router.replicas(name)
+        return reps
+
+    def _decide(self, name, st, now, cur):
+        """(decision, target, reason) under the hysteresis policy; caller
+        holds the state lock.  decision "hold" with reason=None is a quiet
+        steady-state hold; a non-None reason is a pressured hold worth
+        journaling."""
+        p = self._policy
+        up_w = [e for e in st.window if now - e[0] <= p.window_s]
+        reason = None
+        if up_w:
+            avg_fill = sum(e[1] for e in up_w) / len(up_w)
+            max_burn = max(e[2] for e in up_w)
+            sheds = sum(e[3] for e in up_w)
+            if sheds > 0:
+                reason = f"shed {sheds:.0f} request(s) in {p.window_s}s window"
+            elif avg_fill > p.up_fill:
+                reason = (
+                    f"fill {avg_fill:.2f} > {p.up_fill} over {p.window_s}s"
+                )
+            elif max_burn > p.up_burn:
+                reason = (
+                    f"SLO burn {max_burn:.2f} > {p.up_burn} in window"
+                )
+            if reason is not None:
+                if cur >= p.max_replicas:
+                    return "hold", cur, f"{reason}; at max_replicas"
+                if now - st.last_up < p.up_cooldown_s:
+                    return "hold", cur, f"{reason}; in up-cooldown"
+                return "scale_up", cur + 1, reason
+        # scale-down: sustained idle across the FULL down-window
+        if cur > p.min_replicas:
+            down_w = [e for e in st.window if now - e[0] <= p.down_window_s]
+            spans = (
+                down_w and now - down_w[0][0] >= p.down_window_s * 0.9
+            )
+            idle = spans and all(
+                e[1] < p.down_fill
+                and e[2] <= p.up_burn
+                and e[3] == 0
+                and e[4] < p.down_occupancy
+                for e in down_w
+            )
+            cooled = (
+                now - st.last_down >= p.down_cooldown_s
+                and now - st.last_up >= p.down_cooldown_s
+            )
+            if idle and cooled:
+                return (
+                    "scale_down",
+                    cur - 1,
+                    f"idle {p.down_window_s}s (fill < {p.down_fill}, "
+                    f"occupancy < {p.down_occupancy}, no sheds)",
+                )
+        return "hold", cur, reason
+
+    # -- the decision journal -------------------------------------------------
+    def _record(self, t, name, decision, reason, from_n, to_n) -> None:
+        entry = {
+            "t": round(t, 3),
+            "model": name,
+            "decision": decision,
+            "reason": reason,
+            "from_replicas": from_n,
+            "to_replicas": to_n,
+        }
+        with self._lock:
+            self._journal.append(entry)
+
+    def journal(self) -> List[Dict[str, Any]]:
+        """Snapshot of the bounded decision journal, oldest first —
+        scale_up/scale_down/repair entries plus pressured holds, each
+        with its reason string."""
+        with self._lock:
+            return list(self._journal)

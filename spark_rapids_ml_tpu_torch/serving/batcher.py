@@ -1,8 +1,7 @@
 #
 # Dynamic micro-batcher: the request path of the serving subsystem.
 #
-# Copy of spark_rapids_ml_tpu/serving/batcher.py, which imports no JAX,
-# without the multiplexed servers' lane tag (ROADMAP A13b).
+# Copy of spark_rapids_ml_tpu/serving/batcher.py, which imports no JAX.
 #
 # Clients submit single rows or small feature batches from any thread; the
 # engine's dispatch worker pops COALESCED batches.  Policy:
@@ -94,9 +93,11 @@ class RequestTimeout(TimeoutError):
 
 
 class _Request:
-    __slots__ = ("features", "n_rows", "future", "enqueue_t", "deadline_t")
+    __slots__ = ("features", "n_rows", "future", "enqueue_t", "deadline_t", "lane")
 
-    def __init__(self, features: np.ndarray, timeout_s: Optional[float]):
+    def __init__(
+        self, features: np.ndarray, timeout_s: Optional[float], lane: int = 0
+    ):
         self.features = features
         self.n_rows = int(features.shape[0])
         self.future: "Future[Dict[str, np.ndarray]]" = Future()
@@ -104,6 +105,10 @@ class _Request:
         self.deadline_t = (
             self.enqueue_t + timeout_s if timeout_s and timeout_s > 0 else None
         )
+        # srml-lanes: which lane of a multiplexed server's stacked parameter
+        # buffer this request's rows score against (0 for dedicated servers
+        # — the engine's assembly ignores it unless the entry takes lanes)
+        self.lane = int(lane)
 
 
 from ..utils import env_float as _env_float  # noqa: E402 - knob parsing
@@ -173,9 +178,13 @@ class MicroBatcher:
         self,
         features: np.ndarray,
         timeout_ms: Optional[float] = None,
+        *,
+        lane: int = 0,
     ) -> "Future[Dict[str, np.ndarray]]":
         """Enqueue one request ((D,) row or (n, D) block); returns its
-        future.  Raises ServerOverloaded when the queue bound would be exceeded and
+        future.  `lane` tags the request's rows with a multiplexed server's
+        lane id (srml-lanes; dedicated servers leave the default 0).
+        Raises ServerOverloaded when the queue bound would be exceeded and
         ValueError on shape mismatch or oversized requests."""
         feats = np.asarray(features, dtype=self.dtype)
         if feats.ndim == 1:
@@ -196,7 +205,7 @@ class MicroBatcher:
         timeout_s = (
             timeout_ms / 1000.0 if timeout_ms is not None else self._default_timeout_s
         )
-        req = _Request(feats, timeout_s)
+        req = _Request(feats, timeout_s, lane)
         with self._lock:
             if self._stopped or self._draining:
                 raise ServerDraining(

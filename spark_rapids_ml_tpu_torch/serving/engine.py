@@ -29,6 +29,12 @@
 # SRML_SANITIZE=1 runs every dispatch inside sanitize.sanitize_scope (the
 # NaN check of its outputs and, on the card, the sync-debug "error" mode).
 #
+# One departure from the JAX engine: a worker death with the restart budget
+# spent supersedes the dead generation and closes the batcher's admission
+# (_recover), so a depth > 1 assembly thread fails the batch it holds
+# instead of staging it behind no dispatcher, where the JAX engine leaves
+# its futures unresolved.
+#
 
 from __future__ import annotations
 
@@ -402,7 +408,7 @@ class ModelServer:
                 keys = self._entry.warm(list(self.buckets))
                 for b in self.buckets:
                     t1 = profiling.now()
-                    out = self._entry.call(self._synth(b))
+                    out = self._entry.call(*self._synth_args(b))
                     profiling.record_duration(f"serve.{self.name}.warm_dispatch", profiling.now() - t1)
                     missing = [c for c in self._entry.out_cols if c not in out]
                     if missing:
@@ -436,9 +442,14 @@ class ModelServer:
         self,
         features: np.ndarray,
         timeout_ms: Optional[float] = None,
+        *,
+        lane: int = 0,
     ):
         """Enqueue one request ((D,) row or (n, D) block, n <= max_batch);
         returns a Future resolving to {output column: np array of n rows}.
+        `lane` is the srml-lanes multiplex hook (which lane of a stacked
+        parameter buffer these rows score against — MultiplexServer resolves
+        it from a model_id; dedicated servers leave the default 0).
         Raises ServerOverloaded when the queue bound is hit, ServerRecovering
         (retryable: the supervisor is restarting the worker — retry HERE
         after the sub-second recovery window) while a restart is underway,
@@ -463,7 +474,7 @@ class ModelServer:
                 f"(> SRML_WATCH_STALL_S={watch.stall_threshold_s():g}) "
                 "with no restart budget left; fail over to another replica"
             )
-        return self._batcher.submit(features, timeout_ms=timeout_ms)
+        return self._batcher.submit(features, timeout_ms=timeout_ms, lane=lane)
 
     def _check_wedged(self) -> Optional[float]:
         """Seconds the in-flight dispatch has been wedged when the server
@@ -823,6 +834,10 @@ class ModelServer:
                 self._state = UNHEALTHY
                 budget_spent = True
                 attempt = self._restarts
+                # terminal: supersede the dead generation so that its
+                # assembly thread (depth > 1) stops consuming and fails the
+                # batch it holds instead of staging it behind no dispatcher
+                self._worker_gen += 1
             else:
                 self._restarts += 1
                 attempt = self._restarts
@@ -830,6 +845,12 @@ class ModelServer:
                 budget_spent = False
             self._recovery_epoch += 1
             my_epoch = self._recovery_epoch
+        if budget_spent:
+            # and admit nothing more: a submit that read the state before the
+            # flip gets the retryable ServerDraining (the router fails over)
+            # instead of a queue no worker will take, and everything already
+            # admitted is queued when fail_pending runs below
+            self._batcher.begin_drain()
         shed = self._batcher.fail_pending(
             ServerRecovering(
                 f"{self.ns}: recovering from {reason}; retry shortly"
@@ -901,15 +922,20 @@ class ModelServer:
         superseded (a later recovery, shutdown, or a terminal state)."""
         return self._recovery_epoch != epoch or self._shutdown_begun or self._state == UNHEALTHY
 
-    def _synth(self, b: int) -> np.ndarray:
-        """The synthetic warm / re-warm batch for one bucket."""
-        return np.zeros((b, self._entry.n_cols), dtype=self._entry.dtype)
+    def _synth_args(self, b: int) -> tuple:
+        """The synthetic warm / re-warm batch for one bucket, as the full
+        entry.call argument tuple.  Subclasses whose entries take extra
+        per-row arguments append them here (MultiplexServer adds the lane
+        id vector), so warm-up dispatches the geometry traffic will."""
+        return (np.zeros((b, self._entry.n_cols), dtype=self._entry.dtype),)
 
-    def _assemble(self, batch) -> Tuple[np.ndarray, int, int]:
+    def _assemble(self, batch) -> tuple:
         """Host-side batch assembly: zero-pad the coalesced requests to
         their pow2 row bucket.  Runs on the dispatch worker at depth 1 and
         on the assembly thread at depth > 1 — the work the pipeline
-        overlaps with device execution.  Returns (padded, n_rows, b)."""
+        overlaps with device execution.  Returns (padded, n_rows, b);
+        subclasses may append extra per-row arrays, which _dispatch forwards
+        to entry.call (the srml-lanes lane-id vector rides here)."""
         n_rows = sum(r.n_rows for r in batch)
         b = bucket_rows(n_rows, self._batcher.max_batch)
         # empty + tail-only zero fill, NOT np.zeros + overwrite: the bucket
@@ -932,7 +958,9 @@ class ModelServer:
         # InjectedWorkerDeath — a BaseException that escapes the per-batch
         # Exception guard and lands in _worker_main as a worker death.
         faults.site("serving.dispatch", tag=self.name)
-        padded, n_rows, b = assembled if assembled is not None else self._assemble(batch)
+        assembled = assembled if assembled is not None else self._assemble(batch)
+        padded, n_rows, b = assembled[:3]
+        extras = tuple(assembled[3:])  # e.g. the multiplex lane-id vector
         # warm-cache accounting brackets THIS dispatch: the watermark
         # counters are process-wide, so a baseline taken at warmup end would
         # blame this server for another server's later warm-ups (any miss
@@ -947,7 +975,7 @@ class ModelServer:
                 f"serve.{self.name}.dispatch",
                 rows=n_rows, bucket=b, requests=len(batch),
             ):
-                out = self._entry.call(padded)
+                out = self._entry.call(padded, *extras)
                 sanitize.check_nans(out, self.ns)
         except BaseException as exc:  # noqa: BLE001 - relayed to every waiter
             profiling.incr_counter(f"{self.ns}.errors")

@@ -11,9 +11,10 @@
 # zero-downtime hot swap.
 #
 # The registry is the single-server deployment surface (one ModelServer per
-# name).  Replicated serving over slice-pool leases is the router plane
-# (serving/router.py + serving/slicepool.py).  Multiplexed lane servers
-# (registry.multiplex) wait for ROADMAP A13b.
+# name; multiplex(name, models) one MultiplexServer of K same-shape
+# variants).  Replicated, capacity-managed serving (slice-pool leases,
+# scale_to, autoscaling, preemption repair) is the router plane
+# (serving/router.py + serving/slicepool.py + serving/autoscale.py).
 #
 
 from __future__ import annotations
@@ -67,6 +68,42 @@ class ModelRegistry:
             self._servers[name] = None  # reservation; filled below
         try:
             server = ModelServer(name, model, **{**self._defaults, **overrides})
+        except BaseException:
+            with self._lock:
+                self._servers.pop(name, None)
+            raise
+        with self._lock:
+            self._servers[name] = server
+        return server
+
+    def multiplex(
+        self,
+        name: str,
+        models: Dict[str, Any],
+        *,
+        resident_lanes: Optional[int] = None,
+        **overrides: Any,
+    ) -> "ModelServer":
+        """Serve K same-shape model variants behind ONE lane-batched server
+        (srml-lanes): every micro-batch dispatches one lane kernel across
+        the tenants' stacked parameters, and variants beyond
+        `resident_lanes` page into the LRU'd device lanes on demand.  The
+        returned server is a MultiplexServer (a ModelServer subclass);
+        clients pass model_id to submit()/predict().  Name reservation
+        mirrors register(): a failed init releases the name."""
+        from .multiplex import MultiplexServer
+
+        with self._lock:
+            if name in self._servers:
+                raise ValueError(f"model name {name!r} already registered")
+            self._servers[name] = None  # reservation; filled below
+        try:
+            server = MultiplexServer(
+                name,
+                models,
+                resident_lanes=resident_lanes,
+                **{**self._defaults, **overrides},
+            )
         except BaseException:
             with self._lock:
                 self._servers.pop(name, None)

@@ -17,9 +17,13 @@
 #               warms its buckets BEFORE the atomic per-slot cut-over, the
 #               old generation drains its in-flight requests, and the set
 #               never loses more than one replica of capacity,
-# The elastic actuators scale_to / replace_replica that an autoscaler drives
-# wait for ROADMAP A13b, with the autoscaler and the multiplexed lane sets
-# of serve_multiplex.
+#   ELASTIC     scale_to(name, n) grows / shrinks the set replica by replica
+#               (a new replica warms before it joins rotation; a removed one
+#               leaves rotation, drains, then releases its lease), and
+#               replace_replica() re-leases and re-warms a terminal replica
+#               in its slot; serving/autoscale.py drives both.
+# serve_multiplex deploys a set of MultiplexServers (serving/multiplex.py),
+# and submit(..., model_id=) targets one of their tenants.
 #
 # The device count of a set's own pool is the port's device.devices(): on
 # one card it is 1, so two replicas of a model are two shared leases of
@@ -76,18 +80,28 @@ class _ReplicaSet:
     rolling swap never blocks traffic on the other slots.
 
     The set also carries its capacity bookkeeping: `leases[i]` is the
-    SlicePool lease replica i runs on, and `scale_lock` the per-set mutex
-    that serializes structural changes (swaps) without ever blocking
-    dispatch, which only takes the router state lock."""
+    SlicePool lease replica i runs on, `slots[i]` its stable slot id
+    (replica names are "<model>-r<slot>"; a replaced or re-grown slot
+    reuses its id so per-replica metric series and fault tags stay
+    continuous), `factory` the ONE replica constructor shared by
+    serve/swap/scale_to/replace_replica, and `scale_lock` the per-set mutex
+    that serializes structural changes (scale/swap/repair) without ever
+    blocking dispatch, which only takes the router state lock."""
 
-    def __init__(self, name, priority, replicas, leases, kwargs, pool, owns_pool):
+    def __init__(
+        self, name, priority, replicas, leases, slots, kwargs, factory,
+        pool, owns_pool, allow_oversubscribe,
+    ):
         self.name = name
         self.priority = priority
         self.replicas: List[ModelServer] = replicas
         self.leases = leases
+        self.slots = slots
         self.kwargs = kwargs  # per-replica ModelServer kwargs (for swap)
+        self.factory = factory  # (replica_name, mesh) -> server
         self.pool = pool
         self.owns_pool = owns_pool  # implicit per-set pool: close on unroute
+        self.allow_oversubscribe = allow_oversubscribe
         self.scale_lock = sanitize.lockdep_lock("serve.router.scale")
 
     @property
@@ -159,7 +173,7 @@ class Router:
         kwargs: Dict[str, Any],
         allow_oversubscribe: bool,
     ) -> List[ModelServer]:
-        """The ONE deployment path under serve(): reserve
+        """The ONE deployment path under serve()/serve_multiplex(): reserve
         the name, lease `n` disjoint slices from the pool, build a replica
         per lease through `factory`, install atomically.  The name is
         reserved before the (expensive) warmups, so a duplicate fails
@@ -215,7 +229,10 @@ class Router:
             with self._lock:
                 self._sets.pop(name, None)
             raise
-        rs = _ReplicaSet(name, priority, built, leases, kwargs, pool, owns_pool)
+        rs = _ReplicaSet(
+            name, priority, built, leases, list(range(n)), kwargs,
+            factory, pool, owns_pool, allow_oversubscribe,
+        )
         with self._lock:
             self._sets[name] = rs
         profiling.incr_counter(f"router.{name}.replicas_started", n)
@@ -249,6 +266,185 @@ class Router:
             kwargs, allow_oversubscribe,
         )
 
+    def serve_multiplex(
+        self,
+        name: str,
+        models: Dict[str, Any],
+        replicas: Optional[int] = None,
+        priority: str = DEFAULT_CLASS,
+        *,
+        resident_lanes: Optional[int] = None,
+        allow_oversubscribe: bool = False,
+        **overrides: Any,
+    ) -> List[ModelServer]:
+        """Deploy K same-shape model variants as a replica set of
+        lane-batched MultiplexServers (srml-lanes): each replica stacks
+        every resident variant into ONE parameter buffer on ITS mesh
+        slice, and `submit(..., model_id=...)` routes tenants through the
+        same admission/failover plane as dedicated sets.  Rolling swap()
+        is a dedicated-server feature — upgrade a multiplexed set by
+        deploying a successor set under a new name."""
+        from .multiplex import MultiplexServer
+
+        kwargs = {
+            "inflight_depth": self._inflight_depth,
+            **self._defaults,
+            **overrides,
+        }
+
+        def factory(replica_name: str, mesh) -> ModelServer:
+            return MultiplexServer(
+                replica_name, models, mesh=mesh,
+                resident_lanes=resident_lanes, **kwargs,
+            )
+
+        return self._deploy(
+            name, priority, replicas or self._replicas_default, factory,
+            kwargs, allow_oversubscribe,
+        )
+
+    # -- elastic actuation (serving/autoscale.py drives these) ---------------
+    def _spawn_slot(self, name: str, rs: _ReplicaSet, slot: int):
+        """Lease a slice and build the replica for `slot` through the
+        set's shared factory.  Returns (replica, lease); on a build
+        failure the lease is released before the error propagates.
+        Caller holds rs.scale_lock (never the state lock — warmup is the
+        expensive part and dispatch must keep flowing)."""
+        lease = rs.pool.allocate(
+            f"{name}-r{slot}", oversubscribe=rs.allow_oversubscribe or None
+        )
+        try:
+            replica = rs.factory(f"{name}-r{slot}", lease.mesh)
+        except BaseException:
+            rs.pool.release(lease)
+            raise
+        return replica, lease
+
+    def scale_to(
+        self, name: str, n: int, *, drain_timeout_s: float = 30.0
+    ) -> List[ModelServer]:
+        """Resize the replica set to exactly `n` replicas — the elastic
+        plane's actuator (serving/autoscale.py decides when; this makes
+        it so).  Scale-UP leases a fresh pool slice per new slot, warms
+        the replica through the set's factory (for a model class already
+        served, every key of the warm cache is warm already: ZERO new
+        warm-ups — the swap discipline), and
+        admits it to rotation atomically; no free slice raises the typed
+        retryable CapacityExhausted with the set unchanged mid-growth.
+        Scale-DOWN removes the highest slot from rotation atomically,
+        drains its in-flight work, then releases its slice back to the
+        pool — admitted requests finish, new ones never see it.  Returns
+        the post-scale replica snapshot."""
+        rs = self._set(name)
+        if n < 1:
+            raise ValueError(
+                f"router.{name}: cannot scale below 1 replica (got {n}); "
+                "use unroute() to stop serving"
+            )
+        with rs.scale_lock:
+            with profiling.span(f"router.{name}.scale", target=n):
+                while True:
+                    with self._lock:
+                        if self._sets.get(name) is not rs:
+                            raise KeyError(
+                                f"routed model {name!r} was removed during "
+                                "scale_to; aborting"
+                            )
+                        cur = len(rs.replicas)
+                        if cur == n:
+                            return list(rs.replicas)
+                        if cur > n:
+                            # atomic removal: highest slot leaves rotation
+                            i = max(
+                                range(len(rs.slots)), key=rs.slots.__getitem__
+                            )
+                            victim = rs.replicas.pop(i)
+                            lease = rs.leases.pop(i)
+                            rs.slots.pop(i)
+                        else:
+                            slot = next(
+                                s for s in range(n) if s not in rs.slots
+                            )
+                    if cur > n:
+                        try:
+                            victim.drain(timeout_s=drain_timeout_s)
+                        finally:
+                            victim.shutdown(drain=False)
+                            rs.pool.release(lease)
+                        profiling.incr_counter(f"router.{name}.scaled_down")
+                        continue
+                    replica, lease = self._spawn_slot(name, rs, slot)
+                    with self._lock:
+                        if self._sets.get(name) is not rs:
+                            installed = False
+                        else:
+                            rs.replicas.append(replica)
+                            rs.leases.append(lease)
+                            rs.slots.append(slot)
+                            installed = True
+                    if not installed:
+                        replica.shutdown(drain=False)
+                        rs.pool.release(lease)
+                        raise KeyError(
+                            f"routed model {name!r} was removed during "
+                            "scale_to; aborting"
+                        )
+                    profiling.incr_counter(f"router.{name}.scaled_up")
+                    profiling.incr_counter(f"router.{name}.replicas_started")
+
+    def replace_replica(
+        self, name: str, dead: ModelServer
+    ) -> Optional[ModelServer]:
+        """Replace one terminal replica in place — preemption as the
+        common case (serving/autoscale.py's repair path).  The dead
+        replica's slice goes back to the pool FIRST, a fresh lease is
+        taken (possibly the same devices, possibly a re-slice), the
+        successor warms through the set's factory (its keys are warm
+        already: zero new warm-ups), and the slot cuts over atomically under the
+        state lock — same discipline as swap(), minus the compat check
+        (same factory, same model).  The dead replica is torn down
+        without drain: its worker already died, and the engine already
+        failed its in-flight futures with the typed retryable errors the
+        router reroutes.  Returns the successor, or None if the replica
+        had already been replaced/removed (repair paths may race)."""
+        rs = self._set(name)
+        with rs.scale_lock:
+            with self._lock:
+                if self._sets.get(name) is not rs:
+                    return None
+                try:
+                    i = rs.replicas.index(dead)
+                except ValueError:
+                    return None  # already replaced or scaled away
+                slot = rs.slots[i]
+                old_lease = rs.leases[i]
+            rs.pool.release(old_lease)
+            incoming, lease = self._spawn_slot(name, rs, slot)
+            with self._lock:
+                installed = False
+                if self._sets.get(name) is rs:
+                    try:
+                        i = rs.replicas.index(dead)
+                    except ValueError:
+                        i = -1
+                    if i >= 0:
+                        rs.replicas[i] = incoming  # atomic slot cut-over
+                        rs.leases[i] = lease
+                        installed = True
+            if not installed:
+                incoming.shutdown(drain=False)
+                rs.pool.release(lease)
+                return None
+            try:
+                dead.shutdown(drain=False)
+            except Exception:  # noqa: BLE001 - teardown of a dead replica
+                logger.warning(
+                    "router.%s: teardown of replaced replica %r failed",
+                    name, dead.name,
+                )
+            profiling.incr_counter(f"router.{name}.replicas_replaced")
+            return incoming
+
     def _set(self, name: str) -> _ReplicaSet:
         with self._lock:
             rs = self._sets.get(name)
@@ -277,8 +473,11 @@ class Router:
         features: Any,
         timeout_ms: Optional[float] = None,
         priority: Optional[str] = None,
+        model_id: Optional[str] = None,
     ):
-        """Admit, pick, dispatch: returns a ROUTED Future.  Unlike a bare
+        """Admit, pick, dispatch: returns a ROUTED Future.  `model_id`
+        targets one tenant of a multiplexed set (serve_multiplex) and is
+        forwarded to the replica's submit.  Unlike a bare
         ModelServer future, a routed future absorbs replica failures: a
         replica that dies or is superseded after admitting the request
         resolves it with the typed retryable ServerRecovering/
@@ -339,10 +538,11 @@ class Router:
                     return
                 if mode == "degraded":
                     profiling.incr_counter(f"router.{name}.degraded_mode")
+                kw = {} if model_id is None else {"model_id": model_id}
                 try:
-                    fut = replica.submit(features, timeout_ms=timeout_ms)
+                    fut = replica.submit(features, timeout_ms=timeout_ms, **kw)
                 except (KeyError, ValueError) as exc:
-                    # a bad request: a CLIENT error identical
+                    # unknown tenant / bad request: a CLIENT error identical
                     # on every replica — resolve, never fail over (and never
                     # raise out of a done-callback re-route)
                     resolve_future(outer, exc=exc)
@@ -406,10 +606,14 @@ class Router:
         features: Any,
         timeout_ms: Optional[float] = None,
         priority: Optional[str] = None,
+        model_id: Optional[str] = None,
     ) -> Dict[str, Any]:
         """Blocking convenience around submit(), bounded like
         ModelServer.predict."""
-        fut = self.submit(name, features, timeout_ms=timeout_ms, priority=priority)
+        fut = self.submit(
+            name, features, timeout_ms=timeout_ms, priority=priority,
+            model_id=model_id,
+        )
         wait_s = None
         if timeout_ms is not None and timeout_ms > 0:
             wait_s = timeout_ms / 1000.0 + 60.0  # dispatch slack
@@ -433,7 +637,9 @@ class Router:
         the untouched slots — zero downtime.
 
         An incompatible model (entry.check_swap_compatible) fails BEFORE
-        the first cut-over, leaving the set untouched."""
+        the first cut-over, leaving the set untouched.  A completed swap
+        also updates the set's replica factory, so later scale_to()
+        growth and preemption repairs spawn the NEW model."""
         rs = self._set(name)
         t0 = profiling.now()
         swapped: List[ModelServer] = []
@@ -480,6 +686,8 @@ class Router:
                     old.drain(timeout_s=drain_timeout_s)
                 finally:
                     old.shutdown(drain=False)
+            with self._lock:
+                rs.factory = factory  # scale-ups now spawn the new model
         profiling.incr_counter(f"router.{name}.swaps")
         profiling.record_duration(
             f"router.{name}.swap", profiling.now() - t0

@@ -14,8 +14,8 @@
 #
 # The pool is deliberately dumb: no waiting, no priorities, no preemption
 # of leases.  Deciding WHEN to take or give back a slice is the
-# autoscaler's job (ROADMAP A13b); deciding WHO runs on a slice is the
-# router's.
+# autoscaler's job (serving/autoscale.py); deciding WHO runs on a slice is
+# the router's.
 #
 
 from __future__ import annotations

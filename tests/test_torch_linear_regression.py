@@ -211,7 +211,9 @@ def test_hooks_not_in_this_slice_raise():
     assert type(est.streaming()).__name__ == "StreamingLinearRegression"
     # serving (ROADMAP A13a) works now (tests/test_torch_serving.py)
     assert type(model._serving_entry()).__name__ == "ServingEntry"
-    calls = ((model._lane_entry, "A13b"), (model.cpu, "A14c"))
-    for call, item in calls:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # multiplexed serving (ROADMAP A13b) works now (tests/test_torch_multiplex.py)
+    lane = model._lane_entry()
+    assert (type(lane).__name__, lane.name, lane.out_cols) == ("LaneEntry", "lanes.linreg", ["prediction"])
+    assert [np.shape(leaf) for leaf in lane.leaves] == [(model.n_cols,), ()]
+    with pytest.raises(NotImplementedError, match="A14c"):
+        model.cpu()

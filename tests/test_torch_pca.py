@@ -180,6 +180,9 @@ def test_hooks_not_in_this_slice_raise():
     assert type(port.PCA().streaming()).__name__ == "StreamingPCA"
     # serving (ROADMAP A13a) works now (tests/test_torch_serving.py)
     assert type(model._serving_entry()).__name__ == "ServingEntry"
-    for call, item in ((model._lane_entry, "A13b"), (model.cpu, "A14c")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # multiplexed serving (ROADMAP A13b) works now (tests/test_torch_multiplex.py)
+    lane = model._lane_entry()
+    assert (type(lane).__name__, lane.name, lane.info) == ("LaneEntry", "lanes.pca", {"k": 1})
+    assert [np.shape(leaf) for leaf in lane.leaves] == [(1, 3)]
+    with pytest.raises(NotImplementedError, match="A14c"):
+        model.cpu()

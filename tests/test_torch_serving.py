@@ -12,8 +12,10 @@
 # Then the port alone: served == its own batch transform / kneighbors, the
 # steady state adds zero warm-ups, a recovered worker adds none, the
 # registry loads models saved by either package, the live index's
-# mutations show in served searches, and the hooks that wait for ROADMAP
-# A13b raise naming it.
+# mutations show in served searches; serving a model with no serving entry
+# (UMAP) raises what the JAX package raises, and the multiplexed hooks of
+# ROADMAP A13b answer (tests/test_torch_multiplex.py holds them to the JAX
+# package).
 import json
 
 import numpy as np
@@ -237,16 +239,21 @@ def test_unservable_and_a13b_hooks_raise(model_zoo):
     class NoHook:
         pass
 
-    with pytest.raises(TypeError, match="not a servable model"):
-        port_serving.ModelServer("tsv_nohook", NoHook())
-    umap = port.UMAPModel(embedding_=np.zeros((4, 2), np.float32), raw_data_=np.zeros((4, 3), np.float32),
-                          n_cols=3, dtype="float32")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        port_serving.ModelServer("tsv_umap", umap)
+    errors = {}
+    for pkg, S, umap_cls in (("jax", ref_serving, ref.UMAPModel), ("port", port_serving, port.UMAPModel)):
+        with pytest.raises(TypeError, match="not a servable model") as ei:
+            S.ModelServer("tsv_nohook", NoHook())
+        umap = umap_cls(embedding_=np.zeros((4, 2), np.float32), raw_data_=np.zeros((4, 3), np.float32),
+                        n_cols=3, dtype="float32")
+        with pytest.raises(NotImplementedError, match="has no serving entry") as ei_umap:
+            S.ModelServer("tsv_umap", umap)
+        errors[pkg] = (type(ei.value).__name__, str(ei.value), type(ei_umap.value).__name__, str(ei_umap.value))
+    assert errors["port"] == errors["jax"]  # UMAP: what the JAX package raises, word for word
     for arm in ("kmeans", "pca", "linreg", "logreg"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            _pair(arm, model_zoo)[1]._lane_entry()
-    assert not any(name in port_serving.__all__ for name in ("MultiplexServer", "Autoscaler", "LaneEntry"))
+        jax_model, port_model, _X = _pair(arm, model_zoo)
+        port_sig = port_serving.lane_signature(port_serving.lane_entry_for(port_model))
+        assert port_sig == ref_serving.lane_signature(ref_serving.lane_entry_for(jax_model)), arm
+    assert sorted(port_serving.__all__) == sorted(ref_serving.__all__)
 
 
 def test_failed_warmup_raises_and_releases_the_trace_scope(model_zoo, monkeypatch, tmp_path):

@@ -252,8 +252,16 @@ def test_spark_hooks_name_their_roadmap_items():
     model = UMAPModel(np.zeros((4, 2), np.float32), np.zeros((4, 3), np.float32), 3, "float32")
     with pytest.raises(NotImplementedError, match="A14c"):
         model.cpu()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model._serving_entry()
+    # UMAP has no serving entry in either package: the base hook's error
+    ref_model = ref.UMAPModel(embedding_=np.zeros((4, 2), np.float32), raw_data_=np.zeros((4, 3), np.float32),
+                              n_cols=3, dtype="float32")
+    errors = []
+    for m in (model, ref_model):
+        with pytest.raises(NotImplementedError, match="has no serving entry") as ei:
+            m._serving_entry()
+        errors.append(str(ei.value))
+    assert errors[0] == errors[1]
+    assert not hasattr(model, "_lane_entry") and not hasattr(ref_model, "_lane_entry")
 
 
 def test_mesh_fit_equals_one_device_fit():
