@@ -145,8 +145,8 @@
 #            first rows, 2 partitions), k = 200, nlist 632, nprobe 158;
 #            IVF-Flat, IVF-PQ (M 32, 8 bits, refine_ratio 4) and IVF-PQ
 #            fast-scan (M 32, 4 bits, opq, refine_ratio 8): fit, kneighbors
-#            twice (staging, then the cached call), one profiled call;
-#            B1 in every fit, B7 in every search, B9 (lut_accumulate_probed)
+#            twice (staging, then the cached call), one profiled call of
+#            its first 4,096 queries; B1 in every fit, B7 in every search, B9 (lut_accumulate_probed)
 #            only in the 8-bit and B10 only in the 4-bit search; then, on 2,048 queries, recall@10
 #            and @200 against exactSearch=True (gates 0.95 flat, 0.9
 #            refined PQ), the ADC-only recall of the PQ arms, save -> load
@@ -188,6 +188,38 @@
 #            PCA, the three linear fits and four logistic fits (binary and 4
 #            classes, dense and CSR) at 65,536 x 256 on the card and under
 #            use_device("cpu"), within the CVC_* tolerances
+#   path_fit_mesh
+#            the batch cells' estimators on a 4-shard mesh of the card
+#            (use_device(["cuda:0"] * 4), num_workers 4: the row-sharded
+#            ingest and the fit reductions over shards), each part right
+#            after the path that makes its rows and emitted at once, the
+#            record after the GLM phases: KMeans (the flagship on path's
+#            rows against path's model: n_iter equal, inertia within 1e-4
+#            relative, at most 1e-4 of the labels differing, every center
+#            no differing label touches within 1e-2; transform with its 8
+#            B1 launches); PCA
+#            (k 3, path_pca's rows, at its PCA_* gates against its float64
+#            reference); OLS (path_linreg's rows, within LINREG_RTOL of its
+#            float64 solve); binary logistic (path_logreg's rows, held-out
+#            accuracy > 0.9, coefficients within CV_LOGISTIC_ATOL of its
+#            model); RandomForestRegressor through the scatter engine on
+#            path_rf_reg's rows at its widths, MESH_RF_TREES trees (B2 once
+#            a shard, no histogram kernel, held-out R^2 > 0, the engine's
+#            histogram and split seconds a level).  Each part records
+#            fit_s, its ingest seconds, peak memory and the exchange bytes
+#            by section.  Needs path, path_pca, path_linreg, path_logreg and
+#            path_rf_reg
+#   mesh_card_vs_cpu
+#            at 65,536 x 256 integer rows (16,384 x 64 for the forest), each
+#            estimator on 4 shards of the card, 1 shard of the card and 8
+#            shards of the CPU (use_device(["cpu"] * 8)): KMeans centers
+#            (one init), PCA moments, linear and fold statistics and the
+#            forest's five arrays (RandomForestRegressor, depth 14: the
+#            scatter engine on every mesh, bootstrap on) bit for bit, the
+#            fitted PCA, linear and logistic models within the CVC_*
+#            tolerances; node_histograms_sharded (B3 on each of 4 card
+#            shards, one psum) bit for bit node_histograms over all rows
+#            and its plain version
 #   path_cv_linreg
 #            CrossValidator(LinearRegression(standardization=False)) over
 #            regParam geomspace(1e-3, 1, 4) x elasticNetParam {0, 0.5}, 3
@@ -341,8 +373,10 @@
 # `--phases a,b` runs a subset (the summary then lists only what ran;
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
 # path_knn_mesh; path_serve needs path; path_serve_lanes needs path_serve,
-# path, path_linreg, path_logreg and path_pca; the ANN, PCA, GLM,
-# model-selection, UMAP and streaming phases need nothing else).
+# path, path_linreg, path_logreg and path_pca; path_fit_mesh needs path,
+# path_pca, path_linreg, path_logreg and path_rf_reg; the ANN, PCA, GLM,
+# mesh_card_vs_cpu, model-selection, UMAP and streaming phases need nothing
+# else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -2201,6 +2235,10 @@ ANN_ITEMS, ANN_COLS, ANN_QUERIES, ANN_K, ANN_SEED = 400_000, 256, 16_384, 200, 4
 ANN_NLIST, ANN_NPROBE, ANN_M = 632, 158, 32
 ANN_ITEM_PARTS, ANN_QUERY_PARTS = 8, 2
 ANN_CHECK_QUERIES = 2048   # the recall, reload and tiered checks
+# the profiled call's queries: the first quarter of the timed calls' (cut
+# from 16,384 to keep the whole script under its time limit: the PQ arms'
+# host refine grows with the queries)
+ANN_PROFILE_QUERIES = 4096
 _ANN_BASE = {"nlist": ANN_NLIST, "nprobe": ANN_NPROBE}
 # phase: (algorithm, algoParams, recall@10 gate of the JAX package's tests)
 ANN_ARMS = {
@@ -2604,7 +2642,9 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
     check(bool(np.isfinite(dist).all()) and bool((np.diff(dist, axis=1) >= 0).all()) and bool((idx >= 0).all()),
           "distances not finite ascending, or an unfilled slot")
     check(np.array_equal(idx, idx2) and np.array_equal(dist, dist2), "the cached kneighbors call gave other results")
-    profile = profile_run(torch, lambda: ann_rows(model, query_df), ANN_PROFILE_RANGES, wrappers)
+    profile_df = port.DataFrame.from_numpy(Q[:ANN_PROFILE_QUERIES], num_partitions=ANN_QUERY_PARTS)
+    profile = profile_run(torch, lambda: ann_rows(model, profile_df), ANN_PROFILE_RANGES, wrappers)
+    profile["queries"] = ANN_PROFILE_QUERIES
     rec = {"index_bytes_per_item": model.index_bytes_per_item()}
     staged = model._staged_pq[1] if pq else model._staged_index[1]
     rec["l_pad"], rec["nlist_pad"] = staged.l_pad, staged.nlist_pad
@@ -2892,6 +2932,7 @@ def run_pca_path(torch, port, wrappers, dev, X, gen_s, keep=None):
     del df, cov, scatter
     if keep is not None:
         keep["path_pca"] = model
+        keep["path_pca_reference"] = (mean, comps, ratio, sv)
     return {
         "phase": "path_pca", "rows": GLM_ROWS, "cols": GLM_COLS, "k": PCA_K, "rank": PCA_RANK,
         "partitions": GLM_PARTITIONS, "data_gen_s": gen_s,
@@ -2985,6 +3026,8 @@ def run_linreg_path(torch, port, wrappers, X, y, dev, keep=None):
             check(rec["coef_max_rel_err_vs_float64"] <= LINREG_RTOL and rec["intercept_rel_err_vs_float64"] <= LINREG_RTOL,
                   f"{name} against the float64 solve: {rec}")
             check(rec["port_solve_float64_max_rel_err"] <= LINREG_F64_RTOL, f"{name}: the port's float64 solve: {rec}")
+            if keep is not None and name == "ols":
+                keep["path_linreg_float64"] = (b64_h, b0_h, scale)
             _, rec["solve_s"] = synced(torch, lambda: glm.solve_linear(stats32, alpha, True, True))
         else:
             sweeps = port.profiling.counters("glm.").get("glm.cd_sweeps")
@@ -3042,9 +3085,9 @@ def run_logreg_path(torch, port, wrappers, X, y, dev, keep=None):
 
     inputs, ingest_s = synced(torch, lambda: cold(lambda: est._build_fit_inputs(df)))
     theta = torch.as_tensor(np.concatenate([model.coef_.ravel(), model.intercept_]).astype(np.float32), device=dev)
-    wsum = inputs.weight.sum()
+    wsum = inputs.weight[0].sum()
     eval_ms = median_ms(torch, lambda: logistic._data_value_and_grad(
-        theta, inputs.X, inputs.y, inputs.weight, wsum, 1, GLM_COLS, True), 5)
+        theta, inputs.X[0], inputs.y[0], inputs.weight[0], wsum, 1, GLM_COLS, True), 5)
     del inputs
     eval_bound_ms = 1e3 * 2 * GLM_ROWS * GLM_COLS * 4 / PEAK_BYTES_PER_S  # X read twice
     profile = profile_run(torch, lambda: cold(lambda: est.fit(df)), ("core.ingest", "lbfgs.fit"), wrappers)
@@ -3109,12 +3152,12 @@ def run_logreg_sparse_path(torch, port, wrappers, dev):
     check(acc > majority, f"accuracy {acc} <= majority share {majority}")
 
     inputs, ingest_s = synced(torch, lambda: cold(lambda: est._build_fit_inputs(df)))
-    ell = inputs.X
-    y_enc = inputs.y.long()
+    ell = inputs.X[0]
+    y_enc = inputs.y[0].long()
     theta = torch.as_tensor(np.concatenate([first.coef_.ravel(), first.intercept_]).astype(np.float32), device=dev)
-    wsum = inputs.weight.sum()
+    wsum = inputs.weight[0].sum()
     eval_ms = median_ms(torch, lambda: logistic._data_value_and_grad(
-        theta, ell, y_enc, inputs.weight, wsum, SPARSE_CLASSES, SPARSE_COLS, True), 5)
+        theta, ell, y_enc, inputs.weight[0], wsum, SPARSE_CLASSES, SPARSE_COLS, True), 5)
     # bytes the evaluation needs: the ELL pair and its transpose once, the
     # scores written and read back, labels and weights
     eval_bytes = ell.nbytes() + 2 * SPARSE_ROWS * SPARSE_CLASSES * 4 + SPARSE_ROWS * (8 + 4)
@@ -5274,6 +5317,298 @@ class LanePlane:
                 "part_s": {key: rec["part_s"] for key, rec in self.parts.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Fits on a mesh: the row-sharded ingest and the fit reductions over
+# shards, on four shards of the one card
+# ---------------------------------------------------------------------------
+
+# path_fit_mesh: each batch cell's estimator on use_device(["cuda:0"] * 4)
+# with num_workers 4, right after the path that makes its rows, held
+# against that path's one-shard fit or float64 reference.  KMeans (the same
+# init, its draws over global rows) against path's model: n_iter equal,
+# inertia within 1e-4 relative, at most MESH_KM_FLIP_SHARE of the labels
+# differing (near-tie rows the rounding of the shards' sums flips), and
+# every center those rows do not touch within the JAX package's mesh gate
+# (tests/test_kmeans.py:96-104, atol 1e-2);
+# PCA at path_pca's float64 gates; OLS within LINREG_RTOL of the float64
+# solve; logistic held-out accuracy above HOLDOUT_ACCURACY and coefficients
+# within CV_LOGISTIC_ATOL of path_logreg's; the RF regressor at its widths
+# (3000 features, 128 bins, depth 6, "onethird") on the scatter engine, its
+# tree count cut from 30 (MESH_RF_TREES): the engine's histogram pass grows
+# with the trees, and the whole script has a time limit.
+MESH_DEVICES = ("cuda:0",) * MESH_SHARDS
+MESH_KM_CENTER_ATOL, MESH_KM_INERTIA_RTOL, MESH_KM_FLIP_SHARE = 1e-2, 1e-4, 1e-4
+MESH_RF_TREES = 8
+MESH_PHASES = ("path_fit_mesh", "mesh_card_vs_cpu")
+# mesh_card_vs_cpu: 65,536 x 256 integer rows (16,384 x 64 for the forest),
+# each fit on 4 shards of the card, 1 shard of the card and 8 shards of the
+# CPU.  Values small enough that every sum of a statistic stays an integer
+# under 2^24: KMeans rows around 8 blobs (centers and inertia exact given one
+# init), PCA / linear rows in [-2, 2] with y in [-8, 8], forest targets in
+# 0..7 (bootstrap counts times y^2 sum under 2^24)
+MCVC_ROWS, MCVC_COLS, MCVC_FOREST_ROWS, MCVC_FOREST_COLS, MCVC_SEED = 65536, 256, 16384, 64, 91
+MCVC_KMEANS = dict(k=8, maxIter=20, seed=3)
+MCVC_FOREST = dict(numTrees=4, maxDepth=14, maxBins=32, featureSubsetStrategy="onethird", seed=5)
+MCVC_LOGREG = dict(regParam=1e-3, maxIter=100, tol=1e-6)
+# (name, device list, num_workers) of the three ways each fit runs
+MCVC_CONFIGS = (("card_4_shards", list(MESH_DEVICES), MESH_SHARDS), ("card_1_shard", ["cuda:0"], 1),
+                ("cpu_8_shards", ["cpu"] * 8, 8))
+
+
+def mesh_fit(torch, port, est, df, wrappers):
+    """est.fit(df) on the card's four shards, cold: (model, fit seconds,
+    ingest seconds, peak device bytes over the bytes before, launches,
+    exchange bytes by section, link bytes)."""
+    port.clear_fit_cache()
+    port.profiling.reset_phase_times()
+    port.profiling.reset_counters("exchange.")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches(wrappers)
+    with port.device.use_device(list(MESH_DEVICES)):
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    total, per = port.parallel.exchange.byte_totals()
+    rec = {"fit_s": fit_s, "ingest_s": port.profiling.phase_times().get("core.ingest"),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() - base,
+           "launches_fit": read_launches(wrappers), "exchange_bytes": total, "exchange_bytes_by_section": per,
+           "exchange_calls": {k: v for k, v in port.profiling.counters("exchange.").items() if k.endswith(".calls")},
+           "link_bytes": port.parallel.exchange.link_totals(), "shards": MESH_SHARDS}
+    return model, rec
+
+
+def mesh_kmeans_part(torch, port, nc, wrappers, X, single):
+    """path_fit_mesh's KMeans part: the flagship on path's rows on 4 shards;
+    centers and inertia against path's one-shard model; transform (B1 a
+    partition)."""
+    df = port.DataFrame.from_numpy(X, num_partitions=PARTITIONS)
+    est = port.KMeans(k=K, maxIter=MAX_ITER, initMode="random", seed=SEED, num_workers=MESH_SHARDS)
+    model, rec = mesh_fit(torch, port, est, df, wrappers)
+    port.clear_fit_cache()
+    reset_launches(wrappers)
+    with port.device.use_device(list(MESH_DEVICES)):
+        t0 = time.perf_counter()
+        labels = np.concatenate([p["prediction"] for p in model.transform(df).partitions])
+        transform_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    # the same init (its draws index global rows) and the same Lloyd steps:
+    # the two fits part only where rounding of the sums over shards flips a
+    # near-tie row between two centers, which moves those two centers only
+    single_labels = np.concatenate([p["prediction"] for p in single.transform(df).partitions])
+    flipped = labels != single_labels
+    touched = np.union1d(labels[flipped], single_labels[flipped])
+    center_err = np.abs(model.cluster_centers_ - single.cluster_centers_).max(axis=1)
+    untouched = np.setdiff1d(np.arange(K), touched)
+    rec.update(
+        rows=ROWS, cols=COLS, k=K, max_iter=MAX_ITER, init_mode="random", n_iter=model.n_iter_,
+        inertia=model.inertia_, single_shard_inertia=single.inertia_, single_shard_n_iter=single.n_iter_,
+        inertia_rel_err=abs(model.inertia_ / single.inertia_ - 1.0),
+        centers_max_abs_err=float(center_err.max()),
+        untouched_centers_max_abs_err=float(center_err[untouched].max()),
+        transform_s=transform_s, transform_launches=launches,
+        labels_differing_from_single_shard=int(flipped.sum()), centers_touched_by_them=int(touched.size),
+        gates={"untouched_centers_atol": MESH_KM_CENTER_ATOL, "inertia_rtol": MESH_KM_INERTIA_RTOL,
+               "differing_labels_share": MESH_KM_FLIP_SHARE},
+    )
+    check(launches["min_dist_argmin"] == PARTITIONS, f"transform launched B1 {launches['min_dist_argmin']} times")
+    check(int(labels.min()) >= 0 and int(labels.max()) < K, "labels out of range")
+    check(rec["untouched_centers_max_abs_err"] <= MESH_KM_CENTER_ATOL and rec["inertia_rel_err"] <= MESH_KM_INERTIA_RTOL
+          and flipped.mean() <= MESH_KM_FLIP_SHARE and model.n_iter_ == single.n_iter_,
+          f"KMeans on 4 shards against path's one shard: {rec}")
+    return rec
+
+
+def mesh_pca_part(torch, port, wrappers, X, reference):
+    """path_fit_mesh's PCA part: PCA(k=3) on path_pca's rows on 4 shards, at
+    path_pca's gates against its float64 reference."""
+    mean, comps, ratio, sv = reference
+    df = port.DataFrame.from_numpy(X, num_partitions=GLM_PARTITIONS)
+    model, rec = mesh_fit(torch, port, port.PCA(k=PCA_K, num_workers=MESH_SHARDS), df, wrappers)
+    errs = {
+        "mean_max_abs_err": float(np.abs(model.mean_ - mean).max()),
+        "components_max_abs_err": float(np.abs(model.components_ - comps).max()),
+        "ratio_max_abs_err": float(np.abs(model.explained_variance_ratio_ - ratio).max()),
+        "singular_values_max_rel_err": float(np.abs(model.singular_values_ / sv - 1.0).max()),
+    }
+    rec.update(rows=GLM_ROWS, cols=GLM_COLS, k=PCA_K, errors_vs_float64=errs)
+    check(errs["mean_max_abs_err"] <= PCA_MEAN_ATOL and errs["components_max_abs_err"] <= PCA_COMP_ATOL
+          and errs["ratio_max_abs_err"] <= PCA_RATIO_ATOL and errs["singular_values_max_rel_err"] <= PCA_SV_RTOL,
+          f"PCA on 4 shards against float64: {errs}")
+    return rec
+
+
+def mesh_linreg_part(torch, port, wrappers, X, y, reference):
+    """path_fit_mesh's OLS part on path_linreg's rows on 4 shards, within
+    LINREG_RTOL of path_linreg's float64 solve."""
+    b64, b0_64, scale = reference
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], y[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    model, rec = mesh_fit(torch, port, port.LinearRegression(num_workers=MESH_SHARDS), df, wrappers)
+    rec.update(rows=GLM_ROWS, cols=GLM_COLS, fit="ols",
+               coef_max_rel_err_vs_float64=float(np.abs(model.coef_ - b64).max()) / scale,
+               intercept_rel_err_vs_float64=abs(model.intercept_ - b0_64) / scale)
+    check(rec["coef_max_rel_err_vs_float64"] <= LINREG_RTOL and rec["intercept_rel_err_vs_float64"] <= LINREG_RTOL,
+          f"OLS on 4 shards against the float64 solve: {rec}")
+    return rec
+
+
+def mesh_logreg_part(torch, port, wrappers, X, y, single):
+    """path_fit_mesh's binary logistic part on path_logreg's rows on 4
+    shards: held-out accuracy, coefficients against path_logreg's model."""
+    yb = (y > 0).astype(np.float32)
+    df = port.DataFrame.from_numpy(X[:GLM_ROWS], yb[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
+    port.profiling.reset_counters("lbfgs.")
+    model, rec = mesh_fit(torch, port, port.LogisticRegression(**LOGREG, num_workers=MESH_SHARDS), df, wrappers)
+    solver = port.profiling.counters("lbfgs.")
+    acc = float((concat_col(model.transform(port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)),
+                            "prediction") == yb[GLM_ROWS:]).mean())
+    rec.update(rows=GLM_ROWS, cols=GLM_COLS, params=LOGREG, holdout_accuracy=acc,
+               lbfgs_iterations=solver.get("lbfgs.iterations"), lbfgs_evaluations=solver.get("lbfgs.evaluations"),
+               single_shard_num_iters=single.num_iters, num_iters=model.num_iters,
+               coef_max_abs_err_vs_single_shard=float(np.abs(model.coef_ - single.coef_).max()),
+               intercept_abs_err_vs_single_shard=float(np.abs(model.intercept_ - single.intercept_).max()))
+    check(acc > HOLDOUT_ACCURACY, f"logistic on 4 shards: held-out accuracy {acc}")
+    check(rec["coef_max_abs_err_vs_single_shard"] <= CV_LOGISTIC_ATOL
+          and rec["intercept_abs_err_vs_single_shard"] <= CV_LOGISTIC_ATOL,
+          f"logistic on 4 shards against path_logreg's model: {rec}")
+    return rec
+
+
+def mesh_rf_part(torch, port, wrappers, X, y):
+    """path_fit_mesh's RandomForestRegressor part on path_rf_reg's rows on 4
+    shards, through the scatter engine: B2 once a shard, finite
+    predictions, held-out R^2 > 0, the engine's seconds a level."""
+    df = port.DataFrame.from_numpy(X[:RF_ROWS], y[:RF_ROWS], num_partitions=RF_PARTITIONS)
+    params = dict(RF_REG, numTrees=MESH_RF_TREES)
+    port.profiling.reset_events()
+    model, rec = mesh_fit(torch, port, port.RandomForestRegressor(**params, num_workers=MESH_SHARDS), df, wrappers)
+    levels = [dict(meta) for _, meta in port.profiling.events("forest.engine.level")]
+    with port.device.use_device(list(MESH_DEVICES)):
+        hold = np.concatenate([p["prediction"] for p in model.transform(
+            port.DataFrame.from_numpy(X[RF_ROWS:], num_partitions=1)).partitions])
+    y_hold = y[RF_ROWS:]
+    r2 = float(1.0 - ((hold - y_hold) ** 2).mean() / y_hold.var())
+    phases = port.profiling.phase_stats("forest.engine.")
+    rec.update(rows=RF_ROWS, cols=X.shape[1], params={k: v for k, v in params.items()}, tree_count_cut_from=30,
+               holdout_r2=r2, levels=levels, engine_phases=phases,
+               launches_expected={"bin_features_fm": MESH_SHARDS})
+    check(rec["launches_fit"]["bin_features_fm"] == MESH_SHARDS,
+          f"the mesh forest launched B2 {rec['launches_fit']['bin_features_fm']} times, not once a shard")
+    check(sum(rec["launches_fit"][k] for k in ("node_histograms_mma", "node_histograms_atomic",
+                                               "node_histograms_bucketed")) == 0,
+          "the scatter engine launched a histogram kernel")
+    check(np.isfinite(hold).all() and r2 > 0.0, f"mesh forest: held-out R^2 {r2}")
+    return rec
+
+
+def run_fit_mesh_path(parts, seconds):
+    """The path_fit_mesh record: each part's record (each emitted when it
+    ran) and the seconds of the parts together."""
+    return {"phase": "path_fit_mesh", "shards": MESH_SHARDS, "devices": list(MESH_DEVICES),
+            "parts": parts, "parts_s": seconds, "seconds": sum(seconds.values())}
+
+
+def mesh_card_vs_cpu(torch, port, wrappers, fh):
+    """Phase mesh_card_vs_cpu: every estimator's mesh fit on 4 shards of the
+    card, 1 shard of the card and 8 shards of the CPU, on integer rows:
+    KMeans centers, PCA moments, linear and fold statistics, the forest's
+    five arrays bit for bit; B3's sharding rule (node_histograms_sharded on
+    4 card shards) bit for bit node_histograms over all rows; logistic
+    within CVC_LOGISTIC_ATOL."""
+    from spark_rapids_ml_tpu_torch.ops import glm, linalg, sweep
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(MCVC_SEED)
+    X_km, _ = integer_blob_rows(MCVC_ROWS, MCVC_COLS, MCVC_KMEANS["k"], MCVC_SEED)
+    X = rng.integers(-2, 3, size=(MCVC_ROWS, MCVC_COLS)).astype(np.float32)
+    y = np.clip(X[:, 0] + X[:, 1] + X[:, 2] - X[:, 3] + rng.integers(-1, 2, MCVC_ROWS), -8, 8).astype(np.float32)
+    Xf = rng.integers(-3, 4, size=(MCVC_FOREST_ROWS, MCVC_FOREST_COLS)).astype(np.float32)
+    yf = np.clip(Xf[:, 0] + Xf[:, 1] + 3, 0, 7).astype(np.float32)
+    df_km = port.DataFrame.from_numpy(X_km, num_partitions=4)
+    df = port.DataFrame.from_numpy(X, y, num_partitions=4)
+    df_log = port.DataFrame.from_numpy(X, (y > 0).astype(np.float32), num_partitions=4)
+    df_rf = port.DataFrame.from_numpy(Xf, yf, num_partitions=4)
+    out = {}
+    launches = {}
+    for name, devs, workers in MCVC_CONFIGS:
+        port.clear_fit_cache()
+        reset_launches(wrappers)
+        with port.device.use_device(devs):
+            km = port.KMeans(**MCVC_KMEANS, num_workers=workers).fit(df_km)
+            inputs = port.LinearRegression(num_workers=workers)._build_fit_inputs(df)
+            moments = linalg.weighted_moments(inputs.X, inputs.weight)
+            stats = glm.linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight)
+            fid = sweep.stage_fold_ids(inputs.n_rows, inputs.n_pad, 3, MCVC_SEED, inputs.mesh)
+            folds = glm.sweep_linreg_fold_stats(inputs.X, inputs.y, inputs.weight, fid, 3)
+            del inputs, fid
+            lin = port.LinearRegression(num_workers=workers).fit(df)
+            pca = port.PCA(k=3, num_workers=workers).fit(df)
+            log = port.LogisticRegression(**MCVC_LOGREG, num_workers=workers).fit(df_log)
+            rf = port.RandomForestRegressor(**MCVC_FOREST, num_workers=workers).fit(df_rf)
+        launches[name] = read_launches(wrappers)
+        cpu = lambda t: t.cpu().numpy()  # noqa: E731
+        out[name] = {
+            "km": (km.cluster_centers_, km.n_iter_, km.inertia_),
+            "moments": [cpu(t) for t in moments], "stats": [cpu(t) for t in stats], "folds": [cpu(t) for t in folds],
+            "lin": lin.coef_, "pca": pca.components_, "log": (log.coef_, log.intercept_),
+            "rf": [getattr(rf, a) for a in ("features_", "thresholds_", "leaf_values_", "node_counts_",
+                                           "impurities_")],
+        }
+    port.clear_fit_cache()
+    base = out["card_4_shards"]
+    cases = {}
+    for name in ("card_1_shard", "cpu_8_shards"):
+        other = out[name]
+        same = {
+            "kmeans_centers": bool(np.array_equal(base["km"][0], other["km"][0]) and base["km"][1] == other["km"][1]),
+            "pca_moments": all(np.array_equal(a, b) for a, b in zip(base["moments"], other["moments"])),
+            "linear_stats": all(np.array_equal(a, b) for a, b in zip(base["stats"], other["stats"])),
+            "fold_stats": all(np.array_equal(a, b) for a, b in zip(base["folds"], other["folds"])),
+            "forest_arrays": all(np.array_equal(a, b) for a, b in zip(base["rf"], other["rf"])),
+        }
+        scale = max(1.0, float(np.abs(other["log"][0]).max()))
+        rec = {"bit_for_bit": same,
+               "kmeans_inertia_rel_err": abs(base["km"][2] / other["km"][2] - 1.0),
+               "linear_coef_max_rel_err": float(np.abs(base["lin"] - other["lin"]).max() / np.abs(other["lin"]).max()),
+               "pca_components_max_abs_err": float(np.abs(base["pca"] - other["pca"]).max()),
+               "logistic_coef_max_abs_err": float(np.abs(base["log"][0] - other["log"][0]).max()),
+               "logistic_scale": scale}
+        check(all(same.values()), f"4 card shards against {name}: {rec}")
+        check(rec["linear_coef_max_rel_err"] <= CVC_LINEAR_RTOL and rec["pca_components_max_abs_err"] <= CVC_PCA_ATOL
+              and rec["logistic_coef_max_abs_err"] <= CVC_LOGISTIC_ATOL * scale, f"4 card shards against {name}: {rec}")
+        cases[name] = rec
+    check(launches["card_4_shards"]["bin_features_fm"] == MESH_SHARDS and launches["card_1_shard"]["bin_features_fm"] == 1,
+          f"B2 launches {launches}")
+    check(launches["card_4_shards"]["min_dist_argmin"] == 0, "a KMeans fit launched B1")
+
+    # B3's sharding rule: per-shard B3 and one psum against all rows
+    n = MESH_SHARDS * 65536
+    T, nodes, S, B = 2, 4, 2, 128
+    sub = torch.from_numpy(rng.integers(0, B, (fh.F_BLOCK, n)).astype(np.int8)).cuda()
+    node_rel = torch.from_numpy(rng.integers(0, nodes + 2, (T, n)).astype(np.int32)).cuda()
+    stats = torch.from_numpy(rng.integers(0, 4, (T * S, n)).astype(np.float32)).cuda()
+    shard = lambda a: [a[:, i * (n // MESH_SHARDS) : (i + 1) * (n // MESH_SHARDS)].contiguous()  # noqa: E731
+                       for i in range(MESH_SHARDS)]
+    reset_launches(wrappers)
+    got = fh.node_histograms_sharded(shard(sub), shard(node_rel), shard(stats), T, nodes, S, B, integer_stats=True)
+    hist_launches = read_launches(wrappers)
+    whole = fh.node_histograms(sub, node_rel, stats, T, nodes, S, B, integer_stats=True)
+    plain = fh.node_histograms_plain(sub.cpu(), node_rel.cpu(), stats.cpu(), T, nodes, S, B)
+    route = fh._hist_route(T, nodes, S, B, True)
+    check(bool((got[0] == whole).all()) and bool((got[0].cpu() == plain).all()),
+          "node_histograms_sharded differs from node_histograms over all rows")
+    check(hist_launches[f"node_histograms_{route}"] == MESH_SHARDS, f"B3 launches {hist_launches}")
+    return {"phase": "mesh_card_vs_cpu", "rows": MCVC_ROWS, "cols": MCVC_COLS, "forest_rows": MCVC_FOREST_ROWS,
+            "forest_cols": MCVC_FOREST_COLS, "kmeans": MCVC_KMEANS, "forest": MCVC_FOREST, "logistic": MCVC_LOGREG,
+            "against_4_card_shards": cases, "launches": launches,
+            "node_histograms_sharded": {"rows": n, "shards": MESH_SHARDS, "route": route,
+                                        "launches": hist_launches, "bit_for_bit": True},
+            "gates": {"linear_rtol": CVC_LINEAR_RTOL, "pca_atol": CVC_PCA_ATOL, "logistic_atol": CVC_LOGISTIC_ATOL},
+            "seconds": time.perf_counter() - t_start}
+
+
 def main():
     import argparse
 
@@ -5297,6 +5632,10 @@ def main():
     if "path_serve_lanes" in phases and not set(lane_needs) <= set(phases):
         parser.error(f"path_serve_lanes multiplexes the models of {lane_needs[1:]} beside path_serve: add "
                      f"{sorted(set(lane_needs) - set(phases))}")
+    mesh_needs = ("path", "path_pca", "path_linreg", "path_logreg", "path_rf_reg")
+    if "path_fit_mesh" in phases and not set(mesh_needs) <= set(phases):
+        parser.error(f"path_fit_mesh fits each cell's estimator on 4 shards right after the path that makes its rows "
+                     f"and holds it against that path's: add {sorted(set(mesh_needs) - set(phases))}")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -5358,7 +5697,17 @@ def main():
     # path_serve_lanes multiplexes the same models right after path_serve
     # has served them
     lanes = LanePlane(torch, port, wrappers, serve) if "path_serve_lanes" in phases else None
-    keep = {} if serve is not None else None
+    # path_fit_mesh fits each cell on 4 shards right after its path, against
+    # the path's model or reference (keep holds them until then)
+    mesh_parts, mesh_s = ({}, {}) if "path_fit_mesh" in phases else (None, None)
+    keep = {} if serve is not None or mesh_parts is not None else None
+
+    def mesh_part(name, fn, *args):
+        t0 = time.perf_counter()
+        mesh_parts[name] = fn(*args)
+        mesh_s[name] = time.perf_counter() - t0
+        emit({"phase": "path_fit_mesh", "part": name, "seconds": mesh_s[name], **mesh_parts[name]})
+        port.clear_fit_cache()
 
     if "kernels" in phases:
         gen = torch.Generator().manual_seed(SEED)
@@ -5390,13 +5739,15 @@ def main():
             results["path"] = run_path(torch, port, nc, wrappers, X_km, gen_s, keep)
             emit(results["path"])
             port.clear_fit_cache()
+            km_model = keep.pop("path") if keep is not None else None
             if serve is not None:
-                km_model = keep.pop("path")
                 serve.kmeans(km_model, X_km)
                 if lanes is not None:
                     lanes.kmeans(km_model, X_km)
                     lanes.autoscale(km_model, X_km)
-                del km_model
+            if mesh_parts is not None:
+                mesh_part("kmeans", mesh_kmeans_part, torch, port, nc, wrappers, X_km, km_model)
+            del km_model
         if "path_stream" in phases:
             stream_parts["kmeans"] = stream_kmeans_part(torch, port, wrappers, dev, X_km)
             port.clear_fit_cache()
@@ -5421,6 +5772,8 @@ def main():
         results["path_rf_reg"] = run_rf_path(torch, port, wrappers, "path_rf_reg",
                                              port.RandomForestRegressor(**RF_REG), X_rf, y_reg, False)
         emit(results["path_rf_reg"])
+        if mesh_parts is not None:
+            mesh_part("rf_reg", mesh_rf_part, torch, port, wrappers, X_rf, y_reg)
     if "path_cv_rf" in phases:
         # the regressor's rows, while they exist (the phase is listed with
         # the model-selection phases)
@@ -5496,12 +5849,15 @@ def main():
         if "path_pca" in phases:
             emit(run_pca_path(torch, port, wrappers, dev, X_pca, gen_s, keep))
             port.clear_fit_cache()
+            pca_model = keep.pop("path_pca") if keep is not None else None
+            pca_reference = keep.pop("path_pca_reference") if keep is not None else None
             if serve is not None:
-                pca_model = keep.pop("path_pca")
                 serve.glm("pca", pca_model, X_pca, ["pca_features"])
                 if lanes is not None:
                     lanes.glm("pca", pca_model, X_pca)
-                del pca_model
+            if mesh_parts is not None:
+                mesh_part("pca", mesh_pca_part, torch, port, wrappers, X_pca, pca_reference)
+            del pca_model, pca_reference
         if "path_stream" in phases:
             stream_parts["pca"] = stream_pca_part(torch, port, wrappers, X_pca)
             port.clear_fit_cache()
@@ -5514,21 +5870,26 @@ def main():
         if "path_linreg" in phases:
             emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
+            lin_model = keep.pop("path_linreg") if keep is not None else None
+            lin_reference = keep.pop("path_linreg_float64") if keep is not None else None
             if serve is not None:
-                lin_model = keep.pop("path_linreg")
                 serve.glm("linreg", lin_model, X_glm, ["prediction"])
                 if lanes is not None:
                     lanes.glm("linreg", lin_model, X_glm)
-                del lin_model
+            if mesh_parts is not None:
+                mesh_part("linreg", mesh_linreg_part, torch, port, wrappers, X_glm, y_glm, lin_reference)
+            del lin_model, lin_reference
         if "path_logreg" in phases:
             emit(run_logreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
+            log_model = keep.pop("path_logreg") if keep is not None else None
             if serve is not None:
-                log_model = keep.pop("path_logreg")
                 serve.glm("logreg", log_model, X_glm, ["prediction", "probability", "rawPrediction"])
                 if lanes is not None:
                     lanes.glm("logreg", log_model, X_glm)
-                del log_model
+            if mesh_parts is not None:
+                mesh_part("logreg", mesh_logreg_part, torch, port, wrappers, X_glm, y_glm, log_model)
+            del log_model
         # the model-selection phases on the same rows (listed after the
         # other GLM phases)
         if "path_cv_linreg" in phases:
@@ -5550,6 +5911,12 @@ def main():
     if "glm_card_vs_cpu" in phases:
         emit(glm_card_vs_cpu(torch, port))
         port.clear_fit_cache()
+    if mesh_parts is not None:
+        results["path_fit_mesh"] = run_fit_mesh_path(mesh_parts, mesh_s)
+        emit(results["path_fit_mesh"])
+    if "mesh_card_vs_cpu" in phases:
+        results["mesh_card_vs_cpu"] = mesh_card_vs_cpu(torch, port, wrappers, fh)
+        emit(results["mesh_card_vs_cpu"])
     if "cv_card_vs_cpu" in phases:
         results["cv_card_vs_cpu"] = cv_card_vs_cpu(torch, port, wrappers)
         emit(results["cv_card_vs_cpu"])
@@ -5708,6 +6075,16 @@ def summary(results, seconds):
         if row["name"] in SERVE_KERNELS and "path_serve" in results:
             # B1, B5, B7 and B9 in served batches
             row["launches_serve"] = results["path_serve"]["launches"][row["name"]]
+        mesh = results.get("path_fit_mesh", {}).get("parts", {})
+        if row["name"] == "min_dist_argmin" and "kmeans" in mesh:
+            # B1 in the transform of the KMeans model fit on 4 shards
+            row["launches_mesh"] = mesh["kmeans"]["transform_launches"]["min_dist_argmin"]
+        if row["name"] == "bin_features_fm" and "rf_reg" in mesh:
+            # B2 once a shard in the 4-shard forest fit
+            row["launches_mesh"] = mesh["rf_reg"]["launches_fit"]["bin_features_fm"]
+        if row["name"] in ("node_histograms_mma", "node_histograms_atomic") and "mesh_card_vs_cpu" in results:
+            # B3 once a shard through node_histograms_sharded
+            row["launches_mesh"] = results["mesh_card_vs_cpu"]["node_histograms_sharded"]["launches"][row["name"]]
         if row["name"] == "min_dist_argmin" and "path_serve_lanes" in results:
             # B1 once per distinct lane of a multiplexed KMeans batch
             lanes_rec = results["path_serve_lanes"]
@@ -5718,7 +6095,7 @@ def summary(results, seconds):
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *CV_PHASES, *UMAP_PHASES,
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *CV_PHASES, *UMAP_PHASES,
           *STREAM_PHASES, "path_serve", "path_serve_lanes"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",

@@ -1,14 +1,19 @@
 #
-# Core estimator/model machinery: ingest -> one device tensor, fit dispatch,
-# transform dispatch, persistence.
+# Core estimator/model machinery: row-sharded ingest, fit dispatch, transform
+# dispatch, persistence.
 #
-# Counterpart of spark_rapids_ml_tpu/core.py on one device.  Ingest copies
-# each partition's feature block straight into its rows of one (N, D) tensor
-# on the device that device.resolve() picks — no host concat, no row padding.
-# Supervised estimators also get the labels and the weights (user weight
-# times the valid-row mask), both at least float32, with host copies for
-# label discovery.  Fit functions receive FitInputs and return a
-# model-attribute dict.
+# Counterpart of spark_rapids_ml_tpu/core.py.  Ingest shards the rows over the
+# mesh get_mesh(num_workers) (parallel/mesh.py; num_workers None: every
+# device of the entry points' device list): rows zero-padded to a multiple of
+# the shard count, as the JAX package pads them, shard i on the mesh's i-th
+# device, each shard filled straight from the partitions' blocks
+# (mesh.shard_rows) with no host concat.  A one-device mesh — the default
+# on a host with one card — holds the whole dataset as one unpadded shard.
+# FitInputs carries the features, the labels and the weights (user weight
+# times the valid-row mask, both at least float32 with a label column) as
+# lists of per-shard tensors, with host copies of the labels for label
+# discovery.  Fit functions receive FitInputs and return a model-attribute
+# dict.
 # transform runs partition by partition.  Persistence keeps the JAX package's
 # three-file layout (metadata.json, model_arrays.npz, model_attrs.json), and
 # the reader maps the class prefix spark_rapids_ml_tpu. to
@@ -16,19 +21,19 @@
 # without importing it.
 #
 # CSR partitions (DataFrame.from_numpy of a sparse matrix) are ingested as
-# one ELL pair with its column-major transpose (ops/sparse.py) by estimators
-# that declare _supports_sparse_input (the GLMs), and densified partition by
-# partition for the others; a model with a sparse path transforms CSR
-# partitions as they are.
+# one ELL pair with its column-major transpose per shard (ops/sparse.py) by
+# estimators that declare _supports_sparse_input (the GLMs), and densified
+# partition by partition for the others; a model with a sparse path
+# transforms CSR partitions as they are.
 #
 # The fit-input cache holds one staged dataset (the JAX package's single
 # slot): a fit whose feature blocks are a frame's own arrays, by identity,
-# reuses the device tensor of the last such fit (fitMultiple, the batched
-# sweep's best-model refit, repeated fits of one frame).  Labels and weights
-# are extracted anew each fit.  The counters ingest.staged (datasets
+# on the same mesh, reuses the shards of the last such fit (fitMultiple, the
+# batched sweep's best-model refit, repeated fits of one frame).  Labels and
+# weights are extracted anew each fit.  The counters ingest.staged (datasets
 # uploaded) and ingest.cache_hit count both outcomes; clear_fit_cache() and
 # DataFrame.unpersist() free the slot, and the slot is freed before a new
-# dataset is staged, so the card holds one staged dataset, not two.
+# dataset is staged, so the devices hold one staged dataset, not two.
 #
 # fit(dataset, [paramMaps]) and fitMultiple follow the JAX package: an
 # estimator that fits every map in one pass over its data
@@ -54,33 +59,73 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import device as _device
 from . import profiling
 from .dataframe import DataFrame, as_dataframe
 from .params import Param, _TpuParams
+from .parallel.mesh import Mesh, get_mesh, shard_rows
 from .parallel.partition import PartitionDescriptor
 from .utils import get_logger, materialize_feature_block
 
 
 @dataclass
 class FitInputs:
-    """Training inputs on one device, handed to fit functions."""
+    """Row-sharded training inputs handed to fit functions: each sharded
+    field is a list of per-shard tensors, shard i on mesh.devices[i] (one
+    element on a one-device mesh)."""
 
-    # (N_pad, D), or an ops.sparse.EllMatrix for CSR input to an estimator
-    # with a sparse path; a fit may drop it once it is done with it
+    # per-shard (n_loc, D) tensors, or per-shard ops.sparse.EllMatrix for CSR
+    # input to an estimator with a sparse path; a fit may drop them once it
+    # is done with them
     X: Any
-    weight: torch.Tensor     # (N_pad,) user weight * valid-row mask: pad rows carry 0
-    n_rows: int              # valid rows (N_pad >= n_rows)
+    weight: List[torch.Tensor]  # per-shard (n_loc,) user weight * valid-row mask: pad rows carry 0
+    n_rows: int                 # valid rows (the global padded count >= n_rows)
     n_cols: int
-    device: torch.device
+    mesh: Mesh
     pdesc: PartitionDescriptor
     dtype: np.dtype
-    y: Optional[torch.Tensor] = None       # (N_pad,) labels (supervised only)
+    y: Optional[List[torch.Tensor]] = None  # per-shard (n_loc,) labels (supervised only)
     # host copies of the (unpadded) labels / user weights, for label discovery
     host_y: Optional[np.ndarray] = None
     host_w: Optional[np.ndarray] = None
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's first device: where replicated results (centers, the
+        solved coefficients) live."""
+        return self.mesh.devices[0]
+
+    @property
+    def n_pad(self) -> int:
+        """Global padded row count: the shards' rows together."""
+        return sum(int(w.shape[0]) for w in self.weight)
+
+
+def gather_global_rows(shards: List[torch.Tensor], rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Global rows `rows` of a row-sharded tensor, in that order, on
+    `device` (shard i holds global rows [i * per, (i + 1) * per))."""
+    per = int(shards[0].shape[0])
+    if len(shards) == 1:
+        return shards[0][torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(shards[0].device)].to(device)
+    rows = np.asarray(rows, dtype=np.int64)
+    out = torch.empty((rows.size,) + tuple(shards[0].shape[1:]), dtype=shards[0].dtype, device=device)
+    owner = rows // per
+    for i, x in enumerate(shards):
+        at = np.flatnonzero(owner == i)
+        if at.size:
+            local = torch.from_numpy(rows[at] - i * per).to(x.device)
+            out[torch.from_numpy(at).to(device)] = x[local].to(device)
+    return out
+
+
+def whole_rows(shards: List[torch.Tensor]) -> torch.Tensor:
+    """A row-sharded tensor as one tensor on the first shard's device: the
+    shard itself on a one-device mesh, else the shards concatenated."""
+    if len(shards) == 1:
+        return shards[0]
+    dev = shards[0].device
+    return torch.cat([x.to(dev) for x in shards])
 
 
 # fit function: (inputs, params-dict) -> model attribute dict
@@ -147,23 +192,18 @@ def _partition_features(
     return materialize_feature_block(part, input_col, input_cols, dtype, densify_sparse=not sparse_ok)
 
 
-def _stage_features(feats: List[Any], n_rows: int, n_cols: int, dtype: np.dtype, dev: torch.device) -> Any:
-    """The partitions' feature blocks as one device tensor, each block
-    copied straight into its rows; CSR blocks as one ELL pair, never
-    densified."""
+def _stage_features(feats: List[Any], dtype: np.dtype, mesh: Mesh) -> List[Any]:
+    """The partitions' feature blocks row-sharded over `mesh`: each shard
+    filled straight from the blocks (mesh.shard_rows); CSR blocks as one ELL
+    pair per shard, never densified."""
     if any(hasattr(f, "tocsr") for f in feats):
         import scipy.sparse as sp
 
-        from .ops.sparse import ell_device_from_scipy
+        from .ops.sparse import ell_shards_from_scipy
 
         csr = sp.vstack(feats).tocsr() if len(feats) > 1 else feats[0]
-        return ell_device_from_scipy(csr, dtype, dev)
-    X = torch.empty((n_rows, n_cols), dtype=torch_dtype(dtype), device=dev)
-    offset = 0
-    for f in feats:
-        X[offset : offset + f.shape[0]].copy_(torch.from_numpy(f))
-        offset += f.shape[0]
-    return X
+        return ell_shards_from_scipy(csr, dtype, mesh)
+    return shard_rows(feats, mesh, torch_dtype(dtype))[0]
 
 
 class _TpuCaller(_TpuParams):
@@ -197,12 +237,12 @@ class _TpuCaller(_TpuParams):
         feats = [_partition_features(self, p, input_col, input_cols, dtype) for p in parts]
         if not feats:
             raise RuntimeError("Dataset is empty; cannot fit")
-        dev = _device.resolve()
+        mesh = get_mesh(self.num_workers)
         n_rows, n_cols = sum(f.shape[0] for f in feats), feats[0].shape[1]
         # only feature arrays that ARE the frame's blocks are cached: their
         # ids are stable while the slot holds them (it keeps the blocks)
         cacheable = input_col is not None and all(f is p[input_col] for f, p in zip(feats, parts))
-        key = (tuple(id(f) for f in feats), str(dtype), str(dev))
+        key = (tuple(id(f) for f in feats), str(dtype), mesh)
         with _FIT_INPUT_LOCK:
             slot = _FIT_INPUT_CACHE.get("slot")
             if slot is not None and slot[0] == key:
@@ -211,16 +251,16 @@ class _TpuCaller(_TpuParams):
             else:
                 # free the previous dataset before staging this one
                 _FIT_INPUT_CACHE.pop("slot", None)
-                X = _stage_features(feats, n_rows, n_cols, dtype, dev)
+                X = _stage_features(feats, dtype, mesh)
                 profiling.incr_counter("ingest.staged")
                 if cacheable:
                     _FIT_INPUT_CACHE["slot"] = (key, (X, feats))
         inputs = FitInputs(
             X=X,
-            weight=torch.ones(n_rows, dtype=torch_dtype(dtype), device=dev),
+            weight=[],
             n_rows=n_rows,
             n_cols=n_cols,
-            device=dev,
+            mesh=mesh,
             pdesc=PartitionDescriptor.build([len(p) for p in df.partitions], n_cols),
             dtype=dtype,
         )
@@ -235,20 +275,26 @@ class _TpuCaller(_TpuParams):
         return None
 
     def _add_labels_and_weights(self, inputs: FitInputs, df: DataFrame) -> None:
-        """Labels and weights of the valid rows into `inputs`, at least
-        float32 whatever the feature dtype (integer class labels above the
-        half-precision mantissa are not exact), padded with zeros to the
-        feature tensor's rows: pad rows carry weight 0."""
+        """The weight (and with a label column the labels) of the feature
+        shards' rows into `inputs`, row-sharded as the features are: the
+        rows past n_rows (a from_device tensor's and the shards' padding)
+        carry weight 0.  Without a
+        label or weight column the weight is the valid-row mask in the
+        feature dtype; with one, labels and weights are at least float32
+        whatever the feature dtype (integer class labels above the
+        half-precision mantissa are not exact)."""
         label_col = self._fit_label_col()
         weight_col = (
             self.getOrDefault("weightCol")
             if self.hasParam("weightCol") and self.isSet("weightCol")
             else None
         )
+        n = inputs.n_rows
+        n_total = sum(int(x.shape[0]) for x in inputs.X)
         if label_col is None and weight_col is None:
-            return
-        ldtype = np.dtype(np.float32) if np.dtype(inputs.dtype).itemsize < 4 else np.dtype(inputs.dtype)
-        n_pad, n = inputs.weight.shape[0], inputs.n_rows
+            ldtype = np.dtype(inputs.dtype)
+        else:
+            ldtype = np.dtype(np.float32) if np.dtype(inputs.dtype).itemsize < 4 else np.dtype(inputs.dtype)
 
         def column(name: str) -> np.ndarray:
             if name not in df.columns:
@@ -258,36 +304,34 @@ class _TpuCaller(_TpuParams):
                 raise ValueError(f"column '{name}' holds {values.shape} values for {n} rows")
             return values
 
-        def padded(values: np.ndarray) -> torch.Tensor:
-            out = torch.zeros(n_pad, dtype=torch_dtype(ldtype), device=inputs.device)
-            out[:n].copy_(torch.from_numpy(values))
-            return out
+        def sharded(values: np.ndarray) -> List[torch.Tensor]:
+            full = np.zeros(n_total, dtype=ldtype)
+            full[:n] = values
+            return shard_rows(full, inputs.mesh)[0]
 
         if weight_col is not None:
             inputs.host_w = column(weight_col)
-            inputs.weight = padded(inputs.host_w)
+            inputs.weight = sharded(inputs.host_w)
         else:
-            inputs.weight = inputs.weight.to(torch_dtype(ldtype))
+            inputs.weight = sharded(np.ones(n, dtype=ldtype))
         if label_col is not None:
             inputs.host_y = column(label_col)
-            inputs.y = padded(inputs.host_y)
+            inputs.y = sharded(inputs.host_y)
 
     def _build_fit_inputs_device(self, df: DataFrame, dev_features: tuple) -> FitInputs:
         """FitInputs straight from a DataFrame.from_device tensor: no
-        extraction, no upload (the tensor moves only if it lies on another
-        device than the entry points run on).  Rows past n_rows are padding
+        extraction, no upload.  The tensor is re-sharded onto the mesh: on a
+        one-device mesh of its own device it is the one shard as it is, and
+        shards on its device are slices of it.  Rows past n_rows are padding
         and carry weight 0."""
         X, n_rows, n_cols, _ = dev_features
-        dev = _device.resolve()
-        X = X.to(dev)
-        weight = torch.zeros(X.shape[0], dtype=X.dtype, device=dev)
-        weight[:n_rows] = 1.0
+        mesh = get_mesh(self.num_workers)
         inputs = FitInputs(
-            X=X,
-            weight=weight,
+            X=shard_rows(X, mesh)[0],
+            weight=[],
             n_rows=n_rows,
             n_cols=n_cols,
-            device=dev,
+            mesh=mesh,
             pdesc=PartitionDescriptor.build([n_rows], n_cols),
             dtype=numpy_dtype(X.dtype),
         )
@@ -305,7 +349,7 @@ class _TpuCaller(_TpuParams):
             )
         df = as_dataframe(dataset)
         _validate_input_columns(self, df)
-        with record_function("core.ingest"):
+        with profiling.phase("core.ingest"):
             inputs = self._build_fit_inputs(df)
         if paramMaps is None:
             fit_func = self._get_tpu_fit_func(df)

@@ -4,8 +4,9 @@
 # Counterpart of spark_rapids_ml_tpu/models/kmeans.py: the same Spark param
 # mapping and solver defaults, the same model attributes (cluster_centers_,
 # n_cols, dtype, n_iter_, inertia_) and an int32 prediction column.  The
-# solver is ops/kmeans.py on one device; transform/predict run the
-# hand-written CUDA nearest-center kernel on the card.
+# solver is ops/kmeans.py over the fit's row shards (core.FitInputs: one
+# shard on a one-device mesh); transform/predict run the hand-written CUDA
+# nearest-center kernel (B1) partition by partition on the card.
 #
 # streaming() returns the partial_fit / merge / finalize engine
 # (stream/engines.StreamingKMeans: the first chunk's init and Lloyd, then
@@ -151,8 +152,8 @@ class _KMeansParams(
 
 
 class KMeans(_KMeansParams, _TpuEstimator):
-    """KMeans on one device (Lloyd + k-means|| init), with the Spark ML
-    KMeans API."""
+    """KMeans over the fit's row shards (Lloyd + k-means|| init), with the
+    Spark ML KMeans API."""
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -165,9 +166,9 @@ class KMeans(_KMeansParams, _TpuEstimator):
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             k = int(params["n_clusters"])
             generator = torch.Generator().manual_seed(int(params["random_state"]) & 0x7FFFFFFF)
-            chunk = min(int(params["max_samples_per_batch"]), inputs.X.shape[0])
+            chunk = min(int(params["max_samples_per_batch"]), inputs.n_pad)
             if params["init"] == "random":
-                centers0 = random_init(inputs.X, inputs.weight, k, generator)
+                centers0 = random_init(inputs.X, inputs.weight, k, generator, n_rows=inputs.n_rows)
             else:
                 oversample = float(params["oversampling_factor"])
                 round_size = max(1, min(int(oversample * k), inputs.n_rows))
@@ -179,6 +180,7 @@ class KMeans(_KMeansParams, _TpuEstimator):
                     rounds=4,
                     round_size=round_size,
                     chunk=chunk,
+                    n_rows=inputs.n_rows,
                 )
             centers, n_iter, inertia = lloyd_iterations(
                 inputs.X,

@@ -6,8 +6,9 @@
 # (regParam, elasticNetParam) (OLS and ridge in closed form with ridge's
 # alpha scaled by the total weight, elastic net by coordinate descent), the
 # same model attributes (coef_, intercept_, n_cols, dtype) and a float64
-# prediction column.  The statistics pass and the solve run on one device
-# (ops/glm.py); the intercept is computed on the host in float64 from the
+# prediction column.  The statistics pass runs on each of the fit's row
+# shards (core.FitInputs) and one psum combines them; the solve runs on the
+# mesh's first device (ops/glm.py); the intercept is computed on the host in float64 from the
 # solved coefficients and the weighted means, as in the JAX package, on
 # every route: that is what lets a batched sweep's sub-model equal the
 # sequential fit's.  CSR input fits and transforms through the ELL layout
@@ -255,9 +256,9 @@ class _LinearRegressionParams(
 
 
 class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
-    """Linear regression on one device: one pass forms the normal-equation
-    statistics; OLS and ridge solve in closed form, lasso and elastic net run
-    covariance-update coordinate descent."""
+    """Linear regression over the fit's row shards: one pass forms the
+    normal-equation statistics; OLS and ridge solve in closed form, lasso
+    and elastic net run covariance-update coordinate descent."""
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -311,7 +312,7 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
             if inputs.y is None:
                 raise ValueError("LinearRegression needs a label column")
             with record_function("glm.stats"):
-                if isinstance(inputs.X, EllMatrix):
+                if isinstance(inputs.X[0], EllMatrix):
                     stats = ell_sufficient_stats(inputs.X, inputs.y, inputs.weight)
                 else:
                     stats = linreg_sufficient_stats(inputs.X, inputs.y, inputs.weight)
@@ -358,9 +359,9 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
             inputs = self._build_fit_inputs(as_dataframe(df))
         if inputs.y is None:
             raise ValueError("LinearRegression needs a label column")
-        if isinstance(inputs.X, EllMatrix):
+        if isinstance(inputs.X[0], EllMatrix):
             raise ValueError("the batched sweep takes dense features")
-        fid = stage_fold_ids(inputs.n_rows, inputs.X.shape[0], n_folds, seed, inputs.device)
+        fid = stage_fold_ids(inputs.n_rows, inputs.n_pad, n_folds, seed, inputs.mesh)
         with profiling.phase("tuning.sweep.stats", dev):
             stats = sweep_linreg_fold_stats(inputs.X, inputs.y, inputs.weight, fid, n_folds)
         del inputs, fid

@@ -8,9 +8,10 @@
 # intercept_ (k,), classes_, n_cols, dtype, num_iters) and transform
 # columns: prediction, probability (binary: the sigmoid, multinomial: a
 # stable softmax) and rawPrediction ([-z, z] for binary).  Classes come from
-# core.discover_label_classes and the labels are encoded on their device
-# (ops/labels.encode_labels); the solve runs on the same device
-# (ops/logistic.py).  CSR input fits and transforms through the ELL layout,
+# core.discover_label_classes and the labels are encoded on each shard's
+# device (ops/labels.encode_labels); every objective evaluation sums the
+# shards' partials with one psum, and the solve runs on the mesh's first
+# device (ops/logistic.py).  CSR input fits and transforms through the ELL layout,
 # with a deterministic gradient (ops/sparse.ell_rmatmat).
 #
 # Model selection: fitMultiple fits every param map over one ingest and one
@@ -230,7 +231,8 @@ class _LogisticRegressionParams(
 
 
 class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
-    """Logistic regression on one device through L-BFGS / OWL-QN.  The
+    """Logistic regression over the fit's row shards through L-BFGS /
+    OWL-QN.  The
     solver's iterations, objective evaluations and converged fits are
     counted in profiling counters lbfgs.iterations, lbfgs.evaluations and
     lbfgs.converged."""
@@ -312,7 +314,7 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
                 raise RuntimeError("LogisticRegression requires at least two distinct labels")
             # class indices on the labels' device (pad rows clamp into
             # range; their weight is 0)
-            y_enc = encode_labels(inputs.y, torch.as_tensor(classes.astype(inputs.host_y.dtype)))
+            y_enc = [encode_labels(y, torch.as_tensor(classes.astype(inputs.host_y.dtype))) for y in inputs.y]
             if extra_params is None:
                 return _single_fit(inputs, params, classes, y_enc)
             return [_single_fit(inputs, {**params, **override}, classes, y_enc) for override in extra_params]
@@ -353,14 +355,14 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             inputs = self._build_fit_inputs(as_dataframe(df))
         if inputs.y is None:
             raise ValueError("LogisticRegression needs a label column")
-        if isinstance(inputs.X, EllMatrix):
+        if isinstance(inputs.X[0], EllMatrix):
             raise ValueError("the batched sweep takes dense features")
         classes = discover_label_classes(inputs)
         if len(classes) < 2:
             raise RuntimeError("LogisticRegression requires at least two distinct labels")
         kcls = 1 if len(classes) == 2 else len(classes)
-        fid = stage_fold_ids(inputs.n_rows, inputs.X.shape[0], n_folds, seed, inputs.device)
-        y_enc = encode_labels(inputs.y, torch.as_tensor(classes.astype(inputs.host_y.dtype)))
+        fid = stage_fold_ids(inputs.n_rows, inputs.n_pad, n_folds, seed, inputs.mesh)
+        y_enc = [encode_labels(y, torch.as_tensor(classes.astype(inputs.host_y.dtype))) for y in inputs.y]
         results: List[List[Dict[str, Any]]] = [[{} for _ in cand] for _ in range(n_folds)]
         logger = get_logger(type(self))
         # one lane-batched run a penalty family: OWL-QN is another optimizer

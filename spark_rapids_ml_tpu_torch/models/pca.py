@@ -7,8 +7,9 @@
 # explained_variance_ratio_, singular_values_, n_cols, dtype; float64) and
 # Spark's transform semantics (no mean removal at transform time; whiten
 # scales each component by 1 / sqrt(its variance)).  The fit is
-# ops/linalg.pca_fit on one device: chunked moments, covariance in the
-# compute dtype, a float64 eigh on the card.  streaming() returns the
+# ops/linalg.pca_fit over the fit's row shards: chunked moments a shard, one
+# psum, the covariance in the compute dtype and a float64 eigh on the mesh's
+# first device.  streaming() returns the
 # partial_fit / merge / finalize engine (stream/engines.StreamingPCA).
 #
 # _serving_entry serves the projection transform() applies (one fp32 matmul,
@@ -87,8 +88,8 @@ class _PCAParams(PCAClass, HasInputCol, HasInputCols, HasOutputCol, HasVerbose):
 
 
 class PCA(_PCAParams, _TpuEstimator):
-    """PCA on one device: weighted moments over row chunks, a float64 eigh
-    of the covariance, deterministic component signs."""
+    """PCA over the fit's row shards: weighted moments over row chunks, a
+    float64 eigh of the covariance, deterministic component signs."""
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()

@@ -1,35 +1,48 @@
 #
 # RandomForest classifier/regressor estimators and models.
 #
-# Counterpart of spark_rapids_ml_tpu/models/random_forest.py on one device:
-# the same Spark param mapping, max_features mapping and solver defaults, the
-# same model attributes (dense per-node arrays features_, thresholds_,
-# leaf_values_, node_counts_, impurities_), and the same output columns —
-# prediction, plus probability and rawPrediction for the classifier.
+# Counterpart of spark_rapids_ml_tpu/models/random_forest.py: the same Spark
+# param mapping, max_features mapping and solver defaults, the same model
+# attributes (dense per-node arrays features_, thresholds_, leaf_values_,
+# node_counts_, impurities_), and the same output columns — prediction, plus
+# probability and rawPrediction for the classifier.
 #
-# The fit: quantile edges from a bounded strided row sample (on the host),
-# binning into the feature-major int8 layout (kernel B2), per-tree Poisson(1)
-# bootstrap weights, and level-wise growth on the node histograms
-# (ops/forest_grow.py, kernels B3 and B4).  That growth is the port's only
-# route: a fit outside its limits (bins <= 128, max_features <= 1024, a depth
-# the slot budget covers) raises NotImplementedError.  The JAX package sends
-# such fits, and every multi-device fit, to its mesh-parallel scatter engine,
-# which is not ported.  The bootstrap draws from a seeded torch.Generator, so
-# its weights differ from the JAX package's (jax.random.poisson).
+# The fit: quantile edges from a bounded strided row sample (each shard's
+# valid rows strided down to its quota, the sample budget divided over the
+# shard count, as the JAX package divides it), then one of two growths, by
+# the JAX package's _mxu_eligible rule with "TPU backend" read as "the
+# port's histogram builder":
+#   - a one-shard fit within the histogram builder's limits (bins <= 128,
+#     max_features <= 1024, a depth the slot budget covers) bins into the
+#     feature-major int8 layout (kernel B2), draws per-tree Poisson(1)
+#     bootstrap weights from a seeded torch.Generator on the bins' device,
+#     and grows level-wise on the node histograms (ops/forest_grow.py,
+#     kernels B3 and B4);
+#   - every other fit — more than one shard, or outside those limits —
+#     bins each shard with B2 (one launch a group of <= 127 edges) and grows
+#     on the scatter engine (ops/forest.grow_forest), the trees in the JAX
+#     package's chunks (a chunk's seed seed + 7919 * t0).  Its bootstrap
+#     weights come from one seeded CPU torch.Generator over the global valid
+#     rows, sliced to the shards, so one seed gives one forest on any shard
+#     count.
+# Either bootstrap differs from the JAX package's jax.random.poisson draws;
+# without bootstrap the engine's forests equal the JAX package's on the same
+# shard count, node for node where the stats are integers.
 #
-# Model selection: fitMultiple bins once (once for each distinct maxBins)
-# and grows each param map's forest over the same bins; _combine
-# concatenates the sub-models' trees along the tree axis with their counts
-# (tree_counts, kept through persistence), and _transformEvaluate scores
-# every sub-model in one pass over each partition (RegressionEvaluator for
-# the regressor, MulticlassClassificationEvaluator for the classifier).
+# Model selection: fitMultiple bins once (once for each distinct maxBins
+# and growth) and grows each param map's forest over the same bins;
+# _combine concatenates the sub-models' trees along the tree axis with
+# their counts (tree_counts, kept through persistence), and
+# _transformEvaluate scores every sub-model in one pass over each partition
+# (RegressionEvaluator for the regressor, MulticlassClassificationEvaluator
+# for the classifier).
 #
 # _serving_entry serves one forest traversal of a padded batch
 # (ops/forest.forest_predict, serving/entry.kernel_entry), the outputs
 # mapped as transform() maps them.
 #
 # Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c) and
-# multi-rank binning (A14b).
+# multi-rank binning (the multi-controller layer).
 #
 
 from __future__ import annotations
@@ -50,7 +63,8 @@ from ..core import (
     discover_label_classes,
 )
 from ..dataframe import DataFrame
-from ..ops.forest import bin_features_feature_major, compute_bin_edges, forest_predict
+from ..ops.forest import bin_features_feature_major, bin_features_wide, compute_bin_edges, forest_predict
+from ..ops.forest import grow_forest as grow_forest_engine
 from ..ops.forest_grow import depth_supported, grow_forest
 from ..ops.forest_hist import ROW_TILE
 from ..ops.labels import encode_labels
@@ -82,14 +96,72 @@ _BINNING_SAMPLE_ROWS = 16_384
 _BINNING_SAMPLE_BYTES = 32 << 20
 
 
-def _binning_rows(weight: np.ndarray, n_cols: int, itemsize: int) -> np.ndarray:
-    """Row indices of the binning sample: the rows with weight > 0,
-    ceil-strided over the whole row range down to the row/byte budget."""
+def _binning_quota(n_cols: int, itemsize: int, n_shards: int) -> int:
+    """Rows each shard may give the binning sample: the row/byte budget
+    divided over the shard count (the floor sits on the total)."""
     budget = max(2048, min(_BINNING_SAMPLE_ROWS, _BINNING_SAMPLE_BYTES // max(1, n_cols * itemsize)))
-    idx = np.flatnonzero(weight > 0)
-    if idx.size > budget:
-        idx = idx[:: -(-idx.size // budget)]
+    return max(1, budget // max(1, n_shards))
+
+
+def _binning_rows(shard_weight: np.ndarray, quota: int) -> np.ndarray:
+    """One shard's sampled row indices: its rows with weight > 0,
+    ceil-strided over the whole range down to the quota."""
+    idx = np.flatnonzero(shard_weight > 0)
+    if idx.size > quota:
+        idx = idx[:: -(-idx.size // quota)]
     return idx
+
+
+def _binning_sample(inputs: FitInputs) -> np.ndarray:
+    """The binning sample on the host: each shard's strided rows, in shard
+    order."""
+    quota = _binning_quota(inputs.n_cols, inputs.X[0].element_size(), inputs.mesh.size)
+    parts = []
+    for x, w in zip(inputs.X, inputs.weight):
+        rows = _binning_rows(w.cpu().numpy(), quota)
+        if rows.size:
+            parts.append(x[torch.from_numpy(rows).to(x.device)].cpu().numpy())
+    return np.concatenate(parts) if parts else np.zeros((0, inputs.n_cols), dtype=inputs.dtype)
+
+
+def _on_histogram_builder(mesh_size: int, n_bins: int, max_features: int, max_depth: int, s_split: int) -> bool:
+    """Whether a fit grows on the histogram builder (ops/forest_grow.py):
+    one shard and within its limits (the JAX package's _mxu_eligible).
+    Every other fit grows on the scatter engine."""
+    return (
+        mesh_size == 1
+        and n_bins <= _MAX_BINS
+        and max_features <= _MAX_FEATURES
+        and depth_supported(max_depth, s_split)
+    )
+
+
+def _engine_tree_chunk(n_trees: int, max_depth: int, n_cols: int, max_features: int, n_pad: int, s_dim: int) -> int:
+    """Trees a scatter-engine run grows together (the JAX package's
+    chunking): the (combined, D) feature-subset scores of the deepest level
+    within 512 MB, the per-tree stats within 2 GB."""
+    t_sub = max(1, (512 << 20) // max(1, (2**max_depth) * n_cols * 4)) if max_features < n_cols else n_trees
+    t_stats = max(1, (2 << 30) // max(1, n_pad * s_dim * 4))
+    return max(1, min(n_trees, t_sub, t_stats))
+
+
+def _engine_tree_stats(stats, weight, counts, n_trees: int, n_rows: int):
+    """Per-shard (S, Tc, n_loc) bootstrap-weighted stats: stats (S, n_loc)
+    times weight (n_loc,) times the bootstrap counts (Tc, n_rows) of the
+    global valid rows (None: no bootstrap), each shard taking its slice."""
+    out, start = [], 0
+    for st, w in zip(stats, weight):
+        n_loc = int(w.shape[0])
+        if counts is None:
+            w_t = w[None, :].expand(n_trees, n_loc)
+        else:
+            bw = torch.zeros((counts.shape[0], n_loc), dtype=counts.dtype)
+            take = max(0, min(n_loc, n_rows - start))
+            bw[:, :take] = counts[:, start : start + take]
+            w_t = w[None, :] * bw.to(device=w.device, dtype=w.dtype)
+        out.append(st[:, None, :] * w_t[None])
+        start += n_loc
+    return out
 
 
 def _str_or_numerical(value: str) -> Union[str, float, int]:
@@ -248,8 +320,9 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
         self._set_params(**kwargs)
 
     def _label_stats(self, inputs: FitInputs):
-        """(S, N_pad) unweighted stat rows, the per-row value the deep phase
-        needs (class index or target), and extra model attributes."""
+        """Per shard: the (S, n_loc) unweighted stat rows and the per-row
+        value the deep phase needs (class index or target); and the extra
+        model attributes."""
         raise NotImplementedError
 
     def _enable_fit_multiple_in_single_pass(self) -> bool:
@@ -266,99 +339,132 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
         logger = get_logger(type(self))
         is_classification = self._is_classification
 
-        def _settings(params: Dict[str, Any], n_cols: int, s_split: int) -> Dict[str, Any]:
-            """One map's tree settings, within the histogram builder's
-            limits (NotImplementedError outside them)."""
+        def _settings(params: Dict[str, Any], n_cols: int) -> Dict[str, Any]:
+            """One map's tree settings."""
             max_depth = int(params["max_depth"])
             if max_depth > _MAX_SUPPORTED_DEPTH:
                 raise ValueError(
                     f"maxDepth > {_MAX_SUPPORTED_DEPTH} is not supported by the dense tree layout (got {max_depth})"
                 )
             n_trees = int(params["n_estimators"])
-            n_bins = int(params["n_bins"])
             criterion = params.get("split_criterion")
-            max_features = _resolve_max_features(params.get("max_features", "auto"), n_cols, is_classification, n_trees)
             seed = params.get("random_state")
-            limits = [
-                (n_bins <= _MAX_BINS, f"maxBins {n_bins} > {_MAX_BINS}"),
-                (max_features <= _MAX_FEATURES, f"{max_features} features per split > {_MAX_FEATURES}"),
-                (depth_supported(max_depth, s_split), f"maxDepth {max_depth} exceeds the slot budget of {s_split} stat rows"),
-            ]
-            broken = [why for ok, why in limits if not ok]
-            if broken:
-                raise NotImplementedError(
-                    f"{'; '.join(broken)}: the port grows forests only from node histograms; "
-                    "the JAX package's scatter engine (ops/forest.grow_forest), which takes such "
-                    "fits, is not ported"
-                )
             return {
                 "max_depth": max_depth,
                 "n_trees": n_trees,
-                "n_bins": n_bins,
+                "n_bins": int(params["n_bins"]),
                 "kind": "regression" if not is_classification else ("entropy" if criterion == "entropy" else "gini"),
-                "max_features": max_features,
+                "max_features": _resolve_max_features(
+                    params.get("max_features", "auto"), n_cols, is_classification, n_trees
+                ),
                 "seed": int(seed) & 0x7FFFFFFF if seed is not None else 42,
                 "bootstrap": bool(params.get("bootstrap", True)),
                 "min_samples_leaf": float(params.get("min_samples_leaf", 1)),
                 "min_impurity_decrease": float(params.get("min_impurity_decrease", 0.0)),
             }
 
-        def _fit(inputs: FitInputs, params: Dict[str, Any]):
-            stats, y_vals, extra_attrs = self._label_stats(inputs)
-            s_split = 2 if not is_classification else stats.shape[0]
-            maps = [params] if extra_params is None else [{**params, **o} for o in extra_params]
-            settings = [_settings(p, inputs.n_cols, s_split) for p in maps]
-
-            # quantile edges from a bounded strided row sample, on the host;
-            # one binning for each distinct maxBins, shared by the maps
-            X = inputs.X
-            n_pad = -(-X.shape[0] // ROW_TILE) * ROW_TILE
-            binned: Dict[int, Any] = {}
-            with record_function("forest.bin"):
-                w_host = inputs.weight.cpu().numpy()
-                rows = _binning_rows(w_host[: inputs.n_rows], inputs.n_cols, X.element_size())
-                sample = X[torch.from_numpy(rows).to(X.device)].cpu().numpy()
-                for st in settings:
-                    if st["n_bins"] not in binned:
-                        edges = compute_bin_edges(sample, st["n_bins"])
-                        binned[st["n_bins"]] = (
-                            edges, bin_features_feature_major(X.float(), torch.from_numpy(edges), n_pad)
-                        )
-            # the feature tensor is not needed once binned: free it for the
-            # tree growth (12 GB at the 1M x 3000 flagship)
-            X = None
-            _release_fit_features(inputs)
-
+        def _grow_on_builder(inputs, st, edges, bins_fm, stats, y_vals):
+            """The one-shard histogram builder (B3 / B4)."""
+            n_pad = bins_fm.shape[1]
             pad = n_pad - stats.shape[1]
             stats = torch.nn.functional.pad(stats.float(), (0, pad)).contiguous()
             y_vals = torch.nn.functional.pad(y_vals.float(), (0, pad))
-            w_pad = torch.nn.functional.pad(inputs.weight.float(), (0, n_pad - inputs.weight.shape[0]))
+            w_pad = torch.nn.functional.pad(inputs.weight[0].float(), (0, n_pad - inputs.weight[0].shape[0]))
             if is_classification:
                 base_stats, stats3 = stats, None
             else:
                 base_stats, stats3 = stats[:2], stats
-            results = []
-            for st in settings:
-                edges, bins_fm = binned[st["n_bins"]]
-                n_trees = st["n_trees"]
-                if st["bootstrap"]:
-                    gen = torch.Generator(device=bins_fm.device).manual_seed((st["seed"] + 104729) & 0x7FFFFFFF)
-                    counts = torch.poisson(torch.ones((n_trees, n_pad), device=bins_fm.device), generator=gen)
-                    w_trees = w_pad[None, :] * counts
-                    del counts
-                else:
-                    w_trees = w_pad[None, :].expand(n_trees, n_pad).contiguous()
-                features, thresholds, leaf_values, node_counts, impurities = grow_forest(
-                    bins_fm, base_stats, w_trees, stats3, edges,
-                    max_depth=st["max_depth"], n_bins=st["n_bins"], kind=st["kind"],
-                    max_features=st["max_features"], min_samples_leaf=st["min_samples_leaf"],
-                    min_impurity_decrease=st["min_impurity_decrease"], seed=st["seed"], y_vals=y_vals,
-                    # without weightCol every row weighs 1: the classifier's
-                    # stats are bootstrap counts x one-hot classes, integers
-                    integer_stats=is_classification and inputs.host_w is None,
+            n_trees = st["n_trees"]
+            if st["bootstrap"]:
+                gen = torch.Generator(device=bins_fm.device).manual_seed((st["seed"] + 104729) & 0x7FFFFFFF)
+                counts = torch.poisson(torch.ones((n_trees, n_pad), device=bins_fm.device), generator=gen)
+                w_trees = w_pad[None, :] * counts
+                del counts
+            else:
+                w_trees = w_pad[None, :].expand(n_trees, n_pad).contiguous()
+            return grow_forest(
+                bins_fm, base_stats, w_trees, stats3, edges,
+                max_depth=st["max_depth"], n_bins=st["n_bins"], kind=st["kind"],
+                max_features=st["max_features"], min_samples_leaf=st["min_samples_leaf"],
+                min_impurity_decrease=st["min_impurity_decrease"], seed=st["seed"], y_vals=y_vals,
+                # without weightCol every row weighs 1: the classifier's
+                # stats are bootstrap counts x one-hot classes, integers
+                integer_stats=is_classification and inputs.host_w is None,
+            )
+
+        def _grow_on_engine(inputs, st, edges, bins, stats):
+            """The scatter engine over every shard, in tree chunks."""
+            n_trees = st["n_trees"]
+            t_chunk = _engine_tree_chunk(
+                n_trees, st["max_depth"], inputs.n_cols, st["max_features"], inputs.n_pad, stats[0].shape[0]
+            )
+            gen = torch.Generator().manual_seed((st["seed"] + 104729) & 0x7FFFFFFF) if st["bootstrap"] else None
+            parts = []
+            for t0 in range(0, n_trees, t_chunk):
+                tc = min(t_chunk, n_trees - t0)
+                counts = (
+                    torch.poisson(torch.ones((tc, inputs.n_rows)), generator=gen) if gen is not None else None
                 )
-                del w_trees
-                logger.info("grew %d trees (depth<=%d, bins=%d)", n_trees, st["max_depth"], st["n_bins"])
+                stats_t = _engine_tree_stats(stats, inputs.weight, counts, tc, inputs.n_rows)
+                del counts
+                parts.append(grow_forest_engine(
+                    bins, stats_t, edges, max_depth=st["max_depth"], n_bins=st["n_bins"], kind=st["kind"],
+                    max_features=st["max_features"], min_samples_leaf=st["min_samples_leaf"],
+                    min_impurity_decrease=st["min_impurity_decrease"], seed=(st["seed"] + 7919 * t0) & 0x7FFFFFFF,
+                ))
+                del stats_t
+            if len(parts) == 1:
+                return parts[0]
+            return tuple(np.concatenate([p[i] for p in parts]) for i in range(5))
+
+        def _fit(inputs: FitInputs, params: Dict[str, Any]):
+            stats, y_vals, extra_attrs = self._label_stats(inputs)
+            s_split = 2 if not is_classification else stats[0].shape[0]
+            maps = [params] if extra_params is None else [{**params, **o} for o in extra_params]
+            settings = [_settings(p, inputs.n_cols) for p in maps]
+            on_builder = [
+                _on_histogram_builder(inputs.mesh.size, st["n_bins"], st["max_features"], st["max_depth"], s_split)
+                for st in settings
+            ]
+
+            # quantile edges from a bounded strided row sample, on the host;
+            # one binning for each distinct (growth, maxBins), shared by the
+            # maps
+            edges_of: Dict[int, np.ndarray] = {}
+            binned: Dict[Any, Any] = {}
+            with record_function("forest.bin"):
+                sample = _binning_sample(inputs)
+                for st, builder in zip(settings, on_builder):
+                    n_bins = st["n_bins"]
+                    if n_bins not in edges_of:
+                        edges_of[n_bins] = compute_bin_edges(sample, n_bins)
+                    edges = torch.from_numpy(edges_of[n_bins])
+                    if (builder, n_bins) in binned:
+                        continue
+                    if builder:
+                        x = inputs.X[0]
+                        n_pad = -(-x.shape[0] // ROW_TILE) * ROW_TILE
+                        binned[(builder, n_bins)] = bin_features_feature_major(x.float(), edges, n_pad)
+                    else:
+                        binned[(builder, n_bins)] = [bin_features_wide(x.float(), edges, x.shape[0]) for x in inputs.X]
+                del sample
+            # the features are not needed once binned: free them for the
+            # tree growth (12 GB at the 1M x 3000 flagship)
+            _release_fit_features(inputs)
+
+            results = []
+            for st, builder in zip(settings, on_builder):
+                edges = edges_of[st["n_bins"]]
+                bins = binned[(builder, st["n_bins"])]
+                if builder:
+                    grown = _grow_on_builder(inputs, st, edges, bins, stats[0], y_vals[0])
+                else:
+                    grown = _grow_on_engine(inputs, st, edges, bins, stats)
+                features, thresholds, leaf_values, node_counts, impurities = grown
+                logger.info(
+                    "grew %d trees on the %s (depth<=%d, bins=%d)", st["n_trees"],
+                    "histogram builder" if builder else "scatter engine", st["max_depth"], st["n_bins"],
+                )
                 results.append({
                     "features_": features,
                     "thresholds_": thresholds,
@@ -517,7 +623,7 @@ _FOREST_ATTRS = ("features_", "thresholds_", "leaf_values_", "node_counts_", "im
 
 
 class RandomForestClassifier(_RandomForestEstimator):
-    """Random-forest classifier on one device, with the Spark ML API."""
+    """Random-forest classifier over the fit's row shards, with the Spark ML API."""
 
     _is_classification = True
 
@@ -536,8 +642,8 @@ class RandomForestClassifier(_RandomForestEstimator):
     def _label_stats(self, inputs: FitInputs):
         # int32 label cast, as the JAX package (and Spark) cast class labels
         classes = discover_label_classes(inputs, cast=np.int32)
-        y_idx = encode_labels(inputs.y.to(torch.int32), torch.from_numpy(classes))
-        onehot = torch.nn.functional.one_hot(y_idx, len(classes)).T.to(inputs.weight.dtype)
+        y_idx = [encode_labels(y.to(torch.int32), torch.from_numpy(classes)) for y in inputs.y]
+        onehot = [torch.nn.functional.one_hot(i, len(classes)).T.to(w.dtype) for i, w in zip(y_idx, inputs.weight)]
         return onehot, y_idx, {"classes_": classes.astype(np.float64), "num_classes": len(classes)}
 
     def _create_model(self, result: Dict[str, Any]) -> "RandomForestClassificationModel":
@@ -624,7 +730,7 @@ class RandomForestClassificationModel(
 
 
 class RandomForestRegressor(_RandomForestEstimator):
-    """Random-forest regressor on one device, with the Spark ML API."""
+    """Random-forest regressor over the fit's row shards, with the Spark ML API."""
 
     _is_classification = False
 
@@ -641,8 +747,7 @@ class RandomForestRegressor(_RandomForestEstimator):
         return mapping
 
     def _label_stats(self, inputs: FitInputs):
-        y = inputs.y
-        return torch.stack([torch.ones_like(y), y, y * y]), y, {}
+        return [torch.stack([torch.ones_like(y), y, y * y]) for y in inputs.y], inputs.y, {}
 
     def _create_model(self, result: Dict[str, Any]) -> "RandomForestRegressionModel":
         return RandomForestRegressionModel(**result)

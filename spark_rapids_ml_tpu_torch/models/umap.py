@@ -6,8 +6,9 @@
 # "embedding", the same model attributes (embedding_, raw_data_, n_cols,
 # dtype).  The fit samples with np.random.default_rng(seed), builds the
 # exact kNN self-join at query_block 32768 over the device-resident
-# FitInputs.X (ops/knn: kernels B5 -> B7 on the card; row-sharded over the
-# mesh with num_workers > 1), or takes precomputed_knn, then runs
+# FitInputs.X (its row shards gathered onto the mesh's first device,
+# core.whole_rows; ops/knn: kernels B5 -> B7 on the card; row-sharded over
+# the mesh with num_workers > 1), or takes precomputed_knn, then runs
 # ops/umap.umap_fit_embedding on the first device of the mesh.  With labelCol
 # set the fit is supervised (NaN labels are unknown).  raw_data_ stays the
 # device tensor when it is float32 and is fetched to the host on save.
@@ -36,7 +37,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..core import FitInputs, _TpuEstimator, _TpuModel
+from ..core import FitInputs, _TpuEstimator, _TpuModel, whole_rows
 from ..dataframe import DataFrame
 from ..ops.knn import knn_search_prepared, prepare_items
 from ..ops.umap import (
@@ -231,9 +232,9 @@ class UMAP(_UMAPParams, _TpuEstimator):
         num_workers = self.num_workers
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
-            valid = (inputs.weight > 0).cpu().numpy()
+            valid = (whole_rows(inputs.weight) > 0).cpu().numpy()
             seed = _seed_of(params)
-            X = inputs.X
+            X = whole_rows(inputs.X)
             y = inputs.host_y[valid[: inputs.n_rows]] if inputs.host_y is not None else None
             if not valid.all():
                 X = X[torch.from_numpy(np.flatnonzero(valid)).to(X.device)]

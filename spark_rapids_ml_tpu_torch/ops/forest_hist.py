@@ -33,6 +33,14 @@
 # only.  The tensor-core route adds in a fixed order (no atomics) and gives
 # the same bits on every call.
 #
+# node_histograms_sharded is the JAX package's sharding rule for B3: the
+# rows split over the shards of a mesh (lists of per-shard tensors), B3 on
+# each shard's rows, the partial histograms summed by one psum_parts (section
+# forest.hist_parts).  On integer stats the sum is bit for bit
+# node_histograms over all the rows.  The one-shard histogram builder
+# (ops/forest_grow.py) does not take it: multi-shard fits grow on the
+# scatter engine (ops/forest.grow_forest), as in the JAX package.
+#
 # gather_rows replaces gather_rows_matmul: on the card the feature subset is
 # a plain index_select of the feature-major bin rows (exact), zero-padded to
 # f_pad — the one-hot matmul was the TPU's way around its slow gather.
@@ -219,6 +227,20 @@ def node_histograms_atomic(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_
         raise RuntimeError(f"node_histograms_atomic kernel launch failed: CUDA error {err}")
     node_histograms_atomic.launches += 1
     return out
+
+
+def node_histograms_sharded(bins_sub, node_rel, stats_s, t_pack, nodes, s_dim, n_bins, integer_stats=False):
+    """node_histograms over row-sharded operands (per-shard lists, shard i's
+    rows of each on its device): B3 on each shard, the partial (F_pad, 128,
+    B) histograms summed in shard order by one psum_parts, replicated (a
+    list, one histogram a shard)."""
+    from ..parallel.exchange import psum_parts
+
+    parts = [
+        node_histograms(b, nr, st, t_pack, nodes, s_dim, n_bins, integer_stats)
+        for b, nr, st in zip(bins_sub, node_rel, stats_s)
+    ]
+    return psum_parts(parts, section="forest.hist_parts")
 
 
 # launches of each route's CUDA kernel, for runs that must show the main

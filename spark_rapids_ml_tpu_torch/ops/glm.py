@@ -2,11 +2,13 @@
 # Linear-model solvers: OLS / ridge in closed form, elastic net by
 # covariance-update coordinate descent, on sufficient statistics.
 #
-# Counterpart of spark_rapids_ml_tpu/ops/glm.py on one device.  One pass
-# over the rows forms (X'WX, X'Wy, the means) in row chunks
-# (ops/linalg._local_moments), and every solve runs on the small (D, D)
-# system on the statistics' device: on the card the solve, the CD sweeps and
-# the intercept's inputs never leave it.
+# Counterpart of spark_rapids_ml_tpu/ops/glm.py.  One pass over the rows
+# forms (X'WX, X'Wy, the means) in row chunks (ops/linalg._local_moments),
+# on each shard of a row-sharded X (a list of per-shard tensors; one tensor
+# is the one-shard case), the shards' sums combined by one psum_fields
+# (parallel/exchange.py) on shard 0's device, and every solve runs on the
+# small (D, D) system there: on the card the solve, the CD sweeps and the
+# intercept's inputs never leave it.
 #
 # Spark numerics kept:
 #   - ridge: Spark normalises the sample term by n, so alpha is scaled by the
@@ -53,9 +55,11 @@ import numpy as np
 import torch
 
 from .. import profiling
+from ..parallel.exchange import psum_fields
+from ..parallel.mesh import as_shards
 from ..utils import chunk_iter
 from .lanes import by_lane
-from .linalg import MOMENT_CHUNK, _local_moments, exact_matmul
+from .linalg import MOMENT_CHUNK, _local_moments, _sharded_moments, exact_matmul
 
 
 class LinregStats(NamedTuple):
@@ -67,11 +71,10 @@ class LinregStats(NamedTuple):
     y2: torch.Tensor      # scalar = sum w y^2
 
 
-def linreg_sufficient_stats(
-    X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, chunk: int = MOMENT_CHUNK
-) -> LinregStats:
-    """One pass over (X, y, w) in `chunk`-row blocks."""
-    wsum, xwsum, G, ywsum, c, y2 = _local_moments(X, w, chunk, y=y)
+def linreg_sufficient_stats(X, y, w, chunk: int = MOMENT_CHUNK) -> LinregStats:
+    """One pass over the row-sharded (X, y, w) in `chunk`-row blocks, the
+    shards' sums combined by one psum."""
+    wsum, xwsum, G, ywsum, c, y2 = _sharded_moments(X, w, chunk, y=y, section="glm.stats")
     return LinregStats(wsum, xwsum / wsum, ywsum / wsum, G, c, y2)
 
 
@@ -262,16 +265,11 @@ def fold_stats(stats: LinregStats, f: int) -> LinregStats:
     return LinregStats(*(t[f] for t in stats))
 
 
-def sweep_linreg_fold_stats(
-    X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold_id: torch.Tensor, k: int, chunk: int = MOMENT_CHUNK
-) -> LinregStats:
-    """Every fold's TRAIN sufficient statistics, a leading (k,) axis on each
-    field, from one pass over (X, y, w) in `chunk`-row blocks.  Fold f's
-    train weights are w * (fold_id != f) (padded rows carry fold -1 and
-    weight 0).  A chunk's k masked Grams X_c^T diag(w_f) X_c each take one
-    (chunk, D) weighted block: X * w_f is never formed for the whole X, and
-    no train Gram is the total less the held-out fold's (that cancels in
-    float32)."""
+def _local_fold_stats(
+    X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold_id: torch.Tensor, k: int, chunk: int
+) -> Tuple[torch.Tensor, ...]:
+    """One shard's unreduced fold statistics (wsum, xwsum, G, ywsum, c, y2),
+    each with a leading (k,) axis."""
     n, d = X.shape
 
     def z(*shape: int) -> torch.Tensor:
@@ -291,6 +289,21 @@ def sweep_linreg_fold_stats(
             ywsum[f] += (yb * wf).sum()
             c[f].addmv_(xw.T, yb)
             y2[f] += (yb * yb * wf).sum()
+    return wsum, xwsum, G, ywsum, c, y2
+
+
+def sweep_linreg_fold_stats(X, y, w, fold_id, k: int, chunk: int = MOMENT_CHUNK) -> LinregStats:
+    """Every fold's TRAIN sufficient statistics, a leading (k,) axis on each
+    field, from one pass over the row-sharded (X, y, w, fold_id) in
+    `chunk`-row blocks, the shards' sums combined by one psum.  Fold f's
+    train weights are w * (fold_id != f) (padded rows carry fold -1 and
+    weight 0).  A chunk's k masked Grams X_c^T diag(w_f) X_c each take one
+    (chunk, D) weighted block: X * w_f is never formed for the whole X, and
+    no train Gram is the total less the held-out fold's (that cancels in
+    float32)."""
+    shards = zip(as_shards(X), as_shards(y), as_shards(w), as_shards(fold_id))
+    parts = [_local_fold_stats(x, yl, wl, fl, k, chunk) for x, yl, wl, fl in shards]
+    wsum, xwsum, G, ywsum, c, y2 = psum_fields(parts, "glm.fold_stats")
     return LinregStats(wsum, xwsum / wsum[:, None], ywsum / wsum, G, c, y2)
 
 

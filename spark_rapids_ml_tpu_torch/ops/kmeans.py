@@ -6,14 +6,23 @@
 #   - lax.while_loop / scan become Python loops over row chunks of
 #     max_samples_per_batch; the ragged last chunk is simply shorter, so X is
 #     never padded;
-#   - shard_map / psum disappear: the port fits on one device;
+#   - shard_map / psum become a loop over the shards of a row-sharded X (a
+#     list of per-shard tensors, one tensor being the one-shard case;
+#     parallel/mesh.py): each shard's statistics, then one psum_fields
+#     (parallel/exchange.py) of sums, counts and inertia per Lloyd
+#     iteration, in shard order; the new centers are computed on shard 0's
+#     device and replicated to the others;
 #   - the assignment keeps the expanded-form torch.matmul, and the per-cluster
 #     statistics keep the one-hot product onehot.T @ xb, which is
 #     deterministic (index_add_ on CUDA sums with float atomics in an order
 #     that changes from run to run);
 #   - the inits draw their Gumbel noise from a torch.Generator seeded from
 #     `seed`, on the CPU so a seed gives the same draws on every device.  They
-#     do not reproduce the JAX package's threefry draws.
+#     do not reproduce the JAX package's threefry draws.  A draw indexes the
+#     global rows below n_rows (the padding sits past them, mesh.shard_rows),
+#     each shard takes its slice, and the Gumbel top-k of the global keys is
+#     the top-k of the shards' top-k candidates: one seed gives one init on
+#     any shard count.
 # transform/predict go through ops/nearest_center.min_dist_argmin, the CUDA
 # kernel on the card.  stream_kmeans_chunk_kernel is the streaming engine's
 # chunk update (stream/engines.py), in plain torch ops as the JAX package's
@@ -33,11 +42,13 @@
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.exchange import psum_fields, replicate
+from ..parallel.mesh import as_shards
 from ..utils import chunk_iter
 from .lanes import by_lane
 from .nearest_center import min_dist_argmin, squared_norms
@@ -90,22 +101,27 @@ def _chunked_assign_stats(
 
 
 def lloyd_iterations(
-    X: torch.Tensor,
-    w: torch.Tensor,
+    X,
+    w,
     centers0: torch.Tensor,
     max_iter: int,
     tol: float,
     chunk: int,
 ) -> Tuple[torch.Tensor, int, float]:
-    """Lloyd iterations until the squared center shift is <= tol or max_iter
-    iterations ran.  Returns (centers, n_iter, inertia), the inertia in the
-    exact difference form against the returned centers."""
-    x_norm = squared_norms(X)  # hoisted out of the loop
-    centers = centers0
+    """Lloyd iterations over the row-sharded (X, w) until the squared center
+    shift is <= tol or max_iter iterations ran.  Returns (centers, n_iter,
+    inertia), the centers on shard 0's device and the inertia in the exact
+    difference form against them."""
+    Xs, ws = as_shards(X), as_shards(w)
+    devices = [x.device for x in Xs]
+    x_norms = [squared_norms(x) for x in Xs]  # hoisted out of the loop
+    centers = centers0.to(devices[0])
     n_iter = 0
-    shift = torch.tensor(math.inf, dtype=X.dtype)
+    shift = torch.tensor(math.inf, dtype=Xs[0].dtype)
     while n_iter < max_iter and bool(shift > tol):
-        sums, counts, _ = _chunked_assign_stats(X, w, centers, chunk, x_norm)
+        cs = replicate(centers, devices)
+        parts = [_chunked_assign_stats(x, wl, c, chunk, xn)[:2] for x, wl, c, xn in zip(Xs, ws, cs, x_norms)]
+        sums, counts = psum_fields(parts, "kmeans.lloyd")
         nonempty = counts > 0
         new_centers = torch.where(
             nonempty[:, None], sums / counts.clamp_min(1.0)[:, None], centers
@@ -114,10 +130,61 @@ def lloyd_iterations(
         centers = new_centers
         n_iter += 1
     # one final pass so inertia reflects the returned centers
-    _, _, inertia = _chunked_assign_stats(
-        X, w, centers, chunk, x_norm, exact_inertia=True
-    )
+    cs = replicate(centers, devices)
+    parts = [
+        _chunked_assign_stats(x, wl, c, chunk, xn, exact_inertia=True)[2:]
+        for x, wl, c, xn in zip(Xs, ws, cs, x_norms)
+    ]
+    (inertia,) = psum_fields(parts, "kmeans.inertia")
     return centers, n_iter, float(inertia)
+
+
+def _global_gumbel(n_rows: int, generator: torch.Generator, Xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """n_rows Gumbel draws indexing global rows, sliced to the shards (each
+    on its shard's device and dtype); a shard's rows past n_rows, the
+    padding, get -inf."""
+    g = _gumbel(n_rows, generator, torch.empty(0, dtype=Xs[0].dtype))
+    if len(Xs) == 1 and int(Xs[0].shape[0]) == n_rows:
+        return [g.to(Xs[0].device)]
+    out, start = [], 0
+    for x in Xs:
+        n_loc = int(x.shape[0])
+        part = torch.full((n_loc,), -math.inf, dtype=x.dtype)
+        take = max(0, min(n_loc, n_rows - start))
+        part[:take] = g[start : start + take]
+        out.append(part.to(x.device))
+        start += n_loc
+    return out
+
+
+def _sharded_topk(keys: List[torch.Tensor], k: int) -> torch.Tensor:
+    """Global row indices (k,) of the k largest keys over all shards, in
+    descending key order, on shard 0's device: the top-k of each shard's
+    top-k, with no host round trip (one shard: its own top-k)."""
+    dev = keys[0].device
+    vals, idxs, start = [], [], 0
+    for kv in keys:
+        v, i = torch.topk(kv, min(k, int(kv.shape[0])))
+        vals.append(v.to(dev))
+        idxs.append(i.to(dev) + start)
+        start += int(kv.shape[0])
+    if len(keys) == 1:
+        return idxs[0]
+    return torch.cat(idxs)[torch.topk(torch.cat(vals), k).indices]
+
+
+def _rows_at(Xs: List[torch.Tensor], rows: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Global rows `rows` of the sharded X (equal shards), in order, on
+    `device`: a gather a shard, with no host round trip."""
+    if len(Xs) == 1:
+        return Xs[0][rows.to(Xs[0].device)].to(device)
+    per = int(Xs[0].shape[0])
+    owner = (rows // per).to(device)[:, None]
+    out = torch.zeros((rows.shape[0], Xs[0].shape[1]), dtype=Xs[0].dtype, device=device)
+    for i, x in enumerate(Xs):
+        local = (rows - i * per).clamp(0, per - 1).to(x.device)
+        out = torch.where(owner == i, x[local].to(device), out)
+    return out
 
 
 def _nearest_valid(
@@ -148,49 +215,58 @@ def _masked_min_dist2(
 
 
 def scalable_kmeans_pp_init(
-    X: torch.Tensor,
-    w: torch.Tensor,
+    X,
+    w,
     k: int,
     generator: torch.Generator,
     rounds: int = 4,
     round_size: int = 0,
     chunk: int = 32768,
+    n_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """k-means|| with a fixed candidate pool of 1 + rounds*round_size rows:
     each round draws exactly `round_size` rows without replacement with
-    probability proportional to the current cost (Gumbel top-k), then
-    weighted k-means++ reduces the pool to k centers.  The caller sets
-    round_size from the oversampling factor."""
-    n, d = X.shape
-    first = torch.argmax(_log_or_neg_inf(w, w > 0) + _gumbel(n, generator, X))
+    probability proportional to the current cost (Gumbel top-k over the
+    global cost vector), then weighted k-means++ reduces the pool to k
+    centers on shard 0's device.  The caller sets round_size from the
+    oversampling factor.  X and w are row-sharded (module header); the
+    draws index the global rows below n_rows (default: all)."""
+    Xs, ws = as_shards(X), as_shards(w)
+    dev = Xs[0].device
+    n = sum(int(x.shape[0]) for x in Xs) if n_rows is None else int(n_rows)
+    d = Xs[0].shape[1]
+    g0 = _global_gumbel(n, generator, Xs)
+    first = _sharded_topk([_log_or_neg_inf(wl, wl > 0) + g for wl, g in zip(ws, g0)], 1)
     m = 1 + rounds * round_size
-    pool = torch.zeros((m, d), dtype=X.dtype, device=X.device)
-    pool[0] = X[first]
-    pool_valid = torch.zeros(m, dtype=torch.bool, device=X.device)
+    pool = torch.zeros((m, d), dtype=Xs[0].dtype, device=dev)
+    pool[0] = _rows_at(Xs, first, dev)[0]
+    pool_valid = torch.zeros(m, dtype=torch.bool, device=dev)
     pool_valid[0] = True
     for i in range(rounds):
-        cost = _masked_min_dist2(X, w, pool, pool_valid, chunk)
-        logp = _log_or_neg_inf(cost, (w > 0) & (cost > 0))
-        idx = torch.topk(logp + _gumbel(n, generator, X), round_size).indices
+        pools, valids = replicate(pool, [x.device for x in Xs]), replicate(pool_valid, [x.device for x in Xs])
+        costs = [_masked_min_dist2(x, wl, p, v, chunk) for x, wl, p, v in zip(Xs, ws, pools, valids)]
+        gs = _global_gumbel(n, generator, Xs)
+        keys = [_log_or_neg_inf(c, (wl > 0) & (c > 0)) + g for c, wl, g in zip(costs, ws, gs)]
         start = 1 + i * round_size
-        pool[start : start + round_size] = X[idx]
+        pool[start : start + round_size] = _rows_at(Xs, _sharded_topk(keys, round_size), dev)
         pool_valid[start : start + round_size] = True
 
     # weight candidates by the mass of the points they attract (summed on
     # the host in float64: deterministic, unlike float atomics on the card)
-    _, assign = _nearest_valid(X, pool, pool_valid, chunk)
-    cand_w = np.bincount(
-        assign.cpu().numpy(), weights=w.double().cpu().numpy(), minlength=m
-    )
-    cand_w = torch.as_tensor(cand_w, device=X.device).to(X.dtype) * pool_valid
+    cand_w = np.zeros(m, dtype=np.float64)
+    pools, valids = replicate(pool, [x.device for x in Xs]), replicate(pool_valid, [x.device for x in Xs])
+    for x, wl, p, v in zip(Xs, ws, pools, valids):
+        _, assign = _nearest_valid(x, p, v, chunk)
+        cand_w += np.bincount(assign.cpu().numpy(), weights=wl.double().cpu().numpy(), minlength=m)
+    cand_w = torch.as_tensor(cand_w, device=dev).to(Xs[0].dtype) * pool_valid
 
     # weighted k-means++ on the small candidate pool.  The JAX package
     # recomputes every candidate's distance to all chosen centers each step;
     # keeping the running minimum and folding in only the newest center gives
     # the same minima in O(m*D) per step instead of O(m*k*D).
     pool_norm = (pool * pool).sum(dim=1)
-    fallback = torch.where(pool_valid, 0.0, -math.inf).to(X.dtype)
-    centers = torch.zeros((k, d), dtype=X.dtype, device=X.device)
+    fallback = torch.where(pool_valid, 0.0, -math.inf).to(pool.dtype)
+    centers = torch.zeros((k, d), dtype=pool.dtype, device=dev)
     centers[0] = pool[0]
     min_d2 = pool_norm - 2.0 * (pool @ pool[0]) + pool_norm[0]
     for j in range(1, k):
@@ -198,19 +274,21 @@ def scalable_kmeans_pp_init(
         logp = _log_or_neg_inf(cost, cost > 0)
         # degenerate case (fewer distinct candidates than k): any valid one
         logp = torch.where(torch.isfinite(logp).any(), logp, fallback)
-        pick = torch.argmax(logp + _gumbel(m, generator, X))
+        pick = torch.argmax(logp + _gumbel(m, generator, pool))
         centers[j] = pool[pick]
         d2 = pool_norm - 2.0 * (pool @ pool[pick]) + pool_norm[pick]
         min_d2 = torch.minimum(min_d2, d2)
     return centers
 
 
-def random_init(
-    X: torch.Tensor, w: torch.Tensor, k: int, generator: torch.Generator
-) -> torch.Tensor:
-    """init="random": k distinct weighted-random data rows."""
-    keys = _log_or_neg_inf(w, w > 0) + _gumbel(X.shape[0], generator, X)
-    return X[torch.topk(keys, k).indices]
+def random_init(X, w, k: int, generator: torch.Generator, n_rows: Optional[int] = None) -> torch.Tensor:
+    """init="random": k distinct weighted-random data rows of the
+    row-sharded X, on shard 0's device; the draws index the global rows
+    below n_rows (default: all)."""
+    Xs, ws = as_shards(X), as_shards(w)
+    n = sum(int(x.shape[0]) for x in Xs) if n_rows is None else int(n_rows)
+    keys = [_log_or_neg_inf(wl, wl > 0) + g for wl, g in zip(ws, _global_gumbel(n, generator, Xs))]
+    return _rows_at(Xs, _sharded_topk(keys, k), Xs[0].device)
 
 
 def stream_kmeans_chunk_kernel(

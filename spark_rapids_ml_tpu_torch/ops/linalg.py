@@ -1,8 +1,13 @@
 #
 # Dense linear-algebra building blocks of PCA and the GLMs.
 #
-# Counterpart of spark_rapids_ml_tpu/ops/linalg.py on one device.  What
-# changes on the way:
+# Counterpart of spark_rapids_ml_tpu/ops/linalg.py.  What changes on the way:
+#   - the mesh form: _sharded_moments runs _local_moments on each shard of
+#     a row-sharded X (a list of per-shard tensors; one tensor is the
+#     one-shard case) and sums the shards' moments with one psum_fields
+#     (parallel/exchange.py), in shard order, on shard 0's device, where the
+#     eigendecomposition runs; pca_fit and weighted_moments take it.  The
+#     JAX package's shard_map + psum;
 #   - every product that is returned or solved against runs in full float32
 #     (TF32 off: device.resolve() sets it, and nothing here turns it back
 #     on), the port's form of the JAX package's Precision.HIGHEST;
@@ -36,8 +41,6 @@
 # and the dedicated kernel on integer-exact rows; on other rows the
 # dedicated kernel's product of the lane's rows.  Lane ids may lie on any
 # device (the serving entry passes the host's).
-# Not carried over yet: the mesh forms (_sharded_moments, shard_map; ROADMAP
-# A14b).
 #
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.exchange import psum_fields
+from ..parallel.mesh import as_shards
 from ..utils import chunk_iter
 
 # rows of one moment-accumulation chunk (the JAX package's mesh chunk)
@@ -108,12 +113,19 @@ def _local_moments(
     return wsum, xwsum, scatter, ywsum, c, y2
 
 
-def weighted_moments(
-    X: torch.Tensor, w: torch.Tensor, chunk: int = MOMENT_CHUNK
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(wsum, mean, scatter) where scatter = sum_i w_i x_i x_i^T; w is 0 on
-    padded rows."""
-    wsum, xwsum, scatter = _local_moments(X, w, chunk)
+def _sharded_moments(X, w, chunk: int = MOMENT_CHUNK, y=None, section: str = "linalg.moments") -> Tuple[torch.Tensor, ...]:
+    """_local_moments of each shard of the row-sharded (X, w[, y]), summed
+    over the shards by one psum_fields: the same tuple as _local_moments,
+    on shard 0's device."""
+    Xs, ws = as_shards(X), as_shards(w)
+    ys = as_shards(y) if y is not None else [None] * len(Xs)
+    return psum_fields([_local_moments(x, wl, chunk, y=yl) for x, wl, yl in zip(Xs, ws, ys)], section)
+
+
+def weighted_moments(X, w, chunk: int = MOMENT_CHUNK) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(wsum, mean, scatter) of the row-sharded (X, w), where scatter =
+    sum_i w_i x_i x_i^T; w is 0 on padded rows."""
+    wsum, xwsum, scatter = _sharded_moments(X, w, chunk)
     return wsum, xwsum / wsum, scatter
 
 
@@ -160,11 +172,12 @@ def pca_from_moments_kernel(
 
 
 def pca_fit(
-    X: torch.Tensor, w: torch.Tensor, k: int, chunk: int = MOMENT_CHUNK
+    X, w, k: int, chunk: int = MOMENT_CHUNK
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """PCA of the rows of X weighted by w (0 on padded rows): chunked
-    moments, then _pca_from_moments, all on X's device.  Returns float64
-    tensors (mean, components, explained_variance, ratio, singular_values)."""
+    """PCA of the rows of the row-sharded X weighted by w (0 on padded
+    rows): chunked moments a shard and one psum, then _pca_from_moments on
+    shard 0's device.  Returns float64 tensors (mean, components,
+    explained_variance, ratio, singular_values)."""
     wsum, mean, scatter = weighted_moments(X, w, chunk)
     return _pca_from_moments(wsum, mean, scatter, k)
 

@@ -1,6 +1,6 @@
 #
 # Logistic-regression objective and its fit / predict functions (binary
-# sigmoid and multinomial softmax) on one device.
+# sigmoid and multinomial softmax).
 #
 # Counterpart of spark_rapids_ml_tpu/ops/logistic.py.  The objective is the
 # JAX package's (Spark's, with a non-normalised penalty):
@@ -14,6 +14,13 @@
 # gradient, so a dense evaluation reads X twice, once for the scores
 # X W^T + b and once for R^T X, and an ELL evaluation's X^T R is
 # ops/sparse.ell_rmatmat, whose bits do not change from run to run.
+# On a mesh (X, labels and weights row-sharded: lists of per-shard tensors
+# or EllMatrix; one tensor is the one-shard case) every evaluation runs the
+# data term on each shard against the replicated coefficients and sums the
+# shards' partial values and gradients with one psum_fields
+# (parallel/exchange.py) on shard 0's device, where L-BFGS runs: the JAX
+# package gets the same sums from GSPMD on its sharded arrays.  The
+# line search still reads one value a step, not one a shard.
 #
 # sweep_logistic_fit_kernel fits a whole regularisation sweep, candidates x
 # folds, as the lanes of one minimize_lbfgs_batched run over the one staged
@@ -34,6 +41,8 @@ from typing import Tuple, Union
 
 import torch
 
+from ..parallel.exchange import psum_fields, replicate
+from ..parallel.mesh import as_shards
 from .lbfgs import minimize_lbfgs, minimize_lbfgs_batched
 from .lanes import by_lane
 from .linalg import exact_matmul
@@ -84,10 +93,24 @@ def _data_value_and_grad(theta, X, y_enc, w, wsum, k, d, fit_intercept) -> Tuple
     return value, torch.cat(parts)
 
 
+def _sharded_value_and_grad(theta, Xs, ys, ws, wsum, k, d, fit_intercept) -> Tuple[torch.Tensor, torch.Tensor]:
+    """_data_value_and_grad of every shard against the replicated theta,
+    summed over the shards by one psum: (value, grad) on shard 0's
+    device."""
+    devices = [w.device for w in ws]
+    parts = [
+        _data_value_and_grad(t, x, y, w, s, k, d, fit_intercept)
+        for t, s, x, y, w in zip(replicate(theta, devices), replicate(wsum, devices), Xs, ys, ws)
+    ]
+    return psum_fields(parts, "logistic.objective")
+
+
 def _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn):
-    """L-BFGS / OWL-QN from an explicit start: (W (k, D), b (k,), n_iter,
-    converged, n_evals)."""
-    d = X.shape[1]
+    """L-BFGS / OWL-QN over the row-sharded (X, y_enc, w) from an explicit
+    start on shard 0's device: (W (k, D), b (k,), n_iter, converged,
+    n_evals)."""
+    Xs, ys, ws = as_shards(X), as_shards(y_enc), as_shards(w)
+    d = Xs[0].shape[1]
     n_params = k * d + (k if fit_intercept else 0)
     dtype, dev = theta0.dtype, theta0.device
     l2 = reg * (1.0 - l1_ratio)
@@ -95,12 +118,12 @@ def _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, 
     reg_mask = torch.cat(
         [torch.ones(k * d, dtype=dtype, device=dev), torch.zeros(n_params - k * d, dtype=dtype, device=dev)]
     )
-    y = y_enc.to(dtype) if k == 1 else y_enc.long()
-    w = w.to(dtype)
-    wsum = w.sum()
+    ys = [y.to(dtype) if k == 1 else y.long() for y in ys]
+    ws = [wl.to(dtype) for wl in ws]
+    (wsum,) = psum_fields([(wl.sum(),) for wl in ws], "logistic.wsum")
 
     def value_and_grad(theta):
-        value, grad = _data_value_and_grad(theta, X, y, w, wsum, k, d, fit_intercept)
+        value, grad = _sharded_value_and_grad(theta, Xs, ys, ws, wsum, k, d, fit_intercept)
         masked = theta * reg_mask
         return value + 0.5 * l2 * (masked * masked).sum(), grad + l2 * masked
 
@@ -124,12 +147,14 @@ def logistic_fit_kernel(
     tol: float,
     use_owlqn: bool,
 ):
-    """Fit one logistic model from zero: k == 1 is the binary sigmoid
-    (y_enc in {0, 1}), k >= 2 the multinomial softmax (y_enc = class
-    index).  Returns (W (k, D), b (k,), n_iter, converged, n_evals)."""
-    d = X.shape[1]
+    """Fit one logistic model from zero over the row-sharded (X, y_enc, w):
+    k == 1 is the binary sigmoid (y_enc in {0, 1}), k >= 2 the multinomial
+    softmax (y_enc = class index).  Returns (W (k, D), b (k,), n_iter,
+    converged, n_evals), on shard 0's device."""
+    x0 = as_shards(X)[0]
+    d = x0.shape[1]
     n_params = k * d + (k if fit_intercept else 0)
-    theta0 = torch.zeros(n_params, dtype=X.dtype, device=X.device)
+    theta0 = torch.zeros(n_params, dtype=x0.dtype, device=x0.device)
     return _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn)
 
 
@@ -151,17 +176,18 @@ def logistic_warm_fit_kernel(
     streaming partial_fit update, each chunk resuming the solve from the
     running coefficients.  Same objective and fixed point as the batch
     kernel.  Returns (W, b, n_iter, converged, n_evals)."""
-    theta0 = W0.reshape(-1).to(X.dtype)
+    x0 = as_shards(X)[0]
+    theta0 = W0.reshape(-1).to(device=x0.device, dtype=x0.dtype)
     if fit_intercept:
-        theta0 = torch.cat([theta0, b0.to(X.dtype)])
+        theta0 = torch.cat([theta0, b0.to(device=x0.device, dtype=x0.dtype)])
     return _solve_from(X, y_enc, w, theta0, k, reg, l1_ratio, fit_intercept, max_iter, tol, use_owlqn)
 
 
 def sweep_logistic_fit_kernel(
-    X: torch.Tensor,
-    y_enc: torch.Tensor,
-    w: torch.Tensor,
-    fold_id: torch.Tensor,
+    X,
+    y_enc,
+    w,
+    fold_id,
     regs: torch.Tensor,
     l1_ratios: torch.Tensor,
     tol: float,
@@ -172,30 +198,45 @@ def sweep_logistic_fit_kernel(
     use_owlqn: bool,
 ):
     """Fit m candidates (regs, l1_ratios: (m,) lane values) x k_folds folds
-    as one lane-batched L-BFGS / OWL-QN run over the dense X; lane
-    f * m + j is fold f's fit of candidate j.  Returns (W (k, m, kcls, D),
-    b (k, m, kcls), n_iter (k, m), converged (k, m), n_evals)."""
-    n, d = X.shape
+    as one lane-batched L-BFGS / OWL-QN run over the dense, row-sharded
+    (X, y_enc, w, fold_id); lane f * m + j is fold f's fit of candidate j.
+    Each evaluation sums the shards' partial values and gradients with one
+    psum.  Returns (W (k, m, kcls, D), b (k, m, kcls), n_iter (k, m),
+    converged (k, m), n_evals), on shard 0's device."""
+    Xs, ys, ws, fids = as_shards(X), as_shards(y_enc), as_shards(w), as_shards(fold_id)
+    d = Xs[0].shape[1]
     m = regs.shape[0]
     lanes = k_folds * m
     kd = kcls * d
     n_params = kd + (kcls if fit_intercept else 0)
-    dtype, dev = X.dtype, X.device
-    folds = torch.arange(k_folds, dtype=fold_id.dtype, device=dev)
-    w_folds = w.to(dtype)[None, :] * (fold_id[None, :] != folds[:, None]).to(dtype)  # (k, N)
-    wsum = w_folds.sum(dim=1)
-    w_rows = w_folds.T[:, :, None]  # (N, k, 1)
-    scale = (w_folds / wsum[:, None]).T[:, :, None]  # (N, k, 1)
+    dtype, dev = Xs[0].dtype, Xs[0].device
+    devices = [x.device for x in Xs]
+
+    def fold_weights(wl, fl):
+        folds = torch.arange(k_folds, dtype=fl.dtype, device=fl.device)
+        return wl.to(dtype)[None, :] * (fl[None, :] != folds[:, None]).to(dtype)  # (k, n_loc)
+
+    w_folds = [fold_weights(wl, fl) for wl, fl in zip(ws, fids)]
+    (wsum,) = psum_fields([(wf.sum(dim=1),) for wf in w_folds], "logistic.wsum")
+    shards = []
+    for x, yl, wf, wsum_l in zip(Xs, ys, w_folds, replicate(wsum, devices)):
+        shards.append((
+            x,
+            yl.to(dtype) if kcls == 1 else yl.long(),
+            wf.T[:, :, None],  # (n_loc, k, 1)
+            (wf / wsum_l[:, None]).T[:, :, None],  # (n_loc, k, 1)
+            wsum_l,
+        ))
     regs = regs.to(device=dev, dtype=torch.float64)
     l1_ratios = l1_ratios.to(device=dev, dtype=torch.float64)
     l2 = (regs * (1.0 - l1_ratios)).to(dtype).repeat(k_folds)  # (lanes,)
     l1 = (regs * l1_ratios).to(dtype).repeat(k_folds)
     reg_mask = torch.cat([torch.ones(kd, dtype=dtype, device=dev), torch.zeros(n_params - kd, dtype=dtype, device=dev)])
-    y = y_enc.to(dtype) if kcls == 1 else y_enc.long()
 
-    def value_and_grad(theta):  # (lanes, P) -> ((lanes,), (lanes, P))
+    def shard_value_and_grad(theta, x, y, w_rows, scale, wsum_l):  # one shard's partials
+        n = x.shape[0]
         W = theta[:, :kd].reshape(lanes * kcls, d)
-        z = exact_matmul(X, W.T).reshape(n, k_folds, m, kcls)
+        z = exact_matmul(x, W.T).reshape(n, k_folds, m, kcls)
         if fit_intercept:
             z = z + theta[:, kd:].reshape(k_folds, m, kcls)[None]
         if kcls == 1:
@@ -209,16 +250,18 @@ def sweep_logistic_fit_kernel(
             ll = -(z - lse).gather(-1, idx)[..., 0]
             r = torch.exp(z - lse)
             r.scatter_add_(-1, idx, torch.full_like(r[..., :1], -1.0))
-        value = (ll * w_rows).sum(dim=0) / wsum[:, None]  # (k, m)
+        value = (ll * w_rows).sum(dim=0) / wsum_l[:, None]  # (k, m)
         R = (r * scale[..., None]).reshape(n, lanes * kcls)
-        parts = [exact_matmul(R.T, X).reshape(lanes, kd)]
+        parts = [exact_matmul(R.T, x).reshape(lanes, kd)]
         if fit_intercept:
             parts.append(R.sum(dim=0).reshape(lanes, kcls))
+        return value.reshape(lanes), torch.cat(parts, dim=1)
+
+    def value_and_grad(theta):  # (lanes, P) -> ((lanes,), (lanes, P))
+        parts = [shard_value_and_grad(t, *sh) for t, sh in zip(replicate(theta, devices), shards)]
+        value, grad = psum_fields(parts, "logistic.objective")
         masked = theta * reg_mask
-        return (
-            value.reshape(lanes) + 0.5 * l2 * (masked * masked).sum(dim=-1),
-            torch.cat(parts, dim=1) + l2[:, None] * masked,
-        )
+        return value + 0.5 * l2 * (masked * masked).sum(dim=-1), grad + l2[:, None] * masked
 
     result = minimize_lbfgs_batched(
         value_and_grad,

@@ -18,6 +18,7 @@
 #   random_bits(key, shape)     hash (i >> 32, i & M) of the row-major flat
 #                               index i, the two output words xor-ed
 #   uniform / randint / normal  jax.random's transforms of those bits
+#   uniform_at(key, idx)        uniform's draws at chosen flat positions
 #
 # The words are carried in int64 tensors masked to 32 bits: torch's uint32
 # lacks arithmetic on CUDA, and int64 holds every sum and shift of the hash
@@ -133,6 +134,17 @@ def _float32(value: Union[float, torch.Tensor], device: torch.device) -> torch.T
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
+def _uniform_from_bits(bits: torch.Tensor, minval, maxval, device: torch.device) -> torch.Tensor:
+    """jax.random.uniform's float32 transform of 32-bit words."""
+    lo = _float32(minval, device)
+    hi = _float32(maxval, device)
+    # the mantissa trick: the top 23 bits as the mantissa of a float32 in
+    # [1, 2), minus 1
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    fused = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused)
+
+
 def uniform(
     key: torch.Tensor,
     shape: Sequence[int],
@@ -144,13 +156,17 @@ def uniform(
     fused multiply-add, rounded once; here they run in float64 and round
     once to float32, the same value whenever the exact result fits 53 bits
     (it does for the package's bounds: [0, 1), [-10, 10) and normal()'s)."""
-    lo = _float32(minval, key.device)
-    hi = _float32(maxval, key.device)
-    # the mantissa trick: the top 23 bits as the mantissa of a float32 in
-    # [1, 2), minus 1
-    floats = ((random_bits(key, shape) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    fused = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, fused)
+    return _uniform_from_bits(random_bits(key, shape), minval, maxval, key.device)
+
+
+def uniform_at(key: torch.Tensor, flat_index: torch.Tensor) -> torch.Tensor:
+    """uniform(key, shape) in [0, 1) at the row-major flat positions
+    `flat_index` of shape (any shape, int64) only: the draws of the rows a
+    caller needs of a large draw, bit for bit.  One key (2,)."""
+    idx = flat_index.to(device=key.device, dtype=torch.int64)
+    k0, k1 = _key_words(key, idx.dim())
+    o0, o1 = _hash(k0, k1, idx >> 32, idx & _M32)
+    return _uniform_from_bits(o0 ^ o1, 0.0, 1.0, key.device)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: IntLike, maxval: IntLike) -> torch.Tensor:

@@ -1,5 +1,5 @@
 #
-# Sparse features: the ELL layout and its products, on one device.
+# Sparse features: the ELL layout and its products.
 #
 # Counterpart of spark_rapids_ml_tpu/ops/sparse.py.  A CSR matrix becomes
 # two dense (N, P) tensors, column ids and values, every row padded to the
@@ -15,16 +15,24 @@
 #   - the linear-regression statistics densify one row chunk at a time and
 #     multiply it densely, so the card never holds more than one (chunk, D)
 #     tile.
-# The mesh form of ell_sufficient_stats waits for ROADMAP A14b.
+# On a mesh (ell_shards_from_scipy) the rows are sharded as dense rows are
+# (parallel/mesh.shard_rows: padded to a multiple of the shard count, empty
+# pad rows at the end), each shard its own EllMatrix with its own P and its
+# own column-major transpose over its local rows; ell_sufficient_stats sums
+# the shards' statistics with one psum_fields (parallel/exchange.py), and
+# the logistic objective sums its shards' partials the same way
+# (ops/logistic.py).
 #
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.exchange import psum_fields
+from ..parallel.mesh import as_shards, shard_row_count
 from ..utils import chunk_iter
 from .linalg import exact_matmul
 
@@ -108,6 +116,25 @@ def ell_device_from_scipy(X: Any, dtype: Any = np.float32, device: Any = "cpu", 
     return EllMatrix(torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device), n_cols, t_idx, t_val)
 
 
+def ell_shards_from_scipy(X: Any, dtype: Any, mesh: Any, transpose: bool = True) -> List[EllMatrix]:
+    """scipy sparse -> one EllMatrix a shard of `mesh`: shard i holds rows
+    [i * per, (i + 1) * per) (mesh.shard_rows' geometry, the padding empty
+    rows at the end), on mesh.devices[i], with its own transpose over its
+    local rows."""
+    import scipy.sparse as sp
+
+    csr = X.tocsr()
+    n, d = csr.shape
+    per = shard_row_count(n, mesh.size)
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        block = csr[min(n, i * per) : min(n, (i + 1) * per)]
+        if block.shape[0] < per:
+            block = sp.vstack([block, sp.csr_matrix((per - block.shape[0], d), dtype=csr.dtype)]).tocsr()
+        out.append(ell_device_from_scipy(block, dtype, dev, transpose=transpose))
+    return out
+
+
 def ell_matvec(ell: EllMatrix, b: torch.Tensor) -> torch.Tensor:
     """X @ b for b (D,) -> (N,): a gather and a sum over the slots."""
     return (ell.val * b[ell.idx]).sum(dim=1)
@@ -167,9 +194,12 @@ def _ell_local_moments(
     return wsum, xwsum, G, ywsum, c, y2
 
 
-def ell_sufficient_stats(ell: EllMatrix, y: torch.Tensor, w: torch.Tensor, chunk: int = ELL_CHUNK):
-    """Sparse twin of glm.linreg_sufficient_stats."""
+def ell_sufficient_stats(ell, y, w, chunk: int = ELL_CHUNK):
+    """Sparse twin of glm.linreg_sufficient_stats: each shard's statistics
+    (an EllMatrix, or a list of one a shard), one psum."""
     from .glm import LinregStats
 
-    wsum, xwsum, G, ywsum, c, y2 = _ell_local_moments(ell, w, y, chunk)
+    shards = zip(as_shards(ell), as_shards(w), as_shards(y))
+    parts = [_ell_local_moments(e, wl, yl, chunk) for e, wl, yl in shards]
+    wsum, xwsum, G, ywsum, c, y2 = psum_fields(parts, "glm.stats")
     return LinregStats(wsum, xwsum / wsum, ywsum / wsum, G, c, y2)

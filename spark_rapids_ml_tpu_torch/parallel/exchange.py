@@ -27,6 +27,12 @@
 # bitwise the flat schedule, psum is re-associated.  Every method also
 # records its modeled traffic split into `.ici_bytes` / `.dcn_bytes`.
 #
+# psum_fields is the batch fits' reduction over shards (the KMeans, PCA and
+# GLM statistics, the logistic objective, the forest engine's histograms):
+# each shard's partial sums flattened into one vector, one psum_parts, the
+# totals on shard 0's device, where the replicated solve runs; replicate
+# hands a replicated operand (centers, coefficients) back to every shard.
+#
 # ring_shift runs kernel B11 (ops/exchange_kernels.ring_shift) on CUDA
 # tensors, the flat rotation and the gateway cycle alike; with one shard it
 # returns its input and launches nothing.
@@ -42,6 +48,7 @@ import contextlib
 import time
 from typing import Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -91,13 +98,7 @@ def _record_link_bytes(name: str, ici: int, dcn: int) -> None:
 def _replicate(value: torch.Tensor, xs: Sharded) -> Sharded:
     """One copy of `value` per shard, on the shard's device (shards that
     share a device share it)."""
-    copies = {value.device: value}
-    out = []
-    for x in xs:
-        if x.device not in copies:
-            copies[x.device] = value.to(x.device)
-        out.append(copies[x.device])
-    return out
+    return replicate(value, [x.device for x in xs])
 
 
 class DeviceSection:
@@ -238,6 +239,40 @@ def allgather_rows(xs: Sharded, section: str = "allgather_rows") -> Sharded:
 def psum_parts(xs: Sharded, section: str = "psum_parts") -> Sharded:
     """Element-wise sum of per-shard partials (DeviceSection.psum)."""
     return device_collective(section).psum(xs)
+
+
+def psum_fields(parts, section: str) -> Tuple[torch.Tensor, ...]:
+    """Per-shard tuples of partial sums (parts[i]: shard i's fields, one
+    dtype) summed over the shards by ONE psum_parts of the fields flattened
+    into one vector a shard: the fit reductions' collective.  Returns the
+    fields' totals, in their shapes, on shard 0's device.  One shard's
+    fields are its totals: no collective runs (as XLA drops a one-device
+    psum)."""
+    if len(parts) == 1:
+        return tuple(parts[0])
+    shapes = [tuple(t.shape) for t in parts[0]]
+    flat = [torch.cat([t.reshape(-1) for t in fields]) for fields in parts]
+    total = psum_parts(flat, section=section)[0]
+    out, at = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape)) if shape else 1
+        out.append(total[at : at + size].reshape(shape))
+        at += size
+    return tuple(out)
+
+
+def replicate(value: torch.Tensor, devices) -> Sharded:
+    """One copy of `value` per device of `devices` (a mesh's device list),
+    shared by the shards of one device: a replicated operand of a sharded
+    step."""
+    copies = {value.device: value}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d not in copies:
+            copies[d] = value.to(d)
+        out.append(copies[d])
+    return out
 
 
 def psum_merge_parts(xs: Sharded, section: str = "psum_merge_parts") -> Sharded:

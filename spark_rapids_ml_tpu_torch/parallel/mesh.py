@@ -9,6 +9,13 @@
 # device count).  A sharded value is a list of per-shard tensors, shard i on
 # mesh.devices[i]; the collectives over such lists are parallel/exchange.py.
 #
+# shard_rows is the row-sharded ingest of every batch fit (core._TpuCaller
+# ._build_fit_inputs): rows zero-padded to a multiple of the shard count, as
+# the JAX package pads them, each shard filled straight from the frame's
+# partitions.  Shard i holds global rows [i * per, (i + 1) * per), so the
+# padded rows all sit at the end, past every valid row, and a draw that
+# indexes global rows below n gives the same value on any shard count.
+#
 # slice_meshes / carve_device_slices carve the device list into the serving
 # plane's replica slices (serving/slicepool.py, serving/router.py), in the
 # group-major order of parallel/topology.group_major_devices.  On one card,
@@ -22,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -135,24 +142,60 @@ def padded_row_count(n: int, mesh: Optional[Mesh] = None) -> int:
     return -(-max(n, 1) // mult) * mult
 
 
+def as_shards(x: Any) -> list:
+    """A sharded value as its list of per-shard parts: a list or tuple as it
+    is, anything else (one tensor) as the one-shard list [x]."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def shard_row_count(n: int, n_shards: int) -> int:
+    """Rows of each shard when n rows are padded to a multiple of n_shards:
+    shard i holds global rows [i * per, (i + 1) * per), valid below n."""
+    return -(-n // n_shards) if n else 0
+
+
 def shard_rows(
-    arr: Union[np.ndarray, torch.Tensor], mesh: Mesh, dtype: Optional[torch.dtype] = None
+    arr: Union[np.ndarray, torch.Tensor, Sequence[Any]], mesh: Mesh, dtype: Optional[torch.dtype] = None
 ) -> Tuple[List[torch.Tensor], int]:
     """Zero-pad rows to a multiple of the data-axis size and split them into
     contiguous per-shard blocks, block i on mesh.devices[i].  Returns
-    (blocks, n_valid_rows); callers mask the padded rows."""
-    t = torch.from_numpy(np.ascontiguousarray(arr)) if isinstance(arr, np.ndarray) else arr
-    if dtype is not None:
-        t = t.to(dtype)
-    n_valid = int(t.shape[0])
-    n_shards = mesh.shape[DATA_AXIS]
-    per = -(-n_valid // n_shards) if n_valid else 0
-    blocks = []
-    for i, dev in enumerate(mesh.devices):
-        part = t[i * per : (i + 1) * per].to(dev)
-        if part.shape[0] < per:
-            pad = torch.zeros((per - part.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
-            part = torch.cat([part, pad])
-        blocks.append(part.contiguous())
-    return blocks, n_valid
+    (blocks, n_valid_rows); callers mask the padded rows.
 
+    `arr` is one array or tensor, or a sequence of row blocks (a frame's
+    partitions, numpy or torch) taken as their concatenation: each shard is
+    filled straight from the blocks that overlap it, with no host concat.
+    A tensor already on a shard's device is sliced, not copied, where its
+    rows fill the shard (one shard of a one-device mesh is the tensor
+    itself); host arrays are always copied."""
+    blocks_in = list(arr) if isinstance(arr, (list, tuple)) else [arr]
+    # host arrays are always copied: a staged shard never aliases the
+    # caller's numpy block
+    from_host = any(isinstance(b, np.ndarray) for b in blocks_in)
+    parts_in = [torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray) else b for b in blocks_in]
+    if dtype is not None:
+        parts_in = [t if t.dtype == dtype else t.to(dtype) for t in parts_in]
+    n_valid = sum(int(t.shape[0]) for t in parts_in)
+    n_shards = mesh.shape[DATA_AXIS]
+    per = shard_row_count(n_valid, n_shards)
+    tail = tuple(parts_in[0].shape[1:])
+    starts = np.cumsum([0] + [int(t.shape[0]) for t in parts_in])
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        lo, hi = i * per, (i + 1) * per
+        pieces = [
+            (t[max(lo, s0) - s0 : min(hi, s1) - s0], max(lo, s0) - lo)
+            for t, s0, s1 in zip(parts_in, starts[:-1], starts[1:])
+            if s0 < hi and s1 > lo
+        ]
+        if not from_host and len(pieces) == 1 and pieces[0][0].shape[0] == per and pieces[0][0].device == dev:
+            out.append(pieces[0][0].contiguous())
+            continue
+        block = torch.empty((per,) + tail, dtype=parts_in[0].dtype, device=dev)
+        filled = 0
+        for piece, at in pieces:
+            block[at : at + piece.shape[0]].copy_(piece)
+            filled = at + piece.shape[0]
+        if filled < per:
+            block[filled:].zero_()
+        out.append(block)
+    return out, n_valid

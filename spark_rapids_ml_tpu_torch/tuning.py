@@ -51,7 +51,7 @@ import torch
 
 from . import device as _device
 from . import profiling
-from .core import _is_live_spark, _TpuEstimator, _TpuModel
+from .core import _is_live_spark, _TpuEstimator, _TpuModel, gather_global_rows
 from .core import load as _load_any
 from .dataframe import DataFrame, as_dataframe, random_split_ids
 from .params import Param, Params, TypeConverters, _dummy
@@ -273,7 +273,7 @@ class CrossValidator(_ValidatorParams):
         for fold, models in enumerate(fold_models):
             rows = np.flatnonzero(fold_of == fold)
             blocks = (
-                (inputs.X[torch.from_numpy(ix).to(inputs.device)], labels[ix])
+                (gather_global_rows(inputs.X, ix, inputs.device), labels[ix])
                 for ix in np.array_split(rows, max(1, df.num_partitions))
                 if len(ix)
             )

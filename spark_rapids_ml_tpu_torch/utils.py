@@ -2,8 +2,9 @@
 # Shared utilities: logging, feature-block materialisation, row chunking.
 #
 # Counterpart of spark_rapids_ml_tpu/utils.py (this package's own copy).
-# Ingest copies each partition's block straight into its rows of one device
-# tensor (core._TpuCaller._build_fit_inputs) and every row loop takes a
+# Ingest copies each partition's block straight into its rows of the device
+# shards (core._TpuCaller._build_fit_inputs through parallel/mesh.shard_rows,
+# which also pads the rows to the shard count) and every row loop takes a
 # ragged last chunk, so the JAX package's host concat (_concat_and_free) and
 # row padding (pad_rows) have no caller here.
 #

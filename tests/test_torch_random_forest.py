@@ -6,7 +6,8 @@
 #     JAX suite's growth-equivalence contract (shallow nodes >= 0.97 equal,
 #     all nodes >= 0.85, accuracy or normalised MSE within 0.03);
 #   - weights carried across (attributes and JAX-saved directories), save ->
-#     load, and the limits of histogram growth.
+#     load, and the fits past the limits of histogram growth (the scatter
+#     engine, equal to the JAX estimator's forest).
 import numpy as np
 import pytest
 
@@ -158,12 +159,19 @@ def test_bootstrap_fit_learns():
     ],
 )
 def test_fits_outside_histogram_growth_raise(params, limit):
+    """A fit past one of the histogram builder's limits (`limit`) no longer
+    raises: it grows on the scatter engine (ops/forest.grow_forest), as the
+    JAX package's does, and equals the JAX estimator's forest node for node
+    (bootstrap off; integer class stats make every histogram sum exact, so
+    the 1-shard port and the 8-device JAX package agree bit for bit, all
+    five arrays)."""
     X = np.random.default_rng(0).standard_normal((64, 1100)).astype(np.float32)
     y = (X[:, 0] > 0).astype(np.float32)
-    est = port.RandomForestClassifier(numTrees=2, **params)
-    with pytest.raises(NotImplementedError, match=limit) as info:
-        est.fit(port.DataFrame.from_numpy(X, y))
-    assert "scatter engine" in str(info.value)
+    kw = dict(numTrees=2, bootstrap=False, seed=3, **params)
+    m = port.RandomForestClassifier(**kw).fit(port.DataFrame.from_numpy(X, y))
+    m_ref = ref.RandomForestClassifier(**kw).fit(RefDataFrame.from_numpy(X.astype(np.float64), y=y))
+    for name in ("features_", "thresholds_", "leaf_values_", "node_counts_", "impurities_"):
+        np.testing.assert_array_equal(getattr(m, name), np.asarray(getattr(m_ref, name)), err_msg=name)
 
 
 def test_missing_label_column_raises():
@@ -223,7 +231,7 @@ def test_only_unweighted_classifiers_declare_integer_stats(monkeypatch, kind):
         def weighted(self, inputs, df):
             real(self, inputs, df)
             inputs.host_w = np.full(inputs.n_rows, 0.5)
-            inputs.weight = inputs.weight * 0.5
+            inputs.weight = [w * 0.5 for w in inputs.weight]
 
         monkeypatch.setattr(type(est), "_add_labels_and_weights", weighted)
     est.fit(port.DataFrame.from_numpy(X, y))
