@@ -220,6 +220,37 @@
 #            tolerances; node_histograms_sharded (B3 on each of 4 card
 #            shards, one psum) bit for bit node_histograms over all rows
 #            and its plain version
+#   path_ann_mesh
+#            each ANN arm's fitted model (path_ann, path_ann_pq, path_ann_pq4)
+#            searched on use_device(["cuda:0"] * 4) right after its arm, on
+#            the arm's profiled 4,096 queries: the index list-sharded, each
+#            shard scoring its own probed lists (B9 / B10 at a count of 0
+#            for the others), the shards' k best merged by ann.probe_merge
+#            and one more B7.  Gates: ids and distance bits equal to the
+#            arm's one-shard results, recall@10 at the arm's gate, the 4-bit
+#            arm tiered (hot 0.5) bit for bit resident.  Records rows/s,
+#            stage seconds, the ann.select / ann.scan / ann.merge ranges of a
+#            profiled call of 1,024 queries, exchange calls and bytes, B7 /
+#            B9 / B10 launches, peak memory, and (flat) one shard's scoring
+#            launch in both tile designs.  Needs an ANN arm
+#   path_live_mesh
+#            path_stream's live-index script (10 adds of 10,000 rows,
+#            50,000 deletes, the repacking add) on a 4-shard holder of the
+#            same payload, right after the live index part: searches of
+#            2,048 queries before and after, and to_packed(), bit for bit the
+#            one-shard holder's; no deleted id; B1 11, B7 counted.  Needs
+#            path_stream
+#   path_umap_mesh
+#            path_umap's fit on 4 shards from its own kNN graph
+#            (precomputed_knn), right after its second fit: the embedding
+#            bit for bit path_umap's, 200 umap.layout_rows all-gathers.
+#            Needs path_umap
+#   ann_mesh_card_vs_cpu
+#            16,384 x 64 integer rows (nlist 64, nprobe 8, 256 queries): the
+#            flat, 8-bit and tiered 4-bit searches, a live index through an
+#            add / delete / repack script and a 20-epoch layout of 4,096
+#            rows on 4 card shards, 1 card shard and 8 CPU shards, bit for
+#            bit
 #   path_cv_linreg
 #            CrossValidator(LinearRegression(standardization=False)) over
 #            regParam geomspace(1e-3, 1, 4) x elasticNetParam {0, 0.5}, 3
@@ -374,9 +405,10 @@
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
 # path_knn_mesh; path_serve needs path; path_serve_lanes needs path_serve,
 # path, path_linreg, path_logreg and path_pca; path_fit_mesh needs path,
-# path_pca, path_linreg, path_logreg and path_rf_reg; the ANN, PCA, GLM,
-# mesh_card_vs_cpu, model-selection, UMAP and streaming phases need nothing
-# else).
+# path_pca, path_linreg, path_logreg and path_rf_reg; path_ann_mesh needs
+# an ANN arm, path_live_mesh path_stream, path_umap_mesh path_umap; the ANN,
+# PCA, GLM, mesh_card_vs_cpu, ann_mesh_card_vs_cpu, model-selection, UMAP
+# and streaming phases need nothing else).
 #
 # Imports neither jax, nor pandas, nor the JAX package.
 #
@@ -2643,7 +2675,9 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
           "distances not finite ascending, or an unfilled slot")
     check(np.array_equal(idx, idx2) and np.array_equal(dist, dist2), "the cached kneighbors call gave other results")
     profile_df = port.DataFrame.from_numpy(Q[:ANN_PROFILE_QUERIES], num_partitions=ANN_QUERY_PARTS)
-    profile = profile_run(torch, lambda: ann_rows(model, profile_df), ANN_PROFILE_RANGES, wrappers)
+    profiled = {}
+    profile = profile_run(torch, lambda: profiled.update(rows=ann_rows(model, profile_df)), ANN_PROFILE_RANGES,
+                          wrappers)
     profile["queries"] = ANN_PROFILE_QUERIES
     rec = {"index_bytes_per_item": model.index_bytes_per_item()}
     staged = model._staged_pq[1] if pq else model._staged_index[1]
@@ -2685,6 +2719,11 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
         rec["tiered_identical"] = True
     if keep is not None:
         keep[phase] = model
+        # path_ann_mesh holds the 4-shard search of the profiled call's
+        # queries against the profiled (one-shard) results
+        keep[f"{phase}_mesh_ref"] = {"rows": profiled["rows"], "exact_ids": i_ex, "profile": profile,
+                                     "kneighbors_rows_per_s": ANN_QUERIES / kneighbors_s,
+                                     "max_memory_allocated_bytes": peak_bytes}
     return {
         "phase": phase, "items": ANN_ITEMS, "cols": ANN_COLS, "queries": ANN_QUERIES, "k": ANN_K,
         "algorithm": algorithm, "algo_params": params, "rows_cut": False,
@@ -3851,10 +3890,11 @@ def umap_kernel_shapes(torch, kk, nc, knn_ops, dev, X_host, launch_q):
                                 "dist_max_abs_err_vs_plain_route": dist_err}}
 
 
-def run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev):
+def run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev, mesh_out=None):
     """Phase path_umap: the fit, its graph, layout and quality gates, the
     held-out transform, save -> load, a second fit bit for bit, B5 / B7 at
-    the self-join's shapes, and the bench arm's fit."""
+    the self-join's shapes, and the bench arm's fit.  With `mesh_out`,
+    path_umap_mesh runs after the second fit, its record put there."""
     from spark_rapids_ml_tpu_torch.ops import umap as umap_ops
 
     t0 = time.perf_counter()
@@ -3959,6 +3999,8 @@ def run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev):
     model2, fit2_s, phases2, _, launches2, _, _ = fit()
     check(np.array_equal(model2.embedding_, emb), "two fits differ")
     del model2, captured
+    if mesh_out is not None:
+        mesh_out["rec"] = umap_mesh_part(torch, port, wrappers, df, ids, dists, emb, phases)
 
     # B5 / B7 at the self-join's launch shape
     pool = -(-UMAP_ROWS // kk.GROUP) * knn_ops._scan_geometry(UMAP_K, UMAP_ROWS)[1]
@@ -4105,6 +4147,7 @@ STREAM_EVAL_ROWS, STREAM_EVAL_POINTS, STREAM_EVAL_SEED = 65536, (0.0, 1 / 3, 2 /
 # the live index on the ANN cell: 10 adds of 10,000 rows from the same
 # blobs, 50,000 deletes, one add that overflows L_pad (a repack)
 LIVE_ADDS, LIVE_ADD_ROWS, LIVE_DELETES, LIVE_SEED = 10, 10_000, 50_000, 43
+LIVE_MESH_QUERIES = 2048  # path_live_mesh: the searches before and after the script
 LIVE_SERVE_ADDS = 64  # path_serve: rows added through the streaming session after its refresh
 # stream_card_vs_cpu: 65,536 x 256 integer rows, each engine on the card
 # and under use_device("cpu"); the live index at nlist 256, nprobe 16
@@ -4293,14 +4336,17 @@ def stream_logreg_part(torch, port, wrappers, X, y):
     return rec
 
 
-def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X, Q, serve=None):
+def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X, Q, serve=None, mesh_ref=None):
     """The live index on the ANN cell (items X, queries Q): fit,
     mutable_index(), kneighbors of the 16,384 queries, 10 adds of 10,000
     rows (B1 once each), 50,000 deletes (checked on 2,048 queries: no
     deleted id, B7 against lex_topk on the tombstoned pool), one add
     overflowing L_pad (a repack), kneighbors of the 16,384 queries again;
     then recall@10 against exactSearch over the frozen live set, and freeze
-    -> save -> load identical."""
+    -> save -> load identical.  With `mesh_ref` (path_live_mesh), the
+    script's inputs, the holder's searches of LIVE_MESH_QUERIES queries
+    before and after it and its to_packed() after it are put there, outside
+    the counted window."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(LIVE_SEED)
     centers = 10.0 * np.random.default_rng(ANN_SEED).standard_normal((max(32, ANN_NLIST), ANN_COLS), dtype=np.float32)
@@ -4313,9 +4359,13 @@ def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X,
     model = port.ApproximateNearestNeighbors(k=ANN_K, algorithm="ivfflat", algoParams=dict(_ANN_BASE)).fit(
         port.DataFrame.from_numpy(X, num_partitions=ANN_ITEM_PARTS))
     fit_s = time.perf_counter() - t0
+    if mesh_ref is not None:
+        mesh_ref["packed"] = model._packed()
     holder, stage_s = synced(torch, model.mutable_index)
     rec = {"items": ANN_ITEMS, "queries": ANN_QUERIES, "k": ANN_K, "fit_s": fit_s, "stage_s": stage_s,
            "data_gen_s": gen_s, "l_pad_before": holder.stats()["l_pad"]}
+    if mesh_ref is not None:
+        mesh_ref["before"] = holder.search(Q[:LIVE_MESH_QUERIES], ANN_K, ANN_NPROBE)
     torch.cuda.synchronize()
     reset_launches(wrappers)
     port.profiling.reset_counters("ann.mutate.")
@@ -4349,6 +4399,9 @@ def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X,
     rec["kneighbors_rows_per_s_after"] = ANN_QUERIES / after_s
     rec["launches"] = launches = read_launches(wrappers)
     rec["counters"] = port.profiling.counters("ann.mutate.")
+    if mesh_ref is not None:
+        mesh_ref.update(adds=adds, deleted=deleted, burst=burst, burst_ids=burst_ids, one_shard=dict(rec),
+                        after=holder.search(Q[:LIVE_MESH_QUERIES], ANN_K, ANN_NPROBE), packed_after=holder.to_packed())
     check(launches["min_dist_argmin"] == LIVE_ADDS + 1, f"the adds launched min_dist_argmin {launches}")
     check(launches["knn_fused_merge"] > 0, "the live searches launched knn_fused_merge no time")
     check(not np.isin(idx1, deleted).any(), "a deleted id came back after the repack")
@@ -5609,6 +5662,306 @@ def mesh_card_vs_cpu(torch, port, wrappers, fh):
             "seconds": time.perf_counter() - t_start}
 
 
+# ---------------------------------------------------------------------------
+# ANN, the live index and the UMAP layout on a mesh: four shards of the one
+# card
+# ---------------------------------------------------------------------------
+
+# path_ann_mesh: each ANN arm's fitted model searched on use_device(["cuda:0"]
+# * 4) (num_workers 4: the index list-sharded, each shard scoring its own
+# probed lists, the shards' k best merged by ann.probe_merge and one more B7)
+# on the profiled call's ANN_PROFILE_QUERIES queries, right after the arm,
+# bit for bit the arm's one-shard results of those queries; the recall@10
+# gates on the first ANN_CHECK_QUERIES; the 4-bit arm also tiered (hot 0.5)
+# bit for bit resident.  The flat arm also times one scoring launch of a
+# shard in both tile designs (ann/ivfflat.py header): the one-shard tile
+# shape (non-owned probes masked, what the port runs) and a tile compacted
+# to the shard's own probes, and counts their differing owned values.
+# path_live_mesh: path_stream's live-index script (its adds, deletes and
+# overflowing add) on a 4-shard holder of the same payload, its searches of
+# LIVE_MESH_QUERIES queries before and after and its to_packed() bit for bit
+# the one-shard holder's.  path_umap_mesh: path_umap's fit on 4 shards from
+# path_umap's graph (precomputed_knn), bit for bit path_umap's embedding.
+# ann_mesh_card_vs_cpu: integer rows (quarter-step codebooks), the flat,
+# 8-bit and tiered 4-bit searches, a live index through an add / delete /
+# repack script and a 20-epoch layout on 4 card shards, 1 card shard and 8
+# CPU shards, bit for bit.
+ANN_MESH_PHASES = ("path_ann_mesh", "path_live_mesh", "path_umap_mesh", "ann_mesh_card_vs_cpu")
+ANN_TILE_REPS = 5
+# cut for the time limit: the 4-shard profiled call takes the first 1,024
+# queries (its trace is 4 shards' launches), the tiered 4-bit check the
+# first partition of the profiled call's queries
+ANN_MESH_PROFILE_QUERIES = 1024
+AMC_ROWS, AMC_COLS, AMC_BLOBS, AMC_QUERIES, AMC_NLIST, AMC_NPROBE, AMC_K = 16_384, 64, 64, 256, 64, 8, 10
+AMC_M, AMC_ADD_ROWS, AMC_DELETES, AMC_SEED = 8, 512, 1000, 11
+AMC_UMAP_ROWS, AMC_UMAP_EPOCHS = 4096, 20
+AMC_CONFIGS = (("card_4_shards", MESH_DEVICES), ("card_1_shard", ("cuda:0",)), ("cpu_8_shards", ("cpu",) * 8))
+
+
+def same_bits(a, b):
+    """Ids or distances equal bit for bit (float arrays compared as words)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def flat_tile_designs(torch, ivf, index, Q, dev):
+    """One scoring launch (the sweep's rows scored at once) of shard 0 of a
+    4-shard flat index in both tile designs: the one-shard tile shape with
+    the other shards' probes masked (the port's), and a tile compacted to
+    the shard's own probes (width the most any row owns).  Times both, and
+    counts the owned candidates whose d2 bits differ between them."""
+    _, rows = ivf.sweep_geometry(ANN_PROFILE_QUERIES, ANN_NPROBE * index.l_pad, ivf.flat_tile_bytes(index, ANN_NPROBE))
+    qb = torch.from_numpy(Q[:rows]).to(dev)
+    qn, d2p, probes = ivf.select_probes(qb, index.centroids[0], index.c_norm[0], ANN_NPROBE)
+    owned = probes < index.lps  # shard 0's lists
+    local = probes.clamp(0, index.lps - 1)
+    width = int(owned.sum(dim=1).max())
+    order = torch.argsort((~owned).to(torch.int8), dim=1, stable=True)[:, :width]
+    compact = local.gather(1, order)
+    scores = ivf._flat_block_scorer(qb, qn, d2p, None)
+    planes, sl = index.shard_planes(0), slice(0, rows)
+    full_d2, compact_d2 = scores(planes, local, sl), scores(planes, compact, sl)
+    keep = owned.gather(1, order)
+    differ = int((full_d2.gather(1, order[:, :, None].expand(-1, -1, index.l_pad)).view(torch.int32)
+                  != compact_d2.view(torch.int32))[keep].sum())
+    return {"rows": rows, "probes": ANN_NPROBE, "owned_width": width, "owned_probes": int(owned.sum()),
+            "full_ms": median_ms(torch, lambda: scores(planes, local, sl), ANN_TILE_REPS),
+            "compact_ms": median_ms(torch, lambda: scores(planes, compact, sl), ANN_TILE_REPS),
+            "owned_values_differing": differ}
+
+
+def ann_mesh_arm(torch, port, ivf, wrappers, phase, model, Q, ref, dev):
+    """One ANN arm's model searched on 4 shards of the card (path_ann_mesh's
+    header): staging, a timed and a profiled call of the profiled queries,
+    the launch and exchange counters of the timed call, its peak memory, and
+    the gates."""
+    from spark_rapids_ml_tpu_torch.device import use_device
+
+    algorithm, params, gate = ANN_ARMS[phase]
+    pq, fast = algorithm == "ivfpq", params.get("n_bits") == 4
+    df = port.DataFrame.from_numpy(Q[:ANN_PROFILE_QUERIES], num_partitions=ANN_QUERY_PARTS)
+    want_i, want_d = ref["rows"]
+    rec = {"queries": ANN_PROFILE_QUERIES, "shards": MESH_SHARDS}
+    with use_device(list(MESH_DEVICES)):
+        check(model.num_workers == MESH_SHARDS, f"the model's num_workers is {model.num_workers}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["index_bytes_per_item"], rec["stage_s"] = synced(torch, model.index_bytes_per_item)
+        staged = model._staged_pq[1] if pq else model._staged_index[1]
+        check(staged.mesh.size == MESH_SHARDS, f"staged on {staged.mesh.size} shards")
+        rec["shard_lists"] = [int(t.shape[0]) for t in (staged.codes if pq else staged.list_data)]
+        reset_launches(wrappers)
+        port.profiling.reset_counters("exchange.")
+        (idx, dist), seconds = synced(torch, lambda: ann_rows(model, df))
+        rec["launches"] = launches = read_launches(wrappers)
+        rec["exchange"] = port.profiling.counters("exchange.ann.")
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["kneighbors_s"], rec["kneighbors_rows_per_s"] = seconds, ANN_PROFILE_QUERIES / seconds
+        profile_df = port.DataFrame.from_numpy(Q[:ANN_MESH_PROFILE_QUERIES])
+        t0 = time.perf_counter()
+        rec["profile"] = profile_run(torch, lambda: ann_rows(model, profile_df), ANN_PROFILE_RANGES, wrappers)
+        rec["profile"].update(queries=ANN_MESH_PROFILE_QUERIES, wall_s=time.perf_counter() - t0)
+        if fast:
+            # the resident call's first partition, in one partition
+            half = ANN_PROFILE_QUERIES // ANN_QUERY_PARTS
+            model.setAlgoParams(dict(params, hot_fraction=ANN_HOT_FRACTION))
+            (i_t, d_t), rec["tiered_s"] = synced(torch, lambda: ann_rows(model, port.DataFrame.from_numpy(Q[:half])))
+            rec["tier"] = model._staged_pq[1].tier.stats()
+            rec["tiered_queries"] = half
+            model.setAlgoParams(params)
+            check(same_bits(i_t, idx[:half]) and same_bits(d_t, dist[:half]),
+                  "the tiered 4-shard search differs from the resident one")
+            check(rec["tier"]["shards"] == MESH_SHARDS and rec["tier"]["misses"] > 0, f"tier {rec['tier']}")
+        if not pq:
+            rec["tile_designs"] = flat_tile_designs(torch, ivf, model._staged_index[1], Q, dev)
+    check(launches["knn_fused_merge"] > 0, f"{phase} on 4 shards launched knn_fused_merge no time")
+    for name, used in (("lut_accumulate_probed", pq and not fast), ("fastscan_lut_accumulate_probed", pq and fast)):
+        check((launches[name] > 0) == used, f"{phase} on 4 shards launched {name} {launches[name]} times")
+    calls = rec["exchange"].get("exchange.ann.probe_merge.calls", 0)
+    check(calls > 0 and calls % 2 == 0, f"ann.probe_merge ran {calls} times")
+    check(same_bits(idx, want_i) and same_bits(dist, want_d), f"{phase}: 4 shards differ from one shard")
+    rec["bit_for_bit_one_shard"] = True
+    rec["recall_at_10"] = ivf.recall_at_k(idx[:ANN_CHECK_QUERIES, :10], ref["exact_ids"][:, :10])
+    check(rec["recall_at_10"] >= gate, f"{phase} on 4 shards: recall@10 {rec['recall_at_10']} < {gate}")
+    rec["one_shard"] = {"kneighbors_rows_per_s": ref["kneighbors_rows_per_s"], "queries": ANN_QUERIES,
+                        "profile": ref["profile"], "max_memory_allocated_bytes": ref["max_memory_allocated_bytes"]}
+    return rec
+
+
+def run_ann_mesh_path(parts, seconds):
+    launches = {name: sum(p["launches"][name] for p in parts.values())
+                for name in ("knn_fused_merge", "lut_accumulate_probed", "fastscan_lut_accumulate_probed")}
+    return {"phase": "path_ann_mesh", "shards": MESH_SHARDS, "devices": list(MESH_DEVICES),
+            "queries": ANN_PROFILE_QUERIES, "rows_cut": True, "seconds": sum(seconds.values()),
+            "part_seconds": seconds, "launches": launches, "parts": parts}
+
+
+def live_mesh_part(torch, port, wrappers, ref, Q):
+    """Phase path_live_mesh (its header above): path_stream's live-index
+    script on a 4-shard holder, gated against the one-shard holder's."""
+    from spark_rapids_ml_tpu_torch.ann.mutable import MutableIVFIndex
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
+
+    t_start = time.perf_counter()
+    Qm = Q[:LIVE_MESH_QUERIES]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    holder, stage_s = synced(torch, lambda: MutableIVFIndex(ref["packed"], Mesh(MESH_DEVICES)))
+    check(holder.index.mesh.size == MESH_SHARDS, "the holder is not on 4 shards")
+    reset_launches(wrappers)
+    port.profiling.reset_counters("ann.mutate.")
+    port.profiling.reset_counters("exchange.")
+    (d0, i0), before_s = synced(torch, lambda: holder.search(Qm, ANN_K, ANN_NPROBE))
+    add_s = []
+    for j in range(LIVE_ADDS):
+        rows = slice(j * LIVE_ADD_ROWS, (j + 1) * LIVE_ADD_ROWS)
+        _, s = synced(torch, lambda: holder.add_items(ref["adds"][rows], ANN_ITEMS + np.arange(rows.start, rows.stop)))
+        add_s.append(s)
+    n_del, delete_s = synced(torch, lambda: holder.delete_items(ref["deleted"]))
+    _, repack_add_s = synced(torch, lambda: holder.add_items(ref["burst"], ref["burst_ids"]))
+    stats = holder.stats()
+    (d1, i1), after_s = synced(torch, lambda: holder.search(Qm, ANN_K, ANN_NPROBE))
+    launches = read_launches(wrappers)
+    rec = {"phase": "path_live_mesh", "shards": MESH_SHARDS, "queries": LIVE_MESH_QUERIES, "stage_s": stage_s,
+           "add_s": add_s, "add_rows_per_s": LIVE_ADDS * LIVE_ADD_ROWS / sum(add_s), "delete_s": delete_s,
+           "repack_add_s": repack_add_s, "burst_rows": int(len(ref["burst_ids"])), "stats_after": stats,
+           "kneighbors_rows_per_s_before": LIVE_MESH_QUERIES / before_s,
+           "kneighbors_rows_per_s_after": LIVE_MESH_QUERIES / after_s, "launches": launches,
+           "counters": port.profiling.counters("ann.mutate."), "exchange": port.profiling.counters("exchange.ann."),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "one_shard": {k: ref["one_shard"][k] for k in ("add_rows_per_s", "delete_s", "repack_add_s", "stage_s")}}
+    check(n_del == LIVE_DELETES, f"{n_del} of {LIVE_DELETES} deletes on 4 shards")
+    check(stats["repacks"] == 1 and stats["tombstoned"] == 0, f"the overflowing add did not repack: {stats}")
+    check(launches["min_dist_argmin"] == LIVE_ADDS + 1, f"the 4-shard adds launched min_dist_argmin {launches}")
+    check(launches["knn_fused_merge"] > 0, "the 4-shard searches launched knn_fused_merge no time")
+    for name, got, want in (("before", (d0, i0), ref["before"]), ("after", (d1, i1), ref["after"])):
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+              f"the 4-shard holder's search {name} the script differs from the one-shard holder's")
+    check(not np.isin(i1, ref["deleted"]).any(), "a deleted id came back from the 4-shard holder")
+    got, want = holder.to_packed(), ref["packed_after"]
+    check(all(same_bits(getattr(got, f), getattr(want, f)) for f in ("items", "ids", "counts", "centroids"))
+          and got.n_items == want.n_items, "the 4-shard holder's to_packed() differs from the one-shard holder's")
+    rec["bit_for_bit_one_shard"] = True
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def umap_mesh_part(torch, port, wrappers, df, ids, dists, emb, one_phases):
+    """Phase path_umap_mesh (its header above): path_umap's fit on 4 shards
+    from its graph, bit for bit its embedding."""
+    from spark_rapids_ml_tpu_torch.device import use_device
+
+    est = port.UMAP(**UMAP_PARAMS, precomputed_knn=(ids, dists))
+    port.clear_fit_cache()
+    port.profiling.reset_phase_times()
+    port.profiling.reset_counters("exchange.")
+    port.profiling.reset_counters("umap.")
+    reset_launches(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with use_device(list(MESH_DEVICES)):
+        check(est.num_workers == MESH_SHARDS, f"the estimator's num_workers is {est.num_workers}")
+        model, fit_s = synced(torch, lambda: est.fit(df))
+    phases = port.profiling.phase_times()
+    exchange = port.profiling.counters("exchange.umap.")
+    n_pad = -(-UMAP_ROWS // 64) * 64
+    check(exchange.get("exchange.umap.layout_rows.calls") == UMAP_PARAMS["n_epochs"],
+          f"umap.layout_rows ran {exchange.get('exchange.umap.layout_rows.calls')} times")
+    check(exchange.get("exchange.umap.layout_rows.bytes") == UMAP_PARAMS["n_epochs"] * (n_pad // MESH_SHARDS) * 2 * 4,
+          f"umap.layout_rows moved {exchange.get('exchange.umap.layout_rows.bytes')} bytes")
+    check(same_bits(model.embedding_, emb), "the 4-shard UMAP fit differs from path_umap's embedding")
+    port.clear_fit_cache()
+    return {"phase": "path_umap_mesh", "shards": MESH_SHARDS, "rows": UMAP_ROWS, "params": UMAP_PARAMS,
+            "fit_s": fit_s, "phases": phases, "layout_s": phases.get("umap.layout"),
+            "layout_s_one_shard": one_phases.get("umap.layout"),
+            "layout_epoch_ms": 1e3 * phases.get("umap.layout", 0.0) / UMAP_PARAMS["n_epochs"],
+            "exchange": exchange, "launches": read_launches(wrappers),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "bit_for_bit_one_shard": True}
+
+
+def ann_mesh_card_vs_cpu(torch, port, ivf, pq_mod, knn_ops, wrappers, dev):
+    """Phase ann_mesh_card_vs_cpu (its header above)."""
+    from spark_rapids_ml_tpu_torch.ann.mutable import MutableIVFIndex
+    from spark_rapids_ml_tpu_torch.ops import umap as umap_ops
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh, padded_row_count
+
+    t_start = time.perf_counter()
+    X, _ = integer_blob_rows(AMC_ROWS, AMC_COLS, AMC_BLOBS, AMC_SEED)
+    Q = X[:AMC_QUERIES]
+    ids = np.arange(AMC_ROWS, dtype=np.int64)
+    rng = np.random.default_rng(AMC_SEED)
+    adds = X[rng.integers(0, AMC_ROWS, AMC_ADD_ROWS)] + rng.integers(-1, 2, (AMC_ADD_ROWS, AMC_COLS)).astype(np.float32)
+    deleted = rng.choice(AMC_ROWS, AMC_DELETES, replace=False)
+    # the payloads, trained on the card, their centroids on the integer grid
+    # and the codebooks on the quarter grid: every distance exact
+    flat = ivf.build_ivfflat_packed(X, ids, AMC_NLIST, seed=0, device=dev)
+    flat.centroids = np.round(flat.centroids).astype(np.float32)
+    pqs = {}
+    for bits in (8, 4):
+        p = pq_mod.build_ivfpq_packed(X, ids, AMC_NLIST, m_sub=AMC_M, n_bits=bits, seed=0, device=dev)
+        p.centroids = np.round(p.centroids).astype(np.float32)
+        p.codebooks = (np.round(p.codebooks * 4) / 4).astype(np.float32)
+        pqs[bits] = p
+    # one layout from one graph, assembled on the card
+    Xu = torch.from_numpy(X[:AMC_UMAP_ROWS]).to(dev)
+    k_d, k_i = knn_ops.knn_search_prepared(knn_ops.prepare_items(Xu, np.arange(AMC_UMAP_ROWS), dev), Xu, UMAP_K)
+    i_t = torch.from_numpy(k_i).to(dev)
+    W = umap_ops._calibrated_weights(i_t, torch.from_numpy(k_d).to(dev), 1.0, 1.0)
+    n_pad = padded_row_count(AMC_UMAP_ROWS)
+    tails, w = (t.cpu() for t in umap_ops.build_head_layout_device(i_t, W, n_pad, AMC_UMAP_EPOCHS))
+    init = umap_ops._random_init(1, n_pad, 2, dev).cpu()
+    a, b = umap_ops.find_ab_params(1.0, 0.1)
+    out, seconds, launches = {}, {}, {}
+    for name, devs in AMC_CONFIGS:
+        mesh = Mesh(devs)
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        r = {"flat": ivf.ivfflat_search_prepared(ivf.index_from_packed(flat, mesh), Q, AMC_K, AMC_NPROBE),
+             "pq8": pq_mod.ivfpq_search_prepared(pq_mod.index_from_packed_pq(pqs[8], mesh), Q, AMC_K, AMC_NPROBE,
+                                                 refine_items=pqs[8].items, refine_ratio=4),
+             "pq4_tiered": pq_mod.ivfpq_search_prepared(
+                 pq_mod.tiered_index_from_packed_pq(pqs[4], ANN_HOT_FRACTION, mesh), Q, AMC_K, AMC_NPROBE,
+                 refine_items=pqs[4].items, refine_ratio=8)}
+        holder = MutableIVFIndex(flat, mesh)
+        holder.add_items(adds, AMC_ROWS + np.arange(AMC_ADD_ROWS))
+        holder.delete_items(deleted)
+        holder.repack()
+        r["live_search"] = holder.search(Q, AMC_K, AMC_NPROBE)
+        packed = holder.to_packed()
+        r["live_packed"] = (packed.items, packed.ids, packed.counts)
+        r["layout"] = umap_ops.optimize_layout_sharded(
+            init.to(devs[0]), tails.to(devs[0]), w.to(devs[0]), AMC_UMAP_ROWS, mesh, a, b, AMC_UMAP_EPOCHS, 1.0, 1.0,
+            5, 1).cpu().numpy()
+        if name != "cpu_8_shards":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = read_launches(wrappers)
+        out[name] = r
+    base = out["card_1_shard"]
+    equal = {}
+    for name in ("card_4_shards", "cpu_8_shards"):
+        for key, want in base.items():
+            got = out[name][key]
+            if isinstance(want, tuple):
+                same = len(got) == len(want) and all(same_bits(g, v) for g, v in zip(got, want))
+            else:
+                same = same_bits(got, want)
+            equal[f"{name}.{key}"] = same
+    check(all(equal.values()), f"4 card shards, 1 card shard and 8 CPU shards differ: {equal}")
+    for name in ("card_4_shards", "card_1_shard"):
+        used = launches[name]
+        check(used["knn_fused_merge"] > 0 and used["lut_accumulate_probed"] > 0
+              and used["fastscan_lut_accumulate_probed"] > 0 and used["min_dist_argmin"] > 0,
+              f"{name} launched a kernel of the path no time: {used}")
+    check(sum(launches["cpu_8_shards"].values()) == 0, "the CPU shards counted a launch")
+    return {"phase": "ann_mesh_card_vs_cpu", "rows": AMC_ROWS, "cols": AMC_COLS, "queries": AMC_QUERIES,
+            "nlist": AMC_NLIST, "nprobe": AMC_NPROBE, "k": AMC_K, "umap_rows": AMC_UMAP_ROWS,
+            "umap_epochs": AMC_UMAP_EPOCHS, "equal": equal, "seconds_by_config": seconds, "launches": launches,
+            "seconds": time.perf_counter() - t_start}
+
+
 def main():
     import argparse
 
@@ -5636,6 +5989,11 @@ def main():
     if "path_fit_mesh" in phases and not set(mesh_needs) <= set(phases):
         parser.error(f"path_fit_mesh fits each cell's estimator on 4 shards right after the path that makes its rows "
                      f"and holds it against that path's: add {sorted(set(mesh_needs) - set(phases))}")
+    for later, needs in (("path_live_mesh", "path_stream"), ("path_umap_mesh", "path_umap")):
+        if later in phases and needs not in phases:
+            parser.error(f"{later} replays {needs}'s script on 4 shards against its results: add {needs}")
+    if "path_ann_mesh" in phases and not set(ANN_ARMS) & set(phases):
+        parser.error(f"path_ann_mesh searches the fitted models of the ANN arms on 4 shards: add one of {list(ANN_ARMS)}")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -5700,7 +6058,7 @@ def main():
     # path_fit_mesh fits each cell on 4 shards right after its path, against
     # the path's model or reference (keep holds them until then)
     mesh_parts, mesh_s = ({}, {}) if "path_fit_mesh" in phases else (None, None)
-    keep = {} if serve is not None or mesh_parts is not None else None
+    keep = {} if serve is not None or mesh_parts is not None or "path_ann_mesh" in phases else None
 
     def mesh_part(name, fn, *args):
         t0 = time.perf_counter()
@@ -5828,18 +6186,34 @@ def main():
         X_ann, Q_ann = ann_data()
         emit({"phase": "ann_data", "items": ANN_ITEMS, "queries": ANN_QUERIES, "cols": ANN_COLS,
               "seconds": time.perf_counter() - t0})
+        ann_mesh, ann_mesh_s = {}, {}
         for phase in ann_phases:
             results[phase] = run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X_ann, Q_ann, dev,
                                          keep)
             emit(results[phase])
+            model = keep.pop(phase, None) if keep is not None else None
+            mesh_ref = keep.pop(f"{phase}_mesh_ref", None) if keep is not None else None
             served = SERVE_ANN_ARMS.get(phase) if serve is not None else None
             if served is not None:
-                serve.ann(served, keep.pop(phase), Q_ann)
-            elif keep is not None:
-                keep.pop(phase, None)
+                serve.ann(served, model, Q_ann)
+            if "path_ann_mesh" in phases:
+                # the arm's model on 4 shards, after its one-shard paths
+                t0 = time.perf_counter()
+                ann_mesh[phase] = ann_mesh_arm(torch, port, ivf, wrappers, phase, model, Q_ann, mesh_ref, dev)
+                ann_mesh_s[phase] = time.perf_counter() - t0
+                emit({"phase": "path_ann_mesh", "part": phase, "seconds": ann_mesh_s[phase], **ann_mesh[phase]})
+            del model, mesh_ref
+        if ann_mesh:
+            results["path_ann_mesh"] = run_ann_mesh_path(ann_mesh, ann_mesh_s)
+            emit({k: v for k, v in results["path_ann_mesh"].items() if k != "parts"})
         if "path_stream" in phases:
+            live_ref = {} if "path_live_mesh" in phases else None
             stream_parts["live_index"] = live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev,
-                                                         X_ann, Q_ann, serve)
+                                                         X_ann, Q_ann, serve, live_ref)
+            if live_ref is not None:
+                results["path_live_mesh"] = live_mesh_part(torch, port, wrappers, live_ref, Q_ann)
+                emit(results["path_live_mesh"])
+            del live_ref
         del X_ann, Q_ann
 
     if {"path_pca", "path_stream"} & set(phases):
@@ -5917,12 +6291,19 @@ def main():
     if "mesh_card_vs_cpu" in phases:
         results["mesh_card_vs_cpu"] = mesh_card_vs_cpu(torch, port, wrappers, fh)
         emit(results["mesh_card_vs_cpu"])
+    if "ann_mesh_card_vs_cpu" in phases:
+        results["ann_mesh_card_vs_cpu"] = ann_mesh_card_vs_cpu(torch, port, ivf, pq_mod, knn_ops, wrappers, dev)
+        emit(results["ann_mesh_card_vs_cpu"])
     if "cv_card_vs_cpu" in phases:
         results["cv_card_vs_cpu"] = cv_card_vs_cpu(torch, port, wrappers)
         emit(results["cv_card_vs_cpu"])
     if "path_umap" in phases:
-        results["path_umap"] = run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev)
+        umap_mesh = {} if "path_umap_mesh" in phases else None
+        results["path_umap"] = run_umap_path(torch, port, knn_ops, kk, nc, wrappers, dev, umap_mesh)
         emit(results["path_umap"])
+        if umap_mesh is not None:
+            results["path_umap_mesh"] = umap_mesh["rec"]
+            emit(results["path_umap_mesh"])
     if "umap_card_vs_cpu" in phases:
         emit(umap_card_vs_cpu(torch, port, knn_ops, dev))
     if "path_stream" in phases:
@@ -6085,6 +6466,18 @@ def summary(results, seconds):
         if row["name"] in ("node_histograms_mma", "node_histograms_atomic") and "mesh_card_vs_cpu" in results:
             # B3 once a shard through node_histograms_sharded
             row["launches_mesh"] = results["mesh_card_vs_cpu"]["node_histograms_sharded"]["launches"][row["name"]]
+        ann_mesh = {arm: part["launches"] for arm, part in results.get("path_ann_mesh", {}).get("parts", {}).items()}
+        if row["name"] in ("knn_fused_merge", "lut_accumulate_probed", "fastscan_lut_accumulate_probed") and ann_mesh:
+            # B7, B9 and B10 in the ANN arms' searches on 4 shards
+            row["launches_ann_mesh"] = {arm: launches[row["name"]] for arm, launches in ann_mesh.items()}
+        if row["name"] in ("min_dist_argmin", "knn_fused_merge") and "path_live_mesh" in results:
+            # B1 in the 4-shard live index's adds, B7 in its searches
+            row["launches_live_mesh"] = results["path_live_mesh"]["launches"][row["name"]]
+        amc = results.get("ann_mesh_card_vs_cpu", {}).get("launches")
+        if row["name"] in ("min_dist_argmin", "knn_fused_merge", "lut_accumulate_probed",
+                           "fastscan_lut_accumulate_probed") and amc:
+            row["launches_ann_mesh_card_vs_cpu"] = {cfg: launches[row["name"]] for cfg, launches in amc.items()
+                                                    if cfg.startswith("card")}
         if row["name"] == "min_dist_argmin" and "path_serve_lanes" in results:
             # B1 once per distinct lane of a multiplexed KMeans batch
             lanes_rec = results["path_serve_lanes"]
@@ -6095,8 +6488,8 @@ def summary(results, seconds):
 
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
-          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *CV_PHASES, *UMAP_PHASES,
-          *STREAM_PHASES, "path_serve", "path_serve_lanes"]
+          "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *ANN_MESH_PHASES,
+          *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

@@ -1,8 +1,9 @@
 #
-# Approximate nearest-neighbour engines on one device: IVF-Flat (ivfflat.py)
-# and IVF-PQ (pq.py), with tiered device / host residency of the list planes
-# (tier.py), and live add / delete / repack of a serving IVF-Flat index
-# (mutable.py).  Counterpart of spark_rapids_ml_tpu/ann.
+# Approximate nearest-neighbour engines on a device mesh (one device is the
+# one-shard mesh): IVF-Flat (ivfflat.py) and IVF-PQ (pq.py), list-sharded,
+# with tiered device / host residency of the list planes (tier.py), and live
+# add / delete / repack of a serving IVF-Flat index (mutable.py).
+# Counterpart of spark_rapids_ml_tpu/ann.
 #
 
 from .ivfflat import (

@@ -1,19 +1,31 @@
 #
-# IVF-Flat approximate nearest neighbours on one device.
+# IVF-Flat approximate nearest neighbours over a device mesh.
 #
 # Counterpart of spark_rapids_ml_tpu/ann/ivfflat.py:
 #
 #   build:  the port's k-means (ops/kmeans: k-means|| init + Lloyd) trains
-#           the coarse quantizer on a deterministic sample; list assignment
-#           is the nearest-center kernel (ops/nearest_center.min_dist_argmin,
-#           B1 on the card); the lists are laid out on the host as one dense
-#           (nlist_pad, L_pad, D) buffer, L_pad the pow2 bucket of the
-#           longest list, nlist_pad a multiple of 8.
-#   search: every query picks its nprobe nearest centroids, gathers the
-#           probed lists, computes the expanded-form distances
-#           ||q||^2 - 2 q.x + ||x||^2 on the gathered tile (torch.bmm, fp32,
-#           TF32 off) and keeps the k best by the lexicographic (d2, position)
-#           key.  probe_sweep is shared with the IVF-PQ search (pq.py).
+#           the coarse quantizer on a deterministic sample, on one device
+#           (the packed payload does not depend on the mesh); list
+#           assignment is the nearest-center kernel
+#           (ops/nearest_center.min_dist_argmin, B1 on the card); the lists
+#           are laid out on the host as one dense (nlist_pad, L_pad, D)
+#           buffer, L_pad the pow2 bucket of the longest list, nlist_pad a
+#           multiple of lcm(8, n_dev).
+#   stage:  the list planes are sharded on the list axis over the mesh's
+#           data axis (parallel/mesh.py: a sharded value is a list of
+#           per-shard tensors), shard s owning the whole lists
+#           [s * lps, (s + 1) * lps); the centroids and their norms are
+#           replicated.  Positions stay global (list * L_pad + slot), so a
+#           position means the same on every mesh.
+#   search: every query picks its nprobe nearest centroids (once, on shard
+#           0's device, and replicated), each shard scores the probed lists
+#           it owns -- the expanded-form distances ||q||^2 - 2 q.x + ||x||^2
+#           on the gathered tile (torch.bmm, fp32, TF32 off), every probe of
+#           another shard's list invalid (its count 0 there) -- and keeps its
+#           k best by the lexicographic (d2, position) key; one cross-shard
+#           merge (merge_shard_topk) gives the global k best.  probe_sweep is
+#           shared with the IVF-PQ search (pq.py).  One shard is the
+#           one-element case of the same code.
 #
 # The selection: the probe ids of each query are sorted ascending before the
 # gather, so the columns of the (Q, nprobe, L_pad) candidate pool rise with
@@ -24,18 +36,39 @@
 # the nprobe smallest d2 to the centroids, ties to the lower list id (a
 # stable sort; jax.lax.top_k's rule).
 #
+# Bits across meshes: every selection orders by the total (d2, position)
+# key, and every shard scores a tile of the one-shard shape (the probes of
+# other shards' lists gather a clamped local list and are masked), so a
+# candidate's d2 comes from the same reduction on every mesh and the N-shard
+# result is bit for bit the one-shard result.  The price on the flat route
+# is that each shard runs the whole block's distance products; the PQ
+# kernels skip every row past a probed list's count, so there a shard reads
+# only its own lists.
+#
+# The cross-shard merge (JAX merge_shard_topk): the fused merge (B7) takes
+# each shard's pool to its (Q, k) best; their -d2 values are read back from
+# the pool (B7 returns distances), the shards' (Q, k) blocks are stacked on
+# shard 0 by exchange.psum_merge_parts (section ann.probe_merge, one call
+# for the values and one for the positions), laid out shard after shard,
+# and one more B7 over the (Q, n_dev * k) pool selects the k best.  Shard s
+# owns lists below shard s + 1's and each block is in (d2, position) order,
+# so wherever values tie, the lower pool slot holds the lower position: B7's
+# tie rule is the lexicographic key.  Unfillable slots and tombstones carry
+# -inf and the sentinel position, and lose to every real candidate.
+#
 # stage_padded_layout / tiered_stage_padded_layout stage a padded host
 # layout as new device tensors (index_from_packed's second half, and the
 # live index's restage, ann/mutable.py); the live index's tombstones are
 # +inf norms, whose -inf pool values rank behind every live candidate.
 #
-# What does not carry over: the mesh (sharding, shard_map, the cross-shard
-# psum merge), the pow2 query-block buckets and the AOT executable cache
-# (XLA compile caching), warm_probe_kernels (nothing to compile here), and the
+# What does not carry over: shard_map (one process drives every shard, in
+# turn), the pow2 query-block buckets and the AOT executable cache (XLA
+# compile caching), warm_probe_kernels (nothing to compile here), and the
 # JAX package's tile budget, which gives a chunk of one query at the ANN
 # path's shapes: here a query block's candidate pool stays under _POOL_BYTES
-# and each gather under _TILE_BYTES, the last block ragged.  There is no environment switch;
-# tests shrink the two constants to exercise several blocks.
+# and each gather under _TILE_BYTES, the last block ragged.  There is no
+# environment switch; tests shrink the two constants to exercise several
+# blocks.
 #
 
 from __future__ import annotations
@@ -53,9 +86,13 @@ from ..ops.kmeans import lloyd_iterations, scalable_kmeans_pp_init
 from ..ops.knn import LEX_POS_SENTINEL
 from ..ops.knn_kernels import knn_fused_merge
 from ..ops.nearest_center import min_dist_argmin
+from ..parallel.exchange import psum_merge_parts, replicate
+from ..parallel.mesh import Mesh, as_mesh
 from ..utils import chunk_iter
 
-# nlist padding unit: the packed layout pads the list count to a multiple of 8
+# nlist padding unit: the packed layout pads the list count to a multiple of
+# 8, and staging to lcm(8, n_dev), so every mesh of up to 8 shards that
+# divides 8 sees the same padded geometry
 _LIST_ALIGN = 8
 # smallest per-list slot bucket (pow2 ladder floor)
 _MIN_LIST_SLOTS = 8
@@ -111,20 +148,24 @@ class PackedIVF:
 
 
 class IVFFlatIndex:
-    """Device-staged IVF-Flat index (the padded layout of a PackedIVF)."""
+    """Device-staged IVF-Flat index (the padded layout of a PackedIVF) on a
+    mesh.  Sharded fields are lists of per-shard tensors (shard s on
+    mesh.devices[s], its lists [s * lps, (s + 1) * lps)); replicated fields
+    are one tensor a shard."""
 
     __slots__ = (
-        "list_data", "list_norm", "counts", "centroids", "c_norm",
+        "mesh", "list_data", "list_norm", "counts", "centroids", "c_norm",
         "ids", "n_items", "n_lists", "nlist_pad", "l_pad", "dim",
     )
 
-    def __init__(self, list_data, list_norm, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad,
+    def __init__(self, mesh, list_data, list_norm, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad,
                  l_pad, dim):
-        self.list_data = list_data  # (nlist_pad, L_pad, D) f32
-        self.list_norm = list_norm  # (nlist_pad, L_pad) f32 ||x||^2
-        self.counts = counts        # (nlist_pad,) int32
-        self.centroids = centroids  # (nlist_pad, D) f32, pad rows zero
-        self.c_norm = c_norm        # (nlist_pad,) f32, +inf in pad rows
+        self.mesh = mesh
+        self.list_data = list_data  # [(lps, L_pad, D) f32] a shard
+        self.list_norm = list_norm  # [(lps, L_pad) f32 ||x||^2] a shard
+        self.counts = counts        # [(nlist_pad,) int32] a shard: its own lists' counts, 0 elsewhere
+        self.centroids = centroids  # replicated (nlist_pad, D) f32, pad rows zero
+        self.c_norm = c_norm        # replicated (nlist_pad,) f32, +inf in pad rows
         self.ids = ids              # (nlist_pad * L_pad,) int64 HOST, -1 pads
         self.n_items = n_items
         self.n_lists = n_lists
@@ -133,15 +174,19 @@ class IVFFlatIndex:
         self.dim = dim
 
     @property
-    def planes(self):
-        return (self.list_data, self.list_norm)
+    def lps(self) -> int:
+        return self.nlist_pad // self.mesh.size
+
+    def shard_planes(self, s: int):
+        return (self.list_data[s], self.list_norm[s])
 
     def device_bytes(self) -> int:
         """Device-resident footprint of the staged index (ids stay on the
-        host): the numerator of index_bytes_per_item."""
+        host; a replicated field counted once): the numerator of
+        index_bytes_per_item."""
         return int(
-            self.list_data.nbytes + self.list_norm.nbytes
-            + self.counts.nbytes + self.centroids.nbytes + self.c_norm.nbytes
+            sum(t.nbytes for t in self.list_data) + sum(t.nbytes for t in self.list_norm)
+            + 4 * self.nlist_pad + self.centroids[0].nbytes + self.c_norm[0].nbytes
         )
 
 
@@ -152,13 +197,14 @@ class TieredIVFFlatIndex:
     never the arithmetic."""
 
     __slots__ = (
-        "tier", "counts", "centroids", "c_norm", "ids", "n_items",
+        "mesh", "tier", "counts", "centroids", "c_norm", "ids", "n_items",
         "n_lists", "nlist_pad", "l_pad", "dim", "hot_fraction",
     )
 
-    def __init__(self, tier, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad, l_pad, dim,
+    def __init__(self, mesh, tier, counts, centroids, c_norm, ids, n_items, n_lists, nlist_pad, l_pad, dim,
                  hot_fraction):
-        self.tier = tier            # TieredListPlanes over [data, norms]
+        self.mesh = mesh
+        self.tier = tier            # TieredListPlanes over [data, norms], a pool a shard
         self.counts = counts
         self.centroids = centroids
         self.c_norm = c_norm
@@ -170,8 +216,12 @@ class TieredIVFFlatIndex:
         self.dim = dim
         self.hot_fraction = float(hot_fraction)
 
+    @property
+    def lps(self) -> int:
+        return self.nlist_pad // self.mesh.size
+
     def device_bytes(self) -> int:
-        return int(self.tier.device_bytes() + self.counts.nbytes + self.centroids.nbytes + self.c_norm.nbytes)
+        return int(self.tier.device_bytes() + 4 * self.nlist_pad + self.centroids[0].nbytes + self.c_norm[0].nbytes)
 
     def host_bytes(self) -> int:
         return self.tier.host_bytes()
@@ -288,12 +338,15 @@ def item_norms(data: np.ndarray) -> np.ndarray:
     return np.einsum("nd,nd->n", data.astype(np.float64), data.astype(np.float64)).astype(np.float32)
 
 
-def padded_layout_geometry(n_lists: int, counts: np.ndarray, l_pad: Optional[int] = None):
-    """(nlist_pad, counts padded to it, L_pad) of a packed list layout, L_pad
-    the pow2 bucket of the longest list unless given; raises when the given
-    L_pad cannot hold the longest list or the int32 positions would
-    overflow.  Shared by the flat and PQ layouts."""
-    nlist_pad = -(-max(n_lists, 1) // _LIST_ALIGN) * _LIST_ALIGN
+def padded_layout_geometry(n_lists: int, counts: np.ndarray, l_pad: Optional[int] = None,
+                           mesh: Optional[Mesh] = None):
+    """(nlist_pad, counts padded to it, L_pad) of a packed list layout on
+    `mesh` (nlist_pad a multiple of lcm(8, n_dev); one shard without a
+    mesh), L_pad the pow2 bucket of the longest list unless given; raises
+    when the given L_pad cannot hold the longest list or the int32
+    positions would overflow.  Shared by the flat and PQ layouts."""
+    mult = math.lcm(_LIST_ALIGN, mesh.size if mesh is not None else 1)
+    nlist_pad = -(-max(n_lists, 1) // mult) * mult
     padded = np.zeros(nlist_pad, np.int64)
     padded[: counts.shape[0]] = counts
     l_need = shape_bucket(int(max(padded.max(), 1)), lo=_MIN_LIST_SLOTS)
@@ -316,12 +369,13 @@ def padded_slots(counts: np.ndarray, l_pad: int) -> np.ndarray:
     return row_list * l_pad + (np.arange(int(offs[-1]), dtype=np.int64) - offs[row_list])
 
 
-def padded_host_layout(packed: PackedIVF, l_pad: Optional[int] = None):
-    """Expand a PackedIVF into the padded host layout: lists padded to
-    `l_pad` slots (default the pow2 slot bucket of the longest list), the
-    list axis to a multiple of 8.  Returns (data (nlist_pad * l_pad, D),
-    x_norm, ids_pad, counts int64, cpad, c_norm, nlist_pad, l_pad)."""
-    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts, l_pad)
+def padded_host_layout(packed: PackedIVF, l_pad: Optional[int] = None, mesh: Optional[Mesh] = None):
+    """Expand a PackedIVF into the padded host layout `mesh` stages: lists
+    padded to `l_pad` slots (default the pow2 slot bucket of the longest
+    list), the list axis to a multiple of lcm(8, n_dev).  Returns (data
+    (nlist_pad * l_pad, D), x_norm, ids_pad, counts int64, cpad, c_norm,
+    nlist_pad, l_pad)."""
+    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts, l_pad, mesh)
     d = packed.items.shape[1]
     flat = padded_slots(counts, l_pad)
     data = np.zeros((nlist_pad * l_pad, d), np.float32)
@@ -335,6 +389,32 @@ def padded_host_layout(packed: PackedIVF, l_pad: Optional[int] = None):
     return data, item_norms(data), ids_pad, counts, cpad, c_norm, nlist_pad, l_pad
 
 
+def shard_lists(plane: np.ndarray, mesh: Mesh) -> list:
+    """A host (nlist_pad, ...) list plane split on the list axis, each
+    shard's block a new tensor on its device."""
+    lps = plane.shape[0] // mesh.size
+    return [torch.from_numpy(plane[s * lps : (s + 1) * lps]).to(dev, copy=True) for s, dev in enumerate(mesh.devices)]
+
+
+def shard_counts(counts: np.ndarray, mesh: Mesh) -> list:
+    """Each shard's (nlist_pad,) int32 list counts: its own lists' counts and
+    0 for every other list, so a probe of another shard's list is empty
+    there."""
+    lps = counts.shape[0] // mesh.size
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        own = np.zeros(counts.shape[0], np.int32)
+        own[s * lps : (s + 1) * lps] = counts[s * lps : (s + 1) * lps]
+        out.append(torch.from_numpy(own).to(dev))
+    return out
+
+
+def replicated(a: np.ndarray, mesh: Mesh) -> list:
+    """A host array as one new tensor a shard (shards of one device share
+    it)."""
+    return replicate(torch.from_numpy(a).to(mesh.devices[0], copy=True), mesh.devices)
+
+
 def stage_padded_layout(
     data: np.ndarray,
     x_norm: np.ndarray,
@@ -346,19 +426,20 @@ def stage_padded_layout(
     l_pad: int,
     n_items: int,
     n_lists: int,
-    device: torch.device,
+    mesh,
 ) -> IVFFlatIndex:
-    """Upload a padded host layout as an IVFFlatIndex (the staging half of
-    index_from_packed, and the live index's full restage): new device
-    tensors, never views of the host arrays."""
+    """Upload a padded host layout as an IVFFlatIndex on `mesh` (a Mesh or
+    a device; the staging half of index_from_packed, and the live index's
+    full restage): new device tensors, never views of the host arrays, each
+    shard holding only its own lists."""
+    mesh = as_mesh(mesh)
     d = data.shape[1]
     with record_function("ann.stage"):
         return IVFFlatIndex(
-            list_data=torch.from_numpy(data).view(nlist_pad, l_pad, d).to(device, copy=True),
-            list_norm=torch.from_numpy(x_norm).view(nlist_pad, l_pad).to(device, copy=True),
-            counts=torch.from_numpy(counts.astype(np.int32)).to(device),
-            centroids=torch.from_numpy(cpad).to(device, copy=True),
-            c_norm=torch.from_numpy(c_norm).to(device, copy=True),
+            mesh=mesh,
+            list_data=shard_lists(data.reshape(nlist_pad, l_pad, d), mesh),
+            list_norm=shard_lists(x_norm.reshape(nlist_pad, l_pad), mesh),
+            counts=shard_counts(counts, mesh), centroids=replicated(cpad, mesh), c_norm=replicated(c_norm, mesh),
             ids=ids_pad, n_items=n_items, n_lists=n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
         )
 
@@ -380,49 +461,49 @@ def tiered_stage_padded_layout(
     l_pad: int,
     n_items: int,
     n_lists: int,
-    device: torch.device,
+    mesh,
     hot_fraction: float,
     pool_slots: Optional[int] = None,
 ) -> TieredIVFFlatIndex:
-    """stage_padded_layout's tiered twin: only `hot_fraction` of the lists
-    pinned in a device pool, the rest paged in on probe.  The tier's host
-    planes are views of `data` / `x_norm` (numpy arrays, or pinned tensors
-    on a CUDA device), so an edit of those arrays reaches every later
-    page-in."""
+    """stage_padded_layout's tiered twin: only `hot_fraction` of each
+    shard's lists pinned in its device pool, the rest paged in on probe.
+    The tier's host planes are views of `data` / `x_norm` (numpy arrays, or
+    pinned tensors on a CUDA device), so an edit of those arrays reaches
+    every later page-in."""
     from .tier import TieredListPlanes
 
+    mesh = as_mesh(mesh)
     d = data.shape[1]
     with record_function("ann.stage"):
         tier = TieredListPlanes(
             planes=[_plane(data, (nlist_pad, l_pad, d)), _plane(x_norm, (nlist_pad, l_pad))],
-            sentinels=[None, np.inf], counts=counts, device=device, hot_fraction=hot_fraction,
+            sentinels=[None, np.inf], counts=counts, device=mesh, hot_fraction=hot_fraction,
             pool_slots=pool_slots,
         )
         return TieredIVFFlatIndex(
-            tier=tier,
-            counts=torch.from_numpy(counts.astype(np.int32)).to(device),
-            centroids=torch.from_numpy(cpad).to(device, copy=True),
-            c_norm=torch.from_numpy(c_norm).to(device, copy=True),
-            ids=ids_pad, n_items=n_items, n_lists=n_lists, nlist_pad=nlist_pad, l_pad=l_pad, dim=d,
-            hot_fraction=hot_fraction,
+            mesh=mesh, tier=tier, counts=shard_counts(counts, mesh), centroids=replicated(cpad, mesh),
+            c_norm=replicated(c_norm, mesh), ids=ids_pad, n_items=n_items, n_lists=n_lists, nlist_pad=nlist_pad,
+            l_pad=l_pad, dim=d, hot_fraction=hot_fraction,
         )
 
 
-def index_from_packed(packed: PackedIVF, device: Optional[torch.device] = None) -> IVFFlatIndex:
-    """Stage a PackedIVF on the device (user ids stay on the host)."""
-    dev = device if device is not None else _device.resolve()
-    layout = padded_host_layout(packed)
-    return stage_padded_layout(*layout, packed.n_items, packed.n_lists, dev)
+def index_from_packed(packed: PackedIVF, mesh=None) -> IVFFlatIndex:
+    """Stage a PackedIVF on `mesh` (a Mesh, a device, or None: the entry
+    points' device); user ids stay on the host."""
+    mesh = as_mesh(mesh)
+    layout = padded_host_layout(packed, mesh=mesh)
+    return stage_padded_layout(*layout, packed.n_items, packed.n_lists, mesh)
 
 
 def tiered_index_from_packed(
-    packed: PackedIVF, hot_fraction: float, device: Optional[torch.device] = None, pool_slots: Optional[int] = None
+    packed: PackedIVF, hot_fraction: float, mesh=None, pool_slots: Optional[int] = None
 ) -> TieredIVFFlatIndex:
-    """index_from_packed with only `hot_fraction` of the lists pinned on the
-    device and the rest paged in from the host layout on probe."""
-    dev = device if device is not None else _device.resolve()
-    layout = padded_host_layout(packed)
-    return tiered_stage_padded_layout(*layout, packed.n_items, packed.n_lists, dev, hot_fraction, pool_slots)
+    """index_from_packed with only `hot_fraction` of each shard's lists
+    pinned on its device and the rest paged in from the host layout on
+    probe."""
+    mesh = as_mesh(mesh)
+    layout = padded_host_layout(packed, mesh=mesh)
+    return tiered_stage_padded_layout(*layout, packed.n_items, packed.n_lists, mesh, hot_fraction, pool_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -448,24 +529,31 @@ def effective_nprobe(index, nprobe: int) -> int:
     return int(max(1, min(nprobe, index.nlist_pad)))
 
 
-def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub_rows: int):
-    """The candidate pool of one query block: (values (rows, nprobe, L_pad)
-    float32 = -d2, -inf where invalid; positions (rows, nprobe, L_pad) int32
-    = list * L_pad + slot, _POS_SENTINEL where invalid), the probes of each
-    row in ascending list order.  block_scorer(qb, qn, d2p, counts), counts
-    (rows, nprobe) int32 the probed lists' item counts, returns a function
-    scores(planes, slots, rows) giving the d2 (c, nprobe, L_pad) of the
-    block's rows `rows` over the lists at the (c, nprobe) plane slots (any
-    value past a list's count); it is called on at most sub_rows rows at
-    once.  A tiered index scores
-    every group of the planner with the sub-block's full shapes and keeps
-    the group's rows, so a row's bits do not depend on the paging."""
-    dev = index.centroids.device
+def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub_rows: int, shard: int = 0,
+               sel=None):
+    """The candidate pool of one query block on shard `shard` of the
+    index's mesh: (values (rows, nprobe, L_pad) float32 = -d2, -inf where
+    invalid; positions (rows, nprobe, L_pad) int32 = list * L_pad + slot,
+    _POS_SENTINEL where invalid), the probes of each row in ascending list
+    order.  Only the shard's own probed lists are valid; the other probes
+    gather a clamped local list at the same shapes and are masked.  `qb` is
+    on the shard's device; `sel` is the block's select_probes there (None:
+    selected here).  block_scorer(qb, qn, d2p, counts), counts (rows,
+    nprobe) int32 the probed lists' item counts on the shard, returns a
+    function scores(planes, slots, rows) giving the d2 (c, nprobe, L_pad) of
+    the block's rows `rows` over the lists at the (c, nprobe) plane slots
+    (any value past a list's count); it is called on at most sub_rows rows
+    at once.  A tiered index scores every group of the planner with the
+    sub-block's full shapes and keeps the group's rows, so a row's bits do
+    not depend on the paging."""
+    dev = qb.device
     slot = torch.arange(index.l_pad, dtype=torch.int32, device=dev)
     inf = torch.tensor(float("inf"), device=dev)
     with record_function("ann.select"):
-        qn, d2p, probes = select_probes(qb, index.centroids, index.c_norm, nprobe)
-        counts = index.counts[probes]
+        if sel is None:
+            sel = select_probes(qb, index.centroids[shard], index.c_norm[shard], nprobe)
+        qn, d2p, probes = sel
+        counts = index.counts[shard][probes]
         valid = slot[None, None, :] < counts[:, :, None]
         pos = torch.where(valid, probes.to(torch.int32)[:, :, None] * index.l_pad + slot, _POS_SENTINEL)
         vals = torch.empty(pos.shape, dtype=torch.float32, device=dev)
@@ -473,13 +561,15 @@ def probe_pool(index, qb: torch.Tensor, nprobe: int, block_scorer: Callable, sub
     tier = getattr(index, "tier", None)
     with record_function("ann.scan"):
         if tier is None:
+            planes = index.shard_planes(shard)
+            local = (probes - shard * index.lps).clamp_(0, index.lps - 1)
             for sl in chunk_iter(qb.shape[0], sub_rows):
-                vals[sl] = -torch.where(valid[sl], scores(index.planes, probes[sl], sl), inf)
+                vals[sl] = -torch.where(valid[sl], scores(planes, local[sl], sl), inf)
         else:
             host_probes = probes.cpu().numpy()
             for sl in chunk_iter(qb.shape[0], sub_rows):
-                for s, e in tier.plan_groups(host_probes[sl]):
-                    planes, slot_map = tier.acquire(host_probes[sl][s:e].ravel())
+                for s, e in tier.plan_groups(host_probes[sl], shard):
+                    planes, slot_map = tier.acquire(host_probes[sl][s:e].ravel(), shard)
                     d2 = scores(planes, slot_map[probes[sl]], sl)
                     g = slice(sl.start + s, sl.start + e)
                     vals[g] = -torch.where(valid[g], d2[s:e], inf)
@@ -494,6 +584,32 @@ def sweep_geometry(n: int, width: int, tile_bytes_per_query: int) -> Tuple[int, 
     return block_rows, max(1, min(block_rows, _TILE_BYTES // max(1, tile_bytes_per_query)))
 
 
+def pool_values(vals: torch.Tensor, probes: torch.Tensor, pos: torch.Tensor, l_pad: int) -> torch.Tensor:
+    """The pool values (-d2) of the selected positions `pos` (rows, k) of a
+    (rows, nprobe, L_pad) pool (B7 returns distances, the merge needs the
+    values it ranked): column j * L_pad + slot, j the rank of the
+    position's list among the row's ascending probes; -inf at the
+    sentinel."""
+    real = pos != _POS_SENTINEL
+    p = torch.where(real, pos, 0).long()
+    j = torch.searchsorted(probes, (p // l_pad).contiguous()).clamp_(max=probes.shape[1] - 1)
+    v = vals.view(vals.shape[0], -1).gather(1, j * l_pad + p % l_pad)
+    return torch.where(real, v, float("-inf"))
+
+
+def merge_shard_topk(best_v, best_p, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-shard merge (module header): the shards' (rows, k) values
+    and positions stacked on shard 0 by exchange.psum_merge_parts (section
+    ann.probe_merge), laid out shard after shard, and one fused merge (B7)
+    over the (rows, n_dev * k) pool.  Returns (distances (rows, k), positions
+    (rows, k), _POS_SENTINEL where the distance is inf) on shard 0's
+    device."""
+    all_v = psum_merge_parts(best_v, section="ann.probe_merge")[0]
+    all_p = psum_merge_parts(best_p, section="ann.probe_merge")[0]
+    dist, fpos = knn_fused_merge(all_v.transpose(0, 1).contiguous(), all_p.transpose(0, 1).contiguous(), k)[:2]
+    return dist, torch.where(torch.isinf(dist), _POS_SENTINEL, fpos)
+
+
 def probe_sweep(
     index,
     q: torch.Tensor,
@@ -502,18 +618,36 @@ def probe_sweep(
     block_scorer: Callable,
     tile_bytes_per_query: int,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """The probed search of the flat and PQ indexes: host (distances (Q, k)
-    float32 ascending sqrt(max(d2, 0)), positions (Q, k) int32; unfillable
-    slots carry inf and _POS_SENTINEL).  Each block's pool (probe_pool) is
-    merged by knn_fused_merge (module header)."""
+    """The probed search of the flat and PQ indexes on the index's mesh:
+    host (distances (Q, k) float32 ascending sqrt(max(d2, 0)), positions
+    (Q, k) int32; unfillable slots carry inf and _POS_SENTINEL).  Each query
+    block's probes are selected once and replicated; each shard's pool
+    (probe_pool) is merged by knn_fused_merge to its k best, and the shards'
+    by merge_shard_topk (module header).  `q` is on shard 0's device."""
+    mesh = index.mesh
+    devs = mesh.devices
     block_rows, sub_rows = sweep_geometry(q.shape[0], nprobe * index.l_pad, tile_bytes_per_query)
+    qs = replicate(q, devs)
     out_d, out_p = [], []
     for blk in chunk_iter(q.shape[0], block_rows):
-        vals, pos = probe_pool(index, q[blk], nprobe, block_scorer, sub_rows)
-        with record_function("ann.merge"):
-            dist, fpos = knn_fused_merge(vals, pos, k)[:2]
-            out_d.append(dist)
-            out_p.append(torch.where(torch.isinf(dist), _POS_SENTINEL, fpos))
+        with record_function("ann.select"):
+            sel = select_probes(qs[0][blk], index.centroids[0], index.c_norm[0], nprobe)
+            sels = list(zip(*(replicate(t, devs) for t in sel)))
+        best_v, best_p = [], []
+        for s in range(mesh.size):
+            vals, pos = probe_pool(index, qs[s][blk], nprobe, block_scorer, sub_rows, s, sels[s])
+            with record_function("ann.merge"):
+                dist, fpos = knn_fused_merge(vals, pos, k)[:2]
+                fpos = torch.where(torch.isinf(dist), _POS_SENTINEL, fpos)
+                if mesh.size > 1:
+                    best_v.append(pool_values(vals, sels[s][2], fpos, index.l_pad))
+                    best_p.append(fpos)
+            del vals, pos
+        if mesh.size > 1:
+            with record_function("ann.merge"):
+                dist, fpos = merge_shard_topk(best_v, best_p, k)
+        out_d.append(dist)
+        out_p.append(fpos)
     return torch.cat(out_d).cpu().numpy(), torch.cat(out_p).cpu().numpy()
 
 
@@ -559,7 +693,7 @@ def ivfflat_search_prepared(index, queries, k: int, nprobe: int) -> Tuple[np.nda
     """Probed search of `queries` (host array or tensor) against a staged
     index: (distances (Q, k_eff) ascending euclidean float32, ids (Q, k_eff)
     int64, -1 in unfillable slots), k_eff = min(k, n_items)."""
-    q = to_device_queries(queries, index.dim, index.centroids.device)
+    q = to_device_queries(queries, index.dim, index.centroids[0].device)
     k_eff = min(k, index.n_items)
     if q.shape[0] == 0:
         return np.zeros((0, k_eff), np.float32), np.zeros((0, k_eff), np.int64)

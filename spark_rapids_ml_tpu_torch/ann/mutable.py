@@ -1,14 +1,18 @@
 #
 # Live IVF-Flat index mutation (srml-stream, the ann/ half).
 #
-# Counterpart of spark_rapids_ml_tpu/ann/mutable.py on one device.  A
-# serving IVF-Flat index changes in place:
+# Counterpart of spark_rapids_ml_tpu/ann/mutable.py, over a device mesh: the
+# index is list-sharded as ivfflat stages it (shard s owns the lists
+# [s * lps, (s + 1) * lps)), and the host mirrors stay whole.  A serving
+# IVF-Flat index changes in place:
 #
 #   add_items:    new rows go to their nearest coarse list through the same
 #                 nearest-center kernel that built the index (assign_nearest,
-#                 B1 on the card; range ann.mutate.assign, its blocks counted
-#                 in ann.mutate.assign_blocks) and into the free slots past
-#                 each list's count in the (nlist_pad, L_pad, D) layout;
+#                 B1 on the card, one pass on the mesh's first device; range
+#                 ann.mutate.assign, its blocks counted in
+#                 ann.mutate.assign_blocks) and into the free slots past
+#                 each list's count in the (nlist_pad, L_pad, D) layout, on
+#                 the list's owner shard;
 #   delete_items: a per-list tombstone bitmap; a tombstoned slot's stored
 #                 ||x||^2 becomes +inf, so its distance is +inf, its pool
 #                 value -inf, and it ranks behind every live candidate in the
@@ -24,18 +28,19 @@
 #   - a snapshot's counts, its norm plane after a delete, and its host id
 #     table are new objects at every swap (the JAX package's _stage /
 #     _swap_norms make them by device_put), so no later mutation edits them;
-#   - an add writes its rows and norms into the free slots of the current
-#     device planes in place (an index_copy_ of the new rows: the restage
-#     bytes of an add are its rows, not the plane).  Older snapshots share
-#     those planes, but their own counts mask every slot past them
-#     (probe_pool's valid), and the writes are queued on the device's stream
-#     before the swap, so a reader that takes the new snapshot launches after
-#     them;
-#   - a delete builds a new norm plane on the device (a copy of the current
-#     one with +inf at the deleted slots); the data plane is untouched;
-#   - a repack, and every add to a tiered index, stages new planes from the
-#     host mirrors off the readers' path; searches in flight finish on the
-#     old ones.
+#   - an add writes its rows and norms into the free slots of the owner
+#     shards' current device planes in place (an index_copy_ of the new
+#     rows: the restage bytes of an add are its rows, not the plane).  Older
+#     snapshots share those planes, but their own counts mask every slot
+#     past them (probe_pool's valid), and the writes are queued on each
+#     device's stream before the swap, so a reader that takes the new
+#     snapshot launches after them;
+#   - a delete builds a new norm plane on each shard it touches (a copy of
+#     the shard's current one with +inf at the deleted slots); the data
+#     planes and the other shards' norm planes are untouched;
+#   - a repack, and every add to a tiered index, stages new planes on every
+#     shard from the host mirrors off the readers' path; searches in flight
+#     finish on the old ones.
 # Tiered (hot_fraction < 1, ann/tier.py): the tier's host planes are the
 # holder's own mirrors (pinned on a CUDA device), so an edit reaches every
 # later page-in, and a delete re-pages the resident copies of the lists it
@@ -59,8 +64,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import device as _device
 from .. import profiling
+from ..parallel.mesh import as_mesh
 from .ivfflat import (
     _MIN_LIST_SLOTS,
     IVFFlatIndex,
@@ -71,33 +76,37 @@ from .ivfflat import (
     ivfflat_search_prepared,
     padded_host_layout,
     shape_bucket,
+    shard_counts,
     stage_padded_layout,
     tiered_stage_padded_layout,
 )
 
 
 class MutableIVFIndex:
-    """A PackedIVF staged on one device with live add / delete / repack.
+    """A PackedIVF staged on a mesh with live add / delete / repack.
 
     The host mirrors (padded data, norms, ids and counts, the tombstone
     bitmap and an id -> position map) are the source of truth; each
     mutation edits them, brings the device planes up to date (module
-    header) and swaps the snapshot readers search (`index`)."""
+    header) and swaps the snapshot readers search (`index`).  `mesh` is a
+    parallel.mesh.Mesh, a device (one shard), or None (the entry points'
+    device)."""
 
     def __init__(
         self,
         packed: PackedIVF,
-        device: Optional[torch.device] = None,
+        mesh=None,
         hot_fraction: float = 1.0,
         pool_slots: Optional[int] = None,
     ):
-        self._dev = torch.device(device) if device is not None else _device.resolve()
+        self._mesh = as_mesh(mesh)
+        self._dev = self._mesh.devices[0]
         self._hot_fraction = float(hot_fraction)
         self._pool_slots = pool_slots
         self._lock = threading.RLock()
         self._n_lists = packed.n_lists
         self._live = int(packed.n_items)
-        self._load_layout(padded_host_layout(packed))
+        self._load_layout(padded_host_layout(packed, mesh=self._mesh))
         # probe geometries the serving plane dispatches (register_warm);
         # their own lock, since noting one is on the read path
         self._spec_lock = threading.Lock()
@@ -111,6 +120,10 @@ class MutableIVFIndex:
         """The current snapshot: read without the lock (a reference read),
         so a search never waits for a mutation."""
         return self._index
+
+    @property
+    def mesh(self):
+        return self._mesh
 
     @property
     def n_items(self) -> int:
@@ -240,7 +253,7 @@ class MutableIVFIndex:
     # -- internals (lock held) ---------------------------------------------
     def _load_layout(self, layout: tuple) -> None:
         data, norms, self._ids, self._counts, self._cpad, self._c_norm, self._nlist_pad, self._l_pad = layout
-        if self._hot_fraction < 1.0 and self._dev.type == "cuda":
+        if self._hot_fraction < 1.0 and any(d.type == "cuda" for d in self._mesh.devices):
             # the tier pages from these arrays: pinned, and kept as tensors
             # so that the tier takes them as they are
             self._planes_host = []
@@ -260,7 +273,7 @@ class MutableIVFIndex:
     def _repack_locked(self, l_pad: Optional[int]) -> None:
         packed = self._to_packed_locked()
         new_l = l_pad or shape_bucket(int(max(packed.counts.max(), 1)), lo=_MIN_LIST_SLOTS)
-        self._load_layout(padded_host_layout(packed, l_pad=new_l))
+        self._load_layout(padded_host_layout(packed, l_pad=new_l, mesh=self._mesh))
         self._repacks += 1
         profiling.incr_counter("ann.mutate.repacks")
 
@@ -282,7 +295,7 @@ class MutableIVFIndex:
         """A new snapshot from the host mirrors (the id table copied: a
         snapshot's ids never change under a later mutation)."""
         common = (self._ids.copy(), self._counts, self._cpad, self._c_norm, self._nlist_pad, self._l_pad,
-                  self._live, self._n_lists, self._dev)
+                  self._live, self._n_lists, self._mesh)
         if self._hot_fraction < 1.0:
             idx = tiered_stage_padded_layout(*self._planes_host, *common, self._hot_fraction, self._pool_slots)
             profiling.incr_counter("ann.mutate.bytes", int(idx.tier.device_bytes()))
@@ -290,39 +303,54 @@ class MutableIVFIndex:
         profiling.incr_counter("ann.mutate.bytes", int(self._data.nbytes + self._norms.nbytes))
         return stage_padded_layout(self._data, self._norms, *common)
 
+    def _by_shard(self, pos: np.ndarray):
+        """(shard, the selection of `pos` it owns, those positions local to
+        the shard's planes) for every shard that owns one of the padded
+        positions `pos`."""
+        per_shard = self._nlist_pad // self._mesh.size * self._l_pad
+        owner = pos // per_shard
+        for s in np.unique(owner):
+            sel = owner == s
+            yield int(s), sel, pos[sel] - int(s) * per_shard
+
     def _append_rows(self, pos: np.ndarray, rows: np.ndarray, norms: np.ndarray) -> IVFFlatIndex:
         """The add path of a resident index: the new rows and norms written
-        into the current planes' free slots, a new counts tensor and id
-        table (module header)."""
+        into the owner shards' free slots, new counts tensors and id table
+        (module header)."""
         old = self._index
-        pos_t = torch.from_numpy(pos).to(self._dev)
-        old.list_data.view(-1, old.dim).index_copy_(0, pos_t, torch.from_numpy(rows).to(self._dev))
-        old.list_norm.view(-1).index_copy_(0, pos_t, torch.from_numpy(norms).to(self._dev))
-        counts = torch.from_numpy(self._counts.astype(np.int32)).to(self._dev)
-        profiling.incr_counter("ann.mutate.bytes", int(pos.nbytes + rows.nbytes + norms.nbytes + counts.nbytes))
+        for s, sel, local in self._by_shard(pos):
+            dev = self._mesh.devices[s]
+            pos_t = torch.from_numpy(local).to(dev)
+            old.list_data[s].view(-1, old.dim).index_copy_(0, pos_t, torch.from_numpy(rows[sel]).to(dev))
+            old.list_norm[s].view(-1).index_copy_(0, pos_t, torch.from_numpy(norms[sel]).to(dev))
+        counts = shard_counts(self._counts, self._mesh)
+        profiling.incr_counter("ann.mutate.bytes", int(pos.nbytes + rows.nbytes + norms.nbytes + 4 * self._nlist_pad))
         return IVFFlatIndex(
-            list_data=old.list_data, list_norm=old.list_norm, counts=counts, centroids=old.centroids,
-            c_norm=old.c_norm, ids=self._ids.copy(), n_items=self._live, n_lists=self._n_lists,
-            nlist_pad=self._nlist_pad, l_pad=self._l_pad, dim=old.dim,
+            mesh=self._mesh, list_data=old.list_data, list_norm=old.list_norm, counts=counts,
+            centroids=old.centroids, c_norm=old.c_norm, ids=self._ids.copy(), n_items=self._live,
+            n_lists=self._n_lists, nlist_pad=self._nlist_pad, l_pad=self._l_pad, dim=old.dim,
         )
 
     def _tombstone_rows(self, pos: np.ndarray):
-        """The delete path: a new norm plane with +inf at `pos` (tiered: the
-        touched lists' resident copies re-paged), and a new id table; the
-        data plane and counts carry over."""
+        """The delete path: a new norm plane with +inf at `pos` on each shard
+        it touches (tiered: the touched lists' resident copies re-paged),
+        and a new id table; the data planes, the other shards' norm planes
+        and the counts carry over."""
         old = self._index
         if isinstance(old, TieredIVFFlatIndex):
             old.tier.refresh(np.unique(pos // self._l_pad))
             return TieredIVFFlatIndex(
-                tier=old.tier, counts=old.counts, centroids=old.centroids, c_norm=old.c_norm, ids=self._ids.copy(),
-                n_items=self._live, n_lists=self._n_lists, nlist_pad=self._nlist_pad, l_pad=self._l_pad,
-                dim=old.dim, hot_fraction=self._hot_fraction,
+                mesh=self._mesh, tier=old.tier, counts=old.counts, centroids=old.centroids, c_norm=old.c_norm,
+                ids=self._ids.copy(), n_items=self._live, n_lists=self._n_lists, nlist_pad=self._nlist_pad,
+                l_pad=self._l_pad, dim=old.dim, hot_fraction=self._hot_fraction,
             )
-        norm = old.list_norm.clone()
-        norm.view(-1).index_fill_(0, torch.from_numpy(pos).to(self._dev), float("inf"))
+        norms = list(old.list_norm)
+        for s, _sel, local in self._by_shard(pos):
+            norms[s] = norms[s].clone()
+            norms[s].view(-1).index_fill_(0, torch.from_numpy(local).to(self._mesh.devices[s]), float("inf"))
         profiling.incr_counter("ann.mutate.bytes", int(pos.nbytes))
         return IVFFlatIndex(
-            list_data=old.list_data, list_norm=norm, counts=old.counts, centroids=old.centroids, c_norm=old.c_norm,
-            ids=self._ids.copy(), n_items=self._live, n_lists=self._n_lists, nlist_pad=self._nlist_pad,
-            l_pad=self._l_pad, dim=old.dim,
+            mesh=self._mesh, list_data=old.list_data, list_norm=norms, counts=old.counts, centroids=old.centroids,
+            c_norm=old.c_norm, ids=self._ids.copy(), n_items=self._live, n_lists=self._n_lists,
+            nlist_pad=self._nlist_pad, l_pad=self._l_pad, dim=old.dim,
         )

@@ -1,6 +1,6 @@
 #
-# IVF-PQ: residual product quantization on top of the IVF lists, on one
-# device.
+# IVF-PQ: residual product quantization on top of the IVF lists, over a
+# device mesh.
 #
 # Counterpart of spark_rapids_ml_tpu/ann/pq.py.  Each item is stored as m_sub
 # codes (one byte each, or two 4-bit codes a byte: fast-scan) plus one
@@ -26,13 +26,17 @@
 #           stored per item, and the per-query table T (m_sub, ksub) feeds
 #           the lookup-table kernels (ops/pq_kernels: B9 for one-byte codes,
 #           B10 fast-scan for n_bits = 4 and an even m_sub, both reading the
-#           probed lists' codes in place).  Selection is the flat search's
-#           (ivfflat.probe_sweep).
+#           probed lists' codes in place).  Selection, the list-sharded
+#           staging and the cross-shard merge are the flat search's
+#           (ivfflat.probe_sweep): on a mesh each shard passes a count of 0
+#           for the lists it does not own, so the kernels keep the
+#           one-shard launch shape and read only the shard's own codes.
 #   refine: the top k * refine_ratio ADC candidates are re-scored against
 #           the float32 vectors kept on the host (_refine_host, numpy: given
-#           the same candidates, bit for bit the JAX package's).
+#           the same candidates, bit for bit the JAX package's), once over
+#           the merged candidates.
 #
-# What does not carry over: the mesh, the AOT executable cache and
+# What does not carry over: shard_map, the AOT executable cache and
 # warm_pq_probe_kernels, the SRML_PQ_FASTSCAN escape hatch (fast-scan follows
 # from n_bits = 4 and an even m_sub alone), and the pow2 query chunks of
 # _pq_probe_chunk (ivfflat.probe_sweep sizes the blocks).
@@ -45,8 +49,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import device as _device
 from ..ops.pq_kernels import fastscan_lut_accumulate_probed, lut_accumulate_probed, pack_codes4
+from ..parallel.mesh import Mesh, as_mesh
 from .ivfflat import (
     _TRAIN_CAP,
     assign_nearest,
@@ -57,6 +61,9 @@ from .ivfflat import (
     padded_layout_geometry,
     padded_slots,
     probe_sweep,
+    replicated,
+    shard_counts,
+    shard_lists,
     to_device_queries,
     train_coarse_quantizer,
 )
@@ -285,24 +292,26 @@ def build_ivfpq_packed(
 
 
 class IVFPQIndex:
-    """Device-staged IVF-PQ index: m_sub bytes of codes (m_sub / 2 packed)
-    and 4 bytes of ADC scalar per item on the device."""
+    """Device-staged IVF-PQ index on a mesh: m_sub bytes of codes (m_sub / 2
+    packed) and 4 bytes of ADC scalar per item, list-sharded as the flat
+    index's planes (ivfflat.IVFFlatIndex); the small planes replicated."""
 
     __slots__ = (
-        "codes", "scalars", "counts", "centroids", "c_norm", "codebooks",
+        "mesh", "codes", "scalars", "counts", "centroids", "c_norm", "codebooks",
         "ids", "rows", "n_items", "n_lists", "nlist_pad", "l_pad",
         "dim", "d_pad", "m_sub", "dsub", "ksub", "n_bits", "fastscan",
         "rotation",
     )
 
-    def __init__(self, codes, scalars, counts, centroids, c_norm, codebooks, ids, rows, n_items, n_lists,
+    def __init__(self, mesh, codes, scalars, counts, centroids, c_norm, codebooks, ids, rows, n_items, n_lists,
                  nlist_pad, l_pad, dim, d_pad, m_sub, dsub, ksub, n_bits, fastscan=False, rotation=None):
-        self.codes = codes          # (nlist_pad, L_pad, m_bytes) uint8
-        self.scalars = scalars      # (nlist_pad, L_pad) f32 ADC scalars
-        self.counts = counts        # (nlist_pad,) int32
-        self.centroids = centroids  # (nlist_pad, d_pad) f32 (rotated under OPQ)
-        self.c_norm = c_norm        # (nlist_pad,) f32, +inf pad rows
-        self.codebooks = codebooks  # (m_sub, ksub, dsub) f32
+        self.mesh = mesh
+        self.codes = codes          # [(lps, L_pad, m_bytes) uint8] a shard
+        self.scalars = scalars      # [(lps, L_pad) f32 ADC scalars] a shard
+        self.counts = counts        # [(nlist_pad,) int32] a shard: its own lists' counts, 0 elsewhere
+        self.centroids = centroids  # replicated (nlist_pad, d_pad) f32 (rotated under OPQ)
+        self.c_norm = c_norm        # replicated (nlist_pad,) f32, +inf pad rows
+        self.codebooks = codebooks  # replicated (m_sub, ksub, dsub) f32
         self.ids = ids              # (nlist_pad * L_pad,) int64 HOST, -1 pads
         self.rows = rows            # (nlist_pad * L_pad,) int64 HOST packed row per slot, -1 pads
         self.n_items = n_items
@@ -319,16 +328,20 @@ class IVFPQIndex:
         self.rotation = rotation    # HOST (d_pad, d_pad) f32 or None
 
     @property
-    def planes(self):
-        return (self.codes, self.scalars)
+    def lps(self) -> int:
+        return self.nlist_pad // self.mesh.size
+
+    def shard_planes(self, s: int):
+        return (self.codes[s], self.scalars[s])
+
+    def _replicated_bytes(self) -> int:
+        return int(4 * self.nlist_pad + self.centroids[0].nbytes + self.c_norm[0].nbytes + self.codebooks[0].nbytes)
 
     def device_bytes(self) -> int:
         """Device-resident footprint (ids, rows and the refine payload stay
-        on the host)."""
-        return int(
-            self.codes.nbytes + self.scalars.nbytes + self.counts.nbytes
-            + self.centroids.nbytes + self.c_norm.nbytes + self.codebooks.nbytes
-        )
+        on the host; a replicated field counted once)."""
+        return int(sum(t.nbytes for t in self.codes) + sum(t.nbytes for t in self.scalars)
+                   + self._replicated_bytes())
 
 
 class TieredIVFPQIndex(IVFPQIndex):
@@ -344,22 +357,19 @@ class TieredIVFPQIndex(IVFPQIndex):
         self.hot_fraction = float(hot_fraction)
 
     def device_bytes(self) -> int:
-        return int(
-            self.tier.device_bytes() + self.counts.nbytes + self.centroids.nbytes
-            + self.c_norm.nbytes + self.codebooks.nbytes
-        )
+        return int(self.tier.device_bytes() + self._replicated_bytes())
 
     def host_bytes(self) -> int:
         return self.tier.host_bytes()
 
 
-def _pq_host_layout(packed: PackedPQ) -> dict:
-    """The padded host layout of a PackedPQ (the flat layout's geometry).
-    Fast-scan packs two codes a byte here, and OPQ rotates the coarse
-    centroids here (c~ = c @ R.T, host float64 rounded once)."""
+def _pq_host_layout(packed: PackedPQ, mesh: Optional[Mesh] = None) -> dict:
+    """The padded host layout `mesh` stages of a PackedPQ (the flat layout's
+    geometry).  Fast-scan packs two codes a byte here, and OPQ rotates the
+    coarse centroids here (c~ = c @ R.T, host float64 rounded once)."""
     m_sub, dsub, d_pad = pq_geometry(packed.dim, packed.m_sub)
     fastscan = pq_fastscan(packed.n_bits, m_sub)
-    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts)
+    nlist_pad, counts, l_pad = padded_layout_geometry(packed.n_lists, packed.counts, mesh=mesh)
     n = packed.codes.shape[0]
     flat = padded_slots(counts, l_pad)
     src = pack_codes4(packed.codes) if fastscan else packed.codes
@@ -383,12 +393,13 @@ def _pq_host_layout(packed: PackedPQ) -> dict:
     )
 
 
-def _index_fields(packed: PackedPQ, lay: dict, dev: torch.device) -> dict:
+def _index_fields(packed: PackedPQ, lay: dict, mesh: Mesh) -> dict:
     return dict(
-        counts=torch.from_numpy(lay["counts"].astype(np.int32)).to(dev),
-        centroids=torch.from_numpy(lay["cpad"]).to(dev),
-        c_norm=torch.from_numpy(lay["c_norm"]).to(dev),
-        codebooks=torch.from_numpy(np.ascontiguousarray(packed.codebooks, np.float32)).to(dev),
+        mesh=mesh,
+        counts=shard_counts(lay["counts"], mesh),
+        centroids=replicated(lay["cpad"], mesh),
+        c_norm=replicated(lay["c_norm"], mesh),
+        codebooks=replicated(np.ascontiguousarray(packed.codebooks, np.float32), mesh),
         ids=lay["ids"], rows=lay["rows"], n_items=packed.n_items, n_lists=packed.n_lists,
         nlist_pad=lay["nlist_pad"], l_pad=lay["l_pad"], dim=packed.dim, d_pad=lay["d_pad"], m_sub=lay["m_sub"],
         dsub=lay["dsub"], ksub=lay["ksub"], n_bits=packed.n_bits, fastscan=lay["fastscan"],
@@ -396,31 +407,32 @@ def _index_fields(packed: PackedPQ, lay: dict, dev: torch.device) -> dict:
     )
 
 
-def index_from_packed_pq(packed: PackedPQ, device: Optional[torch.device] = None) -> IVFPQIndex:
-    """Stage a PackedPQ on the device: (nlist_pad, L_pad, m_bytes) uint8
-    codes and (nlist_pad, L_pad) float32 ADC scalars."""
-    dev = device if device is not None else _device.resolve()
-    lay = _pq_host_layout(packed)
+def index_from_packed_pq(packed: PackedPQ, mesh=None) -> IVFPQIndex:
+    """Stage a PackedPQ on `mesh` (a Mesh, a device, or None: the entry
+    points' device): (nlist_pad, L_pad, m_bytes) uint8 codes and
+    (nlist_pad, L_pad) float32 ADC scalars, sharded on the list axis."""
+    mesh = as_mesh(mesh)
+    lay = _pq_host_layout(packed, mesh)
     return IVFPQIndex(
-        codes=torch.from_numpy(lay["codes"]).to(dev), scalars=torch.from_numpy(lay["scalars"]).to(dev),
-        **_index_fields(packed, lay, dev),
+        codes=shard_lists(lay["codes"], mesh), scalars=shard_lists(lay["scalars"], mesh),
+        **_index_fields(packed, lay, mesh),
     )
 
 
 def tiered_index_from_packed_pq(
-    packed: PackedPQ, hot_fraction: float, device: Optional[torch.device] = None, pool_slots: Optional[int] = None
+    packed: PackedPQ, hot_fraction: float, mesh=None, pool_slots: Optional[int] = None
 ) -> TieredIVFPQIndex:
-    """Stage a PackedPQ with only `hot_fraction` of the lists on the device;
-    the rest page in on probe."""
+    """Stage a PackedPQ with only `hot_fraction` of each shard's lists on
+    its device; the rest page in on probe."""
     from .tier import TieredListPlanes
 
-    dev = device if device is not None else _device.resolve()
-    lay = _pq_host_layout(packed)
+    mesh = as_mesh(mesh)
+    lay = _pq_host_layout(packed, mesh)
     tier = TieredListPlanes(
-        planes=[lay["codes"], lay["scalars"]], sentinels=[None, np.inf], counts=lay["counts"], device=dev,
+        planes=[lay["codes"], lay["scalars"]], sentinels=[None, np.inf], counts=lay["counts"], device=mesh,
         hot_fraction=hot_fraction, pool_slots=pool_slots,
     )
-    return TieredIVFPQIndex(tier, hot_fraction, **_index_fields(packed, lay, dev))
+    return TieredIVFPQIndex(tier, hot_fraction, **_index_fields(packed, lay, mesh))
 
 
 def _probe_k(k_eff: int, refine_ratio: int, n_items: int) -> int:
@@ -453,7 +465,7 @@ def pq_block_scorer(index):
         Both paths read the probed lists' codes in place, +inf past a
         list's count: lut_accumulate_probed (8-bit codes) or
         fastscan_lut_accumulate_probed (4-bit codes packed two a byte)."""
-        tables = adc_tables(qb, index.codebooks)
+        tables = adc_tables(qb, next(cb for cb in index.codebooks if cb.device == qb.device))
         probed = fastscan_lut_accumulate_probed if index.fastscan else lut_accumulate_probed
 
         def scores(planes, slots, sl):
@@ -495,7 +507,7 @@ def ivfpq_search_prepared(
     # OPQ: the device side lives in rotated space; queries rotate on the
     # host in float64, rounded once
     qp = to_device_queries(_rotate(_pad_features(q, index.d_pad), index.rotation), index.d_pad,
-                           index.centroids.device)
+                           index.centroids[0].device)
     d_all, p_all = probe_sweep(index, qp, kp, np_eff, pq_block_scorer(index), pq_tile_bytes(index, np_eff))
     if refine:
         return _refine_host(index, refine_items, q, d_all, p_all, k_eff)

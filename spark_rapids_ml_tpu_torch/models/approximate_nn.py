@@ -1,8 +1,7 @@
 #
 # ApproximateNearestNeighbors estimator/model (IVF-Flat and IVF-PQ).
 #
-# Counterpart of spark_rapids_ml_tpu/models/approximate_nn.py on one device:
-# the same params (algorithm 'ivfflat' | 'ivfpq'; algoParams {'nlist',
+# Counterpart of spark_rapids_ml_tpu/models/approximate_nn.py: the same params (algorithm 'ivfflat' | 'ivfpq'; algoParams {'nlist',
 # 'nprobe', 'hot_fraction'} plus, for ivfpq, {'M', 'n_bits', 'refine_ratio',
 # 'opq', 'usePrecomputedTables'}; a key outside these is an error), the same
 # model attributes and persistence (a JAX-saved model loads here), and
@@ -10,17 +9,26 @@
 # with the host refine, and exactSearch=True, which runs the exact kNN engine
 # (ops/knn: prepare_items + knn_search_prepared) over the same packed items
 # and shares their ids.  fit trains the coarse quantizer (and, for ivfpq, the
-# codebooks) with the port's k-means, whose draws differ from the JAX
-# package's, so a fresh fit gives other centroids there.
+# codebooks) with the port's k-means on one device, as the JAX package trains
+# on a one-device submesh (the packed payload does not depend on the mesh);
+# its draws differ from the JAX package's, so a fresh fit gives other
+# centroids there.
 #
-# mutable_index() stages the IVF-Flat payload as a live index
+# Searching runs on the mesh get_mesh(num_workers) (num_workers None: every
+# device of the entry points' list, use_device([...])): the staging caches
+# are keyed by (mesh, hot_fraction), the indexes are list-sharded over it
+# (ann/ivfflat.py) and the exact route is row-sharded (ops/knn).  One device
+# is the one-shard mesh.
+#
+# mutable_index() stages the IVF-Flat payload as a live index on the mesh
 # (ann/mutable.MutableIVFIndex: add / delete / repack); from then on
 # kneighbors searches the holder's snapshot, exactSearch is refused (it reads
 # the persisted payload, which mutations reach only at freeze), and
 # freeze_mutations() folds the live rows back into the payload.
 #
-# _serving_entry serves each padded batch as ONE probed search (flat or PQ),
-# its query block padded to at least 64 rows (models/knn.serve_padded).  The
+# _serving_entry serves each padded batch as ONE probed search (flat or PQ) on
+# the slice's mesh, its query block padded to at least 64 rows
+# (models/knn.serve_padded).  The
 # flat entry reads the staged index again for every batch, so with a live
 # holder it searches the latest snapshot: adds, deletes and repacks show in
 # served results without re-registering the model.
@@ -59,6 +67,7 @@ from ..ann.pq import (
 )
 from ..core import _TpuEstimatorSupervised, _TpuModel, _validate_input_columns
 from ..dataframe import DataFrame, as_dataframe
+from ..parallel.mesh import get_mesh
 from ..params import HasFeaturesCol, HasFeaturesCols, Param, TypeConverters, _dummy, _TpuParams
 from ..utils import materialize_feature_block
 
@@ -211,10 +220,10 @@ class _ApproximateNearestNeighborsParams(ApproximateNearestNeighborsClass, HasFe
 
 
 class ApproximateNearestNeighbors(_ApproximateNearestNeighborsParams, _TpuEstimatorSupervised):
-    """IVF-Flat / IVF-PQ approximate kNN on one device: the port's k-means
-    trains the quantizer, the nearest-center kernel assigns the lists (and
-    encodes the PQ codes), and the probed search runs the lookup-table
-    kernels (PQ) and the fused merge kernel."""
+    """IVF-Flat / IVF-PQ approximate kNN: the port's k-means trains the
+    quantizer on one device, the nearest-center kernel assigns the lists
+    (and encodes the PQ codes), and the probed search runs the lookup-table
+    kernels (PQ) and the fused merge kernel on every shard of the mesh."""
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -323,7 +332,7 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         for name, value in attrs.items():
             setattr(self, name, value)
         self._item_df: Optional[DataFrame] = None
-        # staging caches keyed by (device, hot_fraction); they die with the
+        # staging caches keyed by (mesh, hot_fraction); they die with the
         # model: the probed index (flat or pq) and the exactSearch item set
         self._staged_index: Optional[Tuple[Any, Any]] = None
         self._staged_pq: Optional[Tuple[Any, Any]] = None
@@ -348,38 +357,42 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
             self.pq_n_bits, rotation=self.pq_rotation_,
         )
 
-    def _ensure_staged_index(self, dev):
+    def _search_mesh(self, mesh: Any = None):
+        """The mesh a search runs on: `mesh`, or get_mesh(num_workers)."""
+        return mesh if mesh is not None else get_mesh(self.num_workers)
+
+    def _ensure_staged_index(self, mesh):
         hf = self._resolved_hot_fraction()
-        key = (str(dev), hf)
+        key = (mesh, hf)
         if self._mutable is not None:
             if self._mutable[0] != key:
                 raise ValueError(
-                    "this model's index is live-mutable on another device or hot_fraction; freeze_mutations() "
-                    "before staging it elsewhere"
+                    "this model's index is live-mutable on a different mesh; mutation is per-mesh — "
+                    "freeze_mutations() before staging elsewhere"
                 )
             return self._mutable[1].index
         if self._staged_index is None or self._staged_index[0] != key:
-            self._staged_index = None  # the old index leaves the device first
+            self._staged_index = None  # the old index leaves the devices first
             if hf < 1.0:
-                staged = tiered_index_from_packed(self._packed(), hf, dev)
+                staged = tiered_index_from_packed(self._packed(), hf, mesh)
             else:
-                staged = index_from_packed(self._packed(), dev)
+                staged = index_from_packed(self._packed(), mesh)
             self._staged_index = (key, staged)
         return self._staged_index[1]
 
-    def _ensure_staged_pq(self, dev):
+    def _ensure_staged_pq(self, mesh):
         hf = self._resolved_hot_fraction()
-        key = (str(dev), hf)
+        key = (mesh, hf)
         if self._staged_pq is None or self._staged_pq[0] != key:
             self._staged_pq = None
             if hf < 1.0:
-                staged = tiered_index_from_packed_pq(self._packed_pq(), hf, dev)
+                staged = tiered_index_from_packed_pq(self._packed_pq(), hf, mesh)
             else:
-                staged = index_from_packed_pq(self._packed_pq(), dev)
+                staged = index_from_packed_pq(self._packed_pq(), mesh)
             self._staged_pq = (key, staged)
         return self._staged_pq[1]
 
-    def _ensure_staged_exact(self, dev):
+    def _ensure_staged_exact(self, mesh):
         from ..ops.knn import prepare_items
 
         if self._mutable is not None:
@@ -390,18 +403,18 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
                 "exactSearch is unavailable while the index is live-mutable (the exact route reads the persisted "
                 "payload, which mutations update only at freeze_mutations()); freeze first"
             )
-        key = str(dev)
-        if self._staged_exact is None or self._staged_exact[0] != key:
+        if self._staged_exact is None or self._staged_exact[0] != mesh:
             self._staged_exact = None
-            self._staged_exact = (key, prepare_items(self.packed_items_, self.packed_ids_, dev))
+            self._staged_exact = (mesh, prepare_items(self.packed_items_, self.packed_ids_, mesh))
         return self._staged_exact[1]
 
-    def mutable_index(self):
+    def mutable_index(self, mesh: Any = None):
         """The live-mutation holder of this model's IVF-Flat index
-        (ann/mutable.MutableIVFIndex), staged on the entry points' device at
-        the first call and returned after.  Once it exists, kneighbors
-        searches its snapshot, so add_items / delete_items / repack show at
-        once.  IVF-Flat only: PQ codes are not incrementally mutable."""
+        (ann/mutable.MutableIVFIndex), staged on `mesh` (default
+        get_mesh(num_workers)) at the first call and returned after.  Once it
+        exists, kneighbors and the serving entry search its snapshot, so
+        add_items / delete_items / repack show at once.  IVF-Flat only: PQ
+        codes are not incrementally mutable."""
         self._check_algorithm()
         if self.getAlgorithm() == "ivfpq":
             raise ValueError(
@@ -410,16 +423,15 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
             )
         from ..ann.mutable import MutableIVFIndex
 
-        dev = _device.resolve()
+        mesh = self._search_mesh(mesh)
         hf = self._resolved_hot_fraction()
-        key = (str(dev), hf)
+        key = (mesh, hf)
         if self._mutable is None:
             self._staged_index = None  # the holder owns the staging now
-            self._mutable = (key, MutableIVFIndex(self._packed(), dev, hot_fraction=hf))
+            self._mutable = (key, MutableIVFIndex(self._packed(), mesh, hot_fraction=hf))
         elif self._mutable[0] != key:
             raise ValueError(
-                "mutable index already staged on another device or hot_fraction; freeze_mutations() and create it "
-                "again to move it"
+                "mutable index already staged on a different mesh; freeze_mutations() and re-create to move meshes"
             )
         return self._mutable[1]
 
@@ -446,9 +458,9 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         id column, knn_df with query_<idCol>, indices (rows, k) int64 and
         distances (rows, k) float32 in the query frame's partitioning).
         exactSearch=True runs the exact engine over the same indexed
-        items."""
+        items.  Runs on get_mesh(num_workers)."""
         self._check_algorithm()
-        dev = _device.resolve()
+        mesh = self._search_mesh()
         qdf = as_dataframe(query_df)
         id_col = self.getIdCol()
         if id_col not in qdf.columns:
@@ -461,12 +473,12 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         if exact:
             from ..ops.knn import knn_search_prepared
 
-            prepared = self._ensure_staged_exact(dev)
+            prepared = self._ensure_staged_exact(mesh)
         elif pq:
-            index = self._ensure_staged_pq(dev)
+            index = self._ensure_staged_pq(mesh)
             refine_ratio = self._resolved_pq_params(self.n_cols)[2]
         else:
-            index = self._ensure_staged_index(dev)
+            index = self._ensure_staged_index(mesh)
         k_eff = min(k, self.n_items if self._mutable is None else self._mutable[1].n_items)
         out_parts = []
         for part in qdf.partitions:
@@ -496,14 +508,14 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
     def _serving_entry(self, mesh: Any = None):
         """Online ANN hook (serving/): each padded batch is one probed
         search, IVF-Flat or IVF-PQ (with its host refine) by the algorithm
-        param, on the mesh's first device (the entry points' device without
-        a mesh)."""
+        param, on the slice's mesh (get_mesh(num_workers) without one)."""
         from ..ops import precompile
         from ..serving.entry import ServingEntry
         from .knn import SERVE_MIN_QUERIES, serve_padded
 
         self._check_algorithm()
-        dev = mesh.devices[0] if mesh is not None else _device.resolve()
+        mesh = self._search_mesh(mesh)
+        dev = mesh.devices[0]
         pq = self.getAlgorithm() == "ivfpq"
         k = self.getK()
         _nlist, nprobe = self._resolved_algo_params(self.n_items, n_lists=self.n_lists)
@@ -511,7 +523,7 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         info = {"k": int(min(k, self.n_items)), "n_items": int(self.n_items), "nlist": int(self.n_lists),
                 "nprobe": int(nprobe), "algorithm": self.getAlgorithm()}
         if pq:
-            index = self._ensure_staged_pq(dev)
+            index = self._ensure_staged_pq(mesh)
             refine_ratio = self._resolved_pq_params(self.n_cols)[2]
             refine_items = self.packed_items_ if refine_ratio > 1 else None
             info.update(m_sub=int(self.pq_codes_.shape[1]), n_bits=int(self.pq_n_bits), refine_ratio=int(refine_ratio))
@@ -520,10 +532,10 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
                 return ivfpq_search_prepared(index, queries, k, nprobe, refine_items=refine_items,
                                              refine_ratio=refine_ratio)
         else:
-            self._ensure_staged_index(dev)  # stage now (or check the live holder's device)
+            self._ensure_staged_index(mesh)  # stage now (or check the live holder's mesh)
 
             def search(queries: np.ndarray):
-                return ivfflat_search_prepared(self._ensure_staged_index(dev), queries, k, nprobe)
+                return ivfflat_search_prepared(self._ensure_staged_index(mesh), queries, k, nprobe)
 
         def key(rows: int):
             return precompile.warm_key("serve.ann", max(rows, SERVE_MIN_QUERIES), dtype, dev)
@@ -550,8 +562,8 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         the PQ refine vectors -- excluded: device memory is what the PQ tier
         saves)."""
         self._check_algorithm()
-        dev = _device.resolve()
-        index = self._ensure_staged_pq(dev) if self.getAlgorithm() == "ivfpq" else self._ensure_staged_index(dev)
+        mesh = self._search_mesh()
+        index = self._ensure_staged_pq(mesh) if self.getAlgorithm() == "ivfpq" else self._ensure_staged_index(mesh)
         return index.device_bytes() / max(self.n_items, 1)
 
     def index_residency(self, hbm_budget_bytes: int = 16 << 30) -> Dict[str, float]:
@@ -559,14 +571,15 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         whole index, or the hot lists and the pool of a tiered split), host
         bytes per item (the tier's host planes and the payloads always kept
         on the host: ids and, for ivfpq, the refine vectors), and the items
-        one device's budget of hbm_budget_bytes admits at this layout."""
+        one device's budget of hbm_budget_bytes admits at this layout (the
+        index staged on get_mesh(num_workers))."""
         self._check_algorithm()
-        dev = _device.resolve()
+        mesh = self._search_mesh()
         if self.getAlgorithm() == "ivfpq":
-            index = self._ensure_staged_pq(dev)
+            index = self._ensure_staged_pq(mesh)
             host_extra = self.packed_items_.nbytes + self.packed_ids_.nbytes
         else:
-            index = self._ensure_staged_index(dev)
+            index = self._ensure_staged_index(mesh)
             host_extra = self.packed_ids_.nbytes
         n = max(self.n_items, 1)
         hbm_bpi = index.device_bytes() / n

@@ -8,8 +8,10 @@
 # exact kNN self-join at query_block 32768 over the device-resident
 # FitInputs.X (its row shards gathered onto the mesh's first device,
 # core.whole_rows; ops/knn: kernels B5 -> B7 on the card; row-sharded over
-# the mesh with num_workers > 1), or takes precomputed_knn, then runs
-# ops/umap.umap_fit_embedding on the first device of the mesh.  With labelCol
+# the mesh with num_workers > 1), the IVF-Flat self-join (built on the mesh's
+# first device, searched on the mesh), or takes precomputed_knn, then runs
+# ops/umap.umap_fit_embedding on the mesh (its layout column-sharded over
+# more than one shard).  With labelCol
 # set the fit is supervised (NaN labels are unknown).  raw_data_ stays the
 # device tensor when it is float32 and is fetched to the host on save.
 # Transform stages the training rows once (prepare_items), uploads the
@@ -89,17 +91,18 @@ def engine_options(base: Dict[str, Any], **overrides: Any) -> Dict[str, Any]:
     return opts
 
 
-def _ann_self_join(X: np.ndarray, k: int, seed: int, device: torch.device, nlist: int = 0, nprobe: int = 0):
+def _ann_self_join(X: np.ndarray, k: int, seed: int, mesh: Mesh, nlist: int = 0, nprobe: int = 0):
     """(dists, ids) kNN self-join through the IVF-Flat engine: sqrt(n) lists
     and half of them probed by default (the graph feeds the layout's
-    attraction edges, so it probes deeper than serving's quarter)."""
+    attraction edges, so it probes deeper than serving's quarter).  The
+    index is built on the mesh's first device and searched on the mesh."""
     from ..ann.ivfflat import build_ivfflat_packed, default_nlist, index_from_packed, ivfflat_search_prepared
 
     n = X.shape[0]
     nlist = int(nlist) or default_nlist(n)
     nprobe = int(nprobe) or max(8, nlist // 2)
-    packed = build_ivfflat_packed(X, np.arange(n, dtype=np.int64), nlist, seed=seed, device=device)
-    dists, ids = ivfflat_search_prepared(index_from_packed(packed, device), X, k, nprobe)
+    packed = build_ivfflat_packed(X, np.arange(n, dtype=np.int64), nlist, seed=seed, device=mesh.devices[0])
+    dists, ids = ivfflat_search_prepared(index_from_packed(packed, mesh), X, k, nprobe)
     if (ids < 0).any():
         # the graph assembly takes ids as dense row indices: a -1 slot (the
         # probed lists held fewer than k rows) must not become an edge
@@ -261,7 +264,7 @@ class UMAP(_UMAPParams, _TpuEstimator):
                         )
                 elif opts["graph"] == "ivfflat":
                     dists, ids = _ann_self_join(
-                        X.float().cpu().numpy(), k, seed, mesh.devices[0], opts["ann_nlist"], opts["ann_nprobe"]
+                        X.float().cpu().numpy(), k, seed, mesh, opts["ann_nlist"], opts["ann_nprobe"]
                     )
                 else:
                     prepared = prepare_items(X, np.arange(n, dtype=np.int64), mesh)

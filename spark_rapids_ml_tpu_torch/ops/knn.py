@@ -63,11 +63,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import device as _device
 from .. import profiling
 from ..parallel import topology
 from ..parallel.exchange import device_collective, psum_parts
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, as_mesh
 from ..utils import chunk_iter
 from . import knn_kernels
 from .nearest_center import squared_norms
@@ -230,14 +229,6 @@ class PreparedItems:
         return int(self.shards[0].items.shape[1])
 
 
-def _as_mesh(device: Union[torch.device, str, Mesh, None]) -> Mesh:
-    """The mesh a staging call names: a Mesh as it is, a device as a
-    one-shard mesh, None as the entry points' device."""
-    if isinstance(device, Mesh):
-        return device
-    return Mesh((torch.device(device) if device is not None else _device.resolve(),))
-
-
 def prepare_items(
     items,
     item_ids: np.ndarray,
@@ -255,7 +246,7 @@ def prepare_items(
     lie and are scattered on the device into their shuffled rows, so the
     devices hold the items once plus one chunk.  Ids travel with their
     rows."""
-    mesh = _as_mesh(device)
+    mesh = as_mesh(device)
     n_dev = mesh.size
     blocks = [items] if isinstance(items, (np.ndarray, torch.Tensor)) else list(items)
     n_items = sum(int(b.shape[0]) for b in blocks)
@@ -327,7 +318,7 @@ def _item_block_rows(n_cols: int, device: Union[torch.device, Mesh]) -> int:
     item budget, a multiple of the shard count: every device's budget is
     split among the shards it holds, and the tightest device sets the rows
     of every shard."""
-    mesh = _as_mesh(device)
+    mesh = as_mesh(device)
     per_row = 4 * n_cols + _ROW_OVERHEAD
     held = Counter(mesh.devices)
     per_shard = min(_item_budget_bytes(dev) // (count * per_row) for dev, count in held.items())
@@ -761,7 +752,7 @@ def knn_search(
     """Exact kNN of `queries` over host `items` on a device or a mesh: staged
     once when they fit one item block under the budget, else streamed
     (knn_search_out_of_core)."""
-    dev = _as_mesh(device)
+    dev = as_mesh(device)
     items = np.asarray(items, np.float32)
     block_rows = _item_block_rows(items.shape[1], dev)
     if items.shape[0] <= block_rows:
@@ -794,7 +785,7 @@ def iter_prepared_item_blocks(part_iter: Iterable[Tuple[np.ndarray, np.ndarray]]
     multiple of the shard count).  The host holds only the incoming
     partitions of one block.  The consumer drops each block before it asks
     for the next, so the device holds one block at a time."""
-    dev = _as_mesh(device)
+    dev = as_mesh(device)
     if block_rows is not None:
         block_rows = max(dev.size, block_rows - block_rows % dev.size)
     buf_f: list = []

@@ -1,5 +1,6 @@
 #
-# UMAP primitives: the fuzzy simplicial set and the SGD layout, on one device.
+# UMAP primitives: the fuzzy simplicial set and the SGD layout, the layout
+# column-sharded over a device mesh.
 #
 # Counterpart of spark_rapids_ml_tpu/ops/umap.py.  The JAX package runs this
 # module on XLA (no Pallas kernel lies in it), so the port runs it on plain
@@ -19,12 +20,23 @@
 #           and a triangular solve in float32), read back once an iteration
 #           for its stopping test; "random": uniform [-10, 10) at the padded
 #           shape.
-#   layout  the per-device body of the JAX package's sharded epoch step on
-#           one shard: firing draws from counter-mode threefry over the
-#           (P, n_pad) grid, the shared negative table of table_size rows an
-#           epoch, 2x attraction, clip at +-4, alpha = lr (1 - e / epochs).
-#           The keys and negative tables of a block of epochs are drawn in
-#           one batched call (ops/prng.py), bit for bit the JAX draws.
+#   layout  the per-device body of the JAX package's sharded epoch step:
+#           firing draws from counter-mode threefry over the (P, n_pad)
+#           grid, the shared negative table of table_size rows an epoch, 2x
+#           attraction, clip at +-4, alpha = lr (1 - e / epochs).  The keys
+#           and negative tables of a block of epochs are drawn in one
+#           batched call (ops/prng.py), bit for bit the JAX draws.  On one
+#           shard (optimize_layout) every head is the device's; on a mesh
+#           (optimize_layout_sharded) each shard owns a block of n_pad /
+#           n_dev head columns of the transposed layout, the embedding is
+#           replicated, each epoch updates every shard's heads against the
+#           epoch-start embedding (its counter grid offset by the block's
+#           first column col0, the negative table the replicated draw), and
+#           one all-gather (exchange.umap.layout_rows) rebuilds the whole
+#           embedding on every shard.  A head's update reads only the
+#           epoch-start embedding and reduces over the P axis alone, in a
+#           fixed order (xla_math.sum_dim0), so N shards give the one-shard
+#           embedding bit for bit on one device type.
 #   transform the staging (calibration, weights, weighted-mean init) and the
 #           refinement epochs against the frozen training embedding.
 #
@@ -46,9 +58,8 @@
 # 0.98), epoch_block (SRML_UMAP_EPOCH_BLOCK, 50), table_size
 # (SRML_UMAP_TABLE, 256).
 #
-# Not carried over yet: the sharded layout over a mesh with its per-epoch
-# exchange.umap.layout_rows all-gather (ROADMAP A14b; optimize_layout_sharded
-# raises), the AOT executable cache and the ordered step events.
+# The graph and the init run on the mesh's first device.  Not carried over:
+# the AOT executable cache and the ordered step events.
 #
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import torch
 
 from .. import device as _device
 from .. import profiling
+from ..parallel.exchange import allgather_rows, replicate
 from ..parallel.mesh import Mesh, padded_row_count
 from . import prng
 from .xla_math import exp_f32, fma_f32, pow_f32, sum_dim0
@@ -461,25 +473,30 @@ def _counter_uniform(key: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).float() * (1.0 / (1 << 24))
 
 
-def _layout_grid(P: int, n_pad: int, device: torch.device) -> torch.Tensor:
-    """The (P, n_pad) threefry counter grid, flat position p * n_pad + col;
+def _layout_grid(P: int, n_pad: int, device: torch.device, col0: int = 0,
+                 n_loc: Optional[int] = None) -> torch.Tensor:
+    """The threefry counters of the columns [col0, col0 + n_loc) (default:
+    every column) of the (P, n_pad) grid, flat position p * n_pad + col;
     past 2^32 counters would alias and correlate distinct edges' draws."""
     if P * n_pad >= 1 << 32:
         raise ValueError(
             f"layout grid P*n_pad = {P}*{n_pad} exceeds the uint32 counter space of the "
             "seed-deterministic firing draws; lower degree_cap or shard the fit"
         )
+    n_loc = n_pad - col0 if n_loc is None else n_loc
     return (torch.arange(P, dtype=torch.int64, device=device)[:, None] * n_pad
-            + torch.arange(n_pad, dtype=torch.int64, device=device)[None, :])
+            + torch.arange(col0, col0 + n_loc, dtype=torch.int64, device=device)[None, :])
 
 
-def _layout_epoch(emb, flat_tails_T, w_T, fire_u, neg, alpha, a, b, gamma, neg_rate, M):
-    """One SGD epoch of the head-grouped layout on one shard (every head):
-    slot (p, h) fires where its uniform fire_u[p, h] < w_T[p, h]; neg is
-    the epoch's shared negative table."""
+def _layout_epoch(emb, flat_tails_T, w_T, fire_u, neg, alpha, a, b, gamma, neg_rate, M, col0: int = 0):
+    """One SGD epoch of the head-grouped layout for the heads [col0, col0 +
+    n) (the shard's column block of the transposed layout, n = w_T's
+    width) against the whole embedding: slot (p, h) fires where its uniform
+    fire_u[p, h] < w_T[p, h]; neg is the epoch's shared negative table.
+    Returns the block's new rows (n, c)."""
     P, n = w_T.shape
     c = emb.shape[1]
-    comps = emb.T
+    comps = emb[col0 : col0 + n].T
     tT = emb[flat_tails_T].T.reshape(c, P, n)
     diffs = [comps[j][None, :] - tT[j] for j in range(c)]
     d2 = diffs[0] * diffs[0]
@@ -512,6 +529,16 @@ def _epoch_keys(seed: int, e0: int, block: int, device: torch.device) -> torch.T
     return prng.split(prng.fold_in(prng.prng_key(seed, device), epochs))
 
 
+def _epoch_draws(seed: int, e0: int, block: int, valid_count: int, table_size: int, lr: float,
+                 epochs_total: float, device: torch.device):
+    """The block's epoch keys (block, 2, 2), negative tables (block,
+    table_size) and step sizes alpha (block,), drawn on `device`."""
+    keys = _epoch_keys(seed, e0, block, device)
+    negs = prng.randint(keys[:, 1], (table_size,), 0, max(int(valid_count), 1))
+    e = torch.arange(e0, e0 + block, device=device).float()
+    return keys, negs, _f32(lr, device) * (1.0 - e / _f32(epochs_total, device))
+
+
 def _layout_step(
     emb: torch.Tensor,
     tails_T: torch.Tensor,
@@ -536,11 +563,8 @@ def _layout_step(
     if counters is None:
         counters = _layout_grid(P, n_pad, dev)
     flat_tails_T = tails_T.long().reshape(-1)
-    keys = _epoch_keys(seed, e0, block, dev)
-    negs = prng.randint(keys[:, 1], (table_size,), 0, max(int(valid_count), 1))
-    a_t, b_t, lr_t, gamma_t, rate_t = (_f32(v, dev) for v in (a, b, lr, gamma, neg_rate))
-    e = torch.arange(e0, e0 + block, device=dev).float()
-    alphas = lr_t * (1.0 - e / _f32(epochs_total, dev))
+    keys, negs, alphas = _epoch_draws(seed, e0, block, valid_count, table_size, lr, epochs_total, dev)
+    a_t, b_t, gamma_t, rate_t = (_f32(v, dev) for v in (a, b, gamma, neg_rate))
     for i in range(block):
         fire_u = _counter_uniform(keys[i, 0], counters)
         emb = _layout_epoch(emb, flat_tails_T, w_T, fire_u, negs[i], alphas[i],
@@ -582,10 +606,94 @@ def optimize_layout(
     return emb
 
 
-def optimize_layout_sharded(*args, **kwargs):
-    """The layout sharded over a mesh, each device a head block and one
-    all-gather of the embedding an epoch (exchange.umap.layout_rows)."""
-    raise NotImplementedError("the sharded UMAP layout is not in this port yet (ROADMAP A14b)")
+def _layout_shards(tails_pad: torch.Tensor, w_pad: torch.Tensor, mesh: Mesh) -> list:
+    """Each shard's (flat tails, weights, counter grid) of its column block
+    of the transposed layout, on its device."""
+    n_pad, P = tails_pad.shape
+    n_dev = mesh.size
+    if n_pad % n_dev:
+        raise ValueError(f"{n_pad} padded rows do not split into {n_dev} column blocks")
+    n_loc = n_pad // n_dev
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        cols = slice(s * n_loc, (s + 1) * n_loc)
+        counters = _layout_grid(P, n_pad, dev, s * n_loc, n_loc)
+        out.append((tails_pad.T[:, cols].to(dev).long().contiguous().reshape(-1),
+                    w_pad.T[:, cols].to(dev).contiguous(), counters))
+    return out
+
+
+def _layout_step_sharded(
+    embs: list,
+    shards: list,
+    mesh: Mesh,
+    e0: int,
+    epochs_total: float,
+    valid_count: int,
+    a: float,
+    b: float,
+    lr: float,
+    gamma: float,
+    neg_rate: float,
+    seed: int,
+    block: int,
+    table_size: int,
+) -> list:
+    """`block` SGD epochs from epoch e0 over the mesh: the JAX package's
+    _layout_step_sharded.  `embs` is the replicated embedding (one tensor a
+    shard), `shards` _layout_shards' blocks; each epoch every shard updates
+    its heads and one exchange.umap.layout_rows all-gather rebuilds the
+    replicated embedding, which is returned."""
+    n_loc = embs[0].shape[0] // mesh.size
+    devs = set(mesh.devices)
+    draws = {dev: _epoch_draws(seed, e0, block, valid_count, table_size, lr, epochs_total, dev) for dev in devs}
+    scalars = {dev: tuple(_f32(v, dev) for v in (a, b, gamma, neg_rate)) for dev in devs}
+    for i in range(block):
+        new = []
+        for s, (flat_tails, w_s, counters) in enumerate(shards):
+            dev = mesh.devices[s]
+            keys, negs, alphas = draws[dev]
+            a_t, b_t, gamma_t, rate_t = scalars[dev]
+            new.append(_layout_epoch(embs[s], flat_tails, w_s, _counter_uniform(keys[i, 0], counters), negs[i],
+                                     alphas[i], a_t, b_t, gamma_t, rate_t, table_size, col0=s * n_loc))
+        embs = allgather_rows(new, section="umap.layout_rows")
+    return embs
+
+
+def optimize_layout_sharded(
+    emb: torch.Tensor,
+    tails_pad: torch.Tensor,
+    w_pad: torch.Tensor,
+    valid_count: int,
+    mesh: Mesh,
+    a: float,
+    b: float,
+    n_epochs: int,
+    learning_rate: float,
+    repulsion_strength: float,
+    negative_sample_rate: int,
+    seed: int,
+    table_size: int = NEG_TABLE,
+    epoch_block: int = EPOCH_BLOCK,
+) -> torch.Tensor:
+    """The SGD layout over a mesh, the counterpart of the JAX package's
+    optimize_layout_sharded (module header): shard s owns the head columns
+    [s * n_loc, (s + 1) * n_loc) of the transposed layout, n_loc = n_pad /
+    n_dev, and the replicated embedding; ceil(n_epochs / epoch_block) steps
+    (_layout_step_sharded), each counted in umap.layout.dispatches.  Returns
+    the embedding on shard 0's device, bit for bit optimize_layout's on the
+    same device type."""
+    shards = _layout_shards(tails_pad, w_pad, mesh)
+    embs = replicate(emb, mesh.devices)
+    block = max(1, int(epoch_block))
+    for e0 in range(0, n_epochs, block):
+        blk = min(block, n_epochs - e0)
+        embs = _layout_step_sharded(
+            embs, shards, mesh, e0, float(max(n_epochs, 1)), valid_count, a, b, learning_rate, repulsion_strength,
+            float(negative_sample_rate), _seed_word(seed), blk, table_size,
+        )
+        profiling.incr_counter("umap.layout.dispatches")
+    return embs[0]
 
 
 def optimize_layout_padded(
@@ -653,12 +761,13 @@ def umap_fit_embedding(
     epoch_block: int = EPOCH_BLOCK,
     table_size: int = NEG_TABLE,
 ) -> np.ndarray:
-    """The fit pipeline (graph + init + layout) on the first device of the
-    mesh: the (n, k) kNN graph uploaded once (counted), calibration and the
-    layout assembly on the device, the init drawn there, the SGD epochs run
-    there; one fetch of the (n, c) embedding at the end.  With `y`, the
-    supervised path intersects the fuzzy set with the label partition.
-    Rows are padded to padded_row_count(n, mesh)."""
+    """The fit pipeline (graph + init + layout): the (n, k) kNN graph
+    uploaded once (counted) to the mesh's first device, calibration, the
+    layout assembly and the init drawn there; the SGD epochs there on one
+    shard, column-sharded over the mesh (optimize_layout_sharded) on more;
+    one fetch of the (n, c) embedding at the end.  With `y`, the supervised
+    path intersects the fuzzy set with the label partition.  Rows are
+    padded to padded_row_count(n, mesh)."""
     n = knn_ids.shape[0]
     dev = mesh.devices[0] if mesh is not None else _device.resolve()
     with profiling.phase("umap.graph", dev):
@@ -685,10 +794,16 @@ def umap_fit_embedding(
                 prng.fold_in(key, 0x5CA1E),
             )
     with profiling.phase("umap.layout", dev):
-        out = optimize_layout(
-            emb, tails_pad, w_pad, n, a, b, int(n_epochs), float(learning_rate),
-            float(repulsion_strength), int(negative_sample_rate), seed, table_size, epoch_block,
-        )
+        if mesh is not None and mesh.size > 1:
+            out = optimize_layout_sharded(
+                emb, tails_pad, w_pad, n, mesh, a, b, int(n_epochs), float(learning_rate),
+                float(repulsion_strength), int(negative_sample_rate), seed, table_size, epoch_block,
+            )
+        else:
+            out = optimize_layout(
+                emb, tails_pad, w_pad, n, a, b, int(n_epochs), float(learning_rate),
+                float(repulsion_strength), int(negative_sample_rate), seed, table_size, epoch_block,
+            )
         return out[:n].cpu().numpy()
 
 

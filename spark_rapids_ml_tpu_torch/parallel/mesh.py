@@ -61,6 +61,14 @@ class Mesh:
         return len(self.devices)
 
 
+def as_mesh(where: Union[Mesh, torch.device, str, None] = None) -> Mesh:
+    """The mesh a staging call names: a Mesh as it is, a device as a
+    one-shard mesh, None as the entry points' device."""
+    if isinstance(where, Mesh):
+        return where
+    return Mesh((torch.device(where) if where is not None else _device.resolve(),))
+
+
 def default_num_workers() -> int:
     """One logical worker per device of the entry points' device list
     (device.devices())."""

@@ -190,7 +190,7 @@ def _gather_scorer(index):
     tile."""
 
     def block(qb, _qn, d2p, _counts):
-        tables = pq.adc_tables(qb, index.codebooks)
+        tables = pq.adc_tables(qb, index.codebooks[0])
 
         def scores(planes, slots, sl):
             codes, scalars = planes

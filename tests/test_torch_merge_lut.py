@@ -245,7 +245,7 @@ def _gather_scorer(index):
     gathered with index_select, then lut_accumulate over the tile."""
 
     def block(qb, _qn, d2p, _counts):
-        tables = pq.adc_tables(qb, index.codebooks)
+        tables = pq.adc_tables(qb, index.codebooks[0])
 
         def scores(planes, slots, sl):
             codes, scalars = planes

@@ -12,8 +12,11 @@
 #     differing id must lie within 1e-5 relative plus 1e-6 of the largest
 #     squared norm of the k-th distance, or of its own distance on the other
 #     side);
-#   - a snapshot searched again after later mutations, and a tiered index
-#     (hot_fraction 0.5) against the resident one, bit for bit;
+#   - a snapshot searched again after later mutations, a tiered index
+#     (hot_fraction 0.5) against the resident one, and a holder on 2 or 8
+#     CPU shards (["cpu"] * n, its lists sharded over them) against the
+#     one-shard holder, bit for bit; the 8-shard holder against the JAX
+#     package's on its 8 forced devices as above;
 #   - no deleted id is ever returned.
 import threading
 
@@ -31,6 +34,7 @@ from spark_rapids_ml_tpu_torch import profiling
 from spark_rapids_ml_tpu_torch.ann import MutableIVFIndex, ivfflat
 from spark_rapids_ml_tpu_torch.convert import approximate_nearest_neighbors_model_from_reference
 from spark_rapids_ml_tpu_torch.device import use_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
 
 CPU = torch.device("cpu")
 RTOL = 1e-5
@@ -154,6 +158,43 @@ def test_mutation_sequence_equals_jax(data, ref_packed, hot_fraction):
     all_ids = np.concatenate([np.arange(n + len(extra)), np.arange(50_000, 50_000 + len(burst))])
     keep = ~np.isin(all_ids, deleted)
     assert ivfflat.recall_at_k(ids, _exact_ids(items[keep], all_ids[keep], Q)) >= 0.95
+
+
+@pytest.mark.parametrize("hot_fraction", [1.0, 0.5], ids=["resident", "tiered"])
+def test_sharded_holders_equal_one_shard_and_jax(data, ref_packed, hot_fraction):
+    """The add / delete / overflow / repack script on holders of 1, 2 and 8
+    CPU shards and on the JAX package's holder over its 8 devices:
+    to_packed() and the searches equal (bit for bit across the port's shard
+    counts), deleted ids absent."""
+    X, Q, extra, burst = data
+    n = len(X)
+    scale = float((X.astype(np.float64) ** 2).sum(1).max())
+    holders = [MutableIVFIndex(_port_packed(ref_packed), Mesh((CPU,) * s), hot_fraction=hot_fraction)
+               for s in (1, 2, 8)]
+    r = RefMutableIVFIndex(ref_packed, get_mesh(), hot_fraction=hot_fraction)
+    assert [h.index.mesh.size for h in holders] == [1, 2, 8]
+    steps = (
+        lambda h: h.add_items(extra, np.arange(n, n + len(extra))),
+        lambda h: h.delete_items(np.arange(0, 300)),
+        lambda h: h.add_items(burst, np.arange(50_000, 50_000 + len(burst))),
+        lambda h: h.delete_items(np.arange(50_000, 50_100)),
+        lambda h: h.repack(),
+    )
+    deleted = np.zeros(0, np.int64)
+    for j, step in enumerate(steps):
+        for h in holders + [r]:
+            step(h)
+        if j in (1, 3):
+            deleted = np.concatenate([deleted, np.arange(0, 300) if j == 1 else np.arange(50_000, 50_100)])
+        d1, i1 = _assert_holders_equal(holders[-1], r, Q, deleted, scale)
+        for h in holders[:-1]:
+            d, i = h.search(Q, K, NPROBE)
+            np.testing.assert_array_equal(i, i1)
+            np.testing.assert_array_equal(d.view(np.uint32), d1.view(np.uint32))
+            packed, want = h.to_packed(), holders[-1].to_packed()
+            np.testing.assert_array_equal(packed.ids, want.ids)
+            np.testing.assert_array_equal(packed.items, want.items)
+    assert holders[-1].stats()["repacks"] == 2
 
 
 @pytest.mark.parametrize("hot_fraction", [0.5, 0.25])
@@ -289,7 +330,7 @@ def test_counters_and_b1_blocks(data, ref_packed):
     assert c["ann.mutate.assign_blocks"] == 1
     # the add restaged its rows (ids, rows, norms) and the counts; the
     # delete its positions; the repack the whole planes
-    planes = h.index.list_data.nbytes + h.index.list_norm.nbytes
+    planes = sum(t.nbytes for t in h.index.list_data + h.index.list_norm)
     assert c["ann.mutate.bytes"] == 300 * (8 + 4 * X.shape[1] + 4) + 4 * h._nlist_pad + 10 * 8 + planes
     h.register_warm(K, NPROBE, 48)
     assert (K, NPROBE, 48) in h._warm_specs

@@ -286,8 +286,3 @@ def test_transform_embedding_blocks_and_determinism():
     no_refine = port.umap_transform_embedding(q_ids, q_dists, train_emb, local_connectivity=1.0)
     np.testing.assert_allclose(
         no_refine, ref.umap_transform_embedding(q_ids, q_dists, train_emb, local_connectivity=1.0), atol=1e-5)
-
-
-def test_sharded_layout_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A14b"):
-        port.optimize_layout_sharded()
