@@ -141,12 +141,12 @@
 #            centroids, 400,000 x 8 vs 256 codewords)
 #   path_ann / path_ann_pq / path_ann_pq4
 #            the JAX package's ANN arms (bench.py:379-442): 400,000 x 256
-#            clustered float32 items (8 partitions), 16,384 queries (their
-#            first rows, 2 partitions), k = 200, nlist 632, nprobe 158;
+#            clustered float32 items (8 partitions), 8,192 queries (their
+#            first rows, 2 partitions; cut from the arms' 16,384 for time), k = 200, nlist 632, nprobe 158;
 #            IVF-Flat, IVF-PQ (M 32, 8 bits, refine_ratio 4) and IVF-PQ
 #            fast-scan (M 32, 4 bits, opq, refine_ratio 8): fit, kneighbors
 #            twice (staging, then the cached call), one profiled call of
-#            its first 4,096 queries; B1 in every fit, B7 in every search, B9 (lut_accumulate_probed)
+#            its first 2,048 queries; B1 in every fit, B7 in every search, B9 (lut_accumulate_probed)
 #            only in the 8-bit and B10 only in the 4-bit search; then, on 2,048 queries, recall@10
 #            and @200 against exactSearch=True (gates 0.95 flat, 0.9
 #            refined PQ), the ADC-only recall of the PQ arms, save -> load
@@ -209,6 +209,44 @@
 #            fit_s, its ingest seconds, peak memory and the exchange bytes
 #            by section.  Needs path, path_pca, path_linreg, path_logreg and
 #            path_rf_reg
+#   path_fit_ranks
+#            the multi-controller layer (parallel/runner.py, context.py):
+#            chip_smoke.py spawns 2 worker processes of itself (--rank r
+#            --nranks 2 --job DIR), each on use_device(["cuda:0"] * 2), so 2
+#            ranks x 2 shards make path_fit_mesh's 4 global shards; the
+#            ranks bootstrap torch.distributed (gloo by the backend rule: two
+#            ranks share the card) and meet over a FileControlPlane for the
+#            fits and a TcpControlPlane for the kNN.  Each rank makes only its
+#            own rows (the generators' streams, stream_rows; the labels come
+#            from the paths as files), fits through one
+#            DistributedFitSession path_fit_mesh's KMeans (k 1,000 random
+#            init), PCA (k 3), OLS and binary logistic, and
+#            mesh_card_vs_cpu's integer forest (16,384 x 64, 4 trees, B2
+#            once a shard: the flagship regressor was cut when the script
+#            passed 1,100 s, RANKS_FITS), and runs distributed_kneighbors
+#            on path_knn's items (200,000 a rank) for its first 4,096
+#            queries (2,048 a rank, k 200) through the ring and the
+#            allgather routes.  Gates: every model bit for bit the 4-shard
+#            model (path_fit_mesh's, the forest mesh_card_vs_cpu's
+#            card_4_shards; the first differing field reported), the
+#            parent's KMeans model's
+#            transform launching B1 once a partition, both routes'
+#            distances bit for bit path_knn_mesh's and their ids too but
+#            for the order inside a run of equal distances (the ranks'
+#            merge orders a tie by rank, one search by position): each run
+#            below the k-th distance holds path_knn_mesh's ids, and the run
+#            at the k-th distance distinct ids of items at exactly that
+#            distance, which path_knn_mesh's search at k + KNN_TIE_SLACK
+#            lists; and a second pair of
+#            ranks whose rank 1 is killed at runner.fit (SRML_FAULTS, action
+#            die) surfacing on rank 0 as a typed control-plane error within
+#            RANKS_KILL_S, every process ended.  Records the backend and the
+#            bootstrap seconds, each fit's seconds and each rank's ingest
+#            seconds, the cross-process bytes by section, the control-plane
+#            rounds and bytes, each rank's kernel launches, the kNN rows/s a
+#            route beside path_knn_mesh's; on a host with 2 or more cards the
+#            fits again with one rank a card over NCCL.  Needs path_fit_mesh,
+#            mesh_card_vs_cpu, path_knn and path_knn_mesh
 #   mesh_card_vs_cpu
 #            at 65,536 x 256 integer rows (16,384 x 64 for the forest), each
 #            estimator on 4 shards of the card, 1 shard of the card and 8
@@ -223,7 +261,7 @@
 #   path_ann_mesh
 #            each ANN arm's fitted model (path_ann, path_ann_pq, path_ann_pq4)
 #            searched on use_device(["cuda:0"] * 4) right after its arm, on
-#            the arm's profiled 4,096 queries: the index list-sharded, each
+#            the arm's profiled 2,048 queries: the index list-sharded, each
 #            shard scoring its own probed lists (B9 / B10 at a count of 0
 #            for the others), the shards' k best merged by ann.probe_merge
 #            and one more B7.  Gates: ids and distance bits equal to the
@@ -324,7 +362,7 @@
 #            streaming_ingest_rows_per_s (from the second chunk on) and
 #            finalize_s.  Then the live index on path_ann's items (IVF-Flat,
 #            nlist 632, nprobe 158, k 200): mutable_index(), kneighbors of
-#            the 16,384 queries, 10 adds of 10,000 rows from the same blobs
+#            the 8,192 queries, 10 adds of 10,000 rows from the same blobs
 #            (B1 once each, counted), 50,000 deletes (no deleted id on 2,048
 #            queries; B7 against lex_topk on the tombstoned pool), one add
 #            overflowing L_pad (a repack), kneighbors again (B7, counted):
@@ -405,7 +443,8 @@
 # knn_audit, knn_streamed and path_knn_mesh need path_knn, knn_ring needs
 # path_knn_mesh; path_serve needs path; path_serve_lanes needs path_serve,
 # path, path_linreg, path_logreg and path_pca; path_fit_mesh needs path,
-# path_pca, path_linreg, path_logreg and path_rf_reg; path_ann_mesh needs
+# path_pca, path_linreg, path_logreg and path_rf_reg; path_fit_ranks needs
+# path_fit_mesh, mesh_card_vs_cpu, path_knn and path_knn_mesh; path_ann_mesh needs
 # an ANN arm, path_live_mesh path_stream, path_umap_mesh path_umap; the ANN,
 # PCA, GLM, mesh_card_vs_cpu, ann_mesh_card_vs_cpu, model-selection, UMAP
 # and streaming phases need nothing else).
@@ -429,6 +468,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # emit's script_s counts from here
 
 # The flagship KMeans configuration of the reference benchmark
 # (k=1000, maxIter=30, initMode=random on 1M x 3000 float32).
@@ -457,6 +497,10 @@ MIN_D2_TOL = 1e-4
 
 
 def emit(obj):
+    """Print one record; a phase's record also carries script_s, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -583,27 +627,55 @@ def check_kernel_shape(torch, nc, n, d, k, gen, dev, misaligned=False):
     }
 
 
-def blobs(rows, cols, k, seed, workers=8, labels=False):
-    """Gaussian blobs (cluster_std 1, centers uniform in [-10, 10]) as in the
-    benchmark's BlobsDataGen, filled by `workers` threads with independent
-    seeded streams; with labels, also each row's blob."""
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(-10.0, 10.0, size=(k, cols)).astype(np.float32)
-    assign = rng.integers(0, k, size=rows)
-    X = np.empty((rows, cols), np.float32)
-    streams = np.random.SeedSequence(seed).spawn(workers)
-    bounds = np.linspace(0, rows, workers + 1, dtype=int)
+def stream_rows(total, cols, streams_seed, workers, fill_chunk, part=None):
+    """(hi - lo, cols) float32 rows [lo, hi) (part; default all `total`) of a
+    dataset split into `workers` seeded streams over np.linspace bounds,
+    each filled by its own thread in 16,384-row chunks:
+    fill_chunk(rng, out, a, b) fills global rows [a, b) into out.  A part
+    regenerates only the streams that overlap it, every chunk at its full
+    shape, so its rows are bit for bit those of the whole dataset (the
+    path_fit_ranks workers each make their own rows this way)."""
+    lo, hi = part if part is not None else (0, total)
+    X = np.empty((hi - lo, cols), np.float32)
+    streams = np.random.SeedSequence(streams_seed).spawn(workers)
+    bounds = np.linspace(0, total, workers + 1, dtype=int)
 
     def fill(i):
+        if bounds[i] >= hi or bounds[i + 1] <= lo:
+            return
         rng_i = np.random.default_rng(streams[i])
-        for lo in range(bounds[i], bounds[i + 1], 16384):
-            hi = min(lo + 16384, bounds[i + 1])
-            rng_i.standard_normal(out=X[lo:hi], dtype=np.float32)
-            X[lo:hi] += centers[assign[lo:hi]]
+        for a in range(bounds[i], min(bounds[i + 1], hi), 16384):
+            b = min(a + 16384, bounds[i + 1])
+            if lo <= a and b <= hi:
+                fill_chunk(rng_i, X[a - lo : b - lo], a, b)
+                continue
+            chunk = np.empty((b - a, cols), np.float32)
+            fill_chunk(rng_i, chunk, a, b)
+            s0, s1 = max(a, lo), min(b, hi)
+            if s0 < s1:
+                X[s0 - lo : s1 - lo] = chunk[s0 - a : s1 - a]
 
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(fill, range(workers)))
-    return (X, assign) if labels else X
+    return X
+
+
+def blobs(rows, cols, k, seed, workers=8, labels=False, part=None):
+    """Gaussian blobs (cluster_std 1, centers uniform in [-10, 10]) as in the
+    benchmark's BlobsDataGen, filled by `workers` threads with independent
+    seeded streams; with labels, also each row's blob.  `part` (lo, hi)
+    makes only those rows (stream_rows)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10.0, 10.0, size=(k, cols)).astype(np.float32)
+    assign = rng.integers(0, k, size=rows)
+
+    def fill_chunk(rng_i, out, a, b):
+        rng_i.standard_normal(out=out, dtype=np.float32)
+        out += centers[assign[a:b]]
+
+    X = stream_rows(rows, cols, seed, workers, fill_chunk, part)
+    lo, hi = part if part is not None else (0, rows)
+    return (X, assign[lo:hi]) if labels else X
 
 
 def run_path(torch, port, nc, wrappers, X, gen_s, keep=None):
@@ -712,33 +784,28 @@ HIST_REPS = {"clf": 5, "reg": 3}
 HIST_RAGGED = [(7, 3001, 3, 4, 2, 16), (5, 1000, 2, 3, 2, 100), (3, 77, 1, 1, 1, 7), (64, 40960, 5, 1, 2, 128)]
 
 
-def classification_data(rows, cols, seed, workers=8):
+def classification_data(rows, cols, seed, workers=8, part=None):
     """make_classification semantics as in the benchmark's
     ClassificationDataGen: hypercube-vertex centroids (class_sep 1), a random
     rotation of the informative columns, redundant linear combinations, the
     rest Gaussian noise; filled by `workers` threads with independent seeded
-    streams.  Returns (X float32, y float64 in {0, 1})."""
+    streams.  Returns (X float32, y float64 in {0, 1}); `part` (lo, hi)
+    makes only those rows (stream_rows)."""
     crng = np.random.default_rng(seed)
     centroids = crng.choice([-1.0, 1.0], size=(2, N_INF))
     rotate = crng.standard_normal((N_INF, N_INF))
     redundant = crng.standard_normal((N_INF, N_RED))
     y = np.random.default_rng(seed + 1).integers(0, 2, size=rows)
-    X = np.empty((rows, cols), np.float32)
-    streams = np.random.SeedSequence(seed).spawn(workers)
-    bounds = np.linspace(0, rows, workers + 1, dtype=int)
 
-    def fill(i):
-        rng_i = np.random.default_rng(streams[i])
-        for lo in range(bounds[i], bounds[i + 1], 16384):
-            hi = min(lo + 16384, bounds[i + 1])
-            rng_i.standard_normal(out=X[lo:hi], dtype=np.float32)
-            inf = (centroids[y[lo:hi]] + X[lo:hi, :N_INF]) @ rotate
-            X[lo:hi, :N_INF] = inf
-            X[lo:hi, N_INF : N_INF + N_RED] = inf @ redundant
+    def fill_chunk(rng_i, out, a, b):
+        rng_i.standard_normal(out=out, dtype=np.float32)
+        inf = (centroids[y[a:b]] + out[:, :N_INF]) @ rotate
+        out[:, :N_INF] = inf
+        out[:, N_INF : N_INF + N_RED] = inf @ redundant
 
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(fill, range(workers)))
-    return X, y.astype(np.float64)
+    X = stream_rows(rows, cols, seed, workers, fill_chunk, part)
+    lo, hi = part if part is not None else (0, rows)
+    return X, y[lo:hi].astype(np.float64)
 
 
 def regression_target(X, seed):
@@ -1387,21 +1454,12 @@ KNN_STREAM_BUDGET, KNN_STREAM_QUERIES = 2_000_000_000, 2048
 KNN_PROFILE_RANGES = ("knn.dispatch", "knn.collect", "knn.fallback")
 
 
-def normal_data(rows, cols, seed, workers=8):
+def normal_data(rows, cols, seed, workers=8, part=None):
     """Standard normal float32 (rows, cols), filled by `workers` threads
-    with independent streams spawned from `seed`."""
-    X = np.empty((rows, cols), np.float32)
-    streams = np.random.SeedSequence(seed).spawn(workers)
-    bounds = np.linspace(0, rows, workers + 1, dtype=int)
-
-    def fill(i):
-        rng_i = np.random.default_rng(streams[i])
-        for lo in range(bounds[i], bounds[i + 1], 16384):
-            rng_i.standard_normal(out=X[lo : min(lo + 16384, bounds[i + 1])], dtype=np.float32)
-
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(fill, range(workers)))
-    return X
+    with independent streams spawned from `seed`; `part` (lo, hi) makes only
+    those rows (stream_rows)."""
+    return stream_rows(rows, cols, seed, workers, lambda rng_i, out, a, b: rng_i.standard_normal(
+        out=out, dtype=np.float32), part)
 
 
 def knn_exact_case(torch, kk, nc, dev, gen, n, d, q, m, k, invalid, misaligned=False):
@@ -2104,10 +2162,11 @@ def near_tie_mismatches(torch, prepared, Qh, rows, pos_a, pos_b, dev):
     return len(r), int(((da - db).abs() > KNN_TIE_RTOL * db).sum())
 
 
-def run_knn_mesh_path(torch, port, knn_ops, wrappers, X, Qh, single, single_idx, single_dist, dev):
+def run_knn_mesh_path(torch, port, knn_ops, wrappers, X, Qh, single, single_idx, single_dist, dev, ranks_ref=None):
     """Phase path_knn_mesh: the kNN arm through the public API on a 4-shard
     mesh of one card: fit -> kneighbors twice, the float64 check, one
-    profiled call; the results against path_knn's."""
+    profiled call; the results against path_knn's.  With `ranks_ref` (a
+    dict) its first RANKS_KNN_QUERIES rows are kept for path_fit_ranks."""
     item_df = port.DataFrame.from_numpy(X, num_partitions=KNN_ITEM_PARTS)
     query_df = port.DataFrame.from_numpy(Qh, num_partitions=KNN_QUERY_PARTS)
     search = knn_ops.knn_search_prepared
@@ -2155,6 +2214,13 @@ def run_knn_mesh_path(torch, port, knn_ops, wrappers, X, Qh, single, single_idx,
                                           pos_of_id[single_idx], dev)
     check(off_tie == 0, f"{off_tie} mesh ids differ from path_knn's off near-ties")
     f64 = check_against_float64(torch, single, Qh, idx, dist, dev)
+    if ranks_ref is not None:
+        ranks_ref["knn"] = (idx[:RANKS_KNN_QUERIES].copy(), dist[:RANKS_KNN_QUERIES].copy())
+        # the same items searched KNN_TIE_SLACK past k: every item at a
+        # row's k-th distance, for path_fit_ranks' tie check
+        with port.device.use_device([dev] * MESH_SHARDS):
+            d_ext, i_ext = knn_ops.knn_search_prepared(prepared, Qh[:RANKS_KNN_QUERIES], KNN_K + KNN_TIE_SLACK)
+        ranks_ref["knn_ties"] = (i_ext, d_ext)
     return {
         "phase": "path_knn_mesh", "shards": MESH_SHARDS, "mesh": [str(dev)] * MESH_SHARDS,
         "items": KNN_ITEMS, "cols": X.shape[1], "queries": KNN_QUERIES, "k": KNN_K, "rows_cut": False,
@@ -2262,15 +2328,18 @@ def knn_ring(torch, port, knn_ops, ek, wrappers, mesh_prepared, single, Qh, dev)
 # np.random.default_rng(42); the queries are the first 16,384 rows; k = 200,
 # nlist = default_nlist(400,000) = 632, nprobe = default_nprobe(632) = 158,
 # M = default_m_sub(256) = 32.  The 4-bit arm is the fast-scan operating
-# point of ci/test.sh:711-714 (n_bits 4, opq, refine_ratio 8).  Not cut.
-ANN_ITEMS, ANN_COLS, ANN_QUERIES, ANN_K, ANN_SEED = 400_000, 256, 16_384, 200, 42
+# point of ci/test.sh:711-714 (n_bits 4, opq, refine_ratio 8).  The items
+# and widths are not cut; the queries are the first 8,192 (cut from 16,384
+# to keep the whole script under its time limit: the PQ arms' host refine,
+# two calls an arm, grows with the queries).
+ANN_ITEMS, ANN_COLS, ANN_QUERIES, ANN_K, ANN_SEED = 400_000, 256, 8_192, 200, 42
 ANN_NLIST, ANN_NPROBE, ANN_M = 632, 158, 32
 ANN_ITEM_PARTS, ANN_QUERY_PARTS = 8, 2
 ANN_CHECK_QUERIES = 2048   # the recall, reload and tiered checks
 # the profiled call's queries: the first quarter of the timed calls' (cut
-# from 16,384 to keep the whole script under its time limit: the PQ arms'
-# host refine grows with the queries)
-ANN_PROFILE_QUERIES = 4096
+# from 16,384, then 4,096, to keep the whole script under its time limit:
+# the PQ arms' host refine grows with the queries)
+ANN_PROFILE_QUERIES = 2048
 _ANN_BASE = {"nlist": ANN_NLIST, "nprobe": ANN_NPROBE}
 # phase: (algorithm, algoParams, recall@10 gate of the JAX package's tests)
 ANN_ARMS = {
@@ -2693,7 +2762,7 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
     model.setExactSearch(False)
     rec["recall_at_10"] = ivf.recall_at_k(i_c[:, :10], i_ex[:, :10])
     rec["recall_at_200"] = ivf.recall_at_k(i_c, i_ex)
-    rec["recall_at_10_of_the_16384_query_call"] = ivf.recall_at_k(idx[:ANN_CHECK_QUERIES, :10], i_ex[:, :10])
+    rec["recall_at_10_of_the_timed_call"] = ivf.recall_at_k(idx[:ANN_CHECK_QUERIES, :10], i_ex[:, :10])
     check(rec["recall_at_10"] >= gate, f"recall@10 {rec['recall_at_10']} < {gate}")
     if pq:
         model.setAlgoParams(dict(params, refine_ratio=1))
@@ -2726,7 +2795,7 @@ def run_ann_arm(torch, port, ivf, pq_mod, knn_ops, kk, wrappers, phase, X, Q, de
                                      "max_memory_allocated_bytes": peak_bytes}
     return {
         "phase": phase, "items": ANN_ITEMS, "cols": ANN_COLS, "queries": ANN_QUERIES, "k": ANN_K,
-        "algorithm": algorithm, "algo_params": params, "rows_cut": False,
+        "algorithm": algorithm, "algo_params": params, "rows_cut": True,
         "fit_s": fit_s, "first_kneighbors_s": first_s, "kneighbors_s": kneighbors_s,
         "stage_s": first_s - kneighbors_s, "kneighbors_rows_per_s": ANN_QUERIES / kneighbors_s,
         "launches_fit": launches_fit, "launches": launches, "max_memory_allocated_bytes": peak_bytes,
@@ -2795,26 +2864,19 @@ CVC_PCA_ATOL, CVC_LINEAR_RTOL, CVC_LOGISTIC_ATOL = 1e-4, 1e-5, 1e-3
 GLM_PHASES = ("path_pca", "path_linreg", "path_logreg", "path_logreg_sparse", "glm_card_vs_cpu")
 
 
-def low_rank_data(rows, cols, rank, seed, workers=8):
+def low_rank_data(rows, cols, rank, seed, workers=8, part=None):
     """bench.py's PCA rows: A @ B + 0.1 noise with A (rows, rank), B (rank,
     cols) and the noise standard normal float32, filled by `workers`
-    threads with independent seeded streams."""
+    threads with independent seeded streams; `part` (lo, hi) makes only
+    those rows (stream_rows)."""
     B = np.random.default_rng(seed).standard_normal((rank, cols), dtype=np.float32)
-    X = np.empty((rows, cols), np.float32)
-    streams = np.random.SeedSequence(seed + 1).spawn(workers)
-    bounds = np.linspace(0, rows, workers + 1, dtype=int)
 
-    def fill(i):
-        rng_i = np.random.default_rng(streams[i])
-        for lo in range(bounds[i], bounds[i + 1], 16384):
-            hi = min(lo + 16384, bounds[i + 1])
-            rng_i.standard_normal(out=X[lo:hi], dtype=np.float32)
-            X[lo:hi] *= 0.1
-            X[lo:hi] += rng_i.standard_normal((hi - lo, rank), dtype=np.float32) @ B
+    def fill_chunk(rng_i, out, a, b):
+        rng_i.standard_normal(out=out, dtype=np.float32)
+        out *= 0.1
+        out += rng_i.standard_normal((b - a, rank), dtype=np.float32) @ B
 
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(fill, range(workers)))
-    return X
+    return stream_rows(rows, cols, seed + 1, workers, fill_chunk, part)
 
 
 def glm_data():
@@ -5433,13 +5495,21 @@ def mesh_fit(torch, port, est, df, wrappers):
     return model, rec
 
 
-def mesh_kmeans_part(torch, port, nc, wrappers, X, single):
+def keep_mesh_model(models, name, model):
+    """Hold a path_fit_mesh model for path_fit_ranks (models None: not
+    run)."""
+    if models is not None:
+        models[name] = model
+
+
+def mesh_kmeans_part(torch, port, nc, wrappers, X, single, models=None):
     """path_fit_mesh's KMeans part: the flagship on path's rows on 4 shards;
     centers and inertia against path's one-shard model; transform (B1 a
     partition)."""
     df = port.DataFrame.from_numpy(X, num_partitions=PARTITIONS)
     est = port.KMeans(k=K, maxIter=MAX_ITER, initMode="random", seed=SEED, num_workers=MESH_SHARDS)
     model, rec = mesh_fit(torch, port, est, df, wrappers)
+    keep_mesh_model(models, "kmeans", model)
     port.clear_fit_cache()
     reset_launches(wrappers)
     with port.device.use_device(list(MESH_DEVICES)):
@@ -5474,12 +5544,13 @@ def mesh_kmeans_part(torch, port, nc, wrappers, X, single):
     return rec
 
 
-def mesh_pca_part(torch, port, wrappers, X, reference):
+def mesh_pca_part(torch, port, wrappers, X, reference, models=None):
     """path_fit_mesh's PCA part: PCA(k=3) on path_pca's rows on 4 shards, at
     path_pca's gates against its float64 reference."""
     mean, comps, ratio, sv = reference
     df = port.DataFrame.from_numpy(X, num_partitions=GLM_PARTITIONS)
     model, rec = mesh_fit(torch, port, port.PCA(k=PCA_K, num_workers=MESH_SHARDS), df, wrappers)
+    keep_mesh_model(models, "pca", model)
     errs = {
         "mean_max_abs_err": float(np.abs(model.mean_ - mean).max()),
         "components_max_abs_err": float(np.abs(model.components_ - comps).max()),
@@ -5493,12 +5564,13 @@ def mesh_pca_part(torch, port, wrappers, X, reference):
     return rec
 
 
-def mesh_linreg_part(torch, port, wrappers, X, y, reference):
+def mesh_linreg_part(torch, port, wrappers, X, y, reference, models=None):
     """path_fit_mesh's OLS part on path_linreg's rows on 4 shards, within
     LINREG_RTOL of path_linreg's float64 solve."""
     b64, b0_64, scale = reference
     df = port.DataFrame.from_numpy(X[:GLM_ROWS], y[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
     model, rec = mesh_fit(torch, port, port.LinearRegression(num_workers=MESH_SHARDS), df, wrappers)
+    keep_mesh_model(models, "linreg", model)
     rec.update(rows=GLM_ROWS, cols=GLM_COLS, fit="ols",
                coef_max_rel_err_vs_float64=float(np.abs(model.coef_ - b64).max()) / scale,
                intercept_rel_err_vs_float64=abs(model.intercept_ - b0_64) / scale)
@@ -5507,13 +5579,14 @@ def mesh_linreg_part(torch, port, wrappers, X, y, reference):
     return rec
 
 
-def mesh_logreg_part(torch, port, wrappers, X, y, single):
+def mesh_logreg_part(torch, port, wrappers, X, y, single, models=None):
     """path_fit_mesh's binary logistic part on path_logreg's rows on 4
     shards: held-out accuracy, coefficients against path_logreg's model."""
     yb = (y > 0).astype(np.float32)
     df = port.DataFrame.from_numpy(X[:GLM_ROWS], yb[:GLM_ROWS], num_partitions=GLM_PARTITIONS)
     port.profiling.reset_counters("lbfgs.")
     model, rec = mesh_fit(torch, port, port.LogisticRegression(**LOGREG, num_workers=MESH_SHARDS), df, wrappers)
+    keep_mesh_model(models, "logreg", model)
     solver = port.profiling.counters("lbfgs.")
     acc = float((concat_col(model.transform(port.DataFrame.from_numpy(X[GLM_ROWS:], num_partitions=1)),
                             "prediction") == yb[GLM_ROWS:]).mean())
@@ -5529,7 +5602,7 @@ def mesh_logreg_part(torch, port, wrappers, X, y, single):
     return rec
 
 
-def mesh_rf_part(torch, port, wrappers, X, y):
+def mesh_rf_part(torch, port, wrappers, X, y, models=None):
     """path_fit_mesh's RandomForestRegressor part on path_rf_reg's rows on 4
     shards, through the scatter engine: B2 once a shard, finite
     predictions, held-out R^2 > 0, the engine's seconds a level."""
@@ -5563,7 +5636,445 @@ def run_fit_mesh_path(parts, seconds):
             "parts": parts, "parts_s": seconds, "seconds": sum(seconds.values())}
 
 
-def mesh_card_vs_cpu(torch, port, wrappers, fh):
+# path_fit_ranks: 2 ranks x 2 shards of the card = path_fit_mesh's 4 shards
+RANKS = 2
+RANK_SHARDS = MESH_SHARDS // RANKS
+# the forest is mesh_card_vs_cpu's integer forest (rf_int), not the
+# flagship regressor: with the flagship the whole script passed 1,100 s
+# (1,151 s), and its 10-GB histogram psum through gloo was the phase's
+# largest cost (ROADMAP perf item 17)
+RANKS_FITS = ("kmeans", "pca", "linreg", "logreg", "rf_int")
+RANKS_KNN_QUERIES = 4096   # path_knn's first queries, 2,048 a rank
+KNN_TIE_SLACK = 8          # the reference search past k that lists every item at the k-th distance
+RANKS_TRANSFORM_ROWS = 65536  # path's first rows, through the parent's KMeans model
+RANKS_KILL_S = 30.0        # the killed rank's typed error on rank 0, at most
+RANKS_KILL_ROWS, RANKS_KILL_COLS = 4096, 64
+RANKS_WORKER_TIMEOUT_S = 420
+RANKS_KILL_FAULT = "runner.fit:rank=1:action=die"
+
+
+def ranks_job_dir():
+    """A fresh job directory for path_fit_ranks under the checkout's ignored
+    build/ tree."""
+    job = os.path.join(REPO, "build", "ranks_job")
+    shutil.rmtree(job, ignore_errors=True)
+    os.makedirs(job)
+    return job
+
+
+def ranks_estimator(port, name):
+    """path_fit_mesh's estimator of `name`, without num_workers (a session's
+    mesh holds every device of the rank)."""
+    return {
+        "kmeans": lambda: port.KMeans(k=K, maxIter=MAX_ITER, initMode="random", seed=SEED),
+        "pca": lambda: port.PCA(k=PCA_K),
+        "linreg": lambda: port.LinearRegression(),
+        "logreg": lambda: port.LogisticRegression(**LOGREG),
+        "rf_int": lambda: port.RandomForestRegressor(**MCVC_FOREST),
+        "kill": lambda: port.LinearRegression(),
+    }[name]()
+
+
+def rank_range(rows, rank, nranks):
+    return rank * rows // nranks, (rank + 1) * rows // nranks
+
+
+def ranks_partition(name, rank, nranks, labels, cache):
+    """This rank's share of `name`'s rows as one partition, made from the
+    generators' own streams (stream_rows) with the labels the paths saved in
+    the directory `labels`: rank r holds rows r * n / nranks .. (r + 1) * n / nranks of the
+    path's n rows ("knn": this rank's items and queries of path_knn, with
+    their ids).  The GLM rows are made once for OLS and logistic (held in
+    `cache` until another dataset is made)."""
+    if name not in ("linreg", "logreg"):
+        cache.clear()
+    if name == "kmeans":
+        return {"features": blobs(ROWS, COLS, K, SEED, part=rank_range(ROWS, rank, nranks))}
+    if name == "pca":
+        return {"features": low_rank_data(GLM_ROWS, GLM_COLS, PCA_RANK, PCA_SEED,
+                                          part=rank_range(GLM_ROWS, rank, nranks))}
+    if name in ("linreg", "logreg"):
+        lo, hi = rank_range(GLM_ROWS, rank, nranks)
+        y = np.load(os.path.join(labels, "y_glm.npy"), mmap_mode="r")[lo:hi]
+        y = (y > 0).astype(np.float32) if name == "logreg" else np.array(y)
+        if "glm" not in cache:
+            cache["glm"] = normal_data(GLM_ROWS + GLM_HOLDOUT, GLM_COLS, GLM_SEED, part=(lo, hi))
+        return {"features": cache["glm"], "label": y}
+    if name == "knn":
+        lo, hi = rank_range(KNN_ITEMS, rank, nranks)
+        qlo, qhi = rank_range(RANKS_KNN_QUERIES, rank, nranks)
+        return (normal_data(KNN_ITEMS, COLS, KNN_ITEM_SEED, part=(lo, hi)), np.arange(lo, hi, dtype=np.int64),
+                normal_data(KNN_QUERIES, COLS, KNN_QUERY_SEED, part=(qlo, qhi)), np.arange(qlo, qhi, dtype=np.int64))
+    if name == "rf_int":
+        lo, hi = rank_range(MCVC_FOREST_ROWS, rank, nranks)
+        _, _, Xf, yf = mcvc_rows()
+        return {"features": Xf[lo:hi], "label": yf[lo:hi]}
+    rng = np.random.default_rng(rank)
+    X = rng.standard_normal((RANKS_KILL_ROWS, RANKS_KILL_COLS), dtype=np.float32)
+    return {"features": X, "label": X.sum(axis=1)}
+
+
+def ranks_worker(torch, rank, nranks, job):
+    """One rank of path_fit_ranks (chip_smoke.py --rank r --nranks n --job
+    DIR): the job's fits through one DistributedFitSession over a
+    FileControlPlane, then distributed_kneighbors over a TcpControlPlane;
+    its record in DIR/rank<r>.json, rank 0's model attributes in
+    DIR/attrs_<fit>.json, its kNN results as .npy files.  Returns 3 when
+    the session ends in a typed control-plane error (the killed-rank case)."""
+    import spark_rapids_ml_tpu_torch as port
+    from spark_rapids_ml_tpu_torch.ops import knn as knn_ops
+    from spark_rapids_ml_tpu_torch.ops.knn import distributed_kneighbors
+    from spark_rapids_ml_tpu_torch.parallel import exchange
+    from spark_rapids_ml_tpu_torch.parallel.context import ControlPlaneTimeout, RemoteRankError
+    from spark_rapids_ml_tpu_torch.parallel.mesh import get_mesh
+    from spark_rapids_ml_tpu_torch.parallel.netplane import bootstrap_tcp_plane
+    from spark_rapids_ml_tpu_torch.parallel.runner import FileControlPlane, distributed_session
+
+    with open(os.path.join(job, "spec.json")) as f:
+        spec = json.load(f)
+    port.device.use_device(spec["devices"][rank])
+    wrappers = kernel_wrappers()
+    out = {"rank": rank, "devices": spec["devices"][rank], "fits": {}, "knn": {}}
+
+    def save():
+        with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+
+    cache = {}
+
+    def made(name):
+        t0 = time.perf_counter()
+        return ranks_partition(name, rank, nranks, spec["labels"], cache), time.perf_counter() - t0
+
+    # the next fit's rows (after the last fit, the kNN rows) are made on a
+    # thread while this fit runs; the first while the session starts
+    maker = ThreadPoolExecutor(1)
+    names = spec["fits"]
+    pending = maker.submit(made, names[0])
+    knn_rows = None
+    t_fit = time.perf_counter()
+    try:
+        plane = FileControlPlane(os.path.join(job, "cp_fit"), rank, nranks)
+        with distributed_session(rank, nranks, plane) as session:
+            out["context"] = session.context.phases
+            for j, name in enumerate(names):
+                t0 = time.perf_counter()
+                part, gen_s = pending.result()
+                wait_s = time.perf_counter() - t0
+                if j + 1 < len(names):
+                    pending = maker.submit(made, names[j + 1])
+                elif spec.get("knn"):
+                    knn_rows = maker.submit(made, "knn")
+                port.profiling.reset_counters("exchange.")
+                port.profiling.reset_counters("cp.")
+                reset_launches(wrappers)
+                torch.cuda.synchronize()
+                t_fit = time.perf_counter()
+                attrs = session.fit(ranks_estimator(port, name), [part])
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t_fit
+                del part
+                counters = port.profiling.counters("exchange.")
+                out["fits"][name] = {
+                    "gen_s": gen_s, "gen_wait_s": wait_s, "fit_s": fit_s,
+                    "ingest_s": session.last_fit["build_inputs_s"],
+                    "launches": read_launches(wrappers), "exchange_bytes_by_section": exchange.byte_totals()[1],
+                    "dcn_bytes_by_section": {k[len("exchange."):-len(".dcn_bytes")]: v for k, v in counters.items()
+                                             if k.endswith(".dcn_bytes")},
+                    "control_plane": port.profiling.counters("cp."),
+                }
+                if rank == 0:
+                    with open(os.path.join(job, f"attrs_{name}.json"), "w") as f:
+                        json.dump(attrs, f)
+    except (RemoteRankError, ControlPlaneTimeout) as exc:
+        out["error"] = {"type": type(exc).__name__, "message": str(exc), "seconds": time.perf_counter() - t_fit}
+        save()
+        maker.shutdown(cancel_futures=True)
+        return 3
+    if knn_rows is not None:
+        plane = bootstrap_tcp_plane(os.path.join(job, "cp_knn"), rank, nranks)
+        (items, ids, Q, qids), gen_s = knn_rows.result()
+        out["knn_rows_made_s"] = gen_s
+        mesh = get_mesh(None)
+        search = knn_ops.knn_search_prepared
+        for route in ("ring", "gather"):
+            for prefix in ("exchange.", "cp.", "knn.exchange_route."):
+                port.profiling.reset_counters(prefix)
+            reset_launches(wrappers)
+            search.flagged_rows = search.rerun_rows = 0
+            plane.barrier()  # the ranks start the route together
+            t0 = time.perf_counter()
+            ((dist, idx),) = distributed_kneighbors([(items, ids)], [(Q, qids)], KNN_K, rank, nranks, plane,
+                                                    mesh=mesh, exchange=route)
+            seconds = time.perf_counter() - t0
+            np.save(os.path.join(job, f"knn_{route}_dist_rank{rank}.npy"), dist)
+            np.save(os.path.join(job, f"knn_{route}_idx_rank{rank}.npy"), idx)
+            out["knn"][route] = {
+                "seconds": seconds, "queries": int(Q.shape[0]), "items": int(items.shape[0]),
+                "launches": read_launches(wrappers), "exchange_bytes_by_section": exchange.byte_totals()[1],
+                "control_plane": port.profiling.counters("cp."),
+                "routes": port.profiling.counters("knn.exchange_route.dist_"),
+                "flagged_rows": search.flagged_rows, "rerun_rows": search.rerun_rows,
+            }
+        plane.close()
+    maker.shutdown()
+    save()
+    return 0
+
+
+def start_ranks(job, spec, faults=""):
+    """Write the job's spec and start its RANKS worker processes (fresh
+    interpreters: nothing forks a process with CUDA up), each logging to
+    DIR/rank<r>.log."""
+    os.makedirs(job, exist_ok=True)
+    with open(os.path.join(job, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if k != "SRML_FAULTS"}
+    if faults:
+        env["SRML_FAULTS"] = faults
+    procs = []
+    for r in range(RANKS):
+        log = open(os.path.join(job, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--nranks", str(RANKS), "--job", job],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO), log))
+    return procs
+
+
+def wait_ranks(job, procs, timeout):
+    """Wait for the job's processes (killing any still running at the
+    timeout); their return codes, every process ended."""
+    deadline = time.perf_counter() + timeout
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.close()
+    return [p.returncode for p, _ in procs]
+
+
+def ranks_log_tail(job):
+    tails = []
+    for r in range(RANKS):
+        with open(os.path.join(job, f"rank{r}.log")) as f:
+            tails.append(f"--- rank {r}:\n" + f.read()[-4000:])
+    return "\n".join(tails)
+
+
+def first_difference(attrs, model):
+    """The first attribute where a rank-fitted model's attributes differ from
+    `model`'s, bit for bit, or None."""
+    for key, value in attrs.items():
+        want = getattr(model, key)
+        if isinstance(value, np.ndarray):
+            want = np.asarray(want)
+            if value.dtype != want.dtype or value.shape != want.shape or not np.array_equal(value, want):
+                return key
+        elif value != want:
+            return key
+    return None
+
+
+def max_rel_diff(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max(initial=0.0) / max(np.abs(b).max(initial=0.0), 1e-30))
+
+
+def ranks_fit_models(port, job, ref_models, names):
+    """Rank 0's decoded models of `names` and their first differing fields
+    against `ref_models` (None where bit for bit)."""
+    from spark_rapids_ml_tpu_torch.core import TELEMETRY_ATTR
+    from spark_rapids_ml_tpu_torch.parallel.runner import decode_attrs
+
+    models, differ = {}, {}
+    for name in names:
+        with open(os.path.join(job, f"attrs_{name}.json")) as f:
+            (encoded,) = json.load(f)
+        attrs = decode_attrs(encoded)
+        check(TELEMETRY_ATTR in attrs, f"{name}: no merged telemetry in the attributes")
+        attrs.pop(TELEMETRY_ATTR)
+        differ[name] = first_difference(attrs, ref_models[name])
+        models[name] = ranks_estimator(port, name)._materialize_model(attrs)
+    return models, differ
+
+
+def equal_up_to_tie_order(idx, dist, idx_ref, dist_ref, idx_ext, dist_ext):
+    """(rows whose ids differ, rows that differ beyond the order of equal
+    distances) of two exact searches whose distances are bit for bit the
+    same: inside a run of equal distances the order of the ids is the
+    merge's (a single search orders them by (d2, position), the ranks' merge
+    by rank), so each run below the k-th distance must hold the reference's
+    id set, and the run at the k-th distance, which either search may cut
+    differently, distinct ids of items at exactly that distance: members of
+    the reference search KNN_TIE_SLACK past k (idx_ext, dist_ext), whose
+    row must run past the k-th distance so that it lists them all."""
+    differ = np.flatnonzero((idx != idx_ref).any(axis=1))
+    bad = 0
+    for r in differ:
+        kth = dist_ref[r, -1]
+        check(dist_ext[r, -1] > kth, f"query {r}: more than {KNN_TIE_SLACK} extra items at the k-th distance")
+        inside = dist_ref[r] < kth
+        runs = {}
+        for d, i in zip(dist_ref[r][inside], idx_ref[r][inside]):
+            runs.setdefault(float(d), set()).add(int(i))
+        got = {}
+        for d, i in zip(dist[r][inside], idx[r][inside]):
+            got.setdefault(float(d), set()).add(int(i))
+        last = [int(i) for i in idx[r][~inside]]
+        at_kth = {int(i) for i in idx_ext[r][dist_ext[r] == kth]}
+        bad += runs != got or len(set(last)) != len(last) or not set(last) <= at_kth
+    return int(differ.size), bad
+
+
+def run_fit_ranks_path(torch, port, wrappers, ref, mesh_rec, knn_mesh_rec, smi):
+    """Phase path_fit_ranks (module header): 2 worker processes of this
+    script over 2 shards of the card each, against path_fit_mesh's models
+    and path_knn_mesh's results; a second pair with rank 1 killed."""
+    t_phase = time.perf_counter()
+    job = ref["job"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    devices = [list(MESH_DEVICES[:RANK_SHARDS])] * RANKS
+    kill_job = os.path.join(job, "kill")
+    procs = start_ranks(job, {"devices": devices, "fits": list(RANKS_FITS), "knn": True, "labels": job})
+    kill_procs = start_ranks(kill_job, {"devices": devices, "fits": ["kill"], "knn": False, "labels": job},
+                             RANKS_KILL_FAULT)
+    kill_rcs = wait_ranks(kill_job, kill_procs, RANKS_WORKER_TIMEOUT_S)
+    rcs = wait_ranks(job, procs, RANKS_WORKER_TIMEOUT_S)
+    workers_s = time.perf_counter() - t_phase
+    check(rcs == [0] * RANKS, f"path_fit_ranks workers ended {rcs}:\n{ranks_log_tail(job)}")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(job, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # the killed rank: rank 1 exits by injection, rank 0 raises a typed error
+    check(kill_rcs == [3, 17], f"the killed-rank pair ended {kill_rcs}:\n{ranks_log_tail(kill_job)}")
+    with open(os.path.join(kill_job, "rank0.json")) as f:
+        kill_err = json.load(f)["error"]
+    check(kill_err["type"] in ("RemoteRankError", "ControlPlaneTimeout") and kill_err["seconds"] <= RANKS_KILL_S,
+          f"the killed rank surfaced on rank 0 as {kill_err}")
+
+    # every model bit for bit path_fit_mesh's
+    models, differ = ranks_fit_models(port, job, ref["models"], RANKS_FITS)
+    check(all(d is None for d in differ.values()),
+          f"rank-fitted models differ from the 4-shard models, first field by fit: {differ}")
+    # the parent's KMeans model (rank 0's attributes): B1 once a partition, path_fit_mesh's labels
+    X_t = blobs(ROWS, COLS, K, SEED, part=(0, RANKS_TRANSFORM_ROWS))
+    df_t = port.DataFrame.from_numpy(X_t, num_partitions=PARTITIONS)
+    reset_launches(wrappers)
+    with port.device.use_device(list(MESH_DEVICES)):
+        labels = np.concatenate([p["prediction"] for p in models["kmeans"].transform(df_t).partitions])
+        transform_launches = read_launches(wrappers)
+        want = np.concatenate([p["prediction"] for p in ref["models"]["kmeans"].transform(df_t).partitions])
+    check(transform_launches["min_dist_argmin"] == PARTITIONS,
+          f"the parent's KMeans transform launched B1 {transform_launches['min_dist_argmin']} times")
+    check(np.array_equal(labels, want), "the parent's KMeans model's labels differ from path_fit_mesh's")
+    del X_t, df_t
+
+    # distributed kNN: both routes bit for bit path_knn_mesh's first queries
+    idx_ref, dist_ref = ref["knn"]
+    idx_ext, dist_ext = ref["knn_ties"]
+    check(np.array_equal(dist_ext[:, :KNN_K], dist_ref),
+          "the reference search past k gave other distances than path_knn_mesh's")
+    knn = {}
+    for route in ("ring", "gather"):
+        idx = np.concatenate([np.load(os.path.join(job, f"knn_{route}_idx_rank{r}.npy")) for r in range(RANKS)])
+        dist = np.concatenate([np.load(os.path.join(job, f"knn_{route}_dist_rank{r}.npy")) for r in range(RANKS)])
+        check(idx.shape == idx_ref.shape, f"distributed kNN ({route}) gave {idx.shape}")
+        dist_rows_off = int((dist != dist_ref).any(axis=1).sum())
+        ids_rows_off, ids_rows_bad = equal_up_to_tie_order(idx, dist, idx_ref, dist_ref, idx_ext, dist_ext)
+        seconds = max(rk["knn"][route]["seconds"] for rk in ranks)
+        knn[route] = {
+            "seconds_by_rank": [rk["knn"][route]["seconds"] for rk in ranks],
+            "rows_per_s": RANKS_KNN_QUERIES / seconds,
+            "distance_rows_differing_from_path_knn_mesh": dist_rows_off,
+            "id_rows_differing_from_path_knn_mesh": ids_rows_off,
+            "id_rows_differing_beyond_tie_order": ids_rows_bad,
+            "dist_max_rel_err": max_rel_diff(dist, dist_ref),
+            "flagged_rows_by_rank": [rk["knn"][route]["flagged_rows"] for rk in ranks],
+            "launches_by_rank": [{k: v for k, v in rk["knn"][route]["launches"].items() if v} for rk in ranks],
+            "exchange_bytes_by_section_rank0": ranks[0]["knn"][route]["exchange_bytes_by_section"],
+            "control_plane_rank0": ranks[0]["knn"][route]["control_plane"],
+            "routes_rank0": ranks[0]["knn"][route]["routes"],
+        }
+        check(dist_rows_off == 0 and ids_rows_bad == 0,
+              f"distributed kNN ({route}) differs from path_knn_mesh's: {knn[route]}")
+        for rk in ranks:
+            for name in ("knn_candidates", "knn_fused_merge"):
+                check(rk["knn"][route]["launches"][name] > 0, f"rank {rk['rank']}'s {route} search launched no {name}")
+
+    fits = {}
+    for name in RANKS_FITS:
+        per = [rk["fits"][name] for rk in ranks]
+        fits[name] = {
+            "fit_s_by_rank": [p["fit_s"] for p in per], "ingest_s_by_rank": [p["ingest_s"] for p in per],
+            "rows_made_s_by_rank": [p["gen_s"] for p in per],
+            "rows_waited_s_by_rank": [p["gen_wait_s"] for p in per],
+            "path_fit_mesh_fit_s": mesh_rec["parts"][name]["fit_s"] if name in mesh_rec["parts"] else None,
+            "against": "mesh_card_vs_cpu card_4_shards" if name == "rf_int" else "path_fit_mesh",
+            "cross_process_bytes_by_section_rank0": per[0]["dcn_bytes_by_section"],
+            "exchange_bytes_by_section_rank0": per[0]["exchange_bytes_by_section"],
+            "control_plane_rank0": per[0]["control_plane"],
+            "launches_by_rank": [{k: v for k, v in p["launches"].items() if v} for p in per],
+        }
+    for rk in ranks:
+        check(rk["fits"]["rf_int"]["launches"]["bin_features_fm"] == RANK_SHARDS,
+              f"rank {rk['rank']}'s forest launched B2 {rk['fits']['rf_int']['launches']['bin_features_fm']} times")
+    # each rank's launches over the phase, for the summary line
+    launches_ranks = {}
+    for rk in ranks:
+        total = {}
+        for part in list(rk["fits"].values()) + list(rk["knn"].values()):
+            for k, v in part["launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches_ranks[f"rank{rk['rank']}"] = {k: v for k, v in total.items() if v}
+
+    nccl = "not run: one card"
+    if torch.cuda.device_count() >= RANKS:
+        nccl_job = os.path.join(job, "nccl")
+        t0 = time.perf_counter()
+        nccl_devices = [[f"cuda:{r}"] * RANK_SHARDS for r in range(RANKS)]
+        nccl_procs = start_ranks(nccl_job, {"devices": nccl_devices, "fits": list(RANKS_FITS), "knn": False,
+                                            "labels": job})
+        nccl_rcs = wait_ranks(nccl_job, nccl_procs, RANKS_WORKER_TIMEOUT_S)
+        check(nccl_rcs == [0] * RANKS, f"the NCCL workers ended {nccl_rcs}:\n{ranks_log_tail(nccl_job)}")
+        with open(os.path.join(nccl_job, "rank0.json")) as f:
+            nccl_rank0 = json.load(f)
+        _, nccl_differ = ranks_fit_models(port, nccl_job, ref["models"], RANKS_FITS)
+        nccl = {"backend": nccl_rank0["context"]["backend"], "devices": nccl_devices,
+                "seconds": time.perf_counter() - t0, "first_differing_field": nccl_differ,
+                "fit_s_rank0": {n: nccl_rank0["fits"][n]["fit_s"] for n in RANKS_FITS}}
+        check(nccl["backend"] == "nccl", f"one rank a card chose {nccl['backend']}")
+    return {
+        "phase": "path_fit_ranks", "ranks": RANKS, "shards_per_rank": RANK_SHARDS, "devices": devices,
+        "nvidia_smi": smi, "backend": [rk["context"]["backend"] for rk in ranks],
+        "bootstrap_s_by_rank": [rk["context"]["bootstrap_s"] for rk in ranks],
+        "fits": fits, "kmeans_transform": {"rows": RANKS_TRANSFORM_ROWS, "partitions": PARTITIONS,
+                                           "launches": transform_launches},
+        "knn": knn, "knn_queries": RANKS_KNN_QUERIES, "k": KNN_K,
+        "path_knn_mesh_rows_per_s": knn_mesh_rec.get("kneighbors_rows_per_s"),
+        "killed_rank": {"fault": RANKS_KILL_FAULT, "return_codes": kill_rcs, "rank0_error": kill_err,
+                        "gate_s": RANKS_KILL_S},
+        "nccl_across_cards": nccl, "launches_ranks": launches_ranks,
+        "workers_s": workers_s, "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def mcvc_rows():
+    """mesh_card_vs_cpu's integer rows: (X, y) of the linear, PCA and
+    logistic fits, (Xf, yf) of the forest."""
+    rng = np.random.default_rng(MCVC_SEED)
+    X = rng.integers(-2, 3, size=(MCVC_ROWS, MCVC_COLS)).astype(np.float32)
+    y = np.clip(X[:, 0] + X[:, 1] + X[:, 2] - X[:, 3] + rng.integers(-1, 2, MCVC_ROWS), -8, 8).astype(np.float32)
+    Xf = rng.integers(-3, 4, size=(MCVC_FOREST_ROWS, MCVC_FOREST_COLS)).astype(np.float32)
+    yf = np.clip(Xf[:, 0] + Xf[:, 1] + 3, 0, 7).astype(np.float32)
+    return X, y, Xf, yf
+
+
+def mesh_card_vs_cpu(torch, port, wrappers, fh, models=None):
     """Phase mesh_card_vs_cpu: every estimator's mesh fit on 4 shards of the
     card, 1 shard of the card and 8 shards of the CPU, on integer rows:
     KMeans centers, PCA moments, linear and fold statistics, the forest's
@@ -5575,10 +6086,7 @@ def mesh_card_vs_cpu(torch, port, wrappers, fh):
     t_start = time.perf_counter()
     rng = np.random.default_rng(MCVC_SEED)
     X_km, _ = integer_blob_rows(MCVC_ROWS, MCVC_COLS, MCVC_KMEANS["k"], MCVC_SEED)
-    X = rng.integers(-2, 3, size=(MCVC_ROWS, MCVC_COLS)).astype(np.float32)
-    y = np.clip(X[:, 0] + X[:, 1] + X[:, 2] - X[:, 3] + rng.integers(-1, 2, MCVC_ROWS), -8, 8).astype(np.float32)
-    Xf = rng.integers(-3, 4, size=(MCVC_FOREST_ROWS, MCVC_FOREST_COLS)).astype(np.float32)
-    yf = np.clip(Xf[:, 0] + Xf[:, 1] + 3, 0, 7).astype(np.float32)
+    X, y, Xf, yf = mcvc_rows()
     df_km = port.DataFrame.from_numpy(X_km, num_partitions=4)
     df = port.DataFrame.from_numpy(X, y, num_partitions=4)
     df_log = port.DataFrame.from_numpy(X, (y > 0).astype(np.float32), num_partitions=4)
@@ -5601,6 +6109,8 @@ def mesh_card_vs_cpu(torch, port, wrappers, fh):
             log = port.LogisticRegression(**MCVC_LOGREG, num_workers=workers).fit(df_log)
             rf = port.RandomForestRegressor(**MCVC_FOREST, num_workers=workers).fit(df_rf)
         launches[name] = read_launches(wrappers)
+        if name == "card_4_shards":
+            keep_mesh_model(models, "rf_int", rf)
         cpu = lambda t: t.cpu().numpy()  # noqa: E731
         out[name] = {
             "km": (km.cluster_centers_, km.n_iter_, km.inertia_),
@@ -5962,6 +6472,34 @@ def ann_mesh_card_vs_cpu(torch, port, ivf, pq_mod, knn_ops, wrappers, dev):
             "seconds": time.perf_counter() - t_start}
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the port by name, each counting its launches
+    in `.launches`."""
+    from spark_rapids_ml_tpu_torch.ops import binning
+    from spark_rapids_ml_tpu_torch.ops import exchange_kernels as ek
+    from spark_rapids_ml_tpu_torch.ops import forest_hist as fh
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import nearest_center as nc
+    from spark_rapids_ml_tpu_torch.ops import pq_kernels as pk
+
+    return {
+        "min_dist_argmin": nc.min_dist_argmin,
+        "bin_features_fm": binning.bin_features_fm,
+        "node_histograms_mma": fh.node_histograms_mma,
+        "node_histograms_atomic": fh.node_histograms_atomic,
+        "node_histograms_bucketed": fh.node_histograms_bucketed,
+        "knn_candidates": kk.knn_candidates,
+        "knn_candidates_audit": kk.knn_candidates_audit,
+        "knn_fused_merge": kk.knn_fused_merge,
+        "knn_count": kk.knn_count,
+        "lut_accumulate": pk.lut_accumulate,
+        "lut_accumulate_probed": pk.lut_accumulate_probed,
+        "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
+        "fastscan_lut_accumulate_probed": pk.fastscan_lut_accumulate_probed,
+        "ring_shift": ek.ring_shift,
+    }
+
+
 def main():
     import argparse
 
@@ -5970,7 +6508,18 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of the phases to run (default: all)")
-    phases = parser.parse_args().phases.split(",")
+    # path_fit_ranks' worker processes: chip_smoke.py --rank r --nranks n --job DIR
+    parser.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--nranks", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--job", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.rank is not None:
+        if not torch.cuda.is_available() or not os.path.isdir(os.path.join(REPO, "spark_rapids_ml_tpu_torch")):
+            print("chip_smoke.py: a path_fit_ranks worker needs a GPU and a checkout", file=sys.stderr)
+            return 2
+        sys.path.insert(0, REPO)
+        return ranks_worker(torch, args.rank, args.nranks, args.job)
+    phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         parser.error(f"unknown phases {unknown}; choose from {PHASES}")
@@ -5989,6 +6538,10 @@ def main():
     if "path_fit_mesh" in phases and not set(mesh_needs) <= set(phases):
         parser.error(f"path_fit_mesh fits each cell's estimator on 4 shards right after the path that makes its rows "
                      f"and holds it against that path's: add {sorted(set(mesh_needs) - set(phases))}")
+    ranks_needs = ("path_fit_mesh", "mesh_card_vs_cpu", "path_knn", "path_knn_mesh")
+    if "path_fit_ranks" in phases and not set(ranks_needs) <= set(phases):
+        parser.error(f"path_fit_ranks holds its ranks' models and kNN results against path_fit_mesh's, "
+                     f"mesh_card_vs_cpu's and path_knn_mesh's: add {sorted(set(ranks_needs) - set(phases))}")
     for later, needs in (("path_live_mesh", "path_stream"), ("path_umap_mesh", "path_umap")):
         if later in phases and needs not in phases:
             parser.error(f"{later} replays {needs}'s script on 4 shards against its results: add {needs}")
@@ -6016,22 +6569,7 @@ def main():
     from spark_rapids_ml_tpu_torch.ann import pq as pq_mod
     from spark_rapids_ml_tpu_torch.parallel import topology
 
-    wrappers = {
-        "min_dist_argmin": nc.min_dist_argmin,
-        "bin_features_fm": binning.bin_features_fm,
-        "node_histograms_mma": fh.node_histograms_mma,
-        "node_histograms_atomic": fh.node_histograms_atomic,
-        "node_histograms_bucketed": fh.node_histograms_bucketed,
-        "knn_candidates": kk.knn_candidates,
-        "knn_candidates_audit": kk.knn_candidates_audit,
-        "knn_fused_merge": kk.knn_fused_merge,
-        "knn_count": kk.knn_count,
-        "lut_accumulate": pk.lut_accumulate,
-        "lut_accumulate_probed": pk.lut_accumulate_probed,
-        "fastscan_lut_accumulate": pk.fastscan_lut_accumulate,
-        "fastscan_lut_accumulate_probed": pk.fastscan_lut_accumulate_probed,
-        "ring_shift": ek.ring_shift,
-    }
+    wrappers = kernel_wrappers()
     t_start = time.perf_counter()
     smi = smi_line()
     print(smi, flush=True)
@@ -6058,11 +6596,15 @@ def main():
     # path_fit_mesh fits each cell on 4 shards right after its path, against
     # the path's model or reference (keep holds them until then)
     mesh_parts, mesh_s = ({}, {}) if "path_fit_mesh" in phases else (None, None)
+    # path_fit_ranks holds its ranks' fits against path_fit_mesh's models and
+    # its kNN against path_knn_mesh's results, and its workers read the
+    # paths' labels from its job directory
+    ranks_ref = {"models": {}, "job": ranks_job_dir()} if "path_fit_ranks" in phases else None
     keep = {} if serve is not None or mesh_parts is not None or "path_ann_mesh" in phases else None
 
     def mesh_part(name, fn, *args):
         t0 = time.perf_counter()
-        mesh_parts[name] = fn(*args)
+        mesh_parts[name] = fn(*args, models=ranks_ref["models"] if ranks_ref is not None else None)
         mesh_s[name] = time.perf_counter() - t0
         emit({"phase": "path_fit_mesh", "part": name, "seconds": mesh_s[name], **mesh_parts[name]})
         port.clear_fit_cache()
@@ -6168,7 +6710,8 @@ def main():
                               knn_dist, dev))
         if "path_knn_mesh" in phases:
             results["path_knn_mesh"], mesh_prepared = run_knn_mesh_path(
-                torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1], knn_idx, knn_dist, dev)
+                torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1], knn_idx, knn_dist, dev,
+                ranks_ref)
             emit(results["path_knn_mesh"])
             if "knn_ring" in phases:
                 results["knn_ring"] = knn_ring(torch, port, knn_ops, ek, wrappers, mesh_prepared,
@@ -6241,6 +6784,8 @@ def main():
         X_glm, y_glm = glm_data()
         emit({"phase": "glm_data", "rows": GLM_ROWS + GLM_HOLDOUT, "cols": GLM_COLS,
               "seconds": time.perf_counter() - t0})
+        if ranks_ref is not None:
+            np.save(os.path.join(ranks_ref["job"], "y_glm.npy"), y_glm[:GLM_ROWS])
         if "path_linreg" in phases:
             emit(run_linreg_path(torch, port, wrappers, X_glm, y_glm, dev, keep))
             port.clear_fit_cache()
@@ -6289,8 +6834,14 @@ def main():
         results["path_fit_mesh"] = run_fit_mesh_path(mesh_parts, mesh_s)
         emit(results["path_fit_mesh"])
     if "mesh_card_vs_cpu" in phases:
-        results["mesh_card_vs_cpu"] = mesh_card_vs_cpu(torch, port, wrappers, fh)
+        results["mesh_card_vs_cpu"] = mesh_card_vs_cpu(torch, port, wrappers, fh,
+                                                       ranks_ref["models"] if ranks_ref is not None else None)
         emit(results["mesh_card_vs_cpu"])
+    if ranks_ref is not None:
+        results["path_fit_ranks"] = run_fit_ranks_path(torch, port, wrappers, ranks_ref, results["path_fit_mesh"],
+                                                       results["path_knn_mesh"], smi)
+        emit(results["path_fit_ranks"])
+        del ranks_ref
     if "ann_mesh_card_vs_cpu" in phases:
         results["ann_mesh_card_vs_cpu"] = ann_mesh_card_vs_cpu(torch, port, ivf, pq_mod, knn_ops, wrappers, dev)
         emit(results["ann_mesh_card_vs_cpu"])
@@ -6478,6 +7029,15 @@ def summary(results, seconds):
                            "fastscan_lut_accumulate_probed") and amc:
             row["launches_ann_mesh_card_vs_cpu"] = {cfg: launches[row["name"]] for cfg, launches in amc.items()
                                                     if cfg.startswith("card")}
+        ranks_rec = results.get("path_fit_ranks")
+        if ranks_rec is not None and row["name"] in ("min_dist_argmin", "bin_features_fm", "knn_candidates",
+                                                     "knn_fused_merge"):
+            # each path_fit_ranks worker's launches (B2 in its forest fit, B5 /
+            # B7 in its kNN searches), and B1 in the parent's transform
+            row["launches_ranks"] = {rank: launches.get(row["name"], 0)
+                                     for rank, launches in ranks_rec["launches_ranks"].items()}
+            if row["name"] == "min_dist_argmin":
+                row["launches_ranks"]["parent_transform"] = ranks_rec["kmeans_transform"]["launches"][row["name"]]
         if row["name"] == "min_dist_argmin" and "path_serve_lanes" in results:
             # B1 once per distinct lane of a multiplexed KMeans batch
             lanes_rec = results["path_serve_lanes"]
@@ -6489,7 +7049,7 @@ def summary(results, seconds):
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
           "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *ANN_MESH_PHASES,
-          *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes"]
+          "path_fit_ranks", *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

@@ -43,8 +43,17 @@
 # sweep's _supportsBatchedSweep / _fitBatchedSweep, are overridden by the
 # estimators that have them (tuning.CrossValidator).
 #
-# Not carried over yet: the Spark executor paths (ROADMAP A14c), and the
-# profiling / watch / sanitize / fault-injection hooks.
+# Multi-process fits (parallel/runner.py) build FitInputs over a mesh that
+# spans processes: each rank's fields hold its local shards, `rank`,
+# `nranks` and `control_plane` name the job, n_pad counts every rank's rows,
+# and label discovery unions the ranks' labels over the control plane.  A
+# multi-process fit's attributes carry the telemetry snapshot merged across
+# ranks under TELEMETRY_ATTR, which _materialize_model pops into
+# model._fit_telemetry.  An estimator whose fit cannot run across processes
+# says so with _supports_multicontroller_fit = False (UMAP).
+#
+# Not carried over yet (ROADMAP A14c-2): the Spark executor paths (the
+# barrier-task adapter around runner.run_distributed_fit).
 #
 
 from __future__ import annotations
@@ -89,6 +98,11 @@ class FitInputs:
     # host copies of the (unpadded) labels / user weights, for label discovery
     host_y: Optional[np.ndarray] = None
     host_w: Optional[np.ndarray] = None
+    # multi-process fits: this rank, the rank count and the job's control
+    # plane (None on one process)
+    rank: int = 0
+    nranks: int = 1
+    control_plane: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -98,8 +112,9 @@ class FitInputs:
 
     @property
     def n_pad(self) -> int:
-        """Global padded row count: the shards' rows together."""
-        return sum(int(w.shape[0]) for w in self.weight)
+        """Global padded row count: the shards' rows together, every rank's
+        (each rank's share holds the same rows)."""
+        return sum(int(w.shape[0]) for w in self.weight) * self.mesh.nranks
 
 
 def gather_global_rows(shards: List[torch.Tensor], rows: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -143,6 +158,10 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """torch dtype -> numpy dtype."""
     return torch.empty(0, dtype=dtype).numpy().dtype
 
+
+# the attribute key of a multi-process fit's merged telemetry snapshot
+# (parallel/runner.DistributedFitSession.fit); never a model attribute
+TELEMETRY_ATTR = "__srml_telemetry__"
 
 # single-slot device-input cache; see _TpuCaller._build_fit_inputs
 _FIT_INPUT_CACHE: Dict[str, Any] = {}
@@ -420,6 +439,11 @@ class _FitMultipleIterator:
 class _TpuEstimator(_TpuCaller):
     """Base estimator."""
 
+    # whether the fit function runs across processes
+    # (runner.DistributedFitSession.fit raises for an estimator that says
+    # False)
+    _supports_multicontroller_fit = True
+
     def __init__(self) -> None:
         super().__init__()
         self.logger = get_logger(type(self))
@@ -464,8 +488,12 @@ class _TpuEstimator(_TpuCaller):
         """Model-attribute dict -> model carrying this estimator's params and
         the map's own values (set through _set_params, which keeps the Spark
         param and the solver param in step), the one bookkeeping every fit
-        route shares, the batched sweep's included."""
+        route shares, the batched sweep's included.  A multi-process fit's
+        merged telemetry (TELEMETRY_ATTR) becomes model._fit_telemetry."""
+        telem = attrs.pop(TELEMETRY_ATTR, None)
         model = self._create_model(attrs)
+        if telem is not None:
+            model._fit_telemetry = profiling.TelemetrySnapshot.from_dict(telem)
         self._copyValues(model)
         model._tpu_params.update(self._tpu_params)
         model._num_workers = self._num_workers
@@ -532,14 +560,22 @@ class _TpuEstimatorSupervised(_TpuEstimator):
 
 def discover_label_classes(inputs: FitInputs, cast: Optional[Any] = None) -> np.ndarray:
     """Sorted unique label values of the rows with weight > 0, from the
-    ingest's host copy of the labels (one device, one process)."""
+    ingest's host copy of the labels; across processes each rank's values,
+    unioned over the control plane (every rank returns the same array)."""
     if inputs.host_y is None:
         raise ValueError("label discovery needs the labels of a supervised fit")
     target = np.dtype(cast) if cast is not None else inputs.host_y.dtype
     vals = inputs.host_y
     if inputs.host_w is not None:
         vals = vals[inputs.host_w > 0]
-    return np.unique(vals.astype(target)).astype(target, copy=False)
+    local = np.unique(vals.astype(target)).astype(target, copy=False)
+    if inputs.nranks > 1 and inputs.control_plane is not None:
+        from .parallel.runner import allgather_ndarray
+
+        merged = [m for m in allgather_ndarray(inputs.control_plane, inputs.rank, local) if m.size]
+        if merged:
+            local = np.unique(np.concatenate([m.astype(target) for m in merged]))
+    return local.astype(target, copy=False)
 
 
 class _TpuModel(_TpuParams):

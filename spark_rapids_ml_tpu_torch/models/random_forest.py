@@ -41,8 +41,13 @@
 # (ops/forest.forest_predict, serving/entry.kernel_entry), the outputs
 # mapped as transform() maps them.
 #
-# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c) and
-# multi-rank binning (the multi-controller layer).
+# Across processes (parallel/runner.py) the binning sample is each rank's
+# strided rows gathered over the control plane in rank order (the quota
+# divides the budget over the global shard count), the bootstrap draws
+# index the job's valid rows (mesh.valid_spans), and every multi-rank fit
+# grows on the scatter engine, whose histogram psum crosses the processes.
+#
+# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c-2).
 #
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from ..ops.forest import grow_forest as grow_forest_engine
 from ..ops.forest_grow import depth_supported, grow_forest
 from ..ops.forest_hist import ROW_TILE
 from ..ops.labels import encode_labels
+from ..parallel.mesh import valid_spans
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -114,14 +120,22 @@ def _binning_rows(shard_weight: np.ndarray, quota: int) -> np.ndarray:
 
 def _binning_sample(inputs: FitInputs) -> np.ndarray:
     """The binning sample on the host: each shard's strided rows, in shard
-    order."""
+    order; across processes every rank's, gathered in rank order over the
+    control plane (the quota divides the budget over the global shards, so
+    the gathered total stays within it)."""
     quota = _binning_quota(inputs.n_cols, inputs.X[0].element_size(), inputs.mesh.size)
     parts = []
     for x, w in zip(inputs.X, inputs.weight):
         rows = _binning_rows(w.cpu().numpy(), quota)
         if rows.size:
             parts.append(x[torch.from_numpy(rows).to(x.device)].cpu().numpy())
-    return np.concatenate(parts) if parts else np.zeros((0, inputs.n_cols), dtype=inputs.dtype)
+    local = np.concatenate(parts) if parts else np.zeros((0, inputs.n_cols), dtype=inputs.dtype)
+    if inputs.nranks > 1 and inputs.control_plane is not None:
+        from ..parallel.runner import allgather_ndarray
+
+        local = np.concatenate(allgather_ndarray(inputs.control_plane, inputs.rank, local)).astype(
+            inputs.dtype, copy=False)
+    return local
 
 
 def _on_histogram_builder(mesh_size: int, n_bins: int, max_features: int, max_depth: int, s_split: int) -> bool:
@@ -148,19 +162,19 @@ def _engine_tree_chunk(n_trees: int, max_depth: int, n_cols: int, max_features: 
 def _engine_tree_stats(stats, weight, counts, n_trees: int, n_rows: int):
     """Per-shard (S, Tc, n_loc) bootstrap-weighted stats: stats (S, n_loc)
     times weight (n_loc,) times the bootstrap counts (Tc, n_rows) of the
-    global valid rows (None: no bootstrap), each shard taking its slice."""
-    out, start = [], 0
-    for st, w in zip(stats, weight):
+    global valid rows (None: no bootstrap), each shard taking its slice
+    (mesh.valid_spans: across processes, its rank's)."""
+    out = []
+    spans = valid_spans([int(w.shape[0]) for w in weight], n_rows)
+    for st, w, (start, take) in zip(stats, weight, spans):
         n_loc = int(w.shape[0])
         if counts is None:
             w_t = w[None, :].expand(n_trees, n_loc)
         else:
             bw = torch.zeros((counts.shape[0], n_loc), dtype=counts.dtype)
-            take = max(0, min(n_loc, n_rows - start))
             bw[:, :take] = counts[:, start : start + take]
             w_t = w[None, :] * bw.to(device=w.device, dtype=w.dtype)
         out.append(st[:, None, :] * w_t[None])
-        start += n_loc
     return out
 
 

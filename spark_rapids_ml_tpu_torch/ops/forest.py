@@ -42,7 +42,11 @@
 # JAX package's, on any shard count; on float stats the shards' partials
 # add in shard order and agree within rounding.  On CPU tensors the
 # segment sums run in row order, as XLA's on the CPU; on the card they are
-# float atomics, whose order is free.
+# float atomics, whose order is free.  Across processes (the JAX package's
+# multi-process branches, parallel/runner.py) the engine is unchanged: its
+# two psums cross the ranks in global shard order (parallel/exchange.py),
+# and every multi-rank forest grows here (models/random_forest.py routes by
+# the global shard count).
 #
 # Not carried over: compute_bin_edges_device, forest_predict_cached and
 # warm_forest_kernels (the TPU host link's and the AOT compile cache's

@@ -22,7 +22,13 @@
 #     global rows below n_rows (the padding sits past them, mesh.shard_rows),
 #     each shard takes its slice, and the Gumbel top-k of the global keys is
 #     the top-k of the shards' top-k candidates: one seed gives one init on
-#     any shard count.
+#     any shard count.  On a mesh of more than one shard the shards' top-k
+#     candidates, the candidate rows and the k-means|| candidate weights meet
+#     in device_collective sections (kmeans.topk, kmeans.rows,
+#     kmeans.cand_weights) in global shard order; across processes (a mesh
+#     over ranks, parallel/mesh.py) each rank takes its local shards' slices
+#     of the same draws (mesh.valid_spans), so the init is the one-process
+#     mesh's of the same global shard count.
 # transform/predict go through ops/nearest_center.min_dist_argmin, the CUDA
 # kernel on the card.  stream_kmeans_chunk_kernel is the streaming engine's
 # chunk update (stream/engines.py), in plain torch ops as the JAX package's
@@ -47,8 +53,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.exchange import psum_fields, replicate
-from ..parallel.mesh import as_shards
+from ..parallel.exchange import device_collective, psum_fields, replicate
+from ..parallel.mesh import as_shards, global_row_base, process_mesh, valid_spans
 from ..utils import chunk_iter
 from .lanes import by_lane
 from .nearest_center import min_dist_argmin, squared_norms
@@ -140,51 +146,55 @@ def lloyd_iterations(
 
 
 def _global_gumbel(n_rows: int, generator: torch.Generator, Xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """n_rows Gumbel draws indexing global rows, sliced to the shards (each
-    on its shard's device and dtype); a shard's rows past n_rows, the
-    padding, get -inf."""
+    """n_rows Gumbel draws indexing global valid rows, sliced to the shards
+    (each on its shard's device and dtype); a shard's padding rows get
+    -inf.  Across processes each rank takes its local shards' slices
+    (mesh.valid_spans)."""
     g = _gumbel(n_rows, generator, torch.empty(0, dtype=Xs[0].dtype))
-    if len(Xs) == 1 and int(Xs[0].shape[0]) == n_rows:
+    if _one_shard(Xs) and int(Xs[0].shape[0]) == n_rows:
         return [g.to(Xs[0].device)]
-    out, start = [], 0
-    for x in Xs:
-        n_loc = int(x.shape[0])
-        part = torch.full((n_loc,), -math.inf, dtype=x.dtype)
-        take = max(0, min(n_loc, n_rows - start))
+    out = []
+    for x, (start, take) in zip(Xs, valid_spans([int(x.shape[0]) for x in Xs], n_rows)):
+        part = torch.full((int(x.shape[0]),), -math.inf, dtype=x.dtype)
         part[:take] = g[start : start + take]
         out.append(part.to(x.device))
-        start += n_loc
     return out
+
+
+def _one_shard(Xs: List[torch.Tensor]) -> bool:
+    """True when the mesh has one shard in all: no collective runs."""
+    return len(Xs) == 1 and process_mesh() is None
 
 
 def _sharded_topk(keys: List[torch.Tensor], k: int) -> torch.Tensor:
     """Global row indices (k,) of the k largest keys over all shards, in
     descending key order, on shard 0's device: the top-k of each shard's
-    top-k, with no host round trip (one shard: its own top-k)."""
-    dev = keys[0].device
-    vals, idxs, start = [], [], 0
-    for kv in keys:
+    top-k, gathered in global shard order with no host round trip (one
+    shard: its own top-k)."""
+    vals, idxs = [], []
+    for kv, base in zip(keys, global_row_base([int(kv.shape[0]) for kv in keys])):
         v, i = torch.topk(kv, min(k, int(kv.shape[0])))
-        vals.append(v.to(dev))
-        idxs.append(i.to(dev) + start)
-        start += int(kv.shape[0])
-    if len(keys) == 1:
+        vals.append(v)
+        idxs.append(i + base)
+    if _one_shard(keys):
         return idxs[0]
-    return torch.cat(idxs)[torch.topk(torch.cat(vals), k).indices]
+    vals = device_collective("kmeans.topk").gather_to_first(vals).reshape(-1)
+    idxs = device_collective("kmeans.topk").gather_to_first(idxs).reshape(-1)
+    return idxs[torch.topk(vals, k).indices]
 
 
 def _rows_at(Xs: List[torch.Tensor], rows: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Global rows `rows` of the sharded X (equal shards), in order, on
-    `device`: a gather a shard, with no host round trip."""
-    if len(Xs) == 1:
+    `device`, with no host round trip: each shard gives its (clamped) rows,
+    one kmeans.rows gather stacks them and each row is picked from its
+    owning shard."""
+    if _one_shard(Xs):
         return Xs[0][rows.to(Xs[0].device)].to(device)
     per = int(Xs[0].shape[0])
-    owner = (rows // per).to(device)[:, None]
-    out = torch.zeros((rows.shape[0], Xs[0].shape[1]), dtype=Xs[0].dtype, device=device)
-    for i, x in enumerate(Xs):
-        local = (rows - i * per).clamp(0, per - 1).to(x.device)
-        out = torch.where(owner == i, x[local].to(device), out)
-    return out
+    picked = [x[(rows - base).clamp(0, per - 1).to(x.device)]
+              for x, base in zip(Xs, global_row_base([per] * len(Xs)))]
+    slab = device_collective("kmeans.rows").gather_to_first(picked).to(device)
+    return slab[(rows // per).to(device), torch.arange(rows.shape[0], device=device)]
 
 
 def _nearest_valid(
@@ -255,9 +265,16 @@ def scalable_kmeans_pp_init(
     # the host in float64: deterministic, unlike float atomics on the card)
     cand_w = np.zeros(m, dtype=np.float64)
     pools, valids = replicate(pool, [x.device for x in Xs]), replicate(pool_valid, [x.device for x in Xs])
+    parts = []
     for x, wl, p, v in zip(Xs, ws, pools, valids):
         _, assign = _nearest_valid(x, p, v, chunk)
-        cand_w += np.bincount(assign.cpu().numpy(), weights=wl.double().cpu().numpy(), minlength=m)
+        parts.append(np.bincount(assign.cpu().numpy(), weights=wl.double().cpu().numpy(), minlength=m))
+    if not _one_shard(Xs):
+        # every global shard's counts, in global shard order
+        parts = device_collective("kmeans.cand_weights").gather_to_first(
+            [torch.from_numpy(c) for c in parts]).numpy()
+    for c in parts:
+        cand_w += c
     cand_w = torch.as_tensor(cand_w, device=dev).to(Xs[0].dtype) * pool_valid
 
     # weighted k-means++ on the small candidate pool.  The JAX package

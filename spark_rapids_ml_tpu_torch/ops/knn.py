@@ -853,3 +853,197 @@ def knn_search_streamed(
         else:
             out.append((best[p][0][:, :k_eff], best[p][1][:, :k_eff]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Exact kneighbors across cooperating processes
+# ---------------------------------------------------------------------------
+
+
+def _resident_rows(n_cols: int, mesh: Mesh, budget_bytes: Optional[int] = None) -> int:
+    """Items of n_cols features that may stay resident on `mesh`: the item
+    budget's block rows (_item_block_rows), or `budget_bytes` a shard."""
+    if budget_bytes is None:
+        return _item_block_rows(n_cols, mesh)
+    return max(1, int(budget_bytes) // (4 * max(n_cols, 1) + _ROW_OVERHEAD)) * mesh.size
+
+
+def _nonempty_parts(item_parts):
+    for f, i in item_parts:
+        f = np.asarray(f, np.float32)
+        if f.shape[0]:
+            yield f, np.asarray(i, np.int64)
+
+
+def distributed_kneighbors(
+    item_parts,
+    query_parts,
+    k: int,
+    rank: int,
+    nranks: int,
+    control_plane,
+    mesh: Optional[Mesh] = None,
+    exchange: str = "ring",
+    item_budget_bytes: Optional[int] = None,
+):
+    """Exact kneighbors across `nranks` cooperating ranks (processes or
+    threads) that share a string control plane: the JAX package's
+    distributed_kneighbors.  Item data never leaves its rank.
+
+    `item_parts` / `query_parts` are this rank's partitions, each (features
+    (n, D), ids (n,) int64).  Returns one (distances (m, k_eff) float32,
+    item ids (m, k_eff) int64) pair per local query partition, k_eff =
+    min(k, global item count), distances ascending.
+
+    One metadata round (query rows, item count, dims and ring capability
+    a rank, as an SRX1 frame) decides the route for every rank at once:
+      ring (`exchange` "ring", every rank's items resident within its item
+      budget): each rank searches its own queries, then the (queries,
+      running candidates) frame travels the ring for nranks hops
+      (exchange.ring_pass_bytes, fault site knn.ring_hop inside the
+      knn.ring.hop span); each hop the receiving rank searches its resident
+      items and merges (topk_merge), and the last hop brings every block
+      home;
+      allgather (any rank over its budget, or `exchange` "gather"): every
+      rank broadcasts its queries (exchange.allgather_bytes), searches all
+      of them against its items streamed in budget-sized blocks, and sends
+      each owner its rows' candidates (exchange.alltoall_bytes); the owner
+      merges in rank order.
+    `item_budget_bytes` sets the item budget a shard (default: what the
+    device can hold, _item_budget_bytes).  `mesh` is the rank's devices
+    (default: get_mesh(None); ranks mocked as threads of one process, with
+    no process group, get disjoint slices of the device list,
+    mesh.slice_meshes).  Every rank must call it, a rank with no rows too."""
+    from ..parallel.exchange import allgather_bytes, alltoall_bytes, pack_arrays, unpack_arrays
+    from ..parallel.mesh import get_mesh, slice_meshes
+
+    if exchange not in _EXCHANGE_ROUTES:
+        raise ValueError(f"exchange must be one of {_EXCHANGE_ROUTES}, got {exchange!r}")
+    if mesh is None:
+        import torch.distributed as dist
+
+        thread_ranks = nranks > 1 and not (dist.is_available() and dist.is_initialized())
+        mesh = slice_meshes(nranks)[rank] if thread_ranks else get_mesh(None)
+    q_feats = [np.asarray(f, np.float32) for f, _ in query_parts]
+    q_rows = [f.shape[0] for f in q_feats]
+    nonempty_q = [f for f in q_feats if f.shape[0]]
+    q_cat = np.concatenate(nonempty_q) if nonempty_q else np.zeros((0, 0), np.float32)
+    n_items_loc = int(sum(np.asarray(f).shape[0] for f, _ in item_parts))
+
+    # metadata round: the route must be decided identically on every rank
+    # before the first data collective
+    d_q = int(q_cat.shape[1]) if q_cat.shape[0] else -1
+    d_i = -1
+    for f, _ in item_parts:
+        f = np.asarray(f)
+        if f.ndim == 2:
+            d_i = int(f.shape[1])
+            break
+    ring_ok = int(exchange == "ring" and nranks > 1
+                  and n_items_loc <= _resident_rows(max(d_i, 0), mesh, item_budget_bytes))
+    meta = np.array([q_cat.shape[0], n_items_loc, d_q, d_i, ring_ok], np.int64)
+    metas = [unpack_arrays(fr)[0] for fr in allgather_bytes(control_plane, pack_arrays([meta]))]
+    q_counts = [int(m[0]) for m in metas]
+    item_counts = [int(m[1]) for m in metas]
+    dims = {int(m[2]) for m in metas if int(m[2]) >= 0}
+    if len(dims) > 1:
+        raise ValueError(f"ranks disagree on query dimensionality: {sorted(dims)}")
+    item_dims = {int(m[3]) for m in metas if int(m[3]) >= 0}
+    D = dims.pop() if dims else (item_dims.pop() if item_dims else 0)
+    total_items = sum(item_counts)
+    q_total = sum(q_counts)
+    k_eff = min(k, total_items)
+
+    def _empty_results():
+        return [(np.zeros((r, k_eff), np.float32), np.zeros((r, k_eff), np.int64)) for r in q_rows]
+
+    if q_total == 0 or total_items == 0:
+        # both counts are agreed, so every rank skips the data rounds
+        return _empty_results()
+
+    if all(int(m[4]) for m in metas):
+        profiling.incr_counter("knn.exchange_route.dist_ring")
+        return _distributed_ring(control_plane, rank, nranks, q_cat, q_rows, item_parts, n_items_loc, D, k, k_eff,
+                                 mesh)
+    profiling.incr_counter("knn.exchange_route.dist_allgather")
+
+    # allgather route: round 1 broadcasts every rank's query block
+    blocks = [unpack_arrays(fr)[0] for fr in allgather_bytes(control_plane, pack_arrays([q_cat]))]
+    blocks = [b if b.shape[0] else np.zeros((0, D), np.float32) for b in blocks]
+    offs = np.cumsum([0] + [b.shape[0] for b in blocks])
+    q_global = np.concatenate(blocks) if len(blocks) > 1 else blocks[0]
+    if n_items_loc:
+        block_rows = _resident_rows(D, mesh, item_budget_bytes) if item_budget_bytes is not None else None
+        ((d_res, i_res),) = knn_search_streamed(
+            iter_prepared_item_blocks(_nonempty_parts(item_parts), mesh, block_rows),
+            lambda p: q_global, [q_total], k,
+        )
+        d_mine, i_mine = _pad_topk_to_k(d_res.astype(np.float32, copy=False), i_res, k)
+    else:
+        d_mine = np.full((q_total, k), np.inf, np.float32)
+        i_mine = np.full((q_total, k), -1, np.int64)
+
+    # round 2: each owner receives only its own rows' candidates; the self
+    # slice never rides the wire
+    lo_r, hi_r = int(offs[rank]), int(offs[rank + 1])
+    dests = [
+        pack_arrays([d_mine[int(offs[r]) : int(offs[r + 1])], i_mine[int(offs[r]) : int(offs[r + 1])]])
+        if r != rank else b""
+        for r in range(nranks)
+    ]
+    got = alltoall_bytes(control_plane, rank, nranks, dests)
+    if hi_r <= lo_r:
+        return _empty_results()
+    best_d, best_i = d_mine[lo_r:hi_r], i_mine[lo_r:hi_r]
+    for s, fr in enumerate(got):  # rank order
+        if s == rank:
+            continue
+        d_r, i_r = unpack_arrays(fr)
+        best_d, best_i = topk_merge(best_d, best_i, d_r, i_r)
+    out, at = [], 0
+    for r in q_rows:
+        out.append((best_d[at : at + r, :k_eff], best_i[at : at + r, :k_eff]))
+        at += r
+    return out
+
+
+def _distributed_ring(control_plane, rank, nranks, q_cat, q_rows, item_parts, n_items_loc, D, k, k_eff, mesh):
+    """The ring route of distributed_kneighbors: exactly nranks
+    ring_pass_bytes calls a rank, empty blocks included, each from the flat
+    predecessor; nranks hops of the n-cycle are the identity, so the last
+    hop delivers every block home."""
+    from ..parallel import faults
+    from ..parallel.exchange import pack_arrays, ring_pass_bytes, unpack_arrays
+
+    # resident index: the ring capability said the whole set fits
+    resident = -(-n_items_loc // mesh.size) * mesh.size
+    blocks = list(iter_prepared_item_blocks(_nonempty_parts(item_parts), mesh, resident)) if n_items_loc else []
+
+    def _search(qb):
+        best = None
+        for prepared in blocks:
+            d, i = _pad_topk_to_k(*knn_search_prepared(prepared, qb, k), k)
+            best = (d, i) if best is None else topk_merge(best[0], best[1], d, i)
+        return best
+
+    qb = q_cat if q_cat.shape[0] else np.zeros((0, D), np.float32)
+    best = _search(qb) if qb.shape[0] and blocks else None
+    if best is None:
+        best = (np.full((qb.shape[0], k), np.inf, np.float32), np.full((qb.shape[0], k), -1, np.int64))
+    d_cur, i_cur = best
+    for hop in range(nranks):
+        # the injection site inside the named span: a rank lost mid-ring
+        # leaves knn.ring.hop as the failing span
+        with profiling.span("knn.ring.hop", hop=hop):
+            faults.site("knn.ring_hop", rank=rank)
+            got = ring_pass_bytes(control_plane, rank, nranks, pack_arrays([qb, d_cur, i_cur]))
+            qb, d_cur, i_cur = unpack_arrays(got)
+            qb = qb.astype(np.float32, copy=False)
+            if hop < nranks - 1 and qb.shape[0] and blocks:
+                d_new, i_new = _search(qb)
+                d_cur, i_cur = topk_merge(d_cur, i_cur, d_new, i_new)
+    out, at = [], 0
+    for r in q_rows:
+        out.append((d_cur[at : at + r, :k_eff].astype(np.float32, copy=False), i_cur[at : at + r, :k_eff]))
+        at += r
+    return out

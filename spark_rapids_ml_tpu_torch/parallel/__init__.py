@@ -1,3 +1,4 @@
 #
-# Partition metadata; the multi-device runtime waits for a later slice.
+# The device mesh, its collectives and topology, partition metadata, fault
+# injection, and the multi-controller layer (context, runner, netplane).
 #

@@ -37,16 +37,35 @@
 # tensors, the flat rotation and the gateway cycle alike; with one shard it
 # returns its input and launches nothing.
 #
-# Not carried over yet: the host-frame helpers (pack_arrays, allgather_bytes,
-# ring_pass_bytes, alltoall_bytes), which move bytes between processes over a
-# control plane: they come with the multi-controller layer.
+# Across processes (a mesh of several ranks, parallel/mesh.process_mesh():
+# a sharded value holds this rank's local shards) every collective takes its
+# cross-process form over the mesh's torch.distributed group.  The gather
+# class all-gathers each rank's stacked local blocks, in global shard order;
+# psum adds the partials in global shard order along a chain through the
+# ranks (each rank continues the running sum of the ranks before it, the
+# last one broadcasts the total), so its bits are the one-process mesh's of
+# the same global shard count (it never pre-sums a rank's shards on their
+# own and all-reduces, which would re-associate the floats); ring_shift
+# moves the hops inside a rank with B11 and each hop that crosses a rank
+# boundary with a send/recv.  On gloo the blocks are staged through (pinned) host copies;
+# on nccl they stay on the card.  Cross-process bytes are counted as
+# `.dcn_bytes` (whole-job model: each rank's payload to every other rank).
+#
+# The host-frame helpers move bytes between processes over a control plane,
+# with the JAX package's wire format unchanged: pack_arrays / unpack_arrays
+# (the SRX1 frame), allgather_bytes, ring_pass_bytes (fault site
+# exchange.ring_pass) and alltoall_bytes, chunked under CHUNK_BYTES, raw
+# bytes where the plane has allGatherBytes and base64 otherwise.
 #
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import json
+import struct
 import time
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +73,8 @@ from torch.profiler import record_function
 
 from .. import profiling
 from ..ops import exchange_kernels
-from . import topology
-from .mesh import ring_permutation
+from . import faults, topology
+from .mesh import Mesh, process_mesh, ring_permutation
 
 Sharded = List[torch.Tensor]
 
@@ -99,6 +118,132 @@ def _replicate(value: torch.Tensor, xs: Sharded) -> Sharded:
     """One copy of `value` per shard, on the shard's device (shards that
     share a device share it)."""
     return replicate(value, [x.device for x in xs])
+
+
+def _cross(xs: Sharded) -> Optional[Mesh]:
+    """The multi-process mesh these local shards belong to, or None on one
+    process."""
+    mesh = process_mesh()
+    if mesh is None:
+        return None
+    if len(xs) != mesh.local_size:
+        raise ValueError(f"a cross-process collective takes this rank's {mesh.local_size} shards, got {len(xs)}")
+    return mesh
+
+
+def _staging_device(mesh: Mesh, home: torch.device) -> torch.device:
+    """Where a block crosses processes: the card on nccl, the host on gloo."""
+    if mesh.backend == "nccl":
+        return home if home.type == "cuda" else next(d for d in mesh.devices if d.type == "cuda")
+    return torch.device("cpu")
+
+
+def _to_stage(t: torch.Tensor, where: torch.device) -> torch.Tensor:
+    """`t` as a contiguous tensor on `where`, a pinned host copy for a CUDA
+    tensor bound for the host; bool travels as uint8."""
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    if t.device == where:
+        return t.contiguous()
+    if where.type == "cpu" and t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host
+    return t.to(where).contiguous()
+
+
+def _process_slab(name: str, xs: Sharded, mesh: Mesh) -> torch.Tensor:
+    """The (global shards, ...) slab of every rank's local blocks, in global
+    shard order, on xs[0]'s device: one all_gather over the mesh's group."""
+    import torch.distributed as dist
+
+    home = xs[0].device
+    where = _staging_device(mesh, home)
+    local = _to_stage(torch.stack([x.to(home) for x in xs]), where)
+    pin = where.type == "cpu" and home.type == "cuda"
+    out = torch.empty((mesh.nranks,) + tuple(local.shape), dtype=local.dtype, device=where, pin_memory=pin)
+    dist.all_gather(list(out.unbind(0)), local, group=mesh.group)
+    slab = out.reshape((-1,) + tuple(local.shape[1:])).to(home)
+    if xs[0].dtype == torch.bool:
+        slab = slab.to(torch.bool)
+    per_rank = local.element_size() * local.numel()
+    _record_link_bytes(name, 0, per_rank * mesh.nranks * (mesh.nranks - 1))
+    return slab
+
+
+def _process_psum(name: str, xs: Sharded, mesh: Mesh) -> torch.Tensor:
+    """psum across processes in global shard order, as a chain through the
+    ranks: rank 0 starts from its first shard, each rank adds its shards in
+    order to the running sum of the ranks before it and passes it on, and
+    the last rank's total is broadcast.  Every element is summed in the
+    one-process order (((p0 + p1) + p2) + ...), and each rank moves one
+    block out and one in (plus the broadcast), where an all-gather of the
+    partials moves every shard's block to every rank."""
+    import torch.distributed as dist
+
+    home = xs[0].device
+    where = _staging_device(mesh, home)
+    pin = where.type == "cpu" and home.type == "cuda"
+    last = mesh.nranks - 1
+    if mesh.rank == 0:
+        total, rest = xs[0].to(home, copy=True), xs[1:]
+    else:
+        buf = torch.empty(xs[0].shape, dtype=xs[0].dtype, device=where, pin_memory=pin)
+        dist.recv(buf, src=mesh.rank - 1, group=mesh.group)
+        total, rest = buf.to(home), xs
+    for x in rest:
+        total += x.to(home)
+    if mesh.rank < last:
+        dist.send(_to_stage(total, where), dst=mesh.rank + 1, group=mesh.group)
+        final = torch.empty(xs[0].shape, dtype=xs[0].dtype, device=where, pin_memory=pin)
+        dist.broadcast(final, src=last, group=mesh.group)
+        total = final.to(home)
+    else:
+        dist.broadcast(_to_stage(total, where), src=last, group=mesh.group)
+    _record_link_bytes(name, 0, 2 * _nbytes(xs[0]) * last)
+    return total
+
+
+def _process_ring_shift(name: str, xs: Sharded, shift: int, mesh: Mesh) -> Sharded:
+    """ring_shift across processes: global shard g's block goes to shard
+    (g + shift) mod size.  The hops inside this rank run as one B11 launch
+    (the rank's blocks permuted among themselves, the pairs that leave or
+    enter the rank completed to a bijection and overwritten), each hop that
+    crosses a rank boundary is a send/recv."""
+    import torch.distributed as dist
+
+    n, L, off = mesh.size, mesh.local_size, mesh.shard_offset
+    blocks = [x.contiguous() for x in xs]
+    local_pairs, recv_from, send_to = [], {}, []
+    for i in range(L):
+        src = (off + i - shift) % n
+        if src // L == mesh.rank:
+            local_pairs.append((src - off, i))
+        else:
+            recv_from[i] = src
+        dst = (off + i + shift) % n
+        if dst // L != mesh.rank:
+            send_to.append((i, dst))
+    free_src = sorted(set(range(L)) - {s for s, _ in local_pairs})
+    free_dst = sorted(set(range(L)) - {d for _, d in local_pairs})
+    out = exchange_kernels.ring_shift(blocks, local_pairs + list(zip(free_src, free_dst)))
+    if not (recv_from or send_to):
+        return out
+    where = _staging_device(mesh, blocks[0].device)
+    ops, recvs = [], {}
+    for i, dst in send_to:
+        ops.append(dist.P2POp(dist.isend, _to_stage(blocks[i], where), dst // L, group=mesh.group, tag=dst % L))
+    for i, src in sorted(recv_from.items()):
+        buf = torch.empty(blocks[i].shape, dtype=torch.uint8 if blocks[i].dtype == torch.bool else blocks[i].dtype,
+                          device=where)
+        recvs[i] = buf
+        ops.append(dist.P2POp(dist.irecv, buf, src // L, group=mesh.group, tag=i))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for i, buf in recvs.items():
+        out[i] = buf.to(device=blocks[i].device, dtype=blocks[i].dtype)
+    _record_link_bytes(name, 0, _nbytes(blocks[0]) * len(send_to) * mesh.nranks)
+    return out
 
 
 class DeviceSection:
@@ -147,7 +292,11 @@ class DeviceSection:
         return torch.stack([x.to(home) for x in xs])
 
     def _gathered(self, xs: Sharded) -> torch.Tensor:
-        """The (n_dev, ...) slab of a gather, with its link bytes recorded."""
+        """The (n_dev, ...) slab of a gather, with its link bytes recorded
+        (every global shard's block across processes)."""
+        mesh = _cross(xs)
+        if mesh is not None:
+            return _process_slab(self.name, xs, mesh)
         topo = self._resolved(len(xs))
         _record_link_bytes(self.name, *topology.link_split_gather(topo, _nbytes(xs[0])))
         return self._stack(xs, topo)
@@ -177,6 +326,9 @@ class DeviceSection:
         its gateway first, then the group partials in group order: the sum
         is re-associated, so for floats it is not bitwise the flat one."""
         with device_section(self.name, xs):
+            mesh = _cross(xs)
+            if mesh is not None:
+                return _replicate(_process_psum(self.name, xs, mesh), xs)
             topo = self._resolved(len(xs))
             _record_link_bytes(self.name, *topology.link_split_reduce(topo, _nbytes(xs[0])))
             if topo.is_hierarchical:
@@ -213,6 +365,9 @@ class DeviceSection:
         (mesh.ring_permutation).  Kernel B11 on the card; one shard returns
         its input."""
         with device_section(self.name, xs):
+            mesh = _cross(xs)
+            if mesh is not None:
+                return _process_ring_shift(self.name, xs, shift, mesh)
             n_dev = len(xs)
             if n_dev == 1:
                 return list(xs)
@@ -247,8 +402,8 @@ def psum_fields(parts, section: str) -> Tuple[torch.Tensor, ...]:
     into one vector a shard: the fit reductions' collective.  Returns the
     fields' totals, in their shapes, on shard 0's device.  One shard's
     fields are its totals: no collective runs (as XLA drops a one-device
-    psum)."""
-    if len(parts) == 1:
+    psum); across processes the psum always runs."""
+    if len(parts) == 1 and process_mesh() is None:
         return tuple(parts[0])
     shapes = [tuple(t.shape) for t in parts[0]]
     flat = [torch.cat([t.reshape(-1) for t in fields]) for fields in parts]
@@ -305,3 +460,178 @@ def link_totals(prefix: str = "exchange.") -> dict:
         elif name.endswith(".dcn_bytes"):
             out["dcn"] += int(v)
     return out
+
+
+# -- host frames over a control plane -------------------------------------------
+
+CHUNK_BYTES = 8 << 20
+
+_MAGIC = b"SRX1"
+
+
+def pack_arrays(arrays: Sequence[np.ndarray]) -> bytes:
+    """One binary frame: magic, array count, then per array a dtype/shape
+    header followed by the raw C-order buffer.  No base64, no JSON."""
+    parts = [_MAGIC, struct.pack("<I", len(arrays))]
+    bufs = []
+    for a in arrays:
+        a = np.asarray(a)
+        if not a.flags.c_contiguous:
+            # (ascontiguousarray would also promote 0-dim to 1-dim)
+            a = np.ascontiguousarray(a)
+        dt = a.dtype.str.encode("ascii")  # e.g. b'<f4' — endian-explicit
+        parts.append(struct.pack("<B", len(dt)))
+        parts.append(dt)
+        parts.append(struct.pack("<B", a.ndim))
+        parts.append(struct.pack(f"<{a.ndim}q", *a.shape))
+        parts.append(struct.pack("<q", a.nbytes))
+        bufs.append(a.tobytes())
+    return b"".join(parts) + b"".join(bufs)
+
+
+def unpack_arrays(buf: bytes) -> List[np.ndarray]:
+    if buf[:4] != _MAGIC:
+        raise ValueError("not an SRX1 frame")
+    (count,) = struct.unpack_from("<I", buf, 4)
+    off = 8
+    metas = []
+    for _ in range(count):
+        (dl,) = struct.unpack_from("<B", buf, off)
+        off += 1
+        dt = np.dtype(buf[off : off + dl].decode("ascii"))
+        off += dl
+        (nd,) = struct.unpack_from("<B", buf, off)
+        off += 1
+        shape = struct.unpack_from(f"<{nd}q", buf, off)
+        off += 8 * nd
+        (nb,) = struct.unpack_from("<q", buf, off)
+        off += 8
+        metas.append((dt, shape, nb))
+    out = []
+    for dt, shape, nb in metas:
+        out.append(
+            np.frombuffer(buf, dtype=dt, count=nb // dt.itemsize, offset=off)
+            .reshape(shape)
+            .copy()
+        )
+        off += nb
+    return out
+
+
+def _chunks(payload: bytes, chunk: int) -> List[bytes]:
+    return [payload[i : i + chunk] for i in range(0, len(payload), chunk)] or [
+        b""
+    ]
+
+
+def _send(cp: Any, data: bytes, use_bytes: bool) -> List[Any]:
+    if use_bytes:
+        return cp.allGatherBytes(data)
+    return cp.allGather(base64.b64encode(data).decode("ascii"))
+
+
+def _recv(frame: Any, use_bytes: bool) -> bytes:
+    if use_bytes:
+        return frame
+    out = base64.b64decode(frame)
+    return out
+
+
+def allgather_bytes(
+    cp: Any, payload: bytes, chunk: int = CHUNK_BYTES
+) -> List[bytes]:
+    """Broadcast allGather of one binary payload per rank (every receiver
+    materializes every rank's payload — use for data all sides need, e.g.
+    the query broadcast).  Chunked under the transport frame limit.
+    Wall-clock and payload bytes land in the "exchange.allgather" section
+    (span + counters) so control-plane time is separable from device compute
+    in fit reports and telemetry snapshots."""
+    with section("allgather", nbytes=len(payload)):
+        use_bytes = hasattr(cp, "allGatherBytes")
+        mine = _chunks(payload, chunk)
+        counts = [int(c) for c in cp.allGather(str(len(mine)))]
+        parts: List[List[bytes]] = [[] for _ in counts]
+        for r in range(max(counts)):
+            got = _send(cp, mine[r] if r < len(mine) else b"", use_bytes)
+            for s, g in enumerate(got):
+                if r < counts[s]:
+                    parts[s].append(_recv(g, use_bytes))
+        return [b"".join(p) for p in parts]
+
+
+def ring_pass_bytes(
+    cp: Any,
+    rank: int,
+    nranks: int,
+    payload: bytes,
+    chunk: int = CHUNK_BYTES,
+) -> bytes:
+    """One ring hop over the control plane: contribute `payload` and
+    return the payload received from the flat-ring predecessor,
+    (rank - 1) % nranks — the HOST-plane analog of
+    DeviceSection.ring_shift, used by distributed_kneighbors' ring route
+    to rotate query blocks + running candidate lists between ranks as
+    binary frames.
+
+    The wire rides the broadcast allGather (the only collective a Spark
+    barrier offers) but the decode is p2p-shaped: a receiver b64-decodes /
+    joins ONLY its predecessor's chunks and drops the rest by reference, so
+    per-rank decode volume is O(one neighbor's payload) per hop instead of
+    O(sum of all ranks').  COLLECTIVE: every rank must call it once per
+    hop, empty payloads included."""
+    # srml-shield: corrupt here flips bytes in the outgoing frame (the
+    # receiver's SRX1 magic check must fail loudly); die/raise simulate a
+    # rank lost mid-ring
+    payload = faults.site("exchange.ring_pass", rank=rank, payload=payload)
+    with section("ring", nbytes=len(payload)):
+        use_bytes = hasattr(cp, "allGatherBytes")
+        src = (rank - 1) % nranks
+        mine = _chunks(payload, chunk)
+        counts = [int(c) for c in cp.allGather(str(len(mine)))]
+        parts: List[bytes] = []
+        for r in range(max(counts)):
+            got = _send(cp, mine[r] if r < len(mine) else b"", use_bytes)
+            if r < counts[src]:
+                parts.append(_recv(got[src], use_bytes))
+        return b"".join(parts)
+
+
+def alltoall_bytes(
+    cp: Any,
+    rank: int,
+    nranks: int,
+    dests: Sequence[bytes],
+    chunk: int = CHUNK_BYTES,
+) -> List[bytes]:
+    """All-to-all of per-destination binary payloads: rank s passes
+    dests[d] for every destination d and receives the nranks payloads
+    addressed to IT (result[s] = what rank s sent to this rank).
+
+    The wire rides the broadcast allGather (the only collective a Spark
+    barrier offers), but chunks are framed dest-major with a counts
+    round first, so a receiver b64-decodes/joins ONLY the chunk rounds
+    addressed to it and drops the rest by reference — per-rank decode
+    volume is O(own share), the p2p shape of the reference's UCX return
+    (knn.py:549-560: each query partition's results land only on their
+    owning rank)."""
+    if len(dests) != nranks:
+        raise ValueError(f"need {nranks} destination payloads, got {len(dests)}")
+    with section("alltoall", nbytes=sum(len(d) for d in dests)):
+        use_bytes = hasattr(cp, "allGatherBytes")
+        frames = [_chunks(d, chunk) for d in dests]
+        meta = json.dumps([len(f) for f in frames])
+        all_meta = [json.loads(s) for s in cp.allGather(meta)]  # [src][dest]
+        # canonical send order: dest-major concatenation of each source's
+        # chunks
+        my_seq = [c for f in frames for c in f]
+        # position range of (src -> me) chunks inside src's send sequence
+        lo = [sum(all_meta[s][:rank]) for s in range(nranks)]
+        hi = [lo[s] + all_meta[s][rank] for s in range(nranks)]
+        rounds = max(sum(m) for m in all_meta)
+        mine: List[List[bytes]] = [[] for _ in range(nranks)]
+        for r in range(rounds):
+            got = _send(cp, my_seq[r] if r < len(my_seq) else b"", use_bytes)
+            for s in range(nranks):
+                if lo[s] <= r < hi[s]:
+                    mine[s].append(_recv(got[s], use_bytes))
+        return [b"".join(p) for p in mine]

@@ -23,11 +23,15 @@
 # delay (sleep, then continue: a wedge), corrupt (flip payload bytes), drop
 # and partition (cp.net.* wire sites only).
 #
-# The port calls one site so far: serving.dispatch, in
-# serving/engine.ModelServer._dispatch (tag = the server's name).  The
-# control-plane, exchange, runner and context sites of the registry belong
-# to modules that are not ported yet (ROADMAP A14c); a plan naming them
-# parses and never fires.
+# The port calls every site of the registry: serving.dispatch in
+# serving/engine.ModelServer._dispatch (tag = the server's name); cp.gather
+# and cp.barrier in the file and TCP planes (parallel/runner.py,
+# netplane.py), cp.net.send / cp.net.recv on every wire frame of the TCP
+# plane; context.init in parallel/context.TpuContext; runner.fit in
+# runner.DistributedFitSession.fit; exchange.ring_pass in
+# exchange.ring_pass_bytes; knn.ring_hop in ops/knn.distributed_kneighbors.
+# The Spark barrier tasks that would carry these plans to executors are
+# ROADMAP A14c-2.
 #
 # With SRML_FAULTS unset the plan is None and site() is one global load and
 # one `is None` branch.

@@ -21,15 +21,29 @@
 # group-major order of parallel/topology.group_major_devices.  On one card,
 # N replicas get N single-device slices of cuda:0: the surplus rule below.
 #
+# A mesh may span processes (the multi-controller layer, parallel/runner.py):
+# one process a rank, each driving `devices`, its local shards, with
+# `rank`, `nranks` and the torch.distributed process `group` of the job.
+# Global shard r * len(devices) + i is shard i of rank r, process-major as
+# the JAX package's global_mesh orders it, and `size` counts the global
+# shards.  A sharded value holds this rank's local shards only.  While a
+# multi-process fit runs on a thread, process_scope makes its mesh that
+# thread's process_mesh(): the collectives of parallel/exchange.py then take
+# their cross-process forms, and valid_spans / global_row_base place the
+# local shards' rows among the job's rows, so a solver written for one
+# process runs unchanged across ranks.
+#
 # Not carried over yet: the 2-D (data, model) mesh and the NamedSharding
 # helpers (no engine of the port shards columns).
 #
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,24 +55,100 @@ DATA_AXIS = "data"
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D data mesh: `devices[i]` holds shard i.  Hashable, equal by
-    value."""
+    """A 1-D data mesh: `devices[i]` holds this process's shard i, global
+    shard rank * len(devices) + i of a mesh over `nranks` processes (module
+    header).  Hashable, equal by value (the process group aside)."""
 
     devices: Tuple[torch.device, ...]
+    rank: int = 0
+    nranks: int = 1
+    group: Any = field(default=None, compare=False, repr=False)
+    backend: str = field(default="", compare=False)
 
     def __post_init__(self) -> None:
         devs = tuple(torch.device(d) for d in self.devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
+        if not 0 <= self.rank < self.nranks:
+            raise ValueError(f"rank {self.rank} outside 0..{self.nranks - 1}")
         object.__setattr__(self, "devices", devs)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: len(self.devices)}
+        return {DATA_AXIS: self.size}
 
     @property
     def size(self) -> int:
+        """Global shard count: every rank's shards."""
+        return len(self.devices) * self.nranks
+
+    @property
+    def local_size(self) -> int:
         return len(self.devices)
+
+    @property
+    def shard_offset(self) -> int:
+        """Global index of this rank's first shard."""
+        return self.rank * len(self.devices)
+
+
+_WORLD = threading.local()
+
+
+def process_mesh() -> Optional[Mesh]:
+    """The multi-process mesh of the fit running on this thread (inside
+    process_scope), or None."""
+    return getattr(_WORLD, "mesh", None)
+
+
+@contextlib.contextmanager
+def process_scope(mesh: Mesh) -> Iterator[Mesh]:
+    """Make `mesh` this thread's process_mesh() for the block (a mesh of one
+    process leaves it None)."""
+    prev = (process_mesh(), getattr(_WORLD, "rank_rows", None))
+    _WORLD.mesh = mesh if mesh.nranks > 1 else None
+    _WORLD.rank_rows = None
+    try:
+        yield mesh
+    finally:
+        _WORLD.mesh, _WORLD.rank_rows = prev
+
+
+def set_rank_rows(rank_rows: Sequence[int]) -> None:
+    """The valid rows each rank holds of the dataset the current fit staged
+    (runner.DistributedFitSession.build_fit_inputs): valid_spans reads them."""
+    _WORLD.rank_rows = tuple(int(r) for r in rank_rows)
+
+
+def valid_spans(shard_rows: Sequence[int], n_rows: int) -> List[Tuple[int, int]]:
+    """(global index of the first valid row, valid rows) of each local shard
+    of a row-sharded dataset whose shards hold `shard_rows` rows: one
+    process pads past the n_rows valid rows, at the end; across processes
+    each rank's valid rows come first in its share and the valid rows are
+    numbered rank by rank (set_rank_rows)."""
+    mesh, rank_rows = process_mesh(), getattr(_WORLD, "rank_rows", None)
+    if mesh is None or rank_rows is None:
+        offset, mine = 0, int(n_rows)
+    else:
+        offset, mine = sum(rank_rows[: mesh.rank]), rank_rows[mesh.rank]
+    out, at = [], 0
+    for n_loc in shard_rows:
+        take = max(0, min(int(n_loc), mine - at))
+        out.append((offset + at, take))
+        at += int(n_loc)
+    return out
+
+
+def global_row_base(shard_rows: Sequence[int]) -> List[int]:
+    """Global padded position of each local shard's first row (every rank's
+    share holds the same rows)."""
+    mesh = process_mesh()
+    base = mesh.rank * sum(int(n) for n in shard_rows) if mesh is not None else 0
+    out = []
+    for n_loc in shard_rows:
+        out.append(base)
+        base += int(n_loc)
+    return out
 
 
 def as_mesh(where: Union[Mesh, torch.device, str, None] = None) -> Mesh:
@@ -165,8 +255,8 @@ def shard_row_count(n: int, n_shards: int) -> int:
 def shard_rows(
     arr: Union[np.ndarray, torch.Tensor, Sequence[Any]], mesh: Mesh, dtype: Optional[torch.dtype] = None
 ) -> Tuple[List[torch.Tensor], int]:
-    """Zero-pad rows to a multiple of the data-axis size and split them into
-    contiguous per-shard blocks, block i on mesh.devices[i].  Returns
+    """Zero-pad rows to a multiple of the mesh's local shard count and split
+    them into contiguous per-shard blocks, block i on mesh.devices[i].  Returns
     (blocks, n_valid_rows); callers mask the padded rows.
 
     `arr` is one array or tensor, or a sequence of row blocks (a frame's
@@ -183,7 +273,7 @@ def shard_rows(
     if dtype is not None:
         parts_in = [t if t.dtype == dtype else t.to(dtype) for t in parts_in]
     n_valid = sum(int(t.shape[0]) for t in parts_in)
-    n_shards = mesh.shape[DATA_AXIS]
+    n_shards = mesh.local_size
     per = shard_row_count(n_valid, n_shards)
     tail = tuple(parts_in[0].shape[1:])
     starts = np.cumsum([0] + [int(t.shape[0]) for t in parts_in])
