@@ -247,6 +247,26 @@
 #            route beside path_knn_mesh's; on a host with 2 or more cards the
 #            fits again with one rank a card over NCCL.  Needs path_fit_mesh,
 #            mesh_card_vs_cpu, path_knn and path_knn_mesh
+#   path_spark
+#            the Spark executor routes (spark/adapter.py) through a stand-in
+#            of the pyspark surface installed for the phase (no pyspark on
+#            the card host; frames of port Partition batches, barrier tasks
+#            as threads with a real allGather rendezvous), on rows other
+#            phases made: KMeans with path's parameters fitted on path's
+#            partitions 0-1 (2 x 125,000 rows) through one barrier task
+#            (runner.run_distributed_fit) and transformed on the executors
+#            (B1 once a partition, an int prediction column), OLS on the
+#            same rows (y = X w + noise, SPARK_SEED) fitted through the
+#            barrier task and scored by _transformEvaluate(rmse) on the
+#            executors, each bit for bit the port's local route on a port
+#            DataFrame of the same partitions; and NearestNeighbors(k=200)
+#            on path_knn's items kneighbors of its first 4,096 queries in a
+#            barrier stage of 2 tasks (each task one one-shard slice of the
+#            card, B5 and B7 counted a task, the host merges of candidate
+#            lists (ops/knn.topk_merge) counted and timed), the result sorted by query id
+#            and equal to path_knn_mesh's kept results up to the order of a
+#            tie run.  Each part prints its seconds and rows/s at once.
+#            Needs path, path_knn and path_knn_mesh
 #   mesh_card_vs_cpu
 #            at 65,536 x 256 integer rows (16,384 x 64 for the forest), each
 #            estimator on 4 shards of the card, 1 shard of the card and 8
@@ -444,7 +464,8 @@
 # path_knn_mesh; path_serve needs path; path_serve_lanes needs path_serve,
 # path, path_linreg, path_logreg and path_pca; path_fit_mesh needs path,
 # path_pca, path_linreg, path_logreg and path_rf_reg; path_fit_ranks needs
-# path_fit_mesh, mesh_card_vs_cpu, path_knn and path_knn_mesh; path_ann_mesh needs
+# path_fit_mesh, mesh_card_vs_cpu, path_knn and path_knn_mesh; path_spark
+# needs path, path_knn and path_knn_mesh; path_ann_mesh needs
 # an ANN arm, path_live_mesh path_stream, path_umap_mesh path_umap; the ANN,
 # PCA, GLM, mesh_card_vs_cpu, ann_mesh_card_vs_cpu, model-selection, UMAP
 # and streaming phases need nothing else).
@@ -6472,6 +6493,486 @@ def ann_mesh_card_vs_cpu(torch, port, ivf, pq_mod, knn_ops, wrappers, dev):
             "seconds": time.perf_counter() - t_start}
 
 
+# ---------------------------------------------------------------------------
+# path_spark: the Spark executor routes through a stand-in of pyspark
+# ---------------------------------------------------------------------------
+
+# The card host has no pyspark: for the phase's duration a stand-in of the
+# surface the port's adapter touches is installed in sys.modules.  Its frames
+# hold port Partition batches (no pandas), a task's partition being a list of
+# batches; repartition(n) deals whole partitions out round-robin (no row is
+# copied); a barrier stage runs its tasks as threads whose allGather is a
+# real rendezvous.  The rows are path's and path_knn's own arrays: each
+# features column is a row slice of them, read in place.
+SPARK_PARTS = 2            # path's partitions 0-1: 2 x 125,000 rows
+SPARK_KNN_TASKS = 2        # barrier tasks of the kNN part, one slice of the card each
+SPARK_SEED = 21            # the OLS label's weights and noise
+SPARK_TASK_TIMEOUT_S = 600
+SPARK_NUM_WORKERS_CONF = "spark.rapids.ml.tpu.numWorkers"
+
+
+class StandInTaskContext:
+    """pyspark.BarrierTaskContext: partitionId and an allGather that is a real
+    rendezvous of the stage's task threads."""
+
+    _tls = threading.local()
+
+    def __init__(self, rank, stage):
+        self._rank, self._stage = rank, stage
+
+    @classmethod
+    def get(cls):
+        return cls._tls.ctx
+
+    def partitionId(self):
+        return self._rank
+
+    def allGather(self, message=""):
+        st = self._stage
+        with st["lock"]:
+            st["slots"][self._rank] = message
+        st["barrier"].wait()
+        out = list(st["slots"])
+        st["barrier"].wait()  # every task has read the round before the next writes
+        return out
+
+    def barrier(self):
+        self.allGather("")
+
+
+class StandInLit:
+    def __init__(self, value):
+        self.value = value
+
+
+class StandInField:
+    def __init__(self, name, ddl):
+        self.name = name
+        self.dataType = types.SimpleNamespace(simpleString=lambda d=ddl: d)
+
+
+def ddl_fields(schema):
+    """(name, type) of each top-level field of a DDL string."""
+    fields, depth, cur = [], 0, ""
+    for ch in schema:
+        depth += (ch == "<") - (ch == ">")
+        if ch == "," and depth == 0:
+            fields.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    if cur.strip():
+        fields.append(cur.strip())
+    return [(f.partition(" ")[0].strip("`"), f.partition(" ")[2].strip()) for f in fields]
+
+
+def run_barrier_tasks(task_batches, udf):
+    """One barrier stage: udf(iter(batches)) of each task on its own thread;
+    the output batches of each task."""
+    n = len(task_batches)
+    stage = {"lock": threading.Lock(), "slots": [None] * n,
+             "barrier": threading.Barrier(n, timeout=SPARK_TASK_TIMEOUT_S)}
+    results, errors = [None] * n, []
+
+    def work(rank):
+        StandInTaskContext._tls.ctx = StandInTaskContext(rank, stage)
+        try:
+            results[rank] = list(udf(iter(task_batches[rank])))
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+            stage["barrier"].abort()
+        finally:
+            StandInTaskContext._tls.ctx = None
+
+    threads = [threading.Thread(target=work, args=(r,), name=f"spark-task-{r}") for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    StandInSpark.stages.append(n)
+    return results
+
+
+def batch_rows(batches):
+    return [{c: b[c][r] for c in b.columns} for b in batches for r in range(len(b))]
+
+
+class StandInRdd:
+    def __init__(self, frame):
+        self._frame, self._barrier = frame, False
+
+    def barrier(self):
+        self._barrier = True
+        return self
+
+    def mapPartitions(self, fn):
+        return self
+
+    def withResources(self, profile):
+        return self
+
+    def run(self):
+        f = self._frame
+        if self._barrier:
+            return run_barrier_tasks(f._parts, f._udf)
+        return f._materialize()
+
+    def collect(self):
+        return batch_rows([b for out in self.run() for b in out])
+
+    def getNumPartitions(self):
+        return len(self._frame._parts)
+
+
+class StandInFrame:
+    """pyspark.sql.DataFrame: partitions of port Partition batches, a schema,
+    and a lazy mapInPandas stage.  No toPandas: nothing is collected."""
+
+    def __init__(self, parts, fields, spark, udf=None):
+        self._parts, self._fields, self.sparkSession, self._udf = parts, list(fields), spark, udf
+
+    @property
+    def columns(self):
+        return [n for n, _ in self._fields]
+
+    @property
+    def schema(self):
+        return types.SimpleNamespace(fields=[StandInField(n, t) for n, t in self._fields])
+
+    @property
+    def rdd(self):
+        return StandInRdd(self)
+
+    def _materialize(self):
+        """The output batches of each partition (the stage run task by task,
+        not a barrier)."""
+        if self._udf is None:
+            return [list(p) for p in self._parts]
+        return [list(self._udf(iter(p))) for p in self._parts]
+
+    def _settled(self):
+        return self if self._udf is None else StandInFrame(self._materialize(), self._fields, self.sparkSession)
+
+    def repartition(self, n):
+        f = self._settled()
+        return StandInFrame([[b for p in f._parts[i::n] for b in p] for i in range(n)], f._fields,
+                            self.sparkSession)
+
+    def select(self, *cols):
+        f = self._settled()
+        types_of = dict(f._fields)
+        parts = [[type(b)({c: b[c] for c in cols}) for b in p] for p in f._parts]
+        return StandInFrame(parts, [(c, types_of[c]) for c in cols], self.sparkSession)
+
+    def withColumn(self, name, expr):
+        if not isinstance(expr, StandInLit):
+            raise TypeError(f"the stand-in takes lit() columns only, got {expr!r}")
+        f = self._settled()
+        parts = [[b.with_columns({name: np.full(len(b), expr.value, np.int32)}) for b in p] for p in f._parts]
+        return StandInFrame(parts, f._fields + [(name, "int")], self.sparkSession)
+
+    def union(self, other):
+        check(self.columns == other.columns, "union of frames with other columns")
+        return StandInFrame(self._settled()._parts + other._settled()._parts, self._fields, self.sparkSession)
+
+    def mapInPandas(self, udf, schema=None):
+        if self._udf is not None:
+            prev = self._udf
+            udf = functools.partial(lambda u, it: u(b for x in it for b in prev(iter([x]))), udf)
+        return StandInFrame(self._parts, ddl_fields(schema), self.sparkSession, udf)
+
+    def collect(self):
+        return batch_rows([b for p in self._materialize() for b in p])
+
+    def sort(self, col):
+        batches = [b for p in self._materialize() for b in p]
+        cols = {c: np.concatenate([b[c] for b in batches]) for c in batches[0].columns}
+        order = np.argsort(cols[col], kind="stable")
+        return StandInFrame([[type(batches[0])({c: v[order] for c, v in cols.items()})]], self._fields,
+                            self.sparkSession)
+
+    def cache(self):
+        return self
+
+    def unpersist(self):
+        return self
+
+
+StandInFrame.__module__ = "pyspark.sql.dataframe"
+
+
+class StandInSpark:
+    """SparkSession: its version, a conf (local master: no stage-level
+    scheduling) and createDataFrame of a barrier RDD.  `stages` logs the
+    task count of every barrier stage run."""
+
+    stages = []
+    version = "3.5.0"
+
+    def __init__(self, conf):
+        conf = {"spark.master": "local[2]", **conf}
+        self.sparkContext = types.SimpleNamespace(getConf=lambda: types.SimpleNamespace(get=conf.get))
+
+    def frame(self, parts, fields):
+        return StandInFrame(parts, fields, self)
+
+    def createDataFrame(self, rdd, schema):
+        return StandInFrame(rdd.run(), ddl_fields(schema), self)
+
+
+class standin_pyspark:
+    """The stand-in in sys.modules for the enclosed block, then the modules
+    that were there before."""
+
+    NAMES = ("pyspark", "pyspark.sql", "pyspark.sql.functions")
+
+    def __enter__(self):
+        self.saved = {n: sys.modules.get(n) for n in self.NAMES}
+        mod, sql, fns = (types.ModuleType(n) for n in self.NAMES)
+        mod.BarrierTaskContext = StandInTaskContext
+        fns.lit, fns.col = StandInLit, (lambda c: c)
+        mod.sql, sql.functions = sql, fns
+        sys.modules.update(zip(self.NAMES, (mod, sql, fns)))
+        StandInSpark.stages.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for n, m in self.saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+        return False
+
+
+def spark_blocks(X):
+    per = ROWS // PARTITIONS
+    return [X[i * per:(i + 1) * per] for i in range(SPARK_PARTS)]
+
+
+def spark_fit_parts(torch, port, wrappers, X):
+    """path_spark's parts 1-3 on path's partitions 0-1 (X is path's rows):
+    KMeans with path's parameters fitted through the barrier stage and
+    transformed on the executors, then OLS on the same rows (y = X w +
+    noise) fitted through the barrier stage and scored by
+    _transformEvaluate(RegressionEvaluator rmse) on the executors.  Each
+    result bit for bit the port's local route on a port DataFrame of the
+    same partitions."""
+    Partition = port.dataframe.Partition
+    blocks = spark_blocks(X)
+    rows = sum(len(b) for b in blocks)
+    local_df = port.DataFrame([{"features": b} for b in blocks])
+    spark = StandInSpark({})
+    sdf = spark.frame([[Partition({"features": b})] for b in blocks], [("features", "array<float>")])
+    parts = {}
+
+    def kmeans():
+        return port.KMeans(k=K, maxIter=MAX_ITER, initMode="random", seed=SEED)
+
+    port.clear_fit_cache()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    model = kmeans().fit(sdf)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches_fit = read_launches(wrappers)
+    stages = list(StandInSpark.stages)
+    t0 = time.perf_counter()
+    local = kmeans().fit(local_df)
+    local_fit_s = time.perf_counter() - t0
+    port.clear_fit_cache()
+    differ = first_difference({n: getattr(model, n) for n in ("cluster_centers_", "inertia_", "n_iter_")}, local)
+    telemetry = model._fit_telemetry
+    check(stages == [1], f"the KMeans fit ran barrier stages of {stages} tasks")
+    check(differ is None, f"the barrier KMeans fit differs from the local fit first in {differ}")
+    check(telemetry is not None and telemetry.phases["runner.fit"]["count"] == 1,
+          "the barrier KMeans model lost the runner's telemetry")
+    parts["kmeans_fit"] = {
+        "rows": rows, "cols": COLS, "k": K, "max_iter": MAX_ITER, "barrier_tasks": stages[0],
+        "seconds": fit_s, "rows_per_s": rows / fit_s, "local_fit_s": local_fit_s, "n_iter": model.n_iter_,
+        "inertia": model.inertia_, "first_differing_field": differ, "launches": launches_fit,
+        "runner_fit_s": telemetry.phases["runner.fit"]["total_s"],
+        "runner_build_inputs_s": telemetry.phases.get("runner.build_inputs", {}).get("total_s"),
+    }
+
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    batches = [b for p in model.transform(sdf)._materialize() for b in p]
+    transform_s = time.perf_counter() - t0
+    launches_transform = read_launches(wrappers)
+    pred = np.concatenate([b["prediction"] for b in batches])
+    t0 = time.perf_counter()
+    want = np.concatenate([p["prediction"] for p in local.transform(local_df).partitions])
+    local_transform_s = time.perf_counter() - t0
+    check(launches_transform["min_dist_argmin"] == SPARK_PARTS,
+          f"the executor transform launched B1 {launches_transform['min_dist_argmin']} times")
+    check(pred.dtype == np.int32 and pred.shape == (rows,), f"executor predictions {pred.dtype} {pred.shape}")
+    check(np.array_equal(pred, want), "the executor transform's predictions differ from the local transform's")
+    check(all(np.shares_memory(b["features"], blk) for b, blk in zip(batches, blocks)),
+          "the executor transform copied the features column")
+    parts["kmeans_transform"] = {
+        "rows": rows, "batches": len(batches), "b1_shape": [rows // SPARK_PARTS, COLS, K],
+        "seconds": transform_s, "rows_per_s": rows / transform_s, "local_transform_s": local_transform_s,
+        "prediction_dtype": str(pred.dtype), "launches": launches_transform,
+    }
+    del model, local, pred, want, batches
+
+    rng = np.random.default_rng(SPARK_SEED)
+    w = rng.standard_normal(COLS).astype(np.float32)
+    labels = [(b @ w + rng.standard_normal(len(b)).astype(np.float32)).astype(np.float32) for b in blocks]
+    local_df = port.DataFrame([{"features": b, "label": y} for b, y in zip(blocks, labels)])
+    sdf = spark.frame([[Partition({"features": b, "label": y})] for b, y in zip(blocks, labels)],
+                      [("features", "array<float>"), ("label", "float")])
+    StandInSpark.stages.clear()
+    port.clear_fit_cache()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    model = port.LinearRegression().fit(sdf)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    stages = list(StandInSpark.stages)
+    t0 = time.perf_counter()
+    local = port.LinearRegression().fit(local_df)
+    local_fit_s = time.perf_counter() - t0
+    port.clear_fit_cache()
+    differ = first_difference({"coef_": model.coef_, "intercept_": model.intercept_}, local)
+    evaluator = port.RegressionEvaluator(metricName="rmse")
+    t0 = time.perf_counter()
+    rmse = model._transformEvaluate(sdf, evaluator)
+    evaluate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rmse_local = local._transformEvaluate(local_df, evaluator)
+    local_evaluate_s = time.perf_counter() - t0
+    check(stages == [1], f"the OLS fit ran barrier stages of {stages} tasks")
+    check(differ is None, f"the barrier OLS fit differs from the local fit first in {differ}")
+    check(rmse == rmse_local and math.isfinite(rmse[0]),
+          f"executor rmse {rmse} against the local _transformEvaluate's {rmse_local}")
+    parts["linreg"] = {
+        "rows": rows, "cols": COLS, "barrier_tasks": stages[0], "fit_s": fit_s, "fit_rows_per_s": rows / fit_s,
+        "local_fit_s": local_fit_s, "first_differing_field": differ, "rmse": rmse[0],
+        "transform_evaluate_s": evaluate_s, "transform_evaluate_rows_per_s": rows / evaluate_s,
+        "local_transform_evaluate_s": local_evaluate_s, "seconds": fit_s + evaluate_s,
+    }
+    port.clear_fit_cache()
+    return parts
+
+
+class task_launches:
+    """Each barrier task's B5 and B7 launches: the search's per-block step
+    (ops/knn._kernel_block, where the kNN search launches both) is wrapped
+    for the enclosed block, each call under one lock, so the step of the
+    wrappers' own counters during a call is the calling task's (the
+    counters and the wrappers are untouched)."""
+
+    NAMES = ("knn_candidates", "knn_fused_merge")
+
+    def __init__(self, knn_ops, kk):
+        self.knn_ops, self.kk, self.lock, self.by_task = knn_ops, kk, threading.Lock(), {}
+
+    def __enter__(self):
+        self.saved = self.knn_ops._kernel_block
+        step, kk = self.saved, self.kk
+
+        def call(*args, **kwargs):
+            with self.lock:
+                before = {n: getattr(kk, n).launches for n in self.NAMES}
+                out = step(*args, **kwargs)
+                task = self.by_task.setdefault(threading.current_thread().name, dict.fromkeys(self.NAMES, 0))
+                for n in self.NAMES:
+                    task[n] += getattr(kk, n).launches - before[n]
+            return out
+
+        self.knn_ops._kernel_block = call
+        return self
+
+    def __exit__(self, *exc):
+        self.knn_ops._kernel_block = self.saved
+        return False
+
+
+def spark_knn_part(torch, port, knn_ops, kk, wrappers, X, Q, ref):
+    """path_spark's kNN part: NearestNeighbors(k=200) fitted on a stand-in
+    frame of path_knn's items, kneighbors of its first RANKS_KNN_QUERIES
+    queries in one barrier stage of SPARK_KNN_TASKS tasks (each task on its
+    own one-shard slice of the card, distributed_kneighbors' thread ranks),
+    held against path_knn_mesh's kept results up to tie order.  The host
+    merges of candidate lists (knn_ops.topk_merge) are counted and timed."""
+    Partition = port.dataframe.Partition
+    n_q = RANKS_KNN_QUERIES
+    ids = np.arange(len(X), dtype=np.int64)
+    spark = StandInSpark({SPARK_NUM_WORKERS_CONF: str(SPARK_KNN_TASKS)})
+    fields = [("features", "array<float>"), ("row", "bigint")]
+    item_sdf = spark.frame([[Partition({"features": X[s], "row": ids[s]})]
+                            for s in np.array_split(np.arange(len(X)), SPARK_KNN_TASKS)], fields)
+    q_ids = np.arange(n_q, dtype=np.int64)
+    query_sdf = spark.frame([[Partition({"features": Q[s], "row": q_ids[s]})]
+                             for s in np.array_split(np.arange(n_q), SPARK_KNN_TASKS)], fields)
+    # the tasks' merge seconds are summed over both task threads
+    merges = {"calls": 0, "seconds": 0.0, "shapes": set()}
+    merge, merges_lock = knn_ops.topk_merge, threading.Lock()
+
+    def counting_merge(*args):
+        t = time.perf_counter()
+        out = merge(*args)
+        with merges_lock:
+            merges["seconds"] += time.perf_counter() - t
+            merges["calls"] += 1
+            merges["shapes"].add(tuple(args[0].shape))
+        return out
+
+    model = port.NearestNeighbors(k=KNN_K).setIdCol("row").fit(item_sdf)
+    knn_ops.topk_merge = counting_merge
+    try:
+        with task_launches(knn_ops, kk) as tally:
+            torch.cuda.synchronize()
+            reset_launches(wrappers)
+            t0 = time.perf_counter()
+            _, _, knn_df = model.kneighbors(query_sdf)
+            batches = [b for p in knn_df._materialize() for b in p]
+            seconds = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+    finally:
+        knn_ops.topk_merge = merge
+    stages = list(StandInSpark.stages)
+    q = np.concatenate([b["query_row"] for b in batches])
+    idx = np.concatenate([b["indices"] for b in batches])
+    dist = np.concatenate([b["distances"] for b in batches])
+    idx_ref, dist_ref = ref["knn"]
+    idx_ext, dist_ext = ref["knn_ties"]
+    check(stages == [SPARK_KNN_TASKS], f"kneighbors ran barrier stages of {stages} tasks")
+    check(np.array_equal(q, q_ids), "the knn frame is not sorted by query id")
+    check(idx.shape == idx_ref.shape and dist.dtype == np.float32, f"barrier kneighbors gave {idx.shape}")
+    dist_rows_off = int((dist != dist_ref).any(axis=1).sum())
+    ids_rows_off, ids_rows_bad = equal_up_to_tie_order(idx, dist, idx_ref, dist_ref, idx_ext, dist_ext)
+    per_task = {t: tally.by_task.get(f"spark-task-{t}", dict.fromkeys(task_launches.NAMES, 0))
+                for t in range(SPARK_KNN_TASKS)}
+    check(dist_rows_off == 0 and ids_rows_bad == 0,
+          f"barrier kNN against path_knn_mesh: {dist_rows_off} distance rows, {ids_rows_bad} id rows beyond tie order")
+    for t, got in per_task.items():
+        check(got["knn_candidates"] > 0 and got["knn_fused_merge"] > 0, f"barrier task {t} launched {got}")
+    for name in task_launches.NAMES:
+        check(sum(got[name] for got in per_task.values()) == launches[name],
+              f"the tasks' {name} launches do not add up to the counter's {launches[name]}")
+    return {
+        "items": len(X), "cols": X.shape[1], "queries": n_q, "k": KNN_K, "barrier_tasks": stages[0],
+        "seconds": seconds, "rows_per_s": n_q / seconds, "launches": launches, "launches_by_task": per_task,
+        "distance_rows_differing_from_path_knn_mesh": dist_rows_off,
+        "id_rows_differing_from_path_knn_mesh": ids_rows_off, "id_rows_differing_beyond_tie_order": ids_rows_bad,
+        "host_merge": {"calls": merges["calls"], "seconds": merges["seconds"],
+                       "shapes": sorted(merges["shapes"])},
+    }
+
+
+def run_spark_path(parts, seconds, walls):
+    """path_spark's record: its parts (each already printed), their
+    seconds, and the phase's wall seconds (the local baselines and the
+    gates included)."""
+    return {"phase": "path_spark", "parts": parts, "seconds": seconds, "wall_s": walls,
+            "phase_s": sum(walls.values()), "rows_cut": False}
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the port by name, each counting its launches
     in `.launches`."""
@@ -6545,6 +7046,10 @@ def main():
     for later, needs in (("path_live_mesh", "path_stream"), ("path_umap_mesh", "path_umap")):
         if later in phases and needs not in phases:
             parser.error(f"{later} replays {needs}'s script on 4 shards against its results: add {needs}")
+    spark_needs = ("path", "path_knn", "path_knn_mesh")
+    if "path_spark" in phases and not set(spark_needs) <= set(phases):
+        parser.error(f"path_spark runs on path's rows and path_knn's items against path_knn_mesh's results: add "
+                     f"{sorted(set(spark_needs) - set(phases))}")
     if "path_ann_mesh" in phases and not set(ANN_ARMS) & set(phases):
         parser.error(f"path_ann_mesh searches the fitted models of the ANN arms on 4 shards: add one of {list(ANN_ARMS)}")
     if not torch.cuda.is_available():
@@ -6601,6 +7106,22 @@ def main():
     # paths' labels from its job directory
     ranks_ref = {"models": {}, "job": ranks_job_dir()} if "path_fit_ranks" in phases else None
     keep = {} if serve is not None or mesh_parts is not None or "path_ann_mesh" in phases else None
+    # path_spark runs its parts beside the paths that make their rows (path's
+    # KMeans rows, path_knn's items), each part's record printed at once;
+    # its kNN part holds path_knn_mesh's kept results
+    spark_parts, spark_s, spark_wall = ({}, {}, {}) if "path_spark" in phases else (None, None, None)
+    knn_ref = ranks_ref if ranks_ref is not None else ({} if spark_parts is not None else None)
+
+    def spark_part(name, fn, *args):
+        t0 = time.perf_counter()
+        with standin_pyspark():
+            rec = fn(*args)
+        seconds_part = time.perf_counter() - t0
+        for part, prec in (rec.items() if name == "fits" else [(name, rec)]):
+            spark_parts[part] = prec
+            spark_s[part] = prec["seconds"]
+            emit({"phase": "path_spark", "part": part, "nvidia_smi": smi, **prec})
+        spark_wall[name] = seconds_part
 
     def mesh_part(name, fn, *args):
         t0 = time.perf_counter()
@@ -6648,6 +7169,8 @@ def main():
             if mesh_parts is not None:
                 mesh_part("kmeans", mesh_kmeans_part, torch, port, nc, wrappers, X_km, km_model)
             del km_model
+            if spark_parts is not None:
+                spark_part("fits", spark_fit_parts, torch, port, wrappers, X_km)
         if "path_stream" in phases:
             stream_parts["kmeans"] = stream_kmeans_part(torch, port, wrappers, dev, X_km)
             port.clear_fit_cache()
@@ -6711,14 +7234,23 @@ def main():
         if "path_knn_mesh" in phases:
             results["path_knn_mesh"], mesh_prepared = run_knn_mesh_path(
                 torch, port, knn_ops, wrappers, X_knn, Q_knn, knn_model._staged_items[1], knn_idx, knn_dist, dev,
-                ranks_ref)
+                knn_ref)
             emit(results["path_knn_mesh"])
             if "knn_ring" in phases:
                 results["knn_ring"] = knn_ring(torch, port, knn_ops, ek, wrappers, mesh_prepared,
                                                knn_model._staged_items[1], Q_knn, dev)
                 emit(results["knn_ring"])
             del mesh_prepared
-        del X_knn, knn_model
+        if spark_parts is not None:
+            del knn_model  # the card holds the barrier tasks' items instead
+            torch.cuda.empty_cache()
+            spark_part("knn", spark_knn_part, torch, port, knn_ops, kk, wrappers, X_knn, Q_knn[:RANKS_KNN_QUERIES],
+                       knn_ref)
+            results["path_spark"] = run_spark_path(spark_parts, spark_s, spark_wall)
+            emit({k: v for k, v in results["path_spark"].items() if k != "parts"})
+        else:
+            del knn_model
+        del X_knn
 
     if "kernels_ann" in phases:
         results["kernels_ann"] = check_ann_kernels(torch, pk, kk, nc, ivf, pq_mod, _build, dev)
@@ -7038,6 +7570,14 @@ def summary(results, seconds):
                                      for rank, launches in ranks_rec["launches_ranks"].items()}
             if row["name"] == "min_dist_argmin":
                 row["launches_ranks"]["parent_transform"] = ranks_rec["kmeans_transform"]["launches"][row["name"]]
+        spark = results.get("path_spark", {}).get("parts", {})
+        if row["name"] == "min_dist_argmin" and "kmeans_transform" in spark:
+            # B1 once a partition in the executor transform
+            row["launches_spark"] = spark["kmeans_transform"]["launches"]["min_dist_argmin"]
+        if row["name"] in ("knn_candidates", "knn_fused_merge") and "knn" in spark:
+            # B5 and B7 in each barrier task of the Spark kneighbors
+            row["launches_spark"] = {"total": spark["knn"]["launches"][row["name"]],
+                                     "by_task": {t: v[row["name"]] for t, v in spark["knn"]["launches_by_task"].items()}}
         if row["name"] == "min_dist_argmin" and "path_serve_lanes" in results:
             # B1 once per distinct lane of a multiplexed KMeans batch
             lanes_rec = results["path_serve_lanes"]
@@ -7049,7 +7589,7 @@ def summary(results, seconds):
 PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
           "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *ANN_MESH_PHASES,
-          "path_fit_ranks", *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes"]
+          "path_fit_ranks", *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes", "path_spark"]
 KERNEL_SOURCES = {
     "min_dist_argmin": "spark_rapids_ml_tpu_torch/csrc/min_dist_argmin.cu",
     "bin_features_fm": "spark_rapids_ml_tpu_torch/csrc/bin_features_fm.cu",

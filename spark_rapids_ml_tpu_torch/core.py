@@ -52,8 +52,18 @@
 # model._fit_telemetry.  An estimator whose fit cannot run across processes
 # says so with _supports_multicontroller_fit = False (UMAP).
 #
-# Not carried over yet (ROADMAP A14c-2): the Spark executor paths (the
-# barrier-task adapter around runner.run_distributed_fit).
+# A live pyspark DataFrame (recognised by its type's module, pyspark.sql;
+# pyspark is never imported here) takes the Spark executor routes of
+# spark/adapter.py, as in the JAX package: fit runs a barrier stage whose
+# tasks call runner.run_distributed_fit, transform runs mapInPandas on the
+# executors with the model in the task closure.  SRML_SPARK_COLLECT=1 takes
+# the driver-local route instead (the frame collected through
+# spark_to_facade).  extract_partition_features reads one mapInPandas batch
+# (a pandas frame, or a port Partition from a stand-in that runs without
+# pandas).
+#
+# SRML_PROFILE=<dir> wraps every fit function, local or a rank's, in
+# profiling.maybe_trace (a torch.profiler trace under <dir>/<tag>).
 #
 
 from __future__ import annotations
@@ -71,11 +81,39 @@ import torch
 
 from . import device as _device
 from . import profiling
-from .dataframe import DataFrame, as_dataframe
+from .dataframe import DataFrame, as_dataframe, partition_of
 from .params import Param, _TpuParams
 from .parallel.mesh import Mesh, get_mesh, shard_rows
 from .parallel.partition import PartitionDescriptor
 from .utils import get_logger, materialize_feature_block
+
+
+def _is_pyspark_dataframe(dataset: Any) -> bool:
+    """True for a live pyspark DataFrame, recognised by its type's module so
+    pyspark is never imported here."""
+    return (type(dataset).__module__ or "").startswith("pyspark.sql")
+
+
+def _use_executor_path(dataset: Any) -> bool:
+    """Whether `dataset` runs on the Spark executors (barrier fit,
+    mapInPandas transform) rather than driver-local: a live pyspark
+    DataFrame, unless SRML_SPARK_COLLECT=1 forces the driver-local collect."""
+    return _is_pyspark_dataframe(dataset) and os.environ.get("SRML_SPARK_COLLECT", "0") != "1"
+
+
+def extract_partition_features(
+    part: Any,
+    input_col: Optional[str],
+    input_cols: Optional[List[str]],
+    dtype: np.dtype,
+    densify_sparse: bool = True,
+) -> Any:
+    """One mapInPandas batch's (rows, D) feature matrix in `dtype`: a pandas
+    frame's vector cells stacked (one copy), a port Partition's block read
+    as it is (dataframe.partition_of, utils.materialize_feature_block)."""
+    cols = [input_col] if input_col is not None else list(input_cols or [])
+    return materialize_feature_block(partition_of(part, cols), input_col, input_cols, dtype,
+                                     densify_sparse=densify_sparse)
 
 
 @dataclass
@@ -362,10 +400,22 @@ class _TpuCaller(_TpuParams):
     ) -> Union[Dict[str, Any], List[Dict[str, Any]]]:
         """One fit, or with `paramMaps` one fit per map over one ingest (a
         list of attribute dicts, in the maps' order)."""
-        if _is_live_spark(dataset):
-            raise NotImplementedError(
-                "fitting a live pyspark DataFrame is not in this port yet (ROADMAP A14c)"
+        if _use_executor_path(dataset):
+            from .spark.adapter import barrier_fit_estimator
+
+            # the input-column check on the driver, before the barrier stage
+            # (a pyspark frame has .columns): a missing column fails here,
+            # not as an executor traceback
+            _validate_input_columns(self, dataset)
+            extra = [self._paramMap_to_tpu_overrides(pm) for pm in paramMaps] if paramMaps is not None else None
+            results = barrier_fit_estimator(self, dataset, extra_params=extra)
+            # the executors' merged telemetry rides the result wire; the
+            # driver's phase view comes from it (the fit never ran here)
+            telem = results[0].get(TELEMETRY_ATTR) if results else None
+            self._last_fit_phase_times = (
+                profiling.TelemetrySnapshot.from_dict(telem).phase_seconds() if telem else {}
             )
+            return results if paramMaps is not None else results[0]
         df = as_dataframe(dataset)
         _validate_input_columns(self, df)
         with profiling.phase("core.ingest"):
@@ -379,7 +429,8 @@ class _TpuCaller(_TpuParams):
             "Invoking fit: %d rows x %d cols on %s",
             inputs.n_rows, inputs.n_cols, inputs.device,
         )
-        return fit_func(inputs, dict(self._tpu_params))
+        with profiling.maybe_trace(type(self).__name__):
+            return fit_func(inputs, dict(self._tpu_params))
 
     def _paramMap_to_tpu_overrides(self, paramMap: Dict[Param, Any]) -> Dict[str, Any]:
         """A param map -> the solver-param overrides it sets (mapped values),
@@ -404,11 +455,6 @@ class _TpuCaller(_TpuParams):
     @abstractmethod
     def _get_tpu_fit_func(self, dataset: DataFrame, extra_params: Optional[List[Dict[str, Any]]] = None) -> FitFunc:
         raise NotImplementedError
-
-
-def _is_live_spark(dataset: Any) -> bool:
-    """Whether `dataset` is a pyspark object (pyspark is never imported)."""
-    return (type(dataset).__module__ or "").startswith("pyspark")
 
 
 class _FitMultipleIterator:
@@ -599,7 +645,12 @@ class _TpuModel(_TpuParams):
     def transform(self, dataset: Any) -> DataFrame:
         """Column-appending inference: the original columns are kept and the
         output columns named by the *Col params are appended, partition by
-        partition."""
+        partition.  A live pyspark frame is transformed on the executors
+        (spark/adapter.executor_transform): a lazy mapInPandas frame."""
+        if _use_executor_path(dataset):
+            from .spark.adapter import executor_transform
+
+            return executor_transform(self, dataset)
         df = as_dataframe(dataset)
         if df._device_features is not None:
             raise NotImplementedError(
@@ -636,6 +687,23 @@ class _TpuModel(_TpuParams):
         return [
             self.getOrDefault(p)
             for p in ("predictionCol",)
+            if self.hasParam(p) and self.isDefined(p)
+        ]
+
+    _OUT_COLUMN_DDL = {
+        "predictionCol": "double",
+        "probabilityCol": "array<double>",
+        "rawPredictionCol": "array<double>",
+        "outputCol": "array<double>",
+    }
+
+    def _out_schema_fields(self) -> List[Tuple[str, str]]:
+        """(column name, Spark DDL type) of each appended output column: the
+        executor transform's mapInPandas schema.  A model whose outputs
+        differ from the defaults overrides _OUT_COLUMN_DDL."""
+        return [
+            (self.getOrDefault(p), self._OUT_COLUMN_DDL[p])
+            for p in ("predictionCol", "probabilityCol", "rawPredictionCol", "outputCol")
             if self.hasParam(p) and self.isDefined(p)
         ]
 

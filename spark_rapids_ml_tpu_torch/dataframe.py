@@ -9,7 +9,11 @@
 # copy (the role the JAX package's FEATURE_BLOCK_ATTR stash plays beside its
 # pandas object column), or a scipy CSR block when from_numpy is given a
 # sparse matrix (kept sparse, as the JAX package's from_numpy keeps it).
-# pandas is imported only by from_pandas/toPandas.
+# pandas is imported only by from_pandas/toPandas.  as_dataframe also takes
+# a pyarrow Table (from_arrow; pyarrow imported only when one arrives) and a
+# live pyspark DataFrame, collected to the driver (spark/adapter.
+# spark_to_facade: the SRML_SPARK_COLLECT=1 route).  partition_of reads one
+# mapInPandas batch (a pandas frame) as a Partition.
 #
 # Feature layouts, as in the JAX package:
 #   - "array" / "vector": one column of fixed-length vectors (a 2-D block)
@@ -172,12 +176,7 @@ class DataFrame:
     def from_pandas(cls, pdf: Any, num_partitions: int = 1) -> "DataFrame":
         """Split a pandas DataFrame into row partitions; object columns of
         equal-length vectors become 2-D feature blocks."""
-        cols: Dict[str, np.ndarray] = {}
-        for name in pdf.columns:
-            values = pdf[name].to_numpy()
-            if values.dtype == object:
-                values = stack_feature_cells(list(values))
-            cols[str(name)] = values
+        cols = _pandas_columns(pdf)
         n = len(pdf)
         bounds = np.linspace(0, n, max(1, num_partitions) + 1, dtype=int)
         return cls(
@@ -186,6 +185,11 @@ class DataFrame:
                 for lo, hi in zip(bounds[:-1], bounds[1:])
             ]
         )
+
+    @classmethod
+    def from_arrow(cls, table: Any, num_partitions: int = 1) -> "DataFrame":
+        """A pyarrow Table, through its pandas form (as the JAX package)."""
+        return cls.from_pandas(table.to_pandas(), num_partitions)
 
     # -- metadata ----------------------------------------------------------
     @property
@@ -333,6 +337,26 @@ def stream_chunk_ids(n: int, chunk_rows: int, seed: int = 0) -> np.ndarray:
     return _permutation_split(n, cuts, seed)
 
 
+def _pandas_columns(pdf: Any) -> Dict[str, np.ndarray]:
+    """A pandas frame's columns as arrays; an object column of equal-length
+    vectors becomes one 2-D block (one copy)."""
+    cols: Dict[str, np.ndarray] = {}
+    for name in pdf.columns:
+        values = pdf[name].to_numpy()
+        if values.dtype == object:
+            values = stack_feature_cells(list(values))
+        cols[str(name)] = values
+    return cols
+
+
+def partition_of(batch: Any, columns: Optional[Sequence[str]] = None) -> Partition:
+    """One mapInPandas batch (or its `columns` only) as a Partition: a
+    Partition's own arrays, a pandas frame's through _pandas_columns."""
+    if isinstance(batch, Partition):
+        return batch if columns is None else Partition({c: batch[c] for c in columns})
+    return Partition(_pandas_columns(batch if columns is None else batch[list(columns)]))
+
+
 def _host(v: Any) -> np.ndarray:
     if hasattr(v, "detach"):
         return v.detach().cpu().numpy()
@@ -340,10 +364,23 @@ def _host(v: Any) -> np.ndarray:
 
 
 def as_dataframe(dataset: Any) -> DataFrame:
-    """Coerce a supported input (this package's DataFrame or a pandas
-    DataFrame) into the facade."""
+    """Coerce a supported input (this package's DataFrame, a pandas
+    DataFrame, a pyarrow Table, or a live pyspark DataFrame, collected to
+    the driver) into the facade.  Each foreign type is recognised by its
+    module, so neither pandas, pyarrow nor pyspark is imported for the
+    check."""
     if isinstance(dataset, DataFrame):
         return dataset
-    if (type(dataset).__module__ or "").startswith("pandas"):
+    module = type(dataset).__module__ or ""
+    if module.startswith("pandas"):
         return DataFrame.from_pandas(dataset)
+    if module.startswith("pyarrow"):
+        import pyarrow as pa
+
+        if isinstance(dataset, pa.Table):
+            return DataFrame.from_arrow(dataset)
+    if module.startswith("pyspark.sql"):
+        from .spark.adapter import spark_to_facade
+
+        return spark_to_facade(dataset)
     raise TypeError(f"Unsupported dataset type: {type(dataset)}")

@@ -7,8 +7,9 @@
 # partial statistics (metrics/).  The columns are read from the port's
 # Partition arrays, not from pandas: a probability or rawPrediction column
 # is a 2-D (rows, classes) block, a features column a 2-D block (or CSR).
-# A live pyspark frame is refused: executor-side evaluation is ROADMAP
-# A14c.
+# A live pyspark prediction frame is evaluated on the executors
+# (spark/adapter.executor_evaluate: each task's merged partials, and the
+# two-pass silhouette), never collected; SRML_SPARK_COLLECT=1 collects it.
 #
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from typing import Any, List, Optional
 
 import numpy as np
 
-from .core import _is_live_spark
 from .dataframe import DataFrame, Partition, as_dataframe
 from .metrics.binary import BinaryClassificationMetrics
 from .metrics.clustering import silhouette_score
@@ -44,18 +44,28 @@ class Evaluator(Params):
     def isLargerBetter(self) -> bool:
         return True
 
-    def _evaluate_executor_side(self, dataset: Any) -> None:
-        """Refuse a live pyspark frame: its executor-side evaluation is not
-        in this port yet.  Returns None for the facade's frames."""
-        if _is_live_spark(dataset):
-            raise NotImplementedError(
-                f"{type(self).__name__} on a live pyspark DataFrame is not in this port yet (ROADMAP A14c)"
-            )
-        return None
+    def _evaluate_executor_side(self, dataset: Any) -> Optional[float]:
+        """The score of a live pyspark prediction frame, computed on the
+        executors (spark/adapter.executor_evaluate); None for any other
+        frame (the caller takes the local route)."""
+        from .core import _use_executor_path
+
+        if not _use_executor_path(dataset):
+            return None
+        from .spark.adapter import executor_evaluate
+
+        return executor_evaluate(dataset, self)
+
+    def _evaluate_merged(self, dataset: Any) -> float:
+        """The executor route's score, or the merge of the partitions'
+        partial statistics, scored."""
+        spark_score = self._evaluate_executor_side(dataset)
+        if spark_score is not None:
+            return spark_score
+        return self._merged(dataset).evaluate(self)
 
     def _merged(self, dataset: Any) -> Any:
         """The merge of the partitions' partial statistics."""
-        self._evaluate_executor_side(dataset)
         metrics = None
         for part in as_dataframe(dataset).partitions:
             if len(part) == 0:
@@ -114,7 +124,7 @@ class RegressionEvaluator(Evaluator, HasLabelCol, HasPredictionCol, HasWeightCol
         )
 
     def evaluate(self, dataset: Any) -> float:
-        return self._merged(dataset).evaluate(self)
+        return self._evaluate_merged(dataset)
 
 
 class MulticlassClassificationEvaluator(Evaluator, HasLabelCol, HasPredictionCol, HasProbabilityCol, HasWeightCol):
@@ -180,7 +190,7 @@ class MulticlassClassificationEvaluator(Evaluator, HasLabelCol, HasPredictionCol
         )
 
     def evaluate(self, dataset: Any) -> float:
-        return self._merged(dataset).evaluate(self)
+        return self._evaluate_merged(dataset)
 
 
 class ClusteringEvaluator(Evaluator, HasFeaturesCol, HasPredictionCol):
@@ -220,7 +230,9 @@ class ClusteringEvaluator(Evaluator, HasFeaturesCol, HasPredictionCol):
 
     def evaluate(self, dataset: Any) -> float:
         self._check_config()
-        self._evaluate_executor_side(dataset)
+        spark_score = self._evaluate_executor_side(dataset)
+        if spark_score is not None:
+            return spark_score
         df: DataFrame = as_dataframe(dataset)
         feat_col = self.getOrDefault("featuresCol")
         pred_col = self.getOrDefault("predictionCol")
@@ -277,4 +289,4 @@ class BinaryClassificationEvaluator(Evaluator, HasLabelCol, HasRawPredictionCol,
         return BinaryClassificationMetrics.from_arrays(np.asarray(part[self.getOrDefault("labelCol")]), raw, weights)
 
     def evaluate(self, dataset: Any) -> float:
-        return self._merged(dataset).evaluate(self)
+        return self._evaluate_merged(dataset)

@@ -33,9 +33,13 @@
 # holder it searches the latest snapshot: adds, deletes and repacks show in
 # served results without re-registering the model.
 #
+# A live pyspark frame is refused at fit and at kneighbors with the JAX
+# package's errors: the index is built and searched in-process (collect the
+# frame with SRML_SPARK_COLLECT=1).
+#
 # Not carried over: the warm hooks (XLA ahead-of-time compiles; the serving
-# engine warms by dispatching), the pyspark executor paths, and the
-# SRML_ANN_HOT_FRACTION environment default.
+# engine warms by dispatching) and the SRML_ANN_HOT_FRACTION environment
+# default.
 #
 
 from __future__ import annotations
@@ -231,13 +235,21 @@ class ApproximateNearestNeighbors(_ApproximateNearestNeighborsParams, _TpuEstima
         self._set_params(**kwargs)
 
     def _fit(self, dataset: Any) -> "ApproximateNearestNeighborsModel":
+        from ..core import _use_executor_path
+
         self._check_algorithm()
-        df = as_dataframe(dataset)
-        if df._device_features is not None:
+        if getattr(dataset, "_device_features", None) is not None:
             raise NotImplementedError(
                 "ApproximateNearestNeighbors.fit does not take DataFrame.from_device frames (their features "
                 "column is a placeholder); fit a host frame instead"
             )
+        if _use_executor_path(dataset):
+            raise NotImplementedError(
+                "ApproximateNearestNeighbors builds its index in-process; "
+                "collect the pyspark item dataframe (SRML_SPARK_COLLECT=1) "
+                "before fitting"
+            )
+        df = as_dataframe(dataset)
         id_col = self.getIdCol()
         if id_col not in df.columns:
             df = df.with_row_id(id_col)
@@ -459,7 +471,15 @@ class ApproximateNearestNeighborsModel(_ApproximateNearestNeighborsParams, _TpuM
         distances (rows, k) float32 in the query frame's partitioning).
         exactSearch=True runs the exact engine over the same indexed
         items.  Runs on get_mesh(num_workers)."""
+        from ..core import _is_pyspark_dataframe
+
         self._check_algorithm()
+        if _is_pyspark_dataframe(query_df):
+            raise NotImplementedError(
+                "ApproximateNearestNeighborsModel serves in-process query "
+                "frames; collect the pyspark frame (SRML_SPARK_COLLECT=1) "
+                "first"
+            )
         mesh = self._search_mesh()
         qdf = as_dataframe(query_df)
         id_col = self.getIdCol()

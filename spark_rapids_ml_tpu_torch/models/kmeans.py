@@ -18,7 +18,9 @@
 # one lane of ops/kmeans.lane_kmeans_predict_kernel, which launches the same
 # kernel once per distinct lane of a batch.
 #
-# Not carried over yet: cpu() (pyspark.ml conversion).
+# cpu() converts to a pyspark.ml KMeansModel (spark/interop.py; it needs
+# pyspark and an active SparkSession).  The executor transform declares the
+# prediction column int (_OUT_COLUMN_DDL).
 #
 
 from __future__ import annotations
@@ -234,9 +236,18 @@ class KMeansModel(_KMeansParams, _TpuModelWithPredictionCol):
         self.n_iter_ = int(n_iter_)
         self.inertia_ = float(inertia_)
 
+    _OUT_COLUMN_DDL = {**_TpuModelWithPredictionCol._OUT_COLUMN_DDL, "predictionCol": "int"}
+
     def clusterCenters(self) -> List[np.ndarray]:
         """Spark KMeansModel.clusterCenters."""
         return list(self.cluster_centers_)
+
+    def cpu(self):
+        """This model as a pyspark.ml.clustering.KMeansModel (needs pyspark
+        and an active SparkSession)."""
+        from ..spark.interop import to_spark_kmeans_model
+
+        return to_spark_kmeans_model(self)
 
     @property
     def hasSummary(self) -> bool:

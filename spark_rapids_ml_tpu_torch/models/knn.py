@@ -21,8 +21,16 @@
 # batch's query block padded to at least 64 rows as the JAX search buckets
 # it (SERVE_MIN_QUERIES).
 #
-# Not carried over: the pyspark executor path (barrier-stage exchange,
-# Spark joins) and warm_search_kernels (ahead-of-time XLA compiles; the
+# A live pyspark item frame stays on the executors: fit keeps the frame
+# (with a monotonically increasing id column when idCol is unset),
+# kneighbors of a pyspark query frame runs one barrier stage over both
+# (spark/adapter.run_barrier_kneighbors: each task's rows through
+# ops/knn.distributed_kneighbors, B5 -> B7 in every task) and returns the
+# knn frame sorted by query id, and the join is two Spark equi-joins
+# (spark_knn_join).  A port query frame against a pyspark item frame is a
+# TypeError; serving refuses a pyspark item frame.
+#
+# Not carried over: warm_search_kernels (ahead-of-time XLA compiles; the
 # serving engine warms by dispatching).
 #
 
@@ -108,13 +116,21 @@ class NearestNeighbors(_NearestNeighborsParams, _TpuEstimatorSupervised):
         self._set_params(**kwargs)
 
     def _fit(self, dataset: Any) -> "NearestNeighborsModel":
-        df = as_dataframe(dataset)
-        if df._device_features is not None:
+        from ..core import _use_executor_path
+
+        if getattr(dataset, "_device_features", None) is not None:
             raise NotImplementedError(
                 "NearestNeighbors.fit does not take DataFrame.from_device frames (their features "
                 "column is a placeholder); fit a host frame and install a device-resident index "
                 "with model.seed_staging(...)"
             )
+        if _use_executor_path(dataset):
+            # a live pyspark frame is kept as it is: its partitions stay on
+            # the executors until kneighbors runs its barrier stage
+            from ..spark.adapter import ensure_id_col
+
+            return self._model_for(ensure_id_col(dataset, self.getIdCol()))
+        df = as_dataframe(dataset)
         if not self.isDefined("idCol"):
             df = df.with_row_id("unique_id")
         return self._model_for(df)
@@ -181,6 +197,26 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         euclidean.  Returns (item_df, query_df with the id column,
         knn_df)."""
         assert self._item_df is not None, "fit() must be called before kneighbors"
+        from ..core import _is_pyspark_dataframe
+
+        if _is_pyspark_dataframe(self._item_df):
+            # the executor route: query blocks and candidate lists move
+            # between the barrier tasks; item rows never leave theirs
+            if not _is_pyspark_dataframe(query_df):
+                raise TypeError(
+                    "the fitted item dataframe is a live pyspark DataFrame; "
+                    "kneighbors requires a pyspark query DataFrame too"
+                )
+            from ..spark.adapter import ensure_id_col, infer_spark_num_workers, run_barrier_kneighbors
+
+            id_col = self.getIdCol()
+            qdf_spark = ensure_id_col(query_df, id_col)
+            input_col, input_cols = self._get_input_columns()
+            num_workers = infer_spark_num_workers(self, query_df.sparkSession)
+            knn_df = run_barrier_kneighbors(
+                self._item_df, qdf_spark, self.getK(), id_col, input_col, input_cols, num_workers
+            )
+            return self._item_df, qdf_spark, knn_df
         mesh = get_mesh(self.num_workers)  # raises without CUDA unless a device list was requested
         qdf = as_dataframe(query_df)
         id_col = self.getIdCol()
@@ -247,8 +283,15 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         """The staged item set of the serving path: kneighbors' staging and
         cache, but an item set past one item block is an error here (an
         online server never streams the index a batch)."""
+        from ..core import _is_pyspark_dataframe
+
         if self._item_df is None:
             raise ValueError("fit() must be called before serving")
+        if _is_pyspark_dataframe(self._item_df):
+            raise ValueError(
+                "serving requires an in-process item frame; collect the pyspark item dataframe "
+                "(SRML_SPARK_COLLECT=1) before registering the model"
+            )
         prepared = self._stage_in_core_items(self.getIdCol(), mesh)
         if prepared is None:
             raise ValueError("the item set is larger than one item block of the devices; out-of-core item sets "
@@ -341,9 +384,16 @@ class NearestNeighborsModel(_NearestNeighborsParams, _TpuModel):
         item_df and query_df (dicts of the source rows; a generated id column
         is left out) and distCol (float64), in the query frame's
         partitioning."""
+        from ..core import _is_pyspark_dataframe
+
         id_col = self.getIdCol()
         item_df, query_df_withid, knn_df = self.kneighbors(query_df)
         drop_generated = not self.isDefined("idCol")
+        if _is_pyspark_dataframe(item_df):
+            # two Spark equi-joins on the executors; nothing is collected
+            from ..spark.adapter import spark_knn_join
+
+            return spark_knn_join(item_df, query_df_withid, knn_df, id_col, distCol, drop_generated)
         ind = np.concatenate([p["indices"] for p in knn_df.partitions])
         k = ind.shape[1] if ind.ndim == 2 else 0
         qids = np.concatenate([p[f"query_{id_col}"] for p in knn_df.partitions])

@@ -19,7 +19,9 @@
 # CrossValidator over one staged dataset (ops/glm.py sweep_*), when the
 # grid varies only regParam and elasticNetParam and the input is dense;
 # _combine stacks models and _transformEvaluate scores them all in one pass
-# over each partition (RegressionEvaluator).
+# over each partition (RegressionEvaluator), on the Spark executors for a
+# live pyspark frame (_partition_metrics a batch,
+# spark/adapter.executor_transform_evaluate).
 #
 # streaming() returns the partial_fit / merge / finalize engine
 # (stream/engines.StreamingLinearRegression).
@@ -30,7 +32,8 @@
 # _lane_entry is the multiplexed hook (serving/multiplex.py): (coef,
 # intercept) as one lane of ops/glm.lane_linear_predict_kernel.
 #
-# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
+# cpu() converts to a pyspark.ml LinearRegressionModel (spark/interop.py;
+# it needs pyspark and an active SparkSession).
 #
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..core import (
     numpy_dtype,
     torch_dtype,
 )
-from ..dataframe import DataFrame, as_dataframe
+from ..dataframe import DataFrame, as_dataframe, partition_of
 from ..metrics.regression import RegressionMetrics
 from ..ops.glm import (
     lane_linear_predict_kernel,
@@ -87,8 +90,6 @@ from ..params import (
 )
 from ..utils import get_logger
 
-_NOT_PORTED = "is not in this port yet (ROADMAP {})"
-
 
 class _RegressionModelEvaluationMixIn:
     """Single-pass transform-evaluate of a (combined) regression model:
@@ -96,12 +97,34 @@ class _RegressionModelEvaluationMixIn:
     into RegressionMetrics per sub-model (shared with the forest
     regressor)."""
 
+    def _partition_metrics(
+        self, part: Any, evaluator: Any, num_models: int, predict_all: Any = None
+    ) -> List[RegressionMetrics]:
+        """One partition's (or mapInPandas batch's) metric partials, one a
+        sub-model: the Spark executor route's unit (a caller looping over
+        partitions passes one predict_all, staged once)."""
+        from ..core import extract_partition_features
+
+        input_col, input_cols = self._get_input_columns()
+        dtype = self._transform_dtype(self._model_attributes.get("dtype"))
+        feats = extract_partition_features(part, input_col, input_cols, dtype)
+        label_col = self.getOrDefault("labelCol")
+        labels = np.asarray(partition_of(part, [label_col])[label_col])
+        if predict_all is None:
+            predict_all = self._get_eval_predict_func()
+        preds = predict_all(feats)  # (M, n)
+        return [RegressionMetrics.from_arrays(labels, preds[i]) for i in range(num_models)]
+
     def _transform_evaluate(self, dataset: Any, evaluator: Any, num_models: int) -> List[float]:
+        from ..core import _use_executor_path
         from ..evaluation import RegressionEvaluator
 
         if not isinstance(evaluator, RegressionEvaluator):
             raise NotImplementedError(f"{evaluator} is unsupported yet.")
-        evaluator._evaluate_executor_side(dataset)
+        if _use_executor_path(dataset):
+            from ..spark.adapter import executor_transform_evaluate
+
+            return executor_transform_evaluate(self, dataset, evaluator, num_models)
         return self._evaluate_blocks(_frame_blocks(self, as_dataframe(dataset)), evaluator, num_models)
 
     def _evaluate_blocks(self, blocks: Iterable[Tuple[Any, np.ndarray]], evaluator: Any, num_models: int) -> List[float]:
@@ -452,7 +475,11 @@ class LinearRegressionModel(_LinearRegressionParams, _RegressionModelEvaluationM
         return float(linear_predict_kernel(x, coef, intercept)[0])
 
     def cpu(self):
-        raise NotImplementedError("LinearRegressionModel.cpu() " + _NOT_PORTED.format("A14c"))
+        """This model as a pyspark.ml.regression.LinearRegressionModel
+        (needs pyspark and an active SparkSession)."""
+        from ..spark.interop import to_spark_linear_model
+
+        return to_spark_linear_model(self)
 
     def _serving_entry(self, mesh: Any = None):
         """Online inference hook (serving/): the dense Xw + b prediction of

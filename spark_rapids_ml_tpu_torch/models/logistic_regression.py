@@ -21,7 +21,9 @@
 # (ops/logistic.sweep_logistic_fit_kernel), when the grid varies only
 # regParam and elasticNetParam and the input is dense; _combine stacks
 # models and _transformEvaluate scores them in one pass over each partition
-# (MulticlassClassificationEvaluator only, as in the JAX package).
+# (MulticlassClassificationEvaluator only, as in the JAX package), on the
+# Spark executors for a live pyspark frame (_partition_metrics a batch,
+# spark/adapter.executor_transform_evaluate).
 #
 # streaming(classes=None) returns the partial_fit / merge / finalize
 # engine (stream/engines.StreamingLogisticRegression).
@@ -33,7 +35,8 @@
 # lane of ops/logistic.lane_logistic_predict_kernel, the class labels in
 # its meta.
 #
-# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
+# cpu() converts to a pyspark.ml LogisticRegressionModel (spark/interop.py;
+# it needs pyspark and an active SparkSession).
 #
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ..core import (
     _TpuModelWithPredictionCol,
     discover_label_classes,
 )
-from ..dataframe import DataFrame, as_dataframe
+from ..dataframe import DataFrame, as_dataframe, partition_of
 from ..metrics.multiclass import MulticlassMetrics
 from ..ops.labels import encode_labels
 from ..ops.lanes import pack_lane_subset
@@ -90,8 +93,6 @@ from ..params import (
 from ..utils import get_logger
 from .linear_regression import _device_rows, _frame_blocks
 
-_NOT_PORTED = "is not in this port yet (ROADMAP {})"
-
 
 class _ClassificationModelEvaluationMixIn:
     """Single-pass transform-evaluate of a (combined) classification model:
@@ -99,12 +100,40 @@ class _ClassificationModelEvaluationMixIn:
     into MulticlassMetrics per sub-model (shared with the forest
     classifier)."""
 
+    def _partition_metrics(
+        self, part: Any, evaluator: Any, num_models: int, predict_all: Any = None
+    ) -> List[MulticlassMetrics]:
+        """One partition's (or mapInPandas batch's) metric partials, one a
+        sub-model: the Spark executor route's unit (a caller looping over
+        partitions passes one predict_all, staged once)."""
+        from ..core import extract_partition_features
+
+        needs_probs = evaluator.getMetricName() == "logLoss"
+        input_col, input_cols = self._get_input_columns()
+        dtype = self._transform_dtype(self._model_attributes.get("dtype"))
+        feats = extract_partition_features(part, input_col, input_cols, dtype)
+        label_col = self.getOrDefault("labelCol")
+        labels = np.asarray(partition_of(part, [label_col])[label_col])
+        if predict_all is None:
+            predict_all = self._get_eval_predict_func()
+        preds, probs = predict_all(feats)  # (M, n), (M, n, C)
+        return [
+            MulticlassMetrics.from_arrays(
+                labels, preds[i], probs=probs[i] if needs_probs else None, eps=evaluator.getEps()
+            )
+            for i in range(num_models)
+        ]
+
     def _transform_evaluate(self, dataset: Any, evaluator: Any, num_models: int) -> List[float]:
+        from ..core import _use_executor_path
         from ..evaluation import MulticlassClassificationEvaluator
 
         if not isinstance(evaluator, MulticlassClassificationEvaluator):
             raise NotImplementedError(f"{evaluator} is unsupported yet.")
-        evaluator._evaluate_executor_side(dataset)
+        if _use_executor_path(dataset):
+            from ..spark.adapter import executor_transform_evaluate
+
+            return executor_transform_evaluate(self, dataset, evaluator, num_models)
         return self._evaluate_blocks(_frame_blocks(self, as_dataframe(dataset)), evaluator, num_models)
 
     def _evaluate_blocks(self, blocks: Iterable[Tuple[Any, np.ndarray]], evaluator: Any, num_models: int) -> List[float]:
@@ -497,7 +526,11 @@ class LogisticRegressionModel(_LogisticRegressionParams, _ClassificationModelEva
         return scores_to_probs(self._scores(value), self._num_classes)[0].cpu().numpy()
 
     def cpu(self):
-        raise NotImplementedError("LogisticRegressionModel.cpu() " + _NOT_PORTED.format("A14c"))
+        """This model as a pyspark.ml.classification.LogisticRegressionModel
+        (needs pyspark and an active SparkSession)."""
+        from ..spark.interop import to_spark_logistic_model
+
+        return to_spark_logistic_model(self)
 
     def _serving_entry(self, mesh: Any = None):
         """Online inference hook (serving/): scores, probabilities and label

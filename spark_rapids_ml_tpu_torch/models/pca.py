@@ -18,7 +18,8 @@
 # _lane_entry is the multiplexed hook (serving/multiplex.py): the same
 # (whiten-scaled) matrix as one lane of ops/linalg.lane_pca_transform_kernel.
 #
-# Not carried over yet: cpu() (A14c); it raises NotImplementedError.
+# cpu() converts to a pyspark.ml PCAModel (spark/interop.py; it needs
+# pyspark and an active SparkSession).
 #
 
 from __future__ import annotations
@@ -43,8 +44,6 @@ from ..params import (
     _dummy,
     _TpuParams,
 )
-
-_NOT_PORTED = "is not in this port yet (ROADMAP {})"
 
 
 class PCAClass(_TpuParams):
@@ -169,7 +168,11 @@ class PCAModel(_PCAParams, _TpuModel):
         return self.explained_variance_ratio_
 
     def cpu(self):
-        raise NotImplementedError("PCAModel.cpu() " + _NOT_PORTED.format("A14c"))
+        """This model as a pyspark.ml.feature.PCAModel (needs pyspark and an
+        active SparkSession)."""
+        from ..spark.interop import to_spark_pca_model
+
+        return to_spark_pca_model(self)
 
     def _serving_entry(self, mesh: Any = None):
         """Online inference hook (serving/): the (whiten-scaled) projection

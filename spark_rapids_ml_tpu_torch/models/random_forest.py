@@ -47,7 +47,9 @@
 # index the job's valid rows (mesh.valid_spans), and every multi-rank fit
 # grows on the scatter engine, whose histogram psum crosses the processes.
 #
-# Not carried over yet: cpu() (pyspark.ml conversion, ROADMAP A14c-2).
+# trees_to_dicts exports the forest as the JAX package's nested dicts, and
+# cpu() converts it to the pyspark.ml forest model through them
+# (spark/interop.py; it needs pyspark and an active SparkSession).
 #
 
 from __future__ import annotations
@@ -631,6 +633,42 @@ class _RandomForestModelBase(_RandomForestParams, _TpuModelWithPredictionCol):
     @property
     def totalNumNodes(self) -> int:
         return int((self.features_ >= 0).sum() * 2 + (self.features_ >= 0).shape[0])
+
+    def trees_to_dicts(self) -> List[Dict[str, Any]]:
+        """The forest as nested dicts, one a tree (the JAX package's portable
+        export): an internal node {split_feature, threshold, gain,
+        instance_count, yes, no}, a leaf {leaf_value, instance_count}.  The
+        node arrays become lists once, before the walk."""
+        feats = np.asarray(self.features_).tolist()
+        thr = np.asarray(self.thresholds_).tolist()
+        leaf = np.asarray(self.leaf_values_).tolist()
+        cnt = np.asarray(self.node_counts_).tolist()
+        imp = np.asarray(self.impurities_).tolist()
+        out = []
+        for f, th, lv, ct, im in zip(feats, thr, leaf, cnt, imp):
+
+            def node_dict(i: int) -> Dict[str, Any]:
+                if f[i] < 0:
+                    return {"leaf_value": lv[i], "instance_count": float(ct[i])}
+                return {
+                    "split_feature": int(f[i]),
+                    "threshold": float(th[i]),
+                    "gain": float(im[i]),
+                    "instance_count": float(ct[i]),
+                    "yes": node_dict(2 * i + 1),
+                    "no": node_dict(2 * i + 2),
+                }
+
+            out.append(node_dict(0))
+        return out
+
+    def cpu(self):
+        """This forest as the pyspark.ml RandomForest model of its kind,
+        built tree by tree through py4j (needs pyspark and an active
+        SparkSession)."""
+        from ..spark.interop import to_spark_random_forest_model
+
+        return to_spark_random_forest_model(self)
 
 
 _FOREST_ATTRS = ("features_", "thresholds_", "leaf_values_", "node_counts_", "impurities_")

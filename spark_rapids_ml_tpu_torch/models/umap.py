@@ -26,8 +26,10 @@
 # epoch_block and table_size (SRML_UMAP_DEGREE_CAP, _DEGREE_QUANTILE,
 # _EPOCH_BLOCK, _TABLE).
 #
-# Not carried over yet: the Spark single-task fit (_cluster_fit_single_task)
-# and cpu() (ROADMAP A14c); each raises NotImplementedError.
+# On a Spark cluster of more than one worker the fit runs as one barrier
+# task, sampled with Spark before the coalesce (_cluster_fit_single_task,
+# spark/adapter.barrier_fit_estimator); transform stays on the executors.
+# UMAPModel has no cpu(), as in the JAX package (pyspark.ml has no UMAP).
 # UMAPModel has no serving entry, as in the JAX package: serving one raises
 # the base hook's error (core._TpuModel._serving_entry).
 #
@@ -65,7 +67,6 @@ from ..params import (
 from ..profiling import phase
 from ..utils import get_logger
 
-_NOT_PORTED = "is not in this port yet (ROADMAP {})"
 
 _ENGINE_DEFAULTS: Dict[str, Any] = {
     "graph": "exact",
@@ -213,8 +214,10 @@ class UMAP(_UMAPParams, _TpuEstimator):
     kernels, the fuzzy graph assembled on the device, the spectral init and
     the SGD layout with the JAX package's threefry draws."""
 
-    # single-node fit by design, as the JAX package's
+    # single-node fit by design, as the JAX package's; on a cluster the
+    # adapter runs it as one barrier task
     _supports_multicontroller_fit = False
+    _cluster_fit_single_task = True
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -224,9 +227,6 @@ class UMAP(_UMAPParams, _TpuEstimator):
     def _fit_label_col(self) -> Optional[str]:
         # supervised only when the user set labelCol
         return self.getOrDefault("labelCol") if self.isSet("labelCol") else None
-
-    def _cluster_fit_single_task(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError("UMAP's Spark single-task fit " + _NOT_PORTED.format("A14c"))
 
     def _get_tpu_fit_func(self, dataset: DataFrame, extra_params=None, **engine: Any):
         logger = get_logger(type(self))
@@ -339,9 +339,6 @@ class UMAPModel(_UMAPParams, _TpuModel):
     @property
     def embedding(self) -> np.ndarray:
         return self.embedding_
-
-    def cpu(self):
-        raise NotImplementedError("UMAPModel.cpu() " + _NOT_PORTED.format("A14c"))
 
     def _out_columns(self) -> List[str]:
         return [self.getOrDefault("outputCol")]

@@ -30,8 +30,9 @@
 # plane; context.init in parallel/context.TpuContext; runner.fit in
 # runner.DistributedFitSession.fit; exchange.ring_pass in
 # exchange.ring_pass_bytes; knn.ring_hop in ops/knn.distributed_kneighbors.
-# The Spark barrier tasks that would carry these plans to executors are
-# ROADMAP A14c-2.
+# A Spark barrier task (spark/adapter.py) runs runner.fit and
+# distributed_kneighbors, so a plan in an executor's environment fires
+# there too.
 #
 # With SRML_FAULTS unset the plan is None and site() is one global load and
 # one `is None` branch.

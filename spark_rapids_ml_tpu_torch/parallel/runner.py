@@ -27,6 +27,8 @@
 #      package's JSON-safe attribute wire, torch.Tensor in place of
 #      jax.Array), with the telemetry snapshot merged across ranks.
 #
+# Under SRML_PROFILE=<dir> each rank's fit function is captured by
+# profiling.maybe_trace into <dir>/<Estimator>-rank<r>.
 # make_control_plane builds the plane named by SRML_CP ("file" or "tcp").
 # The JAX module's initialize_persistent_cache has no counterpart: the port
 # compiles nothing per shape (ops/precompile.py header).
@@ -590,7 +592,8 @@ class DistributedFitSession:
                     fit_func = estimator._get_tpu_fit_func(df)
                 else:
                     fit_func = estimator._get_tpu_fit_func(df, extra_params=extra_params)
-                with sanitize_scope(self.mesh.devices[0]), profiling.phase("runner.fit"):
+                with profiling.maybe_trace(f"{type(estimator).__name__}-rank{self.rank}"), \
+                        sanitize_scope(self.mesh.devices[0]), profiling.phase("runner.fit"):
                     result = fit_func(inputs, dict(estimator._tpu_params))
                 del inputs
                 t2 = time.perf_counter()

@@ -20,7 +20,11 @@
 #     writes those records as the same Chrome trace-event JSON the JAX
 #     module writes (under SRML_TRACE_DIR);
 #   - TelemetrySnapshot, register_gauges / collect_gauges, export_metrics and
-#     render_prometheus: the mergeable rollup and the pull surface.
+#     render_prometheus: the mergeable rollup and the pull surface;
+#   - maybe_trace(tag): the opt-in whole-fit capture, a torch.profiler trace
+#     of the region (host ranges, and the card's kernels and copies on a
+#     card) written as Chrome trace JSON under $SRML_PROFILE/<tag>; a no-op
+#     when the variable is unset.  The JAX module's is an xprof capture.
 # Unlike the JAX module, a span does not add to phase_times(): the port's
 # phases are their own ranges, process-wide, and their callers read them as
 # such.  The flight recorder of watch.py hooks spans and counters through
@@ -43,6 +47,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 _log = logging.getLogger("spark_rapids_ml_tpu_torch.profiling")
 
 TRACE_ENV = "SRML_TRACE_DIR"
+PROFILE_ENV = "SRML_PROFILE"
 METRIC_TTL_ENV = "SRML_METRIC_TTL_S"
 
 _lock = threading.Lock()
@@ -429,6 +434,30 @@ def trace_session(tag: str = "session") -> Iterator[Optional[str]]:
             _write_chrome_trace(path, records)
         except Exception as exc:  # noqa: BLE001 - the export never replaces the work's result
             _log.warning("trace export for %r failed: %s", tag, exc)
+
+
+@contextlib.contextmanager
+def maybe_trace(tag: str = "fit") -> Iterator[None]:
+    """With SRML_PROFILE=<dir> set, capture the enclosed region with
+    torch.profiler (the CPU, and the card when there is one) and write it
+    as one Chrome trace JSON file under <dir>/<tag>.  A no-op otherwise."""
+    out_dir = os.environ.get(PROFILE_ENV)
+    if not out_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    target = os.path.join(out_dir, _safe_tag(tag))
+    os.makedirs(target, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(target, f"{os.getpid()}-{next(_session_seq):04d}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _log.info("torch.profiler trace for %r written to %s", tag, path)
 
 
 # -- mergeable telemetry snapshots -------------------------------------------------

@@ -34,8 +34,12 @@
 # the batched route, tuning.folds.{fit,score,refit} on the fold loop, inside
 # torch.profiler ranges of the same names; counters tuning.candidates and
 # tuning.folds count the batched sweeps' work.
-# Not carried over yet: cross validation of a live pyspark DataFrame
-# (_kFold_spark, executor-side scoring; ROADMAP A14c).
+# A live pyspark DataFrame is cross-validated on the cluster, as in the JAX
+# package: Spark folds it (_kFold_spark: randomSplit and union, each fold
+# cached and unpersisted once scored), each fold fits through the barrier
+# stage and is scored on the executors, and the best map is refitted
+# through the barrier stage; the dataset is never collected.  That route is
+# the fold loop.
 #
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ import torch
 
 from . import device as _device
 from . import profiling
-from .core import _is_live_spark, _TpuEstimator, _TpuModel, gather_global_rows
+from .core import _TpuEstimator, _TpuModel, _use_executor_path, gather_global_rows
 from .core import load as _load_any
 from .dataframe import DataFrame, as_dataframe, random_split_ids
 from .params import Param, Params, TypeConverters, _dummy
@@ -181,16 +185,56 @@ class CrossValidator(_ValidatorParams):
             for i in range(n)
         ]
 
+    def _kFold_spark(self, sdf: Any) -> List[Tuple[Any, Any]]:
+        """(train, validation) frames of each fold of a live pyspark
+        DataFrame, made by Spark (randomSplit and union), each cached: the
+        fit and the scoring both act on them."""
+        n = self.getNumFolds()
+        folds = sdf.randomSplit([1.0] * n, seed=self.getOrDefault("seed"))
+        pairs = []
+        for i in range(n):
+            train = None
+            for j, f in enumerate(folds):
+                if j == i:
+                    continue
+                train = f if train is None else train.union(f)
+            pairs.append((train.cache(), folds[i].cache()))
+        return pairs
+
     def fit(self, dataset: Any) -> "CrossValidatorModel":
+        if _use_executor_path(dataset):
+            # the cluster route: folds, fits and scoring stay on the executors
+            folds = self._kFold_spark(dataset)
+
+            def _release_fold(train: Any, valid: Any) -> None:
+                train.unpersist()
+                valid.unpersist()
+
+            try:
+                # each fold is released once scored, so the executors never
+                # hold every fold's cached frames at once
+                return self._fit(dataset, batched=False, datasets=folds, fold_cleanup=_release_fold)
+            finally:
+                for train, valid in folds:  # the error paths
+                    _release_fold(train, valid)
         return self._fit(dataset)
 
-    def _fit(self, dataset: Any, batched: bool = True) -> "CrossValidatorModel":
+    def _fit(
+        self, dataset: Any, batched: bool = True, datasets: Optional[List[Tuple[Any, Any]]] = None,
+        fold_cleanup: Optional[Any] = None,
+    ) -> "CrossValidatorModel":
         """The cross validation; batched=False takes the fold loop even
-        where the batched sweep would run."""
-        if _is_live_spark(dataset):
-            raise NotImplementedError(
-                "CrossValidator over a live pyspark DataFrame is not in this port yet (ROADMAP A14c)"
-            )
+        where the batched sweep would run.  `datasets` gives the folds'
+        (train, validation) frames (the cluster route's), and
+        `fold_cleanup(train, validation)` runs after each fold."""
+        if datasets is not None:
+            est, eva, epm = self.getEstimator(), self.getEvaluator(), self.getEstimatorParamMaps()
+            assert est is not None and eva is not None and epm, "estimator, evaluator and estimatorParamMaps must be set"
+            profiling.reset_phase_times()
+            single_pass = isinstance(est, _TpuEstimator) and est._supportsTransformEvaluate(eva)
+            model = self._fit_folds(dataset, est, eva, epm, single_pass, datasets, fold_cleanup)
+            self._last_fit_phase_times = profiling.phase_times()
+            return model
         df = as_dataframe(dataset)
         est, eva, epm = self.getEstimator(), self.getEvaluator(), self.getEstimatorParamMaps()
         assert est is not None and eva is not None and epm, "estimator, evaluator and estimatorParamMaps must be set"
@@ -204,22 +248,28 @@ class CrossValidator(_ValidatorParams):
         return model
 
     def _fit_folds(
-        self, df: DataFrame, est: _TpuEstimator, eva: Any, epm: List[Dict[Param, Any]], single_pass: bool
+        self, df: Any, est: _TpuEstimator, eva: Any, epm: List[Dict[Param, Any]], single_pass: bool,
+        datasets: Optional[List[Tuple[Any, Any]]] = None, fold_cleanup: Optional[Any] = None,
     ) -> "CrossValidatorModel":
         n_folds = self.getNumFolds()
         collect_sub = self.getCollectSubModels()
-        datasets = self._kFold(df)
+        if datasets is None:
+            datasets = self._kFold(df)
         dev = _device.resolve()
 
         def one_fold(fold: int):
             train, valid = datasets[fold]
-            with profiling.phase("tuning.folds.fit", dev):
-                models = [m for _, m in sorted(est.fitMultiple(train, epm), key=lambda im: im[0])]
-            with profiling.phase("tuning.folds.score", dev):
-                if single_pass:
-                    metrics = models[0]._combine(models)._transformEvaluate(valid, eva)
-                else:
-                    metrics = [eva.evaluate(m.transform(valid)) for m in models]
+            try:
+                with profiling.phase("tuning.folds.fit", dev):
+                    models = [m for _, m in sorted(est.fitMultiple(train, epm), key=lambda im: im[0])]
+                with profiling.phase("tuning.folds.score", dev):
+                    if single_pass:
+                        metrics = models[0]._combine(models)._transformEvaluate(valid, eva)
+                    else:
+                        metrics = [eva.evaluate(m.transform(valid)) for m in models]
+            finally:
+                if fold_cleanup is not None:
+                    fold_cleanup(train, valid)
             return fold, metrics, models if collect_sub else None
 
         metrics_all: List[List[float]] = [[] for _ in range(n_folds)]
@@ -282,7 +332,7 @@ class CrossValidator(_ValidatorParams):
 
     def _finish(
         self,
-        df: DataFrame,
+        df: Any,
         est: _TpuEstimator,
         eva: Any,
         epm: List[Dict[Param, Any]],

@@ -12,8 +12,8 @@
 #   2. STALL DETECTION: HeartbeatPublisher and StallWatchdog over a control
 #      plane's publish_health / read_health, and start_fit_health to start
 #      both for a barrier fit (parallel/runner.DistributedFitSession.fit
-#      calls it on every rank of a multi-process fit; the Spark barrier
-#      tasks around it are ROADMAP A14c-2).  The serving engine's wedge
+#      calls it on every rank of a multi-process fit, a Spark barrier
+#      task's included: spark/adapter.py).  The serving engine's wedge
 #      detection uses stall_threshold_s (SRML_WATCH_STALL_S).
 #   3. DEVICE MEMORY: torch.cuda.memory_allocated / max_memory_allocated
 #      summed over the port's CUDA devices, sampled at span boundaries and

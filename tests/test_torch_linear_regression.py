@@ -9,6 +9,8 @@
 # float32 solves to 1e-4 absolute on O(1) coefficients (a rank-deficient
 # system's predictions to 1e-2: its solution is unique only off the null
 # space), the CD sweep counts exactly, float64 fits to 1e-9.
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -215,5 +217,11 @@ def test_hooks_not_in_this_slice_raise():
     lane = model._lane_entry()
     assert (type(lane).__name__, lane.name, lane.out_cols) == ("LaneEntry", "lanes.linreg", ["prediction"])
     assert [np.shape(leaf) for leaf in lane.leaves] == [(model.n_cols,), ()]
-    with pytest.raises(NotImplementedError, match="A14c"):
+    # cpu() (ROADMAP A14c-2) needs pyspark: without it, the JAX package's
+    # ImportError (tests/test_torch_interop.py holds the conversion itself)
+    from spark_rapids_ml_tpu.spark.interop import _require_pyspark
+
+    with pytest.raises(ImportError) as want:
+        _require_pyspark()
+    with pytest.raises(ImportError, match=re.escape(str(want.value))):
         model.cpu()

@@ -10,6 +10,8 @@
 # quadratic: iteration counts equal, x to 1e-4); the objective and gradient
 # to 1e-5 relative; fitted logistic models, regularised so the optimum is
 # unique, to 2e-3 absolute in coefficients and 1e-3 in probabilities.
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -261,5 +263,11 @@ def test_hooks_not_in_this_slice_raise():
     assert lane.out_cols == ["prediction", "probability", "rawPrediction"]
     assert lane.statics == {"num_classes": model._num_classes}
     assert lane.meta == (str(np.asarray(model.classes_).dtype), np.asarray(model.classes_).tobytes())
-    with pytest.raises(NotImplementedError, match="A14c"):
+    # cpu() (ROADMAP A14c-2) needs pyspark: without it, the JAX package's
+    # ImportError (tests/test_torch_interop.py holds the conversion itself)
+    from spark_rapids_ml_tpu.spark.interop import _require_pyspark
+
+    with pytest.raises(ImportError) as want:
+        _require_pyspark()
+    with pytest.raises(ImportError, match=re.escape(str(want.value))):
         model.cpu()

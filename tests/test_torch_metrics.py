@@ -126,12 +126,53 @@ def test_silhouette_matches_reference():
     _close(evaluation.ClusteringEvaluator().evaluate(df), ref_evaluation.ClusteringEvaluator().evaluate(ref_df))
 
 
-def test_live_spark_frames_are_refused():
-    class FakeSparkFrame:
-        pass
+class _FakeSparkFrame:
+    """A live pyspark prediction frame: pandas partitions behind mapInPandas
+    (chained stages) / collect / cache / unpersist."""
 
-    FakeSparkFrame.__module__ = "pyspark.sql.dataframe"
-    for eva in (evaluation.RegressionEvaluator(), evaluation.MulticlassClassificationEvaluator(),
-                evaluation.BinaryClassificationEvaluator(), evaluation.ClusteringEvaluator()):
-        with pytest.raises(NotImplementedError, match="A14c"):
-            eva.evaluate(FakeSparkFrame())
+    def __init__(self, parts, udf=None):
+        self._parts, self._udf = parts, udf
+
+    def mapInPandas(self, udf, schema=None):
+        if self._udf is None:
+            return _FakeSparkFrame(self._parts, udf)
+        prev = self._udf
+        return _FakeSparkFrame(self._parts, lambda it: udf(x for p in it for x in prev(iter([p]))))
+
+    def collect(self):
+        return [r for p in self._parts for out in self._udf(iter([p])) for r in out.to_dict("records")]
+
+    def cache(self):
+        return self
+
+    def unpersist(self):
+        return self
+
+
+_FakeSparkFrame.__module__ = "pyspark.sql.dataframe"
+
+
+def test_live_spark_frames_are_refused():
+    # a live frame is no longer refused (ROADMAP A14c-2): both packages score
+    # it on the executors (spark/adapter.executor_evaluate), the port as its
+    # local evaluate of the same partitions
+    import pandas as pd
+
+    rng = np.random.default_rng(4)
+    n = 240
+    label = rng.integers(0, 2, n).astype(np.float64)
+    raw = rng.standard_normal((n, 2)) + 1.5 * np.eye(2)[label.astype(int)]
+    centers = np.array([[0.0, 0.0], [5.0, 1.0]])
+    pdf = pd.DataFrame({"label": label, "prediction": raw.argmax(1).astype(np.float64),
+                        "probability": list(np.exp(raw) / np.exp(raw).sum(1, keepdims=True)),
+                        "rawPrediction": list(raw), "features": list(centers[label.astype(int)] + rng.normal(size=(n, 2)))})
+    parts = [pdf.iloc[ix].reset_index(drop=True) for ix in np.array_split(np.arange(n), PARTS)]
+    frame = _FakeSparkFrame(parts)
+    local = port.DataFrame([port.dataframe.partition_of(p) for p in parts])
+    for name in ("RegressionEvaluator", "MulticlassClassificationEvaluator", "BinaryClassificationEvaluator"):
+        got = getattr(evaluation, name)().evaluate(frame)
+        assert got == getattr(evaluation, name)().evaluate(local)
+        _close(got, getattr(ref_evaluation, name)().evaluate(frame))
+    got = evaluation.ClusteringEvaluator().setPredictionCol("label").evaluate(frame)
+    _close(got, evaluation.ClusteringEvaluator().setPredictionCol("label").evaluate(local))
+    _close(got, ref_evaluation.ClusteringEvaluator().setPredictionCol("label").evaluate(frame))
