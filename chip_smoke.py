@@ -57,8 +57,16 @@
 #            featureSubsetStrategy="onethird") on the same rows with a linear
 #            target: fit -> transform, finite predictions, held-out R^2 > 0
 #   forest_card_vs_cpu
-#            one reduced fit (65,536 x 256, 4 trees, depth 13, no bootstrap)
-#            on the card and under use_device("cpu"): identical trees
+#            one reduced fit (65,536 x 256, 4 trees, depth 13, Spark's
+#            default bootstrap) on the card and under use_device("cpu"):
+#            identical trees, the bootstrap counts drawn on each device
+#   draws    the seeded draws that follow jax.random, card against CPU, bit
+#            for bit: the KMeans flagship's first-centre Gumbel vector
+#            (1,000,000 rows) and a window of path_rf_clf's (50, n_pad)
+#            Poisson counts (the first and last tree, the last 65,536
+#            columns); the bootstrap draw's seconds at both RF flagships'
+#            shapes beside torch.poisson on the same shape (the cost it
+#            replaced), and the Gumbel vector's
 #   kernels_knn
 #            the exact-kNN kernels against their plain versions: candidate
 #            pool (B5, and B6, the same kernel on the audit route), fused
@@ -1311,7 +1319,8 @@ class deep_launch_shapes:
         return False
 
 
-PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.shallow", "forest.deep_layout", "forest.deep")
+PROFILE_RANGES = ("core.ingest", "forest.bin", "forest.bootstrap", "forest.shallow", "forest.deep_layout",
+                  "forest.deep")
 # the port's kernels as the trace names them (all in anonymous namespaces)
 PORT_KERNEL_SYMBOLS = ("min_dist_argmin_kernel", "min_dist_tile_kernel", "bin_features_fm_kernel", "hist_kernel",
                        "hist_mma_kernel", "knn_topm_tile_kernel", "knn_count_tile_kernel", "radix_merge_kernel",
@@ -1398,13 +1407,14 @@ def profile_once(torch, run, ranges):
 
 
 def forest_card_vs_cpu(torch, port):
-    """The same reduced fit (bootstrap off) on the card and under
-    use_device("cpu"): the trees must be identical, which holds the whole
-    tree growth on the card against the kernels' plain versions."""
+    """The same reduced fit (Spark's default bootstrap) on the card and
+    under use_device("cpu"): the trees must be identical, which holds the
+    whole tree growth on the card, its bootstrap draw included, against the
+    kernels' plain versions and the CPU's draw."""
     X, y = classification_data(65536, 256, SEED + 7)
     df = port.DataFrame.from_numpy(X, y, num_partitions=2)
-    est = port.RandomForestClassifier(numTrees=4, maxDepth=13, maxBins=128, featureSubsetStrategy="sqrt",
-                                      bootstrap=False, seed=1)
+    est = port.RandomForestClassifier(numTrees=4, maxDepth=13, maxBins=128, featureSubsetStrategy="sqrt", seed=1)
+    check(est.getOrDefault("bootstrap") is True, "forest_card_vs_cpu must bootstrap")
     t0 = time.perf_counter()
     card = est.fit(df)
     card_s = time.perf_counter() - t0
@@ -1416,8 +1426,168 @@ def forest_card_vs_cpu(torch, port):
         a, b = getattr(card, name), getattr(cpu, name)
         check(np.array_equal(a, b), f"card and CPU trees differ in {name} at {int((a != b).sum())} nodes")
     return {"phase": "forest_card_vs_cpu", "rows": 65536, "cols": 256, "trees": 4, "max_depth": 13,
-            "split_nodes": int((card.features_ >= 0).sum()), "identical": True,
+            "bootstrap": True, "split_nodes": int((card.features_ >= 0).sum()), "identical": True,
             "card_fit_s": card_s, "cpu_fit_s": cpu_s}
+
+
+# the draws phase: the bootstrap window's columns, and the timed repeats
+DRAW_WINDOW, DRAW_REPS = 65536, 3
+# the k-means++ picks' CUDA graph (k - 1 >= 64 picks) against the CPU's
+# eager picks: a coarse quantizer's init (k 256, 4 rounds of 512 rows) on
+# integer rows, where the expanded-form distances are exact
+DRAW_PP_ROWS, DRAW_PP_COLS, DRAW_PP_K = 20_000, 64, 256
+# an init at many rows and few columns, for its peak device memory beyond
+# the rows and weights (the Gumbel-max keys are made in row chunks)
+DRAW_TALL_ROWS, DRAW_TALL_COLS, DRAW_TALL_K = 50_000_000, 8, 16
+# the Poisson draw's chunks of the flat index timed at path_rf_clf's shape
+DRAW_POISSON_CHUNKS = (1 << 22, 1 << 24, 1 << 26)
+
+
+def timed_s(torch, fn, reps=DRAW_REPS):
+    """Seconds of each of `reps` synchronised calls of fn, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def draws(torch, port, dev, smi):
+    """The seeded draws that follow jax.random (ops/prng), card against
+    CPU, bit for bit: the KMeans flagship's first-centre Gumbel vector
+    (PRNGKey(SEED), split once; 1,000,000 rows) and a window of
+    path_rf_clf's bootstrap counts (the builder's key and its (50, n_pad)
+    shape; the first and last tree, the last DRAW_WINDOW columns).  Then
+    the bootstrap draw's seconds at both RF flagships' shapes (the fit's own
+    call, models/random_forest._bootstrap_counts) beside torch.poisson on
+    the same shape from a card generator (the draw it replaced), and the
+    Gumbel vector's seconds.  Then a k-means|| init of DRAW_PP_K centres
+    on the card (its picks a replayed CUDA graph, kmeans.pick_graph_captures)
+    against the CPU's eager one, bit for bit; the peak device memory of an
+    init of DRAW_TALL_ROWS x DRAW_TALL_COLS rows beyond the rows; and the
+    bootstrap draw's seconds and peak memory at each of DRAW_POISSON_CHUNKS
+    (prng.POISSON_CHUNK), the counts equal at each."""
+    from spark_rapids_ml_tpu_torch import profiling
+    from spark_rapids_ml_tpu_torch.models import random_forest as rf
+    from spark_rapids_ml_tpu_torch.ops import kmeans as ops_kmeans
+    from spark_rapids_ml_tpu_torch.ops import prng
+
+    (k0,), _ = prng.split_chain(prng.prng_key(SEED), 1)
+    rows = torch.arange(ROWS)
+    card_g = prng.gumbel_at(k0.to(dev), rows.to(dev)).cpu()
+    cpu_g = prng.gumbel_at(k0, rows)
+    g_diff = int((card_g.view(torch.int32) != cpu_g.view(torch.int32)).sum())
+    check(g_diff == 0 and bool(torch.isfinite(card_g).all()), f"the card's Gumbel vector differs at {g_diff} rows")
+    n_pad = rf._jax_padded_rows(RF_ROWS, 1)
+    n_pad = -(-n_pad // 2048) * 2048
+    check(n_pad == RF_N_PAD, f"the builder's n_pad {n_pad} != {RF_N_PAD}")
+    trees = RF_CLF["numTrees"]
+    key = prng.prng_key((RF_CLF["seed"] + 104729) & 0x7FFFFFFF)
+    cols = torch.arange(n_pad - DRAW_WINDOW, n_pad)
+    flat = torch.stack([cols, (trees - 1) * n_pad + cols])
+    card_p = prng.poisson_at(key.to(dev), 1.0, flat.to(dev)).cpu()
+    cpu_p = prng.poisson_at(key, 1.0, flat)
+    p_diff = int((card_p != cpu_p).sum())
+    check(p_diff == 0, f"the card's bootstrap window differs at {p_diff} counts")
+    rec = {"phase": "draws", "nvidia_smi": smi, "gumbel_rows": ROWS, "gumbel_identical": True,
+           "poisson_window": [2, DRAW_WINDOW], "poisson_identical": True,
+           "poisson_window_max": int(card_p.max()), "poisson_window_mean": float(card_p.float().mean())}
+    rec["gumbel_s"] = timed_s(torch, lambda: prng.gumbel_at(k0.to(dev), torch.arange(ROWS, device=dev)))
+    for name, params in (("path_rf_clf", RF_CLF), ("path_rf_reg", RF_REG)):
+        t = params["numTrees"]
+        bkey = prng.prng_key((params["seed"] + 104729) & 0x7FFFFFFF)
+        gen = torch.Generator(device=dev).manual_seed(params["seed"])
+        rec[name] = {
+            "trees": t, "n_pad": n_pad,
+            "bootstrap_s": timed_s(torch, lambda: rf._bootstrap_counts(bkey, t, n_pad, 0, RF_ROWS, n_pad, dev)),
+            "torch_poisson_s": timed_s(torch, lambda: torch.poisson(torch.ones((t, n_pad), device=dev),
+                                                                    generator=gen)),
+        }
+    rec["kmeans_pp"] = draws_kmeans_pp(torch, profiling, ops_kmeans, dev)
+    rec["tall_init"] = draws_tall_init(torch, ops_kmeans, dev)
+    rec["poisson_chunks"] = draws_poisson_chunks(torch, rf, prng, n_pad, dev)
+    return rec
+
+
+def draws_kmeans_pp(torch, profiling, ops_kmeans, dev):
+    """k-means|| of DRAW_PP_K centres on integer rows, card (graph-replayed
+    picks) against CPU (eager picks): identical centres, at least one
+    capture, and the card's seconds."""
+    gen = torch.Generator().manual_seed(SEED)
+    X = torch.randint(-8, 9, (DRAW_PP_ROWS, DRAW_PP_COLS), generator=gen).float()
+    w = torch.ones(DRAW_PP_ROWS)
+
+    def init(Xd, wd):
+        return ops_kmeans.scalable_kmeans_pp_init(Xd, wd, DRAW_PP_K, SEED, rounds=4, round_size=2 * DRAW_PP_K)
+
+    Xd, wd = X.to(dev), w.to(dev)
+    before = profiling.counter("kmeans.pick_graph_captures")
+    card = init(Xd, wd).cpu()
+    captures = profiling.counter("kmeans.pick_graph_captures") - before
+    t0 = time.perf_counter()
+    cpu = init(X, w)
+    cpu_s = time.perf_counter() - t0
+    rows_diff = int((card.view(torch.int32) != cpu.view(torch.int32)).any(dim=1).sum())
+    check(captures >= 1, "the card's k-means++ picks were not captured as a CUDA graph")
+    check(rows_diff == 0, f"the card's k-means|| init differs from the CPU's at {rows_diff} of {DRAW_PP_K} centres")
+    return {"rows": DRAW_PP_ROWS, "cols": DRAW_PP_COLS, "k": DRAW_PP_K, "pool": 1 + 8 * DRAW_PP_K,
+            "pick_graph_captures": captures, "centres_identical": True,
+            "card_s": timed_s(torch, lambda: init(Xd, wd)), "cpu_s": cpu_s}
+
+
+def draws_tall_init(torch, ops_kmeans, dev):
+    """Peak device memory of a k-means|| init at DRAW_TALL_ROWS rows of
+    DRAW_TALL_COLS columns, beyond the rows and weights already there."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.randn((DRAW_TALL_ROWS, DRAW_TALL_COLS), generator=gen, device=dev)
+    w = torch.ones(DRAW_TALL_ROWS, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    centres = ops_kmeans.scalable_kmeans_pp_init(X, w, DRAW_TALL_K, SEED, rounds=4, round_size=2 * DRAW_TALL_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(centres).all()), "the tall init's centres are not finite")
+    del X, w
+    return {"rows": DRAW_TALL_ROWS, "cols": DRAW_TALL_COLS, "k": DRAW_TALL_K, "seconds": seconds,
+            "data_bytes": DRAW_TALL_ROWS * (DRAW_TALL_COLS + 1) * 4, "peak_extra_bytes": extra,
+            "peak_extra_bytes_a_row": extra / DRAW_TALL_ROWS}
+
+
+def draws_poisson_chunks(torch, rf, prng, n_pad, dev):
+    """path_rf_clf's bootstrap draw at each chunk of DRAW_POISSON_CHUNKS:
+    seconds, peak device memory beyond its output, and its counts equal to
+    the first chunk's."""
+    t = RF_CLF["numTrees"]
+    key = prng.prng_key((RF_CLF["seed"] + 104729) & 0x7FFFFFFF)
+    saved, out, first = prng.POISSON_CHUNK, [], None
+    try:
+        for chunk in DRAW_POISSON_CHUNKS:
+            prng.POISSON_CHUNK = chunk
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            counts = rf._bootstrap_counts(key, t, n_pad, 0, RF_ROWS, n_pad, dev)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated(dev) - base - counts.numel() * 4
+            if first is None:
+                first = counts
+            else:
+                check(bool(torch.equal(counts, first)), f"the bootstrap draw in chunks of {chunk} differs")
+            del counts
+            out.append({"chunk": chunk, "peak_extra_bytes": extra,
+                        "seconds": timed_s(torch, lambda: rf._bootstrap_counts(key, t, n_pad, 0, RF_ROWS, n_pad,
+                                                                               dev))})
+    finally:
+        prng.POISSON_CHUNK = saved
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4474,9 +4644,11 @@ def live_index_part(torch, port, ivf, pq_mod, knn_ops, kk, nc, wrappers, dev, X,
     burst_n = holder.stats()["l_pad"] - int(holder._counts[full]) + 1
     burst = (model.centroids_[full] + 0.01 * rng.standard_normal((burst_n, ANN_COLS))).astype(np.float32)
     burst_ids = ANN_ITEMS + len(adds) + np.arange(burst_n)
+    # an earlier add may have overflowed a list of the fitted layout already
+    rec["repacks_before_burst"] = repacks = holder.stats()["repacks"]
     _, rec["repack_add_s"] = synced(torch, lambda: holder.add_items(burst, burst_ids))
     rec["stats_after"] = stats = holder.stats()
-    check(stats["repacks"] == 1 and stats["tombstoned"] == 0, f"the overflowing add did not repack: {stats}")
+    check(stats["repacks"] == repacks + 1 and stats["tombstoned"] == 0, f"the overflowing add did not repack: {stats}")
     rec["burst_rows"] = burst_n
     (idx1, dist1), after_s = synced(torch, lambda: ann_rows(model, query_df))
     rec["kneighbors_rows_per_s_after"] = ANN_QUERIES / after_s
@@ -6351,6 +6523,7 @@ def live_mesh_part(torch, port, wrappers, ref, Q):
         _, s = synced(torch, lambda: holder.add_items(ref["adds"][rows], ANN_ITEMS + np.arange(rows.start, rows.stop)))
         add_s.append(s)
     n_del, delete_s = synced(torch, lambda: holder.delete_items(ref["deleted"]))
+    repacks = holder.stats()["repacks"]
     _, repack_add_s = synced(torch, lambda: holder.add_items(ref["burst"], ref["burst_ids"]))
     stats = holder.stats()
     (d1, i1), after_s = synced(torch, lambda: holder.search(Qm, ANN_K, ANN_NPROBE))
@@ -6364,7 +6537,9 @@ def live_mesh_part(torch, port, wrappers, ref, Q):
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "one_shard": {k: ref["one_shard"][k] for k in ("add_rows_per_s", "delete_s", "repack_add_s", "stage_s")}}
     check(n_del == LIVE_DELETES, f"{n_del} of {LIVE_DELETES} deletes on 4 shards")
-    check(stats["repacks"] == 1 and stats["tombstoned"] == 0, f"the overflowing add did not repack: {stats}")
+    check(stats["repacks"] == repacks + 1 and stats["tombstoned"] == 0
+          and repacks == ref["one_shard"]["repacks_before_burst"],
+          f"the overflowing add did not repack as on one shard: {stats}")
     check(launches["min_dist_argmin"] == LIVE_ADDS + 1, f"the 4-shard adds launched min_dist_argmin {launches}")
     check(launches["knn_fused_merge"] > 0, "the 4-shard searches launched knn_fused_merge no time")
     for name, got, want in (("before", (d0, i0), ref["before"]), ("after", (d1, i1), ref["after"])):
@@ -7206,6 +7381,8 @@ def main():
         del X_rf
     if "forest_card_vs_cpu" in phases:
         emit(forest_card_vs_cpu(torch, port))
+    if "draws" in phases:
+        emit(draws(torch, port, dev, smi))
 
     if "kernels_knn" in phases:
         results["kernels_knn"] = check_knn_kernels(torch, kk, nc, knn_ops, _build, dev)
@@ -7586,7 +7763,7 @@ def summary(results, seconds):
     return {"kernels": rows, "seconds": seconds}
 
 
-PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu",
+PHASES = ["kernels", "path", "kernels_forest", "path_rf_clf", "path_rf_reg", "forest_card_vs_cpu", "draws",
           "kernels_knn", "kernels_exchange", "path_knn", "knn_audit", "knn_streamed", "path_knn_mesh", "knn_ring",
           "kernels_ann", "path_ann", "path_ann_pq", "path_ann_pq4", *GLM_PHASES, *MESH_PHASES, *ANN_MESH_PHASES,
           "path_fit_ranks", *CV_PHASES, *UMAP_PHASES, *STREAM_PHASES, "path_serve", "path_serve_lanes", "path_spark"]

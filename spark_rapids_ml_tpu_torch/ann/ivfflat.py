@@ -243,9 +243,10 @@ def train_coarse_quantizer(
 ) -> np.ndarray:
     """Train an (n_clusters, D) quantizer with the port's k-means on a
     deterministic seeded sample (the JAX package's sampling rule, numpy's
-    generator).  The init draws from a torch.Generator seeded with `seed`,
-    so the centroids differ from the JAX package's (threefry) ones.  Shared
-    by the coarse quantizer and the PQ codebooks (pq.py)."""
+    generator).  The k-means|| init draws the JAX package's threefry Gumbel
+    noise from `seed` (ops/kmeans.py), so the centroids are the JAX
+    package's up to float32 sums in another order.  Shared by the coarse
+    quantizer and the PQ codebooks (pq.py)."""
     dev = device if device is not None else _device.resolve()
     items = np.ascontiguousarray(np.asarray(items), dtype=np.float32)
     n = items.shape[0]
@@ -256,10 +257,9 @@ def train_coarse_quantizer(
         items = items[np.sort(rng.choice(n, size=max_train_rows, replace=False))]
     X = torch.from_numpy(np.ascontiguousarray(items)).to(dev)
     w = torch.ones(X.shape[0], dtype=torch.float32, device=dev)
-    generator = torch.Generator().manual_seed(seed)
     chunk = min(32768, X.shape[0])
     centers0 = scalable_kmeans_pp_init(
-        X, w, n_clusters, generator, rounds=4, round_size=max(1, min(2 * n_clusters, X.shape[0])), chunk=chunk
+        X, w, n_clusters, seed, rounds=4, round_size=max(1, min(2 * n_clusters, X.shape[0])), chunk=chunk
     )
     centers, _, _ = lloyd_iterations(X, w, centers0, max_iter, float(tol), chunk)
     return centers.cpu().numpy().astype(np.float32)

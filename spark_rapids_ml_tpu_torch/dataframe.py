@@ -1,15 +1,21 @@
 #
 # Partitioned columnar DataFrame facade.
 #
-# Counterpart of spark_rapids_ml_tpu/dataframe.py with the same API
-# (from_numpy, from_device, from_pandas, partitions, toPandas, count,
-# columns, randomSplit, unpersist) but without pandas on the main path: a
+# Counterpart of spark_rapids_ml_tpu/dataframe.py with the same API (the
+# constructors from_numpy, from_device, from_pandas and from_arrow;
+# columns, dtypes, schema_of, num_partitions, partitions, count, isEmpty;
+# repartition, coalesce; select, drop, withColumnRenamed, filter, union,
+# with_row_id, randomSplit; mapInPandas, toPandas, to_arrow, collect,
+# first, cache, unpersist; and Row) but without pandas on the main path: a
 # partition is an ordered {column: numpy array} mapping.  A vector column is a 2-D array — the
 # contiguous feature block itself, which ingest and transform read without a
 # copy (the role the JAX package's FEATURE_BLOCK_ATTR stash plays beside its
 # pandas object column), or a scipy CSR block when from_numpy is given a
 # sparse matrix (kept sparse, as the JAX package's from_numpy keeps it).
-# pandas is imported only by from_pandas/toPandas.  as_dataframe also takes
+# pandas is imported only by from_pandas, toPandas, to_arrow and
+# mapInPandas.  dtypes reads a column as its pandas form would: a vector or
+# text column is "object".  A filter predicate gets the partition and
+# returns a boolean row mask, so p["label"] > 0 reads in both packages.  as_dataframe also takes
 # a pyarrow Table (from_arrow; pyarrow imported only when one arrives) and a
 # live pyspark DataFrame, collected to the driver (spark/adapter.
 # spark_to_facade: the SRML_SPARK_COLLECT=1 route).  partition_of reads one
@@ -74,6 +80,51 @@ class Partition:
         """A partition with `new` columns added (or replaced); the existing
         arrays are shared, not copied."""
         return Partition({**self._cols, **new})
+
+
+class Row:
+    """Attribute and item access to one row (a pyspark.sql.Row stand-in)."""
+
+    __slots__ = ("_data",)
+
+    def __init__(self, data: Dict[str, Any]):
+        object.__setattr__(self, "_data", data)
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._data[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __getitem__(self, key: Union[str, int]) -> Any:
+        if isinstance(key, int):
+            return list(self._data.values())[key]
+        return self._data[key]
+
+    def asDict(self) -> Dict[str, Any]:
+        return dict(self._data)
+
+    def __repr__(self) -> str:
+        inner = ", ".join(f"{k}={v!r}" for k, v in self._data.items())
+        return f"Row({inner})"
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, Row) and self._data == other._data
+
+
+def _dtype_name(values: Any) -> str:
+    """A column's dtype as its pandas column would name it."""
+    if _is_sparse(values) or values.ndim != 1 or values.dtype.kind in "OSU":
+        return "object"
+    return str(values.dtype)
+
+
+def _row_values(values: Any) -> List[Any]:
+    """A column's cells as pandas' to_dict("records") gives them: Python
+    scalars, or one array a row of a vector column."""
+    if _is_sparse(values):
+        values = values.toarray()
+    return list(values) if values.ndim != 1 else values.tolist()
 
 
 class DataFrame:
@@ -204,8 +255,74 @@ class DataFrame:
     def partitions(self) -> List[Partition]:
         return self._partitions
 
+    @property
+    def dtypes(self) -> List[tuple]:
+        p = self._partitions[0]
+        return [(c, _dtype_name(p[c])) for c in p.columns]
+
+    def schema_of(self, col: str) -> str:
+        return _dtype_name(self._partitions[0][col])
+
     def count(self) -> int:
         return sum(len(p) for p in self._partitions)
+
+    def isEmpty(self) -> bool:
+        return self.count() == 0
+
+    # -- layout ------------------------------------------------------------
+    def _concat(self) -> Dict[str, Any]:
+        """Every column over all partitions, in row order."""
+        out = {}
+        for name in self.columns:
+            blocks = [p[name] for p in self._partitions]
+            if _is_sparse(blocks[0]):
+                import scipy.sparse as sp
+
+                out[name] = sp.vstack(blocks, format="csr")
+            else:
+                out[name] = np.concatenate(blocks)
+        return out
+
+    def repartition(self, n: int) -> "DataFrame":
+        """The rows cut into max(1, n) partitions as np.array_split cuts
+        them (one partition when there are none)."""
+        cols = self._concat()
+        rows = self.count()
+        if rows == 0:
+            return DataFrame([Partition(cols)])
+        k = max(1, int(n))
+        bounds = np.cumsum([0] + [rows // k + (j < rows % k) for j in range(k)])
+        return DataFrame([
+            Partition({name: v[lo:hi] for name, v in cols.items()})
+            for lo, hi in zip(bounds[:-1], bounds[1:])
+        ])
+
+    def coalesce(self, n: int) -> "DataFrame":
+        if n >= len(self._partitions):
+            return self
+        return self.repartition(n)
+
+    # -- relational ops ----------------------------------------------------
+    def select(self, *cols: str) -> "DataFrame":
+        names = list(cols[0]) if len(cols) == 1 and isinstance(cols[0], (list, tuple)) else list(cols)
+        return DataFrame([Partition({c: p[c] for c in names}) for p in self._partitions])
+
+    def drop(self, *cols: str) -> "DataFrame":
+        return DataFrame([Partition({c: p[c] for c in p.columns if c not in cols}) for p in self._partitions])
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        return DataFrame([Partition({new if c == old else c: p[c] for c in p.columns}) for p in self._partitions])
+
+    def filter(self, predicate: Any) -> "DataFrame":
+        """The rows where predicate(partition), a boolean row mask, holds."""
+        out = []
+        for p in self._partitions:
+            keep = np.flatnonzero(np.asarray(predicate(p), dtype=bool))
+            out.append(Partition({c: p[c][keep] for c in p.columns}))
+        return DataFrame(out)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._partitions + other._partitions)
 
     def randomSplit(self, weights: List[float], seed: int = 0) -> List["DataFrame"]:
         """Split the rows by random_split_ids(count, weights, seed): row r of
@@ -252,6 +369,42 @@ class DataFrame:
         return DataFrame(out)
 
     # -- execution ---------------------------------------------------------
+    def mapInPandas(self, fn: Any, schema: Any = None) -> "DataFrame":
+        """pyspark's mapInPandas contract, a partition at a time: fn takes
+        an iterator of pandas batches and yields pandas batches, which
+        become one partition.  A partition with no output batch gets the
+        first non-empty one's columns and no rows."""
+        import pandas as pd
+
+        out: List[Optional[Partition]] = []
+        for p in self._partitions:
+            frames = list(fn(iter([DataFrame([p]).toPandas()])))
+            out.append(partition_of(pd.concat(frames, ignore_index=True)) if frames else None)
+        template = next((o for o in out if o is not None), Partition({}))
+        return DataFrame([o if o is not None else Partition({c: template[c][:0] for c in template.columns})
+                          for o in out])
+
+    def to_arrow(self) -> Any:
+        import pyarrow as pa
+
+        return pa.Table.from_pandas(self.toPandas(), preserve_index=False)
+
+    def collect(self) -> List[Row]:
+        out = []
+        for p in self._partitions:
+            cells = [_row_values(p[c]) for c in p.columns]
+            out.extend(Row(dict(zip(p.columns, row))) for row in zip(*cells))
+        return out
+
+    def first(self) -> Optional[Row]:
+        for p in self._partitions:
+            if len(p):
+                return Row({c: p[c][0:1].toarray()[0] if _is_sparse(p[c]) else p[c][0] for c in p.columns})
+        return None
+
+    def cache(self) -> "DataFrame":
+        return self
+
     def toPandas(self) -> Any:
         """One pandas DataFrame; a 2-D vector column becomes an object column
         of per-row arrays (the Spark array<float> layout)."""

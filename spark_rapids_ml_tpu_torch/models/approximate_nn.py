@@ -11,8 +11,9 @@
 # and shares their ids.  fit trains the coarse quantizer (and, for ivfpq, the
 # codebooks) with the port's k-means on one device, as the JAX package trains
 # on a one-device submesh (the packed payload does not depend on the mesh);
-# its draws differ from the JAX package's, so a fresh fit gives other
-# centroids there.
+# its init draws the JAX package's threefry noise from the same seed, so a
+# fresh fit gives the JAX package's centroids up to float32 sums in another
+# order.
 #
 # Searching runs on the mesh get_mesh(num_workers) (num_workers None: every
 # device of the entry points' list, use_device([...])): the staging caches

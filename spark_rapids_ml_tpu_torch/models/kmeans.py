@@ -167,10 +167,10 @@ class KMeans(_KMeansParams, _TpuEstimator):
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             k = int(params["n_clusters"])
-            generator = torch.Generator().manual_seed(int(params["random_state"]) & 0x7FFFFFFF)
+            seed = int(params["random_state"]) & 0x7FFFFFFF
             chunk = min(int(params["max_samples_per_batch"]), inputs.n_pad)
             if params["init"] == "random":
-                centers0 = random_init(inputs.X, inputs.weight, k, generator, n_rows=inputs.n_rows)
+                centers0 = random_init(inputs.X, inputs.weight, k, seed, n_rows=inputs.n_rows)
             else:
                 oversample = float(params["oversampling_factor"])
                 round_size = max(1, min(int(oversample * k), inputs.n_rows))
@@ -178,7 +178,7 @@ class KMeans(_KMeansParams, _TpuEstimator):
                     inputs.X,
                     inputs.weight,
                     k,
-                    generator,
+                    seed,
                     rounds=4,
                     round_size=round_size,
                     chunk=chunk,

@@ -15,19 +15,22 @@
 #   - a one-shard fit within the histogram builder's limits (bins <= 128,
 #     max_features <= 1024, a depth the slot budget covers) bins into the
 #     feature-major int8 layout (kernel B2), draws per-tree Poisson(1)
-#     bootstrap weights from a seeded torch.Generator on the bins' device,
-#     and grows level-wise on the node histograms (ops/forest_grow.py,
-#     kernels B3 and B4);
+#     bootstrap counts on the bins' device, and grows level-wise on the node
+#     histograms (ops/forest_grow.py, kernels B3 and B4);
 #   - every other fit — more than one shard, or outside those limits —
 #     bins each shard with B2 (one launch a group of <= 127 edges) and grows
 #     on the scatter engine (ops/forest.grow_forest), the trees in the JAX
-#     package's chunks (a chunk's seed seed + 7919 * t0).  Its bootstrap
-#     weights come from one seeded CPU torch.Generator over the global valid
-#     rows, sliced to the shards, so one seed gives one forest on any shard
-#     count.
-# Either bootstrap differs from the JAX package's jax.random.poisson draws;
-# without bootstrap the engine's forests equal the JAX package's on the same
-# shard count, node for node where the stats are integers.
+#     package's chunks (a chunk's seed seed + 7919 * t0).
+# Both draw the JAX package's bootstrap counts bit for bit
+# (ops/prng.poisson, jax.random.poisson's Knuth loop) on its keys and
+# shapes: the builder (n_trees, n_pad) from PRNGKey((seed + 104729) &
+# 0x7FFFFFFF), n_pad its row tile's multiple of the JAX package's padded
+# rows; the engine (Tc, N) a chunk from PRNGKey(seed) split once a chunk, N
+# the JAX package's padded rows (_jax_padded_rows, which also sizes the
+# chunks).  Counter r of a tree's row is the global valid row r, each shard
+# drawing its own rows on its device (mesh.valid_spans), so one seed gives
+# one forest on any shard count, the JAX package's on the engine node for
+# node where the stats are integers.
 #
 # Model selection: fitMultiple bins once (once for each distinct maxBins
 # and growth) and grows each param map's forest over the same bins;
@@ -74,6 +77,7 @@ from ..ops.forest import bin_features_feature_major, bin_features_wide, compute_
 from ..ops.forest import grow_forest as grow_forest_engine
 from ..ops.forest_grow import depth_supported, grow_forest
 from ..ops.forest_hist import ROW_TILE
+from ..ops import prng
 from ..ops.labels import encode_labels
 from ..parallel.mesh import valid_spans
 from ..params import (
@@ -161,21 +165,43 @@ def _engine_tree_chunk(n_trees: int, max_depth: int, n_cols: int, max_features: 
     return max(1, min(n_trees, t_sub, t_stats))
 
 
-def _engine_tree_stats(stats, weight, counts, n_trees: int, n_rows: int):
+def _jax_padded_rows(n_rows: int, n_shards: int) -> int:
+    """The rows of the JAX package's staged fit input: the valid rows
+    zero-padded to a multiple of the data-axis size (its
+    mesh.shard_rows / utils.pad_rows).  Its bootstrap draws take their
+    shapes from this count."""
+    return -(-int(n_rows) // int(n_shards)) * int(n_shards)
+
+
+def _bootstrap_counts(key: torch.Tensor, n_trees: int, n_draw: int, start: int, take: int, n_loc: int,
+                      device: torch.device) -> torch.Tensor:
+    """poisson(key, 1.0, (n_trees, n_draw)) at the global valid rows
+    [start, start + take), drawn on `device` as a float32 (n_trees, n_loc)
+    block whose columns past `take` (padding) are 0, under the range
+    forest.bootstrap."""
+    bw = torch.zeros((n_trees, n_loc), dtype=torch.float32, device=device)
+    if take:
+        with record_function("forest.bootstrap"):
+            rows = torch.arange(start, start + take, dtype=torch.int64, device=device)
+            flat = torch.arange(n_trees, dtype=torch.int64, device=device)[:, None] * n_draw + rows[None, :]
+            bw[:, :take] = prng.poisson_at(key.to(device), 1.0, flat).float()
+    return bw
+
+
+def _engine_tree_stats(stats, weight, key: Optional[torch.Tensor], n_trees: int, n_rows: int, n_draw: int):
     """Per-shard (S, Tc, n_loc) bootstrap-weighted stats: stats (S, n_loc)
-    times weight (n_loc,) times the bootstrap counts (Tc, n_rows) of the
-    global valid rows (None: no bootstrap), each shard taking its slice
-    (mesh.valid_spans: across processes, its rank's)."""
+    times weight (n_loc,) times the bootstrap counts poisson(key, 1.0,
+    (Tc, n_draw)) at each shard's global valid rows (key None: no
+    bootstrap), drawn on the shard's device (mesh.valid_spans: across
+    processes, its rank's rows)."""
     out = []
     spans = valid_spans([int(w.shape[0]) for w in weight], n_rows)
     for st, w, (start, take) in zip(stats, weight, spans):
         n_loc = int(w.shape[0])
-        if counts is None:
+        if key is None:
             w_t = w[None, :].expand(n_trees, n_loc)
         else:
-            bw = torch.zeros((counts.shape[0], n_loc), dtype=counts.dtype)
-            bw[:, :take] = counts[:, start : start + take]
-            w_t = w[None, :] * bw.to(device=w.device, dtype=w.dtype)
+            w_t = w[None, :] * _bootstrap_counts(key, n_trees, n_draw, start, take, n_loc, w.device).to(w.dtype)
         out.append(st[:, None, :] * w_t[None])
     return out
 
@@ -392,10 +418,12 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
                 base_stats, stats3 = stats[:2], stats
             n_trees = st["n_trees"]
             if st["bootstrap"]:
-                gen = torch.Generator(device=bins_fm.device).manual_seed((st["seed"] + 104729) & 0x7FFFFFFF)
-                counts = torch.poisson(torch.ones((n_trees, n_pad), device=bins_fm.device), generator=gen)
-                w_trees = w_pad[None, :] * counts
-                del counts
+                # the JAX package's draw: (n_trees, its n_pad) counts, the
+                # valid rows' columns taken
+                n_draw = -(-_jax_padded_rows(inputs.n_rows, inputs.mesh.size) // ROW_TILE) * ROW_TILE
+                key = prng.prng_key((st["seed"] + 104729) & 0x7FFFFFFF)
+                w_trees = w_pad[None, :] * _bootstrap_counts(
+                    key, n_trees, n_draw, 0, inputs.n_rows, n_pad, bins_fm.device)
             else:
                 w_trees = w_pad[None, :].expand(n_trees, n_pad).contiguous()
             return grow_forest(
@@ -411,18 +439,17 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
         def _grow_on_engine(inputs, st, edges, bins, stats):
             """The scatter engine over every shard, in tree chunks."""
             n_trees = st["n_trees"]
+            n_draw = _jax_padded_rows(inputs.n_rows, inputs.mesh.size)
             t_chunk = _engine_tree_chunk(
-                n_trees, st["max_depth"], inputs.n_cols, st["max_features"], inputs.n_pad, stats[0].shape[0]
+                n_trees, st["max_depth"], inputs.n_cols, st["max_features"], n_draw, stats[0].shape[0]
             )
-            gen = torch.Generator().manual_seed((st["seed"] + 104729) & 0x7FFFFFFF) if st["bootstrap"] else None
+            key = prng.prng_key(st["seed"])
             parts = []
             for t0 in range(0, n_trees, t_chunk):
                 tc = min(t_chunk, n_trees - t0)
-                counts = (
-                    torch.poisson(torch.ones((tc, inputs.n_rows)), generator=gen) if gen is not None else None
-                )
-                stats_t = _engine_tree_stats(stats, inputs.weight, counts, tc, inputs.n_rows)
-                del counts
+                (kt,), key = prng.split_chain(key, 1)
+                stats_t = _engine_tree_stats(
+                    stats, inputs.weight, kt if st["bootstrap"] else None, tc, inputs.n_rows, n_draw)
                 parts.append(grow_forest_engine(
                     bins, stats_t, edges, max_depth=st["max_depth"], n_bins=st["n_bins"], kind=st["kind"],
                     max_features=st["max_features"], min_samples_leaf=st["min_samples_leaf"],

@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -55,6 +56,58 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     y = 1.0 + (y.double() * z + rd).float()
     pow2 = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
     return torch.maximum(y * pow2, x)
+
+
+# Cephes's logf, as XLA's CPU backend emits it: the mantissa's polynomial
+# coefficients in three interleaved Horner chains
+_LOG_SQRTHF = _c(0.707106781186547524)
+_LOG_P = tuple(_c(p) for p in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1,
+))
+_LOG_Q1 = _c(-2.12194440e-4)
+_LOG_Q2 = _c(0.693359375)
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_chains(device: torch.device) -> tuple:
+    """(a, b, c) of the three chains (r a + b) r + c, each a (3,) float64
+    tensor on `device`."""
+    return tuple(torch.tensor([_LOG_P[i + j] for i in (0, 3, 6)], dtype=torch.float64, device=device)
+                 for j in range(3))
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """log of a float32 tensor, bit for bit XLA's CPU float32 log: the
+    argument clamped up to the smallest normal, split into a mantissa m in
+    [sqrt(1/2), sqrt(2)) and an exponent e, then (m - 1) through the
+    degree-8 polynomial, plus e log 2 in two parts.  Read off the object
+    code of a jitted jnp.log: every multiply-add of the polynomial is fused,
+    the e * q1 product rounds on its own.  0 gives -inf, +inf gives +inf,
+    a negative or NaN argument NaN.  XLA's CPU code reads a subnormal as
+    zero, so a subnormal gives -inf here too."""
+    normal = x >= _TINY_F32
+    bits = torch.where(normal, x, _TINY_F32).view(torch.int32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    small = m < _LOG_SQRTHF
+    r = (m - 1.0) + torch.where(small, m, 0.0)
+    # the exponent, less one where the mantissa doubles: exact in float32
+    e = ((bits >> 23) - 126 - small.int()).float()
+    rd = r.double()
+    r2 = r * r
+    r3 = (r2 * r).double()
+    # the three Horner chains side by side, one row each
+    a, b, c = (t.view((3,) + (1,) * rd.dim()) for t in _log_chains(rd.device))
+    y = (rd * a + b).float()
+    y0, y1, y2 = (y.double() * rd + c).float().double()
+    y = (y0 * r3 + y1).float().double()
+    y = (y * r3 + y2).float().double()
+    y = (y * r3 + (e * _LOG_Q1).double()).float()
+    out = (rd - 0.5 * r2.double()).float() + y
+    out = (e.double() * _LOG_Q2 + out.double()).float()
+    out = torch.where(normal, out, torch.where(x.abs() < _TINY_F32, -math.inf, math.nan))
+    return torch.where(x == math.inf, math.inf, out)
 
 
 # XLA's float32 ErfInv (Giles, "Approximating the erfinv function"): the

@@ -105,6 +105,14 @@ class TypeConverters:
         raise TypeError(f"Could not convert {value} to list")
 
     @staticmethod
+    def toListFloat(value: Any) -> List[float]:
+        return [TypeConverters.toFloat(v) for v in TypeConverters.toList(value)]
+
+    @staticmethod
+    def toListInt(value: Any) -> List[int]:
+        return [TypeConverters.toInt(v) for v in TypeConverters.toList(value)]
+
+    @staticmethod
     def toListString(value: Any) -> List[str]:
         return [TypeConverters.toString(v) for v in TypeConverters.toList(value)]
 

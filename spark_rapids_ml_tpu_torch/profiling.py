@@ -13,18 +13,24 @@
 #     CrossValidator's stages);
 #   - now(): the one monotonic clock of the serving plane;
 #   - record_duration / durations / percentiles / duration_digests: bounded
-#     per-name duration series (the serving latency surface);
+#     per-name duration series (the serving latency surface); series_stats
+#     describes the registry's own footprint;
 #   - record_event / events: a per-thread ordered event log;
 #   - span(name, **attrs): a record_function range that, while a trace
 #     session is open, appends one hierarchical record; trace_session(tag)
 #     writes those records as the same Chrome trace-event JSON the JAX
-#     module writes (under SRML_TRACE_DIR);
+#     module writes (under SRML_TRACE_DIR); collect_spans() collects them
+#     without a file and span_records() reads them;
 #   - TelemetrySnapshot, register_gauges / collect_gauges, export_metrics and
 #     render_prometheus: the mergeable rollup and the pull surface;
 #   - maybe_trace(tag): the opt-in whole-fit capture, a torch.profiler trace
 #     of the region (host ranges, and the card's kernels and copies on a
 #     card) written as Chrome trace JSON under $SRML_PROFILE/<tag>; a no-op
-#     when the variable is unset.  The JAX module's is an xprof capture.
+#     when the variable is unset.  The JAX module's is an xprof capture;
+#   - with_benchmark(name, fn), spread_attribution(phase_runs, median_s) and
+#     device_step_annotation(step): the benchmark harness's helpers, the
+#     last a record_function range "step <n>" while torch.profiler records
+#     (the JAX module's StepTraceAnnotation), a null context otherwise.
 # Unlike the JAX module, a span does not add to phase_times(): the port's
 # phases are their own ranges, process-wide, and their callers read them as
 # such.  The flight recorder of watch.py hooks spans and counters through
@@ -42,7 +48,7 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 _log = logging.getLogger("spark_rapids_ml_tpu_torch.profiling")
 
@@ -217,6 +223,33 @@ def record_duration(name: str, seconds: float) -> None:
                 _evict_stale_series_locked(ttl, now_t, keep=name)
 
 
+def series_stats() -> Dict[str, Any]:
+    """The duration registry's own footprint: series count, ring samples,
+    estimated resident bytes, the TTL, and each series' ring samples,
+    lifetime count and seconds since it was last touched (None where the
+    TTL is off) — for a long-lived serving process to watch its metrics."""
+    now_t = time.perf_counter()
+    with _durations_lock:
+        per = {}
+        total_samples = 0
+        for k, v in _durations.items():
+            total_samples += len(v)
+            stats = _duration_stats.get(k) or [len(v), 0.0, 0.0, 0.0]
+            touched = _duration_touched.get(k)
+            per[k] = {
+                "ring_samples": len(v),
+                "lifetime_count": int(stats[0]),
+                "age_s": round(now_t - touched, 3) if touched is not None else None,
+            }
+        return {
+            "series_count": len(per),
+            "ring_samples": total_samples,
+            "est_bytes": total_samples * 8,
+            "ttl_s": metric_ttl_s(),
+            "series": per,
+        }
+
+
 def durations(prefix: str = "") -> Dict[str, list]:
     """Copy of every duration series whose name starts with `prefix`."""
     with _durations_lock:
@@ -366,6 +399,30 @@ def span(name: str, **attrs: Any) -> Iterator[_SpanHandle]:
             fr.on_span_close(name, t0, t1, sys.exc_info()[0] is not None)
 
 
+def span_records() -> List[tuple]:
+    """Copy of the collected span records (name, t0, t1, thread ident,
+    thread name, span id, parent id, attrs)."""
+    with _trace_lock:
+        return list(_trace_records)
+
+
+@contextlib.contextmanager
+def collect_spans() -> Iterator[None]:
+    """Collect span records for the enclosed region without writing a
+    trace file (trace_session adds the file).  Reentrant; the buffer clears
+    when the last collecting scope exits."""
+    global _collect_depth
+    with _trace_lock:
+        _collect_depth += 1
+    try:
+        yield
+    finally:
+        with _trace_lock:
+            _collect_depth -= 1
+            if _collect_depth == 0:
+                _trace_records.clear()
+
+
 def _safe_tag(tag: str) -> str:
     return "".join(c if (c.isalnum() or c in "-_.") else "-" for c in tag)
 
@@ -458,6 +515,51 @@ def maybe_trace(tag: str = "fit") -> Iterator[None]:
     path = os.path.join(target, f"{os.getpid()}-{next(_session_seq):04d}.pt.trace.json")
     prof.export_chrome_trace(path)
     _log.info("torch.profiler trace for %r written to %s", tag, path)
+
+
+def with_benchmark(name: str, fn: Callable[[], Any]) -> Tuple[Any, float]:
+    """Run fn and return (its result, elapsed seconds), logging the time."""
+    t0 = time.perf_counter()
+    result = fn()
+    dt = time.perf_counter() - t0
+    _log.info("-" * 100)
+    _log.info("%s took: %s sec", name, dt)
+    return result, dt
+
+
+def device_step_annotation(step: int) -> contextlib.AbstractContextManager:
+    """A torch.profiler range "step <step>" around one iteration of a
+    benchmark loop while the profiler records; a null context otherwise."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    from torch.profiler import record_function
+
+    return record_function(f"step {int(step)}")
+
+
+def spread_attribution(
+    phase_runs: List[Dict[str, float]],
+    median_s: float,
+    floor_pct: float = 1.0,
+    top: int = 5,
+) -> Dict[str, float]:
+    """Attribute a spread of repeated timings to phases: for each phase
+    name across `phase_runs` (one phase_times() dict a timed repeat), its
+    max - min as a percentage of the median run `median_s`, rounded to 0.1.
+    Phases under `floor_pct` are dropped and the `top` largest kept,
+    largest first."""
+    if len(phase_runs) < 2 or median_s <= 0:
+        return {}
+    names = set().union(*(set(p) for p in phase_runs))
+    out = {}
+    for n in names:
+        vals = [float(p.get(n, 0.0)) for p in phase_runs]
+        pct = 100.0 * (max(vals) - min(vals)) / median_s
+        if pct >= floor_pct:
+            out[n] = round(pct, 1)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
 
 
 # -- mergeable telemetry snapshots -------------------------------------------------

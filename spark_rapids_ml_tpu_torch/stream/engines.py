@@ -467,15 +467,15 @@ class StreamingKMeans(StreamingEngine):
 
         p = self._params
         k = int(p["n_clusters"])
-        generator = torch.Generator().manual_seed(int(p["random_state"]) & 0x7FFFFFFF)
+        seed = int(p["random_state"]) & 0x7FFFFFFF
         Xd = torch.from_numpy(X).to(dev)
         wd = torch.from_numpy(w).to(dev)
         chunk = min(int(p["max_samples_per_batch"]), X.shape[0])
         if p["init"] == "random":
-            centers0 = random_init(Xd, wd, k, generator)
+            centers0 = random_init(Xd, wd, k, seed)
         else:
             round_size = max(1, min(int(float(p["oversampling_factor"]) * k), X.shape[0]))
-            centers0 = scalable_kmeans_pp_init(Xd, wd, k, generator, rounds=4, round_size=round_size, chunk=chunk)
+            centers0 = scalable_kmeans_pp_init(Xd, wd, k, seed, rounds=4, round_size=round_size, chunk=chunk)
         centers, _, _ = lloyd_iterations(Xd, wd, centers0, int(p["max_iter"]), float(p["tol"]), chunk)
         return centers.cpu().numpy().astype(np.float64)
 

@@ -1,9 +1,12 @@
 # The port's approximate nearest neighbours (spark_rapids_ml_tpu_torch/ann,
 # models/approximate_nn) against the JAX package's, on the CPU, on the same
-# seeded numpy inputs.  The two packages' k-means draw differently (torch
-# Generator vs threefry), so the parity tests hand the JAX package's trained
-# centroids and codebooks, or its whole packed payload, to the port; the
-# port's own fit is held by the JAX package's recall gates.
+# seeded numpy inputs.  The two packages' k-means draw the same threefry
+# inits, so the build tests train the port's own centroids and codebooks
+# from the same seed (both packages' training rounded to quarter steps, so
+# float32 sums in another order cannot move them) and hold the whole packed
+# payload against the JAX package's; the search tests search the JAX
+# package's packed payload, the index the JAX tests search; the port's own
+# fit is held by the JAX package's recall gates.
 #
 # Tolerances:
 #   - exact (bit for bit) on quarter-step data: every product and partial
@@ -95,18 +98,31 @@ def _assert_same_up_to_ties(got_d, got_i, want_d, want_i, scale):
 # -- build: assignment, layout, codes, scalars ---------------------------------
 
 
-def test_list_assignment_and_layout_equal_jax_given_its_centroids(monkeypatch):
-    X, ids = _clustered(n=2000)
-    X = _quarter(X)
+def _quarter_training(monkeypatch):
+    """Both packages' quantizer training, rounded to quarter steps."""
     real = ref_pq_mod.train_coarse_quantizer
     monkeypatch.setattr("spark_rapids_ml_tpu.ann.ivfflat.train_coarse_quantizer",
                         lambda *a, **k: _quarter(real(*a, **k)))
+    monkeypatch.setattr(ref_pq_mod, "train_coarse_quantizer", lambda *a, **k: _quarter(real(*a, **k)))
+    mine = ivfflat.train_coarse_quantizer
+    monkeypatch.setattr(ivfflat, "train_coarse_quantizer", lambda *a, **k: _quarter(mine(*a, **k)))
+    monkeypatch.setattr(pq, "train_coarse_quantizer", lambda *a, **k: _quarter(mine(*a, **k)))
+
+
+def test_list_assignment_and_layout_equal_jax_given_its_centroids(monkeypatch):
+    """The port trains its own centroids from the JAX build's seed: the
+    same centroids, assignment and lists."""
+    X, ids = _clustered(n=2000)
+    X = _quarter(X)
+    _quarter_training(monkeypatch)
     want = ref_build_flat(X, ids, 40, seed=3)
     from spark_rapids_ml_tpu.ann.ivfflat import assign_nearest as ref_assign
 
-    assign = ivfflat.assign_nearest(X, want.centroids, CPU)
+    got = ivfflat.build_ivfflat_packed(X, ids, 40, seed=3, device=CPU)
+    np.testing.assert_array_equal(got.centroids, want.centroids)
+    assert got.n_lists == want.n_lists
+    assign = ivfflat.assign_nearest(X, got.centroids, CPU)
     np.testing.assert_array_equal(assign, ref_assign(X, want.centroids))
-    got = ivfflat.pack_lists(X, ids, assign, want.centroids, want.n_lists)
     np.testing.assert_array_equal(got.counts, want.counts)
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_array_equal(got.items, want.items)
@@ -115,15 +131,15 @@ def test_list_assignment_and_layout_equal_jax_given_its_centroids(monkeypatch):
 
 @pytest.mark.parametrize("n_bits", [8, 4])
 def test_pq_codes_and_scalars_equal_jax_given_its_codebooks(monkeypatch, n_bits):
+    """The port trains its own centroids and codebooks from the JAX build's
+    seed: the same codebooks, codes and scalars."""
     X, ids = _clustered(n=1500)
     X = _quarter(X)
-    real = ref_pq_mod.train_coarse_quantizer
-    monkeypatch.setattr(ref_pq_mod, "train_coarse_quantizer", lambda *a, **k: _quarter(real(*a, **k)))
+    _quarter_training(monkeypatch)
     want = ref_build_pq(X, ids, 16, m_sub=4, n_bits=n_bits, seed=2)
-    _m, _dsub, d_pad = pq.pq_geometry(X.shape[1], 4)
-    assign = ivfflat.assign_nearest(X, want.centroids, CPU)
-    res = pq.residuals(X, want.centroids, assign, d_pad)
-    got = pq.encode_pq(X, ids, assign, res, want.centroids, want.codebooks, want.n_lists, n_bits, device=CPU)
+    got = pq.build_ivfpq_packed(X, ids, 16, m_sub=4, n_bits=n_bits, seed=2, device=CPU)
+    np.testing.assert_array_equal(got.centroids, want.centroids)
+    np.testing.assert_array_equal(got.codebooks, want.codebooks)
     np.testing.assert_array_equal(got.codes, want.codes)
     np.testing.assert_array_equal(_bits(got.scalars), _bits(want.scalars))
     np.testing.assert_array_equal(got.counts, want.counts)
@@ -184,7 +200,7 @@ def test_probe_merge_equals_lex_topk_bitwise(k):
     (quarter-step data) and k past the pool included."""
     X, ids = _clustered(n=1200, d=8, n_blobs=6)
     X = _quarter(X)
-    index = ivfflat.index_from_packed(_port_packed_flat(ref_build_flat(X, ids, 12, seed=1)), CPU)
+    index = ivfflat.index_from_packed(ivfflat.build_ivfflat_packed(X, ids, 12, seed=1, device=CPU), CPU)
     q = torch.from_numpy(X[:40])
     vals, pos = ivfflat.probe_pool(index, q, 3, ivfflat._flat_block_scorer, 40)
     dist, fpos = kk.knn_fused_merge(vals, pos, k)[:2]
@@ -198,15 +214,17 @@ def test_probe_merge_equals_lex_topk_bitwise(k):
     assert (np.isinf(dist.numpy()) == (fpos.numpy() == port_knn.LEX_POS_SENTINEL)).all()
 
 
-def test_flat_search_equals_jax_bitwise_on_quarter_step_data():
+def test_flat_search_equals_jax_bitwise_on_quarter_step_data(monkeypatch):
+    """Each package searches its own build (quarter-step training)."""
     X, ids = _clustered(n=2000)
     X = _quarter(X)
+    _quarter_training(monkeypatch)
     packed = ref_build_flat(X, ids, 40, seed=1)
-    packed.centroids = _quarter(packed.centroids)
+    mine = ivfflat.build_ivfflat_packed(X, ids, 40, seed=1, device=CPU)
+    np.testing.assert_array_equal(mine.centroids, packed.centroids)
     mesh = get_mesh(1)
     want_d, want_i = ref_search_flat(ref_index_flat(packed, mesh), X[:300], 10, 10, mesh)
-    got_d, got_i = ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(_port_packed_flat(packed), CPU),
-                                                   X[:300], 10, 10)
+    got_d, got_i = ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(mine, CPU), X[:300], 10, 10)
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_array_equal(_bits(got_d), _bits(want_d))
 
@@ -241,7 +259,7 @@ def test_search_matches_jax_given_its_payload(build, refine_ratio):
 
 def test_probing_every_list_equals_the_exact_engine():
     X, ids = _clustered(n=1500, d=8, n_blobs=10)
-    index = ivfflat.index_from_packed(_port_packed_flat(ref_build_flat(X, ids, 16, seed=0)), CPU)
+    index = ivfflat.index_from_packed(ivfflat.build_ivfflat_packed(X, ids, 16, seed=0, device=CPU), CPU)
     d_ann, i_ann = ivfflat.ivfflat_search_prepared(index, X[:100], 10, index.nlist_pad)
     d_ex, i_ex = port_knn.knn_search_prepared(port_knn.prepare_items(X, ids, CPU), X[:100], 10)
     assert recall_at_k(i_ann, i_ex) == 1.0
@@ -254,15 +272,15 @@ def test_several_blocks_equal_one_block_on_quarter_step_data(monkeypatch, algo):
     scores few rows at once: the same bits (every sum exact)."""
     X, ids = _clustered(n=1500)
     X = _quarter(X)
+    _quarter_training(monkeypatch)
     if algo == "flat":
-        index = ivfflat.index_from_packed(_port_packed_flat(ref_build_flat(X, ids, 20, seed=1)), CPU)
+        index = ivfflat.index_from_packed(ivfflat.build_ivfflat_packed(X, ids, 20, seed=1, device=CPU), CPU)
 
         def search():
             return ivfflat.ivfflat_search_prepared(index, X[:200], 15, 6)
     else:
-        packed = ref_build_pq(X, ids, 20, m_sub=4, n_bits=8 if algo == "pq8" else 4, seed=1)
-        packed.centroids, packed.codebooks = _quarter(packed.centroids), _quarter(packed.codebooks)
-        index = pq.index_from_packed_pq(_port_packed_pq(packed), CPU)
+        packed = pq.build_ivfpq_packed(X, ids, 20, m_sub=4, n_bits=8 if algo == "pq8" else 4, seed=1, device=CPU)
+        index = pq.index_from_packed_pq(packed, CPU)
 
         def search():
             return pq.ivfpq_search_prepared(index, X[:200], 15, 6)
@@ -347,7 +365,8 @@ def test_jax_saved_model_loads_and_answers_as_jax(tmp_path, algorithm, params):
 
 @pytest.mark.parametrize(
     "algorithm,params",
-    [("ivfflat", {"nlist": 8, "nprobe": 4}), ("ivfpq", {"nlist": 8, "nprobe": 4, "M": 4, "opq": True})],
+    [("ivfflat", {"nlist": 8, "nprobe": 4}), ("ivfpq", {"nlist": 8, "nprobe": 4, "M": 4, "opq": True}),
+     ("ivfpq", {"nlist": 8, "nprobe": 4, "M": 4, "n_bits": 4, "opq": True})],
 )
 def test_save_load_in_the_port(tmp_path, algorithm, params):
     X, _ = _clustered(n=700, d=8, n_blobs=8, seed=2)
@@ -394,7 +413,7 @@ def test_small_pool_tiers_page_and_evict():
     """A pool of 3 slots forces the planner to split the queries and the
     pager to evict: still the resident search's bits."""
     X, ids = _clustered(n=1500)
-    packed = _port_packed_flat(ref_build_flat(X, ids, 24, seed=1))
+    packed = ivfflat.build_ivfflat_packed(X, ids, 24, seed=1, device=CPU)
     want = ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(packed, CPU), X[:200], 8, 3)
     tiered = ivfflat.tiered_index_from_packed(packed, 0.25, CPU, pool_slots=3)
     got = ivfflat.ivfflat_search_prepared(tiered, X[:200], 8, 3)
@@ -413,12 +432,13 @@ def test_unfillable_slots_carry_minus_one_as_in_jax():
     mesh = get_mesh()
     flat = ref_build_flat(X, ids, 2, seed=5)
     want_d, want_i = ref_search_flat(ref_index_flat(flat, mesh), X[:4], 30, 1, mesh)
-    got_d, got_i = ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(_port_packed_flat(flat), CPU),
-                                                   X[:4], 30, 1)
+    mine = ivfflat.build_ivfflat_packed(X, ids, 2, seed=5, device=CPU)
+    np.testing.assert_array_equal(mine.counts, flat.counts)
+    got_d, got_i = ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(mine, CPU), X[:4], 30, 1)
     np.testing.assert_array_equal(got_i == -1, np.asarray(want_i) == -1)
     assert (got_i == -1).any() and np.isinf(got_d[got_i == -1]).all() and (got_i[:, :10] >= 0).all()
-    packed = ref_build_pq(X, ids, 8, m_sub=2, n_bits=4, seed=5)
-    index = pq.index_from_packed_pq(_port_packed_pq(packed), CPU)
+    packed = pq.build_ivfpq_packed(X, ids, 8, m_sub=2, n_bits=4, seed=5, device=CPU)
+    index = pq.index_from_packed_pq(packed, CPU)
     for kw in ({}, {"refine_items": packed.items, "refine_ratio": 2}):
         d, i = pq.ivfpq_search_prepared(index, X[:4], 30, 1, **kw)
         assert d.shape == (4, 30) and (i == -1).any() and np.isinf(d[i == -1]).all() and (i[:, 0] >= 0).all()

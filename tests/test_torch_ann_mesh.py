@@ -3,8 +3,10 @@
 # cross-shard merge; models/approximate_nn on get_mesh(num_workers)) against
 # itself on other shard counts and against the JAX package's search on its
 # one-device and 8-device meshes, on the forced CPU devices of
-# tests/conftest.py and the port's ["cpu"] * n meshes.  The JAX package's
-# packed payload is handed to the port (the two k-means draw differently).
+# tests/conftest.py and the port's ["cpu"] * n meshes.  Each package
+# searches its own build of the same items from the same seed (both
+# trainings rounded to quarter steps: the same payload, which the fixture
+# checks).
 #
 # Tolerances:
 #   - the port on 1, 2 and 8 shards: bit for bit, on any data (every shard
@@ -84,16 +86,29 @@ def _port_pq(p):
 
 @pytest.fixture(scope="module")
 def payloads(items):
-    """The JAX package's flat, 8-bit and 4-bit payloads, their centroids and
-    codebooks on the quarter-step grid."""
+    """The flat, 8-bit and 4-bit payloads, (the JAX package's, the
+    port's), each package's centroids and codebooks trained on the
+    quarter-step grid: equal, field for field."""
+    import spark_rapids_ml_tpu.ann.ivfflat as ref_ivf
+    import spark_rapids_ml_tpu.ann.pq as ref_pq
+
     X, ids = items
-    flat = ref_build_flat(X, ids, NLIST, seed=1)
-    flat.centroids = _quarter(flat.centroids)
-    out = {"flat": flat}
-    for name, bits in (("pq8", 8), ("pq4", 4)):
-        p = ref_build_pq(X, ids, NLIST, m_sub=8, n_bits=bits, seed=1)
-        p.centroids, p.codebooks = _quarter(p.centroids), _quarter(p.codebooks)
-        out[name] = p
+    trainers = [(m, m.train_coarse_quantizer) for m in (ref_ivf, ref_pq, ivfflat, pq)]
+    for m, real in trainers:
+        m.train_coarse_quantizer = lambda *a, _real=real, **k: _quarter(_real(*a, **k))
+    try:
+        out = {"flat": (ref_build_flat(X, ids, NLIST, seed=1),
+                        ivfflat.build_ivfflat_packed(X, ids, NLIST, seed=1, device=torch.device("cpu")))}
+        for name, bits in (("pq8", 8), ("pq4", 4)):
+            out[name] = (ref_build_pq(X, ids, NLIST, m_sub=8, n_bits=bits, seed=1),
+                         pq.build_ivfpq_packed(X, ids, NLIST, m_sub=8, n_bits=bits, seed=1, device=torch.device("cpu")))
+    finally:
+        for m, real in trainers:
+            m.train_coarse_quantizer = real
+    for name, (want, got) in out.items():
+        fields = ("items", "ids", "counts", "centroids") + (("codebooks", "codes", "scalars") if name != "flat" else ())
+        for f in fields:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"{name}.{f}")
     return out
 
 
@@ -128,12 +143,12 @@ def test_shards_equal_each_other_and_jax_bitwise(items, payloads, algo, hot_frac
     the pager evicts)."""
     X, _ = items
     Q = X[:200]
-    packed = payloads[algo]
+    packed, mine = payloads[algo]
     want_d, want_i = (np.asarray(a) for a in _ref_search(algo, packed, ref_get_mesh(1), Q, hot_fraction, pool_slots))
     ref8_d, ref8_i = (np.asarray(a) for a in _ref_search(algo, packed, ref_get_mesh(), Q, hot_fraction, pool_slots))
     np.testing.assert_array_equal(ref8_i, want_i)
     for n in SHARDS:
-        (got_d, got_i), index = _port_search(algo, packed, _mesh(n), Q, hot_fraction, pool_slots)
+        (got_d, got_i), index = _port_search(algo, mine, _mesh(n), Q, hot_fraction, pool_slots)
         np.testing.assert_array_equal(got_i, want_i, err_msg=f"{n} shards")
         np.testing.assert_array_equal(_bits(got_d), _bits(want_d), err_msg=f"{n} shards")
         assert index.mesh.size == n and index.nlist_pad % n == 0
@@ -150,7 +165,7 @@ def test_gaussian_data_and_unfillable_slots_equal_across_shards(items, k):
     bit."""
     rng = np.random.default_rng(3)
     X = rng.normal(size=(1200, 12)).astype(np.float32)
-    packed = _port_flat(ref_build_flat(X, np.arange(1200, dtype=np.int64), 64, seed=2))
+    packed = ivfflat.build_ivfflat_packed(X, np.arange(1200, dtype=np.int64), 64, seed=2, device=torch.device("cpu"))
     outs = [ivfflat.ivfflat_search_prepared(ivfflat.index_from_packed(packed, _mesh(n)), X[:64], k, 3)
             for n in SHARDS]
     assert (outs[0][1] == -1).any() == (k == 700)
@@ -163,7 +178,7 @@ def test_shard_layout_and_merge_exchange_counters(items, payloads, monkeypatch):
     """The merge: one ann.probe_merge section a field a query block on N
     shards, none on one; each shard holds only its own lists and counts."""
     X, _ = items
-    packed = _port_flat(payloads["flat"])
+    packed = payloads["flat"][1]
     blocks = 2
     for n in SHARDS:
         index = ivfflat.index_from_packed(packed, _mesh(n))

@@ -211,12 +211,11 @@ def test_inits_draw_one_init_on_any_shard_count(init):
     w = np.ones(len(X), np.float32)
     out = []
     for n_dev in (1, 2, 8):
-        gen = torch.Generator().manual_seed(11)
         Xs, ws = _port_sharded(X, n_dev), _port_sharded(w, n_dev)
         if init == "random":
-            out.append(kmeans.random_init(Xs, ws, 4, gen, n_rows=len(X)))
+            out.append(kmeans.random_init(Xs, ws, 4, 11, n_rows=len(X)))
         else:
-            out.append(kmeans.scalable_kmeans_pp_init(Xs, ws, 4, gen, rounds=4, round_size=8, chunk=64, n_rows=len(X)))
+            out.append(kmeans.scalable_kmeans_pp_init(Xs, ws, 4, 11, rounds=4, round_size=8, chunk=64, n_rows=len(X)))
     for c in out[1:]:
         np.testing.assert_array_equal(c.numpy(), out[0].numpy())
 
@@ -225,11 +224,9 @@ def test_inits_draw_one_init_on_any_shard_count(init):
 def test_kmeans_estimator_on_eight_shards(init):
     """KMeans through the public API on 8 shards: bit for bit the port's
     1-shard fit (integer rows).  Against the JAX estimator on 8 devices,
-    whose inits draw from jax.random, not from the port's generator: with
-    k-means|| (the default, which the JAX mesh gate uses) both reach the
-    blobs, the sorted centers within that gate (atol 1e-2); two random
-    inits from two generators may settle in different local optima, so the
-    random init is held to the port's own 1-shard fit only."""
+    whose inits draw the same jax.random keys: the same centers in the same
+    order, within the JAX mesh gate (atol 1e-2) sorted and within 1e-4 as
+    they stand."""
     X = _int_blobs(n=403)
     df = port.DataFrame.from_numpy(X, num_partitions=3)
     kw = dict(k=4, seed=5, maxIter=50, initMode=init)
@@ -239,10 +236,10 @@ def test_kmeans_estimator_on_eight_shards(init):
         m1 = port.KMeans(**kw).fit(df)
     np.testing.assert_array_equal(m8.cluster_centers_, m1.cluster_centers_)
     assert m8.n_iter_ == m1.n_iter_
-    if init == "k-means||":
-        m_ref = ref.KMeans(**kw).fit(RefDataFrame.from_numpy(X, num_partitions=3))
-        srt = lambda c: c[np.lexsort(np.asarray(c).T)]  # noqa: E731
-        np.testing.assert_allclose(srt(m8.cluster_centers_), srt(np.asarray(m_ref.cluster_centers_)), atol=1e-2)
+    m_ref = ref.KMeans(**kw).fit(RefDataFrame.from_numpy(X, num_partitions=3))
+    srt = lambda c: c[np.lexsort(np.asarray(c).T)]  # noqa: E731
+    np.testing.assert_allclose(srt(m8.cluster_centers_), srt(np.asarray(m_ref.cluster_centers_)), atol=1e-2)
+    np.testing.assert_allclose(m8.cluster_centers_, np.asarray(m_ref.cluster_centers_), rtol=0, atol=1e-4)
     with use_device(["cpu"] * 8):
         labels8 = np.concatenate([p["prediction"] for p in m8.transform(df).partitions])
     with use_device("cpu"):

@@ -218,6 +218,23 @@ def test_estimators_on_eight_shards_equal_the_jax_estimators(which):
     _assert_forests_equal([getattr(m, a) for a in ARRAYS], [getattr(m_ref, a) for a in ARRAYS])
 
 
+@pytest.mark.parametrize("strategy", ["sqrt", "onethird"])
+@pytest.mark.parametrize("which", sorted(FIXTURES))
+def test_bootstrapped_estimators_on_eight_shards_equal_the_jax_estimators(which, strategy):
+    """Bootstrap on, as Spark's default: the port draws the JAX package's
+    Poisson counts (PRNGKey(seed) split once a tree chunk, the (Tc, N) draw
+    at N the JAX package's padded rows), so its forests on 8 shards equal
+    the JAX package's on 8 devices node for node, here on 509 rows (not a
+    multiple of 8: the padded N is the JAX package's, not the valid rows)."""
+    data, port_cls, ref_cls, kw = FIXTURES[which]
+    X, y = data(n=509)
+    kw = dict(kw, featureSubsetStrategy=strategy)
+    with use_device(["cpu"] * 8):
+        m = port_cls(**kw).fit(port.DataFrame.from_numpy(X, y, num_partitions=2))
+    m_ref = ref_cls(**kw).fit(RefDataFrame.from_numpy(X.astype(np.float64), y=y.astype(np.float64), num_partitions=2))
+    _assert_forests_equal([getattr(m, a) for a in ARRAYS], [getattr(m_ref, a) for a in ARRAYS])
+
+
 @pytest.mark.parametrize("shards,params", [(1, dict(maxDepth=12)), (2, dict(maxDepth=5))], ids=["1_shard", "2_shards"])
 def test_bootstrapped_forest_is_one_forest_on_any_shard_count(shards, params):
     """Bootstrap on: the Poisson counts index global rows, so the 8-shard

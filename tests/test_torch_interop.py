@@ -5,8 +5,10 @@
 # model's cpu() against a fake pyspark whose constructors record their
 # arguments.  Gates: trees_to_dicts is equal across the packages, and
 # _build_java_tree records the same calls, for a JAX forest carried into the
-# port and for forests each package fits on the same data (without bootstrap
-# and feature sampling, so the trees agree split for split); every model's
+# port and for forests each package fits on the same data (Spark's defaults,
+# bootstrap and feature subsets on, the port on 8 shards against the JAX
+# package's 8 CPU devices: the same draws, so the trees agree split for
+# split); every model's
 # cpu() builds the same Java model and copies the same params in both; and
 # without pyspark cpu() raises the JAX package's ImportError.
 import sys
@@ -114,11 +116,13 @@ def _gains(node, out):
 
 @pytest.mark.parametrize("classification", [True, False], ids=["classifier", "regressor"])
 def test_forests_fitted_on_the_same_data_export_the_same_trees(classification):
-    params = dict(bootstrap=False, featureSubsetStrategy="all")
-    ref_model = _ref_forest(classification, **params)
+    # Spark's defaults (bootstrap, feature subsets), the port on 8 shards:
+    # the scatter engine on the JAX package's 8 CPU devices' draws
+    ref_model = _ref_forest(classification)
     X, y = _forest_data(classification)
     cls = port.RandomForestClassifier if classification else port.RandomForestRegressor
-    model = cls(numTrees=3, maxDepth=3, seed=7, **params).fit(port.DataFrame.from_numpy(X, y=y, num_partitions=2))
+    with use_device(["cpu"] * 8):
+        model = cls(numTrees=3, maxDepth=3, seed=7).fit(port.DataFrame.from_numpy(X, y=y, num_partitions=2))
     got, want = model.trees_to_dicts(), ref_model.trees_to_dicts()
     impurity = "gini" if classification else "variance"
     for g, w in zip(got, want):

@@ -1,8 +1,9 @@
 # The port's live IVF-Flat index (spark_rapids_ml_tpu_torch/ann/mutable.py and
 # the model's mutable_index / freeze_mutations) against the JAX package's
-# MutableIVFIndex, on the CPU.  Both holders start from the JAX package's
-# packed payload (its centroids handed across, as the ANN parity tests do)
-# and take the same add / delete / overflow-repack / repack sequence.
+# MutableIVFIndex, on the CPU.  Each holder starts from its own package's
+# build of the same items from the same seed (both trainings rounded to
+# quarter steps: one payload, centroids included) and they take the same
+# add / delete / overflow-repack / repack sequence.
 #
 # Tolerances:
 #   - exact on quarter-step data: every distance is exact in float32, so the
@@ -77,13 +78,30 @@ def ref_packed(data):
         ref_ivf_mod.train_coarse_quantizer = real
 
 
+@pytest.fixture(scope="module")
+def port_built(data, ref_packed):
+    """The port's own build of the same items from the same seed (its
+    training rounded to quarter steps as the JAX package's is): the JAX
+    package's payload, centroids included."""
+    X = data[0]
+    real = ivfflat.train_coarse_quantizer
+    ivfflat.train_coarse_quantizer = lambda *a, **k: _quarter(real(*a, **k))
+    try:
+        p = ivfflat.build_ivfflat_packed(X, np.arange(len(X), dtype=np.int64), NLIST, seed=0, device=CPU)
+    finally:
+        ivfflat.train_coarse_quantizer = real
+    for name in ("items", "ids", "counts", "centroids"):
+        np.testing.assert_array_equal(getattr(p, name), getattr(ref_packed, name), err_msg=name)
+    return p
+
+
 def _port_packed(p):
     return ivfflat.PackedIVF(p.items.copy(), p.ids.copy(), p.counts.copy(), p.centroids.copy(), p.n_lists, p.n_items)
 
 
-def _holders(ref_packed, hot_fraction=1.0):
+def _holders(ref_packed, port_built, hot_fraction=1.0):
     return (
-        MutableIVFIndex(_port_packed(ref_packed), CPU, hot_fraction=hot_fraction),
+        MutableIVFIndex(_port_packed(port_built), CPU, hot_fraction=hot_fraction),
         RefMutableIVFIndex(ref_packed, get_mesh(1), hot_fraction=hot_fraction),
     )
 
@@ -127,11 +145,11 @@ def _assert_holders_equal(h, r, Q, deleted, scale):
 
 
 @pytest.mark.parametrize("hot_fraction", [1.0, 0.5], ids=["resident", "tiered"])
-def test_mutation_sequence_equals_jax(data, ref_packed, hot_fraction):
+def test_mutation_sequence_equals_jax(data, ref_packed, port_built, hot_fraction):
     X, Q, extra, burst = data
     n = len(X)
     scale = float((X.astype(np.float64) ** 2).sum(1).max())
-    h, r = _holders(ref_packed, hot_fraction)
+    h, r = _holders(ref_packed, port_built, hot_fraction)
     deleted = np.zeros(0, np.int64)
     _assert_holders_equal(h, r, Q, deleted, scale)
     for holder in (h, r):  # add
@@ -161,7 +179,7 @@ def test_mutation_sequence_equals_jax(data, ref_packed, hot_fraction):
 
 
 @pytest.mark.parametrize("hot_fraction", [1.0, 0.5], ids=["resident", "tiered"])
-def test_sharded_holders_equal_one_shard_and_jax(data, ref_packed, hot_fraction):
+def test_sharded_holders_equal_one_shard_and_jax(data, ref_packed, port_built, hot_fraction):
     """The add / delete / overflow / repack script on holders of 1, 2 and 8
     CPU shards and on the JAX package's holder over its 8 devices:
     to_packed() and the searches equal (bit for bit across the port's shard
@@ -169,7 +187,7 @@ def test_sharded_holders_equal_one_shard_and_jax(data, ref_packed, hot_fraction)
     X, Q, extra, burst = data
     n = len(X)
     scale = float((X.astype(np.float64) ** 2).sum(1).max())
-    holders = [MutableIVFIndex(_port_packed(ref_packed), Mesh((CPU,) * s), hot_fraction=hot_fraction)
+    holders = [MutableIVFIndex(_port_packed(port_built), Mesh((CPU,) * s), hot_fraction=hot_fraction)
                for s in (1, 2, 8)]
     r = RefMutableIVFIndex(ref_packed, get_mesh(), hot_fraction=hot_fraction)
     assert [h.index.mesh.size for h in holders] == [1, 2, 8]
@@ -198,10 +216,10 @@ def test_sharded_holders_equal_one_shard_and_jax(data, ref_packed, hot_fraction)
 
 
 @pytest.mark.parametrize("hot_fraction", [0.5, 0.25])
-def test_tiered_equals_resident(data, ref_packed, hot_fraction):
+def test_tiered_equals_resident(data, ref_packed, port_built, hot_fraction):
     X, Q, extra, burst = data
     n = len(X)
-    res, tier = (MutableIVFIndex(_port_packed(ref_packed), CPU, hot_fraction=hf, pool_slots=8)
+    res, tier = (MutableIVFIndex(_port_packed(port_built), CPU, hot_fraction=hf, pool_slots=8)
                  for hf in (1.0, hot_fraction))
     steps = (
         lambda h: h.add_items(extra, np.arange(n, n + len(extra))),
@@ -221,12 +239,12 @@ def test_tiered_equals_resident(data, ref_packed, hot_fraction):
     assert stats["misses"] > 0 and (hot_fraction == 0.5 or stats["evictions"] > 0)
 
 
-def test_snapshot_isolated_from_later_mutations(data, ref_packed):
+def test_snapshot_isolated_from_later_mutations(data, ref_packed, port_built):
     """A snapshot searched after later adds and deletes gives its own
     results bit for bit: the adds' in-place writes sit past its counts, the
     deletes build a new norm plane, and its id table is its own."""
     X, Q, extra, _ = data
-    h = MutableIVFIndex(_port_packed(ref_packed), CPU)
+    h = MutableIVFIndex(_port_packed(port_built), CPU)
     snap = h.index
     d0, i0 = ivfflat.ivfflat_search_prepared(snap, Q, K, NPROBE)
     victim = int(i0[0, 0])
@@ -245,12 +263,12 @@ def test_snapshot_isolated_from_later_mutations(data, ref_packed):
 
 
 @pytest.mark.parametrize("order", ["add_then_delete", "delete_then_add"])
-def test_reader_thread_sees_whole_snapshots(data, ref_packed, order):
+def test_reader_thread_sees_whole_snapshots(data, ref_packed, port_built, order):
     """A reader thread searches snapshot after snapshot while the main
     thread mutates: each result equals a later search of the same snapshot,
     so no search saw a half-applied mutation."""
     X, Q, extra, _ = data
-    h = MutableIVFIndex(_port_packed(ref_packed), CPU)
+    h = MutableIVFIndex(_port_packed(port_built), CPU)
     seen = []
     stop = threading.Event()
 
@@ -283,9 +301,9 @@ def test_reader_thread_sees_whole_snapshots(data, ref_packed, order):
     assert not np.isin(i_last, np.arange(0, 240)).any()
 
 
-def test_search_never_blocks_on_mutator_lock(data, ref_packed):
+def test_search_never_blocks_on_mutator_lock(data, ref_packed, port_built):
     _, Q, _, _ = data
-    h = MutableIVFIndex(_port_packed(ref_packed), CPU)
+    h = MutableIVFIndex(_port_packed(port_built), CPU)
     done = threading.Event()
     out = {}
 
@@ -302,9 +320,9 @@ def test_search_never_blocks_on_mutator_lock(data, ref_packed):
     assert out["ids"].shape == (len(Q), K)
 
 
-def test_validation_errors(data, ref_packed):
+def test_validation_errors(data, ref_packed, port_built):
     _, _, extra, _ = data
-    h = MutableIVFIndex(_port_packed(ref_packed), CPU)
+    h = MutableIVFIndex(_port_packed(port_built), CPU)
     with pytest.raises(ValueError, match="duplicate ids"):
         h.add_items(extra[:2], np.array([99_000, 99_000]))
     with pytest.raises(ValueError, match="already present"):
@@ -318,9 +336,9 @@ def test_validation_errors(data, ref_packed):
     assert h.stats()["n_items"] == ref_packed.n_items and h.stats()["repacks"] == 0
 
 
-def test_counters_and_b1_blocks(data, ref_packed):
+def test_counters_and_b1_blocks(data, ref_packed, port_built):
     X, _, extra, _ = data
-    h = MutableIVFIndex(_port_packed(ref_packed), CPU)
+    h = MutableIVFIndex(_port_packed(port_built), CPU)
     profiling.reset_counters("ann.mutate.")
     h.add_items(extra, np.arange(5_000, 5_300))
     h.delete_items(np.arange(10))

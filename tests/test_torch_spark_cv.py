@@ -10,6 +10,7 @@
 # whose randomSplit is the facade's seeded permutation, so the cluster CV is
 # held bit for bit to the port's local fold loop on the same folds, and to
 # the JAX package's cluster CV by each estimator's parity contract.
+import contextlib
 import sys
 import types
 
@@ -298,14 +299,12 @@ CV_CASES = {
     "linreg": ("LinearRegression", dict(maxIter=30), "regParam", [0.0, 0.1, 1.0], "RegressionEvaluator", {}, 3, 17),
     "logreg": ("LogisticRegression", dict(maxIter=40), "regParam", [0.01, 0.5],
                "MulticlassClassificationEvaluator", {"metricName": "logLoss"}, 2, 5),
-    "rf": ("RandomForestClassifier", dict(numTrees=3, featureSubsetStrategy="all", bootstrap=False, seed=7),
-           "maxDepth", [2, 3],
+    # Spark's defaults (bootstrap, feature subsets): the port's folds fit on
+    # 8 shards, the scatter engine on the JAX package's 8 CPU devices' draws
+    "rf": ("RandomForestClassifier", dict(numTrees=3, seed=7), "maxDepth", [2, 3],
            "MulticlassClassificationEvaluator", {"metricName": "accuracy"}, 2, 11),
-    # the port's k-means|| draws come from a torch.Generator, not threefry:
-    # seed 5 is one whose draws cover the three blobs in both packages (the
-    # JAX test's seed 4 leaves the port's k = 3 fits in a local minimum), as
-    # tests/test_torch_kmeans.py picks covering seeds
-    "kmeans": ("KMeans", dict(seed=5, maxIter=20), "k", [2, 3], "ClusteringEvaluator", {}, 2, 13),
+    # the JAX test's seed: both packages' k-means|| draw the same rows
+    "kmeans": ("KMeans", dict(seed=4, maxIter=20), "k", [2, 3], "ClusteringEvaluator", {}, 2, 13),
 }
 
 
@@ -332,9 +331,10 @@ def test_cross_validation_runs_on_the_cluster(case):
         return _cv(tuning_module, est, grid_param, values, getattr(eval_module, eva_name)(**eva_params), folds,
                    seed)
 
-    got = cv(port, tuning, evaluation).fit(sdf)
-    _assert_folds_released(folds)
-    local = cv(port, tuning, evaluation)._fit(df, batched=False)
+    with use_device(["cpu"] * 8) if case == "rf" else contextlib.nullcontext():
+        got = cv(port, tuning, evaluation).fit(sdf)
+        _assert_folds_released(folds)
+        local = cv(port, tuning, evaluation)._fit(df, batched=False)
     want = cv(ref, ref_tuning, ref_evaluation).fit(sdf)
     # the cluster route is the port's local fold loop on the same folds
     if case == "kmeans":
