@@ -1,0 +1,8 @@
+"""device_idle_share.knn_online (%, device trace): device_idle_share.fit's
+reading in the online kNN cell, which moves that cell's own rate."""
+
+from portbench import cell
+
+
+def read(run):
+    return cell.metric_reader("device_idle_share.fit").read(run)
